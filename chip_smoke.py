@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure is an uncaught exception and a nonzero
-exit:
+Phases, one line each (phase 10 two); any failure is an uncaught exception
+and a nonzero exit:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build:  compile the CUDA kernel from njode_tpu_torch/ops/csrc.
+2. build:  compile both CUDA kernels from njode_tpu_torch/ops/csrc, one
+   nvcc per source, started together; the gap kernel's line.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
    over activation x scaling x K_h x d_h x rows, zero/partial gaps and
    max_substeps=0: h to rtol 1e-4 / atol 1e-5 (fma contraction and
@@ -20,31 +21,66 @@ exit:
    against predict_at on the same history.
 6. times (CUDA events, median of 30 after warm-up): kernel vs plain,
    predict_at queries/s, filter tick latency.
+7. build: the training kernel's build time and ptxas line (built in 2).
+8. training kernel vs plain: fused_train_run against its plain version over
+   8 steps of N = 10 slots, batch 128 with a trajectory-masked last
+   minibatch, K in (1, 2) x H in (32, 64, 128) x direct/second_moment x
+   relu/identity, tanh/tanh, selu/identity: per-step losses, params, Adam
+   m and v to rtol 1e-4 / atol 1e-5 (f32 sums in other orders, and
+   contracted multiply-adds, through 8 Adam steps).
+9. the default training path: run_experiment of the default Black-Scholes
+   config (the values experiments/common.py build_config makes from the
+   CLI defaults) for 5 epochs on the card, one kernel launch per epoch,
+   then a second call to 7 epochs that resumes at epoch 5; then one epoch
+   of identical packed data through the kernel and the composed path
+   (apply_loss + autograd + torch.optim.Adam) from identical weights, at
+   the tolerance of phase 8.
+10. training times (host clock around synchronized work, CUDA events for
+   kernels): the full default recipe (200 epochs x 1,000 fresh
+   trajectories) through Trainer.train with the kernel; the same recipe as
+   one fused_train_run over all epochs' packed data, as bench.py runs it;
+   the composed path (Trainer.train with the same validation) and the plain
+   version, each warmed by one epoch, then 20 epochs timed and scaled to
+   200;
+   val MSE of the trained model against the closed-form moments
+   (bench.py:435-455).
 
-The kernel's launch count is reset just before phases 4-5 and read just
-after.  The last line is the JSON result; the line before it lists the
-kernel.  There is no CPU run: without a CUDA device the script fails.
+Each kernel's launch count is reset just before its main path (phases 4-5
+for the gap kernel, phase 9 for the training kernel) and read just after.
+The last line is the JSON result; the line before it lists the kernels.
+There is no CPU run: without a CUDA device the script fails.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
 from njode_tpu_torch import NeuralJumpODE, NJODEFilter
-from njode_tpu_torch.models import pad_ragged
+from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
 from njode_tpu_torch.ops import gap_scan
-from njode_tpu_torch.simulation import simulate_batch
+from njode_tpu_torch.ops import train_kernel as tk
+from njode_tpu_torch.simulation import moments_at_obs, simulate_batch
+from njode_tpu_torch.utils import (Trainer, create_data_loaders, make_adam,
+                                   run_experiment)
 
 RTOL, ATOL = 1e-4, 1e-5
 DT, N_SUB = 0.01, 100
 KERNEL_SOURCE = "njode_tpu_torch/ops/csrc/gap_scan.cu"
 REPLACES = "njode_tpu/ops/gap_scan.py:201"
+TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/train_run.cu"
+TRAIN_REPLACES = ("njode_tpu/ops/train_kernel.py:223 (_train_kernel), "
+                  "njode_tpu/ops/train_kernel.py:478 (_train_kernel_dual)")
+# the H100 SXM's published peaks: f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def device_phase() -> tuple[torch.device, str]:
@@ -61,15 +97,24 @@ def device_phase() -> tuple[torch.device, str]:
     return torch.device("cuda:0"), card
 
 
-def build_phase() -> None:
+def build_phase() -> float:
+    """Both kernels, one nvcc each, started together; prints the gap
+    kernel's line and returns the build time."""
     from njode_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    _build.build(["gap_scan", "train_run"])
     gap_scan._load_kernel()
+    tk._load_kernel()
     took = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("gap_scan", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: gap_scan.cu in {took:.2f} s; ptxas: {' | '.join(ptxas)}",
-          flush=True)
+    print(f"build: gap_scan.cu in {took:.2f} s (with train_run.cu, in "
+          f"parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
+    return took
+
+
+def ptxas_line(name: str) -> str:
+    from njode_tpu_torch.ops import _build
+    return " | ".join(ln.strip() for ln in _build.BUILD_LOG.get(
+        name, "").splitlines() if "registers" in ln or "spill" in ln)
 
 
 def gap_case(gen: torch.Generator, K: int, R: int, d_h: int, d_x: int,
@@ -325,9 +370,326 @@ def timing_phase(dev: torch.device, card: str, model: NeuralJumpODE,
     return statistics.median([k_ms, k2_ms]), statistics.median([p_ms, p2_ms])
 
 
+def gap_bound(args: tuple) -> tuple[float, str]:
+    """Least time of one gap_substeps call on the H100: the larger of its
+    f32 work over 67 TFLOP/s (per row and full substep taken, two d_h x d_h
+    products and the elementwise update: 4 d_h^2 + 4 d_h, the substeps
+    counted from this request's t_L) and its bytes (each input read once,
+    each output written once) over 3.35 TB/s."""
+    h, base, t_last, t_target, w1h, w1t, w2, b2, dt = args[:9]
+    K, R, d_h = h.shape
+    with torch.no_grad():
+        _, t_l = gap_scan.gap_substeps_reference(*args)
+    steps = float(torch.round((t_l - t_last) / dt).sum())
+    flops = K * steps * (4 * d_h * d_h + 4 * d_h)
+    n_bytes = 4 * (2 * h.numel() + base.numel() + 2 * t_last.numel()
+                   + t_target.numel() + w1h.numel() + w1t.numel()
+                   + w2.numel() + b2.numel())
+    return bound_of(flops, n_bytes)
+
+
+def bound_of(flops: float, n_bytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_N, TRAIN_BS, TRAIN_G = 10, 128, 8
+TRAIN_EPOCHS = 200           # the default recipe's
+COMPARED_EPOCHS = 20         # timed epochs of the composed and plain arms
+ACT_PAIRS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "identity"))
+
+
+def default_config(n_epochs: int, name: str) -> dict:
+    """What experiments/common.py build_config makes from the CLI defaults
+    of experiments/experiment_black_scholes.py (obs_only resolves on for
+    Black-Scholes; --kernels auto is use_pallas 'auto')."""
+    return {
+        "experiment_name": name, "input_dim": 1, "hidden_dim": 32,
+        "output_dim": 1, "n_hidden_layers": 1, "activation": "relu",
+        "dropout_rate": 0.0, "input_scaling": "identity",
+        "variance_method": "direct", "dt_ode_step": None,
+        "ode_solver": "euler", "learning_rate": 1e-3, "weight_decay": 5e-4,
+        "n_epochs": n_epochs, "batch_size": 128, "shuffle": True,
+        "print_every": 5, "device": "auto", "ignore_first_continuity": True,
+        "num_moments": 2, "moment_weights": [1.0, 10.0],
+        "shared_network": False, "extended_moments": False,
+        "data_parallel": 0, "model_parallel": 1,
+        "model_parallel_mode": None, "multihost": False,
+        "coordinator_address": None, "num_processes": None,
+        "process_id": None, "compute_dtype": "float32",
+        "checkpoint_backend": "msgpack", "ensemble": 0,
+        "ensemble_lrs": None, "use_pallas": "auto", "grid_walk": "auto",
+        "train_kernel_mxu": "float32", "debug_checks": False, "seed": 0,
+        "data_seed": 0,
+        "data": {"process_type": "black_scholes", "n_train": 1000,
+                 "n_val": 200, "obs_fraction": 0.1, "cache_data": False,
+                 "obs_only": True, "T": 1.0, "n_steps": 100, "mu": 0.1,
+                 "sigma": 0.5, "x0": 1.0},
+    }
+
+
+def train_data(dev: torch.device, n_traj: int, bs: int, seed: int,
+               n_valid=None) -> torch.Tensor:
+    """Packed kernel rows of fresh obs-only BS trajectories (the default
+    recipe's law), the last n_traj - n_valid rows padding that repeats
+    row 0, as the Trainer pads its last minibatch."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = simulate_batch(n_traj, "black_scholes", 0.1, True, generator=gen,
+                       device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    n_valid = n_traj if n_valid is None else n_valid
+    valid = torch.arange(n_traj, device=dev) < n_valid
+    times = torch.where(valid[:, None], b.times, b.times[:1])
+    values = torch.where(valid[:, None, None], b.values, b.values[:1])
+    return tk.pack_minibatches(times, values, valid, bs)
+
+
+def train_kwargs(K: int, method: str = "direct", act: str = "relu",
+                 scale: str = "identity") -> dict:
+    return dict(n_slots=TRAIN_N, num_moments=K, batch_size=TRAIN_BS,
+                activation=act, input_scaling=scale, lr=1e-3,
+                weight_decay=5e-4, moment_weights=(1.0, 10.0),
+                variance_method=method)
+
+
+def compare_state(ours, ref, where: str) -> float:
+    """Losses, params, m and v at RTOL/ATOL; returns the largest abs err."""
+    worst = 0.0
+    for a, b, what in ((ours[1], ref[1], "losses"),
+                       (ours[0].params, ref[0].params, "params"),
+                       (ours[0].m, ref[0].m, "Adam m"),
+                       (ours[0].v, ref[0].v, "Adam v")):
+        worst = max(worst, assert_close(a, b, f"{what} at {where}"))
+    return worst
+
+
+def train_kernel_phase(dev: torch.device) -> float:
+    worst, n_cases = 0.0, 0
+    plans = {}
+    n_rows = TRAIN_G * TRAIN_BS
+    for K in (1, 2):
+        for H in (32, 64, 128):
+            plans[H] = tk.launch_plan(H, TRAIN_N, TRAIN_BS)
+            for method in ("direct", "second_moment"):
+                for act, scale in ACT_PAIRS:
+                    model = NeuralJumpODE(
+                        1, H, 1, num_moments=K, activation=act,
+                        input_scaling=scale, device=dev,
+                        generator=torch.Generator().manual_seed(K * H))
+                    data = train_data(dev, n_rows, TRAIN_BS, H + K,
+                                      n_valid=n_rows - TRAIN_BS // 3)
+                    state = tk.init_train_state(model)
+                    kw = train_kwargs(K, method, act, scale)
+                    with torch.no_grad():
+                        ours = tk.fused_train_run(state, data, **kw)
+                        torch.cuda.synchronize()
+                        ref = tk.fused_train_run_reference(state, data, **kw)
+                    worst = max(worst, compare_state(
+                        ours, ref, f"K={K} H={H} {method} {act}/{scale}"))
+                    n_cases += 1
+    print(f"training kernel vs plain: {n_cases} cases (K in (1, 2) x H in "
+          f"(32, 64, 128) x direct/second_moment x relu/identity, tanh/tanh, "
+          f"selu/identity; N={TRAIN_N}, batch {TRAIN_BS}, {TRAIN_G} steps, "
+          f"last minibatch {TRAIN_BS // 3} rows masked): losses, params, m, v "
+          f"max abs err {worst:.3e} at rtol {RTOL} / atol {ATOL}; plans "
+          f"(warps, weights staged, smem bytes) {plans}", flush=True)
+    return worst
+
+
+def training_path_phase(dev: torch.device, tmp: Path) -> None:
+    """run_experiment of the default config, 5 epochs then a resume to 7;
+    one epoch through the kernel and the composed path from the same
+    weights.  The caller resets the launch count before."""
+    cfg = default_config(5, "default_bs")
+    res = run_experiment(cfg, save_dir=str(tmp))
+    torch.cuda.synchronize()
+    after5 = tk.LAUNCHES
+    hist = res["history"]["train_loss"]
+    if after5 != 5 or len(hist) != 5:
+        raise AssertionError(f"5 epochs gave {after5} kernel launches and "
+                             f"{len(hist)} losses; expected 5 and 5")
+    if not all(math.isfinite(x) for x in hist + res["history"]["val_loss"]):
+        raise AssertionError(f"non-finite losses {hist}")
+    run = tmp / "default_bs"
+    for name in ("config.json", "model.ckpt", "history.json"):
+        if not (run / name).is_file():
+            raise AssertionError(f"run_experiment wrote no {name}")
+    res7 = run_experiment(default_config(7, "default_bs"), save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist7 = json.loads((run / "history.json").read_text())["train_loss"]
+    if tk.LAUNCHES != 7 or len(hist7) != 7 or hist7[:5] != hist:
+        raise AssertionError(f"the resume to 7 epochs gave {tk.LAUNCHES} "
+                             f"launches in all and {len(hist7)} losses")
+    print(f"default training path: run_experiment (hidden 32, K=2 separate, "
+          f"batch 128, 1,000 fresh obs-only BS trajectories per epoch) 5 "
+          f"epochs: train loss {hist[0]:.4f} -> {hist[-1]:.4f}, val "
+          f"{res['history']['val_loss'][-1]:.4f}, kernel launches {after5}; "
+          f"resumed to 7 epochs (loss {res7['final_train_loss']:.4f}), "
+          f"launches {tk.LAUNCHES}", flush=True)
+
+
+def kernel_vs_composed_phase(dev: torch.device) -> float:
+    """One epoch of identical packed data (1,000 trajectories, 8 steps)
+    through the kernel and through apply_loss + autograd + Adam."""
+    model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
+                          generator=torch.Generator().manual_seed(5))
+    data = train_data(dev, 1024, TRAIN_BS, 11, n_valid=1000)
+    kw = train_kwargs(2)
+    with torch.no_grad():
+        state, k_losses = tk.fused_train_run(tk.init_train_state(model),
+                                             data, **kw)
+    opt = make_adam(model.parameters(), 1e-3, 5e-4)
+    c_losses = []
+    N = TRAIN_N
+    for g in range(data.shape[0] // TRAIN_BS):
+        rows = data[g * TRAIN_BS:(g + 1) * TRAIN_BS]
+        opt.zero_grad()
+        loss = model.apply_loss(
+            rows[:, N:2 * N], rows[:, :N, None], traj_mask=rows[:, 2 * N] > 0,
+            ignore_first_continuity=True, moment_weights=[1.0, 10.0])
+        loss.backward()
+        opt.step()
+        c_losses.append(loss.detach())
+    err = assert_close(k_losses, torch.stack(c_losses),
+                       "kernel vs composed per-step losses")
+    ref = tk.init_train_state(model).params
+    err = max(err, assert_close(state.params, ref,
+                                "kernel vs composed params after an epoch"))
+    print(f"kernel vs composed path: one epoch (8 steps) from identical "
+          f"weights, per-step losses and params max abs err {err:.3e}",
+          flush=True)
+    return err
+
+
+def val_metrics(model: NeuralJumpODE, dev: torch.device) -> tuple:
+    """bench.py:435-455: 200 fresh grid-simulated trajectories; MSE of the
+    before-jump mean and variance (direct: W^2) against the closed-form
+    truths past slot 0, and the relative loss."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vb = simulate_batch(200, "black_scholes", 0.1, generator=gen, device=dev,
+                        mu=0.1, sigma=0.5, x0=1.0)
+    with torch.no_grad():
+        preds, before = model.apply(vb.times, vb.values, vb.mask)
+        yt, ytb = moments_at_obs(vb.times, vb.values, "black_scholes",
+                                 num_moments=2, mu=0.1, sigma=0.5)
+        mse_mean = float(((before[:, 1:, :, 0] - ytb[:, 1:, :, 0]) ** 2).mean())
+        mse_var = float(((before[:, 1:, :, 1] ** 2 - ytb[:, 1:, :, 1]) ** 2)
+                        .mean())
+        L_model = float(nj_ode_loss_dense(vb.values, preds, before, vb.mask,
+                                          moment_weights=[1.0, 10.0]))
+        L_true = float(nj_ode_loss_dense(vb.values, yt, ytb, vb.mask,
+                                         moment_weights=[1.0, 10.0]))
+    return mse_mean, mse_var, (L_model - L_true) / max(L_true, 1e-8)
+
+
+def training_times_phase(dev: torch.device, card: str, tmp: Path) -> tuple:
+    """Phase 10.  Returns (kernel ms per epoch call, plain ms per epoch
+    call, bound ms per epoch call, bound_by)."""
+    E, n = TRAIN_EPOCHS, 1000
+    # the whole recipe through Trainer.train with the kernel
+    model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                      ignore_first_continuity=True,
+                      moment_weights=[1.0, 10.0], use_train_kernel=True)
+    cfg = default_config(E, "timed")
+    train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
+                                           **cfg["data"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.train(train_fn, val_fn, n_epochs=E, batch_size=128,
+                         print_every=E, config=cfg)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    mse_mean, mse_var, rel = val_metrics(model, dev)
+
+    # one epoch's kernel call and its plain version, CUDA events
+    data = train_data(dev, 1024, TRAIN_BS, 3, n_valid=n)
+    state = tk.init_train_state(model)
+    kw = train_kwargs(2)
+    with torch.no_grad():
+        run_k = lambda: tk.fused_train_run(state, data, **kw)
+        run_p = lambda: tk.fused_train_run_reference(state, data, **kw)
+        p_ms = time_ms(run_p, warmup=2, reps=5)
+        k_ms = time_ms(run_k, warmup=2, reps=10)
+        k2_ms = time_ms(run_k, warmup=0, reps=10)
+        p2_ms = time_ms(run_p, warmup=0, reps=5)
+    # bench.py:468-481's count: forward matmul flops x 3, valid trajectories
+    H, K, S = 32, 2, TRAIN_N - 1
+    fwd = K * 2 * (TRAIN_N * (H + H * H) + (2 * TRAIN_N - 1) * (H * H + H)
+                   + S * ((H + 3) * H + H * H))
+    P = tk.n_params_per_net(H)
+    epoch_bytes = 4 * (data.numel() + 2 * 3 * K * P + 2 * 2
+                       + data.shape[0] // TRAIN_BS)
+    bound_ms, bound_by = bound_of(3 * fwd * n, epoch_bytes)
+
+    # the recipe as one call over all epochs' packed data (bench.py's way)
+    all_data = torch.cat([train_data(dev, 1024, TRAIN_BS, 100 + e, n_valid=n)
+                          for e in range(E)])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        _, losses = tk.fused_train_run(tk.init_train_state(model), all_data,
+                                       **kw)
+        end.record()
+        end.synchronize()
+    one_call_ms = start.elapsed_time(end)
+    if not torch.isfinite(losses).all():
+        raise AssertionError("non-finite losses in the one-call recipe")
+
+    # the composed path through Trainer.train, with the kernel arm's
+    # validation and relative loss, and the plain version over packed
+    # epochs: each warmed by one epoch, then COMPARED_EPOCHS timed and
+    # scaled to E
+    comp = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    comp_tr = Trainer(comp, make_adam(comp.parameters(), 1e-3, 5e-4),
+                      ignore_first_continuity=True,
+                      moment_weights=[1.0, 10.0], use_train_kernel=False)
+    comp_tr.train(train_fn, val_fn, n_epochs=1, batch_size=128,
+                  print_every=E, config=cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp_tr.train(train_fn, val_fn, n_epochs=COMPARED_EPOCHS, batch_size=128,
+                  print_every=E, config=cfg)
+    torch.cuda.synchronize()
+    comp_s = (time.perf_counter() - t0) * E / COMPARED_EPOCHS
+    with torch.no_grad():
+        st = tk.init_train_state(comp)
+        st, _ = tk.fused_train_run_reference(st, all_data[:1024], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(COMPARED_EPOCHS):
+            st, _ = tk.fused_train_run_reference(
+                st, all_data[e * 1024:(e + 1) * 1024], **kw)
+        torch.cuda.synchronize()
+    plain_s = (time.perf_counter() - t0) * E / COMPARED_EPOCHS
+    step_ms = statistics.median([k_ms, k2_ms]) / (1024 // TRAIN_BS)
+    print(f"training times on {card}: default recipe ({E} epochs x {n} fresh "
+          f"trajectories) through Trainer.train with the kernel "
+          f"{trainer_s:.3f} s = {E * n / trainer_s:.0f} traj/s (final train "
+          f"loss {hist['train_loss'][-1]:.4f}); as one fused_train_run over "
+          f"all epochs' packed data {one_call_ms / 1e3:.3f} s = "
+          f"{E * n / (one_call_ms / 1e3):.0f} traj/s; composed path through "
+          f"Trainer.train ({COMPARED_EPOCHS} epochs after one warm-up, scaled "
+          f"to {E}): {comp_s:.3f} s = {E * n / comp_s:.0f} traj/s; plain "
+          f"version ({COMPARED_EPOCHS} epoch calls after one, scaled): "
+          f"{plain_s:.3f} s", flush=True)
+    print(f"training kernel on {card}: one epoch call (8 steps, 1,024 rows) "
+          f"{k_ms:.3f} / {k2_ms:.3f} ms = {step_ms:.4f} ms per step, plain "
+          f"version {p_ms:.3f} / {p2_ms:.3f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}); val MSE mean {mse_mean:.3e} var {mse_var:.3e}, "
+          f"relative loss {rel:.4f}", flush=True)
+    return (statistics.median([k_ms, k2_ms]), statistics.median([p_ms, p2_ms]),
+            bound_ms, bound_by)
+
+
 def main() -> None:
     dev, card = device_phase()
-    build_phase()
+    build_s = build_phase()
     max_err = kernel_phase(dev)
 
     model = production_model(dev)
@@ -338,10 +700,28 @@ def main() -> None:
     launches = gap_scan.LAUNCHES
 
     k_ms, p_ms = timing_phase(dev, card, model, request)
+    g_bound, g_by = gap_bound(gap_rows(model, *request))
+
+    print(f"build: train_run.cu in {build_s:.2f} s (with gap_scan.cu, in "
+          f"parallel); ptxas: {ptxas_line('train_run')}", flush=True)
+    t_err = train_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tk.LAUNCHES = 0
+        training_path_phase(dev, Path(tmp))
+        t_launches = tk.LAUNCHES
+        t_err = max(t_err, kernel_vs_composed_phase(dev))
+        tk_ms, tp_ms, t_bound, t_by = training_times_phase(dev, card,
+                                                           Path(tmp))
     print(json.dumps({"kernels": [{
         "name": "gap_scan_fwd", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": g_bound, "bound_by": g_by,
+        "library_ms": None}, {
+        "name": "train_run", "route": "cuda", "source": TRAIN_SOURCE,
+        "replaces": TRAIN_REPLACES, "launches": t_launches,
+        "max_abs_err": t_err, "ms": tk_ms, "plain_ms": tp_ms,
+        "bound_ms": t_bound, "bound_by": t_by, "library_ms": None}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,15 +19,28 @@ Semantics kept from the JAX package (and the reference it mirrors):
   (reference :161).
 
 Where the ODEFunc is one the CUDA kernel computes (``gap_scan_available``:
-one hidden layer, no dropout, euler) and ``dt_ode_step`` is set, the gap
-goes through :func:`njode_tpu_torch.ops.integrate_gap_fused`: the CUDA
-kernel for CUDA tensors, its plain version on the CPU.  Only that
-eligibility decides; every other configuration runs the plain substep loop
-here, as the JAX package runs it in XLA.
+one hidden layer, no dropout, euler) and ``dt_ode_step`` is set, a gap
+integrated for inference (``predict_at``, the filter, ``apply`` under
+``torch.no_grad()``) goes through
+:func:`njode_tpu_torch.ops.integrate_gap_fused`: the CUDA kernel for CUDA
+tensors, its plain version on the CPU.  A gap that autograd differentiates
+takes the plain substep loop, as the JAX package's ``"auto"`` policy sends
+training to XLA (``njode_tpu/models/jump_ode.py:301-310``); the kernel has
+no backward yet.
 
-Not ported yet (see ROADMAP.md): ``apply``, ``apply_loss``, ``forward``,
-``predict_on_grid``, the grid walk, mixed precision and the fused-step
-kernel; the constructor arguments that select them raise.
+Training: :meth:`NeuralJumpODE.apply` is the dense slot-batched forward
+(jump at every slot, one integration per gap, readouts), ``apply_loss``
+composes it with :func:`nj_ode_loss_dense`, and ``forward`` is the ragged
+reference API.  Dropout in training mode draws from an explicit
+``torch.Generator``; without one no dropout is applied, as the JAX model
+applies none without an rng.
+
+The model's device defaults to ``cuda``; the CPU is used only when asked
+for (``device="cpu"``).  Without a CUDA device the default raises.
+
+Not ported yet (see ROADMAP.md): ``predict_on_grid``, the grid walk, mixed
+precision and the fused-step kernel; the constructor arguments that select
+them raise.
 """
 
 from __future__ import annotations
@@ -43,14 +56,47 @@ from ..ops import (GapWeights, gap_scan_available, integrate_gap_fused,
                    split_weights)
 from .activations import (canonical_activation, canonical_input_scaling,
                           get_input_scaling)
+from .loss import nj_ode_loss_dense
 from .mlp import JumpNN, ODEFunc, OutputNN, linears
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port's device rule: None or ``"auto"`` means ``cuda`` and raises
+    when no CUDA device exists; anything else is taken as given (the CPU
+    only when asked for)."""
+    if device is None or device == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "njode_tpu_torch runs on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def run_net(net: nn.Module, x: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A network's layers in order, with inverted dropout (torch's
+    train-mode law) drawn from ``generator`` where one is given, and no
+    dropout otherwise, whatever the module's train/eval mode."""
+    for layer in net.net:
+        if isinstance(layer, nn.Dropout):
+            if generator is not None and layer.p > 0.0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) >= layer.p
+                x = torch.where(keep, x / (1.0 - layer.p), 0.0)
+        else:
+            x = layer(x)
+    return x
 
 
 class NeuralJumpODE(nn.Module):
     """Neural Jump ODE with the JAX model's constructor signature.
 
     Port-specific arguments:
-      device:    where the parameters live (default CPU).
+      device:    where the parameters live: None (default) means ``cuda``
+                 and raises without a CUDA device; pass ``"cpu"`` for the
+                 CPU (see :func:`resolve_device`).
       generator: the ``torch.Generator`` the init draws from; None means a
                  CPU generator seeded with 0.  Weights are drawn on the CPU
                  and then moved, so a seed gives the same model everywhere.
@@ -153,7 +199,7 @@ class NeuralJumpODE(nn.Module):
             self.output_nns = nn.ModuleList(
                 OutputNN(hidden_dim, output_dim, **net)
                 for _ in range(num_moments))
-        self.to(device=device, dtype=dtype)
+        self.to(device=resolve_device(device), dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -192,13 +238,16 @@ class NeuralJumpODE(nn.Module):
             self._gap_cache = (key, split_weights(stacked))
         return self._gap_cache[1]
 
-    def _jump(self, x: torch.Tensor) -> torch.Tensor:
+    def _jump(self, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, d_x) -> h: (K_h, B, d_h)."""
         if self.shared_network:
-            return self.jump_nn(x)[None]
-        return torch.stack([net(x) for net in self.jump_nns])
+            return run_net(self.jump_nn, x, generator)[None]
+        return torch.stack([run_net(net, x, generator)
+                            for net in self.jump_nns])
 
-    def _readout(self, h: torch.Tensor) -> torch.Tensor:
+    def _readout(self, h: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """h: (K_h, B, d_h) -> y: (B, d_y, K).
 
         Shared mode reshapes the flat (B, d_y*K) output row-major to
@@ -206,9 +255,10 @@ class NeuralJumpODE(nn.Module):
         (reference models/jump_ode.py:170-172).
         """
         if self.shared_network:
-            y = self.output_nn(h[0])
+            y = run_net(self.output_nn, h[0], generator)
             return y.reshape(y.shape[0], self.output_dim, self.num_moments)
-        ys = torch.stack([net(hk) for net, hk in zip(self.output_nns, h)])
+        ys = torch.stack([run_net(net, hk, generator)
+                          for net, hk in zip(self.output_nns, h)])
         return ys.permute(1, 2, 0)                         # (B, d_y, K)
 
     def variance_from_raw(self, raw: torch.Tensor) -> Optional[torch.Tensor]:
@@ -226,7 +276,8 @@ class NeuralJumpODE(nn.Module):
         return torch.clamp_min(w - mean ** 2, 0.0)
 
     def _ode(self, h: torch.Tensor, x_last: torch.Tensor,
-             t_cur: torch.Tensor, t_new: torch.Tensor) -> torch.Tensor:
+             t_cur: torch.Tensor, t_new: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Latent drift dh/dt with the reference ODEFunc features
         [s(h), s(x_last), t_rel = t_cur, t_elapsed = t_new - t_cur].
 
@@ -237,10 +288,12 @@ class NeuralJumpODE(nn.Module):
         t_rel = t_cur[None, :, None].expand(K_h, B, 1).to(h.dtype)
         t_el = (t_new - t_cur)[None, :, None].expand(K_h, B, 1).to(h.dtype)
         inp = torch.cat([self._scale(h), x_s, t_rel, t_el], dim=-1)
-        return torch.stack([f(ik) for f, ik in zip(self._ode_nets(), inp)])
+        return torch.stack([run_net(f, ik, generator)
+                            for f, ik in zip(self._ode_nets(), inp)])
 
     def _euler(self, h: torch.Tensor, x_last: torch.Tensor,
-               t_cur: torch.Tensor, t_new: torch.Tensor) -> torch.Tensor:
+               t_cur: torch.Tensor, t_new: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One solver step from t_cur to t_new.
 
         'euler' is exactly the reference's ``h += (t_new - t_cur) * f``
@@ -250,10 +303,10 @@ class NeuralJumpODE(nn.Module):
         """
         dt = (t_new - t_cur)[None, :, None]
         if self.ode_solver == "euler":
-            return h + dt * self._ode(h, x_last, t_cur, t_new)
+            return h + dt * self._ode(h, x_last, t_cur, t_new, generator)
 
         def f(hh, t_stage):
-            return self._ode(hh, x_last, t_stage, t_stage)
+            return self._ode(hh, x_last, t_stage, t_stage, generator)
         if self.ode_solver == "heun":
             k1 = f(h, t_cur)
             k2 = f(h + dt * k1, t_new)
@@ -266,19 +319,24 @@ class NeuralJumpODE(nn.Module):
         return h + dt / 6.0 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
     def _integrate_gap(self, h: torch.Tensor, x_last: torch.Tensor,
-                       t_last: torch.Tensor,
-                       t_target: torch.Tensor) -> torch.Tensor:
+                       t_last: torch.Tensor, t_target: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       inference: bool = False) -> torch.Tensor:
         """Integrate the latent state across an inter-observation gap
         (reference forward_single, models/jump_ode.py:185-203).
+
+        ``inference=True`` (no autograd, no dropout) lets an eligible
+        ODEFunc take the gap kernel; a gap that autograd differentiates
+        takes the plain loop (the kernel has no backward yet).
 
         The accumulated ``t_cur + dt`` float updates are kept (rather than a
         step count) so the boundary behaviour matches the reference's while
         loop bit for bit.
         """
         if self.dt_ode_step is None:
-            return self._euler(h, x_last, t_last, t_target)
+            return self._euler(h, x_last, t_last, t_target, generator)
         dt = self.dt_ode_step
-        if self._gap_eligible:
+        if self._gap_eligible and inference and generator is None:
             h, t_cur = integrate_gap_fused(
                 h, self._scale(x_last), t_last, t_target, self._gap_weights(),
                 dt, self.max_substeps, self._act_key, self._scale_key)
@@ -287,10 +345,10 @@ class NeuralJumpODE(nn.Module):
             for _ in range(self.max_substeps):
                 pred = (t_cur + dt) < t_target
                 t_new = t_cur + dt
-                h_step = self._euler(h, x_last, t_cur, t_new)
+                h_step = self._euler(h, x_last, t_cur, t_new, generator)
                 h = torch.where(pred[None, :, None], h_step, h)
                 t_cur = torch.where(pred, t_new, t_cur)
-            h_final = self._euler(h, x_last, t_cur, t_target)
+            h_final = self._euler(h, x_last, t_cur, t_target, generator)
             h = torch.where((t_cur < t_target)[None, :, None], h_final, h)
         if self.debug_checks and t_cur.numel():
             # every gap must be within one dt of its target after the full
@@ -374,12 +432,126 @@ class NeuralJumpODE(nn.Module):
                 obs_times, obs_values, query_times, mask)
             B, Q = before_first.shape
             h = self._jump(x)                                 # (K_h, B*Q, d_h)
-            h = self._integrate_gap(h, x, t_last, t_query)
+            h = self._integrate_gap(h, x, t_last, t_query, inference=True)
             raw = self._readout(h).reshape(B, Q, self.output_dim,
                                            self.num_moments)
             raw = torch.where(before_first[..., None, None], 0.0, raw)
             return {"mean": raw[..., 0], "var": self.variance_from_raw(raw),
                     "raw": raw}
+
+    # ------------------------------------------------------------ training
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def _check_substep_budget(self, times: torch.Tensor) -> None:
+        """Raise if an observation gap needs more full substeps than the
+        static budget (with fixed ``dt_ode_step`` the final partial step
+        would silently span the rest).  Reads the gaps on the host."""
+        if self.dt_ode_step is None or times.ndim != 2 or times.shape[1] < 2:
+            return
+        max_gap = float((times[:, 1:] - times[:, :-1]).max())
+        budget = (self.max_substeps + 1) * self.dt_ode_step
+        if max_gap > budget + 1e-9:
+            raise ValueError(
+                f"observation gap {max_gap:.4g} exceeds the Euler substep "
+                f"budget (max_substeps={self.max_substeps} x dt_ode_step="
+                f"{self.dt_ode_step}); construct the model with "
+                f"t_max >= {max_gap:.4g} (or pass max_substeps explicitly).")
+
+    def apply(self, times, values, mask=None, *,
+              generator: Optional[torch.Generator] = None,
+              training: bool = False):
+        """Batched forward over padded observation slots.
+
+        The jump resets the latent state at every observation (reference
+        models/jump_ode.py:169,176), so every gap integrates independently
+        from its own jump state and the whole forward is batched over the
+        folded (B*N) slots:
+
+          h_jump[:, i]  = jump(x_i)               for all slots at once
+          y_after[:, i] = out(h_jump[:, i])
+          h_minus[:, i] = integrate(h_jump[:, i-1], x_{i-1}, t_{i-1} -> t_i)
+          y_before[:,i] = out(h_minus[:, i]),  y_before[:, 0] = 0.
+
+        Args:
+          times:  (B, N) observation times, sorted per row, padded at the end.
+          values: (B, N, d_x) observations.
+          mask:   (B, N) validity; padding must sit at row ends (unused
+                  here: padded slots carry garbage the loss masks out).
+          generator: dropout generator, read only when ``training`` and
+                  ``dropout_rate > 0``.
+
+        Returns: preds, preds_before, each (B, N, d_y, K).
+        """
+        times = self._as_tensor(times)
+        values = self._as_tensor(values)
+        self._check_substep_budget(times)
+        gen = (generator if training and self.dropout_rate > 0.0 else None)
+        B, N = times.shape
+        d_x = values.shape[-1]
+        K_h, d_h = self.k_hidden, self.hidden_dim
+
+        h_jump = self._jump(values.reshape(B * N, d_x), gen)  # (K_h, B*N, d_h)
+        preds = self._readout(h_jump, gen).reshape(
+            B, N, self.output_dim, self.num_moments)
+        if N == 1:
+            return preds, torch.zeros_like(preds)
+
+        S = N - 1
+        h0 = h_jump.reshape(K_h, B, N, d_h)[:, :, :-1].reshape(K_h, B * S, d_h)
+        h_minus = self._integrate_gap(
+            h0, values[:, :-1].reshape(B * S, d_x),
+            times[:, :-1].reshape(B * S), times[:, 1:].reshape(B * S), gen,
+            inference=gen is None and not torch.is_grad_enabled())
+        tail = self._readout(h_minus, gen).reshape(
+            B, S, self.output_dim, self.num_moments)
+        # the prediction before the first observation is zero
+        # (reference models/jump_ode.py:161)
+        preds_before = torch.cat([torch.zeros_like(preds[:, :1]), tail], dim=1)
+        return preds, preds_before
+
+    def apply_loss(self, times, values, mask=None, *,
+                   generator: Optional[torch.Generator] = None,
+                   training: bool = False,
+                   ignore_first_continuity: bool = False,
+                   moment_weights=None, eps: float = 1e-10,
+                   variance_method: str = "direct", traj_mask=None,
+                   extended_moments: bool = False) -> torch.Tensor:
+        """``nj_ode_loss_dense(values, *self.apply(...), mask, ...)``: the
+        composed branch of the JAX ``apply_loss`` (its fused-step branch is
+        not ported; ``use_pallas='step'`` raises at construction)."""
+        values = self._as_tensor(values)
+        preds, preds_before = self.apply(times, values, mask,
+                                         generator=generator,
+                                         training=training)
+        if mask is not None:
+            mask = self._as_tensor(mask, torch.bool)
+        if traj_mask is not None:
+            traj_mask = self._as_tensor(traj_mask, torch.bool)
+        return nj_ode_loss_dense(
+            values, preds, preds_before, mask,
+            ignore_first_continuity=ignore_first_continuity,
+            moment_weights=moment_weights, eps=eps,
+            variance_method=variance_method, traj_mask=traj_mask,
+            extended_moments=extended_moments)
+
+    def forward(self, batch_times: Sequence, batch_values: Sequence,
+                generator: Optional[torch.Generator] = None,
+                training: bool = False):
+        """Reference-compatible ragged forward (models/jump_ode.py:218-233):
+        lists of (n_i,) times and (n_i, d_x) values in, lists of
+        (n_i, d_y, K) after- and before-jump predictions out."""
+        times, values, mask = pad_ragged(batch_times, batch_values,
+                                         self.dtype, self.device)
+        preds, preds_before = self.apply(times, values, mask,
+                                         generator=generator,
+                                         training=training)
+        lengths = [int(torch.as_tensor(t).reshape(-1).shape[0])
+                   for t in batch_times]
+        return ([preds[b, :n] for b, n in enumerate(lengths)],
+                [preds_before[b, :n] for b, n in enumerate(lengths)])
+
 
 
 def pad_ragged(batch_times: Sequence, batch_values: Sequence,

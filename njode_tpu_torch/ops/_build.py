@@ -41,25 +41,48 @@ def find_nvcc() -> str:
         "first use")
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` not built yet, one
+    ``nvcc`` per source, all started together; raise if any fails."""
+    todo = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = find_nvcc()
+    procs = []
+    for name in todo:
+        lib_path = _lib_path(name)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, cmd, tmp, lib_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, cmd, tmp, lib_path, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with exit code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        BUILD_LOG[name] = out
+        os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if needed."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {res.returncode}: "
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        BUILD_LOG[name] = res.stdout + res.stderr
-        os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
-    lib = ctypes.CDLL(str(lib_path))
+    build([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
     lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
     lib.njode_cuda_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

@@ -50,30 +50,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Sequence
+from typing import NamedTuple, Sequence
 
 import torch
-import torch.nn.functional as F
 
-_SELU_L = 1.0507009873554805  # selu scale / alpha, as in jax.nn.selu
-_SELU_A = 1.6732632423543772
-
-_ACT: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "relu": torch.relu,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-    "elu": F.elu,                                   # alpha 1
-    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
-    "selu": lambda x: _SELU_L * torch.where(x > 0, x, _SELU_A * torch.expm1(x)),
-}
-_SCALE: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "identity": lambda x: x,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-}
 # the kernel's activation / scaling codes are positions in these tuples
-SUPPORTED_ACTS = tuple(_ACT)
-SCALINGS = tuple(_SCALE)
+from .activations import _ACT, _SCALE, SCALINGS, SUPPORTED_ACTS
 
 # launches of the CUDA kernel in this process; callers may reset it to 0
 LAUNCHES = 0

@@ -69,7 +69,8 @@ class NJODEFilter:
             # with fixed dt_ode_step, gaps beyond the substep budget would
             # silently under-integrate
             m._check_gap_budget(torch.clamp_min(t_query - state.t_last, 0.0))
-            h = m._integrate_gap(state.h, state.x_last, state.t_last, t_query)
+            h = m._integrate_gap(state.h, state.x_last, state.t_last, t_query,
+                                 inference=True)
             y = m._readout(h)                              # (B, d_y, K)
             y = torch.where(state.seen[:, None, None], y, 0.0)
             return {"mean": y[..., 0], "var": m.variance_from_raw(y),

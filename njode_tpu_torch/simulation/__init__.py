@@ -1,7 +1,11 @@
-"""Data layer: Black-Scholes paths and observation sampling."""
+"""Data layer: Black-Scholes paths, observation sampling and the closed-form
+conditional moments."""
 
-from .sde import (TrajectoryBatch, bs_paths, n_obs_for, sample_obs_indices,
-                  simulate_batch)
+from .moments import moments_at_obs
+from .sde import (OBS_ONLY_PROCESSES, TrajectoryBatch, bs_paths, bs_values_at,
+                  n_obs_for, sample_obs_indices, simulate_batch,
+                  supports_obs_only)
 
-__all__ = ["TrajectoryBatch", "bs_paths", "n_obs_for", "sample_obs_indices",
-           "simulate_batch"]
+__all__ = ["OBS_ONLY_PROCESSES", "TrajectoryBatch", "bs_paths",
+           "bs_values_at", "moments_at_obs", "n_obs_for",
+           "sample_obs_indices", "simulate_batch", "supports_obs_only"]

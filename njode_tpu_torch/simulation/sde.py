@@ -14,6 +14,9 @@ not bit for bit.
   indices, endpoints always included, interior points uniform without
   replacement, so every trajectory keeps the same static number of
   observations.
+* ``obs_only=True`` samples the values exactly at the observation times
+  (one lognormal increment per gap, :func:`bs_values_at`) and skips the
+  unobserved grid: the same law, about n_grid / n_obs cheaper.
 """
 
 from __future__ import annotations
@@ -76,6 +79,33 @@ def sample_obs_indices(n_paths: int, n_grid: int, obs_fraction: float = 0.1,
     return torch.sort(idx, dim=1).values.to(device)
 
 
+# processes with an exact arbitrary-gap transition law in the port (the JAX
+# package also has OU and hybrid; they are not ported yet)
+OBS_ONLY_PROCESSES = ("black_scholes",)
+
+
+def supports_obs_only(process_type: str) -> bool:
+    """True when ``simulate_batch(obs_only=True)`` can sample the process."""
+    return process_type in OBS_ONLY_PROCESSES
+
+
+def bs_values_at(times: torch.Tensor, mu: float = 0.0, sigma: float = 0.2,
+                 x0: float = 1.0, *, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Exact BS samples at per-row sorted times (B, N) with times[:, 0] == 0:
+    ``log X_j = log X_{j-1} + (mu - sigma^2/2) dt_j + sigma sqrt(dt_j) xi_j``
+    (one lognormal increment per gap).  The normals are drawn on the
+    generator's device; the result lies on ``times``' device."""
+    times = times.to(dtype)
+    dts = times[:, 1:] - times[:, :-1]                       # (B, N-1), > 0
+    xi = torch.randn(dts.shape, generator=generator, dtype=dtype,
+                     device=generator.device).to(times.device)
+    inc = (mu - 0.5 * sigma ** 2) * dts + sigma * torch.sqrt(dts) * xi
+    log_x = torch.cat([torch.zeros_like(times[:, :1]),
+                       torch.cumsum(inc, dim=1)], dim=1) + math.log(x0)
+    return torch.exp(log_x)
+
+
 @dataclass
 class TrajectoryBatch:
     """Dense observation batch.
@@ -85,7 +115,7 @@ class TrajectoryBatch:
     mask:   (B, N) bool (all True for same-config batches)
     grid_times: (G,) the dense simulation grid
     obs_idx:    (B, N) grid indices of the observations
-    paths:      (B, G) full simulated paths
+    paths:      (B, G) full simulated paths (None when obs_only)
     switch_times: (B,) hybrid switch times or None
     """
     times: torch.Tensor
@@ -93,7 +123,7 @@ class TrajectoryBatch:
     mask: torch.Tensor
     grid_times: torch.Tensor
     obs_idx: torch.Tensor
-    paths: torch.Tensor
+    paths: Optional[torch.Tensor]
     switch_times: Optional[torch.Tensor] = None
 
     @property
@@ -105,18 +135,33 @@ def simulate_batch(n_trajectories: int, process_type: str = "black_scholes",
                    obs_fraction: float = 0.1, obs_only: bool = False, *,
                    generator: torch.Generator, device=None,
                    **process_kwargs) -> TrajectoryBatch:
-    """Simulate B paths on the grid and subsample their observations.
+    """Simulate B paths and subsample their observations.
 
-    The paths are drawn first, then the observation indices, both from
-    ``generator``.  Only Black-Scholes and the grid branch are ported.
+    Grid branch: the paths are drawn first, then the observation indices,
+    both from ``generator``.  ``obs_only=True``: the indices first, then one
+    normal per gap (:func:`bs_values_at`); ``paths`` is None, and times are
+    ``obs_idx * (T / n_steps)`` as f32 arithmetic, as in the JAX package
+    (``njode_tpu/simulation/sde.py:505``).  Only Black-Scholes is ported.
     """
     if process_type != "black_scholes":
         raise NotImplementedError(
             f"process {process_type!r} is not ported yet (ROADMAP.md, "
-            "Queue 1 item 10); only 'black_scholes' is")
+            "Queue 1 item 9); only 'black_scholes' is")
     if obs_only:
-        raise NotImplementedError(
-            "obs_only sampling is not ported yet (ROADMAP.md, Queue 1 item 5)")
+        T = float(process_kwargs.get("T", 1.0))
+        n_steps = int(process_kwargs.get("n_steps", 100))
+        kw = {k: v for k, v in process_kwargs.items()
+              if k not in ("T", "n_steps")}
+        grid_times = torch.linspace(0.0, T, n_steps + 1, device=device)
+        obs_idx = sample_obs_indices(n_trajectories, n_steps + 1,
+                                     obs_fraction, generator=generator,
+                                     device=device)
+        spacing = (torch.tensor(T, dtype=torch.float32)
+                   / torch.tensor(n_steps, dtype=torch.float32))
+        times = obs_idx.to(torch.float32) * spacing.to(obs_idx.device)
+        values = bs_values_at(times, generator=generator, **kw)[..., None]
+        mask = torch.ones(times.shape, dtype=torch.bool, device=times.device)
+        return TrajectoryBatch(times, values, mask, grid_times, obs_idx, None)
     grid_times, paths = bs_paths(n_trajectories, generator=generator,
                                  device=device, **process_kwargs)
     obs_idx = sample_obs_indices(n_trajectories, grid_times.shape[0],

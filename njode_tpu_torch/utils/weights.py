@@ -11,6 +11,8 @@ state dict loads into both the port and a reference model:
   ``output_nns...``,
 
 with ``i`` the Linear positions of :func:`..models.mlp.linear_indices`.
+:func:`adam_state_from_jax` carries an optax Adam state over in the same
+names, as a ``torch.optim.Adam`` ``state_dict``.
 """
 
 from __future__ import annotations
@@ -48,3 +50,35 @@ def state_dict_from_jax(params: Mapping[str, Any], *, num_moments: int,
                 out[f"{prefix}.net.{pos}.weight"] = torch.tensor(w.T.copy())
                 out[f"{prefix}.net.{pos}.bias"] = torch.tensor(b.copy())
     return out
+
+
+def _find_adam(opt_state):
+    """The (count, mu, nu) entry of an optax chain state, found by its
+    fields (the port imports no optax)."""
+    for s in opt_state if isinstance(opt_state, (tuple, list)) else [opt_state]:
+        if all(hasattr(s, f) for f in ("count", "mu", "nu")):
+            return s
+    raise ValueError("optimizer state has no (count, mu, nu) Adam entry")
+
+
+def adam_state_from_jax(opt_state, model, *, lr: float,
+                        weight_decay: float = 0.0, betas=(0.9, 0.999),
+                        eps: float = 1e-8) -> dict:
+    """optax ``ScaleByAdamState`` (count, mu, nu) of the JAX ``make_adam``
+    chain -> a ``torch.optim.Adam`` ``state_dict`` for ``model``'s
+    parameters (step, exp_avg, exp_avg_sq, indexed in the order of
+    ``model.parameters()`` and named through :func:`state_dict_from_jax`)."""
+    adam = _find_adam(opt_state)
+    kw = dict(num_moments=model.num_moments,
+              shared_network=model.shared_network,
+              n_hidden_layers=model.n_hidden_layers)
+    mu, nu = state_dict_from_jax(adam.mu, **kw), state_dict_from_jax(adam.nu, **kw)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    dev = next(model.parameters()).device
+    state = {i: {"step": step.clone(), "exp_avg": mu[n].to(dev),
+                 "exp_avg_sq": nu[n].to(dev)} for i, n in enumerate(names)}
+    groups = torch.optim.Adam(model.parameters(), lr=lr, betas=tuple(betas),
+                              eps=eps, weight_decay=weight_decay
+                              ).state_dict()["param_groups"]
+    return {"state": state, "param_groups": groups}

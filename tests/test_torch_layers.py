@@ -68,7 +68,7 @@ def _bridged(act, n_hidden_layers, shared, hidden=12, d_x=2, d_y=3, K=2):
               n_hidden_layers=n_hidden_layers, activation=act,
               shared_network=shared)
     params = JaxModel(**kw).init(jax.random.PRNGKey(n_hidden_layers))
-    port = NeuralJumpODE(**kw)
+    port = NeuralJumpODE(**kw, device="cpu")
     port.load_state_dict(state_dict_from_jax(
         params, num_moments=K, shared_network=shared,
         n_hidden_layers=n_hidden_layers))
@@ -124,7 +124,7 @@ def test_init_is_torch_default_law_from_the_generator():
     def model(seed):
         return NeuralJumpODE(input_dim=1, hidden_dim=50, output_dim=1,
                              num_moments=2, shared_network=True,
-                             generator=torch.Generator().manual_seed(seed))
+                             device="cpu", generator=torch.Generator().manual_seed(seed))
     a, b, c = model(0), model(0), model(1)
     for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
                                   c.parameters()):

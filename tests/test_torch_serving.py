@@ -34,7 +34,7 @@ SEPARATE = dict(PRODUCTION, hidden_dim=16, shared_network=False,
 def bridged(use_pallas=False, seed=0, **kw):
     jax_model = JaxModel(use_pallas=use_pallas, **kw)
     params = jax_model.init(jax.random.PRNGKey(seed))
-    port = NeuralJumpODE(**kw)
+    port = NeuralJumpODE(**kw, device="cpu")
     port.load_state_dict(state_dict_from_jax(
         params, num_moments=kw["num_moments"],
         shared_network=kw["shared_network"],
@@ -133,10 +133,12 @@ def test_gap_budget_error_matches_jax():
                              jnp.asarray(q))
     with pytest.raises(ValueError, match="substep budget"):
         port.predict_at(t, v, q)
-    port_dbg = NeuralJumpODE(**dict(cfg, max_substeps=3), debug_checks=True)
+    port_dbg = NeuralJumpODE(**dict(cfg, max_substeps=3), debug_checks=True,
+                             device="cpu")
     with torch.no_grad(), pytest.raises(ValueError, match="budget exhausted"):
         port_dbg._integrate_gap(torch.zeros(1, 1, 8), torch.ones(1, 1),
-                                torch.zeros(1), torch.full((1,), 0.2))
+                                torch.zeros(1), torch.full((1,), 0.2),
+                                inference=True)
 
 
 @pytest.mark.parametrize("cfg", [dict(PRODUCTION, hidden_dim=8),
@@ -146,17 +148,18 @@ def test_debug_checks_cover_both_paths(cfg):
     """debug_checks neither changes the route nor the result; the deficit
     check reads t_L from the kernel's wrapper and from the plain loop."""
     _, _, port = bridged(False, **cfg)
-    port_dbg = NeuralJumpODE(**cfg, debug_checks=True)
+    port_dbg = NeuralJumpODE(**cfg, debug_checks=True, device="cpu")
     port_dbg.load_state_dict(port.state_dict())
     times, values, query = ragged_request(5)
     args = (*pad_ragged(times, values)[:2], query, pad_ragged(times, values)[2])
     torch.testing.assert_close(port_dbg.predict_at(*args)["raw"],
                                port.predict_at(*args)["raw"], rtol=0, atol=0)
-    short = NeuralJumpODE(**dict(cfg, max_substeps=3), debug_checks=True)
+    short = NeuralJumpODE(**dict(cfg, max_substeps=3), debug_checks=True,
+                          device="cpu")
     with torch.no_grad(), pytest.raises(ValueError, match="budget exhausted"):
         short._integrate_gap(torch.zeros(short.k_hidden, 1, cfg["hidden_dim"]),
                              torch.ones(1, 1), torch.zeros(1),
-                             torch.full((1,), 0.2))
+                             torch.full((1,), 0.2), inference=True)
 
 
 def test_kernel_weights_follow_the_parameters():
@@ -218,4 +221,4 @@ def test_filter_unseen_streams_read_zero():
 ])
 def test_unported_paths_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
-        NeuralJumpODE(**PRODUCTION, **kw)
+        NeuralJumpODE(**PRODUCTION, **kw, device="cpu")

@@ -90,7 +90,7 @@ def test_simulate_batch_is_deterministic_in_the_generator_seed():
 
 
 @pytest.mark.parametrize("process,kw", [("ornstein_uhlenbeck", {}),
-                                        ("black_scholes", {"obs_only": True})])
+                                        ("hybrid_ou_bs", {"obs_only": True})])
 def test_unported_processes_raise(process, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         simulate_batch(4, process, generator=gen(0), **kw)
@@ -100,3 +100,69 @@ def test_values_are_float32_and_finite():
     b = simulate_batch(16, "black_scholes", generator=gen(6), sigma=0.5)
     assert b.values.dtype == torch.float32
     assert np.isfinite(b.values.numpy()).all()
+
+
+def test_obs_only_bs_log_increments_have_the_law():
+    """Obs-only values: each standardized log-increment is N(0, 1) given its
+    gap, (log dX - (mu - sigma^2/2) dt) / (sigma sqrt(dt)); Kolmogorov-Smirnov
+    at the 1e-6 level, and the first value is x0."""
+    from scipy import stats
+    mu, sigma = 0.1, 0.5
+    b = simulate_batch(4000, "black_scholes", 0.1, obs_only=True,
+                       generator=gen(7), mu=mu, sigma=sigma, x0=1.0)
+    assert b.paths is None and b.values.shape == (4000, 10, 1)
+    assert torch.all(b.values[:, 0, 0] == 1.0)
+    dt = (b.times[:, 1:] - b.times[:, :-1]).double()
+    inc = torch.diff(torch.log(b.values[..., 0].double()), dim=1)
+    z = ((inc - (mu - 0.5 * sigma ** 2) * dt) / (sigma * dt.sqrt())).numpy()
+    assert stats.kstest(z.ravel(), "norm").pvalue > 1e-6
+
+
+def test_obs_only_times_are_index_arithmetic():
+    """times = obs_idx * (T / n_steps) in f32 arithmetic, bitwise the JAX
+    package's expression on the same indices (sde.py:505)."""
+    import jax.numpy as jnp
+    T, n_steps = 1.0, 100
+    b = simulate_batch(64, "black_scholes", 0.1, obs_only=True,
+                       generator=gen(8), T=T, n_steps=n_steps)
+    jax_times = np.asarray(jnp.asarray(b.obs_idx.numpy()).astype(jnp.float32)
+                           * (jnp.float32(T) / jnp.float32(n_steps)))
+    np.testing.assert_array_equal(b.times.numpy(), jax_times)
+    assert torch.all(b.obs_idx[:, 0] == 0) and torch.all(
+        b.obs_idx[:, -1] == n_steps)
+    assert torch.all(b.mask)
+
+
+@pytest.mark.parametrize("K,method,masked", [
+    (1, "direct", False), (2, "direct", True), (2, "second_moment", False),
+    (4, "direct", True), (4, "second_moment", False)])
+def test_moments_at_obs_bs_matches_jax(K, method, masked):
+    """Closed-form BS truths (after/before jump, variance or second moment,
+    and the extended higher moments) equal the JAX package's on the same
+    inputs to 1e-6 (f32 exp/pow rounding).  The extended central moments
+    (direct, moments >= 2) sum a binomial expansion whose f32 terms reach
+    comb(4, 2) X^4 and cancel to about 1e-2, so an ulp of exp in either
+    package moves them by up to about 1e-5: atol 2e-5 there."""
+    from njode_tpu.simulation.moments import moments_at_obs as jax_moments
+    from njode_tpu_torch.simulation import moments_at_obs
+    rng = np.random.default_rng(K)
+    times = np.sort(rng.uniform(0, 1, (6, 7)), axis=1).astype(np.float32)
+    times[:, 0] = 0.0
+    values = rng.lognormal(0, 0.3, (6, 7, 1)).astype(np.float32)
+    mask = np.ones((6, 7), bool)
+    if masked:
+        mask[:2, 5:] = False
+    kw = dict(num_moments=K, variance_method=method, mu=0.1, sigma=0.5,
+              n_train=3)
+    ours = moments_at_obs(torch.tensor(times), torch.tensor(values),
+                          "black_scholes", mask=torch.tensor(mask), **kw)
+    ref = jax_moments(times, values, "black_scholes", mask=mask, **kw)
+    for a, b in zip(ours, ref):
+        a, b = a.numpy(), np.asarray(b)
+        np.testing.assert_allclose(a[..., :2], b[..., :2], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(
+            a[..., 2:], b[..., 2:], rtol=1e-6,
+            atol=2e-5 if method == "direct" else 1e-6)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        moments_at_obs(torch.tensor(times), torch.tensor(values), "heston")
