@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (phase 10 two); any failure is an uncaught exception
-and a nonzero exit:
+Phases, one line each; each prints its wall time, and any failure is an
+uncaught exception and a nonzero exit:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build:  compile both CUDA kernels from njode_tpu_torch/ops/csrc, one
-   nvcc per source, started together; the gap kernel's line.
+2. build:  compile the four CUDA sources from njode_tpu_torch/ops/csrc, one
+   nvcc per source, started together; the gap kernel's ptxas line.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
    over activation x scaling x K_h x d_h x rows, zero/partial gaps and
    max_substeps=0: h to rtol 1e-4 / atol 1e-5 (fma contraction and
@@ -21,7 +21,7 @@ and a nonzero exit:
    against predict_at on the same history.
 6. times (CUDA events, median of 30 after warm-up): kernel vs plain,
    predict_at queries/s, filter tick latency.
-7. build: the training kernel's build time and ptxas line (built in 2).
+7. build: the training kernel's ptxas line (built in 2).
 8. training kernel vs plain: fused_train_run against its plain version over
    8 steps of N = 10 slots, batch 128 with a trajectory-masked last
    minibatch, K in (1, 2) x H in (32, 64, 128) x direct/second_moment x
@@ -41,14 +41,39 @@ and a nonzero exit:
    one fused_train_run over all epochs' packed data, as bench.py runs it;
    the composed path (Trainer.train with the same validation) and the plain
    version, each warmed by one epoch, then 20 epochs timed and scaled to
-   200;
-   val MSE of the trained model against the closed-form moments
+   200; val MSE of the trained model against the closed-form moments
    (bench.py:435-455).
+11. build: the walk sources' ptxas summaries (built in 2).
+12. walk kernels vs plain: walk_gaps_fused (forward, and its backward
+   through autograd) against walk_gaps_reference, d_h in (12, 50, 125) x
+   rows in (16, 256, 2000) x K_h in (1, 2) x three activation/scaling
+   pairs, M = 100, ragged rows and slots at t = T: the forward at rtol 1e-4
+   / atol 1e-5, every cotangent within 1e-3 of its norm (section 6 of
+   PERF.md says why not entrywise).
+13. walk-train kernel vs plain: fused_walk_train_run against its plain
+   version, 8 steps at the production shape (H 50, N 10, batch 256,
+   M 100), then K x euler/heun/rk4 x direct/second_moment at batch 64, the
+   last minibatch trajectory-masked: losses and params at rtol 1e-4 / atol
+   1e-5, Adam m and v within 1e-3 of their norm.
+14. the production training path: run_experiment of the production config
+   (scripts/run_black_scholes.sh's flags through build_config, --kernels
+   auto) for 3 epochs, then resumed to 5, one walk-train launch per epoch;
+   one epoch of Trainer.train on the composed grid-walk path (the walk
+   kernels under autograd); then one epoch of identical packed data through
+   the walk-train kernel and the composed path from identical weights.
+15. production times: the full production recipe (200 epochs x 10,000
+   fresh trajectories) through Trainer.train with the walk-train kernel
+   (all epochs when they fit in 90 s, else 20 scaled); the composed
+   grid-walk path and the per-gap composed path, each warmed by one epoch,
+   2 timed and scaled; one epoch call of the kernel and of its plain
+   version; rows 7-8 at their main-path shapes; the validation A/B that
+   sets the walk's row cap; val MSE against the closed-form moments.
 
 Each kernel's launch count is reset just before its main path (phases 4-5
-for the gap kernel, phase 9 for the training kernel) and read just after.
-The last line is the JSON result; the line before it lists the kernels.
-There is no CPU run: without a CUDA device the script fails.
+for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
+the walk-train kernel) and read just after.  The last line is the JSON
+result; the line before it lists the kernels.  There is no CPU run:
+without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -66,8 +91,9 @@ import torch
 
 from njode_tpu_torch import NeuralJumpODE, NJODEFilter
 from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
-from njode_tpu_torch.ops import gap_scan
+from njode_tpu_torch.ops import gap_scan, walk_scan
 from njode_tpu_torch.ops import train_kernel as tk
+from njode_tpu_torch.ops import walk_train as wt
 from njode_tpu_torch.simulation import moments_at_obs, simulate_batch
 from njode_tpu_torch.utils import (Trainer, create_data_loaders, make_adam,
                                    run_experiment)
@@ -79,6 +105,9 @@ REPLACES = "njode_tpu/ops/gap_scan.py:201"
 TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/train_run.cu"
 TRAIN_REPLACES = ("njode_tpu/ops/train_kernel.py:223 (_train_kernel), "
                   "njode_tpu/ops/train_kernel.py:478 (_train_kernel_dual)")
+WALK_SOURCE = "njode_tpu_torch/ops/csrc/walk_scan.cu"
+WALK_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/walk_train.cu"
+SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train"]
 # the H100 SXM's published peaks: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -98,17 +127,34 @@ def device_phase() -> tuple[torch.device, str]:
 
 
 def build_phase() -> float:
-    """Both kernels, one nvcc each, started together; prints the gap
-    kernel's line and returns the build time."""
+    """All four kernel sources, one nvcc each, started together; prints the
+    gap kernel's line and returns the build time."""
     from njode_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build(["gap_scan", "train_run"])
+    _build.build(SOURCES)
     gap_scan._load_kernel()
     tk._load_kernel()
+    walk_scan._load_kernel()
+    wt._load_kernel()
     took = time.perf_counter() - t0
-    print(f"build: gap_scan.cu in {took:.2f} s (with train_run.cu, in "
-          f"parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
+    print(f"build: gap_scan.cu in {took:.2f} s (with {', '.join(SOURCES[1:])}"
+          f", in parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
     return took
+
+
+def ptxas_summary(name: str) -> str:
+    """Registers and spills over a source's kernels (one line for the many
+    template instances)."""
+    import re
+    from njode_tpu_torch.ops import _build
+    log = _build.BUILD_LOG.get(name, "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    if not regs:
+        return "no ptxas output (built before this process)"
+    return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+            f"spill bytes max {max(spills, default=0)}")
 
 
 def ptxas_line(name: str) -> str:
@@ -563,7 +609,8 @@ def kernel_vs_composed_phase(dev: torch.device) -> float:
     return err
 
 
-def val_metrics(model: NeuralJumpODE, dev: torch.device) -> tuple:
+def val_metrics(model: NeuralJumpODE, dev: torch.device,
+                mw=(1.0, 10.0)) -> tuple:
     """bench.py:435-455: 200 fresh grid-simulated trajectories; MSE of the
     before-jump mean and variance (direct: W^2) against the closed-form
     truths past slot 0, and the relative loss."""
@@ -578,9 +625,9 @@ def val_metrics(model: NeuralJumpODE, dev: torch.device) -> tuple:
         mse_var = float(((before[:, 1:, :, 1] ** 2 - ytb[:, 1:, :, 1]) ** 2)
                         .mean())
         L_model = float(nj_ode_loss_dense(vb.values, preds, before, vb.mask,
-                                          moment_weights=[1.0, 10.0]))
+                                          moment_weights=list(mw)))
         L_true = float(nj_ode_loss_dense(vb.values, yt, ytb, vb.mask,
-                                         moment_weights=[1.0, 10.0]))
+                                         moment_weights=list(mw)))
     return mse_mean, mse_var, (L_model - L_true) / max(L_true, 1e-8)
 
 
@@ -687,9 +734,454 @@ def training_times_phase(dev: torch.device, card: str, tmp: Path) -> tuple:
             bound_ms, bound_by)
 
 
+# ------------------------------------------------------ production training
+
+PROD_H, PROD_N, PROD_BS, PROD_M, PROD_DT = 50, 10, 256, 100, 0.01
+PROD_MW = (1.0, 15.0)
+PROD_TRAIN, PROD_VAL = 10_000, 2_000
+PROD_EPOCHS = 200
+PROD_BUDGET_S = 90.0         # the kernel arm runs all epochs if they fit
+WALK_ACTS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "identity"))
+
+
+def production_config(n_epochs: int, name: str) -> dict:
+    """What experiments/common.py build_config makes from
+    scripts/run_black_scholes.sh's flags (10,000 / 2,000 trajectories,
+    batch 256, hidden 50, lr 1e-3, two moments weighted [1, 15], obs
+    fraction 0.1, dt_ode_step 0.01, shared network, print every 5) and the
+    CLI's other defaults (--kernels auto, --grid-walk auto)."""
+    cfg = default_config(n_epochs, name)
+    cfg.update(hidden_dim=PROD_H, batch_size=PROD_BS, dt_ode_step=PROD_DT,
+               moment_weights=list(PROD_MW), shared_network=True)
+    cfg["data"] = dict(cfg["data"], n_train=PROD_TRAIN, n_val=PROD_VAL)
+    return cfg
+
+
+def walk_case(gen: torch.Generator, K: int, B: int, d: int,
+              dev: torch.device) -> dict:
+    """Grid slots (10 per row, slot 0 at t = 0) over M = 100 cells, every
+    third row ending at t = T (cell M) and two rows ragged; jump states,
+    ODEFunc weights (torch's default law) and an output cotangent."""
+    N, M = PROD_N, PROD_M
+    cells = torch.sort(torch.stack([torch.cat([
+        torch.zeros(1), torch.randperm(M - 1, generator=gen)[:N - 1] + 1.0])
+        for _ in range(B)]), dim=1).values
+    cells[::3, -1] = M
+    mask = torch.ones(B, N, dtype=torch.bool)
+    for b, n in ((1 % B, 6), (2 % B, 8)):
+        mask[b, n:] = False
+        cells[b, n:] = cells[b, n - 1]
+
+    def uni(*shape):
+        return (torch.rand(shape, generator=gen) * 2 - 1) / shape[-1] ** 0.5
+    case = {"times": cells * PROD_DT, "mask": mask,
+            "x": torch.exp(torch.randn(B, N, 1, generator=gen) * 0.3),
+            "hj": torch.randn(K, B, N, d, generator=gen) * 0.5,
+            "w": [uni(K, d, d + 3), uni(K, d), uni(K, d, d), uni(K, d)],
+            "ct": torch.randn(K, B * (N - 1), d, generator=gen)}
+    return {k: ([w.to(dev) for w in v] if k == "w" else v.to(dev))
+            for k, v in case.items()}
+
+
+def walk_run(c: dict, act: str, scale: str, fn, grad: bool = True):
+    """h_minus and, with ``grad``, the cotangents of h_jump and the four
+    weights through ``fn`` (walk_gaps_fused or walk_gaps_reference)."""
+    sc = {"identity": lambda v: v, "tanh": torch.tanh}[scale]
+    hj = c["hj"].detach().requires_grad_(grad)
+    w = [x.detach().requires_grad_(grad) for x in c["w"]]
+    g_idx = torch.round(c["times"] / PROD_DT).long()
+    with torch.set_grad_enabled(grad):
+        out = fn(hj, sc(c["x"]), c["times"], c["mask"], g_idx, w, PROD_DT,
+                 PROD_M, act, scale)
+        if not grad:
+            return [out]
+        return [out.detach()] + list(torch.autograd.grad(out, [hj, *w],
+                                                         c["ct"]))
+
+
+GRAD_RTOL = 1e-3
+
+
+def assert_close_norm(a, b, what: str, rtol: float = GRAD_RTOL) -> float:
+    """||a - b|| <= rtol ||b|| (Frobenius); returns the largest abs err.
+    For gradients through the walk an entrywise bound does not hold: they
+    run back through up to 100 compounded cells, where a relu (or selu)
+    kink at a pre-activation within rounding of zero turns the other way
+    under another summation order and moves isolated entries; at 2,000
+    rows that reaches 1e-4 of the norm."""
+    a, b = a.cpu().double(), b.cpu().double()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{what}: non-finite values")
+    rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    if rel > rtol:
+        raise AssertionError(f"{what}: relative error {rel:.3e} beyond "
+                             f"rtol={rtol} (max abs err "
+                             f"{float((a - b).abs().max()):.3e})")
+    return float((a - b).abs().max())
+
+
+def walk_kernel_phase(dev: torch.device) -> tuple[float, float]:
+    """Rows 7-8 against walk_gaps_reference on the card: forward h_minus and
+    every backward cotangent, act/scaling x K_h x d_h x rows, ragged rows
+    and endpoint slots in every case."""
+    gen = torch.Generator().manual_seed(21)
+    worst_f = worst_b = 0.0
+    n = 0
+    for d in (12, 50, 125):
+        for B in (16, 256, 2000):
+            for K in (1, 2):
+                for act, scale in WALK_ACTS:
+                    c = walk_case(gen, K, B, d, dev)
+                    ours = walk_run(c, act, scale, walk_scan.walk_gaps_fused)
+                    ref = walk_run(c, act, scale,
+                                   walk_scan.walk_gaps_reference)
+                    torch.cuda.synchronize()
+                    where = f"d_h={d} B={B} K={K} {act}/{scale}"
+                    worst_f = max(worst_f, assert_close(
+                        ours[0], ref[0], f"walk h_minus at {where}"))
+                    for name, a, b in zip(("h_jump", "W1", "b1", "W2", "b2"),
+                                          ours[1:], ref[1:]):
+                        worst_b = max(worst_b, assert_close_norm(
+                            a, b, f"walk d{name} at {where}"))
+                    n += 1
+    print(f"walk kernels vs plain: {n} cases (d_h in (12, 50, 125) x rows in "
+          f"(16, 256, 2000) x K_h in (1, 2) x relu/identity, tanh/tanh, "
+          f"selu/identity; M={PROD_M}, N={PROD_N}, ragged rows and slots at "
+          f"t=T): forward max abs err {worst_f:.3e} (rtol {RTOL} / atol "
+          f"{ATOL}); backward (h_jump, W1, b1, W2, b2) max abs err "
+          f"{worst_b:.3e} (each within {GRAD_RTOL} of its norm)", flush=True)
+    return worst_f, worst_b
+
+
+def walk_train_kwargs(K: int, method: str, solver: str, bs: int) -> dict:
+    return dict(n_slots=PROD_N, num_moments=K, batch_size=bs,
+                hidden_dim=PROD_H, dt_ode_step=PROD_DT, max_substeps=PROD_M,
+                lr=1e-3, weight_decay=5e-4, moment_weights=PROD_MW[:K],
+                variance_method=method, ode_solver=solver)
+
+
+def walk_model(dev, K: int = 2, solver: str = "euler", seed: int = 0,
+               grid_walk: bool = True) -> NeuralJumpODE:
+    return NeuralJumpODE(1, PROD_H, 1, num_moments=K, shared_network=True,
+                         dt_ode_step=PROD_DT, t_max=1.0, ode_solver=solver,
+                         grid_walk=grid_walk, device=dev,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def walk_train_phase(dev: torch.device) -> float:
+    """Row 13 against fused_walk_train_run_reference on the card: 8 steps
+    at the production shape, then K x solver x variance method over 3 steps
+    of batch 64; the last minibatch trajectory-masked in each."""
+    worst, n = 0.0, 0
+    cases = [(2, "direct", "euler", PROD_BS, 8)]
+    cases += [(K, method, solver, 64, 3) for K in (1, 2)
+              for solver in ("euler", "heun", "rk4")
+              for method in ("direct", "second_moment")]
+    for K, method, solver, bs, G in cases:
+        model = walk_model(dev, K, solver, seed=K + G)
+        data = train_data(dev, G * bs, bs, 31 + n, n_valid=G * bs - bs // 3)
+        kw = walk_train_kwargs(K, method, solver, bs)
+        state = wt.init_walk_state(model)
+        with torch.no_grad():
+            ours = wt.fused_walk_train_run(state, data, **kw)
+            torch.cuda.synchronize()
+        ref = wt.fused_walk_train_run_reference(state, data, **kw)
+        where = f"walk-train K={K} {method} {solver} batch {bs}"
+        worst = max(worst, assert_close(ours[1], ref[1], f"losses at {where}"),
+                    assert_close(ours[0].params, ref[0].params,
+                                 f"params at {where}"))
+        for a, b, what in ((ours[0].m, ref[0].m, "Adam m"),
+                           (ours[0].v, ref[0].v, "Adam v")):
+            worst = max(worst, assert_close_norm(a, b, f"{what} at {where}"))
+        n += 1
+    print(f"walk-train kernel vs plain: {n} cases (8 steps at H={PROD_H}, "
+          f"N={PROD_N}, batch {PROD_BS}, M={PROD_M}; K in (1, 2) x euler/"
+          f"heun/rk4 x direct/second_moment at batch 64, 3 steps; last "
+          f"minibatch a third masked): losses and params at rtol {RTOL} / "
+          f"atol {ATOL}, Adam m and v each within {GRAD_RTOL} of its norm; "
+          f"max abs err {worst:.3e}", flush=True)
+    return worst
+
+
+def production_path_phase(dev: torch.device, tmp: Path) -> None:
+    """run_experiment of the production config, 3 epochs then a resume to
+    5.  The caller sets the launch counts to 0 before and reads them after:
+    every step goes through the walk-train kernel, and validation (a walk
+    without autograd) takes the per-gap route with the gap kernel, so the
+    walk kernels do not launch here."""
+    res = run_experiment(production_config(3, "production_bs"),
+                         save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist = res["history"]["train_loss"]
+    after3 = wt.LAUNCHES
+    if after3 != 3 or len(hist) != 3:
+        raise AssertionError(f"3 production epochs gave {after3} walk-train "
+                             f"launches and {len(hist)} losses")
+    if not all(math.isfinite(x) for x in hist + res["history"]["val_loss"]):
+        raise AssertionError(f"non-finite production losses {hist}")
+    res5 = run_experiment(production_config(5, "production_bs"),
+                          save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist5 = res5["history"]["train_loss"]
+    if wt.LAUNCHES != 5 or len(hist5) != 5 or hist5[:3] != hist:
+        raise AssertionError(f"the resume to 5 epochs gave {wt.LAUNCHES} "
+                             f"launches in all and {len(hist5)} losses")
+    if walk_scan.LAUNCHES_FWD or walk_scan.LAUNCHES_BWD or not gap_scan.LAUNCHES:
+        raise AssertionError(
+            f"production validation launched the walk kernels "
+            f"{walk_scan.LAUNCHES_FWD}/{walk_scan.LAUNCHES_BWD} times and the "
+            f"gap kernel {gap_scan.LAUNCHES} times (expected 0/0 and > 0)")
+    print(f"production training path: run_experiment (hidden {PROD_H}, "
+          f"shared, K=2, dt {PROD_DT}, batch {PROD_BS}, {PROD_TRAIN:,} fresh "
+          f"trajectories per epoch, {PROD_VAL:,} validation) 3 epochs: train "
+          f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, val "
+          f"{res['history']['val_loss'][-1]:.4f}; resumed to 5 (loss "
+          f"{hist5[-1]:.4f}); launches in this window: walk-train "
+          f"{wt.LAUNCHES}, gap kernel (per-gap validation) "
+          f"{gap_scan.LAUNCHES}, walk forward/backward "
+          f"{walk_scan.LAUNCHES_FWD}/{walk_scan.LAUNCHES_BWD}", flush=True)
+
+
+def composed_grid_walk_phase(dev: torch.device) -> None:
+    """One epoch of Trainer.train on the composed grid-walk path
+    (use_train_kernel=False: apply_loss with the walk kernels under
+    autograd, torch.optim.Adam): the path of rows 7-8.  The caller sets the
+    launch counts to 0 before and reads them after."""
+    cfg = production_config(1, "composed")
+    model = walk_model(dev, seed=3)
+    trainer = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                      ignore_first_continuity=True,
+                      moment_weights=list(PROD_MW), use_train_kernel=False)
+    train_fn, _ = create_data_loaders(base_seed=5, device=dev, **cfg["data"])
+    comp = trainer.train(train_fn, n_epochs=1, batch_size=PROD_BS,
+                         print_every=5)
+    torch.cuda.synchronize()
+    steps = -(-PROD_TRAIN // PROD_BS)
+    if (walk_scan.LAUNCHES_FWD != steps or walk_scan.LAUNCHES_BWD != steps
+            or wt.LAUNCHES or not math.isfinite(comp["train_loss"][0])):
+        raise AssertionError(
+            f"the composed grid-walk epoch launched the walk kernels "
+            f"{walk_scan.LAUNCHES_FWD}/{walk_scan.LAUNCHES_BWD} times "
+            f"(expected {steps} each) and the walk-train kernel "
+            f"{wt.LAUNCHES} times, loss {comp['train_loss'][0]}")
+    print(f"composed grid-walk path: Trainer.train, one epoch of "
+          f"{PROD_TRAIN:,} trajectories ({steps} steps of {PROD_BS}), loss "
+          f"{comp['train_loss'][0]:.4f}; launches in this window: walk "
+          f"forward {walk_scan.LAUNCHES_FWD}, backward "
+          f"{walk_scan.LAUNCHES_BWD}, walk-train {wt.LAUNCHES}", flush=True)
+
+
+def walk_twin_vs_composed_phase(dev: torch.device) -> float:
+    """One epoch of identical packed data (2,560 trajectories, 10 steps of
+    256, the last a third masked) through the walk-train kernel and through
+    apply_loss + autograd (the walk kernels) + Adam."""
+    model = walk_model(dev, seed=6)
+    data = train_data(dev, 10 * PROD_BS, PROD_BS, 41,
+                      n_valid=10 * PROD_BS - PROD_BS // 3)
+    kw = walk_train_kwargs(2, "direct", "euler", PROD_BS)
+    with torch.no_grad():
+        state, k_losses = wt.fused_walk_train_run(wt.init_walk_state(model),
+                                                  data, **kw)
+    opt = make_adam(model.parameters(), 1e-3, 5e-4)
+    c_losses = []
+    N = PROD_N
+    for g in range(data.shape[0] // PROD_BS):
+        rows = data[g * PROD_BS:(g + 1) * PROD_BS]
+        opt.zero_grad()
+        loss = model.apply_loss(
+            rows[:, N:2 * N], rows[:, :N, None], traj_mask=rows[:, 2 * N] > 0,
+            ignore_first_continuity=True, moment_weights=list(PROD_MW))
+        loss.backward()
+        opt.step()
+        c_losses.append(loss.detach())
+    err = assert_close(k_losses, torch.stack(c_losses),
+                       "walk-train kernel vs composed per-step losses")
+    err = max(err, assert_close(state.params, wt.init_walk_state(model).params,
+                                "walk-train kernel vs composed params"))
+    print(f"walk-train kernel vs composed grid-walk path: one epoch (10 "
+          f"steps) from identical weights, losses and params max abs err "
+          f"{err:.3e}", flush=True)
+    return err
+
+
+def walk_flops_per_row(d: int, M: int) -> float:
+    """The walk's forward products per row and network: 2 M ((d+3) d + d^2)
+    (the backward counts twice that)."""
+    return 2.0 * M * ((d + 3) * d + d * d)
+
+
+def timed_epochs(trainer, train_fn, val_fn, cfg, n: int) -> float:
+    """Seconds of one Trainer.train call of n epochs (epochs 0..n-1 of the
+    loaders; the trainer's histories grow by n)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(train_fn, val_fn, n_epochs=n, batch_size=PROD_BS,
+                  print_every=10_000, config=cfg)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def production_times_phase(dev: torch.device, card: str) -> tuple:
+    """Host clock around synchronized Trainer.train calls; CUDA events for
+    the walk-train kernel.  Returns its (ms, plain ms, bound ms, bound_by)."""
+    E = PROD_EPOCHS
+    cfg = production_config(E, "timed")
+    train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
+                                           **cfg["data"])
+    model = walk_model(dev, seed=0)
+    trainer = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                      ignore_first_continuity=True,
+                      moment_weights=list(PROD_MW), use_train_kernel=True)
+    first = timed_epochs(trainer, train_fn, val_fn, cfg, 3) / 3
+    n_k = E - 3 if first * E <= PROD_BUDGET_S else 20
+    kern_s = timed_epochs(trainer, train_fn, val_fn, cfg, n_k) * E / n_k
+    mse_mean, mse_var, rel = val_metrics(model, dev, PROD_MW)
+    trained = len(trainer.train_losses)
+
+    def composed_arm(grid_walk: bool) -> float:
+        m = walk_model(dev, seed=0, grid_walk=grid_walk)
+        tr = Trainer(m, make_adam(m.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True,
+                     moment_weights=list(PROD_MW), use_train_kernel=False)
+        timed_epochs(tr, train_fn, val_fn, cfg, 1)
+        return timed_epochs(tr, train_fn, val_fn, cfg, 2) * E / 2
+    walk_s = composed_arm(True)
+    gap_s = composed_arm(False)
+
+    # one epoch call of the kernel and of its plain version
+    n_rows = -(-PROD_TRAIN // PROD_BS) * PROD_BS
+    data = train_data(dev, n_rows, PROD_BS, 51, n_valid=PROD_TRAIN)
+    kw = walk_train_kwargs(2, "direct", "euler", PROD_BS)
+    state = wt.init_walk_state(model)
+    with torch.no_grad():
+        run_k = lambda: wt.fused_walk_train_run(state, data, **kw)
+        k_ms = time_ms(run_k, warmup=2, reps=10)
+    run_p = lambda: wt.fused_walk_train_run_reference(state, data, **kw)
+    p_ms = time_ms(run_p, warmup=0, reps=1)
+    with torch.no_grad():
+        k2_ms = time_ms(run_k, warmup=0, reps=10)
+    fwd = 2 * (PROD_N * (PROD_H + PROD_H ** 2)
+               + (2 * PROD_N - 1) * (PROD_H ** 2 + 2 * PROD_H)
+               + PROD_M * ((PROD_H + 3) * PROD_H + PROD_H ** 2))
+    P = wt.n_params(PROD_H, 2)
+    t_bound = bound_of(3 * fwd * PROD_TRAIN,
+                       4 * (data.numel() + 6 * P + 4 + data.shape[0]
+                            // PROD_BS))
+
+    print(f"production times on {card}: the recipe ({E} epochs x "
+          f"{PROD_TRAIN:,} fresh trajectories, batch {PROD_BS}, validation "
+          f"{PROD_VAL:,}) through Trainer.train with the walk-train kernel "
+          f"{kern_s:.3f} s = {E * PROD_TRAIN / kern_s:.0f} traj/s ({n_k} "
+          f"epochs timed after 3 at {first:.4f} s each, scaled to {E}); "
+          f"composed grid-walk path {walk_s:.3f} s = "
+          f"{E * PROD_TRAIN / walk_s:.0f} traj/s; per-gap composed path "
+          f"{gap_s:.3f} s = {E * PROD_TRAIN / gap_s:.0f} traj/s (each 2 "
+          f"epochs after one, scaled to {E})", flush=True)
+    print(f"walk-train kernel on {card}: one epoch call ({n_rows // PROD_BS} "
+          f"steps of {PROD_BS}) {k_ms:.3f} / {k2_ms:.3f} ms = "
+          f"{k_ms / (n_rows // PROD_BS):.4f} ms per step; plain version "
+          f"{p_ms:.3f} ms; bound {t_bound[0]:.4f} ms ({t_bound[1]}); val MSE "
+          f"after {trained} epochs: mean {mse_mean:.3e} var {mse_var:.3e}, "
+          f"relative loss {rel:.4f}", flush=True)
+    return (statistics.median([k_ms, k2_ms]), p_ms, *t_bound)
+
+
+def walk_times_phase(dev: torch.device, card: str) -> dict:
+    """CUDA events for rows 7-8 against their plain versions, and the
+    validation A/B.  Returns each kernel's (ms, plain ms, bound ms,
+    bound_by)."""
+    # rows 7-8 at the shape their path launches them: a minibatch of 256
+    # rows under autograd, the forward writing its residuals
+    c_tr = walk_case(torch.Generator().manual_seed(62), 1, PROD_BS, PROD_H,
+                     dev)
+    hj = c_tr["hj"].detach().requires_grad_()
+    w = [x.detach().requires_grad_() for x in c_tr["w"]]
+    g_idx = torch.round(c_tr["times"] / PROD_DT).long()
+
+    def walk_fwd(fn):
+        return fn(hj, c_tr["x"], c_tr["times"], c_tr["mask"], g_idx, w,
+                  PROD_DT, PROD_M, "relu", "identity")
+    f_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_fused))
+    fp_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_reference),
+                    warmup=1, reps=5)
+    out = walk_fwd(walk_scan.walk_gaps_fused)
+    b_ms = time_ms(lambda: torch.autograd.grad(out, [hj, *w], c_tr["ct"],
+                                               retain_graph=True))
+    ref_out = walk_fwd(walk_scan.walk_gaps_reference)
+    bp_ms = time_ms(lambda: torch.autograd.grad(ref_out, [hj, *w],
+                                                c_tr["ct"],
+                                                retain_graph=True),
+                    warmup=1, reps=5)
+    d, M, S, R = PROD_H, PROD_M, PROD_N - 1, PROD_BS
+    per_row = walk_flops_per_row(d, M)
+    w_bytes = 4 * (2 * d * d + 6 * d)
+    # forward: h_jump, x, t, both cells and the weights in; h_minus and
+    # the residuals (h, t, x per cell) out
+    f_bytes = 4 * R * (PROD_N * (d + 4) + S * d + M * (d + 2)) + w_bytes
+    f_bound = bound_of(per_row * R, f_bytes)
+    b_bytes = 4 * R * (S * d + M * (d + 2) + PROD_N * (d + 2)) + 2 * w_bytes
+    b_bound = bound_of(2 * per_row * R, b_bytes)
+
+    # the validation A/B behind the model's rule that a walk without
+    # autograd on the card takes the per-gap route: under no_grad, on the
+    # same jump states, the walk kernel alone and with the grid guard
+    # (_check_grid_alignment, one host read) that the walk route of apply
+    # runs before it, against the per-gap route (gap kernel), at 256 and
+    # 2,000 rows
+    ab = {}
+    m_ab = walk_model(dev, seed=9)
+    for rows in (PROD_BS, PROD_VAL):
+        vb = simulate_batch(rows, "black_scholes", 0.1, True,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                rows), device=dev, mu=0.1, sigma=0.5, x0=1.0)
+        times, values = vb.times, vb.values
+        B, N = times.shape
+        with torch.no_grad():
+            h_j = m_ab._jump(values.reshape(B * N, 1)).reshape(1, B, N, d)
+            g_ab = torch.round(times / PROD_DT).long()
+            h0 = h_j[:, :, :-1].reshape(1, B * (N - 1), d)
+
+            def walk_arm():
+                return walk_scan.walk_gaps_fused(
+                    h_j, m_ab._scale(values), times, None, g_ab,
+                    m_ab._ode_weights(), PROD_DT, PROD_M, m_ab._act_key,
+                    m_ab._scale_key)
+
+            def per_gap_arm():
+                return m_ab._integrate_gap(
+                    h0, values[:, :-1].reshape(-1, 1),
+                    times[:, :-1].reshape(-1), times[:, 1:].reshape(-1),
+                    inference=True)
+            def guarded_walk_arm():
+                m_ab._check_grid_alignment(times, None)
+                return walk_arm()
+            diff = float((walk_arm() - per_gap_arm()).abs().max())
+            ab[rows] = (time_ms(walk_arm), time_ms(guarded_walk_arm),
+                        time_ms(per_gap_arm), diff)
+    print(f"walk kernels on {card}, at {PROD_BS} rows under autograd: "
+          f"forward with residuals {f_ms:.4f} ms (plain {fp_ms:.4f} ms, "
+          f"bound {f_bound[0]:.4f} ms {f_bound[1]}); backward {b_ms:.4f} ms "
+          f"(plain {bp_ms:.4f} ms, bound {b_bound[0]:.4f} ms {b_bound[1]}); "
+          f"validation A/B without autograd, walk kernel alone / with the "
+          f"grid guard vs per-gap route (gap kernel): "
+          + "; ".join(f"{r} rows {a:.4f} / {g:.4f} vs {b:.4f} ms (max abs "
+                      f"diff {e:.2e})" for r, (a, g, b, e) in ab.items()),
+          flush=True)
+    return {"walk_fwd": (f_ms, fp_ms, *f_bound),
+            "walk_bwd": (b_ms, bp_ms, *b_bound)}
+
+
+def phase_time(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     dev, card = device_phase()
     build_s = build_phase()
+    t = phase_time("build", t0)
     max_err = kernel_phase(dev)
 
     model = production_model(dev)
@@ -701,9 +1193,10 @@ def main() -> None:
 
     k_ms, p_ms = timing_phase(dev, card, model, request)
     g_bound, g_by = gap_bound(gap_rows(model, *request))
+    t = phase_time("serving", t)
 
-    print(f"build: train_run.cu in {build_s:.2f} s (with gap_scan.cu, in "
-          f"parallel); ptxas: {ptxas_line('train_run')}", flush=True)
+    print(f"build: train_run.cu in {build_s:.2f} s (with the other sources, "
+          f"in parallel); ptxas: {ptxas_line('train_run')}", flush=True)
     t_err = train_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tk.LAUNCHES = 0
@@ -712,16 +1205,54 @@ def main() -> None:
         t_err = max(t_err, kernel_vs_composed_phase(dev))
         tk_ms, tp_ms, t_bound, t_by = training_times_phase(dev, card,
                                                            Path(tmp))
-    print(json.dumps({"kernels": [{
-        "name": "gap_scan_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": g_bound, "bound_by": g_by,
-        "library_ms": None}, {
-        "name": "train_run", "route": "cuda", "source": TRAIN_SOURCE,
-        "replaces": TRAIN_REPLACES, "launches": t_launches,
-        "max_abs_err": t_err, "ms": tk_ms, "plain_ms": tp_ms,
-        "bound_ms": t_bound, "bound_by": t_by, "library_ms": None}]}),
-        flush=True)
+    t = phase_time("default training", t)
+
+    for name in ("walk_scan", "walk_train"):
+        print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
+              f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
+    wf_err, wb_err = walk_kernel_phase(dev)
+    wt_err = walk_train_phase(dev)
+    t = phase_time("walk kernels vs plain", t)
+    # each path's launch window: the counts set to 0 just before it and
+    # read just after
+    with tempfile.TemporaryDirectory() as tmp:
+        walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = wt.LAUNCHES = 0
+        gap_scan.LAUNCHES = 0
+        production_path_phase(dev, Path(tmp))
+        prod_launches = wt.LAUNCHES
+    walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = wt.LAUNCHES = 0
+    composed_grid_walk_phase(dev)
+    comp_launches = (walk_scan.LAUNCHES_FWD, walk_scan.LAUNCHES_BWD)
+    wt_err = max(wt_err, walk_twin_vs_composed_phase(dev))
+    t = phase_time("production training path", t)
+    times = {"walk_train": production_times_phase(dev, card)}
+    t = phase_time("production times", t)
+    times.update(walk_times_phase(dev, card))
+    t = phase_time("walk kernel times", t)
+
+    # "path" names the window each launch count was read over
+    def entry(name, source, replaces, path, n, err, tm):
+        ms, plain, bound, by = tm
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "path": path, "launches": n,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+    composed = "composed grid-walk training (Trainer.train, one epoch)"
+    print(json.dumps({"kernels": [
+        entry("gap_scan_fwd", KERNEL_SOURCE, REPLACES,
+              "serving (predict_at, NJODEFilter)", launches, max_err,
+              (k_ms, p_ms, g_bound, g_by)),
+        entry("train_run", TRAIN_SOURCE, TRAIN_REPLACES,
+              "default training (run_experiment)", t_launches, t_err,
+              (tk_ms, tp_ms, t_bound, t_by)),
+        entry("walk_scan_fwd", WALK_SOURCE, "njode_tpu/ops/walk_scan.py:148",
+              composed, comp_launches[0], wf_err, times["walk_fwd"]),
+        entry("walk_scan_bwd", WALK_SOURCE, "njode_tpu/ops/walk_scan.py:226",
+              composed, comp_launches[1], wb_err, times["walk_bwd"]),
+        entry("walk_train", WALK_TRAIN_SOURCE,
+              "njode_tpu/ops/walk_train.py:178",
+              "production training (run_experiment)", prod_launches, wt_err,
+              times["walk_train"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,13 @@ The PyTorch port of ``njode_tpu``, which stays beside it as the reference.
 It keeps that package's module layout and names.  Ported so far:
 
 * training: ``utils.run_experiment(config)`` and ``utils.Trainer`` train the
-  default Black-Scholes recipe; ``ops.fused_train_run`` runs each epoch's
-  Adam steps in one hand-written CUDA kernel (``ops/csrc/train_run.cu``);
+  default Black-Scholes recipe, where ``ops.fused_train_run`` runs each
+  epoch's Adam steps in one hand-written CUDA kernel
+  (``ops/csrc/train_run.cu``), and the production recipe (shared network,
+  ``dt_ode_step``, the grid walk), where ``ops.fused_walk_train_run`` does
+  (``ops/csrc/walk_train.cu``) and the grid walk of ``apply`` runs in a
+  CUDA kernel pair, forward and backward (``ops.walk_gaps_fused``,
+  ``ops/csrc/walk_scan.cu``);
 * serving: ``NeuralJumpODE.predict_at`` answers batched (stream, time)
   queries and ``NJODEFilter`` is the O(1)-state streaming filter;
   ``ops.integrate_gap_fused`` runs each gap's Euler substep loop in one
@@ -23,7 +28,7 @@ from .models import NeuralJumpODE
 from .serving import NJODEFilter
 from .utils import Trainer, run_experiment
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["NeuralJumpODE", "NJODEFilter", "Trainer", "run_experiment",
            "__version__"]

@@ -28,6 +28,16 @@ takes the plain substep loop, as the JAX package's ``"auto"`` policy sends
 training to XLA (``njode_tpu/models/jump_ode.py:301-310``); the kernel has
 no backward yet.
 
+``grid_walk=True`` (it needs ``dt_ode_step``) is the caller's promise that
+every valid observation time sits on the grid ``{g * dt_ode_step}``;
+``apply`` then integrates all gaps in one time-major walk over the grid
+(``_integrate_gaps_grid``).  With ``use_pallas="auto"`` the walk runs in
+the CUDA kernel pair of :func:`njode_tpu_torch.ops.walk_gaps_fused`
+(forward and backward, so training goes through it too; its plain version
+on the CPU) wherever ``_use_walk_kernel`` holds, and the per-gap path
+elsewhere; with ``use_pallas=False`` it runs the plain walk with the XLA
+walk's time features, as the JAX package's ``False`` does.
+
 Training: :meth:`NeuralJumpODE.apply` is the dense slot-batched forward
 (jump at every slot, one integration per gap, readouts), ``apply_loss``
 composes it with :func:`nj_ode_loss_dense`, and ``forward`` is the ragged
@@ -38,9 +48,9 @@ applies none without an rng.
 The model's device defaults to ``cuda``; the CPU is used only when asked
 for (``device="cpu"``).  Without a CUDA device the default raises.
 
-Not ported yet (see ROADMAP.md): ``predict_on_grid``, the grid walk, mixed
-precision and the fused-step kernel; the constructor arguments that select
-them raise.
+Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10), mixed
+precision and the fused-step kernel (Queue 2 rows 9-10), the fused Euler
+cell (row 6); the constructor arguments that select them raise.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from torch import nn
 
 from ..ops import (GapWeights, gap_scan_available, integrate_gap_fused,
                    split_weights)
+from ..ops import walk_scan
 from .activations import (canonical_activation, canonical_input_scaling,
                           get_input_scaling)
 from .loss import nj_ode_loss_dense
@@ -90,6 +101,18 @@ def run_net(net: nn.Module, x: torch.Tensor,
     return x
 
 
+def _raise_on_grid_misalignment(bad: bool, worst: float,
+                                dt_ode_step: float) -> None:
+    """The ``debug_checks`` grid-walk alignment refusal
+    (``njode_tpu/models/jump_ode.py:85``)."""
+    if bad:
+        raise ValueError(
+            f"grid_walk=True but an observation time is off the integration "
+            f"grid (worst offset {float(worst):.3g} from a multiple of "
+            f"dt_ode_step={float(dt_ode_step)}) or beyond it; disable "
+            "grid_walk for off-grid data or enlarge t_max.")
+
+
 class NeuralJumpODE(nn.Module):
     """Neural Jump ODE with the JAX model's constructor signature.
 
@@ -100,9 +123,10 @@ class NeuralJumpODE(nn.Module):
       generator: the ``torch.Generator`` the init draws from; None means a
                  CPU generator seeded with 0.  Weights are drawn on the CPU
                  and then moved, so a seed gives the same model everywhere.
-      use_pallas: "auto" (default) or False, kept for the JAX signature:
-                 the port has one path per configuration (the CUDA kernel
-                 wherever it applies), so neither changes what runs.  True,
+      use_pallas: "auto" (default) or False, kept for the JAX signature.
+                 The gap kernel runs wherever it applies under both; the
+                 grid walk takes its kernel pair only under "auto" and its
+                 plain walk under False, as in the JAX package.  True,
                  "interpret" and "step" select JAX kernels that are not
                  ported yet and raise.
     """
@@ -120,10 +144,9 @@ class NeuralJumpODE(nn.Module):
                  debug_checks: bool = False, grid_walk: bool = False, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if grid_walk:
-            raise NotImplementedError(
-                "grid_walk=True: the grid walk and its kernel are not ported "
-                "yet (ROADMAP.md, Queue 1 item 9 and Queue 2 walk_scan)")
+        if grid_walk and dt_ode_step is None:
+            raise ValueError("grid_walk=True requires dt_ode_step (gaps "
+                             "without substeps are already a single step)")
         if compute_dtype is not None:
             raise NotImplementedError(
                 "compute_dtype: mixed precision is not ported yet "
@@ -159,6 +182,7 @@ class NeuralJumpODE(nn.Module):
         self.dtype = dtype
         self.ode_solver = ode_solver
         self.debug_checks = debug_checks
+        self.grid_walk = bool(grid_walk)
 
         self._scale = get_input_scaling(input_scaling)
         # the names the activation/scaling resolve to; kernel eligibility
@@ -229,14 +253,39 @@ class NeuralJumpODE(nn.Module):
         K_h.  Cut once and kept until a parameter moves (``.to``) or
         changes in place (``load_state_dict``, an optimizer step), which
         bumps its version; writes through ``.data`` bypass that count."""
-        params = [p for l1, l2 in map(linears, self._ode_nets())
-                  for p in (l1.weight, l1.bias, l2.weight, l2.bias)]
+        params = self._ode_params()
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._gap_cache is None or self._gap_cache[0] != key:
-            # (W1, b1, W2, b2), each stacked on K_h
-            stacked = [torch.stack(params[i::4]) for i in range(4)]
-            self._gap_cache = (key, split_weights(stacked))
+            self._gap_cache = (key, split_weights(self._ode_weights()))
         return self._gap_cache[1]
+
+    def _ode_params(self) -> list[torch.Tensor]:
+        """W1, b1, W2, b2 of each ODEFunc in turn."""
+        return [p for l1, l2 in map(linears, self._ode_nets())
+                for p in (l1.weight, l1.bias, l2.weight, l2.bias)]
+
+    def _ode_weights(self) -> list[torch.Tensor]:
+        """(W1, b1, W2, b2), each stacked on K_h in torch's orientation,
+        differentiable."""
+        params = self._ode_params()
+        return [torch.stack(params[i::4]) for i in range(4)]
+
+    def _use_walk_kernel(self, inference: bool = False) -> bool:
+        """Route the grid walk through the walk kernels
+        (:func:`njode_tpu_torch.ops.walk_gaps_fused`): under
+        ``use_pallas="auto"``, wherever ``walk_scan_available`` holds and the
+        solver is euler (CUDA tensors take the kernels, CPU tensors their
+        plain version).  A walk without autograd on the card takes the
+        per-gap route with the gap kernel instead: there the walk route's
+        grid guard (one host read) cost more than the walk kernel saves,
+        at 256 and 2,000 rows on an H100 (PERF.md)."""
+        if self.use_pallas is False or self.ode_solver != "euler":
+            return False
+        if inference and self.device.type == "cuda":
+            return False
+        return walk_scan.walk_scan_available(
+            self.n_hidden_layers, self._act_key, self.dropout_rate,
+            self._scale_key, self.input_dim, self.hidden_dim)
 
     def _jump(self, x: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -364,6 +413,85 @@ class NeuralJumpODE(nn.Module):
                     "pass max_substeps explicitly).")
         return h
 
+    def _integrate_gaps_grid(self, h_jump: torch.Tensor, times: torch.Tensor,
+                             values: torch.Tensor,
+                             mask: Optional[torch.Tensor],
+                             generator: Optional[torch.Generator] = None,
+                             inference: bool = False) -> torch.Tensor:
+        """All inter-observation gaps as one time-major walk over the grid
+        ``{g * dt_ode_step : g = 0..M}`` (``njode_tpu/models/jump_ode.py:
+        540-644``): the carry (h, x_last, t_cur) of every row walks the M
+        cells, emits its arriving (pre-jump) state and resets where an
+        observation sits at the cell.  On an aligned grid a gap of k cells
+        is k uniform solver steps, the per-gap loop's full steps plus its
+        final partial step in exact arithmetic; the time features differ by
+        about 1 ulp, so the two paths agree to f32 roundoff.
+
+        The plain walk below keeps the XLA walk's features (``t_elapsed =
+        t_new - t_cur``, euler, heun and rk4) and draws dropout from
+        ``generator``; the kernel route (:meth:`_use_walk_kernel`, no
+        generator) takes :func:`walk_gaps_fused`, whose t_elapsed is dt.
+
+        h_jump: (K_h, B, N, d_h) after-jump states for all slots.
+        Returns h_minus (K_h, B*S, d_h), the pre-jump state at slots 1..N-1.
+        """
+        dt = self.dt_ode_step
+        M = self.max_substeps
+        B, N = times.shape
+        g_idx = torch.round(times / dt).to(torch.int64)          # (B, N)
+        if self.debug_checks:
+            off = (g_idx.to(times.dtype) * dt - times).abs()
+            g_hi = g_idx
+            if mask is not None:
+                off = torch.where(mask, off, 0.0)
+                g_hi = torch.where(mask, g_idx, 0)
+            worst, top = float(off.max()), int(g_hi.max())
+            _raise_on_grid_misalignment(
+                worst > 1e-4 * max(dt, 1.0) or top > M, worst, dt)
+        g_idx = g_idx.clamp(0, M)
+
+        if generator is None and self._use_walk_kernel(inference):
+            return walk_scan.walk_gaps_fused(
+                h_jump, self._scale(values), times, mask, g_idx,
+                self._ode_weights(), dt, M, self._act_key, self._scale_key)
+
+        # a padded slot never resets the carry (its cell is never reached)
+        reset = g_idx if mask is None else torch.where(mask, g_idx, -1)
+        h_minus = walk_scan.walk_cells(
+            h_jump, values, times, reset, g_idx, M, dt,
+            lambda h, x, t: self._euler(h, x, t, t + dt, generator))
+        return h_minus.reshape(h_jump.shape[0], B * (N - 1), self.hidden_dim)
+
+    def _check_grid_alignment(self, times: torch.Tensor,
+                              mask: Optional[torch.Tensor]) -> None:
+        """The grid walk's guard (``njode_tpu/models/jump_ode.py:646-681``):
+        every valid observation time sits on the grid, valid times are
+        strictly increasing per row (one observation per cell), and none
+        lies beyond the grid.  One host read for the three conditions."""
+        m = torch.ones_like(times, dtype=torch.bool) if mask is None else mask
+        dt = self.dt_ode_step
+        off = torch.where(m, (torch.round(times / dt) * dt - times).abs(), 0.0)
+        both = m[:, 1:] & m[:, :-1]
+        gaps = torch.where(both, times[:, 1:] - times[:, :-1], torch.inf)
+        worst, min_gap, t_hi = torch.stack([
+            off.max(), gaps.min() if gaps.numel() else times.new_tensor(
+                torch.inf), torch.where(m, times, 0.0).max()]).tolist()
+        if worst > 1e-4 * max(dt, 1.0):
+            raise ValueError(
+                f"grid_walk=True but observation times are not multiples of "
+                f"dt_ode_step={dt} (worst offset {worst:.3g}); disable "
+                "grid_walk for off-grid data")
+        if min_gap < dt * 0.5:
+            raise ValueError(
+                "grid_walk=True requires strictly increasing observation "
+                "times (one observation per grid cell); found a duplicate "
+                "or sub-dt gap")
+        if t_hi > (self.max_substeps + 0.5) * dt:
+            raise ValueError(
+                f"grid_walk: an observation time exceeds the integration "
+                f"grid (max_substeps={self.max_substeps} x dt_ode_step={dt}); "
+                "construct the model with a larger t_max")
+
     def _check_gap_budget(self, gaps: torch.Tensor) -> None:
         """Raise if a concrete integration gap exceeds the substep budget
         (with fixed ``dt_ode_step`` it would be silently under-integrated)."""
@@ -477,8 +605,9 @@ class NeuralJumpODE(nn.Module):
         Args:
           times:  (B, N) observation times, sorted per row, padded at the end.
           values: (B, N, d_x) observations.
-          mask:   (B, N) validity; padding must sit at row ends (unused
-                  here: padded slots carry garbage the loss masks out).
+          mask:   (B, N) validity; padding must sit at row ends (padded
+                  slots carry garbage the loss masks out; the grid walk
+                  keeps them from resetting its carry).
           generator: dropout generator, read only when ``training`` and
                   ``dropout_rate > 0``.
 
@@ -499,11 +628,27 @@ class NeuralJumpODE(nn.Module):
             return preds, torch.zeros_like(preds)
 
         S = N - 1
-        h0 = h_jump.reshape(K_h, B, N, d_h)[:, :, :-1].reshape(K_h, B * S, d_h)
-        h_minus = self._integrate_gap(
-            h0, values[:, :-1].reshape(B * S, d_x),
-            times[:, :-1].reshape(B * S), times[:, 1:].reshape(B * S), gen,
-            inference=gen is None and not torch.is_grad_enabled())
+        inference = gen is None and not torch.is_grad_enabled()
+        # grid_walk is permission to walk; under "auto" the walk is taken
+        # only where its kernels carry it, as in the JAX package
+        # (njode_tpu/models/jump_ode.py:806-820)
+        use_walk = self.grid_walk
+        if use_walk and self.use_pallas == "auto":
+            use_walk = self._use_walk_kernel(inference)
+        if use_walk:
+            if mask is not None:
+                mask = self._as_tensor(mask, torch.bool)
+            self._check_grid_alignment(times, mask)
+            h_minus = self._integrate_gaps_grid(
+                h_jump.reshape(K_h, B, N, d_h), times, values, mask, gen,
+                inference)
+        else:
+            h0 = h_jump.reshape(K_h, B, N, d_h)[:, :, :-1].reshape(
+                K_h, B * S, d_h)
+            h_minus = self._integrate_gap(
+                h0, values[:, :-1].reshape(B * S, d_x),
+                times[:, :-1].reshape(B * S), times[:, 1:].reshape(B * S),
+                gen, inference=inference)
         tail = self._readout(h_minus, gen).reshape(
             B, S, self.output_dim, self.num_moments)
         # the prediction before the first observation is zero

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions:
-the whole-gap Euler kernel (serving) and the whole-run training kernel.
-Kernels build at first use (``_build.py``), never at import.
+the whole-gap Euler kernel (serving), the whole-run training kernel, the
+grid-walk kernel pair and the whole-run walk-train kernel (production
+training).  Kernels build at first use (``_build.py``), never at import.
 """
 
 from .gap_scan import (SUPPORTED_ACTS, GapWeights, gap_scan_available,
@@ -11,10 +12,20 @@ from .train_kernel import (TrainState, fused_train_run,
                            kernel_state_from, optax_state_into,
                            pack_minibatches, train_kernel_available,
                            train_state_params)
+from .walk_scan import (WalkScan, walk_gaps_fused, walk_gaps_reference,
+                        walk_scan_available)
+from .walk_train import (WalkState, fused_walk_train_run,
+                         fused_walk_train_run_reference, init_walk_state,
+                         optax_state_into_walk, walk_state_from,
+                         walk_train_available, walk_train_params)
 
 __all__ = ["SUPPORTED_ACTS", "GapWeights", "gap_scan_available",
            "integrate_gap_fused", "integrate_gap_reference", "split_weights",
            "TrainState", "fused_train_run", "fused_train_run_reference",
            "init_train_state", "kernel_state_from", "optax_state_into",
            "pack_minibatches", "train_kernel_available",
-           "train_state_params"]
+           "train_state_params", "WalkScan", "walk_gaps_fused",
+           "walk_gaps_reference", "walk_scan_available", "WalkState",
+           "fused_walk_train_run", "fused_walk_train_run_reference",
+           "init_walk_state", "optax_state_into_walk", "walk_state_from",
+           "walk_train_available", "walk_train_params"]

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is compiled
 at first use into ``_build/lib<name>_<hash>.so`` beside this file, where
-``<hash>`` covers the source and the flags, so an edited source rebuilds.
+``<hash>`` covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds.
 Nothing is built at import time, and nothing falls back: a missing ``nvcc``
 or a failed compile raises.
 """
@@ -42,9 +43,11 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    # the shared headers count too: an edited header rebuilds its includers
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in sources)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

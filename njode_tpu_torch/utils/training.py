@@ -12,19 +12,24 @@
 * :class:`Trainer` runs an epoch either on the composed path (``apply`` +
   the loss + autograd + Adam, one step per minibatch: shuffled, the last
   minibatch padded and trajectory-masked) or, with ``use_train_kernel``, as
-  one call of :func:`njode_tpu_torch.ops.fused_train_run` (the whole-run
-  CUDA kernel on the card, its plain version on the CPU), converting the
-  Adam state at each call, so checkpoints of either path resume on the
-  other.  Both paths see the same minibatches: the shuffle of an epoch
-  comes from (seed, epoch).
+  one call of a whole-run kernel (the CUDA kernel on the card, its plain
+  version on the CPU), converting the Adam state at each call, so
+  checkpoints of either path resume on the other.  The model's recipe picks
+  the twin, as in the JAX package: without ``dt_ode_step``
+  :func:`njode_tpu_torch.ops.fused_train_run`, with it (and the grid walk)
+  the walk twin :func:`njode_tpu_torch.ops.fused_walk_train_run`.  Both
+  paths see the same minibatches: the shuffle of an epoch comes from
+  (seed, epoch).
 * Checkpoints keep the reference's semantics: ``start_epoch =
   len(train_losses)``, an early return when training is complete, a fresh
   start when the checkpoint cannot be loaded (reference
   utils/training.py:146-174).
 * :func:`run_experiment` writes ``runs/<name>/{config.json, model.ckpt,
-  history.json}``.  Ensembles, data/model parallelism, multi-host runs, the
-  grid walk, mixed precision and the fused-step/cell kernels are not ported
-  and raise ``NotImplementedError`` naming their ROADMAP item.
+  history.json}`` and resolves the grid walk (:func:`_use_grid_walk`).
+  Ensembles (ROADMAP Queue 1 item 11), data/model parallelism and
+  multi-host runs (item 12), other process families (item 9), mixed
+  precision and the fused-step and fused-cell kernels (Queue 2 rows 6, 9-10)
+  are not ported and raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -176,10 +181,12 @@ class Trainer:
     Trainer's surface, utils/training.py:15-308).
 
     ``use_train_kernel``: ``"auto"`` takes the whole-run kernel wherever the
-    model is on CUDA and :meth:`_train_kernel_check` passes, the composed
-    path otherwise; ``True`` takes the kernel and raises where the
-    configuration is not eligible (on CPU tensors the kernel's plain version
-    runs); ``False`` (default) takes the composed path.
+    model is on CUDA and its check passes (:meth:`_train_kernel_check`, or
+    :meth:`_walk_train_check` for the walk twin of a ``dt_ode_step``
+    model), the composed path otherwise; ``True`` takes the kernel and
+    raises where the configuration is not eligible (on CPU tensors the
+    kernel's plain version runs); ``False`` (default) takes the composed
+    path.
     """
 
     def __init__(self, model: NeuralJumpODE,
@@ -288,36 +295,53 @@ class Trainer:
                 "betas": tuple(float(b) for b in g["betas"]),
                 "adam_eps": float(g["eps"])}
 
+    def _twin(self) -> str:
+        """The whole-run kernel of the model's recipe: "walk" with
+        ``dt_ode_step`` (``njode_tpu/utils/training.py:951``), else "run"."""
+        return "walk" if self.model.dt_ode_step is not None else "run"
+
     def _kernel_epoch(self, times, values, epoch: int,
                       batch_size: Optional[int], shuffle: bool
                       ) -> torch.Tensor:
-        """One epoch as one call of the whole-run kernel (the plain version
-        for a CPU model), the Adam state converted in and out.  The same
-        minibatches as :meth:`_epoch_update`.  The kernel takes every slot
-        as an observation: :meth:`train` sends it only batches whose mask is
-        full."""
-        from ..ops.train_kernel import (fused_train_run, kernel_state_from,
-                                        optax_state_into, pack_minibatches)
+        """One epoch as one call of the whole-run kernel of the model's
+        twin (the plain version for a CPU model), the Adam state converted
+        in and out.  The same minibatches as :meth:`_epoch_update`.  The
+        kernels take every slot as an observation: :meth:`train` sends them
+        only batches whose mask is full; the walk twin checks that the
+        times sit on the grid, as the composed walk does."""
+        from ..ops import train_kernel as tk
+        from ..ops import walk_train as wt
         m = self.model
         n = times.shape[0]
         bs = batch_size if batch_size is not None else n
         idx, valid = self._minibatches(epoch, n, bs, shuffle)
         ids = idx.reshape(-1)
-        data = pack_minibatches(times[ids], values[ids], valid.reshape(-1), bs)
+        data = tk.pack_minibatches(times[ids], values[ids], valid.reshape(-1),
+                                   bs)
         hp = self._kernel_hparams()
         mw = tuple(self.moment_weights) if self.moment_weights else (1.0, 1.0)
+        kw = dict(n_slots=times.shape[1], num_moments=m.num_moments,
+                  batch_size=bs, activation=m._act_key,
+                  input_scaling=m._scale_key, lr=hp["lr"],
+                  weight_decay=hp["weight_decay"], moment_weights=mw,
+                  variance_method=self.variance_method, betas=hp["betas"],
+                  adam_eps=hp["adam_eps"])
+        opt_sd = self.optimizer.state_dict()
         with torch.no_grad():
-            state = kernel_state_from(m, self.optimizer.state_dict(),
-                                      betas=hp["betas"])
-            state, losses = fused_train_run(
-                state, data, n_slots=times.shape[1],
-                num_moments=m.num_moments, batch_size=bs,
-                activation=m._act_key, input_scaling=m._scale_key,
-                lr=hp["lr"], weight_decay=hp["weight_decay"],
-                moment_weights=mw, variance_method=self.variance_method,
-                betas=hp["betas"], adam_eps=hp["adam_eps"])
-            sd, osd = optax_state_into(state, idx.shape[0],
-                                       self.optimizer.state_dict(), m)
+            if self._twin() == "walk":
+                m._check_grid_alignment(times, None)
+                state = wt.walk_state_from(m, opt_sd, betas=hp["betas"])
+                state, losses = wt.fused_walk_train_run(
+                    state, data, hidden_dim=m.hidden_dim,
+                    dt_ode_step=m.dt_ode_step,
+                    max_substeps=walk_cells(m), ode_solver=m.ode_solver,
+                    **kw)
+                sd, osd = wt.optax_state_into_walk(state, idx.shape[0],
+                                                   opt_sd, m)
+            else:
+                state = tk.kernel_state_from(m, opt_sd, betas=hp["betas"])
+                state, losses = tk.fused_train_run(state, data, **kw)
+                sd, osd = tk.optax_state_into(state, idx.shape[0], opt_sd, m)
             m.load_state_dict(sd)
             self.optimizer.load_state_dict(osd)
         return losses.mean()
@@ -444,6 +468,57 @@ class Trainer:
             raise ValueError("train kernel not applicable: "
                              + "; ".join(problems))
 
+    def _walk_train_check(self, batch_size: Optional[int],
+                          n_slots: Optional[int] = None,
+                          mask: Optional[torch.Tensor] = None) -> None:
+        """Raise, listing every problem, when the walk-train kernel cannot
+        train this setup (``njode_tpu/utils/training.py:461-512``, with the
+        port's own shape gate and the batch's ``mask``)."""
+        from ..ops.walk_train import (MAX_BATCH, MAX_HIDDEN,
+                                      walk_train_available,
+                                      walk_train_shapes_ok)
+        m = self.model
+        problems = []
+        if not walk_train_available(
+                m.shared_network, m.input_dim, m.output_dim,
+                m.n_hidden_layers, m._act_key, m.dropout_rate, m._scale_key,
+                m.dt_ode_step, m.ode_solver):
+            problems.append(
+                "model config (needs a shared network, input/output dim 1, "
+                "one hidden layer, no dropout, euler/heun/rk4, "
+                "dt_ode_step)")
+        if not m.grid_walk:
+            problems.append(
+                "grid_walk off: the kernel integrates on the fixed "
+                "{g*dt_ode_step} grid, so grid_walk must resolve on "
+                "(grid-aligned observation times)")
+        if m.num_moments not in (1, 2):
+            problems.append("num_moments must be 1 or 2 (the kernel's "
+                            "closed-form loss covers mean and mean+variance)")
+        if m.dtype != torch.float32:
+            problems.append("float32 only")
+        if not self.ignore_first_continuity:
+            problems.append("ignore_first_continuity must be enabled")
+        if self.extended_moments:
+            problems.append("extended_moments unsupported")
+        if not walk_train_shapes_ok(m.hidden_dim, batch_size,
+                                    n_slots if n_slots is not None else 2,
+                                    walk_cells(m), m.ode_solver):
+            problems.append(
+                f"shapes (needs 1 <= hidden_dim <= {MAX_HIDDEN}, 1 <= "
+                f"batch_size <= {MAX_BATCH}, at least 2 observation slots "
+                "and one grid cell, the block's working set in shared "
+                f"memory; got hidden {m.hidden_dim}, batch {batch_size}, "
+                f"n_slots {n_slots}, {walk_cells(m)} cells)")
+        if mask is not None and not bool(mask.all()):
+            problems.append("the batch has padded slots (its mask is not "
+                            "all True); the kernel takes every slot as an "
+                            "observation")
+        problems += self._kernel_opts_problems()
+        if problems:
+            raise ValueError("train kernel (walk twin) not applicable: "
+                             + "; ".join(problems))
+
     def _kernel_opts_problems(self) -> list:
         """The kernel implements ``torch.optim.Adam`` with L2 weight decay
         and reads its hyperparameters from the optimizer's one param
@@ -462,18 +537,21 @@ class Trainer:
 
     def _use_kernel(self, batch_size: Optional[int], n_slots: int,
                     mask: Optional[torch.Tensor] = None) -> bool:
-        """Resolve ``use_train_kernel`` for a batch of this run."""
+        """Resolve ``use_train_kernel`` for a batch of this run, with the
+        check of the model's twin."""
         if self.use_train_kernel is False:
             return False
+        check = (self._walk_train_check if self._twin() == "walk"
+                 else self._train_kernel_check)
         if self.use_train_kernel == "auto":
             if self.device.type != "cuda":
                 return False
             try:
-                self._train_kernel_check(batch_size, n_slots, mask)
+                check(batch_size, n_slots, mask)
             except ValueError:
                 return False
             return True
-        self._train_kernel_check(batch_size, n_slots, mask)
+        check(batch_size, n_slots, mask)
         return True
 
     # ---------------------------------------------------------------- train
@@ -529,8 +607,10 @@ class Trainer:
             if use_kernel is None or (use_kernel and not bool(mask.all())):
                 use_kernel = self._use_kernel(batch_size, times.shape[1],
                                               mask)
+                kernel = ("walk-train kernel" if self._twin() == "walk"
+                          else "whole-run kernel")
                 print(f"Training path: "
-                      f"{'whole-run kernel' if use_kernel else 'composed'} "
+                      f"{kernel if use_kernel else 'composed'} "
                       f"from epoch {epoch} (use_train_kernel="
                       f"{self.use_train_kernel!r}, device {self.device})",
                       flush=True)
@@ -626,10 +706,6 @@ def _refuse_unported(config: Dict) -> None:
         raise NotImplementedError("Orbax checkpoints are not ported; the "
                                   "port writes one torch.save file "
                                   "(ROADMAP.md, Queue 1 item 12)")
-    if (config.get("dt_ode_step") is not None
-            and config.get("grid_walk", "auto") in (True, "on")):
-        raise NotImplementedError("grid_walk on: the grid walk is not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 7)")
     if config.get("compute_dtype") not in (None, "float32", "none"):
         raise NotImplementedError("compute_dtype: mixed precision is not "
                                   "ported yet (ROADMAP.md, Queue 2 "
@@ -650,6 +726,86 @@ def _refuse_unported(config: Dict) -> None:
                                   "(ROADMAP.md, Queue 1 item 9)")
 
 
+def walk_cells(model) -> int:
+    """M, the cells of the walk-train kernel's grid: round(t_max / dt), as
+    the JAX Trainer counts them."""
+    return int(round(model.t_max / model.dt_ode_step))
+
+
+def _resolve_grid_walk(config: Dict, device: torch.device,
+                       use_pallas_cfg=None) -> bool:
+    """The grid-walk policy (``njode_tpu/utils/training.py:1162-1219``):
+    "on" walks, "off" keeps the per-gap loops, and "auto" walks exactly
+    where a CUDA kernel carries the walk: the model on ``cuda``, kernels
+    asked for (use_pallas "auto" or "train"), the config eligible for the
+    walk kernels (euler) or the walk-train kernel (heun, rk4), and the data
+    aligned to the grid.  The port runs one model on one device, so the
+    JAX package's single-device condition always holds.  Off the card
+    "auto" resolves off, as the JAX package does off the TPU."""
+    setting = config.get("grid_walk", "auto")
+    dt = config.get("dt_ode_step")
+    if dt is None or setting in (False, "off", None):
+        return False
+    if setting in (True, "on"):
+        return True
+    if device.type != "cuda" or use_pallas_cfg not in ("auto", "train"):
+        return False
+    if (config.get("compute_dtype") not in (None, "float32", "none")
+            or int(config.get("ensemble", 0) or 0) > 1
+            or not _grid_walk_aligned(config)):
+        return False
+    from ..models.activations import (canonical_activation,
+                                      canonical_input_scaling)
+    from ..ops.walk_scan import walk_scan_available
+    from ..ops.walk_train import walk_train_available
+    act = canonical_activation(config.get("activation", "relu"))
+    scale = canonical_input_scaling(config.get("input_scaling", "identity"))
+    solver = config.get("ode_solver", "euler")
+    if solver != "euler":
+        # only the walk-train kernel carries a heun or rk4 walk
+        return walk_train_available(
+            bool(config.get("shared_network", False)),
+            int(config.get("input_dim", 1)),
+            int(config.get("output_dim", config.get("input_dim", 1))),
+            int(config.get("n_hidden_layers", 1)), act,
+            float(config.get("dropout_rate", 0.0)), scale, dt, solver)
+    return walk_scan_available(
+        int(config.get("n_hidden_layers", 1)), act,
+        float(config.get("dropout_rate", 0.0)), scale,
+        int(config.get("input_dim", 1)), int(config["hidden_dim"]))
+
+
+def _grid_walk_aligned(config: Dict) -> bool:
+    """Whether the data config guarantees every observation time on the
+    grid: the simulation spacing T/n_steps is a whole multiple of
+    ``dt_ode_step`` (``njode_tpu/utils/training.py:1222``)."""
+    dt = config.get("dt_ode_step")
+    if dt is None:
+        return False
+    data = config.get("data", {})
+    r = float(data.get("T", 1.0)) / int(data.get("n_steps", 100)) / float(dt)
+    return round(r) >= 1 and abs(r - round(r)) < 1e-9
+
+
+def _use_grid_walk(config: Dict, device: torch.device,
+                   use_pallas_cfg=None) -> bool:
+    """Resolve the grid walk and refuse a misaligned "on" from the static
+    config (``njode_tpu/utils/training.py:1235-1255``)."""
+    if not _resolve_grid_walk(config, device, use_pallas_cfg):
+        return False
+    if not _grid_walk_aligned(config):
+        data = config.get("data", {})
+        spacing = float(data.get("T", 1.0)) / int(data.get("n_steps", 100))
+        raise ValueError(
+            f"grid_walk on: observation times are multiples of the "
+            f"simulation grid spacing T/n_steps = {spacing:g}, which is not "
+            f"an integer multiple of dt_ode_step = "
+            f"{config.get('dt_ode_step')}; the walk would integrate on a "
+            "grid the observations do not sit on. Choose a dt_ode_step that "
+            "divides the grid spacing, or turn grid_walk off.")
+    return True
+
+
 def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     """A whole training experiment (reference utils/training.py:349-438), one
     model on one device: ``runs/<experiment_name>/{config.json, model.ckpt,
@@ -667,8 +823,9 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
              if device.type == "cuda" else ""))
 
     # use_pallas 'auto' (the CLI default) and 'train' select the whole-run
-    # training kernel, quietly and insistently (njode_tpu/utils/training.py:
-    # 1338-1348); the model keeps 'auto' for its inference-side gap kernel
+    # training kernel of the model's twin, quietly and insistently
+    # (njode_tpu/utils/training.py:1338-1348); the model keeps 'auto' for
+    # its own kernels (the gap kernel, the walk kernels)
     up = config.get("use_pallas", False)
     use_train_kernel = {"auto": "auto", "train": True}.get(up, False)
     model = NeuralJumpODE(
@@ -687,6 +844,10 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         ode_solver=config.get("ode_solver", "euler"),
         use_pallas="auto" if up == "auto" else False,
         debug_checks=config.get("debug_checks", False),
+        # grid-walk resolution sees the config's use_pallas: "train" with
+        # dt_ode_step routes to the walk-train kernel, which needs the same
+        # grid promise (njode_tpu/utils/training.py:1381-1384)
+        grid_walk=_use_grid_walk(config, device, up),
         device=device,
         generator=torch.Generator().manual_seed(int(config.get("seed", 0))))
     optimizer = make_adam(model.parameters(), config["learning_rate"],

@@ -1,5 +1,4 @@
-"""Where the time of the PyTorch port's default training run goes, on one
-CUDA card.
+"""Where the time of the PyTorch port's training runs goes, on one CUDA card.
 
 1. torch.profiler over 10 epochs of the default Black-Scholes recipe
    (hidden 32, two separate moment networks, batch 128, 1,000 fresh obs-only
@@ -16,7 +15,20 @@ CUDA card.
    in each phase.  The probes cost a few percent; the shipped kernel has
    none.
 
-    PYTHONPATH=. python scripts/profile_torch_training.py
+With ``--production``, instead: torch.profiler over 5 epochs of the
+production recipe (``scripts/run_black_scholes.sh``: hidden 50, shared
+network, dt_ode_step 0.01, batch 256, 10,000 fresh trajectories per epoch,
+validation on 2,000) through ``Trainer.train`` on the walk-train kernel:
+host wall and device time per epoch, the device's idle share, device
+launches per epoch and the top ops; its Chrome trace goes to the same
+output directory.
+Then the walk-train kernel's own split, from a copy of
+ops/csrc/walk_train.cu with clock64() probes read by each block's first
+thread (jump forward, forward walk, readouts with the loss and the readout
+backward, the readout gradients, the backward walk's row and block phases,
+the jump backward, the grid barriers with Adam), over one epoch call.
+
+    PYTHONPATH=. python scripts/profile_torch_training.py [--production]
 """
 
 from __future__ import annotations
@@ -59,6 +71,156 @@ def trainer(dev: torch.device, use_kernel: bool) -> Trainer:
                    use_train_kernel=use_kernel)
 
 
+def report(prof, name: str, card: str, wall_us: float, epochs: int) -> None:
+    """Wall, device time and idle share per epoch, device launches per
+    epoch (kernels and copies), and the top ops by device and host time."""
+    dev_us = device_us(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    n_dev = sum(1 for e in prof.events() if e.device_type == cuda)
+    print(f"Trainer.train, {name}, on {card}: wall {wall_us / epochs:.1f} "
+          f"us/epoch (profiled), device {dev_us / epochs:.1f} us/epoch, "
+          f"device idle {100.0 * (1.0 - dev_us / wall_us):.1f}%, "
+          f"{n_dev / epochs:.1f} device launches per epoch", flush=True)
+    sort = ("self_device_time_total" if hasattr(
+        prof.key_averages()[0], "self_device_time_total")
+        else "self_cuda_time_total")
+    print(prof.key_averages().table(sort_by=sort, row_limit=10), flush=True)
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=10), flush=True)
+
+
+def profile_production(dev: torch.device, card: str, out_dir: str) -> None:
+    """The production recipe on the walk-train kernel, 5 epochs profiled
+    after 2 of warm-up."""
+    epochs = 5
+    cfg = chip_smoke.production_config(epochs, "profiled")
+    train_fn, val_fn = create_data_loaders(base_seed=2, device=dev,
+                                           **cfg["data"])
+
+    def walk_trainer() -> Trainer:
+        model = chip_smoke.walk_model(dev, seed=0)
+        return Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                       ignore_first_continuity=True,
+                       moment_weights=list(chip_smoke.PROD_MW),
+                       use_train_kernel=True)
+    walk_trainer().train(train_fn, val_fn, n_epochs=2,
+                         batch_size=chip_smoke.PROD_BS, print_every=100,
+                         config=cfg)                           # warm-up
+    tr = walk_trainer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(train_fn, val_fn, n_epochs=epochs,
+                 batch_size=chip_smoke.PROD_BS, print_every=5, config=cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report(prof, "production recipe, walk-train kernel", card, wall_us,
+           epochs)
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          "trace_walk_train.json"))
+
+
+WALK_PHASES = ("jump forward", "forward walk",
+               "readouts + loss + readout backward", "readout gradients",
+               "backward walk, row phases", "backward walk, block phases",
+               "jump backward + its gradients", "grid barriers + Adam")
+
+
+def instrumented_walk_source() -> str:
+    """ops/csrc/walk_train.cu with cycle counters read by each block's
+    thread 0 at fixed places; fails if an anchor is gone."""
+    src = (_build.CSRC / "walk_train.cu").read_text()
+    prof = ("do { if (tid == 0) atomicAdd(&g_prof[blk * 8 + (K_)], "
+            "(unsigned long long)(clock64() - tP)); tP = clock64(); } "
+            "while (0)")
+    edits = [
+        ("namespace cg = cooperative_groups;",
+         "namespace cg = cooperative_groups;\n"
+         "__device__ unsigned long long g_prof[1024 * 8];\n"
+         "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
+         "}\n"
+         f"#define PROFW(K_) {prof}"),
+        ("    const float nv = sh_nv;\n",
+         "    const float nv = sh_nv;\n    long long tP = clock64();\n"),
+        ("      // ---- 2. forward walk", "      PROFW(0);\n      // ---- 2."),
+        ("      // ---- 3. readouts", "      PROFW(1);\n      // ---- 3."),
+        ("    // ---- readout gradients of the block's rows",
+         "    PROFW(2);\n    // ---- readout gradients"),
+        ("    // ---- 6. backward walk", "    PROFW(3);\n    // ---- 6."),
+        ("      // block phase: the walk weights' sums of this cell",
+         "      PROFW(4);\n      // block phase: the walk weights'"),
+        ("      __syncthreads();\n    }\n    // the walk's partial",
+         "      __syncthreads();\n      PROFW(5);\n    }\n"
+         "    // the walk's partial"),
+        ("    // ---- 7. jump backward", "    PROFW(4);\n    // ---- 7."),
+        ("    grid.sync();\n\n    // ---- 9. Adam",
+         "    PROFW(6);\n    grid.sync();\n\n    // ---- 9. Adam"),
+        ("    grid.sync();\n  }\n  if (gtid == 0) {",
+         "    grid.sync();\n    PROFW(7);\n  }\n  if (gtid == 0) {"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"walk_train.cu has no unique anchor {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def walk_kernel_split(dev: torch.device, card: str) -> None:
+    from njode_tpu_torch.ops import walk_train as wt
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = os.path.join(tmp, "walk_train_probes.cu")
+        so = os.path.join(tmp, "libwalk_train_probes.so")
+        with open(cu, "w") as f:
+            f.write(instrumented_walk_source())
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", so, cu], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+        shipped = wt._load_kernel()
+        for name in ("njode_walk_train_run", "njode_walk_train_scratch_floats"):
+            fn, ref = getattr(lib, name), getattr(shipped, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.njode_cuda_error_string.restype = ctypes.c_char_p
+        bs, n = chip_smoke.PROD_BS, chip_smoke.PROD_TRAIN
+        rows = -(-n // bs) * bs
+        data = chip_smoke.train_data(dev, rows, bs, 3, n_valid=n)
+        state = wt.init_walk_state(chip_smoke.walk_model(dev, seed=0))
+        kw = chip_smoke.walk_train_kwargs(2, "direct", "euler", bs)
+        original = wt._load_kernel
+        wt._load_kernel = lambda: lib
+        try:
+            with torch.no_grad():
+                wt.fused_walk_train_run(state, data, **kw)       # warm-up
+                torch.cuda.synchronize()
+                cycles = (ctypes.c_ulonglong * (1024 * 8))()
+                lib.njode_prof_read(cycles)
+                before = list(cycles)
+                wt.fused_walk_train_run(state, data, **kw)
+                torch.cuda.synchronize()
+                lib.njode_prof_read(cycles)
+        finally:
+            wt._load_kernel = original
+        warps = wt.launch_plan(chip_smoke.PROD_H, bs, chip_smoke.PROD_N)[0]
+        nblk = -(-bs // warps)
+        per = [[cycles[b * 8 + k] - before[b * 8 + k] for b in range(nblk)]
+               for k in range(8)]
+        total = sum(sum(p) / nblk for p in per)
+        print(f"walk-train kernel phase split on {card} (one epoch call: "
+              f"{rows // bs} steps of {bs}, H={chip_smoke.PROD_H}, "
+              f"N={chip_smoke.PROD_N}, M={chip_smoke.PROD_M}, {nblk} blocks of "
+              f"{warps} trajectory warps and as many helper warps), cycles of "
+              f"each block's thread 0, mean over blocks, share of the call:",
+              flush=True)
+        for k, name in enumerate(WALK_PHASES):
+            mean = sum(per[k]) / nblk
+            print(f"  {name}: {mean:.0f} cycles ({100.0 * mean / total:.1f}%)"
+                  f", blocks {min(per[k])}-{max(per[k])}", flush=True)
+        print(f"  whole call: {total:.0f} cycles", flush=True)
+
+
 def profile_trainer(dev: torch.device, card: str, out_dir: str) -> None:
     cfg = chip_smoke.default_config(EPOCHS, "profiled")
     for name, use_kernel in (("kernel", True), ("composed", False)):
@@ -76,18 +238,7 @@ def profile_trainer(dev: torch.device, card: str, out_dir: str) -> None:
                      print_every=5, config=cfg)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        dev_us = device_us(prof)
-        print(f"Trainer.train, {name} path, on {card}: wall "
-              f"{wall_us / EPOCHS:.1f} us/epoch (profiled), device "
-              f"{dev_us / EPOCHS:.1f} us/epoch, device idle "
-              f"{100.0 * (1.0 - dev_us / wall_us):.1f}%", flush=True)
-        sort = ("self_device_time_total" if hasattr(
-            prof.key_averages()[0], "self_device_time_total")
-            else "self_cuda_time_total")
-        print(prof.key_averages().table(sort_by=sort, row_limit=10),
-              flush=True)
-        print(prof.key_averages().table(sort_by="self_cpu_time_total",
-                                        row_limit=10), flush=True)
+        report(prof, f"{name} path", card, wall_us, EPOCHS)
         if use_kernel:   # the composed path's trace runs to tens of MB
             prof.export_chrome_trace(os.path.join(out_dir,
                                                   "trace_train_kernel.json"))
@@ -199,6 +350,10 @@ def main() -> None:
     dev, card = chip_smoke.device_phase()
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
+    if "--production" in sys.argv[1:]:
+        profile_production(dev, card, out_dir)
+        walk_kernel_split(dev, card)
+        return
     profile_trainer(dev, card, out_dir)
     kernel_split(dev, card)
 

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import njode_tpu_torch
-from njode_tpu_torch.ops import _build, gap_scan
+from njode_tpu_torch.ops import _build, gap_scan, walk_scan, walk_train
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
@@ -19,6 +19,8 @@ PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
                 "njode_tpu_torch.ops.activations",
                 "njode_tpu_torch.ops.gap_scan",
                 "njode_tpu_torch.ops.train_kernel",
+                "njode_tpu_torch.ops.walk_scan",
+                "njode_tpu_torch.ops.walk_train",
                 "njode_tpu_torch.ops._build", "njode_tpu_torch.serving",
                 "njode_tpu_torch.simulation",
                 "njode_tpu_torch.simulation.moments",
@@ -70,9 +72,30 @@ def test_cpu_calls_launch_no_kernel():
     assert torch.isfinite(out["raw"]).all()
 
 
+def test_cpu_grid_walk_and_walk_twin_launch_no_kernel():
+    """The grid walk (forward and backward) and the walk-train kernel's
+    wrapper take their plain versions for CPU tensors."""
+    from njode_tpu_torch.utils import Trainer
+    model = njode_tpu_torch.NeuralJumpODE(
+        input_dim=1, hidden_dim=8, output_dim=1, num_moments=2,
+        shared_network=True, dt_ode_step=0.1, t_max=1.0, grid_walk=True,
+        device="cpu")
+    walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = walk_train.LAUNCHES = 0
+    times = torch.tensor([[0.0, 0.3, 0.7, 1.0]] * 4)
+    values = torch.ones(4, 4, 1)
+    model.apply_loss(times, values, ignore_first_continuity=True).backward()
+    trainer = Trainer(model, ignore_first_continuity=True,
+                      use_train_kernel=True)
+    trainer.train(lambda: (times, values), n_epochs=1, batch_size=2)
+    assert walk_scan.LAUNCHES_FWD == walk_scan.LAUNCHES_BWD == 0
+    assert walk_train.LAUNCHES == 0
+
+
 def test_kernel_sources_ship_with_the_package():
     assert (_build.CSRC / "gap_scan.cu").is_file()
     assert (_build.CSRC / "train_run.cu").is_file()
+    for name in ("walk_scan.cu", "walk_train.cu", "walk_cell.cuh"):
+        assert (_build.CSRC / name).is_file(), name
     assert _build.BUILD_DIR.parent == Path(gap_scan.__file__).parent
     flags = " ".join(_build.NVCC_FLAGS)
     assert "sm_90a" in flags and "fast_math" not in flags

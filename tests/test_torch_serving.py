@@ -213,7 +213,6 @@ def test_filter_unseen_streams_read_zero():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(grid_walk=True), "grid walk"),
     (dict(compute_dtype="bfloat16"), "mixed precision"),
     (dict(use_pallas="step"), "fused training-step"),
     (dict(use_pallas=True), "fused Euler cell"),

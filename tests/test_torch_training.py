@@ -298,7 +298,6 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
     (dict(ensemble=4), "ensembles"),
     (dict(data_parallel=2), "parallelism"),
     (dict(multihost=True), "parallelism"),
-    (dict(dt_ode_step=0.01, grid_walk="on"), "grid walk"),
     (dict(compute_dtype="bfloat16"), "mixed precision"),
     (dict(use_pallas=True), "not ported"),
     (dict(use_pallas="step"), "not ported"),
@@ -308,3 +307,135 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
 def test_run_experiment_refuses_unported_paths(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(_config(tmp_path, **over), save_dir=str(tmp_path))
+
+
+# ----------------------------------------------------------------------
+# the walk twin and the grid-walk policy (production training)
+# ----------------------------------------------------------------------
+
+WALK_N, WALK_DT = 5, 0.05
+
+
+def jax_walk_loaders():
+    from njode_tpu.utils.training import create_data_loaders as jax_loaders
+    return jax_loaders(process_type="black_scholes", n_train=2 * BS,
+                       n_val=8, obs_fraction=WALK_N / 20.0, n_steps=20,
+                       cache_data=True, base_seed=0, obs_only=True, mu=0.1,
+                       sigma=0.5, x0=1.0)
+
+
+def test_walk_twin_trainer_matches_jax_trainer(capsys):
+    """Trainer(use_train_kernel=True) of a dt_ode_step + grid_walk model on
+    the CPU runs the walk-train kernel's plain version, one call per epoch,
+    and reproduces the JAX Trainer's walk twin (Pallas interpret mode) on
+    the same data: per-epoch train and validation losses (rtol 2e-4, the
+    JAX package's own tolerance for its walk twin against XLA)."""
+    from njode_tpu.utils.training import Trainer as JaxTrainer
+    from njode_tpu_torch.ops import walk_train as wt
+    cfg = dict(input_dim=1, hidden_dim=H, output_dim=1, num_moments=2,
+               shared_network=True, dt_ode_step=WALK_DT, t_max=1.0,
+               grid_walk=True)
+    jtr = JaxTrainer(JaxModel(**cfg), jax_make_adam(LR, WD),
+                     ignore_first_continuity=True,
+                     moment_weights=[1.0, 10.0], seed=0,
+                     use_train_kernel="interpret",
+                     train_kernel_opts=dict(lr=LR, weight_decay=WD))
+    init = jax.tree_util.tree_map(np.asarray, jtr.params)
+    train_fn, val_fn = jax_walk_loaders()
+    ref = jtr.train(train_fn, val_fn, n_epochs=3, batch_size=BS,
+                    shuffle=False, print_every=1)
+    tb, vb = train_fn(0), val_fn(0)
+    data = (np.array(tb.times), np.array(tb.values))
+    val = (np.array(vb.times), np.array(vb.values))
+
+    model = NeuralJumpODE(**cfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(
+        init, num_moments=2, shared_network=True, n_hidden_layers=1))
+    trainer = Trainer(model, make_adam(model.parameters(), LR, WD),
+                      ignore_first_continuity=True,
+                      moment_weights=[1.0, 10.0], use_train_kernel=True)
+    wt.LAUNCHES = 0
+    hist = trainer.train(lambda: data, lambda: val, n_epochs=3,
+                         batch_size=BS, shuffle=False, print_every=1)
+    assert wt.LAUNCHES == 0
+    assert "Training path: walk-train kernel" in capsys.readouterr().out
+    np.testing.assert_allclose(hist["train_loss"], ref["train_loss"],
+                               rtol=2e-4)
+    np.testing.assert_allclose(hist["val_loss"], ref["val_loss"], rtol=2e-4)
+
+
+def _walk_config(tmp_path, **over):
+    cfg = _config(tmp_path, experiment_name="bs_walk", dt_ode_step=WALK_DT,
+                  shared_network=True, grid_walk="on", use_pallas="train",
+                  n_epochs=2)
+    cfg["data"] = dict(cfg["data"], n_steps=20, obs_fraction=WALK_N / 20.0)
+    cfg.update(over)
+    return cfg
+
+
+def test_run_experiment_grid_walk_on_the_walk_twin(tmp_path, capsys):
+    res = run_experiment(_walk_config(tmp_path), save_dir=str(tmp_path))
+    out = capsys.readouterr().out
+    assert "Training path: walk-train kernel" in out
+    hist = res["history"]
+    assert len(hist["train_loss"]) == 2
+    assert np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+    # a resumed call continues on the same twin
+    res = run_experiment(_walk_config(tmp_path, n_epochs=3),
+                         save_dir=str(tmp_path))
+    assert "Resuming from epoch 2" in capsys.readouterr().out
+    assert len(res["history"]["train_loss"]) == 3
+
+
+def test_grid_walk_policy():
+    """"auto" walks only where a CUDA kernel carries the walk: never on
+    the CPU; on cuda (the gate alone, no tensor built) for an eligible,
+    aligned config.  A misaligned "on" raises."""
+    from njode_tpu_torch.utils import training as T
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    cfg = _walk_config(None, grid_walk="auto")
+    assert T._resolve_grid_walk(cfg, cpu, "auto") is False
+    assert T._resolve_grid_walk(cfg, cuda, "auto") is True
+    assert T._resolve_grid_walk(cfg, cuda, False) is False
+    assert T._resolve_grid_walk(dict(cfg, dt_ode_step=None), cuda,
+                                "auto") is False
+    assert T._resolve_grid_walk(dict(cfg, ode_solver="rk4"), cuda,
+                                "train") is True
+    assert T._resolve_grid_walk(dict(cfg, ode_solver="rk4",
+                                     shared_network=False), cuda,
+                                "train") is False
+    assert T._resolve_grid_walk(dict(cfg, grid_walk="on"), cpu, False)
+    assert T._resolve_grid_walk(dict(cfg, dt_ode_step=0.03), cuda,
+                                "auto") is False
+    with pytest.raises(ValueError, match="not an integer multiple"):
+        T._use_grid_walk(dict(cfg, grid_walk="on", dt_ode_step=0.03), cpu,
+                         "train")
+
+
+def test_misaligned_grid_walk_on_raises(tmp_path):
+    with pytest.raises(ValueError, match="not an integer multiple"):
+        run_experiment(_walk_config(tmp_path, dt_ode_step=0.03),
+                       save_dir=str(tmp_path))
+
+
+def test_walk_train_check_lists_problems():
+    model = NeuralJumpODE(1, H, 1, num_moments=2, shared_network=False,
+                          dt_ode_step=WALK_DT, t_max=1.0, device="cpu")
+    trainer = Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                      use_train_kernel=True)
+    assert trainer._twin() == "walk"
+    with pytest.raises(ValueError, match="walk twin") as info:
+        trainer._walk_train_check(None, WALK_N,
+                                  torch.zeros(2, WALK_N, dtype=torch.bool))
+    msg = str(info.value)
+    for part in ("model config", "grid_walk off", "ignore_first_continuity",
+                 "shapes", "padded slots", "torch.optim.Adam"):
+        assert part in msg, part
+    walk = NeuralJumpODE(1, H, 1, num_moments=2, shared_network=True,
+                         dt_ode_step=WALK_DT, t_max=1.0, grid_walk=True,
+                         device="cpu")
+    auto = Trainer(walk, ignore_first_continuity=True,
+                   use_train_kernel="auto")
+    assert auto._use_kernel(BS, WALK_N) is False       # a CPU model
+    auto.device = torch.device("cuda")                  # the gate alone
+    assert auto._use_kernel(BS, WALK_N) is True
