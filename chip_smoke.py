@@ -7,7 +7,7 @@ Phases, one line each; each prints its wall time, and any failure is an
 uncaught exception and a nonzero exit:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build:  compile the four CUDA sources from njode_tpu_torch/ops/csrc, one
+2. build:  compile the five CUDA sources from njode_tpu_torch/ops/csrc, one
    nvcc per source, started together; the gap kernel's ptxas line.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
    over activation x scaling x K_h x d_h x rows, zero/partial gaps and
@@ -68,10 +68,35 @@ uncaught exception and a nonzero exit:
    2 timed and scaled; one epoch call of the kernel and of its plain
    version; rows 7-8 at their main-path shapes; the validation A/B that
    sets the walk's row cap; val MSE against the closed-form moments.
+16. build: fused_step.cu's ptxas summary (built in 2).
+17. fused-step kernels vs plain: rows 9-10 (njode_step_fwd, njode_step_bwd)
+   against fused_step_forward_reference / fused_step_backward_reference,
+   H in (32, 50, 256) x N in (1, 2, 10) x separate/shared x L in (1, 2),
+   relu/identity, tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in
+   turn, then the scaled path's own shape (H 256, N 2, separate, L 1,
+   relu/identity, 4,096 rows): the forward at rtol 1e-4 / atol 1e-5, every
+   dW plane and dV row within 1e-3 of its norm (the worst case's share of
+   that limit printed), two backward calls bitwise equal.
+18. the scaled training path: run_experiment of the scaled config
+   (scripts/run_scaled_sweep.sh's flags through build_config: hidden 256,
+   two networks, batch 4,096, 100,000 fresh trajectories per epoch,
+   validation on 5,000, --kernels step) for 2 epochs, then resumed to 3:
+   row 10 once a step, row 9 once a step and once per validation and
+   relative-loss call, no other kernel; then one epoch of identical data
+   through the fused-step kernels and the composed path from identical
+   weights.
+19. scaled times: the full 100-epoch recipe through Trainer.train on the
+   fused-step kernels; the composed path (use_pallas False), warmed by one
+   epoch, 5 timed and scaled to 100; the A/B behind the "auto" gate (one
+   epoch each, in turns; "auto" must take the kernels at this shape); rows
+   9 and 10
+   per call at 4,096 rows (row 9 also at 5,000) against their plain
+   versions and bounds; val MSE against the closed-form moments.
 
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
-the walk-train kernel) and read just after.  The last line is the JSON
+the walk-train kernel, 18 for the fused-step kernels) and read just
+after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
 """
@@ -91,12 +116,14 @@ import torch
 
 from njode_tpu_torch import NeuralJumpODE, NJODEFilter
 from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
+from njode_tpu_torch.ops import fused_step as fs
 from njode_tpu_torch.ops import gap_scan, walk_scan
 from njode_tpu_torch.ops import train_kernel as tk
 from njode_tpu_torch.ops import walk_train as wt
 from njode_tpu_torch.simulation import moments_at_obs, simulate_batch
 from njode_tpu_torch.utils import (Trainer, create_data_loaders, make_adam,
                                    run_experiment)
+from njode_tpu_torch.utils.training import as_dense
 
 RTOL, ATOL = 1e-4, 1e-5
 DT, N_SUB = 0.01, 100
@@ -107,7 +134,8 @@ TRAIN_REPLACES = ("njode_tpu/ops/train_kernel.py:223 (_train_kernel), "
                   "njode_tpu/ops/train_kernel.py:478 (_train_kernel_dual)")
 WALK_SOURCE = "njode_tpu_torch/ops/csrc/walk_scan.cu"
 WALK_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/walk_train.cu"
-SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train"]
+STEP_SOURCE = "njode_tpu_torch/ops/csrc/fused_step.cu"
+SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train", "fused_step"]
 # the H100 SXM's published peaks: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -127,7 +155,7 @@ def device_phase() -> tuple[torch.device, str]:
 
 
 def build_phase() -> float:
-    """All four kernel sources, one nvcc each, started together; prints the
+    """All five kernel sources, one nvcc each, started together; prints the
     gap kernel's line and returns the build time."""
     from njode_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -136,6 +164,7 @@ def build_phase() -> float:
     tk._load_kernel()
     walk_scan._load_kernel()
     wt._load_kernel()
+    fs._load_kernel()
     took = time.perf_counter() - t0
     print(f"build: gap_scan.cu in {took:.2f} s (with {', '.join(SOURCES[1:])}"
           f", in parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
@@ -610,13 +639,14 @@ def kernel_vs_composed_phase(dev: torch.device) -> float:
 
 
 def val_metrics(model: NeuralJumpODE, dev: torch.device,
-                mw=(1.0, 10.0)) -> tuple:
-    """bench.py:435-455: 200 fresh grid-simulated trajectories; MSE of the
+                mw=(1.0, 10.0), n: int = 200,
+                obs_fraction: float = 0.1) -> tuple:
+    """bench.py:435-455: n fresh grid-simulated trajectories; MSE of the
     before-jump mean and variance (direct: W^2) against the closed-form
     truths past slot 0, and the relative loss."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    vb = simulate_batch(200, "black_scholes", 0.1, generator=gen, device=dev,
-                        mu=0.1, sigma=0.5, x0=1.0)
+    vb = simulate_batch(n, "black_scholes", obs_fraction, generator=gen,
+                        device=dev, mu=0.1, sigma=0.5, x0=1.0)
     with torch.no_grad():
         preds, before = model.apply(vb.times, vb.values, vb.mask)
         yt, ytb = moments_at_obs(vb.times, vb.values, "black_scholes",
@@ -1010,12 +1040,13 @@ def walk_flops_per_row(d: int, M: int) -> float:
     return 2.0 * M * ((d + 3) * d + d * d)
 
 
-def timed_epochs(trainer, train_fn, val_fn, cfg, n: int) -> float:
+def timed_epochs(trainer, train_fn, val_fn, cfg, n: int,
+                 batch_size: int = PROD_BS) -> float:
     """Seconds of one Trainer.train call of n epochs (epochs 0..n-1 of the
     loaders; the trainer's histories grow by n)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train(train_fn, val_fn, n_epochs=n, batch_size=PROD_BS,
+    trainer.train(train_fn, val_fn, n_epochs=n, batch_size=batch_size,
                   print_every=10_000, config=cfg)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -1171,6 +1202,331 @@ def walk_times_phase(dev: torch.device, card: str) -> dict:
             "walk_bwd": (b_ms, bp_ms, *b_bound)}
 
 
+# ------------------------------------------------------- scaled training
+
+SCALED_H, SCALED_BS, SCALED_MW = 256, 4096, (1.0, 10.0)
+SCALED_TRAIN, SCALED_VAL, SCALED_EPOCHS = 100_000, 5_000, 100
+STEP_ACTS = (("relu", "identity"), ("tanh", "tanh"), ("elu", "sigmoid"))
+
+
+def step_case(gen: torch.Generator, H: int, N: int, shared: bool, L: int,
+              act: str, scale: str, rows: int, dev: torch.device) -> dict:
+    """Random fused-step inputs: a model's packed weights (torch's default
+    law), sorted times from 0 with the last slots of every fifth row
+    repeating the one before (padding: DT = 0), log-normal values and an
+    output cotangent."""
+    model = NeuralJumpODE(1, H, 1, num_moments=2, n_hidden_layers=L,
+                          activation=act, input_scaling=scale,
+                          shared_network=shared, device="cpu",
+                          generator=torch.Generator().manual_seed(H + N + L))
+    with torch.no_grad():
+        W, V, _ = fs.pack_params(model)
+    t = torch.sort(torch.rand(rows, N, generator=gen), dim=1).values
+    t[:, 0] = 0.0
+    if N > 2:
+        t[::5, -1] = t[::5, -2]
+    c = {"W": W, "V": V, "times": t,
+         "values": torch.exp(torch.randn(rows, N, 1, generator=gen) * 0.3),
+         "gy": torch.randn(rows, 2 * N - 1, 1, 2, generator=gen)}
+    c = {k: v.to(dev).contiguous() for k, v in c.items()}
+    c["lo"] = fs.layout_of(model)
+    return c
+
+
+def step_fwd(c: dict, act: str, scale: str, kernel: bool):
+    if kernel:
+        return fs._launch_fwd(c["W"], c["V"], c["times"], c["values"], c["lo"],
+                              act, scale, step_plan(c)[0])
+    return fs.fused_step_forward_reference(c["W"], c["V"], c["times"],
+                                           c["values"], c["lo"], act, scale)
+
+
+def step_bwd(c: dict, act: str, scale: str, kernel: bool):
+    if kernel:
+        return fs._launch_bwd(c["W"], c["V"], c["times"], c["values"],
+                              c["gy"], c["lo"], act, scale, step_plan(c)[1])
+    return fs.fused_step_backward_reference(c["W"], c["V"], c["times"],
+                                            c["values"], c["gy"], c["lo"],
+                                            act, scale)
+
+
+def step_plan(c: dict) -> tuple:
+    lo = c["lo"]
+    return fs.launch_plan(c["W"].shape[-1], c["times"].shape[1], lo.L,
+                          lo.d_x, lo.d_y, lo.K)
+
+
+def step_kernel_phase(dev: torch.device) -> tuple[float, float, float]:
+    """Rows 9-10 against their plain versions on the card: H in (32, 50,
+    256) x N in (1, 2, 10) x separate/shared x L in (1, 2), the activation
+    pairs and row counts (4,096, 1,696, 5,000) taken in turn, then the
+    scaled path's own shape (H 256, N 2, separate, L 1, relu/identity,
+    4,096 rows).  Forward at rtol 1e-4 / atol 1e-5; every dW plane and dV
+    within GRAD_RTOL of its norm; two backward calls bitwise equal.  Returns
+    (forward max abs err, backward max abs err, the largest normwise
+    backward error)."""
+    gen = torch.Generator().manual_seed(91)
+    worst = {"f": 0.0, "b": 0.0, "rel": 0.0, "at": ""}
+
+    def check(H, N, shared, L, act, scale, rows) -> float:
+        """One case; returns its largest normwise backward error."""
+        c = step_case(gen, H, N, shared, L, act, scale, rows, dev)
+        where = f"H={H} N={N} shared={shared} L={L} {act}/{scale} rows={rows}"
+        with torch.no_grad():
+            y_k = step_fwd(c, act, scale, True)
+            y_p = step_fwd(c, act, scale, False)
+            g_k = step_bwd(c, act, scale, True)
+            g_k2 = step_bwd(c, act, scale, True)
+            g_p = step_bwd(c, act, scale, False)
+        torch.cuda.synchronize()
+        worst["f"] = max(worst["f"], assert_close(
+            y_k, y_p, f"fused-step forward at {where}"))
+        case_rel = 0.0
+        for a, a2, b, what in zip(g_k, g_k2, g_p, ("dW", "dV")):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"two backward calls differ in {what} "
+                                     f"at {where}")
+            for i in range(a.shape[0]):
+                for j in range(a.shape[1]):
+                    worst["b"] = max(worst["b"], assert_close_norm(
+                        a[i, j], b[i, j], f"{what}[{i}, {j}] at {where}"))
+                    rel = float((a[i, j] - b[i, j]).norm()
+                                / b[i, j].norm().clamp_min(1e-30))
+                    case_rel = max(case_rel, rel)
+                    if rel > worst["rel"]:
+                        worst["rel"] = rel
+                        worst["at"] = f"{what}[{i}, {j}] at {where}"
+        return case_rel
+
+    n = 0
+    for H in (32, 50, SCALED_H):
+        for N in (1, 2, 10):
+            for shared in (False, True):
+                for L in (1, 2):
+                    act, scale = STEP_ACTS[n % 3]
+                    check(H, N, shared, L, act, scale,
+                          (4096, 1696, 5000)[(n // 3) % 3])
+                    n += 1
+    main_rel = check(SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS)
+    n += 1
+    print(f"fused-step kernels vs plain: {n} cases (H in (32, 50, 256) x N "
+          f"in (1, 2, 10) x separate/shared x L in (1, 2); relu/identity, "
+          f"tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in turn; "
+          f"then the scaled path's shape, H {SCALED_H}, N 2, separate, L 1, "
+          f"relu/identity, {SCALED_BS} rows): forward max abs err "
+          f"{worst['f']:.3e} (rtol {RTOL} / atol {ATOL}); backward (each dW "
+          f"plane and dV row) max abs err {worst['b']:.3e}, largest "
+          f"error/norm {worst['rel']:.3e} = {worst['rel'] / GRAD_RTOL:.1%} "
+          f"of its limit {GRAD_RTOL} ({worst['at']}), at the scaled path's "
+          f"shape {main_rel:.3e} = {main_rel / GRAD_RTOL:.1%}; two backward "
+          f"calls bitwise equal", flush=True)
+    return worst["f"], worst["b"], worst["rel"]
+
+
+SCALED_STEPS = -(-SCALED_TRAIN // SCALED_BS)    # 25; the last has 1,696 rows
+SCALED_COMPOSED_EPOCHS = 5  # timed epochs of the composed arm
+
+
+def scaled_config(n_epochs: int, name: str) -> dict:
+    """What experiments/common.py build_config makes from
+    scripts/run_scaled_sweep.sh's flags (100,000 / 5,000 trajectories,
+    batch 4,096, hidden 256, obs fraction 0.02, two moments, --kernels step)
+    and the CLI's other defaults (two separate networks, relu, identity
+    scaling, moment weights [1, 10], no dt_ode_step, print every 5)."""
+    cfg = default_config(n_epochs, name)
+    cfg.update(hidden_dim=SCALED_H, batch_size=SCALED_BS, use_pallas="step")
+    cfg["data"] = dict(cfg["data"], n_train=SCALED_TRAIN, n_val=SCALED_VAL,
+                       obs_fraction=0.02)
+    return cfg
+
+
+def scaled_path_phase(dev: torch.device, tmp: Path) -> None:
+    """run_experiment of the scaled config, 2 epochs then a resume to 3.
+    The caller sets every launch count to 0 before and reads them after:
+    row 10 launches once a step, row 9 once a step, once for each epoch's
+    validation (5,000 rows, no autograd) and once for the relative loss
+    (epoch 0 only, print every 5); no other kernel runs."""
+    def counts():
+        return (fs.LAUNCHES_FWD, fs.LAUNCHES_BWD)
+    res = run_experiment(scaled_config(2, "scaled_bs"), save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist = res["history"]["train_loss"]
+    want = (2 * SCALED_STEPS + 2 + 1, 2 * SCALED_STEPS)
+    if counts() != want or len(hist) != 2:
+        raise AssertionError(f"2 scaled epochs gave fused-step launches "
+                             f"{counts()} (expected {want}) and {len(hist)} "
+                             f"losses")
+    if not all(math.isfinite(x) for x in hist + res["history"]["val_loss"]):
+        raise AssertionError(f"non-finite scaled losses {res['history']}")
+    res3 = run_experiment(scaled_config(3, "scaled_bs"), save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist3 = res3["history"]["train_loss"]
+    want = (3 * SCALED_STEPS + 3 + 1, 3 * SCALED_STEPS)
+    if counts() != want or len(hist3) != 3 or hist3[:2] != hist:
+        raise AssertionError(f"the resume to 3 epochs gave fused-step "
+                             f"launches {counts()} (expected {want}) and "
+                             f"losses {hist3} after {hist}")
+    others = (gap_scan.LAUNCHES, tk.LAUNCHES, wt.LAUNCHES,
+              walk_scan.LAUNCHES_FWD, walk_scan.LAUNCHES_BWD)
+    if any(others):
+        raise AssertionError(f"the scaled path launched other kernels: gap, "
+                             f"train_run, walk_train, walk fwd/bwd {others}")
+    print(f"scaled training path: run_experiment (hidden {SCALED_H}, two "
+          f"networks, K=2, batch {SCALED_BS}, {SCALED_TRAIN:,} fresh "
+          f"trajectories per epoch in {SCALED_STEPS} steps, {SCALED_VAL:,} "
+          f"validation, use_pallas 'step') 2 epochs: train loss "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f}, val "
+          f"{res['history']['val_loss'][-1]:.4f}; resumed to 3 (loss "
+          f"{hist3[-1]:.4f}); launches in this window: fused-step forward "
+          f"{fs.LAUNCHES_FWD}, backward {fs.LAUNCHES_BWD}; gap, train_run, "
+          f"walk_train, walk forward/backward {others}", flush=True)
+
+
+def scaled_model(dev: torch.device, use_pallas, seed: int = 0
+                 ) -> NeuralJumpODE:
+    return NeuralJumpODE(1, SCALED_H, 1, num_moments=2, use_pallas=use_pallas,
+                         device=dev,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def step_vs_composed_phase(dev: torch.device) -> float:
+    """One epoch of identical data (100,000 fresh trajectories of the scaled
+    recipe's law in 25 minibatches of 4,096, the last trajectory-masked)
+    through apply_loss + autograd + Adam, on the fused-step kernels and on
+    the composed path, from identical weights: per-step losses at rtol 1e-4
+    / atol 1e-5, each parameter within GRAD_RTOL of its norm after the
+    epoch (Adam turns a gradient entry near 0 whose sign a relu kink flips
+    into a full lr step)."""
+    cfg = scaled_config(1, "ab")
+    train_fn, _ = create_data_loaders(base_seed=8, device=dev, **cfg["data"])
+    times, values, mask, _ = as_dense(train_fn(0), dev)
+    losses, params = [], []
+    for up in ("step", False):
+        model = scaled_model(dev, up, seed=4)
+        tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True,
+                     moment_weights=list(SCALED_MW), use_train_kernel=False)
+        idx, valid = tr._minibatches(0, times.shape[0], SCALED_BS, True)
+        step_losses = []
+        for ids, vm in zip(idx, valid):
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss = tr._loss(times[ids], values[ids], mask[ids], traj_mask=vm,
+                            training=True)
+            loss.backward()
+            tr.optimizer.step()
+            step_losses.append(loss.detach())
+        losses.append(torch.stack(step_losses))
+        params.append({k: v.detach() for k, v in model.named_parameters()})
+    err = assert_close(losses[0], losses[1],
+                       "fused-step vs composed per-step losses")
+    p_err = max(assert_close_norm(params[0][k], params[1][k],
+                                  f"fused-step vs composed {k}")
+                for k in params[1])
+    print(f"fused-step kernels vs composed path: one epoch ({SCALED_STEPS} "
+          f"steps of {SCALED_BS}) from identical weights, per-step losses "
+          f"max abs err {err:.3e}, parameters max abs err {p_err:.3e} "
+          f"(each within {GRAD_RTOL} of its norm)", flush=True)
+    return err
+
+
+def step_flops(H: int, N: int, lo, rows: int) -> float:
+    """The forward's products per call (bench.py:468-481's count at the
+    logical shapes, for L hidden layers): per network and row, N jumps,
+    2N - 1 readouts and N - 1 ODE steps."""
+    nets = 1 if lo.shared else lo.K
+    out_cols = lo.K * lo.d_y if lo.shared else lo.d_y
+    L = lo.L
+    per = (N * (lo.d_x * H + L * H * H)
+           + (2 * N - 1) * (L * H * H + H * out_cols)
+           + (N - 1) * ((H + lo.d_x + 2) * H + L * H * H))
+    return 2.0 * nets * per * rows
+
+
+def scaled_times_phase(dev: torch.device, card: str) -> dict:
+    """Host clock around synchronized Trainer.train calls; CUDA events for
+    rows 9-10.  Returns each kernel's (ms, plain ms, bound ms, bound_by)."""
+    E = SCALED_EPOCHS
+    cfg = scaled_config(E, "timed")
+    train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
+                                           **cfg["data"])
+
+    def trainer(up) -> Trainer:
+        m = scaled_model(dev, up)
+        return Trainer(m, make_adam(m.parameters(), 1e-3, 5e-4),
+                       ignore_first_continuity=True,
+                       moment_weights=list(SCALED_MW), use_train_kernel=False)
+
+    def epochs(tr, n):
+        return timed_epochs(tr, train_fn, val_fn, cfg, n, SCALED_BS)
+    step_tr = trainer("step")
+    step_s = epochs(step_tr, E)
+    mse_mean, mse_var, rel = val_metrics(step_tr.model, dev, SCALED_MW,
+                                         n=SCALED_VAL, obs_fraction=0.02)
+    comp_tr = trainer(False)
+    epochs(comp_tr, 1)
+    n_c = SCALED_COMPOSED_EPOCHS
+    comp_s = epochs(comp_tr, n_c) * E / n_c
+    # the A/B behind the "auto" gate (AUTO_SHAPE_H100, AUTO_MIN_BATCH_H100),
+    # whose shape is this recipe's: one epoch each, in turns
+    if not scaled_model(dev, "auto")._use_fused_step(2, SCALED_BS):
+        raise AssertionError("'auto' does not take the fused step at the "
+                             "scaled recipe's shape")
+    ab = {"step": [], "composed": []}
+    for arm in ("step", "composed", "composed", "step"):
+        ab[arm].append(epochs(step_tr if arm == "step" else comp_tr, 1))
+
+    # rows 9-10 at their main-path shapes, and row 9 at validation's
+    gen = torch.Generator().manual_seed(17)
+    c = step_case(gen, SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS,
+                  dev)
+    c_val = step_case(gen, SCALED_H, 2, False, 1, "relu", "identity",
+                      SCALED_VAL, dev)
+    with torch.no_grad():
+        run = {(k, b): (lambda k=k, b=b: (step_bwd if b else step_fwd)(
+            c, "relu", "identity", k)) for k in (True, False)
+            for b in (False, True)}
+        t = {key: [] for key in run}
+        for key in ((True, False), (False, False), (True, True),
+                    (False, True)) * 2:
+            t[key].append(time_ms(run[key], warmup=3, reps=20))
+        f_val = time_ms(lambda: step_fwd(c_val, "relu", "identity", True))
+    med = {key: statistics.median(v) for key, v in t.items()}
+    lo = c["lo"]
+    flops = step_flops(SCALED_H, 2, lo, SCALED_BS)
+    io = 4 * (c["W"].numel() + c["V"].numel() + c["times"].numel()
+              + c["values"].numel())
+    f_bound = bound_of(flops, io + 4 * c["gy"].numel())
+    # the backward rematerializes the forward: three forwards' products
+    b_bound = bound_of(3 * flops, io + 4 * (c["gy"].numel() + c["W"].numel()
+                                            + c["V"].numel()))
+    n = E * SCALED_TRAIN
+    print(f"scaled times on {card}: the recipe ({E} epochs x "
+          f"{SCALED_TRAIN:,} fresh trajectories, batch {SCALED_BS}, hidden "
+          f"{SCALED_H}, validation {SCALED_VAL:,}) through Trainer.train on "
+          f"the fused-step kernels {step_s:.3f} s = {n / step_s:.0f} traj/s "
+          f"(final train loss {step_tr.train_losses[E - 1]:.4f}); composed "
+          f"path ({n_c} epochs after one, scaled to {E}) {comp_s:.3f} s = "
+          f"{n / comp_s:.0f} traj/s; the A/B of the 'auto' gate, one epoch "
+          f"each in turns "
+          f"(step, composed, composed, step): step "
+          f"{', '.join(f'{x:.4f}' for x in ab['step'])} s, composed "
+          f"{', '.join(f'{x:.4f}' for x in ab['composed'])} s; val MSE after "
+          f"{E} epochs ({SCALED_VAL:,} trajectories): mean {mse_mean:.3e} "
+          f"var {mse_var:.3e}, relative loss {rel:.4f}", flush=True)
+    print(f"fused-step kernels on {card}, two networks, H {SCALED_H}, N 2, "
+          f"{SCALED_BS} rows: forward "
+          f"{', '.join(f'{x:.4f}' for x in t[True, False])} ms (plain "
+          f"{', '.join(f'{x:.4f}' for x in t[False, False])} ms; bound "
+          f"{f_bound[0]:.4f} ms {f_bound[1]}); backward "
+          f"{', '.join(f'{x:.4f}' for x in t[True, True])} ms (plain "
+          f"{', '.join(f'{x:.4f}' for x in t[False, True])} ms; bound "
+          f"{b_bound[0]:.4f} ms {b_bound[1]}); forward at {SCALED_VAL:,} "
+          f"validation rows {f_val:.4f} ms; launch plan (rows per warp) "
+          f"{step_plan(c)}", flush=True)
+    return {"fused_step_fwd": (med[True, False], med[False, False], *f_bound),
+            "fused_step_bwd": (med[True, True], med[False, True], *b_bound)}
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -1230,6 +1586,21 @@ def main() -> None:
     times.update(walk_times_phase(dev, card))
     t = phase_time("walk kernel times", t)
 
+    print(f"build: fused_step.cu in {build_s:.2f} s (with the other sources, "
+          f"in parallel); ptxas: {ptxas_summary('fused_step')}", flush=True)
+    sf_err, sb_err, _ = step_kernel_phase(dev)
+    t = phase_time("fused-step kernels vs plain", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
+        gap_scan.LAUNCHES = tk.LAUNCHES = wt.LAUNCHES = 0
+        walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = 0
+        scaled_path_phase(dev, Path(tmp))
+        step_launches = (fs.LAUNCHES_FWD, fs.LAUNCHES_BWD)
+    step_vs_composed_phase(dev)
+    t = phase_time("scaled training path", t)
+    times.update(scaled_times_phase(dev, card))
+    t = phase_time("scaled times", t)
+
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
         ms, plain, bound, by = tm
@@ -1238,6 +1609,7 @@ def main() -> None:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": None}
     composed = "composed grid-walk training (Trainer.train, one epoch)"
+    scaled = "scaled training (run_experiment)"
     print(json.dumps({"kernels": [
         entry("gap_scan_fwd", KERNEL_SOURCE, REPLACES,
               "serving (predict_at, NJODEFilter)", launches, max_err,
@@ -1252,7 +1624,13 @@ def main() -> None:
         entry("walk_train", WALK_TRAIN_SOURCE,
               "njode_tpu/ops/walk_train.py:178",
               "production training (run_experiment)", prod_launches, wt_err,
-              times["walk_train"])]}), flush=True)
+              times["walk_train"]),
+        entry("fused_step_fwd", STEP_SOURCE,
+              "njode_tpu/ops/fused_step.py:223", scaled, step_launches[0],
+              sf_err, times["fused_step_fwd"]),
+        entry("fused_step_bwd", STEP_SOURCE,
+              "njode_tpu/ops/fused_step.py:316", scaled, step_launches[1],
+              sb_err, times["fused_step_bwd"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -43,14 +43,22 @@ Training: :meth:`NeuralJumpODE.apply` is the dense slot-batched forward
 composes it with :func:`nj_ode_loss_dense`, and ``forward`` is the ragged
 reference API.  Dropout in training mode draws from an explicit
 ``torch.Generator``; without one no dropout is applied, as the JAX model
-applies none without an rng.
+applies none without an rng.  With ``use_pallas="step"`` (the scaled
+recipe) ``apply``, and so ``apply_loss``, goes through the fused
+whole-step kernels of :mod:`njode_tpu_torch.ops.fused_step` wherever
+``_use_fused_step`` holds (no dropout, no
+``dt_ode_step``, euler, shapes within ``fused_step_fits``): the CUDA
+kernels for CUDA tensors, their plain versions on the CPU.  ``"auto"``
+takes them on the card only at the shape an H100 A/B had them ahead
+(the scaled recipe's: hidden 256, two slots, >= 4,096 rows).
 
 The model's device defaults to ``cuda``; the CPU is used only when asked
 for (``device="cpu"``).  Without a CUDA device the default raises.
 
 Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10), mixed
-precision and the fused-step kernel (Queue 2 rows 9-10), the fused Euler
-cell (row 6); the constructor arguments that select them raise.
+precision (``compute_dtype``), the fused Euler cell (row 6) and Pallas
+interpret mode (``"step-interpret"``); the constructor arguments that
+select them raise.
 """
 
 from __future__ import annotations
@@ -64,7 +72,7 @@ from torch import nn
 
 from ..ops import (GapWeights, gap_scan_available, integrate_gap_fused,
                    split_weights)
-from ..ops import walk_scan
+from ..ops import fused_step, walk_scan
 from .activations import (canonical_activation, canonical_input_scaling,
                           get_input_scaling)
 from .loss import nj_ode_loss_dense
@@ -123,12 +131,15 @@ class NeuralJumpODE(nn.Module):
       generator: the ``torch.Generator`` the init draws from; None means a
                  CPU generator seeded with 0.  Weights are drawn on the CPU
                  and then moved, so a seed gives the same model everywhere.
-      use_pallas: "auto" (default) or False, kept for the JAX signature.
-                 The gap kernel runs wherever it applies under both; the
-                 grid walk takes its kernel pair only under "auto" and its
-                 plain walk under False, as in the JAX package.  True,
-                 "interpret" and "step" select JAX kernels that are not
-                 ported yet and raise.
+      use_pallas: "auto" (default), False or "step", kept for the JAX
+                 signature.  The gap kernel runs wherever it applies under
+                 all three; the grid walk takes its kernel pair only under
+                 "auto" and its plain walk under False, as in the JAX
+                 package; "step" takes the fused whole-step kernels, and
+                 "auto" takes them on the card at the shape an H100 A/B
+                 measured ahead (:meth:`_use_fused_step`).  True, "interpret" and
+                 "step-interpret" select JAX kernels or modes that are not
+                 ported and raise.
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
@@ -150,17 +161,19 @@ class NeuralJumpODE(nn.Module):
         if compute_dtype is not None:
             raise NotImplementedError(
                 "compute_dtype: mixed precision is not ported yet "
-                "(ROADMAP.md, Queue 2 fused_step)")
-        if use_pallas in ("step", "step-interpret"):
+                "(ROADMAP.md, Queue 2 rows 9-10, bf16)")
+        if use_pallas == "step-interpret":
             raise NotImplementedError(
-                "use_pallas='step': the fused training-step kernel is not "
-                "ported yet (ROADMAP.md, Queue 2 fused_step)")
+                "use_pallas='step-interpret' runs the fused training-step "
+                "kernel in Pallas interpret mode, which has no port: on the "
+                "CPU use 'step', whose wrappers take the kernels' plain "
+                "versions for CPU tensors")
         if use_pallas is True or use_pallas == "interpret":
             raise NotImplementedError(
                 f"use_pallas={use_pallas!r} selects the per-substep fused "
                 "Euler cell kernel, which is not ported yet (ROADMAP.md, "
                 "Queue 2 fused_cell)")
-        if use_pallas not in ("auto", False):
+        if use_pallas not in ("auto", False, "step"):
             raise ValueError(f"Unknown use_pallas: {use_pallas!r}")
         if ode_solver not in ("euler", "heun", "rk4"):
             raise ValueError(f"Unknown ode_solver: {ode_solver!r} "
@@ -203,6 +216,11 @@ class NeuralJumpODE(nn.Module):
         self.k_hidden = 1 if shared_network else num_moments
         self._gap_eligible = (ode_solver == "euler" and gap_scan_available(
             n_hidden_layers, self._act_key, dropout_rate, self._scale_key))
+        # the fused whole-step kernels (use_pallas="step"): jump -> one
+        # Euler step per gap -> readout, all slots in two kernels
+        self._step_eligible = fused_step.fused_step_available(
+            input_dim, output_dim, n_hidden_layers, self._act_key,
+            dropout_rate, self._scale_key, dt_ode_step, ode_solver)
         # (parameter versions, GapWeights): the kernel's weights, cut once
         self._gap_cache: Optional[tuple] = None
 
@@ -286,6 +304,40 @@ class NeuralJumpODE(nn.Module):
         return walk_scan.walk_scan_available(
             self.n_hidden_layers, self._act_key, self.dropout_rate,
             self._scale_key, self.input_dim, self.hidden_dim)
+
+    def _use_fused_step(self, n_slots: int, n_batch: int = 0) -> bool:
+        """Route ``apply`` through the fused-step kernels
+        (``njode_tpu/models/jump_ode.py:238-268``, with the port's gates):
+        under ``use_pallas="step"`` wherever the model is eligible
+        (``fused_step_available``) and the shapes fit
+        (``fused_step_fits``), CUDA tensors taking the kernels and CPU
+        tensors their plain versions.  Under ``"auto"`` only at the shape
+        where the H100 A/B of the scaled recipe had the kernels ahead of the
+        composed path (PERF.md, section 6): on the card, separate networks,
+        (hidden, ``n_slots``, layers, d_x, d_y, K) equal to
+        ``AUTO_SHAPE_H100`` and ``n_batch`` >= ``AUTO_MIN_BATCH_H100``
+        rows.  Elsewhere the composed route."""
+        if not self._step_eligible:
+            return False
+        if self.use_pallas == "auto":
+            shape = (self.hidden_dim, n_slots, self.n_hidden_layers,
+                     self.input_dim, self.output_dim, self.num_moments)
+            if (self.device.type != "cuda" or self.shared_network
+                    or shape != fused_step.AUTO_SHAPE_H100
+                    or n_batch < fused_step.AUTO_MIN_BATCH_H100):
+                return False
+        elif self.use_pallas != "step":
+            return False
+        return fused_step.fused_step_fits(
+            self.hidden_dim, n_slots, self.n_hidden_layers, self.input_dim,
+            self.output_dim, self.num_moments)
+
+    def _step_kwargs(self) -> dict:
+        return dict(num_moments=self.num_moments, activation=self._act_key,
+                    input_scaling=self._scale_key,
+                    shared_network=self.shared_network,
+                    input_dim=self.input_dim, output_dim=self.output_dim,
+                    n_hidden_layers=self.n_hidden_layers)
 
     def _jump(self, x: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -618,6 +670,11 @@ class NeuralJumpODE(nn.Module):
         self._check_substep_budget(times)
         gen = (generator if training and self.dropout_rate > 0.0 else None)
         B, N = times.shape
+        # (the fused step is ineligible with dropout, so no generator here)
+        if self._use_fused_step(N, B):
+            return fused_step.fused_step_apply(
+                *fused_step.pack_params(self), times, values,
+                **self._step_kwargs())
         d_x = values.shape[-1]
         K_h, d_h = self.k_hidden, self.hidden_dim
 
@@ -663,9 +720,8 @@ class NeuralJumpODE(nn.Module):
                    moment_weights=None, eps: float = 1e-10,
                    variance_method: str = "direct", traj_mask=None,
                    extended_moments: bool = False) -> torch.Tensor:
-        """``nj_ode_loss_dense(values, *self.apply(...), mask, ...)``: the
-        composed branch of the JAX ``apply_loss`` (its fused-step branch is
-        not ported; ``use_pallas='step'`` raises at construction)."""
+        """``nj_ode_loss_dense(values, *self.apply(...), mask, ...)``; where
+        ``apply`` takes the fused step, so does the loss's forward."""
         values = self._as_tensor(values)
         preds, preds_before = self.apply(times, values, mask,
                                          generator=generator,

@@ -1,0 +1,603 @@
+"""The fused whole training step: jump -> one Euler step -> readout, all slots.
+
+Port of ``njode_tpu/ops/fused_step.py``.  Without ``dt_ode_step`` every gap
+is one Euler step, and the jump resets the latent state at every
+observation, so the whole forward of ``NeuralJumpODE.apply`` is local to
+each (trajectory, slot): per network kn (Kn = K separate, or 1 shared)
+
+    HJ_s = act(... act(sum_d x_s[d] j1[d] + bj0) @ J_1 + bj_1 ...)     jump
+    BASE = t_{s-1} w1t + (t_s - t_{s-1}) w1d + b1 + sum_d s(x_{s-1}[d]) w1x[d]
+    G    = act(s(HJ_{s-1}) @ W1h + BASE), then the mid layers            ODE
+    HM_s = HJ_{s-1} + DT (G @ Wlast + blast)                  one Euler step
+    y    = act(... act(U @ O_0 + bo_0) ...) . o2   for U in [HJ_s; HM_s]  readout
+
+x enters the jump layer unscaled and the ODE layer scaled (``s(x)``,
+``s(h)``).  The readout's bias bo2 stays outside the kernels and is added
+differentiably, as in the JAX package.
+
+Kernels: ``csrc/fused_step.cu``, ``njode_step_fwd`` (replaces the TPU kernel
+``fused_step.py:223`` ``_fwd_kernel``) and ``njode_step_bwd`` (replaces
+``:316`` ``_bwd_kernel``: rematerialize, then the reverse chain, returning
+the parameter cotangents dW and dV), joined by :class:`FusedStep`, a
+``torch.autograd.Function``.  As in the JAX ``custom_vjp``, times and values
+get no cotangent.
+
+The layout (:class:`StepLayout`) keeps the JAX package's planes and rows at
+logical shapes: W (Kn, n_mats, H, H), each plane in (in, out) orientation,
+V (Kn, n_rows, H).  Not copied (TPU layout, not semantics): the 128-lane
+padding, the 16-row minimum of V, the lane packing of inputs and outputs
+and the lane-space loss, whose value and gradients :func:`fused_step_loss`
+reproduces as ``nj_ode_loss_dense`` of :func:`fused_step_apply`.
+
+The port's own shape gate (:func:`fused_step_fits`, :func:`launch_plan`):
+1 <= H <= 256 (8 columns a lane), and a block's working set in the H100's
+227 KB of shared memory: the weight stage (3 slices of 8 rows of H), 2
+(forward) or 3 L + 3 (backward) buffers of RT x H floats, and the tile's
+scalars, with RT 64 rows forward and 32 or 16 backward.  At H 256 that
+admits L up to 3 and N up to 100; every recipe of the repo fits.
+``use_pallas="auto"`` takes the kernels on the card only at the shape an
+H100 A/B measured ahead (``AUTO_SHAPE_H100``, ``AUTO_MIN_BATCH_H100``).
+
+Wrappers: :func:`fused_step_apply` / :func:`fused_step_loss` take the
+kernels for CUDA tensors and the plain versions
+:func:`fused_step_forward_reference` / :func:`fused_step_backward_reference`
+only for CPU tensors.  :func:`pack_params` / :func:`unpack_params` map the
+model's modules to (W, V, bo2) and back; packing is differentiable, so
+autograd carries dW and dV back to the modules' parameters.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .activations import _ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD, SCALINGS, SUPPORTED_ACTS
+
+# launches of the forward and backward kernels in this process; callers may
+# reset them to 0
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+MAX_HIDDEN = 256               # 8 columns a lane of a warp
+WARPS = 8                      # a block: 8 warps, RPW rows each
+SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
+FWD_RPW = (8,)                 # rows per warp the kernels are built for
+BWD_RPW = (4, 2)
+SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 rows
+# use_pallas="auto" takes the kernels on the card only at the one shape the
+# H100 A/B of the scaled recipe had them ahead of the composed path (PERF.md,
+# section 6): separate networks, (H, N, L, d_x, d_y, K) as below, and at least
+# 4,096 batch rows (the grid is ceil(B / 64) x Kn blocks, each walking its
+# slots in turn).  No other shape was measured.
+AUTO_SHAPE_H100 = (256, 2, 1, 1, 1, 2)
+AUTO_MIN_BATCH_H100 = 4096
+
+
+class StepLayout:
+    """Planes and rows of (W, V) for one config (``fused_step.py:135-187``).
+
+    Planes (Kn, n_mats, H, H), (in, out): J_1..J_L (jump hidden layers),
+    O_0..O_{L-1} (readout hidden layers), W1h (the h rows of the ODEFunc's
+    first layer), Wmid_1..Wmid_{L-1}, Wlast.  Rows (Kn, n_rows, H): j1[d_x],
+    bj[0..L], w1x[d_x], w1t, w1d, ode_b[0..L], bo[0..L-1], o2 (d_y rows per
+    network; shared: K d_y rows, column order c = d K + k).
+    """
+
+    def __init__(self, n_hidden_layers: int, input_dim: int, output_dim: int,
+                 num_moments: int, shared: bool):
+        L, d_x, d_y, K = n_hidden_layers, input_dim, output_dim, num_moments
+        self.L, self.d_x, self.d_y, self.K = L, d_x, d_y, K
+        self.shared = bool(shared)
+        self.Kn = 1 if shared else K
+        self.mat_jump = list(range(0, L))
+        self.mat_out = list(range(L, 2 * L))
+        self.mat_w1h = 2 * L
+        self.mat_ode_mid = list(range(2 * L + 1, 3 * L))
+        self.mat_ode_last = 3 * L
+        self.n_mats = 3 * L + 1
+        r = 0
+        self.row_j1 = r; r += d_x
+        self.row_bj = list(range(r, r + L + 1)); r += L + 1
+        self.row_w1x = r; r += d_x
+        self.row_w1t = r; r += 1
+        self.row_w1d = r; r += 1
+        self.row_ode_b = list(range(r, r + L + 1)); r += L + 1
+        self.row_bo = list(range(r, r + L)); r += L
+        self.row_o2 = r
+        self.n_o2 = K * d_y if shared else d_y
+        self.n_rows = r + self.n_o2
+
+    def o2_row(self, k: int, d: int) -> int:
+        return self.row_o2 + (d * self.K + k if self.shared else d)
+
+    def key(self) -> tuple:
+        return (self.L, self.d_x, self.d_y, self.K, self.shared)
+
+
+def fused_step_available(input_dim: int, output_dim: int,
+                         n_hidden_layers: int, activation: str,
+                         dropout_rate: float, input_scaling: str,
+                         dt_ode_step, ode_solver: str = "euler") -> bool:
+    """Whether the kernels compute this model, shared or separate networks
+    (``fused_step.py:190-202``; canonical activation/scaling names
+    expected)."""
+    return (input_dim >= 1 and output_dim >= 1 and n_hidden_layers >= 1
+            and dropout_rate == 0.0 and dt_ode_step is None
+            and ode_solver == "euler" and activation in SUPPORTED_ACTS
+            and input_scaling in _SCALE)
+
+
+def _smem_floats(backward: bool, rt: int, H: int, N: int, L: int, d_x: int,
+                 d_y: int, K: int) -> int:
+    """Shared memory of one block, in floats (csrc/fused_step.cu's
+    ``fwd_smem_floats`` / ``bwd_smem_floats``)."""
+    scal = rt * N * (2 * d_x + 1)                     # x, s(x), t
+    stage = STAGES * SLICE_K * H
+    if not backward:
+        return stage + 2 * rt * H + scal
+    return stage + (3 * L + 3) * rt * H + scal + rt * (2 * N - 1) * d_y * K
+
+
+def launch_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
+                input_dim: int = 1, output_dim: int = 1,
+                num_moments: int = 1) -> Optional[tuple[int, int]]:
+    """Rows per warp (forward, backward) of the kernels on an H100: the
+    most of ``FWD_RPW`` / ``BWD_RPW`` whose block fits ``SMEM_BYTES``;
+    None where the shapes do not fit."""
+    H, N, L = hidden_dim, n_slots, n_hidden_layers
+    if not (1 <= H <= MAX_HIDDEN and N >= 1 and L >= 1 and input_dim >= 1
+            and output_dim >= 1 and num_moments >= 1):
+        return None
+    plan = []
+    for backward, choices in ((False, FWD_RPW), (True, BWD_RPW)):
+        fit = [r for r in choices if 4 * _smem_floats(
+            backward, WARPS * r, H, N, L, input_dim, output_dim,
+            num_moments) <= SMEM_BYTES]
+        if not fit:
+            return None
+        plan.append(fit[0])
+    return plan[0], plan[1]
+
+
+def fused_step_fits(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
+                    input_dim: int = 1, output_dim: int = 1,
+                    num_moments: int = 1) -> bool:
+    """The port's shape gate: both kernels have a launch plan."""
+    return launch_plan(hidden_dim, n_slots, n_hidden_layers, input_dim,
+                       output_dim, num_moments) is not None
+
+
+# --------------------------------------------------------------------------
+# packing: the model's modules <-> (W, V, bo2)
+# --------------------------------------------------------------------------
+
+def _networks(model):
+    """[(jump, ode, out) Linear lists] per network (Kn of them)."""
+    from ..models.mlp import linears
+    if model.shared_network:
+        nets = [(model.jump_nn, model.ode_func, model.output_nn)]
+    else:
+        nets = zip(model.jump_nns, model.ode_funcs, model.output_nns)
+    return [tuple(linears(n) for n in trio) for trio in nets]
+
+
+def pack_params(model) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The model's parameters -> (W (Kn, n_mats, H, H), V (Kn, n_rows, H),
+    bo2 (K, d_y)), in differentiable torch ops.  torch's Linear weights are
+    (out, in); the planes are (in, out), as in the JAX layout."""
+    lo = layout_of(model)
+    H, d_x, L = model.hidden_dim, model.input_dim, model.n_hidden_layers
+    Ws, Vs = [], []
+    for jl, ol, ul in _networks(model):
+        mats = [None] * lo.n_mats
+        for l in range(L):
+            mats[lo.mat_jump[l]] = jl[l + 1].weight.t()
+            mats[lo.mat_out[l]] = ul[l].weight.t()
+        w1 = ol[0].weight                                   # (H, H + d_x + 2)
+        mats[lo.mat_w1h] = w1[:, :H].t()
+        for i, m in enumerate(lo.mat_ode_mid):
+            mats[m] = ol[i + 1].weight.t()
+        mats[lo.mat_ode_last] = ol[L].weight.t()
+        rows = [None] * lo.n_rows
+        for d in range(d_x):
+            rows[lo.row_j1 + d] = jl[0].weight[:, d]
+            rows[lo.row_w1x + d] = w1[:, H + d]
+        rows[lo.row_w1t] = w1[:, H + d_x]
+        rows[lo.row_w1d] = w1[:, H + d_x + 1]
+        for l in range(L + 1):
+            rows[lo.row_bj[l]] = jl[l].bias
+            rows[lo.row_ode_b[l]] = ol[l].bias
+        for l in range(L):
+            rows[lo.row_bo[l]] = ul[l].bias
+        for c in range(lo.n_o2):
+            rows[lo.row_o2 + c] = ul[L].weight[c]
+        Ws.append(torch.stack(mats))
+        Vs.append(torch.stack(rows))
+    if model.shared_network:
+        # flat readout column c = d K + k -> (K, d_y)
+        bo2 = _networks(model)[0][2][L].bias.reshape(lo.d_y, lo.K).t()
+    else:
+        bo2 = torch.stack([ul[L].bias for _, _, ul in _networks(model)])
+    return torch.stack(Ws), torch.stack(Vs), bo2
+
+
+def unpack_params(W, V, bo2, *, num_moments: int, hidden_dim: int,
+                  shared_network: bool = False, input_dim: int = 1,
+                  output_dim: int = 1, n_hidden_layers: int = 1
+                  ) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`pack_params`: the port's state dict (the names of
+    ``utils.weights.state_dict_from_jax``)."""
+    lo = StepLayout(n_hidden_layers, input_dim, output_dim, num_moments,
+                    shared_network)
+    H, d_x, L = hidden_dim, input_dim, n_hidden_layers
+    out: dict[str, torch.Tensor] = {}
+    for kn in range(lo.Kn):
+        w, v = W[kn], V[kn]
+        names = (("jump_nn", "ode_func", "output_nn") if shared_network
+                 else (f"jump_nns.{kn}", f"ode_funcs.{kn}",
+                       f"output_nns.{kn}"))
+        jump, ode, outn = names
+
+        def put(prefix, l, weight, bias):
+            out[f"{prefix}.net.{3 * l}.weight"] = weight.contiguous()
+            out[f"{prefix}.net.{3 * l}.bias"] = bias.contiguous()
+        put(jump, 0, torch.stack([v[lo.row_j1 + d] for d in range(d_x)], 1),
+            v[lo.row_bj[0]])
+        for l in range(L):
+            put(jump, l + 1, w[lo.mat_jump[l]].t(), v[lo.row_bj[l + 1]])
+            put(outn, l, w[lo.mat_out[l]].t(), v[lo.row_bo[l]])
+        w1 = torch.cat([w[lo.mat_w1h].t()]
+                       + [v[lo.row_w1x + d, :, None] for d in range(d_x)]
+                       + [v[lo.row_w1t, :, None], v[lo.row_w1d, :, None]], 1)
+        put(ode, 0, w1, v[lo.row_ode_b[0]])
+        for i, m in enumerate(lo.mat_ode_mid):
+            put(ode, i + 1, w[m].t(), v[lo.row_ode_b[i + 1]])
+        put(ode, L, w[lo.mat_ode_last].t(), v[lo.row_ode_b[L]])
+        o2 = v[lo.row_o2:lo.row_o2 + lo.n_o2]
+        b = bo2.t().reshape(-1) if shared_network else bo2[kn]
+        put(outn, L, o2, b)
+    return out
+
+
+def layout_of(model) -> StepLayout:
+    return StepLayout(model.n_hidden_layers, model.input_dim,
+                      model.output_dim, model.num_moments,
+                      model.shared_network)
+
+
+# --------------------------------------------------------------------------
+# the plain versions
+# --------------------------------------------------------------------------
+
+def _slot_major(times, values):
+    """(B, N), (B, N, d_x) -> X (N B, d_x) and T (N, B), row s B + b."""
+    B, N = times.shape
+    return (values.transpose(0, 1).reshape(N * B, values.shape[-1]),
+            times.t())
+
+
+def _gy_rows(gy, kk: int, d: int):
+    """(B, 2N-1, d_y, K) -> ((2N-1) B, 1), rows in the slot-major order of
+    [HJ; HM]."""
+    return gy[:, :, d, kk].t().reshape(-1, 1)
+
+
+def fused_step_forward_reference(W, V, times, values, lo: StepLayout,
+                                 act_name: str, scale_name: str):
+    """Plain PyTorch version of the forward kernel (the slot-batched
+    ``_fwd_kernel``): Y (B, 2N-1, d_y, K), slots 0..N-1 the after-jump
+    outputs, N..2N-2 the before-jump outputs of slots 1..N-1, bo2
+    excluded.  Differentiable."""
+    A, SC = _ACT[act_name], _SCALE[scale_name]
+    B, N = times.shape
+    S = N - 1
+    X, T = _slot_major(times, values)
+    cols = {}
+    for kn in range(lo.Kn):
+        w, v = W[kn], V[kn]
+        pre = v[lo.row_bj[0]]
+        for d in range(lo.d_x):
+            pre = pre + X[:, d:d + 1] * v[lo.row_j1 + d]
+        HJ = A(pre)
+        for l in range(lo.L):
+            HJ = A(HJ @ w[lo.mat_jump[l]] + v[lo.row_bj[l + 1]])
+        U = HJ
+        if S > 0:
+            HJg = HJ[:S * B]
+            T0 = T[:S].reshape(-1, 1)
+            DT = (T[1:] - T[:-1]).reshape(-1, 1)
+            BASE = T0 * v[lo.row_w1t] + DT * v[lo.row_w1d] + v[lo.row_ode_b[0]]
+            for d in range(lo.d_x):
+                BASE = BASE + SC(X[:S * B, d:d + 1]) * v[lo.row_w1x + d]
+            G = A(SC(HJg) @ w[lo.mat_w1h] + BASE)
+            for i, m in enumerate(lo.mat_ode_mid):
+                G = A(G @ w[m] + v[lo.row_ode_b[i + 1]])
+            DH = G @ w[lo.mat_ode_last] + v[lo.row_ode_b[lo.L]]
+            U = torch.cat([HJ, HJg + DT * DH])
+        for l in range(lo.L):
+            U = A(U @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
+        for kk in (range(lo.K) if lo.shared else (kn,)):
+            for d in range(lo.d_y):
+                cols[d, kk] = (U @ v[lo.o2_row(kk, d)]).reshape(2 * N - 1, B).t()
+    return torch.stack([torch.stack([cols[d, k] for k in range(lo.K)], -1)
+                        for d in range(lo.d_y)], 2)
+
+
+def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
+                                  act_name: str, scale_name: str):
+    """Plain PyTorch version of the backward kernel (``_bwd_kernel``):
+    rematerialize the forward, then the reverse chain; returns (dW, dV),
+    the cotangents of W and V for the output cotangent gy (B, 2N-1, d_y,
+    K).  Sums over all rows of A^T G for every plane and column sums for
+    every row of V."""
+    A, AG = _ACT[act_name], _ACT_GRAD[act_name]
+    SC, SG = _SCALE[scale_name], _SCALE_GRAD[scale_name]
+    B, N = times.shape
+    S, L = N - 1, lo.L
+    X, T = _slot_major(times, values)
+    dW, dV = torch.zeros_like(W), torch.zeros_like(V)
+    for kn in range(lo.Kn):
+        w, v, dw, dv = W[kn], V[kn], dW[kn], dV[kn]
+        # ---- rematerialize
+        A_pre = [v[lo.row_bj[0]] + sum(X[:, d:d + 1] * v[lo.row_j1 + d]
+                                       for d in range(lo.d_x))]
+        A_val = [A(A_pre[0])]
+        for l in range(L):
+            A_pre.append(A_val[l] @ w[lo.mat_jump[l]] + v[lo.row_bj[l + 1]])
+            A_val.append(A(A_pre[l + 1]))
+        HJ = A_val[L]
+        if S > 0:
+            HJg = HJ[:S * B]
+            T0 = T[:S].reshape(-1, 1)
+            DT = (T[1:] - T[:-1]).reshape(-1, 1)
+            X_sc = [SC(X[:S * B, d:d + 1]) for d in range(lo.d_x)]
+            HJ_sc = SC(HJg)
+            BASE = T0 * v[lo.row_w1t] + DT * v[lo.row_w1d] + v[lo.row_ode_b[0]]
+            for d in range(lo.d_x):
+                BASE = BASE + X_sc[d] * v[lo.row_w1x + d]
+            G_pre = [HJ_sc @ w[lo.mat_w1h] + BASE]
+            G_val = [A(G_pre[0])]
+            for i, m in enumerate(lo.mat_ode_mid):
+                G_pre.append(G_val[i] @ w[m] + v[lo.row_ode_b[i + 1]])
+                G_val.append(A(G_pre[i + 1]))
+            DH = G_val[L - 1] @ w[lo.mat_ode_last] + v[lo.row_ode_b[L]]
+            U_in = [torch.cat([HJ, HJg + DT * DH])]
+        else:
+            U_in = [HJ]
+        U_pre = []
+        for l in range(L):
+            U_pre.append(U_in[l] @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
+            U_in.append(A(U_pre[l]))
+        # ---- readout backward: dU sums GY o2 over the network's columns
+        g = 0.0
+        for kk in (range(lo.K) if lo.shared else (kn,)):
+            for d in range(lo.d_y):
+                GY = _gy_rows(gy, kk, d)
+                dv[lo.o2_row(kk, d)] += (U_in[L] * GY).sum(0)
+                g = g + GY * v[lo.o2_row(kk, d)]
+        for l in range(L - 1, -1, -1):
+            g_pre = g * AG(U_pre[l])
+            dw[lo.mat_out[l]] += U_in[l].t() @ g_pre
+            dv[lo.row_bo[l]] += g_pre.sum(0)
+            g = g_pre @ w[lo.mat_out[l]].t()
+        dHJ = g[:N * B]
+        if S > 0:
+            dHM = g[N * B:]
+            g = DT * dHM
+            dw[lo.mat_ode_last] += G_val[L - 1].t() @ g
+            dv[lo.row_ode_b[L]] += g.sum(0)
+            g = g @ w[lo.mat_ode_last].t()
+            for i in range(L - 2, -1, -1):
+                g_pre = g * AG(G_pre[i + 1])
+                dw[lo.mat_ode_mid[i]] += G_val[i].t() @ g_pre
+                dv[lo.row_ode_b[i + 1]] += g_pre.sum(0)
+                g = g_pre @ w[lo.mat_ode_mid[i]].t()
+            g = g * AG(G_pre[0])                          # dG1_pre
+            dw[lo.mat_w1h] += HJ_sc.t() @ g
+            for d in range(lo.d_x):
+                dv[lo.row_w1x + d] += (X_sc[d] * g).sum(0)
+            dv[lo.row_w1t] += (T0 * g).sum(0)
+            dv[lo.row_w1d] += (DT * g).sum(0)
+            dv[lo.row_ode_b[0]] += g.sum(0)
+            dHJg = dHM + (g @ w[lo.mat_w1h].t()) * SG(HJg)
+            dHJ = dHJ + torch.cat([dHJg, torch.zeros_like(dHJ[S * B:])])
+        # ---- jump backward
+        g = dHJ
+        for l in range(L - 1, -1, -1):
+            g_pre = g * AG(A_pre[l + 1])
+            dw[lo.mat_jump[l]] += A_val[l].t() @ g_pre
+            dv[lo.row_bj[l + 1]] += g_pre.sum(0)
+            g = g_pre @ w[lo.mat_jump[l]].t()
+        g = g * AG(A_pre[0])
+        for d in range(lo.d_x):
+            dv[lo.row_j1 + d] += (X[:, d:d + 1] * g).sum(0)
+        dv[lo.row_bj[0]] += g.sum(0)
+    return dW, dV
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _load_kernel():
+    """Build (first call only) and bind ``njode_step_fwd``/``_bwd``."""
+    from ._build import load
+    lib = load("fused_step")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # x, t, W, V, Y | B N H L d_x d_y K shared act scale rpw | stream
+    lib.njode_step_fwd.argtypes = [P] * 5 + [I] * 11 + [P]
+    lib.njode_step_fwd.restype = I
+    lib.njode_step_partial_floats.argtypes = [I] * 8
+    lib.njode_step_partial_floats.restype = ctypes.c_longlong
+    # x, t, W, WT, V, gy, partial, dW, dV | (as the forward) | stream
+    lib.njode_step_bwd.argtypes = [P] * 9 + [I] * 11 + [P]
+    lib.njode_step_bwd.restype = I
+    return lib
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _meta_ints(lo: StepLayout, B: int, N: int, H: int, act_name: str,
+               scale_name: str) -> list[int]:
+    return [B, N, H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared),
+            SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name)]
+
+
+def _check_cuda(W, V, times, values, lo: StepLayout, act_name, scale_name):
+    dev = W.device
+    if dev.type != "cuda" or any(x.device != dev for x in (V, times, values)):
+        raise ValueError(f"fused step: no kernel for device {dev} (or "
+                         "tensors on mixed devices)")
+    if act_name not in SUPPORTED_ACTS or scale_name not in _SCALE:
+        raise ValueError(f"fused step: unsupported activation/scaling "
+                         f"{act_name!r}/{scale_name!r}")
+    if any(x.dtype != torch.float32 for x in (W, V, times, values)):
+        raise TypeError("fused step: the CUDA kernels take float32")
+    B, N = times.shape
+    H = W.shape[-1]
+    if (W.shape != (lo.Kn, lo.n_mats, H, H) or V.shape != (lo.Kn, lo.n_rows, H)
+            or values.shape != (B, N, lo.d_x)):
+        raise ValueError(f"fused step: W {tuple(W.shape)}, V {tuple(V.shape)}"
+                         f", values {tuple(values.shape)} do not match the "
+                         f"layout {lo.key()}")
+    plan = launch_plan(H, N, lo.L, lo.d_x, lo.d_y, lo.K)
+    if plan is None:
+        raise ValueError(f"fused step: H={H}, N={N}, L={lo.L}, d_x={lo.d_x},"
+                         f" d_y={lo.d_y}, K={lo.K} outside fused_step_fits")
+    return plan
+
+
+def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
+    global LAUNCHES_FWD
+    B, N = times.shape
+    H = W.shape[-1]
+    dev = W.device
+    Y = torch.empty(B, 2 * N - 1, lo.d_y, lo.K, dtype=torch.float32,
+                    device=dev)
+    x, t = values.contiguous(), times.contiguous()
+    Wc, Vc = W.contiguous(), V.contiguous()
+    lib = _load_kernel()
+    with torch.cuda.device(dev):
+        err = lib.njode_step_fwd(
+            x.data_ptr(), t.data_ptr(), Wc.data_ptr(), Vc.data_ptr(),
+            Y.data_ptr(), *_meta_ints(lo, B, N, H, act_name, scale_name),
+            rpw, _stream(dev))
+    from ._build import check
+    check(lib, err, "njode_step_fwd launch")
+    LAUNCHES_FWD += 1
+    return Y
+
+
+def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, rpw):
+    global LAUNCHES_BWD
+    B, N = times.shape
+    H = W.shape[-1]
+    dev = W.device
+    x, t = values.contiguous(), times.contiguous()
+    Wc, Vc = W.contiguous(), V.contiguous()
+    WT = Wc.transpose(-1, -2).contiguous()
+    gyc = gy.contiguous()
+    meta = _meta_ints(lo, B, N, H, act_name, scale_name)
+    lib = _load_kernel()
+    n_partial = int(lib.njode_step_partial_floats(
+        B, H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared), rpw))
+    partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    dW = torch.empty_like(Wc)
+    dV = torch.empty_like(Vc)
+    with torch.cuda.device(dev):
+        err = lib.njode_step_bwd(
+            x.data_ptr(), t.data_ptr(), Wc.data_ptr(), WT.data_ptr(),
+            Vc.data_ptr(), gyc.data_ptr(), partial.data_ptr(), dW.data_ptr(),
+            dV.data_ptr(), *meta, rpw, _stream(dev))
+    from ._build import check
+    check(lib, err, "njode_step_bwd launch")
+    LAUNCHES_BWD += 1
+    return dW, dV
+
+
+class FusedStep(torch.autograd.Function):
+    """Rows 9 and 10 as one differentiable op: (W, V) -> Y (B, 2N-1, d_y,
+    K).  CPU tensors take the plain versions (the explicit backward, not
+    autograd through the forward), CUDA tensors the kernels.  Times and
+    values get no cotangent."""
+
+    @staticmethod
+    def forward(ctx, W, V, times, values, lo, act_name, scale_name):
+        if all(x.device.type == "cpu" for x in (W, V, times, values)):
+            plan = None
+            Y = fused_step_forward_reference(W, V, times, values, lo,
+                                             act_name, scale_name)
+        else:
+            plan = _check_cuda(W, V, times, values, lo, act_name, scale_name)
+            Y = _launch_fwd(W, V, times, values, lo, act_name, scale_name,
+                            plan[0])
+        ctx.save_for_backward(W, V, times, values)
+        ctx.meta = (lo, act_name, scale_name, plan)
+        return Y
+
+    @staticmethod
+    def backward(ctx, gy):
+        W, V, times, values = ctx.saved_tensors
+        lo, act_name, scale_name, plan = ctx.meta
+        if plan is None:
+            dW, dV = fused_step_backward_reference(W, V, times, values, gy,
+                                                   lo, act_name, scale_name)
+        else:
+            dW, dV = _launch_bwd(W, V, times, values, gy, lo, act_name,
+                                 scale_name, plan[1])
+        return dW, dV, None, None, None, None, None
+
+
+def fused_step_apply(W, V, bo2, times, values, *, num_moments: int,
+                     activation: str, input_scaling: str,
+                     shared_network: bool = False, input_dim: int = 1,
+                     output_dim: int = 1, n_hidden_layers: int = 1):
+    """The fused forward of ``NeuralJumpODE.apply`` on packed (W, V, bo2)
+    (:func:`pack_params`): times (B, N), values (B, N, d_x) -> (preds,
+    preds_before), each (B, N, d_y, K); preds_before[:, 0] is 0.  The
+    kernels for CUDA tensors, the plain versions for CPU tensors; an error
+    otherwise.  Differentiable in (W, V, bo2)."""
+    lo = StepLayout(n_hidden_layers, input_dim, output_dim, num_moments,
+                    shared_network)
+    B, N = times.shape
+    Y = FusedStep.apply(W, V, times, values, lo, activation, input_scaling)
+    bias = bo2.t()                                       # (d_y, K)
+    preds = Y[:, :N] + bias
+    if N == 1:
+        return preds, torch.zeros_like(preds)
+    first = torch.zeros_like(preds[:, :1])
+    return preds, torch.cat([first, Y[:, N:] + bias], dim=1)
+
+
+def fused_step_loss(W, V, bo2, times, values, mask=None, *,
+                    num_moments: int, activation: str, input_scaling: str,
+                    ignore_first_continuity: bool = False,
+                    moment_weights=None, eps: float = 1e-10,
+                    variance_method: str = "direct", traj_mask=None,
+                    extended_moments: bool = False,
+                    shared_network: bool = False, input_dim: int = 1,
+                    output_dim: int = 1, n_hidden_layers: int = 1):
+    """``nj_ode_loss_dense(values, *fused_step_apply(...), mask, ...)``:
+    the value and gradients of the JAX lane-space loss, without its
+    selector-matmul glue.  Needs output_dim == input_dim."""
+    if output_dim != input_dim:
+        raise ValueError("fused_step_loss needs output_dim == input_dim "
+                         f"(got {output_dim} != {input_dim})")
+    from ..models.loss import nj_ode_loss_dense
+    preds, preds_before = fused_step_apply(
+        W, V, bo2, times, values, num_moments=num_moments,
+        activation=activation, input_scaling=input_scaling,
+        shared_network=shared_network, input_dim=input_dim,
+        output_dim=output_dim, n_hidden_layers=n_hidden_layers)
+    return nj_ode_loss_dense(
+        values, preds, preds_before, mask,
+        ignore_first_continuity=ignore_first_continuity,
+        moment_weights=moment_weights, eps=eps,
+        variance_method=variance_method, traj_mask=traj_mask,
+        extended_moments=extended_moments)

@@ -26,10 +26,12 @@
   utils/training.py:146-174).
 * :func:`run_experiment` writes ``runs/<name>/{config.json, model.ckpt,
   history.json}`` and resolves the grid walk (:func:`_use_grid_walk`).
+  ``use_pallas="step"`` (the scaled recipe) trains on the composed path
+  with the model's fused-step kernels and keeps the whole-run kernels off.
   Ensembles (ROADMAP Queue 1 item 11), data/model parallelism and
   multi-host runs (item 12), other process families (item 9), mixed
-  precision and the fused-step and fused-cell kernels (Queue 2 rows 6, 9-10)
-  are not ported and raise ``NotImplementedError`` naming their item.
+  precision, the fused-cell kernel (Queue 2 row 6) and Pallas interpret
+  mode are not ported and raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -609,8 +611,13 @@ class Trainer:
                                               mask)
                 kernel = ("walk-train kernel" if self._twin() == "walk"
                           else "whole-run kernel")
+                # every minibatch has batch_size rows (_minibatches pads)
+                comp = ("composed (fused-step kernels)"
+                        if self.model._use_fused_step(times.shape[1],
+                                                      batch_size)
+                        else "composed")
                 print(f"Training path: "
-                      f"{kernel if use_kernel else 'composed'} "
+                      f"{kernel if use_kernel else comp} "
                       f"from epoch {epoch} (use_train_kernel="
                       f"{self.use_train_kernel!r}, device {self.device})",
                       flush=True)
@@ -708,14 +715,18 @@ def _refuse_unported(config: Dict) -> None:
                                   "(ROADMAP.md, Queue 1 item 12)")
     if config.get("compute_dtype") not in (None, "float32", "none"):
         raise NotImplementedError("compute_dtype: mixed precision is not "
-                                  "ported yet (ROADMAP.md, Queue 2 "
-                                  "fused_step)")
+                                  "ported yet (ROADMAP.md, Queue 2 rows "
+                                  "9-10, bf16)")
     up = config.get("use_pallas", False)
-    if up is True or up in ("interpret", "step", "step-interpret"):
+    if up is True or up == "interpret":
         raise NotImplementedError(
-            f"use_pallas={up!r}: the fused Euler cell and fused-step kernels "
-            "are not ported yet (ROADMAP.md, Queue 2 rows 6, 9-10)")
-    if up not in (False, None, "auto", "train"):
+            f"use_pallas={up!r}: the fused Euler cell kernel is not ported "
+            "yet (ROADMAP.md, Queue 2 row 6)")
+    if up == "step-interpret":
+        raise NotImplementedError(
+            "use_pallas='step-interpret': Pallas interpret mode is not "
+            "ported; on the CPU 'step' runs the kernels' plain versions")
+    if up not in (False, None, "auto", "train", "step"):
         raise ValueError(f"Unknown use_pallas: {up!r}")
     if config.get("train_kernel_mxu", "float32") != "float32":
         raise NotImplementedError("train_kernel_mxu: the port's training "
@@ -825,7 +836,8 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     # use_pallas 'auto' (the CLI default) and 'train' select the whole-run
     # training kernel of the model's twin, quietly and insistently
     # (njode_tpu/utils/training.py:1338-1348); the model keeps 'auto' for
-    # its own kernels (the gap kernel, the walk kernels)
+    # its own kernels (the gap kernel, the walk kernels), and 'step' goes to
+    # the model (its fused-step kernels) with the whole-run kernels off
     up = config.get("use_pallas", False)
     use_train_kernel = {"auto": "auto", "train": True}.get(up, False)
     model = NeuralJumpODE(
@@ -842,7 +854,7 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         variance_method=config.get("variance_method", "direct"),
         t_max=config.get("data", {}).get("T", 1.0),
         ode_solver=config.get("ode_solver", "euler"),
-        use_pallas="auto" if up == "auto" else False,
+        use_pallas=up if up in ("auto", "step") else False,
         debug_checks=config.get("debug_checks", False),
         # grid-walk resolution sees the config's use_pallas: "train" with
         # dt_ode_step routes to the walk-train kernel, which needs the same

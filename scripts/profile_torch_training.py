@@ -28,7 +28,20 @@ thread (jump forward, forward walk, readouts with the loss and the readout
 backward, the readout gradients, the backward walk's row and block phases,
 the jump backward, the grid barriers with Adam), over one epoch call.
 
-    PYTHONPATH=. python scripts/profile_torch_training.py [--production]
+With ``--scaled``, instead: torch.profiler over 3 epochs of the scaled
+recipe (``scripts/run_scaled_sweep.sh``: hidden 256, two separate moment
+networks, batch 4,096, 100,000 fresh trajectories per epoch, validation on
+5,000) through ``Trainer.train``, once on the fused-step kernels
+(``use_pallas="step"``) and once on the composed path (``False``), each
+after one epoch of warm-up: host wall and device time per epoch, the
+device's idle share, device launches per epoch and the top ops; the
+fused-step arm's Chrome trace goes to the same output directory.  Then
+rows 9-10's own split at that shape, from a copy of ops/csrc/fused_step.cu
+with clock64() probes read by each block's first thread (the products to
+the barrier after them, their epilogues, the weight-gradient sums, the
+rest), over one call of each.
+
+    PYTHONPATH=. python scripts/profile_torch_training.py [--production | --scaled]
 """
 
 from __future__ import annotations
@@ -119,6 +132,149 @@ def profile_production(dev: torch.device, card: str, out_dir: str) -> None:
            epochs)
     prof.export_chrome_trace(os.path.join(out_dir,
                                           "trace_walk_train.json"))
+
+
+def profile_scaled(dev: torch.device, card: str, out_dir: str) -> None:
+    """The scaled recipe on the fused-step kernels and on the composed path,
+    3 epochs each profiled after one of warm-up."""
+    epochs = 3
+    cfg = chip_smoke.scaled_config(epochs, "profiled")
+    train_fn, val_fn = create_data_loaders(base_seed=2, device=dev,
+                                           **cfg["data"])
+    for name, up in (("fused-step kernels", "step"), ("composed", False)):
+        model = chip_smoke.scaled_model(dev, up)
+        tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True,
+                     moment_weights=list(chip_smoke.SCALED_MW),
+                     use_train_kernel=False)
+        tr.train(train_fn, val_fn, n_epochs=1,
+                 batch_size=chip_smoke.SCALED_BS, print_every=100,
+                 config=cfg)                                   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train(train_fn, val_fn, n_epochs=epochs,
+                     batch_size=chip_smoke.SCALED_BS, print_every=5,
+                     config=cfg)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        report(prof, f"scaled recipe, {name}", card, wall_us, epochs)
+        if up == "step":
+            prof.export_chrome_trace(os.path.join(out_dir,
+                                                  "trace_fused_step.json"))
+
+
+STEP_PHASES = ("products (tile_mm, to the barrier after it)",
+               "epilogues (store, activation, barrier)",
+               "weight-gradient sums (outer_sum)", "the rest")
+
+
+def instrumented_step_source() -> str:
+    """ops/csrc/fused_step.cu with cycle counters read by each block's
+    thread 0: mm_store's product and epilogue, outer_sum, and the whole
+    kernel; fails if an anchor is gone."""
+    src = (_build.CSRC / "fused_step.cu").read_text()
+    add = "if (threadIdx.x == 0) atomicAdd(&g_prof[{k}], " \
+          "(unsigned long long)(clock64() - {t}));"
+    edits = [
+        ("extern __shared__ float njode_step_smem[];\n",
+         "extern __shared__ float njode_step_smem[];\n"
+         "__device__ unsigned long long g_prof[4];\n"
+         "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
+         "}\n"),
+        ("  float acc[RPW][CPT];\n  tile_mm<CPT, RPW>(njode_step_smem + a_off, "
+         "W, H, warp, lane, acc);\n  __syncthreads();\n",
+         "  const long long t0 = clock64();\n  float acc[RPW][CPT];\n"
+         "  tile_mm<CPT, RPW>(njode_step_smem + a_off, W, H, warp, lane, "
+         "acc);\n  __syncthreads();\n  " + add.format(k=0, t="t0")
+         + "\n  const long long t1 = clock64();\n"),
+        ("  if (e.act >= 0) tile_act<RPW>(out, H, warp, lane, e.act);\n"
+         "  __syncthreads();\n}",
+         "  if (e.act >= 0) tile_act<RPW>(out, H, warp, lane, e.act);\n"
+         "  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
+        ("  const float* G = njode_step_smem + g_off;\n",
+         "  const float* G = njode_step_smem + g_off;\n"
+         "  const long long t0 = clock64();\n"),
+        ("      }\n    }\n  }\n}\n\n// P[j] (+)= sum",
+         "      }\n    }\n  }\n  " + add.format(k=2, t="t0")
+         + "\n}\n\n// P[j] (+)= sum"),
+        ("                float* __restrict__ Y, int B, int N, int H, Layout lo, "
+         "int act, int scale) {\n",
+         "                float* __restrict__ Y, int B, int N, int H, Layout lo, "
+         "int act, int scale) {\n  const long long tK = clock64();\n"),
+        ("    readout(o_wk, N + s);\n  }\n}",
+         "    readout(o_wk, N + s);\n  }\n  " + add.format(k=3, t="tK")
+         + "\n}"),
+        ("                float* __restrict__ partial, int B, int N, int H, "
+         "Layout lo, int act,\n                int scale) {\n",
+         "                float* __restrict__ partial, int B, int N, int H, "
+         "Layout lo, int act,\n                int scale) {\n"
+         "  const long long tK = clock64();\n"),
+        ("pv(lo.row_ob)[e] = 0.0f;\n  }\n}",
+         "pv(lo.row_ob)[e] = 0.0f;\n  }\n  " + add.format(k=3, t="tK")
+         + "\n}"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"fused_step.cu has no unique anchor {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def fused_step_split(dev: torch.device, card: str) -> None:
+    """Rows 9-10 at the scaled recipe's shape (two networks, H 256, N 2,
+    4,096 rows), one call each of an instrumented copy: the cycles of each
+    block's thread 0 in each phase, summed over blocks."""
+    from njode_tpu_torch.ops import fused_step as fs
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = os.path.join(tmp, "fused_step_probes.cu")
+        so = os.path.join(tmp, "libfused_step_probes.so")
+        with open(cu, "w") as f:
+            f.write(instrumented_step_source())
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", so, cu], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+        shipped = fs._load_kernel()
+        for name in ("njode_step_fwd", "njode_step_bwd",
+                     "njode_step_partial_floats"):
+            fn, ref = getattr(lib, name), getattr(shipped, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.njode_cuda_error_string.restype = ctypes.c_char_p
+        c = chip_smoke.step_case(torch.Generator().manual_seed(17),
+                                 chip_smoke.SCALED_H, 2, False, 1, "relu",
+                                 "identity", chip_smoke.SCALED_BS, dev)
+        original = fs._load_kernel
+        fs._load_kernel = lambda: lib
+        try:
+            for name, bwd in (("forward (row 9)", False),
+                              ("backward (row 10)", True)):
+                run = chip_smoke.step_bwd if bwd else chip_smoke.step_fwd
+                with torch.no_grad():
+                    run(c, "relu", "identity", True)             # warm-up
+                    torch.cuda.synchronize()
+                    cycles = (ctypes.c_ulonglong * 4)()
+                    lib.njode_prof_read(cycles)
+                    before = list(cycles)
+                    run(c, "relu", "identity", True)
+                    torch.cuda.synchronize()
+                    lib.njode_prof_read(cycles)
+                per = [cycles[k] - before[k] for k in range(4)]
+                per[3] -= per[0] + per[1] + per[2]
+                total = sum(per)
+                print(f"fused-step {name} phase split on {card} (two "
+                      f"networks, H {chip_smoke.SCALED_H}, N 2, "
+                      f"{chip_smoke.SCALED_BS} rows, rows per warp "
+                      f"{chip_smoke.step_plan(c)}), cycles of each block's "
+                      f"thread 0 summed over blocks:", flush=True)
+                for k, phase in enumerate(STEP_PHASES):
+                    print(f"  {phase}: {per[k]} ({100.0 * per[k] / total:.1f}%)",
+                          flush=True)
+        finally:
+            fs._load_kernel = original
 
 
 WALK_PHASES = ("jump forward", "forward walk",
@@ -353,6 +509,10 @@ def main() -> None:
     if "--production" in sys.argv[1:]:
         profile_production(dev, card, out_dir)
         walk_kernel_split(dev, card)
+        return
+    if "--scaled" in sys.argv[1:]:
+        profile_scaled(dev, card, out_dir)
+        fused_step_split(dev, card)
         return
     profile_trainer(dev, card, out_dir)
     kernel_split(dev, card)

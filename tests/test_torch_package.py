@@ -17,6 +17,7 @@ PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
                 "njode_tpu_torch.models.jump_ode",
                 "njode_tpu_torch.models.loss", "njode_tpu_torch.ops",
                 "njode_tpu_torch.ops.activations",
+                "njode_tpu_torch.ops.fused_step",
                 "njode_tpu_torch.ops.gap_scan",
                 "njode_tpu_torch.ops.train_kernel",
                 "njode_tpu_torch.ops.walk_scan",
@@ -94,7 +95,8 @@ def test_cpu_grid_walk_and_walk_twin_launch_no_kernel():
 def test_kernel_sources_ship_with_the_package():
     assert (_build.CSRC / "gap_scan.cu").is_file()
     assert (_build.CSRC / "train_run.cu").is_file()
-    for name in ("walk_scan.cu", "walk_train.cu", "walk_cell.cuh"):
+    for name in ("walk_scan.cu", "walk_train.cu", "walk_cell.cuh",
+                 "fused_step.cu"):
         assert (_build.CSRC / name).is_file(), name
     assert _build.BUILD_DIR.parent == Path(gap_scan.__file__).parent
     flags = " ".join(_build.NVCC_FLAGS)

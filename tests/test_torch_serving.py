@@ -214,7 +214,7 @@ def test_filter_unseen_streams_read_zero():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(compute_dtype="bfloat16"), "mixed precision"),
-    (dict(use_pallas="step"), "fused training-step"),
+    (dict(use_pallas="step-interpret"), "fused training-step"),
     (dict(use_pallas=True), "fused Euler cell"),
     (dict(use_pallas="interpret"), "fused Euler cell"),
 ])

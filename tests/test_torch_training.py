@@ -142,6 +142,24 @@ def test_composed_trainer_matches_jax_trainer(jax_trained):
     assert_state_close(trainer.model, ref_params)
 
 
+def test_step_trainer_matches_jax_trainer(jax_trained, capsys):
+    """A use_pallas='step' model (the fused step's plain versions on CPU
+    tensors, the explicit backward) through the port's Trainer: three
+    epochs of losses, validation and params against the JAX Trainer."""
+    init, ref_hist, ref_params = jax_trained
+    model = port_from_jax_params(init, use_pallas="step")
+    trainer = Trainer(model, make_adam(model.parameters(), LR, WD),
+                      ignore_first_continuity=True,
+                      moment_weights=[1.0, 10.0], seed=5)
+    hist = train_fixed(trainer)
+    assert "composed (fused-step kernels)" in capsys.readouterr().out
+    np.testing.assert_allclose(hist["train_loss"], ref_hist["train_loss"],
+                               **LOSS_TOL)
+    np.testing.assert_allclose(hist["val_loss"], ref_hist["val_loss"],
+                               **LOSS_TOL)
+    assert_state_close(trainer.model, ref_params)
+
+
 def test_kernel_trainer_on_cpu_matches_composed(jax_trained):
     """use_train_kernel=True on a CPU model runs the kernel's plain version,
     one call per epoch; losses and params match the composed path and the
@@ -300,7 +318,7 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
     (dict(multihost=True), "parallelism"),
     (dict(compute_dtype="bfloat16"), "mixed precision"),
     (dict(use_pallas=True), "not ported"),
-    (dict(use_pallas="step"), "not ported"),
+    (dict(use_pallas="step-interpret"), "not ported"),
     (dict(checkpoint_backend="orbax"), "Orbax"),
     (dict(data={"process_type": "ornstein_uhlenbeck"}), "not ported"),
 ])
