@@ -7,7 +7,7 @@ Phases, one line each; each prints its wall time, and any failure is an
 uncaught exception and a nonzero exit:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build:  compile the five CUDA sources from njode_tpu_torch/ops/csrc, one
+2. build:  compile the seven CUDA sources from njode_tpu_torch/ops/csrc, one
    nvcc per source, started together; the gap kernel's ptxas line.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
    over activation x scaling x K_h x d_h x rows, zero/partial gaps and
@@ -93,9 +93,37 @@ uncaught exception and a nonzero exit:
    per call at 4,096 rows (row 9 also at 5,000) against their plain
    versions and bounds; val MSE against the closed-form moments.
 
+20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2).
+21. gap training kernels vs plain: rows 2-5 (njode_gap_train_fwd at
+   residual stride 1 and 8, njode_gap_train_bwd) against
+   gap_train_forward_reference / gap_train_backward_reference, n_sub in
+   (1, 10, 16, 17, 100) x d_h in (12, 50, 128) x K_h in (1, 2), three
+   activation/scaling pairs and rows 16, 2,304, 18,000, 1,001 in turn:
+   h_L and the stored states at rtol 1e-4 / atol 1e-5, t_L and the stored
+   t bitwise, every backward output and every cotangent through autograd
+   (integrate_gap_fused against integrate_gap_reference) within 1e-3 of
+   its norm, two backward calls bitwise equal; then row 6 (njode_fused_cell)
+   against fused_cell_reference at the forced default path's shapes, the
+   production width and a ragged wide one: out and pre at rtol 1e-4 / atol
+   1e-5, the Function's gradients within 1e-3 of their norm.
+22. the forced training paths (use_pallas True, the CLI's --kernels
+   force): run_experiment of the production config with grid_walk off, 2
+   epochs then resumed to 3, rows 3 and 5 once a step and row 1 in
+   validation, no other kernel; of the default config, 3 epochs, row 6
+   once per apply and no other kernel; of the production config at
+   dt_ode_step 0.1, one epoch, rows 2 and 4 once a step (not 3 and 5);
+   then one epoch of identical data through the forced kernels and the
+   composed path from identical weights, for both recipes, at phase 14's
+   tolerances.
+23. forced times: one epoch of each forced recipe against its composed
+   twin, in turns after a warm-up epoch; rows 2-6 per call at their
+   main-path shapes against their plain versions and bounds; the residual
+   stride A/B (1, 4, 8, 16) at n_sub 100.
+
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
-the walk-train kernel, 18 for the fused-step kernels) and read just
+the walk-train kernel, 18 for the fused-step kernels, 22 for rows 2-6, one
+window per forced path, every row's count read in each) and read just
 after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
@@ -117,7 +145,7 @@ import torch
 from njode_tpu_torch import NeuralJumpODE, NJODEFilter
 from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
 from njode_tpu_torch.ops import fused_step as fs
-from njode_tpu_torch.ops import gap_scan, walk_scan
+from njode_tpu_torch.ops import fused_cell, gap_scan, walk_scan
 from njode_tpu_torch.ops import train_kernel as tk
 from njode_tpu_torch.ops import walk_train as wt
 from njode_tpu_torch.simulation import moments_at_obs, simulate_batch
@@ -135,7 +163,8 @@ TRAIN_REPLACES = ("njode_tpu/ops/train_kernel.py:223 (_train_kernel), "
 WALK_SOURCE = "njode_tpu_torch/ops/csrc/walk_scan.cu"
 WALK_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/walk_train.cu"
 STEP_SOURCE = "njode_tpu_torch/ops/csrc/fused_step.cu"
-SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train", "fused_step"]
+SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train", "fused_step",
+           "gap_train", "fused_cell"]
 # the H100 SXM's published peaks: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -155,8 +184,8 @@ def device_phase() -> tuple[torch.device, str]:
 
 
 def build_phase() -> float:
-    """All five kernel sources, one nvcc each, started together; prints the
-    gap kernel's line and returns the build time."""
+    """All seven kernel sources, one nvcc each, started together; prints
+    the gap kernel's line and returns the build time."""
     from njode_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.build(SOURCES)
@@ -165,6 +194,8 @@ def build_phase() -> float:
     walk_scan._load_kernel()
     wt._load_kernel()
     fs._load_kernel()
+    gap_scan._load_train_kernel()
+    fused_cell._load_kernel()
     took = time.perf_counter() - t0
     print(f"build: gap_scan.cu in {took:.2f} s (with {', '.join(SOURCES[1:])}"
           f", in parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
@@ -1527,6 +1558,546 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
             "fused_step_bwd": (med[True, True], med[False, True], *b_bound)}
 
 
+# ------------------------------------------- forced training (use_pallas=True)
+
+GAP_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/gap_train.cu"
+CELL_SOURCE = "njode_tpu_torch/ops/csrc/fused_cell.cu"
+GAP_TRAIN_ACTS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "sigmoid"))
+STRIDES_AB = (1, 4, 8, 16)   # residual strides of the A/B at n_sub 100
+
+
+def gap_train_case(gen: torch.Generator, K: int, R: int, d_h: int,
+                   n_sub: int, dev: torch.device) -> dict:
+    """gap_case's gaps (zero, partial, on the grid, free up to the budget),
+    raw ODEFunc weights in torch's orientation, and a cotangent of h_L."""
+    c = gap_case(gen, K, R, d_h, 1, n_sub, dev)
+    c["raw"] = cell_weights(gen, K, d_h, dev)
+    c["weights"] = gap_scan.split_weights(c["raw"])
+    c["ct"] = torch.randn(K, R, d_h, generator=gen).to(dev)
+    return c
+
+
+def gap_autograd(c: dict, n_sub: int, act: str, scale: str, fn) -> list:
+    """h(t_target) of integrate_gap_fused (the training pair through
+    GapScan on the card) or integrate_gap_reference (plain autograd), and
+    the cotangents of h, x and the four raw weights."""
+    h = c["h"].detach().requires_grad_()
+    x = c["x_scaled"].detach().requires_grad_()
+    raw = [w.detach().requires_grad_() for w in c["raw"]]
+    out, _ = fn(h, x, c["t_last"], c["t_target"], gap_scan.split_weights(raw),
+                DT, n_sub, act, scale)
+    return [out.detach()] + list(torch.autograd.grad(out, [h, x, *raw],
+                                                     c["ct"]))
+
+
+def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
+                   act: str, scale: str, where: str) -> tuple:
+    """Rows 2-5 (the residual stride of n_sub) against their plain versions
+    on one input: h_L and the stored states at rtol 1e-4 / atol 1e-5, t_L
+    and the stored t bitwise; each backward output (gh0, the three row
+    sums, dW1h, dW2), from the cotangent ct, within GRAD_RTOL of its norm,
+    and two backward calls bitwise equal.  Returns the forward's and the
+    backward's max abs err and the backward's largest error/norm."""
+    tail = (dt, n_sub, gap_scan.residual_stride(n_sub), act, scale)
+    bargs = (ct, args[1], args[3], *args[4:])
+    with torch.no_grad():
+        fk = gap_scan._launch_train_fwd(*args, *tail)
+        fp = gap_scan.gap_train_forward_reference(*args, *tail)
+        bk = gap_scan._launch_train_bwd(*bargs, fk[2], fk[3], *tail)
+        bk2 = gap_scan._launch_train_bwd(*bargs, fk[2], fk[3], *tail)
+        bp = gap_scan.gap_train_backward_reference(*bargs, fp[2], fp[3],
+                                                   *tail)
+    torch.cuda.synchronize()
+    for a, b, what in ((fk[1], fp[1], "t_L"), (fk[3], fp[3], "stored t")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} not bitwise equal at {where}")
+    f_err = max(assert_close(a, b, f"gap training forward {what} at {where}")
+                for a, b, what in ((fk[0], fp[0], "h_L"),
+                                   (fk[2], fp[2], "stored h")))
+    b_err = rel = 0.0
+    for a, a2, b, what in zip(bk, bk2, bp, ("gh0", "gpre_sum", "acc_t",
+                                            "gdh_sum", "dW1h", "dW2")):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"two backward calls differ in {what} at "
+                                 f"{where}")
+        b_err = max(b_err, assert_close_norm(
+            a, b, f"gap backward {what} at {where}"))
+        rel = max(rel, float((a - b).double().norm()
+                             / b.double().norm().clamp_min(1e-30)))
+    return f_err, b_err, rel
+
+
+def gap_train_kernel_phase(dev: torch.device) -> dict:
+    """Rows 2-5 against their plain versions on the card: n_sub in (1, 10,
+    16, 17, 100) (the residual stride switches past 16) x d_h in (12, 50,
+    128) x K_h in (1, 2), the activation/scaling pairs and rows (16, 2,304,
+    18,000, and 1,001 for ragged last tiles) taken in turn; zero and partial
+    gaps in every case.  Forward: h_L and the stored states at rtol 1e-4 /
+    atol 1e-5, t_L and the stored t bitwise.  Backward: each kernel output
+    (gh0, the three row sums, dW1h, dW2) and, through autograd, the
+    cotangents of h, x and the four weights each within GRAD_RTOL of its
+    norm; two backward calls bitwise equal.  Returns the (forward,
+    backward) max abs err of each residual mode."""
+    gen = torch.Generator().manual_seed(71)
+    worst = {"full": [0.0, 0.0], "checkpointed": [0.0, 0.0]}
+    worst_rel = 0.0
+    n = 0
+    for n_sub in (1, 10, 16, 17, N_SUB):
+        for d_h in (12, 50, 128):
+            for K in (1, 2):
+                act, scale = GAP_TRAIN_ACTS[n % 3]
+                R = (16, 2304, 18000, 1001)[(n // 3) % 4]
+                c = gap_train_case(gen, K, R, d_h, n_sub, dev)
+                where = (f"n_sub={n_sub} d_h={d_h} K={K} R={R} "
+                         f"{act}/{scale}")
+                args = substep_args(c, n_sub, act, scale)[:8]
+                stride = gap_scan.residual_stride(n_sub)
+                w_mode = worst["full" if stride == 1 else "checkpointed"]
+                f_err, b_err, rel = gap_pair_check(args, c["ct"], DT, n_sub,
+                                                   act, scale, where)
+                w_mode[0] = max(w_mode[0], f_err)
+                w_mode[1] = max(w_mode[1], b_err)
+                worst_rel = max(worst_rel, rel)
+                ours = gap_autograd(c, n_sub, act, scale,
+                                    gap_scan.integrate_gap_fused)
+                ref = gap_autograd(c, n_sub, act, scale,
+                                   gap_scan.integrate_gap_reference)
+                w_mode[0] = max(w_mode[0], assert_close(
+                    ours[0], ref[0], f"h(t_target) under autograd at {where}"))
+                for a, b, what in zip(ours[1:], ref[1:],
+                                      ("h", "x", "W1", "b1", "W2", "b2")):
+                    w_mode[1] = max(w_mode[1], assert_close_norm(
+                        a, b, f"autograd d{what} at {where}"))
+                    worst_rel = max(worst_rel, float(
+                        (a - b).norm() / b.norm().clamp_min(1e-30)))
+                n += 1
+    print(f"gap training kernels vs plain: {n} cases (n_sub in (1, 10, 16, "
+          f"17, 100) x d_h in (12, 50, 128) x K_h in (1, 2); relu/identity, "
+          f"tanh/tanh, selu/sigmoid and rows 16, 2,304, 18,000, 1,001 in "
+          f"turn): max abs err, forward / backward, full residuals "
+          f"{worst['full'][0]:.3e} / {worst['full'][1]:.3e}, checkpointed "
+          f"{worst['checkpointed'][0]:.3e} / {worst['checkpointed'][1]:.3e} "
+          f"(forward at rtol {RTOL} / atol {ATOL}, t_L and stored t bitwise; "
+          f"backward: kernel outputs and autograd cotangents, largest "
+          f"error/norm {worst_rel:.3e}, limit {GRAD_RTOL}); two backward "
+          f"calls bitwise equal", flush=True)
+    return worst
+
+
+def cell_weights(gen: torch.Generator, K: int, d_h: int,
+                 dev: torch.device) -> list:
+    """ODEFunc weights (W1, b1, W2, b2) in torch's orientation, stacked on
+    K, from torch's default law (one input dimension)."""
+    def uni(shape, fan_in):
+        return ((torch.rand(shape, generator=gen) * 2 - 1)
+                / fan_in ** 0.5).to(dev)
+    d_in = d_h + 3
+    return [uni((K, d_h, d_in), d_in), uni((K, d_h), d_in),
+            uni((K, d_h, d_h), d_h), uni((K, d_h), d_h)]
+
+
+def cell_case(gen: torch.Generator, K: int, R: int, d_h: int,
+              dev: torch.device) -> dict:
+    """Fused-cell inputs: states, x, substep times (dt per row, some 0),
+    ODEFunc weights and a cotangent."""
+    t_cur = torch.rand(R, generator=gen)
+    t_new = t_cur + torch.rand(R, generator=gen) * 0.1
+    t_new[::7] = t_cur[::7]
+    return {"h": (torch.randn(K, R, d_h, generator=gen) * 0.5).to(dev),
+            "x": torch.randn(R, 1, generator=gen).to(dev),
+            "t_cur": t_cur.to(dev), "t_new": t_new.to(dev),
+            "w": cell_weights(gen, K, d_h, dev),
+            "ct": torch.randn(K, R, d_h, generator=gen).to(dev)}
+
+
+def cell_run(c: dict, act: str, scale: str, fn) -> list:
+    sc = {"identity": lambda v: v, "tanh": torch.tanh,
+          "sigmoid": torch.sigmoid}[scale]
+    h = c["h"].detach().requires_grad_()
+    x = c["x"].detach().requires_grad_()
+    w = [x_.detach().contiguous().requires_grad_() for x_ in c["w"]]
+    out = fn(h, sc(x), sc(h), c["t_cur"], c["t_new"], w, act)
+    return [out.detach()] + list(torch.autograd.grad(out, [h, x, *w],
+                                                     c["ct"]))
+
+
+CELL_SHAPES = ((2, 1152, 32), (1, 2304, 50), (2, 200, 32), (2, 37, 300))
+
+
+def fused_cell_kernel_phase(dev: torch.device) -> float:
+    """Row 6 against its plain version on the card at the forced default
+    path's shape (K_h 2, 1,152 rows, d_h 32), its validation's (200 rows),
+    the production width (K_h 1, 2,304 rows, d_h 50) and a ragged wide one
+    (37 rows, d_h 300: several column chunks): out and pre at rtol 1e-4 /
+    atol 1e-5, and the Function's gradients against plain autograd each
+    within GRAD_RTOL of their norm, for three activation/scaling pairs."""
+    gen = torch.Generator().manual_seed(81)
+    worst = 0.0
+    n = 0
+    for K, R, d_h in CELL_SHAPES:
+        for act, scale in GAP_TRAIN_ACTS:
+            c = cell_case(gen, K, R, d_h, dev)
+            where = f"K={K} R={R} d_h={d_h} {act}/{scale}"
+            inp, dt, w1, b1, w2, b2 = fused_cell._cell_inputs(
+                c["h"], c["x"], c["h"], c["t_cur"], c["t_new"], c["w"])
+            args = [x.contiguous() for x in (inp, c["h"], dt, w1, b1, w2, b2)]
+            with torch.no_grad():
+                out_k, pre_k = fused_cell._launch(*args, act)
+                out_p, pre_p = fused_cell.fused_cell_reference(*args, act)
+            torch.cuda.synchronize()
+            worst = max(worst, assert_close(out_k, out_p, f"cell out at "
+                                            f"{where}"),
+                        assert_close(pre_k, pre_p, f"cell pre at {where}"))
+            ours = cell_run(c, act, scale, fused_cell.ode_euler_fused)
+            ref = cell_run(c, act, scale, fused_cell.ode_euler_reference)
+            worst = max(worst, assert_close(ours[0], ref[0],
+                                            f"cell step at {where}"))
+            for a, b, what in zip(ours[1:], ref[1:],
+                                  ("h", "x", "W1", "b1", "W2", "b2")):
+                assert_close_norm(a, b, f"cell d{what} at {where}")
+            n += 1
+    print(f"fused cell kernel vs plain: {n} cases (K_h, rows, d_h) in "
+          f"{CELL_SHAPES} x relu/identity, tanh/tanh, selu/sigmoid: out and "
+          f"pre max abs err {worst:.3e} (rtol {RTOL} / atol {ATOL}); "
+          f"gradients of the Function within {GRAD_RTOL} of their norm",
+          flush=True)
+    return worst
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, by its row in the TPU kernel table
+    (row 12 is row 11's kernel)."""
+    return {1: gap_scan.LAUNCHES, 2: gap_scan.LAUNCHES_RES_FWD["full"],
+            3: gap_scan.LAUNCHES_RES_FWD["checkpointed"],
+            4: gap_scan.LAUNCHES_BWD["full"],
+            5: gap_scan.LAUNCHES_BWD["checkpointed"], 6: fused_cell.LAUNCHES,
+            7: walk_scan.LAUNCHES_FWD, 8: walk_scan.LAUNCHES_BWD,
+            9: fs.LAUNCHES_FWD, 10: fs.LAUNCHES_BWD, 11: tk.LAUNCHES,
+            13: wt.LAUNCHES}
+
+
+def reset_counts() -> None:
+    gap_scan.LAUNCHES = fused_cell.LAUNCHES = tk.LAUNCHES = wt.LAUNCHES = 0
+    walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = 0
+    fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
+    for counter in (gap_scan.LAUNCHES_RES_FWD, gap_scan.LAUNCHES_BWD):
+        for mode in counter:
+            counter[mode] = 0
+
+
+def expect_counts(window: str, want: dict) -> dict:
+    """The launch counts of a window: each row in ``want`` exactly its
+    value (None: at least once), every other row 0."""
+    got = kernel_counts()
+    bad = {row: n for row, n in got.items()
+           if (row not in want and n) or (row in want and (
+               n == 0 if want[row] is None else n != want[row]))}
+    if bad:
+        raise AssertionError(f"{window}: launches by row {got}, expected "
+                             f"{want} and 0 elsewhere")
+    return got
+
+
+def forced_production_config(n_epochs: int, name: str,
+                             dt: float = PROD_DT) -> dict:
+    """The production config under --kernels force (use_pallas True) on the
+    per-gap path (grid_walk off)."""
+    cfg = production_config(n_epochs, name)
+    cfg.update(use_pallas=True, grid_walk="off", dt_ode_step=dt)
+    return cfg
+
+
+def forced_default_config(n_epochs: int, name: str) -> dict:
+    """The default config under --kernels force (use_pallas True)."""
+    cfg = default_config(n_epochs, name)
+    cfg["use_pallas"] = True
+    return cfg
+
+
+PROD_STEPS = -(-PROD_TRAIN // PROD_BS)          # 40
+DEFAULT_STEPS = -(-1000 // TRAIN_BS)            # 8
+
+
+def forced_production_path_phase(dev: torch.device, tmp: Path) -> dict:
+    """run_experiment of the forced production config, 2 epochs then a
+    resume to 3.  The caller resets the counts before: rows 3 and 5 launch
+    once a step, row 1 in validation and the relative loss, nothing else."""
+    res = run_experiment(forced_production_config(2, "forced_prod"),
+                         save_dir=str(tmp))
+    hist = res["history"]["train_loss"]
+    if len(hist) != 2 or not all(math.isfinite(x) for x in
+                                 hist + res["history"]["val_loss"]):
+        raise AssertionError(f"forced production losses {res['history']}")
+    res3 = run_experiment(forced_production_config(3, "forced_prod"),
+                          save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist3 = res3["history"]["train_loss"]
+    if len(hist3) != 3 or hist3[:2] != hist:
+        raise AssertionError(f"the resume to 3 epochs gave {hist3} after "
+                             f"{hist}")
+    got = expect_counts("forced production run_experiment",
+                        {3: 3 * PROD_STEPS, 5: 3 * PROD_STEPS, 1: None})
+    print(f"forced production training path: run_experiment (hidden "
+          f"{PROD_H}, shared, K=2, dt {PROD_DT}, batch {PROD_BS}, "
+          f"{PROD_TRAIN:,} fresh trajectories per epoch, use_pallas True, "
+          f"grid_walk off) 2 epochs: train loss {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f}, val {res['history']['val_loss'][-1]:.4f}; "
+          f"resumed to 3 (loss {hist3[-1]:.4f}); launches in this window by "
+          f"row: {got}", flush=True)
+    return got
+
+
+def forced_vs_composed_phase(dev: torch.device, forced_cfg: dict,
+                             model_kw: dict, mw, bs: int, name: str) -> float:
+    """One epoch of identical data (the config's law and size, its
+    minibatches of bs, the last trajectory-masked) through apply_loss +
+    autograd + Adam on the forced kernels (use_pallas True) and on the
+    composed path (False), from identical weights: per-step losses and the
+    parameters after the epoch at rtol 1e-4 / atol 1e-5 (phase 14's)."""
+    train_fn, _ = create_data_loaders(base_seed=9, device=dev,
+                                      **forced_cfg["data"])
+    times, values, mask, _ = as_dense(train_fn(0), dev)
+    losses, params = [], []
+    for up in (True, False):
+        model = NeuralJumpODE(use_pallas=up, device=dev,
+                              generator=torch.Generator().manual_seed(12),
+                              **model_kw)
+        tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True, moment_weights=list(mw),
+                     use_train_kernel=False)
+        idx, valid = tr._minibatches(0, times.shape[0], bs, True)
+        step_losses = []
+        for ids, vm in zip(idx, valid):
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss = tr._loss(times[ids], values[ids], mask[ids], traj_mask=vm,
+                            training=True)
+            loss.backward()
+            tr.optimizer.step()
+            step_losses.append(loss.detach())
+        losses.append(torch.stack(step_losses))
+        params.append({k: v.detach() for k, v in model.named_parameters()})
+    err = assert_close(losses[0], losses[1],
+                       f"{name}: forced vs composed per-step losses")
+    err = max([err] + [assert_close(params[0][k], params[1][k],
+                                    f"{name}: forced vs composed {k}")
+                       for k in params[1]])
+    print(f"{name}, forced kernels vs composed path: one epoch "
+          f"({len(losses[0])} steps of {bs}) from identical weights, "
+          f"per-step losses and parameters max abs err {err:.3e}",
+          flush=True)
+    return err
+
+
+PROD_MODEL_KW = dict(input_dim=1, hidden_dim=PROD_H, output_dim=1,
+                     num_moments=2, shared_network=True, dt_ode_step=PROD_DT,
+                     t_max=1.0)
+DEFAULT_MODEL_KW = dict(input_dim=1, hidden_dim=32, output_dim=1,
+                        num_moments=2)
+
+
+def forced_default_path_phase(dev: torch.device, tmp: Path) -> dict:
+    """run_experiment of the forced default config for 3 epochs.  The
+    caller resets the counts before: row 6 launches once per apply (8 steps
+    an epoch, one validation an epoch, one relative loss at epoch 0), the
+    training kernel never."""
+    res = run_experiment(forced_default_config(3, "forced_default"),
+                         save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist = res["history"]["train_loss"]
+    if len(hist) != 3 or not all(math.isfinite(x) for x in
+                                 hist + res["history"]["val_loss"]):
+        raise AssertionError(f"forced default losses {res['history']}")
+    got = expect_counts("forced default run_experiment",
+                        {6: 3 * DEFAULT_STEPS + 3 + 1})
+    print(f"forced default training path: run_experiment (hidden 32, K=2 "
+          f"separate, batch {TRAIN_BS}, 1,000 fresh trajectories per epoch, "
+          f"use_pallas True) 3 epochs: train loss {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f}, val {res['history']['val_loss'][-1]:.4f}; "
+          f"launches in this window by row: {got}", flush=True)
+    return got
+
+
+def full_residual_window_phase(dev: torch.device, tmp: Path) -> dict:
+    """run_experiment of the forced production config with dt_ode_step 0.1
+    for one epoch: 10 substeps, so the full-residual pair (rows 2 and 4)
+    once a step and not the checkpointed one; the grid (0.01 / 0.1) is not
+    aligned, so no walk."""
+    res = run_experiment(forced_production_config(1, "forced_dt01", dt=0.1),
+                         save_dir=str(tmp))
+    torch.cuda.synchronize()
+    if not math.isfinite(res["final_train_loss"]):
+        raise AssertionError(f"dt 0.1 forced loss {res['history']}")
+    got = expect_counts("forced dt 0.1 run_experiment",
+                        {2: PROD_STEPS, 4: PROD_STEPS, 1: None})
+    print(f"dt_ode_step 0.1 forced window: run_experiment, one epoch of "
+          f"{PROD_TRAIN:,} (loss {res['final_train_loss']:.4f}); launches "
+          f"by row: {got}", flush=True)
+    return got
+
+
+def forced_rows(model: NeuralJumpODE, times, values, dt: float) -> tuple:
+    """The training pair's arguments as the forced apply builds them for a
+    minibatch (one gap a row, slot i-1 -> i), with dt as the step."""
+    B, N = times.shape
+    with torch.no_grad():
+        h_j = model._jump(values.reshape(B * N, 1))
+        K, d = h_j.shape[0], h_j.shape[-1]
+        h0 = h_j.reshape(K, B, N, d)[:, :, :-1].reshape(K, B * (N - 1), d)
+        x = values[:, :-1].reshape(-1, 1)
+        w = gap_scan.split_weights(model._ode_weights())
+        return gap_scan.substep_inputs(
+            h0, model._scale(x), times[:, :-1].reshape(-1),
+            times[:, 1:].reshape(-1), w, dt)
+
+
+def gap_train_bounds(args: tuple, dt: float, n_sub: int,
+                     stride: int) -> tuple:
+    """Least times of the training pair on the H100 for one call: the
+    larger of the f32 work of the substeps these gaps take (forward 4 d^2
+    + 4 d a row, network and substep; backward 10 d^2: pre again, g_dh
+    W2^T, g_pre W1h^T, dW1h and dW2, and 4 d^2 more for the checkpointed
+    recompute) over 67 TFLOP/s and the bytes in and out once over
+    3.35 TB/s."""
+    h, base, t_last, t_target, w1h, w1t, w2, b2 = args
+    K, R, d = h.shape
+    with torch.no_grad():
+        _, t_l = gap_scan.gap_substeps_reference(*args, dt, n_sub, "relu",
+                                                 "identity")
+    steps = float(torch.round((t_l - t_last) / dt).sum())
+    n_res = -(-n_sub // stride)
+    w_bytes = 4 * (w1h.numel() + w1t.numel() + w2.numel() + b2.numel())
+    res_bytes = 4 * n_res * (K * R * d + R)
+    f_bytes = 4 * (3 * K * R * d + 3 * R) + w_bytes + res_bytes
+    b_bytes = 4 * (6 * K * R * d + R + 2 * K * d * d) + w_bytes + res_bytes
+    recompute = 4 * d * d if stride > 1 else 0
+    return (bound_of(K * steps * (4 * d * d + 4 * d), f_bytes),
+            bound_of(K * steps * (10 * d * d + recompute), b_bytes))
+
+
+def forced_times_phase(dev: torch.device, card: str) -> dict:
+    """One epoch of each forced path against its composed twin, in turns
+    (forced, composed, composed, forced) after a warm-up epoch each; rows
+    2-6 per call at their main-path shapes by CUDA events against their
+    plain versions and bounds, rows 2-5 also held against them there
+    (gap_pair_check); the residual-stride A/B at n_sub 100.  Returns each
+    row's (ms, plain ms, bound ms, bound_by) and the (forward, backward)
+    max abs err of each residual mode at the main path's shape."""
+    out = {}
+    epochs = {}
+    for name, cfg, kw, mw, bs in (
+            ("production", forced_production_config(4, "timed"),
+             PROD_MODEL_KW, PROD_MW, PROD_BS),
+            ("default", forced_default_config(4, "timed"), DEFAULT_MODEL_KW,
+             (1.0, 10.0), TRAIN_BS)):
+        train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
+                                               **cfg["data"])
+        trainers = {}
+        for up in (True, False):
+            m = NeuralJumpODE(use_pallas=up, device=dev,
+                              generator=torch.Generator().manual_seed(0),
+                              **kw)
+            trainers[up] = Trainer(m, make_adam(m.parameters(), 1e-3, 5e-4),
+                                   ignore_first_continuity=True,
+                                   moment_weights=list(mw),
+                                   use_train_kernel=False)
+            timed_epochs(trainers[up], train_fn, val_fn, cfg, 1, bs)
+        t = {True: [], False: []}
+        for up in (True, False, False, True):
+            t[up].append(timed_epochs(trainers[up], train_fn, val_fn, cfg, 1,
+                                      bs))
+        epochs[name] = t
+
+    # rows 3 and 5 (and the stride A/B) on a production minibatch, rows 2
+    # and 4 on the same minibatch at dt 0.1
+    gen = torch.Generator(device=dev).manual_seed(33)
+    b = simulate_batch(PROD_BS, "black_scholes", 0.1, True, generator=gen,
+                       device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    model = NeuralJumpODE(use_pallas=True, device=dev, **PROD_MODEL_KW)
+    ct = torch.randn(1, PROD_BS * (PROD_N - 1), PROD_H, device=dev)
+    ab, errs = {}, {}
+
+    def pair_times(dt, n_sub, stride):
+        args = forced_rows(model, b.times, b.values, dt)
+        fwd = (*args, dt, n_sub, stride, "relu", "identity")
+        with torch.no_grad():
+            res = gap_scan._launch_train_fwd(*fwd)
+            bwd = (ct, args[1], args[3], *args[4:], res[2], res[3], dt,
+                   n_sub, stride, "relu", "identity")
+            f_ms = time_ms(lambda: gap_scan._launch_train_fwd(*fwd))
+            b_ms = time_ms(lambda: gap_scan._launch_train_bwd(*bwd))
+        return args, bwd, f_ms, b_ms
+    for stride in STRIDES_AB + STRIDES_AB[::-1]:
+        _, _, f_ms, b_ms = pair_times(PROD_DT, PROD_M, stride)
+        ab.setdefault(stride, []).append((f_ms, b_ms))
+    for dt, n_sub, rows in ((PROD_DT, PROD_M, (3, 5)), (0.1, 10, (2, 4))):
+        stride = gap_scan.residual_stride(n_sub)
+        args, bwd, f_ms, b_ms = pair_times(dt, n_sub, stride)
+        f_err, b_err, rel = gap_pair_check(
+            args, ct, dt, n_sub, "relu", "identity",
+            f"the main path's shape (dt {dt}, n_sub {n_sub})")
+        errs["full" if stride == 1 else "checkpointed"] = [f_err, b_err]
+        print(f"rows {rows[0]}/{rows[1]} vs plain at the main path's shape "
+              f"(K_h 1, {PROD_BS * (PROD_N - 1):,} gaps, d_h {PROD_H}, dt "
+              f"{dt}, n_sub {n_sub}, relu/identity): max abs err, forward "
+              f"{f_err:.3e}, backward {b_err:.3e} (error/norm {rel:.3e}, "
+              f"limit {GRAD_RTOL}); t_L and stored t bitwise, two backward "
+              f"calls bitwise equal", flush=True)
+        fwd = (*args, dt, n_sub, stride, "relu", "identity")
+        with torch.no_grad():
+            fp_ms = time_ms(lambda: gap_scan.gap_train_forward_reference(
+                *fwd), warmup=1, reps=5)
+            bp_ms = time_ms(lambda: gap_scan.gap_train_backward_reference(
+                *bwd), warmup=1, reps=5)
+        f_bound, b_bound = gap_train_bounds(args, dt, n_sub, stride)
+        out[rows[0]] = (f_ms, fp_ms, *f_bound)
+        out[rows[1]] = (b_ms, bp_ms, *b_bound)
+
+    # row 6 on a default minibatch (128 trajectories, 9 gaps each)
+    b = simulate_batch(TRAIN_BS, "black_scholes", 0.1, True, generator=gen,
+                       device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    m6 = NeuralJumpODE(use_pallas=True, device=dev, **DEFAULT_MODEL_KW)
+    B, N = b.times.shape
+    with torch.no_grad():
+        h_j = m6._jump(b.values.reshape(B * N, 1))
+        h0 = h_j.reshape(2, B, N, 32)[:, :, :-1].reshape(2, -1, 32)
+        x = b.values[:, :-1].reshape(-1, 1)
+        cell = [a.contiguous() for a in fused_cell._cell_inputs(
+            h0, m6._scale(x), m6._scale(h0), b.times[:, :-1].reshape(-1),
+            b.times[:, 1:].reshape(-1), m6._ode_weights())]
+        args6 = (cell[0], h0.contiguous(), *cell[1:], "relu")
+        c_ms = time_ms(lambda: fused_cell._launch(*args6))
+        cp_ms = time_ms(lambda: fused_cell.fused_cell_reference(*args6))
+    inp, h6 = args6[0], args6[1]
+    K6, R6, d_in = inp.shape
+    d6 = h6.shape[-1]
+    c_bytes = 4 * (inp.numel() + 3 * h6.numel() + R6
+                   + sum(a.numel() for a in args6[3:7]))
+    out[6] = (c_ms, cp_ms, *bound_of(2 * K6 * R6 * (d_in * d6 + d6 * d6),
+                                     c_bytes))
+
+    def ms(v):
+        return ", ".join(f"{x:.4f}" for x in v)
+    for name, t in epochs.items():
+        print(f"forced times on {card}, {name} recipe, one epoch each in "
+              f"turns after a warm-up epoch (forced, composed, composed, "
+              f"forced): forced kernels {ms(t[True])} s, composed per-gap "
+              f"path {ms(t[False])} s", flush=True)
+    rows_txt = "; ".join(
+        f"row {r} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms "
+        f"{v[3]})" for r, v in sorted(out.items()))
+    print(f"forced kernels on {card}: {rows_txt}; rows 2-5 at {PROD_BS} "
+          f"trajectories x {PROD_N - 1} gaps (K_h 1, d_h {PROD_H}, relu/"
+          f"identity; rows 3/5 dt {PROD_DT}, n_sub {PROD_M}; rows 2/4 dt 0.1,"
+          f" n_sub 10), row 6 at {TRAIN_BS} x 9 gaps (K_h 2, d_h 32, d_in "
+          f"{d_in})", flush=True)
+    print(f"residual stride A/B at n_sub {PROD_M} (same minibatch, forward "
+          f"/ backward ms, strides in turns {STRIDES_AB} and back): "
+          + "; ".join(f"stride {s_}: " + ", ".join(
+              f"{f:.4f} / {b_:.4f}" for f, b_ in v) for s_, v in ab.items()),
+          flush=True)
+    return out, errs
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -1601,6 +2172,35 @@ def main() -> None:
     times.update(scaled_times_phase(dev, card))
     t = phase_time("scaled times", t)
 
+    for name in ("gap_train", "fused_cell"):
+        print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
+              f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
+    gap_errs = gap_train_kernel_phase(dev)
+    cell_err = fused_cell_kernel_phase(dev)
+    t = phase_time("forced kernels vs plain", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        forced = forced_production_path_phase(dev, Path(tmp))
+        reset_counts()
+        forced.update({6: forced_default_path_phase(dev, Path(tmp))[6]})
+        reset_counts()
+        full = full_residual_window_phase(dev, Path(tmp))
+        forced.update({2: full[2], 4: full[4]})
+    for name, cfg, kw, mw, bs in (
+            ("forced production", forced_production_config(1, "ab"),
+             PROD_MODEL_KW, PROD_MW, PROD_BS),
+            ("forced production at dt_ode_step 0.1",
+             forced_production_config(1, "ab", dt=0.1),
+             {**PROD_MODEL_KW, "dt_ode_step": 0.1}, PROD_MW, PROD_BS),
+            ("forced default", forced_default_config(1, "ab"),
+             DEFAULT_MODEL_KW, (1.0, 10.0), TRAIN_BS)):
+        forced_vs_composed_phase(dev, cfg, kw, mw, bs, name)
+    t = phase_time("forced training paths", t)
+    forced_times, main_errs = forced_times_phase(dev, card)
+    for mode, e in main_errs.items():
+        gap_errs[mode] = [max(a, b) for a, b in zip(gap_errs[mode], e)]
+    t = phase_time("forced times", t)
+
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
         ms, plain, bound, by = tm
@@ -1610,6 +2210,10 @@ def main() -> None:
                 "bound_ms": bound, "bound_by": by, "library_ms": None}
     composed = "composed grid-walk training (Trainer.train, one epoch)"
     scaled = "scaled training (run_experiment)"
+    f_prod = "forced production training (run_experiment, use_pallas True)"
+    f_dt = ("forced production training at dt_ode_step 0.1 "
+            "(run_experiment, one epoch)")
+    f_default = "forced default training (run_experiment, use_pallas True)"
     print(json.dumps({"kernels": [
         entry("gap_scan_fwd", KERNEL_SOURCE, REPLACES,
               "serving (predict_at, NJODEFilter)", launches, max_err,
@@ -1630,7 +2234,22 @@ def main() -> None:
               sf_err, times["fused_step_fwd"]),
         entry("fused_step_bwd", STEP_SOURCE,
               "njode_tpu/ops/fused_step.py:316", scaled, step_launches[1],
-              sb_err, times["fused_step_bwd"])]}), flush=True)
+              sb_err, times["fused_step_bwd"]),
+        entry("gap_train_fwd_full", GAP_TRAIN_SOURCE,
+              "njode_tpu/ops/gap_scan.py:134", f_dt, forced[2],
+              gap_errs["full"][0], forced_times[2]),
+        entry("gap_train_fwd_checkpointed", GAP_TRAIN_SOURCE,
+              "njode_tpu/ops/gap_scan.py:235", f_prod, forced[3],
+              gap_errs["checkpointed"][0], forced_times[3]),
+        entry("gap_train_bwd_full", GAP_TRAIN_SOURCE,
+              "njode_tpu/ops/gap_scan.py:422", f_dt, forced[4],
+              gap_errs["full"][1], forced_times[4]),
+        entry("gap_train_bwd_checkpointed", GAP_TRAIN_SOURCE,
+              "njode_tpu/ops/gap_scan.py:295", f_prod, forced[5],
+              gap_errs["checkpointed"][1], forced_times[5]),
+        entry("fused_cell", CELL_SOURCE, "njode_tpu/ops/fused_cell.py:73",
+              f_default, forced[6], cell_err, forced_times[6])]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

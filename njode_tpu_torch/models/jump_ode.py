@@ -25,8 +25,14 @@ integrated for inference (``predict_at``, the filter, ``apply`` under
 :func:`njode_tpu_torch.ops.integrate_gap_fused`: the CUDA kernel for CUDA
 tensors, its plain version on the CPU.  A gap that autograd differentiates
 takes the plain substep loop, as the JAX package's ``"auto"`` policy sends
-training to XLA (``njode_tpu/models/jump_ode.py:301-310``); the kernel has
-no backward yet.
+training to XLA (``njode_tpu/models/jump_ode.py:301-310``), except under
+``use_pallas=True`` (the CLI's ``--kernels force``): there it takes the
+gap loop's training kernels (forward with residuals, reverse-loop
+backward) wherever ``gap_train_fits``, and every Euler step the model takes
+outside them goes through the fused Euler cell
+(:func:`njode_tpu_torch.ops.fused_cell.ode_euler_fused`): each gap of a
+model without ``dt_ode_step``, the plain loop's substeps and the plain
+walk's cells (``_use_fused``, ``_use_gap_scan``).
 
 ``grid_walk=True`` (it needs ``dt_ode_step``) is the caller's promise that
 every valid observation time sits on the grid ``{g * dt_ode_step}``;
@@ -56,9 +62,8 @@ The model's device defaults to ``cuda``; the CPU is used only when asked
 for (``device="cpu"``).  Without a CUDA device the default raises.
 
 Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10), mixed
-precision (``compute_dtype``), the fused Euler cell (row 6) and Pallas
-interpret mode (``"step-interpret"``); the constructor arguments that
-select them raise.
+precision (``compute_dtype``) and Pallas interpret mode (``"interpret"``,
+``"step-interpret"``); the constructor arguments that select them raise.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from torch import nn
 
 from ..ops import (GapWeights, gap_scan_available, integrate_gap_fused,
                    split_weights)
-from ..ops import fused_step, walk_scan
+from ..ops import fused_cell, fused_step, gap_scan, walk_scan
 from .activations import (canonical_activation, canonical_input_scaling,
                           get_input_scaling)
 from .loss import nj_ode_loss_dense
@@ -131,15 +136,19 @@ class NeuralJumpODE(nn.Module):
       generator: the ``torch.Generator`` the init draws from; None means a
                  CPU generator seeded with 0.  Weights are drawn on the CPU
                  and then moved, so a seed gives the same model everywhere.
-      use_pallas: "auto" (default), False or "step", kept for the JAX
-                 signature.  The gap kernel runs wherever it applies under
-                 all three; the grid walk takes its kernel pair only under
-                 "auto" and its plain walk under False, as in the JAX
-                 package; "step" takes the fused whole-step kernels, and
-                 "auto" takes them on the card at the shape an H100 A/B
-                 measured ahead (:meth:`_use_fused_step`).  True, "interpret" and
-                 "step-interpret" select JAX kernels or modes that are not
-                 ported and raise.
+      use_pallas: "auto" (default), False, "step" or True, kept for the
+                 JAX signature.  The gap kernel runs for inference wherever
+                 it applies under all four; the grid walk takes its kernel
+                 pair under "auto" and True and its plain walk under False,
+                 as in the JAX package; "step" takes the fused whole-step
+                 kernels, and "auto" takes them on the card at the shape an
+                 H100 A/B measured ahead (:meth:`_use_fused_step`); True
+                 forces the per-gap kernels: the gap loop's training pair
+                 under autograd and the fused Euler cell for every other
+                 Euler step (:meth:`_use_gap_scan`, :meth:`_use_fused`).
+                 "interpret" and "step-interpret" select Pallas interpret
+                 mode, which has no port, and raise: on the CPU, True and
+                 "step" run the kernels' plain versions.
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
@@ -168,12 +177,13 @@ class NeuralJumpODE(nn.Module):
                 "kernel in Pallas interpret mode, which has no port: on the "
                 "CPU use 'step', whose wrappers take the kernels' plain "
                 "versions for CPU tensors")
-        if use_pallas is True or use_pallas == "interpret":
+        if use_pallas == "interpret":
             raise NotImplementedError(
-                f"use_pallas={use_pallas!r} selects the per-substep fused "
-                "Euler cell kernel, which is not ported yet (ROADMAP.md, "
-                "Queue 2 fused_cell)")
-        if use_pallas not in ("auto", False, "step"):
+                "use_pallas='interpret' runs the gap-loop and fused Euler "
+                "cell kernels in Pallas interpret mode, which has no port: "
+                "on the CPU use True, whose wrappers take the kernels' plain "
+                "versions for CPU tensors")
+        if use_pallas not in ("auto", False, "step", True):
             raise ValueError(f"Unknown use_pallas: {use_pallas!r}")
         if ode_solver not in ("euler", "heun", "rk4"):
             raise ValueError(f"Unknown ode_solver: {ode_solver!r} "
@@ -216,6 +226,11 @@ class NeuralJumpODE(nn.Module):
         self.k_hidden = 1 if shared_network else num_moments
         self._gap_eligible = (ode_solver == "euler" and gap_scan_available(
             n_hidden_layers, self._act_key, dropout_rate, self._scale_key))
+        # the fused Euler cell (use_pallas=True): one Euler step a launch
+        self._fused_eligible = (ode_solver == "euler"
+                                and fused_cell.fused_cell_available(
+                                    n_hidden_layers, self._act_key,
+                                    dropout_rate))
         # the fused whole-step kernels (use_pallas="step"): jump -> one
         # Euler step per gap -> readout, all slots in two kernels
         self._step_eligible = fused_step.fused_step_available(
@@ -268,9 +283,13 @@ class NeuralJumpODE(nn.Module):
 
     def _gap_weights(self) -> GapWeights:
         """The ODEFunc(s)' weights as the gap kernel takes them, stacked on
-        K_h.  Cut once and kept until a parameter moves (``.to``) or
-        changes in place (``load_state_dict``, an optimizer step), which
-        bumps its version; writes through ``.data`` bypass that count."""
+        K_h, for inference only.  Cut once and kept until a parameter moves
+        (``.to``) or changes in place (``load_state_dict``, an optimizer
+        step), which bumps its version; writes through ``.data`` bypass that
+        count.  A gap that autograd differentiates cuts them anew
+        (``split_weights(self._ode_weights())``): a cut kept from a no-grad
+        call carries no graph, and its weights would train with no
+        gradient."""
         params = self._ode_params()
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._gap_cache is None or self._gap_cache[0] != key:
@@ -304,6 +323,43 @@ class NeuralJumpODE(nn.Module):
         return walk_scan.walk_scan_available(
             self.n_hidden_layers, self._act_key, self.dropout_rate,
             self._scale_key, self.input_dim, self.hidden_dim)
+
+    def _use_fused(self) -> bool:
+        """Route ``_euler``'s Euler steps through the fused Euler cell
+        (``njode_tpu/models/jump_ode.py:270-273``): only when forced,
+        ``use_pallas=True``, for an eligible ODEFunc (CUDA tensors take the
+        kernel, CPU tensors its plain version)."""
+        return self._fused_eligible and self.use_pallas is True
+
+    def _use_gap_scan(self, inference: bool = False) -> bool:
+        """Route a ``dt_ode_step`` gap through the gap kernels
+        (``njode_tpu/models/jump_ode.py:301-310``) for an eligible ODEFunc.
+        Under every policy a gap integrated for inference takes the
+        primal-only kernel (the port's "auto" has no row gate: the JAX one,
+        ``AUTO_MAX_ROWS``, was measured on the TPU).  Under ``use_pallas=
+        True`` a gap under autograd takes the training pair too, where
+        ``gap_train_fits`` holds, and ``debug_checks`` keeps the plain loop
+        (its steps go through the fused cell), as in the JAX package."""
+        if not self._gap_eligible:
+            return False
+        if self.use_pallas is not True:
+            return inference
+        if self.debug_checks:
+            return False
+        return inference or gap_scan.gap_train_fits(self.hidden_dim)
+
+    def _forced_route(self) -> Optional[str]:
+        """What the forced kernels (``use_pallas=True``) carry of a training
+        step, for the Trainer's "Training path:" line; None otherwise."""
+        if self.use_pallas is not True:
+            return None
+        if self.grid_walk and self._use_walk_kernel():
+            return "walk kernels"
+        if self.dt_ode_step is not None and self._use_gap_scan():
+            return "gap-loop kernels"
+        if self._use_fused():
+            return "fused Euler cell"
+        return None
 
     def _use_fused_step(self, n_slots: int, n_batch: int = 0) -> bool:
         """Route ``apply`` through the fused-step kernels
@@ -402,6 +458,11 @@ class NeuralJumpODE(nn.Module):
         stage time with ``t_elapsed = 0``, the ODE's ``t_elapsed -> 0``
         limit (see the JAX model's ``_euler``).
         """
+        if (self.ode_solver == "euler" and generator is None
+                and self._use_fused()):
+            return fused_cell.ode_euler_fused(
+                h, self._scale(x_last), self._scale(h), t_cur, t_new,
+                self._ode_weights(), self._act_key)
         dt = (t_new - t_cur)[None, :, None]
         if self.ode_solver == "euler":
             return h + dt * self._ode(h, x_last, t_cur, t_new, generator)
@@ -428,7 +489,8 @@ class NeuralJumpODE(nn.Module):
 
         ``inference=True`` (no autograd, no dropout) lets an eligible
         ODEFunc take the gap kernel; a gap that autograd differentiates
-        takes the plain loop (the kernel has no backward yet).
+        takes the plain loop, or under ``use_pallas=True`` the training
+        pair (:meth:`_use_gap_scan`).
 
         The accumulated ``t_cur + dt`` float updates are kept (rather than a
         step count) so the boundary behaviour matches the reference's while
@@ -437,9 +499,11 @@ class NeuralJumpODE(nn.Module):
         if self.dt_ode_step is None:
             return self._euler(h, x_last, t_last, t_target, generator)
         dt = self.dt_ode_step
-        if self._gap_eligible and inference and generator is None:
+        if generator is None and self._use_gap_scan(inference):
+            weights = (self._gap_weights() if inference
+                       else split_weights(self._ode_weights()))
             h, t_cur = integrate_gap_fused(
-                h, self._scale(x_last), t_last, t_target, self._gap_weights(),
+                h, self._scale(x_last), t_last, t_target, weights,
                 dt, self.max_substeps, self._act_key, self._scale_key)
         else:
             t_cur = t_last
@@ -688,9 +752,11 @@ class NeuralJumpODE(nn.Module):
         inference = gen is None and not torch.is_grad_enabled()
         # grid_walk is permission to walk; under "auto" the walk is taken
         # only where its kernels carry it, as in the JAX package
-        # (njode_tpu/models/jump_ode.py:806-820)
+        # (njode_tpu/models/jump_ode.py:806-820), and under True too, whose
+        # walk the JAX package runs on the walk kernel on its TPU (a no-grad
+        # walk on the card takes the per-gap route, as under "auto")
         use_walk = self.grid_walk
-        if use_walk and self.use_pallas == "auto":
+        if use_walk and self.use_pallas in ("auto", True):
             use_walk = self._use_walk_kernel(inference)
         if use_walk:
             if mask is not None:

@@ -1,10 +1,15 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions:
-the whole-gap Euler kernel (serving), the whole-run training kernel, the
-grid-walk kernel pair and the whole-run walk-train kernel (production
-training).  Kernels build at first use (``_build.py``), never at import.
+the whole-gap Euler kernel (serving) and its training pair, the fused Euler
+cell, the whole-run training kernel, the grid-walk kernel pair, the
+whole-run walk-train kernel (production training) and the fused whole step
+(scaled training).  Kernels build at first use (``_build.py``), never at
+import.
 """
 
-from .gap_scan import (SUPPORTED_ACTS, GapWeights, gap_scan_available,
+from .fused_cell import (FusedEulerCell, fused_cell_available,
+                         ode_euler_fused, ode_euler_reference)
+from .gap_scan import (SUPPORTED_ACTS, GapScan, GapWeights,
+                       gap_scan_available, gap_train_fits,
                        integrate_gap_fused, integrate_gap_reference,
                        split_weights)
 from .train_kernel import (TrainState, fused_train_run,
@@ -19,8 +24,10 @@ from .walk_train import (WalkState, fused_walk_train_run,
                          optax_state_into_walk, walk_state_from,
                          walk_train_available, walk_train_params)
 
-__all__ = ["SUPPORTED_ACTS", "GapWeights", "gap_scan_available",
-           "integrate_gap_fused", "integrate_gap_reference", "split_weights",
+__all__ = ["FusedEulerCell", "fused_cell_available", "ode_euler_fused",
+           "ode_euler_reference", "SUPPORTED_ACTS", "GapScan", "GapWeights",
+           "gap_scan_available", "gap_train_fits", "integrate_gap_fused",
+           "integrate_gap_reference", "split_weights",
            "TrainState", "fused_train_run", "fused_train_run_reference",
            "init_train_state", "kernel_state_from", "optax_state_into",
            "pack_minibatches", "train_kernel_available",

@@ -1,6 +1,7 @@
-// Device helpers shared by the grid-walk kernels (walk_scan.cu, walk_train.cu):
-// the activations and input scalings with their derivatives, and the small
-// row-tile products of one warp.
+// Device helpers shared by the grid-walk kernels (walk_scan.cu, walk_train.cu)
+// and, through gap_cell.cuh, gap_train.cu and fused_cell.cu: the activations
+// and input scalings with their derivatives, and the small row-tile
+// products of one warp.
 //
 // Codes follow the order of SUPPORTED_ACTS / SCALINGS in ops/activations.py.
 // Built without --use_fast_math, so expf/tanhf/expm1f are the accurate

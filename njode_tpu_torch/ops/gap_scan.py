@@ -37,13 +37,25 @@ Weights: :func:`split_weights` cuts the stacked ODEFunc weights once into
 (in, out) orientation the kernel reads; the model keeps the result until its
 parameters change, so a call copies no weights.
 
-Wrappers: :func:`gap_substeps` launches the kernel for CUDA tensors and takes
-its plain version :func:`gap_substeps_reference` only for CPU tensors;
-:func:`integrate_gap_fused` is the model-facing whole-gap function and
-:func:`integrate_gap_reference` its plain version.  Only the forward exists:
-the backward kernels (JAX ``_bwd_kernel``/``_bwd_kernel_ck`` and the
-residual forwards) are not ported, so a call that autograd would have to
-differentiate raises.
+Training (rows 2-5 of the TPU kernel table): ``csrc/gap_train.cu``
+replaces ``_fwd_kernel`` (:134) and ``_fwd_kernel_ck`` (:235) with one
+forward that stores the state entering every ``stride``-th substep (stride 1
+up to ``2 * CK`` substeps, else ``CK``; ``_use_remat``, :126-127), and
+``_bwd_kernel`` (:422) and ``_bwd_kernel_ck`` (:295) with one reverse loop
+that recomputes each segment from its checkpoint.  :class:`GapScan`, a
+``torch.autograd.Function``, joins them; its backward returns the
+cotangents of h, base, w1h, w1t, w2 and b2 (those of the times are None),
+summing the kernel's per-row ``acc_t`` and ``gdh_sum`` over rows into w1t's
+and b2's as the JAX package does in XLA (:734-738).
+
+Wrappers: :func:`gap_substeps` launches the primal-only kernel for CUDA
+tensors when no gradient is wanted, :class:`GapScan` (the training pair)
+when one is, and takes the plain versions (:func:`gap_substeps_reference`,
+:func:`gap_train_forward_reference`, :func:`gap_train_backward_reference`)
+only for CPU tensors; :func:`integrate_gap_fused` is the model-facing
+whole-gap function and :func:`integrate_gap_reference` its plain version.
+With ``max_substeps == 0`` nothing launches: only the final partial step
+applies (:774-780).
 """
 
 from __future__ import annotations
@@ -55,10 +67,38 @@ from typing import NamedTuple, Sequence
 import torch
 
 # the kernel's activation / scaling codes are positions in these tuples
-from .activations import _ACT, _SCALE, SCALINGS, SUPPORTED_ACTS
+from .activations import (_ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD, SCALINGS,
+                          SUPPORTED_ACTS)
 
-# launches of the CUDA kernel in this process; callers may reset it to 0
+# launches in this process, callers may reset them to 0: the primal-only
+# kernel (row 1), and the training forward and backward by residual mode,
+# "full" (stride 1: rows 2 and 4) and "checkpointed" (rows 3 and 5)
 LAUNCHES = 0
+LAUNCHES_RES_FWD = {"full": 0, "checkpointed": 0}
+LAUNCHES_BWD = {"full": 0, "checkpointed": 0}
+
+# checkpoint interval of the training pair past 2 * CK substeps
+# (njode_tpu/ops/gap_scan.py:117-127)
+CK = 8
+# the training kernels' widest state (csrc/gap_train.cu: 4 columns a lane)
+MAX_HIDDEN = 128
+
+
+def use_remat(n_sub: int) -> bool:
+    """Whether the training pair checkpoints (``_use_remat``)."""
+    return n_sub > 2 * CK
+
+
+def residual_stride(n_sub: int) -> int:
+    """Substeps between stored states: 1 (rows 2 and 4) or CK (rows 3, 5)."""
+    return CK if use_remat(n_sub) else 1
+
+
+def gap_train_fits(d_h: int) -> bool:
+    """Whether the training kernels take this width (d_h <= MAX_HIDDEN; the
+    backward's shared memory then fits at either residual stride, which
+    csrc/gap_train.cu's ``bwd_plan`` checks on the card)."""
+    return 1 <= d_h <= MAX_HIDDEN
 
 
 def gap_scan_available(n_hidden_layers: int, activation: str,
@@ -93,6 +133,72 @@ def gap_substeps_reference(h, base, t_last, t_target, w1h, w1t, w2, b2,
     return h, t
 
 
+def gap_train_forward_reference(h, base, t_last, t_target, w1h, w1t, w2, b2,
+                                dt: float, n_sub: int, stride: int,
+                                act_name: str, scale_name: str):
+    """Plain PyTorch version of the training forward (rows 2-3): the full
+    predicated substeps of :func:`gap_substeps_reference`, storing the state
+    entering every ``stride``-th substep.  Returns (h_L, t_L, res_h
+    (n_res, K, R, d_h), res_t (n_res, R)), n_res = ceil(n_sub / stride)."""
+    act, scale = _ACT[act_name], _SCALE[scale_name]
+    w1t_row, b2_row = w1t[:, None, :], b2[:, None, :]
+    t = t_last
+    res_h, res_t = [], []
+    for j in range(n_sub):
+        if j % stride == 0:
+            res_h.append(h)
+            res_t.append(t)
+        pred = (t + dt) < t_target
+        pre = torch.matmul(scale(h), w1h) + base + t[None, :, None] * w1t_row
+        dh = torch.matmul(act(pre), w2) + b2_row
+        h = torch.where(pred[None, :, None], h + dt * dh, h)
+        t = torch.where(pred, t + dt, t)
+    return h, t, torch.stack(res_h), torch.stack(res_t)
+
+
+def gap_train_backward_reference(g_h, base, t_target, w1h, w1t, w2, b2,
+                                 res_h, res_t, dt: float, n_sub: int,
+                                 stride: int, act_name: str,
+                                 scale_name: str):
+    """Plain PyTorch version of the backward (rows 4-5): the substeps in
+    reverse, each stride-long segment first recomputed from its checkpoint,
+    with the algebra of ``_bwd_kernel`` (njode_tpu/ops/gap_scan.py:422-517).
+    Returns (gh0, gpre_sum, acc_t, gdh_sum), each (K, R, d_h), and (dW1h,
+    dW2), each (K, d_h, d_h) as (in, out)."""
+    act, dact = _ACT[act_name], _ACT_GRAD[act_name]
+    scale, dscale = _SCALE[scale_name], _SCALE_GRAD[scale_name]
+    w1t_row, b2_row = w1t[:, None, :], b2[:, None, :]
+    w1h_t, w2_t = w1h.transpose(1, 2), w2.transpose(1, 2)
+    gh = g_h
+    gpre_sum, acc_t, gdh_sum = (torch.zeros_like(g_h) for _ in range(3))
+    dw1h, dw2 = torch.zeros_like(w1h), torch.zeros_like(w2)
+
+    def pre_of(h, t):
+        return torch.matmul(scale(h), w1h) + base + t[None, :, None] * w1t_row
+    for s in reversed(range(res_t.shape[0])):
+        h, t = res_h[s], res_t[s]
+        states = []
+        for c in range(min(stride, n_sub - s * stride)):
+            if c:
+                pred = (t + dt) < t_target
+                dh = torch.matmul(act(pre_of(h, t)), w2) + b2_row
+                h = torch.where(pred[None, :, None], h + dt * dh, h)
+                t = torch.where(pred, t + dt, t)
+            states.append((h, t))
+        for h_j, t_j in reversed(states):
+            pred = ((t_j + dt) < t_target)[None, :, None]
+            pre = pre_of(h_j, t_j)
+            g_dh = torch.where(pred, dt * gh, 0.0)
+            g_pre = torch.matmul(g_dh, w2_t) * dact(pre)
+            dw2 = dw2 + torch.matmul(act(pre).transpose(1, 2), g_dh)
+            dw1h = dw1h + torch.matmul(scale(h_j).transpose(1, 2), g_pre)
+            gpre_sum = gpre_sum + g_pre
+            acc_t = acc_t + t_j[None, :, None] * g_pre
+            gdh_sum = gdh_sum + g_dh
+            gh = gh + torch.matmul(g_pre, w1h_t) * dscale(h_j)
+    return gh, gpre_sum, acc_t, gdh_sum, dw1h, dw2
+
+
 @functools.cache
 def _load_kernel():
     """Build (first call only) and bind ``njode_gap_scan_fwd``."""
@@ -105,69 +211,218 @@ def _load_kernel():
     return lib, fn
 
 
+@functools.cache
+def _load_train_kernel():
+    """Build (first call only) and bind the training pair of gap_train.cu."""
+    from ._build import load
+    lib = load("gap_train")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.njode_gap_train_fwd.argtypes = [P] * 12 + [I] * 3 + [F] + [I] * 4 + [P]
+    lib.njode_gap_train_fwd.restype = I
+    lib.njode_gap_train_bwd_blocks.argtypes = [I] * 4 + [ctypes.POINTER(I)]
+    lib.njode_gap_train_bwd_blocks.restype = I
+    lib.njode_gap_train_bwd.argtypes = [P] * 15 + [I] * 3 + [F] + [I] * 5 + [P]
+    lib.njode_gap_train_bwd.restype = I
+    return lib
+
+
 def _check_cuda_inputs(named: dict[str, torch.Tensor],
-                       shapes: dict[str, tuple]) -> torch.device:
+                       shapes: dict[str, tuple],
+                       what: str = "gap_substeps") -> torch.device:
     device = named["h"].device
     for name, x in named.items():
         if x.device != device:
-            raise ValueError(f"gap_substeps: {name} is on {x.device}, h on "
+            raise ValueError(f"{what}: {name} is on {x.device}, h on "
                              f"{device}")
         if x.dtype != torch.float32:
-            raise TypeError(f"gap_substeps: the CUDA kernel takes float32, "
+            raise TypeError(f"{what}: the CUDA kernel takes float32, "
                             f"{name} is {x.dtype}")
         if tuple(x.shape) != shapes[name]:
-            raise ValueError(f"gap_substeps: {name} has shape "
+            raise ValueError(f"{what}: {name} has shape "
                              f"{tuple(x.shape)}, expected {shapes[name]}")
         if not x.is_contiguous():
-            raise ValueError(f"gap_substeps: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     return device
+
+
+def _check_call(tensors: dict[str, torch.Tensor], act_name: str,
+                scale_name: str, what: str) -> torch.device:
+    """The kernels' common checks; the device of h (cuda)."""
+    if tensors["h"].device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device "
+                         f"{tensors['h'].device} (or tensors on mixed "
+                         "devices)")
+    if act_name not in SUPPORTED_ACTS or scale_name not in _SCALE:
+        raise ValueError(f"{what}: unsupported activation/scaling "
+                         f"{act_name!r}/{scale_name!r}")
+    K, R, d_h = tensors["h"].shape
+    mat, vec, row = (K, d_h, d_h), (K, d_h), (R,)
+    shapes = {"h": (K, R, d_h), "base": (K, R, d_h), "t_last": row,
+              "t_target": row, "w1h": mat, "w1t": vec, "w2": mat, "b2": vec}
+    return _check_cuda_inputs(tensors, {n: shapes[n] for n in tensors}, what)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def gap_substeps(h, base, t_last, t_target, w1h, w1t, w2, b2,
                  dt: float, n_sub: int, act_name: str, scale_name: str):
-    """The full-step loop: the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors, an error for anything else.  Same arguments and
-    result as :func:`gap_substeps_reference`."""
+    """The full-step loop: for CUDA tensors the primal-only kernel, or,
+    when autograd wants a gradient of any of h, base or the weights, the
+    training pair through :class:`GapScan`; the plain versions for CPU
+    tensors; an error for anything else.  Same arguments and result as
+    :func:`gap_substeps_reference`."""
     global LAUNCHES
-    tensors = {"h": h, "base": base, "t_last": t_last, "t_target": t_target,
-               "w1h": w1h, "w1t": w1t, "w2": w2, "b2": b2}
-    if torch.is_grad_enabled() and any(x.requires_grad
-                                       for x in tensors.values()):
-        raise RuntimeError(
-            "gap_substeps has no backward yet (the gap_scan backward kernels "
-            "are still to be ported); call it under torch.no_grad()")
-    if all(x.device.type == "cpu" for x in tensors.values()):
-        return gap_substeps_reference(h, base, t_last, t_target, w1h, w1t,
-                                      w2, b2, dt, n_sub, act_name, scale_name)
-    if h.device.type != "cuda":
-        raise ValueError(f"gap_substeps: no kernel for device {h.device} "
-                         "(or tensors on mixed devices)")
-    if act_name not in SUPPORTED_ACTS or scale_name not in _SCALE:
-        raise ValueError(f"gap_substeps: unsupported activation/scaling "
-                         f"{act_name!r}/{scale_name!r}")
-    K, R, d_h = h.shape
-    mat, vec, row = (K, d_h, d_h), (K, d_h), (R,)
-    device = _check_cuda_inputs(tensors, {
-        "h": (K, R, d_h), "base": (K, R, d_h), "t_last": row, "t_target": row,
-        "w1h": mat, "w1t": vec, "w2": mat, "b2": vec})
     if n_sub < 0 or not dt > 0.0:
         raise ValueError(f"gap_substeps: need n_sub >= 0 and dt > 0, got "
                          f"{n_sub}, {dt}")
+    if n_sub == 0:
+        return h, t_last
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (h, base, w1h, w1t, w2, b2)):
+        return GapScan.apply(h, base, w1h, w1t, w2, b2, t_last, t_target,
+                             float(dt), int(n_sub), act_name, scale_name)
+    tensors = {"h": h, "base": base, "t_last": t_last, "t_target": t_target,
+               "w1h": w1h, "w1t": w1t, "w2": w2, "b2": b2}
+    if all(x.device.type == "cpu" for x in tensors.values()):
+        return gap_substeps_reference(h, base, t_last, t_target, w1h, w1t,
+                                      w2, b2, dt, n_sub, act_name, scale_name)
+    device = _check_call(tensors, act_name, scale_name, "gap_substeps")
+    K, R, d_h = h.shape
     lib, fn = _load_kernel()
     h_out = torch.empty_like(h)
     t_out = torch.empty_like(t_last)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(h.data_ptr(), base.data_ptr(), t_last.data_ptr(),
                  t_target.data_ptr(), w1h.data_ptr(), w1t.data_ptr(),
                  w2.data_ptr(), b2.data_ptr(), h_out.data_ptr(),
                  t_out.data_ptr(), K, R, d_h, float(dt), int(n_sub),
                  SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
-                 stream)
+                 _stream(device))
     from ._build import check
     check(lib, err, "njode_gap_scan_fwd launch")
     LAUNCHES += 1
     return h_out, t_out
+
+
+# --------------------------------------------------------------------------
+# the training pair: kernels, their launchers and the autograd Function
+# --------------------------------------------------------------------------
+
+def _mode(stride: int) -> str:
+    return "full" if stride == 1 else "checkpointed"
+
+
+def _launch_train_fwd(h, base, t_last, t_target, w1h, w1t, w2, b2,
+                      dt: float, n_sub: int, stride: int, act_name: str,
+                      scale_name: str):
+    """The forward kernel (row 2 at stride 1, row 3 beyond): (h_L, t_L,
+    res_h, res_t) as :func:`gap_train_forward_reference` returns them."""
+    tensors = {"h": h, "base": base, "t_last": t_last, "t_target": t_target,
+               "w1h": w1h, "w1t": w1t, "w2": w2, "b2": b2}
+    device = _check_call(tensors, act_name, scale_name, "gap_train_forward")
+    K, R, d_h = h.shape
+    if n_sub < 1 or not 1 <= d_h <= MAX_HIDDEN:
+        raise ValueError(f"gap_train_forward: need n_sub >= 1 and 1 <= d_h "
+                         f"<= {MAX_HIDDEN}, got {n_sub}, {d_h}")
+    n_res = -(-n_sub // stride)
+    lib = _load_train_kernel()
+    h_out, t_out = torch.empty_like(h), torch.empty_like(t_last)
+    res_h = torch.empty(n_res, K, R, d_h, dtype=h.dtype, device=device)
+    res_t = torch.empty(n_res, R, dtype=h.dtype, device=device)
+    with torch.cuda.device(device):
+        err = lib.njode_gap_train_fwd(
+            h.data_ptr(), base.data_ptr(), t_last.data_ptr(),
+            t_target.data_ptr(), w1h.data_ptr(), w1t.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), h_out.data_ptr(), t_out.data_ptr(),
+            res_h.data_ptr(), res_t.data_ptr(), K, R, d_h, float(dt),
+            int(n_sub), int(stride), SUPPORTED_ACTS.index(act_name),
+            SCALINGS.index(scale_name), _stream(device))
+    from ._build import check
+    check(lib, err, "njode_gap_train_fwd launch")
+    LAUNCHES_RES_FWD[_mode(stride)] += 1
+    return h_out, t_out, res_h, res_t
+
+
+def _launch_train_bwd(g_h, base, t_target, w1h, w1t, w2, b2, res_h, res_t,
+                      dt: float, n_sub: int, stride: int, act_name: str,
+                      scale_name: str):
+    """The backward kernel (row 4 at stride 1, row 5 beyond) and its
+    block-order sum: what :func:`gap_train_backward_reference` returns."""
+    tensors = {"h": g_h, "base": base, "t_target": t_target, "w1h": w1h,
+               "w1t": w1t, "w2": w2, "b2": b2}
+    device = _check_call(tensors, act_name, scale_name, "gap_train_backward")
+    K, R, d_h = g_h.shape
+    n_res = -(-n_sub // stride)
+    if (tuple(res_h.shape) != (n_res, K, R, d_h)
+            or tuple(res_t.shape) != (n_res, R)
+            or not (res_h.is_contiguous() and res_t.is_contiguous())):
+        raise ValueError(f"gap_train_backward: residuals {tuple(res_h.shape)}"
+                         f" / {tuple(res_t.shape)} do not fit n_sub {n_sub},"
+                         f" stride {stride}")
+    lib = _load_train_kernel()
+    from ._build import check
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(lib, lib.njode_gap_train_bwd_blocks(K, R, d_h, int(stride),
+                                                  ctypes.byref(blocks)),
+              "njode_gap_train_bwd_blocks")
+        outs = [torch.empty_like(g_h) for _ in range(4)]
+        partial = torch.empty(blocks.value, K, 2, d_h, d_h,
+                              dtype=g_h.dtype, device=device)
+        dw = torch.empty(K, 2, d_h, d_h, dtype=g_h.dtype, device=device)
+        err = lib.njode_gap_train_bwd(
+            g_h.data_ptr(), base.data_ptr(), t_target.data_ptr(),
+            w1h.data_ptr(), w1t.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            res_h.data_ptr(), res_t.data_ptr(),
+            *(x.data_ptr() for x in outs), partial.data_ptr(), dw.data_ptr(),
+            K, R, d_h, float(dt), int(n_sub), int(stride), blocks.value,
+            SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
+            _stream(device))
+    check(lib, err, "njode_gap_train_bwd launch")
+    LAUNCHES_BWD[_mode(stride)] += 1
+    return (*outs, dw[:, 0], dw[:, 1])
+
+
+class GapScan(torch.autograd.Function):
+    """The training pair as one differentiable op: (h, base, w1h, w1t, w2,
+    b2, t_last, t_target) -> (h_L, t_L), t_L not differentiable (times are
+    data).  ``n_sub >= 1``; the residual stride is :func:`residual_stride`.
+    The kernels run for CUDA tensors, their plain versions for CPU tensors
+    (all inputs on the CPU; anything else goes to the kernels' checks).
+    """
+
+    @staticmethod
+    def forward(ctx, h, base, w1h, w1t, w2, b2, t_last, t_target, dt, n_sub,
+                act_name, scale_name):
+        stride = residual_stride(n_sub)
+        args = [x.contiguous() for x in (h, base, t_last, t_target, w1h,
+                                         w1t, w2, b2)]
+        on_cpu = all(x.device.type == "cpu" for x in args)
+        if not on_cpu and not gap_train_fits(h.shape[-1]):
+            raise ValueError(f"GapScan: d_h {h.shape[-1]} is beyond the "
+                             "training kernels (gap_train_fits)")
+        fwd = gap_train_forward_reference if on_cpu else _launch_train_fwd
+        h_l, t_l, res_h, res_t = fwd(*args, dt, n_sub, stride, act_name,
+                                     scale_name)
+        _, base_c, _, t_tgt, w1h_c, w1t_c, w2_c, b2_c = args
+        ctx.save_for_backward(base_c, t_tgt, w1h_c, w1t_c, w2_c, b2_c,
+                              res_h, res_t)
+        ctx.meta = (dt, n_sub, stride, act_name, scale_name, on_cpu)
+        ctx.mark_non_differentiable(t_l)
+        return h_l, t_l
+
+    @staticmethod
+    def backward(ctx, g_h, _g_t):
+        base, t_tgt, w1h, w1t, w2, b2, res_h, res_t = ctx.saved_tensors
+        dt, n_sub, stride, act_name, scale_name, on_cpu = ctx.meta
+        bwd = gap_train_backward_reference if on_cpu else _launch_train_bwd
+        gh0, gpre_sum, acc_t, gdh_sum, dw1h, dw2 = bwd(
+            g_h.contiguous(), base, t_tgt, w1h, w1t, w2, b2, res_h, res_t,
+            dt, n_sub, stride, act_name, scale_name)
+        return (gh0, gpre_sum, dw1h, acc_t.sum(1), dw2, gdh_sum.sum(1),
+                None, None, None, None, None, None)
 
 
 # --------------------------------------------------------------------------

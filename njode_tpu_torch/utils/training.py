@@ -27,11 +27,13 @@
 * :func:`run_experiment` writes ``runs/<name>/{config.json, model.ckpt,
   history.json}`` and resolves the grid walk (:func:`_use_grid_walk`).
   ``use_pallas="step"`` (the scaled recipe) trains on the composed path
-  with the model's fused-step kernels and keeps the whole-run kernels off.
-  Ensembles (ROADMAP Queue 1 item 11), data/model parallelism and
-  multi-host runs (item 12), other process families (item 9), mixed
-  precision, the fused-cell kernel (Queue 2 row 6) and Pallas interpret
-  mode are not ported and raise ``NotImplementedError`` naming their item.
+  with the model's fused-step kernels, and ``use_pallas=True`` (the CLI's
+  ``--kernels force``) on the composed path with the model's forced
+  per-gap kernels (the gap loop's training pair, the fused Euler cell);
+  both keep the whole-run kernels off.  Ensembles (ROADMAP Queue 1 item
+  11), data/model parallelism and multi-host runs (item 12), other process
+  families (item 9), mixed precision and Pallas interpret mode are not
+  ported and raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -612,9 +614,11 @@ class Trainer:
                 kernel = ("walk-train kernel" if self._twin() == "walk"
                           else "whole-run kernel")
                 # every minibatch has batch_size rows (_minibatches pads)
+                forced = self.model._forced_route()
                 comp = ("composed (fused-step kernels)"
                         if self.model._use_fused_step(times.shape[1],
                                                       batch_size)
+                        else f"composed (forced {forced})" if forced
                         else "composed")
                 print(f"Training path: "
                       f"{kernel if use_kernel else comp} "
@@ -718,15 +722,11 @@ def _refuse_unported(config: Dict) -> None:
                                   "ported yet (ROADMAP.md, Queue 2 rows "
                                   "9-10, bf16)")
     up = config.get("use_pallas", False)
-    if up is True or up == "interpret":
+    if up in ("interpret", "step-interpret"):
         raise NotImplementedError(
-            f"use_pallas={up!r}: the fused Euler cell kernel is not ported "
-            "yet (ROADMAP.md, Queue 2 row 6)")
-    if up == "step-interpret":
-        raise NotImplementedError(
-            "use_pallas='step-interpret': Pallas interpret mode is not "
-            "ported; on the CPU 'step' runs the kernels' plain versions")
-    if up not in (False, None, "auto", "train", "step"):
+            f"use_pallas={up!r}: Pallas interpret mode is not ported; on "
+            "the CPU True and 'step' run the kernels' plain versions")
+    if up not in (False, None, "auto", "train", "step", True):
         raise ValueError(f"Unknown use_pallas: {up!r}")
     if config.get("train_kernel_mxu", "float32") != "float32":
         raise NotImplementedError("train_kernel_mxu: the port's training "
@@ -748,9 +748,9 @@ def _resolve_grid_walk(config: Dict, device: torch.device,
     """The grid-walk policy (``njode_tpu/utils/training.py:1162-1219``):
     "on" walks, "off" keeps the per-gap loops, and "auto" walks exactly
     where a CUDA kernel carries the walk: the model on ``cuda``, kernels
-    asked for (use_pallas "auto" or "train"), the config eligible for the
-    walk kernels (euler) or the walk-train kernel (heun, rk4), and the data
-    aligned to the grid.  The port runs one model on one device, so the
+    asked for (use_pallas "auto", "train" or True), the config eligible for
+    the walk kernels (euler) or the walk-train kernel (heun, rk4), and the
+    data aligned to the grid.  The port runs one model on one device, so the
     JAX package's single-device condition always holds.  Off the card
     "auto" resolves off, as the JAX package does off the TPU."""
     setting = config.get("grid_walk", "auto")
@@ -759,7 +759,8 @@ def _resolve_grid_walk(config: Dict, device: torch.device,
         return False
     if setting in (True, "on"):
         return True
-    if device.type != "cuda" or use_pallas_cfg not in ("auto", "train"):
+    if device.type != "cuda" or use_pallas_cfg not in ("auto", "train",
+                                                       True):
         return False
     if (config.get("compute_dtype") not in (None, "float32", "none")
             or int(config.get("ensemble", 0) or 0) > 1
@@ -836,8 +837,9 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     # use_pallas 'auto' (the CLI default) and 'train' select the whole-run
     # training kernel of the model's twin, quietly and insistently
     # (njode_tpu/utils/training.py:1338-1348); the model keeps 'auto' for
-    # its own kernels (the gap kernel, the walk kernels), and 'step' goes to
-    # the model (its fused-step kernels) with the whole-run kernels off
+    # its own kernels (the gap kernel, the walk kernels), and 'step' and
+    # True go to the model (its fused-step kernels, its forced per-gap
+    # kernels) with the whole-run kernels off
     up = config.get("use_pallas", False)
     use_train_kernel = {"auto": "auto", "train": True}.get(up, False)
     model = NeuralJumpODE(
@@ -854,7 +856,7 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         variance_method=config.get("variance_method", "direct"),
         t_max=config.get("data", {}).get("T", 1.0),
         ode_solver=config.get("ode_solver", "euler"),
-        use_pallas=up if up in ("auto", "step") else False,
+        use_pallas=up if up in ("auto", "step", True) else False,
         debug_checks=config.get("debug_checks", False),
         # grid-walk resolution sees the config's use_pallas: "train" with
         # dt_ode_step routes to the walk-train kernel, which needs the same

@@ -41,7 +41,14 @@ with clock64() probes read by each block's first thread (the products to
 the barrier after them, their epilogues, the weight-gradient sums, the
 rest), over one call of each.
 
-    PYTHONPATH=. python scripts/profile_torch_training.py [--production | --scaled]
+With ``--forced``, instead: torch.profiler over 3 epochs of each forced
+recipe (``use_pallas=True``, the CLI's ``--kernels force``; the production
+config with grid_walk off, on the gap loop's training pair, and the
+default config, on the fused Euler cell) through ``Trainer.train``, each
+after one epoch of warm-up: the same report, the production arm's Chrome
+trace to the same output directory.
+
+    PYTHONPATH=. python scripts/profile_torch_training.py [--production | --scaled | --forced]
 """
 
 from __future__ import annotations
@@ -163,6 +170,42 @@ def profile_scaled(dev: torch.device, card: str, out_dir: str) -> None:
         if up == "step":
             prof.export_chrome_trace(os.path.join(out_dir,
                                                   "trace_fused_step.json"))
+
+
+def profile_forced(dev: torch.device, card: str, out_dir: str) -> None:
+    """The forced recipes (use_pallas True), 3 epochs each profiled after
+    one of warm-up."""
+    epochs = 3
+    for name, cfg, kw, mw, bs in (
+            ("forced production recipe, gap-loop kernels",
+             chip_smoke.forced_production_config(epochs, "profiled"),
+             chip_smoke.PROD_MODEL_KW, chip_smoke.PROD_MW,
+             chip_smoke.PROD_BS),
+            ("forced default recipe, fused Euler cell",
+             chip_smoke.forced_default_config(epochs, "profiled"),
+             chip_smoke.DEFAULT_MODEL_KW, (1.0, 10.0), chip_smoke.TRAIN_BS)):
+        train_fn, val_fn = create_data_loaders(base_seed=2, device=dev,
+                                               **cfg["data"])
+        model = NeuralJumpODE(use_pallas=True, device=dev,
+                              generator=torch.Generator().manual_seed(0),
+                              **kw)
+        tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True, moment_weights=list(mw),
+                     use_train_kernel=False)
+        tr.train(train_fn, val_fn, n_epochs=1, batch_size=bs,
+                 print_every=100, config=cfg)                  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train(train_fn, val_fn, n_epochs=epochs, batch_size=bs,
+                     print_every=100, config=cfg)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        report(prof, name, card, wall_us, epochs)
+        if "production" in name:
+            prof.export_chrome_trace(os.path.join(out_dir,
+                                                  "trace_forced.json"))
 
 
 STEP_PHASES = ("products (tile_mm, to the barrier after it)",
@@ -513,6 +556,9 @@ def main() -> None:
     if "--scaled" in sys.argv[1:]:
         profile_scaled(dev, card, out_dir)
         fused_step_split(dev, card)
+        return
+    if "--forced" in sys.argv[1:]:
+        profile_forced(dev, card, out_dir)
         return
     profile_trainer(dev, card, out_dir)
     kernel_split(dev, card)

@@ -194,15 +194,22 @@ def test_cpu_wrapper_takes_the_plain_version():
 
 
 def test_wrapper_refuses_gradients_and_foreign_devices():
+    """A gradient no longer raises: it goes through GapScan, the training
+    pair (its plain versions on the CPU), and equals plain autograd; a
+    foreign device still raises."""
     c = make_case(12, 1, 4, 3)
     t = torch.from_numpy
     w1, b1, w2, b2 = torch_weights(c)
     w1.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gap_scan.integrate_gap_fused(
-            t(c["h"]), t(c["x"]), t(c["t0"]), t(c["t1"]),
-            gap_scan.split_weights((w1, b1, w2, b2)), 0.03, 8, "relu",
-            "identity")
+    grads = []
+    for fn in (gap_scan.integrate_gap_fused, gap_scan.integrate_gap_reference):
+        out, _ = fn(t(c["h"]), t(c["x"]), t(c["t0"]), t(c["t1"]),
+                    gap_scan.split_weights((w1, b1, w2, b2)), 0.03, 8,
+                    "relu", "identity")
+        grads.append(torch.autograd.grad(out.sum(), w1)[0])
+    assert grads[0].abs().sum() > 0
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(),
+                               rtol=1e-5, atol=1e-6)
     meta = [x.to("meta") for x in (t(c["h"]), t(c["x"]), t(c["t0"]),
                                    t(c["t1"]))]
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):

@@ -10,13 +10,15 @@ import pytest
 import torch
 
 import njode_tpu_torch
-from njode_tpu_torch.ops import _build, gap_scan, walk_scan, walk_train
+from njode_tpu_torch.ops import (_build, fused_cell, gap_scan, walk_scan,
+                                 walk_train)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
                 "njode_tpu_torch.models.jump_ode",
                 "njode_tpu_torch.models.loss", "njode_tpu_torch.ops",
                 "njode_tpu_torch.ops.activations",
+                "njode_tpu_torch.ops.fused_cell",
                 "njode_tpu_torch.ops.fused_step",
                 "njode_tpu_torch.ops.gap_scan",
                 "njode_tpu_torch.ops.train_kernel",
@@ -92,11 +94,34 @@ def test_cpu_grid_walk_and_walk_twin_launch_no_kernel():
     assert walk_train.LAUNCHES == 0
 
 
+@pytest.mark.parametrize("dt", [0.05, None], ids=["gap-loop", "cell"])
+def test_cpu_forced_kernels_launch_no_kernel(dt):
+    """use_pallas=True on CPU tensors: the gap loop's training pair and the
+    fused cell take their plain versions, forward and backward."""
+    model = njode_tpu_torch.NeuralJumpODE(
+        input_dim=1, hidden_dim=8, output_dim=1, num_moments=2,
+        shared_network=dt is not None, dt_ode_step=dt, t_max=1.0,
+        use_pallas=True, device="cpu")
+    for counter in (gap_scan.LAUNCHES_RES_FWD, gap_scan.LAUNCHES_BWD):
+        for mode in counter:
+            counter[mode] = 0
+    gap_scan.LAUNCHES = fused_cell.LAUNCHES = 0
+    times = torch.tensor([[0.0, 0.3, 0.7, 1.0]] * 4)
+    loss = model.apply_loss(times, torch.ones(4, 4, 1),
+                            ignore_first_continuity=True)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert gap_scan.LAUNCHES == fused_cell.LAUNCHES == 0
+    assert not any(gap_scan.LAUNCHES_RES_FWD.values())
+    assert not any(gap_scan.LAUNCHES_BWD.values())
+
+
 def test_kernel_sources_ship_with_the_package():
     assert (_build.CSRC / "gap_scan.cu").is_file()
     assert (_build.CSRC / "train_run.cu").is_file()
     for name in ("walk_scan.cu", "walk_train.cu", "walk_cell.cuh",
-                 "fused_step.cu"):
+                 "fused_step.cu", "gap_train.cu", "gap_cell.cuh",
+                 "fused_cell.cu"):
         assert (_build.CSRC / name).is_file(), name
     assert _build.BUILD_DIR.parent == Path(gap_scan.__file__).parent
     flags = " ".join(_build.NVCC_FLAGS)

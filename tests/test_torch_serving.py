@@ -215,9 +215,24 @@ def test_filter_unseen_streams_read_zero():
 @pytest.mark.parametrize("kw,match", [
     (dict(compute_dtype="bfloat16"), "mixed precision"),
     (dict(use_pallas="step-interpret"), "fused training-step"),
-    (dict(use_pallas=True), "fused Euler cell"),
     (dict(use_pallas="interpret"), "fused Euler cell"),
 ])
 def test_unported_paths_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         NeuralJumpODE(**PRODUCTION, **kw, device="cpu")
+
+
+def test_forced_kernels_serve():
+    """use_pallas=True serves: predict_at goes through the same primal-only
+    gap kernel as "auto" (bitwise the same on the CPU) and agrees with the
+    JAX model's kernels in interpret mode."""
+    jax_model, params, port = bridged("interpret", **PRODUCTION)
+    forced = NeuralJumpODE(**PRODUCTION, use_pallas=True, device="cpu")
+    forced.load_state_dict(port.state_dict())
+    times, values, query = ragged_request(4)
+    t, v, m = pad_ragged(times, values)
+    ours = forced.predict_at(t, v, query, m)["raw"]
+    assert torch.equal(ours, port.predict_at(t, v, query, m)["raw"])
+    jt, jv, jm = jax_pad_ragged(times, values)
+    ref = jax_model.predict_at(params, jt, jv, jnp.asarray(query), jm)["raw"]
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)

@@ -317,7 +317,6 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
     (dict(data_parallel=2), "parallelism"),
     (dict(multihost=True), "parallelism"),
     (dict(compute_dtype="bfloat16"), "mixed precision"),
-    (dict(use_pallas=True), "not ported"),
     (dict(use_pallas="step-interpret"), "not ported"),
     (dict(checkpoint_backend="orbax"), "Orbax"),
     (dict(data={"process_type": "ornstein_uhlenbeck"}), "not ported"),
@@ -325,6 +324,17 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
 def test_run_experiment_refuses_unported_paths(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(_config(tmp_path, **over), save_dir=str(tmp_path))
+
+
+def test_run_experiment_runs_forced_kernels(tmp_path, capsys):
+    """use_pallas True (--kernels force) runs: composed, the model's forced
+    per-gap kernels (here the fused cell: no dt_ode_step), the whole-run
+    kernel off."""
+    res = run_experiment(_config(tmp_path, use_pallas=True),
+                         save_dir=str(tmp_path))
+    out = capsys.readouterr().out
+    assert "Training path: composed (forced fused Euler cell)" in out
+    assert np.isfinite(res["history"]["train_loss"]).all()
 
 
 # ----------------------------------------------------------------------
