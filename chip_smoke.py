@@ -52,9 +52,13 @@ uncaught exception and a nonzero exit:
    PERF.md says why not entrywise).
 13. walk-train kernel vs plain: fused_walk_train_run against its plain
    version, 8 steps at the production shape (H 50, N 10, batch 256,
-   M 100), then K x euler/heun/rk4 x direct/second_moment at batch 64, the
+   M 100), then K x euler/heun/rk4 x direct/second_moment at batch 64,
+   then 2 steps at the widest shape the gate admits (H 128, batch 1,024,
+   rk4: the step buffer in chunks of cells, O1 and J2 sharing a plane), the
    last minibatch trajectory-masked: losses and params at rtol 1e-4 / atol
-   1e-5, Adam m and v within 1e-3 of their norm.
+   1e-5, Adam m and v within 1e-3 of their norm; two calls at the
+   production shape bitwise equal.  Before it, walk_train.cu's registers
+   and spill bytes by template instance.
 14. the production training path: run_experiment of the production config
    (scripts/run_black_scholes.sh's flags through build_config, --kernels
    auto) for 3 epochs, then resumed to 5, one walk-train launch per epoch;
@@ -215,6 +219,28 @@ def ptxas_summary(name: str) -> str:
         return "no ptxas output (built before this process)"
     return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill bytes max {max(spills, default=0)}")
+
+
+def ptxas_instances(name: str) -> str:
+    """Registers and spill bytes of each template instance of a source's
+    kernels, as ptxas reported them in this process's build."""
+    import re
+    from njode_tpu_torch.ops import _build
+    out, entry, spill = [], None, 0
+    for ln in _build.BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            args = re.findall(r"L[ib](\d+)E", entry)
+            out.append(f"<{', '.join(args)}> {m.group(1)} registers, "
+                       f"{spill} spill bytes")
+            entry, spill = None, 0
+    return "; ".join(out) if out else "no ptxas output"
 
 
 def ptxas_line(name: str) -> str:
@@ -706,11 +732,14 @@ def training_times_phase(dev: torch.device, card: str, tmp: Path) -> tuple:
     train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
                                            **cfg["data"])
     torch.cuda.synchronize()
+    tk.LAUNCHES = 0
     t0 = time.perf_counter()
     hist = trainer.train(train_fn, val_fn, n_epochs=E, batch_size=128,
                          print_every=E, config=cfg)
     torch.cuda.synchronize()
     trainer_s = time.perf_counter() - t0
+    print(f"default recipe ({E} epochs): launches of the whole-run training "
+          f"kernel (rows 11-12) {tk.LAUNCHES}", flush=True)
     mse_mean, mse_var, rel = val_metrics(model, dev)
 
     # one epoch's kernel call and its plain version, CUDA events
@@ -914,40 +943,50 @@ def walk_kernel_phase(dev: torch.device) -> tuple[float, float]:
     return worst_f, worst_b
 
 
-def walk_train_kwargs(K: int, method: str, solver: str, bs: int) -> dict:
+def walk_train_kwargs(K: int, method: str, solver: str, bs: int,
+                      hidden: int = PROD_H) -> dict:
     return dict(n_slots=PROD_N, num_moments=K, batch_size=bs,
-                hidden_dim=PROD_H, dt_ode_step=PROD_DT, max_substeps=PROD_M,
+                hidden_dim=hidden, dt_ode_step=PROD_DT, max_substeps=PROD_M,
                 lr=1e-3, weight_decay=5e-4, moment_weights=PROD_MW[:K],
                 variance_method=method, ode_solver=solver)
 
 
 def walk_model(dev, K: int = 2, solver: str = "euler", seed: int = 0,
-               grid_walk: bool = True) -> NeuralJumpODE:
-    return NeuralJumpODE(1, PROD_H, 1, num_moments=K, shared_network=True,
+               grid_walk: bool = True, hidden: int = PROD_H) -> NeuralJumpODE:
+    return NeuralJumpODE(1, hidden, 1, num_moments=K, shared_network=True,
                          dt_ode_step=PROD_DT, t_max=1.0, ode_solver=solver,
                          grid_walk=grid_walk, device=dev,
                          generator=torch.Generator().manual_seed(seed))
 
 
+# the widest shape the walk-train gate admits: its step buffer runs in chunks
+# of cells and O1 takes J2's plane of shared memory
+WIDE_H, WIDE_BS = 128, 1024
+
+
 def walk_train_phase(dev: torch.device) -> float:
     """Row 13 against fused_walk_train_run_reference on the card: 8 steps
     at the production shape, then K x solver x variance method over 3 steps
-    of batch 64; the last minibatch trajectory-masked in each."""
+    of batch 64, then 2 steps at the widest shape the gate admits (H 128,
+    batch 1,024, rk4); the last minibatch trajectory-masked in each.  Then
+    two calls at the production shape, bitwise equal."""
     worst, n = 0.0, 0
-    cases = [(2, "direct", "euler", PROD_BS, 8)]
-    cases += [(K, method, solver, 64, 3) for K in (1, 2)
+    cases = [(2, "direct", "euler", PROD_BS, 8, PROD_H)]
+    cases += [(K, method, solver, 64, 3, PROD_H) for K in (1, 2)
               for solver in ("euler", "heun", "rk4")
               for method in ("direct", "second_moment")]
-    for K, method, solver, bs, G in cases:
-        model = walk_model(dev, K, solver, seed=K + G)
+    cases += [(2, "direct", "rk4", WIDE_BS, 2, WIDE_H)]
+    for K, method, solver, bs, G, hidden in cases:
+        model = walk_model(dev, K, solver, seed=K + G, hidden=hidden)
         data = train_data(dev, G * bs, bs, 31 + n, n_valid=G * bs - bs // 3)
-        kw = walk_train_kwargs(K, method, solver, bs)
+        kw = walk_train_kwargs(K, method, solver, bs, hidden)
         state = wt.init_walk_state(model)
         with torch.no_grad():
             ours = wt.fused_walk_train_run(state, data, **kw)
             torch.cuda.synchronize()
         ref = wt.fused_walk_train_run_reference(state, data, **kw)
-        where = f"walk-train K={K} {method} {solver} batch {bs}"
+        where = (f"walk-train K={K} {method} {solver} H={hidden} batch {bs} "
+                 f"(plan {tuple(wt.launch_plan(hidden, bs, PROD_N, solver, PROD_M))})")
         worst = max(worst, assert_close(ours[1], ref[1], f"losses at {where}"),
                     assert_close(ours[0].params, ref[0].params,
                                  f"params at {where}"))
@@ -955,12 +994,27 @@ def walk_train_phase(dev: torch.device) -> float:
                            (ours[0].v, ref[0].v, "Adam v")):
             worst = max(worst, assert_close_norm(a, b, f"{what} at {where}"))
         n += 1
+    model = walk_model(dev, 2, "euler", seed=9)
+    data = train_data(dev, 8 * PROD_BS, PROD_BS, 77,
+                      n_valid=8 * PROD_BS - PROD_BS // 3)
+    kw = walk_train_kwargs(2, "direct", "euler", PROD_BS)
+    state = wt.init_walk_state(model)
+    with torch.no_grad():
+        one = wt.fused_walk_train_run(state, data, **kw)
+        two = wt.fused_walk_train_run(state, data, **kw)
+        torch.cuda.synchronize()
+    for a, b, what in zip([*one[0], one[1]], [*two[0], two[1]],
+                          ("params", "Adam m", "Adam v", "powers", "losses")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"walk-train: two calls on the same input "
+                                 f"differ in {what}")
     print(f"walk-train kernel vs plain: {n} cases (8 steps at H={PROD_H}, "
           f"N={PROD_N}, batch {PROD_BS}, M={PROD_M}; K in (1, 2) x euler/"
-          f"heun/rk4 x direct/second_moment at batch 64, 3 steps; last "
-          f"minibatch a third masked): losses and params at rtol {RTOL} / "
-          f"atol {ATOL}, Adam m and v each within {GRAD_RTOL} of its norm; "
-          f"max abs err {worst:.3e}", flush=True)
+          f"heun/rk4 x direct/second_moment at batch 64, 3 steps; 2 steps "
+          f"at H={WIDE_H}, batch {WIDE_BS}, rk4, chunked; last minibatch a "
+          f"third masked): losses and params at rtol {RTOL} / atol {ATOL}, "
+          f"Adam m and v each within {GRAD_RTOL} of its norm; max abs err "
+          f"{worst:.3e}; two calls bitwise equal", flush=True)
     return worst
 
 
@@ -1094,9 +1148,13 @@ def production_times_phase(dev: torch.device, card: str) -> tuple:
     trainer = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
                       ignore_first_continuity=True,
                       moment_weights=list(PROD_MW), use_train_kernel=True)
+    wt.LAUNCHES = gap_scan.LAUNCHES = 0
     first = timed_epochs(trainer, train_fn, val_fn, cfg, 3) / 3
     n_k = E - 3 if first * E <= PROD_BUDGET_S else 20
     kern_s = timed_epochs(trainer, train_fn, val_fn, cfg, n_k) * E / n_k
+    print(f"production recipe ({3 + n_k} epochs run): launches of the "
+          f"walk-train kernel (row 13) {wt.LAUNCHES}, of the gap kernel in "
+          f"validation (row 1) {gap_scan.LAUNCHES}", flush=True)
     mse_mean, mse_var, rel = val_metrics(model, dev, PROD_MW)
     trained = len(trainer.train_losses)
 
@@ -1139,8 +1197,10 @@ def production_times_phase(dev: torch.device, card: str) -> tuple:
           f"{E * PROD_TRAIN / walk_s:.0f} traj/s; per-gap composed path "
           f"{gap_s:.3f} s = {E * PROD_TRAIN / gap_s:.0f} traj/s (each 2 "
           f"epochs after one, scaled to {E})", flush=True)
+    plan = wt.launch_plan(PROD_H, PROD_BS, PROD_N, "euler", PROD_M)
     print(f"walk-train kernel on {card}: one epoch call ({n_rows // PROD_BS} "
-          f"steps of {PROD_BS}) {k_ms:.3f} / {k2_ms:.3f} ms = "
+          f"steps of {PROD_BS}; plan {tuple(plan)}) {k_ms:.3f} / "
+          f"{k2_ms:.3f} ms = "
           f"{k_ms / (n_rows // PROD_BS):.4f} ms per step; plain version "
           f"{p_ms:.3f} ms; bound {t_bound[0]:.4f} ms ({t_bound[1]}); val MSE "
           f"after {trained} epochs: mean {mse_mean:.3e} var {mse_var:.3e}, "
@@ -1490,7 +1550,11 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
     def epochs(tr, n):
         return timed_epochs(tr, train_fn, val_fn, cfg, n, SCALED_BS)
     step_tr = trainer("step")
+    fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
     step_s = epochs(step_tr, E)
+    print(f"scaled recipe ({E} epochs): launches of the fused-step forward "
+          f"(row 9) {fs.LAUNCHES_FWD}, backward (row 10) {fs.LAUNCHES_BWD}",
+          flush=True)
     mse_mean, mse_var, rel = val_metrics(step_tr.model, dev, SCALED_MW,
                                          n=SCALED_VAL, obs_fraction=0.02)
     comp_tr = trainer(False)
@@ -2137,6 +2201,8 @@ def main() -> None:
     for name in ("walk_scan", "walk_train"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
+    print(f"ptxas: walk_train.cu by instance <columns a lane, stages> "
+          f"(production: <2, 1>): {ptxas_instances('walk_train')}", flush=True)
     wf_err, wb_err = walk_kernel_phase(dev)
     wt_err = walk_train_phase(dev)
     t = phase_time("walk kernels vs plain", t)

@@ -24,11 +24,11 @@ version, which CPU tensors take.  Models, the Trainer and
 The package imports ``torch`` and never ``jax``.
 """
 
-from .models import NeuralJumpODE
+from .models import NeuralJumpODE, nj_ode_loss
 from .serving import NJODEFilter
 from .utils import Trainer, run_experiment
 
 __version__ = "0.3.0"
 
-__all__ = ["NeuralJumpODE", "NJODEFilter", "Trainer", "run_experiment",
-           "__version__"]
+__all__ = ["NeuralJumpODE", "nj_ode_loss", "NJODEFilter", "Trainer",
+           "run_experiment", "__version__"]

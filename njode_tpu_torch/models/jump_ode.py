@@ -284,17 +284,26 @@ class NeuralJumpODE(nn.Module):
     def _gap_weights(self) -> GapWeights:
         """The ODEFunc(s)' weights as the gap kernel takes them, stacked on
         K_h, for inference only.  Cut once and kept until a parameter moves
-        (``.to``) or changes in place (``load_state_dict``, an optimizer
-        step), which bumps its version; writes through ``.data`` bypass that
-        count.  A gap that autograd differentiates cuts them anew
-        (``split_weights(self._ode_weights())``): a cut kept from a no-grad
-        call carries no graph, and its weights would train with no
-        gradient."""
+        (``.to``) or a write bumps its version (``load_state_dict``, the
+        default foreach ``torch.optim.Adam`` step), or until
+        :meth:`_drop_gap_cache`: a :class:`~njode_tpu_torch.utils.Trainer`
+        calls it after every step of its optimizer, so a fused Adam step,
+        which keeps the versions, refreshes the cut too.  Writes that keep
+        the version outside a Trainer (through ``.data``, a fused optimizer
+        stepped by hand) need that call.  A gap that autograd
+        differentiates cuts them anew (``split_weights(self._ode_weights())``):
+        a cut kept from a no-grad call carries no graph, and its weights
+        would train with no gradient."""
         params = self._ode_params()
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._gap_cache is None or self._gap_cache[0] != key:
             self._gap_cache = (key, split_weights(self._ode_weights()))
         return self._gap_cache[1]
+
+    def _drop_gap_cache(self, *_args) -> None:
+        """Forget the inference weights' cut; the next inference gap cuts
+        them anew.  Takes and ignores an optimizer step hook's arguments."""
+        self._gap_cache = None
 
     def _ode_params(self) -> list[torch.Tensor]:
         """W1, b1, W2, b2 of each ODEFunc in turn."""

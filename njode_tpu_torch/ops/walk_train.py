@@ -9,9 +9,12 @@ forward walk, both readouts, the closed-form loss gradient, the backward
 walk, the jump backward and Adam, with euler, heun or rk4.
 
 Kernel: ``csrc/walk_train.cu`` (``njode_walk_train_run``), which replaces
-the TPU kernel ``walk_train.py:178`` ``_walk_train_kernel``.  It splits each
-minibatch's trajectories over a cooperative grid of blocks; see the source
-for the design.
+the TPU kernel ``walk_train.py:178`` ``_walk_train_kernel``.  A group of 1-4
+warps walks each trajectory, splitting its products, with no block barrier
+inside the walk; the backward walk writes the operands of the
+weight-gradient sums to a step buffer, which the whole grid reduces after a
+grid barrier, applying Adam to each entry it sums; see the source for the
+design.
 
 Scope, as the JAX package's (:func:`walk_train_available`): shared network,
 d_x = d_y = 1, one hidden layer, no dropout, ``dt_ode_step`` set, euler,
@@ -19,8 +22,9 @@ heun or rk4, any activation and input scaling, K in {1, 2} moments,
 ``ignore_first_continuity``, every observation time on the grid (the
 caller's ``grid_walk`` promise) and a full observation mask.  The port's own
 gate on the shapes (:func:`walk_train_shapes_ok`): 1 <= H <= 128, N >= 2,
-1 <= batch <= 1,024 (every block resident at once) and the block's shared
-memory on the H100 (:func:`launch_plan`).  The JAX package's TPU budgets
+1 <= batch <= 1,024 (every block resident at once), every solver; the
+block's shared memory on the H100 and the step buffer's chunk are
+:func:`launch_plan`'s.  The JAX package's TPU budgets
 (``batch % (8 nh)``, ``batch <= 256``, ``_VMEM_ROWS_MAX``, ``_ring_plan``)
 are not copied.
 
@@ -56,9 +60,15 @@ LAUNCHES = 0
 
 MAX_HIDDEN = 128
 MAX_BATCH = 1024
-MIN_WARPS, MAX_WARPS = 4, 8
-# the H100's shared memory a block may opt into, less the kernel's static use
+MAX_WARPS = 8
+# blocks the minibatch is spread over: one an SM of the H100's 132
+TARGET_BLOCKS = 128
+# the H100's shared memory a block may opt into, less a margin
 SMEM_BYTES = 232448 - 128
+# the cap of the step buffer (the backward walk's records of a chunk of
+# cells), so that it stays in the 50 MB L2 beside the walk's residuals
+STEP_BUFFER_BYTES = 24 << 20
+TILE = 64  # floats of a gradient tile's row of shared memory, a warp
 
 # Explicit Runge-Kutta tableaux, as the JAX package's (walk_train.py:118):
 # per stage ((a_ij on earlier stages' k), c_i in dt units), then the weights
@@ -92,35 +102,61 @@ def walk_train_available(shared_network, input_dim, output_dim,
             and activation in _ACT and input_scaling in _SCALE)
 
 
-def _smem_floats(H: int, N: int, warps: int, n_st: int,
-                 staged: bool) -> int:
-    """The block's shared memory (``smem_floats`` in the source): the four
-    weight matrices when staged (rows padded to an odd width), the walk's
-    gradient accumulator, (3 + 6 stages) row buffers, per-row scalars and
-    the rows' slot cells; one trajectory a warp."""
-    return ((4 * H * (H | 1) if staged else 0) + 2 * H * H + 4 * H
-            + (3 + 6 * n_st) * warps * H + (3 + n_st) * warps + warps * N)
+class WalkPlan(NamedTuple):
+    warps: int          # warps a block
+    wpt: int            # warps a trajectory, splitting each product's rows
+    blocks: int         # blocks of the cooperative launch
+    four: bool          # O1 in a plane of its own (else it takes J2's turn)
+    smem_bytes: int     # the block's dynamic shared memory
+    chunk: int          # cells of the backward walk a step-buffer pass holds
+    buffer_bytes: int   # the step buffer of one chunk
+
+
+def _smem_floats(H: int, warps: int, four: bool) -> int:
+    """The block's shared memory (``smem_floats`` in the source): W1h, W2,
+    J2 and, with ``four``, O1, each (in, out) in a zero-padded plane of
+    HP x (HP + 1) floats, HP = 64 up to H 64 and 128 beyond (32 rows a
+    lane's column), a gradient tile and two partial products a warp."""
+    hp = 64 if H <= 64 else 128
+    return (4 if four else 3) * hp * (hp + 1) + warps * (TILE + 2 * hp)
+
+
+def _record_floats(H: int) -> int:
+    """Step-buffer floats of one (trajectory, cell, stage): the scaled
+    stage input with [x, t, 1], the hidden activation with [1], the
+    pre-activation cotangent and the stage cotangent."""
+    return (H + 3) + (H + 1) + 2 * H
 
 
 def launch_plan(hidden_dim: int, batch_size: int, n_slots: int = 10,
-                ode_solver: str = "euler") -> Optional[tuple[int, bool, int]]:
-    """The kernel's launch plan on an H100: (trajectory warps per block,
-    weights staged in shared memory, shared-memory bytes), or None where the
-    shapes do not fit.  One trajectory a warp; 4 a block, more from batch
-    512 up so that the blocks stay at 128 or fewer (all resident at once).
-    The kernel adds as many helper warps, up to 8 a block, for the block's
-    gradient sums."""
+                ode_solver: str = "euler",
+                max_substeps: Optional[int] = None) -> Optional[WalkPlan]:
+    """The kernel's launch plan on an H100, or None where the shapes do not
+    fit.  ceil(batch / 128) trajectories a block (1-8), so the minibatch
+    spreads over up to 128 SMs; each trajectory's products split over 4
+    warps where the block then holds at most 8 (batch <= 256), 2 up to
+    batch 512, else 1; O1 gets a plane of its own in shared memory where
+    four planes fit; the backward walk's step buffer holds as many cells as
+    ``STEP_BUFFER_BYTES`` allows (all ``max_substeps`` where given and
+    they fit)."""
     H, BS, N = int(hidden_dim), int(batch_size), int(n_slots)
     if not (1 <= H <= MAX_HIDDEN and 1 <= BS <= MAX_BATCH and N >= 2
             and ode_solver in _TABLEAU):
         return None
     n_st = len(_TABLEAU[ode_solver][0])
-    warps = min(MAX_WARPS, max(MIN_WARPS, -(-BS // 128)))
-    for staged in (True, False):
-        b = 4 * _smem_floats(H, N, warps, n_st, staged)
-        if b <= SMEM_BYTES:
-            return warps, staged, b
-    return None
+    tpb = -(-BS // TARGET_BLOCKS)
+    wpt = 4 if tpb <= 2 else (2 if tpb <= 4 else 1)
+    warps = tpb * wpt
+    blocks = -(-BS // tpb)
+    four = 4 * _smem_floats(H, warps, True) <= SMEM_BYTES
+    smem = 4 * _smem_floats(H, warps, four)
+    if smem > SMEM_BYTES:
+        return None
+    per_cell = 4 * BS * n_st * _record_floats(H)
+    chunk = max(1, STEP_BUFFER_BYTES // per_cell)
+    if max_substeps is not None:
+        chunk = min(chunk, max(1, int(max_substeps)))
+    return WalkPlan(warps, wpt, blocks, four, smem, chunk, chunk * per_cell)
 
 
 def walk_train_shapes_ok(hidden_dim: int, batch_size, n_slots: int,
@@ -465,13 +501,12 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
         if not x.is_contiguous():
             raise ValueError(f"fused_walk_train_run: {name} must be "
                              "contiguous")
-    plan = launch_plan(H, BS, N, ode_solver)
+    plan = launch_plan(H, BS, N, ode_solver, max_substeps)
     if plan is None or int(max_substeps) < 1:
         raise ValueError(f"fused_walk_train_run: hidden_dim {H}, batch "
                          f"{BS} and {ode_solver} do not fit the kernel (1 <= "
                          f"H <= {MAX_HIDDEN}, batch <= {MAX_BATCH}, the "
                          "block's shared memory), or max_substeps < 1")
-    warps, staged, smem = plan
     dt = float(dt_ode_step)
     G = data.shape[0] // BS
     n_st = len(_TABLEAU[ode_solver][0])
@@ -479,10 +514,10 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
     w1 = float(moment_weights[1]) if len(moment_weights) > 1 else 1.0
     b1, b2 = float(betas[0]), float(betas[1])
     inv_n = 1.0 / float(N)
-    dims = (ctypes.c_int * 12)(
+    dims = (ctypes.c_int * 14)(
         K, H, N, BS, G, int(max_substeps), SUPPORTED_ACTS.index(activation),
         SCALINGS.index(input_scaling), int(variance_method == "second_moment"),
-        warps, int(staged), n_st)
+        plan.warps, int(plan.four), n_st, plan.chunk, plan.wpt)
     # constants rounded from double once, as the JAX kernel's python floats
     hyper = (ctypes.c_float * 16)(
         dt, 1.0 / dt, dt if ode_solver == "euler" else 0.0, lr, weight_decay,
@@ -499,7 +534,7 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
             data.data_ptr(), out.params.data_ptr(), out.m.data_ptr(),
             out.v.data_ptr(), out.stat.data_ptr(), losses.data_ptr(),
             scratch.data_ptr(), dims, hyper, _tableau_array(ode_solver, dt),
-            smem, stream)
+            plan.smem_bytes, stream)
     from ._build import check
     check(lib, err, "njode_walk_train_run launch")
     LAUNCHES += 1

@@ -217,6 +217,9 @@ class Trainer:
         self.device = model.device
         self.optimizer = (optimizer if optimizer is not None
                           else make_adam(model.parameters(), 1e-3))
+        # a step that keeps the parameters' versions (a fused Adam) would
+        # leave the model's cut of the inference weights stale
+        self.optimizer.register_step_post_hook(model._drop_gap_cache)
         self.ignore_first_continuity = ignore_first_continuity
         self.moment_weights = list(moment_weights) if moment_weights else None
         self.variance_method = variance_method

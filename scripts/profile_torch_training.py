@@ -24,9 +24,10 @@ launches per epoch and the top ops; its Chrome trace goes to the same
 output directory.
 Then the walk-train kernel's own split, from a copy of
 ops/csrc/walk_train.cu with clock64() probes read by each block's first
-thread (jump forward, forward walk, readouts with the loss and the readout
-backward, the readout gradients, the backward walk's row and block phases,
-the jump backward, the grid barriers with Adam), over one epoch call.
+thread (the weights' staging, jump forward, forward walk, readouts with the
+loss and the readout backward, the backward walk, the jump backward, the
+grid barrier after the walk, the gradient sums with Adam, the barrier
+ending the step), over one epoch call.
 
 With ``--scaled``, instead: torch.profiler over 3 epochs of the scaled
 recipe (``scripts/run_scaled_sweep.sh``: hidden 256, two separate moment
@@ -320,44 +321,42 @@ def fused_step_split(dev: torch.device, card: str) -> None:
             fs._load_kernel = original
 
 
-WALK_PHASES = ("jump forward", "forward walk",
-               "readouts + loss + readout backward", "readout gradients",
-               "backward walk, row phases", "backward walk, block phases",
-               "jump backward + its gradients", "grid barriers + Adam")
+WALK_PHASES = ("weights to shared memory, valid count", "jump forward",
+               "forward walk", "readouts + loss + readout backward",
+               "backward walk", "jump backward", "grid barrier after the walk",
+               "gradient sums + Adam (phase B)", "grid barrier ending the step")
+N_PROBES = 16
 
 
 def instrumented_walk_source() -> str:
     """ops/csrc/walk_train.cu with cycle counters read by each block's
     thread 0 at fixed places; fails if an anchor is gone."""
     src = (_build.CSRC / "walk_train.cu").read_text()
-    prof = ("do { if (tid == 0) atomicAdd(&g_prof[blk * 8 + (K_)], "
+    prof = ("do { if (tid == 0) atomicAdd(&g_prof[blk * 16 + (K_)], "
             "(unsigned long long)(clock64() - tP)); tP = clock64(); } "
             "while (0)")
     edits = [
         ("namespace cg = cooperative_groups;",
          "namespace cg = cooperative_groups;\n"
-         "__device__ unsigned long long g_prof[1024 * 8];\n"
+         "__device__ unsigned long long g_prof[1024 * 16];\n"
          "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
          "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
          "}\n"
          f"#define PROFW(K_) {prof}"),
-        ("    const float nv = sh_nv;\n",
-         "    const float nv = sh_nv;\n    long long tP = clock64();\n"),
-        ("      // ---- 2. forward walk", "      PROFW(0);\n      // ---- 2."),
-        ("      // ---- 3. readouts", "      PROFW(1);\n      // ---- 3."),
-        ("    // ---- readout gradients of the block's rows",
-         "    PROFW(2);\n    // ---- readout gradients"),
-        ("    // ---- 6. backward walk", "    PROFW(3);\n    // ---- 6."),
-        ("      // block phase: the walk weights' sums of this cell",
-         "      PROFW(4);\n      // block phase: the walk weights'"),
-        ("      __syncthreads();\n    }\n    // the walk's partial",
-         "      __syncthreads();\n      PROFW(5);\n    }\n"
-         "    // the walk's partial"),
-        ("    // ---- 7. jump backward", "    PROFW(4);\n    // ---- 7."),
-        ("    grid.sync();\n\n    // ---- 9. Adam",
-         "    PROFW(6);\n    grid.sync();\n\n    // ---- 9. Adam"),
-        ("    grid.sync();\n  }\n  if (gtid == 0) {",
-         "    grid.sync();\n    PROFW(7);\n  }\n  if (gtid == 0) {"),
+        ("    c1 *= hp.b1;\n", "    long long tP = clock64();\n    c1 *= hp.b1;\n"),
+        ("      // ---- 1. jump forward", "      PROFW(0);\n      // ---- 1."),
+        ("      // ---- 2. forward walk", "      PROFW(1);\n      // ---- 2."),
+        ("      // ---- 3. readouts", "      PROFW(2);\n      // ---- 3."),
+        ("      // ---- 6. backward walk", "      PROFW(3);\n      // ---- 6."),
+        ("      if (last) {\n        if (!d.four) {",
+         "      PROFW(4);\n      if (last) {\n        if (!d.four) {"),
+        ("      grid.sync();\n\n      // ---- phase B",
+         "      PROFW(5);\n      grid.sync();\n      PROFW(6);\n\n"
+         "      // ---- phase B"),
+        ("      if (last && blk == 0 && tid == 0) {",
+         "      PROFW(7);\n      if (last && blk == 0 && tid == 0) {"),
+        ("      grid.sync();\n    }\n  }\n",
+         "      grid.sync();\n      PROFW(8);\n    }\n  }\n"),
     ]
     for old, new in edits:
         if src.count(old) != 1:
@@ -394,7 +393,7 @@ def walk_kernel_split(dev: torch.device, card: str) -> None:
             with torch.no_grad():
                 wt.fused_walk_train_run(state, data, **kw)       # warm-up
                 torch.cuda.synchronize()
-                cycles = (ctypes.c_ulonglong * (1024 * 8))()
+                cycles = (ctypes.c_ulonglong * (1024 * N_PROBES))()
                 lib.njode_prof_read(cycles)
                 before = list(cycles)
                 wt.fused_walk_train_run(state, data, **kw)
@@ -402,17 +401,17 @@ def walk_kernel_split(dev: torch.device, card: str) -> None:
                 lib.njode_prof_read(cycles)
         finally:
             wt._load_kernel = original
-        warps = wt.launch_plan(chip_smoke.PROD_H, bs, chip_smoke.PROD_N)[0]
-        nblk = -(-bs // warps)
-        per = [[cycles[b * 8 + k] - before[b * 8 + k] for b in range(nblk)]
-               for k in range(8)]
+        plan = wt.launch_plan(chip_smoke.PROD_H, bs, chip_smoke.PROD_N,
+                              "euler", chip_smoke.PROD_M)
+        nblk = plan.blocks
+        per = [[cycles[b * N_PROBES + k] - before[b * N_PROBES + k]
+                for b in range(nblk)] for k in range(len(WALK_PHASES))]
         total = sum(sum(p) / nblk for p in per)
         print(f"walk-train kernel phase split on {card} (one epoch call: "
               f"{rows // bs} steps of {bs}, H={chip_smoke.PROD_H}, "
-              f"N={chip_smoke.PROD_N}, M={chip_smoke.PROD_M}, {nblk} blocks of "
-              f"{warps} trajectory warps and as many helper warps), cycles of "
-              f"each block's thread 0, mean over blocks, share of the call:",
-              flush=True)
+              f"N={chip_smoke.PROD_N}, M={chip_smoke.PROD_M}; plan "
+              f"{tuple(plan)}), cycles of each block's thread 0, mean over "
+              f"blocks, share of the call:", flush=True)
         for k, name in enumerate(WALK_PHASES):
             mean = sum(per[k]) / nblk
             print(f"  {name}: {mean:.0f} cycles ({100.0 * mean / total:.1f}%)"

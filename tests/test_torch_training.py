@@ -337,6 +337,45 @@ def test_run_experiment_runs_forced_kernels(tmp_path, capsys):
     assert np.isfinite(res["history"]["train_loss"]).all()
 
 
+def test_fused_adam_steps_refresh_the_inference_weights():
+    """A dt_ode_step model validates through the gap kernel's plain version
+    with a cut of its ODE weights kept between calls.  torch.optim.Adam
+    (fused=True) steps the parameters without bumping their versions, so
+    the Trainer drops the cut after every optimizer step: after training,
+    validate equals a validate from a cut made afresh, bit for bit, and the
+    JAX Trainer's validation loss from the same weights (LOSS_TOL)."""
+    from njode_tpu.utils.torch_compat import params_from_torch_state_dict
+    times, values = make_data()
+    vt, vv = make_data(12, seed=1)
+    cfg = dict(input_dim=1, hidden_dim=H, output_dim=1, num_moments=2,
+               dt_ode_step=0.05, t_max=1.0)
+    params = JaxModel(**cfg, use_pallas=False).init(jax.random.PRNGKey(7))
+    model = NeuralJumpODE(**cfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params, **BRIDGE))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, torch.optim.Adam(model.parameters(), lr=1e-2,
+                                              fused=True),
+                      ignore_first_continuity=True,
+                      moment_weights=[1.0, 10.0])
+    before = trainer.validate(vt, vv)      # cuts the inference weights
+    trainer.train(lambda: (times, values), n_epochs=2, batch_size=BS,
+                  shuffle=False, print_every=100)
+    assert not torch.equal(model.state_dict()["ode_funcs.0.net.0.weight"],
+                           start["ode_funcs.0.net.0.weight"])
+    after = trainer.validate(vt, vv)
+    model._gap_cache = None                # a fresh cut, by hand
+    assert after == trainer.validate(vt, vv) != before
+    jtr = JaxTrainer(JaxModel(**cfg, use_pallas=False),
+                     jax_make_adam(LR, WD), ignore_first_continuity=True,
+                     moment_weights=[1.0, 10.0])
+    jtr.params = params_from_torch_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()},
+        num_moments=2, shared_network=False)
+    np.testing.assert_allclose(after, jtr.validate(jnp.asarray(vt),
+                                                   jnp.asarray(vv)),
+                               **LOSS_TOL)
+
+
 # ----------------------------------------------------------------------
 # the walk twin and the grid-walk policy (production training)
 # ----------------------------------------------------------------------

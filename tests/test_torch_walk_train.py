@@ -211,35 +211,120 @@ def test_checkpoint_interop_with_the_composed_path():
     assert float(opt.state_dict()["state"][0]["step"]) == 2 * G
 
 
-def test_gates_and_refusals():
-    assert wt.walk_train_available(True, 1, 1, 1, "relu", 0.0, "identity",
-                                   0.01)
-    for args in [(False, 1, 1, 1, "relu", 0.0, "identity", 0.01),
-                 (True, 1, 1, 1, "relu", 0.0, "identity", None),
-                 (True, 2, 1, 1, "relu", 0.0, "identity", 0.01),
-                 (True, 1, 1, 2, "relu", 0.0, "identity", 0.01),
-                 (True, 1, 1, 1, "relu", 0.1, "identity", 0.01)]:
-        assert wt.walk_train_available(*args) == \
-            jwt.walk_train_available(*args) is False, args
-    assert not wt.walk_train_available(True, 1, 1, 1, "relu", 0.0,
-                                       "identity", 0.01, "midpoint")
-    assert wt.walk_train_shapes_ok(50, 256, 10, 100)   # the production row
-    assert wt.walk_train_shapes_ok(50, 120, 10, 1000)  # any batch, fine dt
-    assert wt.walk_train_shapes_ok(70, 16, 5, 20, "rk4")
-    assert not wt.walk_train_shapes_ok(129, 256, 10, 100)
-    assert not wt.walk_train_shapes_ok(50, 2048, 10, 100)
-    assert not wt.walk_train_shapes_ok(50, 256, 1, 100)
-    assert not wt.walk_train_shapes_ok(128, 1024, 10, 100, "rk4")  # smem
-    warps, staged, smem = wt.launch_plan(50, 256)
-    assert warps == 4 and staged and smem <= wt.SMEM_BYTES
-    model, data, kw = port_state("euler-direct")
-    st = wt.init_walk_state(model)
-    with pytest.raises(ValueError, match="mxu_dtype"):
-        wt.fused_walk_train_run(st, data, **kw, mxu_dtype="bfloat16")
-    with pytest.raises(ValueError, match="whole number"):
-        wt.fused_walk_train_run(st, data[:BS - 1], **kw)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        wt.fused_walk_train_run(st, data.to("meta"), **kw)
-    with pytest.raises(RuntimeError, match="require grad"):
-        wt.fused_walk_train_run(st._replace(
-            params=st.params.clone().requires_grad_()), data, **kw)
+# the shape gate: (hidden, batch, slots, max_substeps, solver, admitted)
+GATE_SHAPES = [
+    (50, 256, 10, 100, "euler", True),     # the production row
+    (50, 120, 10, 1000, "euler", True),    # any batch, fine dt
+    (70, 16, 5, 20, "rk4", True),
+    (128, 1024, 10, 100, "rk4", True),     # the widest: a chunked buffer
+    (1, 1, 2, 1, "heun", True),
+    (129, 256, 10, 100, "euler", False),
+    (50, 2048, 10, 100, "euler", False),
+    (50, 256, 1, 100, "euler", False),
+    (50, 256, 10, 0, "euler", False),
+]
+
+
+@pytest.mark.parametrize("case", ["scope", "refusals", *GATE_SHAPES])
+def test_gates_and_refusals(case):
+    if case == "scope":
+        assert wt.walk_train_available(True, 1, 1, 1, "relu", 0.0,
+                                       "identity", 0.01)
+        for args in [(False, 1, 1, 1, "relu", 0.0, "identity", 0.01),
+                     (True, 1, 1, 1, "relu", 0.0, "identity", None),
+                     (True, 2, 1, 1, "relu", 0.0, "identity", 0.01),
+                     (True, 1, 1, 2, "relu", 0.0, "identity", 0.01),
+                     (True, 1, 1, 1, "relu", 0.1, "identity", 0.01)]:
+            assert wt.walk_train_available(*args) == \
+                jwt.walk_train_available(*args) is False, args
+        assert not wt.walk_train_available(True, 1, 1, 1, "relu", 0.0,
+                                           "identity", 0.01, "midpoint")
+        plan = wt.launch_plan(50, 256, 10, "euler", 100)
+        # the production plan: 128 blocks of 2 trajectories, 4 warps each,
+        # O1 in its own plane, every cell of the walk in one buffer pass
+        assert (plan.warps, plan.wpt, plan.blocks) == (8, 4, 128)
+        assert plan.four and plan.chunk == 100
+        assert plan.smem_bytes <= wt.SMEM_BYTES
+    elif case == "refusals":
+        model, data, kw = port_state("euler-direct")
+        st = wt.init_walk_state(model)
+        with pytest.raises(ValueError, match="mxu_dtype"):
+            wt.fused_walk_train_run(st, data, **kw, mxu_dtype="bfloat16")
+        with pytest.raises(ValueError, match="whole number"):
+            wt.fused_walk_train_run(st, data[:BS - 1], **kw)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            wt.fused_walk_train_run(st, data.to("meta"), **kw)
+        with pytest.raises(RuntimeError, match="require grad"):
+            wt.fused_walk_train_run(st._replace(
+                params=st.params.clone().requires_grad_()), data, **kw)
+    else:
+        *shape, admitted = case
+        assert wt.walk_train_shapes_ok(*shape) is admitted
+
+
+def parent_plan(H, BS, N, solver):
+    """The launch plan's shape rule before the kernel's redesign (one
+    trajectory a warp, 4-8 trajectory warps a block and as many helpers,
+    per-cell sums in shared memory): (warps, staged, bytes) or None."""
+    if not (1 <= H <= 128 and 1 <= BS <= 1024 and N >= 2
+            and solver in wt._TABLEAU):
+        return None
+    n_st = len(wt._TABLEAU[solver][0])
+    warps = min(8, max(4, -(-BS // 128)))
+    for staged in (True, False):
+        b = 4 * ((4 * H * (H | 1) if staged else 0) + 2 * H * H + 4 * H
+                 + (3 + 6 * n_st) * warps * H + (3 + n_st) * warps
+                 + warps * N)
+        if b <= 232448 - 128:
+            return warps, staged, b
+    return None
+
+
+PLAN_H = (1, 2, 12, 31, 32, 33, 50, 63, 64, 65, 100, 127, 128)
+PLAN_BS = (1, 2, 31, 64, 100, 128, 129, 255, 256, 257, 300, 384, 512, 513,
+           640, 768, 1000, 1023, 1024)
+PLAN_N = (2, 10, 33, 100, 1000)
+
+
+@pytest.mark.parametrize("solver", ["euler", "heun", "rk4"])
+def test_launch_plan_admits_every_shape_it_admitted(solver):
+    """At every shape the earlier plan admitted (and more: it no longer
+    bounds N) the plan fits: shared memory within the H100's 227 KB, the
+    step buffer within its cap, at most 128 blocks of at most 8 warps that
+    hold the whole minibatch, a trajectory's warps dividing the block's."""
+    for H in PLAN_H:
+        for BS in PLAN_BS:
+            for N in PLAN_N:
+                plan = wt.launch_plan(H, BS, N, solver, 100)
+                if parent_plan(H, BS, N, solver) is not None:
+                    assert plan is not None, (H, BS, N)
+                assert plan is not None, (H, BS, N)
+                assert plan.smem_bytes <= 232448 - 128
+                assert plan.smem_bytes == 4 * wt._smem_floats(
+                    H, plan.warps, plan.four)
+                assert plan.buffer_bytes <= wt.STEP_BUFFER_BYTES
+                assert 1 <= plan.chunk <= 100
+                assert plan.warps <= wt.MAX_WARPS
+                assert plan.warps % plan.wpt == 0
+                assert plan.blocks <= wt.TARGET_BLOCKS
+                assert plan.blocks * (plan.warps // plan.wpt) >= BS
+
+
+@pytest.mark.parametrize("shape", [
+    (0, 256, 10, "euler"), (129, 256, 10, "euler"), (50, 0, 10, "euler"),
+    (50, 1025, 10, "euler"), (50, 256, 1, "euler"), (50, 256, 10, "midpoint"),
+])
+def test_launch_plan_refuses_what_it_refused(shape):
+    assert parent_plan(*shape) is None
+    assert wt.launch_plan(*shape) is None
+
+
+def test_launch_plan_chunks_the_widest_buffer():
+    """At the widest shape the gate admits (H 128, batch 1,024, rk4) a cell
+    of the step buffer holds 8.5 MB, so a pass holds 2 cells; the
+    production buffer (21 MB) holds all 100."""
+    wide = wt.launch_plan(128, 1024, 10, "rk4", 100)
+    assert wide.chunk == 2 and not wide.four and wide.wpt == 1
+    assert wide.buffer_bytes == 2 * 4 * 1024 * 4 * wt._record_floats(128)
+    prod = wt.launch_plan(50, 256, 10, "euler", 100)
+    assert prod.buffer_bytes == 100 * 4 * 256 * wt._record_floats(50)
