@@ -16,9 +16,11 @@ Scope, as the JAX package's (:func:`train_kernel_available`): separate
 networks, d_x = d_y = 1, one hidden layer, no dropout, ``dt_ode_step=None``,
 euler, an activation and scaling with f(0) = 0, K in {1, 2} moments,
 ``ignore_first_continuity``.  The port's own gates on the shapes
-(:func:`kernel_fits`): H a multiple of 4 up to 128 (the products read
-float4s), N >= 2, any batch size >= 1, and one warp's working set must fit
-the H100's shared memory.
+(:func:`kernel_fits`): H up to 128 (the wrapper pads H to a multiple of 4
+with zero units, :func:`pad_state`, since the products read float4s),
+N >= 2, any batch size >= 1, and one warp's working set must fit the
+H100's shared memory.  :func:`launch_plan` spreads each minibatch over a
+cooperative grid.
 
 Layout of the train state (:class:`TrainState`), all float32:
 
@@ -59,9 +61,15 @@ LAUNCHES = 0
 N_VEC = 10
 (J1, BJ1, BJ2, W1X, W1T, W1D, B1, B2, BO1, O2) = range(N_VEC)
 MAX_HIDDEN = 128
-MAX_WARPS = 12
+# the kernel's limits (kMaxWarps, kMaxBlocks, kTask in the source): a block
+# of 8 warps, a trajectory a block on up to 128 blocks, and each block's
+# partial gradient rounded up to whole tasks of 8 entries (the warps, the
+# trajectories a block and the warps a chain each set by an A/B on the
+# H100, PERF.md section 6)
+MAX_WARPS = 8
+MAX_BLOCKS = 128
+TASK = 8
 # the H100's shared memory a block may opt into, less the kernel's static use
-# (kReserve in the source, which refuses a plan the card cannot hold)
 SMEM_BYTES = 232448 - 64
 
 
@@ -102,11 +110,13 @@ def batch_size_ok(batch_size) -> bool:
     return batch_size is not None and int(batch_size) >= 1
 
 
-def _slot_floats(H: int, N: int, input_scaling: str) -> int:
-    """One warp's working set for one trajectory (``slot_floats`` in the
-    source): 4N + 3(2N-1) + 4 or 5 (N-1) + 3 rows of H, and 8N - 4 scalars."""
+def _slot_floats(H: int, N: int, input_scaling: str, wpt: int = 1) -> int:
+    """One trajectory's working set for one network, run by a chain of
+    ``wpt`` warps (``slot_floats`` in the source): 4N + 3(2N-1) + 4 or 5
+    (N-1) + 3 wpt rows of H, and 8N - 4 scalars."""
     S, R = N - 1, 2 * N - 1
-    rows = 4 * N + 3 * R + (4 if input_scaling == "identity" else 5) * S + 3
+    rows = (4 * N + 3 * R + (4 if input_scaling == "identity" else 5) * S
+            + 3 * wpt)
     return (rows * H + 8 * N - 4 + 3) & ~3
 
 
@@ -115,30 +125,145 @@ def _staged_floats(H: int) -> int:
     return (4 * H * (H + 4) + N_VEC * H + 1 + 3) & ~3
 
 
+def padded_hidden(hidden_dim: int) -> int:
+    """H rounded up to a multiple of 4 (the products read float4s); the
+    wrapper pads the extra units with zeros, which stay zero."""
+    return -(-int(hidden_dim) // 4) * 4
+
+
+class RunPlan(NamedTuple):
+    """The kernel's launch plan on an H100 (:func:`launch_plan`)."""
+    blocks: int          # the cooperative grid
+    slots: int           # trajectories a block holds in flight
+    wpt: int             # warps a chain (a trajectory's network)
+    warps: int           # warps a block (MAX_WARPS): the chains, then helpers
+    staged: bool         # both networks' weights in shared memory
+    slots_global: bool   # the slots in device memory, not shared memory
+    smem: int            # dynamic shared-memory bytes
+    hidden: int          # H padded to a multiple of 4
+
+
 def launch_plan(hidden_dim: int, n_slots: int, batch_size: int,
-                input_scaling: str = "identity"
-                ) -> Optional[tuple[int, bool, int]]:
-    """The kernel's launch plan on an H100: (warps, weights staged in shared
-    memory, shared-memory bytes), or None where the shapes do not fit.  As
-    many warps as shared memory holds, up to ``MAX_WARPS`` and the batch
-    size; the weights are staged when they fit beside two warps' slots."""
-    H, N = hidden_dim, n_slots
-    if not (4 <= H <= MAX_HIDDEN and H % 4 == 0 and N >= 2
-            and batch_size >= 1):
+                input_scaling: str = "identity",
+                num_moments: int = 2) -> Optional[RunPlan]:
+    """The kernel's launch plan, or None where the shapes do not fit (H
+    above ``MAX_HIDDEN``, N < 2, or one trajectory's working set bigger than
+    the H100's shared memory).  The shapes alone decide it.
+
+    ``blocks`` shares of the minibatch (a trajectory a block, at most
+    ``MAX_BLOCKS`` blocks); each block of ``MAX_WARPS`` warps walks its
+    share (:func:`block_rows`) in chunks of ``slots`` trajectories, as many
+    as shared memory holds beside the weights, a chain of ``wpt`` warps for
+    each trajectory and network (as many as the block's warps leave, up to
+    4); the warps no chain takes join the gradient sums.  The weights are
+    staged in shared memory where they fit beside the slots; where not even
+    one trajectory's slots fit, the slots live in device memory."""
+    H, N, K, BS = padded_hidden(hidden_dim), n_slots, num_moments, batch_size
+    if not (1 <= hidden_dim <= MAX_HIDDEN and N >= 2 and BS >= 1
+            and K in (1, 2)):
         return None
-    slot_b = 4 * _slot_floats(H, N, input_scaling)
     stage_b = 4 * _staged_floats(H)
-    staged = stage_b + 2 * slot_b <= SMEM_BYTES
-    c = (SMEM_BYTES - stage_b) // slot_b if staged else SMEM_BYTES // slot_b
-    c = min(c, MAX_WARPS, batch_size)
-    if c < 1:
+    slot_b = 4 * _slot_floats(H, N, input_scaling)
+    if slot_b > SMEM_BYTES:
         return None
-    return c, staged, (stage_b if staged else 0) + c * slot_b
+    blocks = min(BS, MAX_BLOCKS)
+    share = -(-BS // blocks)
+    if K * slot_b > SMEM_BYTES:
+        fit = 1
+    elif K * (stage_b + slot_b) <= SMEM_BYTES:
+        fit = (SMEM_BYTES - K * stage_b) // (K * slot_b)
+    else:
+        fit = SMEM_BYTES // (K * slot_b)
+    fit = min(fit, MAX_WARPS // K)
+    slots = -(-share // -(-share // fit))     # equal chunks of at most fit
+    for wpt in (4, 2, 1):
+        if slots * K * wpt > MAX_WARPS:
+            continue
+        slot_b = 4 * _slot_floats(H, N, input_scaling, wpt)
+        slots_global = K * slot_b > SMEM_BYTES
+        staged = (not slots_global
+                  and K * stage_b + slots * K * slot_b <= SMEM_BYTES)
+        if slots_global or staged or slots * K * slot_b <= SMEM_BYTES:
+            break
+    smem = ((K * stage_b if staged else 0)
+            + (0 if slots_global else slots * K * slot_b))
+    return RunPlan(blocks, slots, wpt, MAX_WARPS, staged, slots_global, smem,
+                   H)
+
+
+def block_rows(plan: RunPlan, batch_size: int) -> list[tuple[int, int]]:
+    """Each block's rows [lo, hi) of a minibatch, as the kernel cuts it."""
+    nb = plan.blocks
+    return [(b * batch_size // nb, (b + 1) * batch_size // nb)
+            for b in range(nb)]
+
+
+def scratch_floats(plan: RunPlan, num_moments: int, n_slots: int,
+                   batch_size: int, input_scaling: str = "identity") -> int:
+    """Floats of the kernel's scratch (``scratch_floats`` in the source):
+    the weights' padded copy, the slots when they live in device memory,
+    the blocks' partial gradients (each rounded up to ``TASK`` entries) and
+    the per-trajectory loss terms.  It does not depend on the number of
+    steps."""
+    H, K = plan.hidden, num_moments
+    slots = (plan.blocks * plan.slots * K
+             * _slot_floats(H, n_slots, input_scaling, plan.wpt)
+             if plan.slots_global else 0)
+    return (K * _staged_floats(H) + slots
+            + plan.blocks * -(-K * n_params_per_net(H) // TASK) * TASK
+            + batch_size)
 
 
 def kernel_fits(hidden_dim: int, n_slots: int,
                 input_scaling: str = "identity") -> bool:
     return launch_plan(hidden_dim, n_slots, 1, input_scaling) is not None
+
+
+def _pad_planes(flat: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """(K, P(H)) -> (K, P(Hp)), the extra hidden units' entries zero."""
+    K = flat.shape[0]
+    out = flat.new_zeros(K, n_params_per_net(Hp))
+    HH, HP = H * H, Hp * Hp
+    for m in range(4):
+        out[:, m * HP:(m + 1) * HP].view(K, Hp, Hp)[:, :H, :H] = \
+            flat[:, m * HH:(m + 1) * HH].view(K, H, H)
+    out[:, 4 * HP:4 * HP + N_VEC * Hp].view(K, N_VEC, Hp)[:, :, :H] = \
+        flat[:, 4 * HH:4 * HH + N_VEC * H].view(K, N_VEC, H)
+    out[:, -1] = flat[:, -1]
+    return out
+
+
+def _unpad_planes(flat: torch.Tensor, Hp: int, H: int) -> torch.Tensor:
+    """Inverse of :func:`_pad_planes`: the first H units of each plane."""
+    K = flat.shape[0]
+    HP = Hp * Hp
+    parts = [flat[:, m * HP:(m + 1) * HP].view(K, Hp, Hp)[:, :H, :H]
+             .reshape(K, -1) for m in range(4)]
+    parts.append(flat[:, 4 * HP:4 * HP + N_VEC * Hp].view(K, N_VEC, Hp)
+                 [:, :, :H].reshape(K, -1))
+    parts.append(flat[:, -1:])
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def pad_state(state: TrainState, hidden_dim: int,
+              padded: int) -> TrainState:
+    """A train state of H hidden units as one of ``padded`` >= H units:
+    params, m and v zero at the extra units.  Exact: with f(0) = 0 the
+    extra units' activations, gradients and Adam moments stay 0, weight
+    decay included, so :func:`unpad_state` of a run on the padded state is
+    the run on the state itself."""
+    if padded == hidden_dim:
+        return state
+    return TrainState(*(_pad_planes(x, hidden_dim, padded)
+                        for x in state[:3]), state.stat)
+
+
+def unpad_state(state: TrainState, padded: int,
+                hidden_dim: int) -> TrainState:
+    if padded == hidden_dim:
+        return state
+    return TrainState(*(_unpad_planes(x, padded, hidden_dim)
+                        for x in state[:3]), state.stat)
 
 
 # --------------------------------------------------------------------------
@@ -504,11 +629,45 @@ def _load_kernel():
     from ._build import load
     lib = load("train_run")
     fn = lib.njode_train_run
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.POINTER(ctypes.c_float),
-                                            ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _launch(state: TrainState, data: torch.Tensor, plan: RunPlan, kw: dict,
+            stream: int) -> tuple[TrainState, torch.Tensor]:
+    """One launch on ``stream`` over a state whose H is ``plan.hidden``."""
+    K, N, BS = kw["num_moments"], kw["n_slots"], kw["batch_size"]
+    G = data.shape[0] // BS
+    mw, betas = kw["moment_weights"], kw["betas"]
+    w0 = float(mw[0])
+    w1 = float(mw[1]) if len(mw) > 1 else 1.0
+    b1, b2 = float(betas[0]), float(betas[1])
+    inv_n = 1.0 / float(N)
+    dims = (ctypes.c_int * 14)(
+        K, plan.hidden, N, BS, G, SUPPORTED_ACTS.index(kw["activation"]),
+        SCALINGS.index(kw["input_scaling"]),
+        int(kw["variance_method"] == "second_moment"), plan.blocks,
+        plan.slots, plan.wpt, plan.warps, int(plan.staged),
+        int(plan.slots_global))
+    # constants rounded from double once, as the JAX kernel's python floats
+    hyper = (ctypes.c_float * 13)(kw["lr"], kw["weight_decay"], b1, b2,
+                                  1.0 - b1, 1.0 - b2, kw["adam_eps"],
+                                  kw["eps"], w0, w1, inv_n, w0 * inv_n,
+                                  w1 * inv_n)
+    lib, fn = _load_kernel()
+    out = TrainState(*(x.clone() for x in state))
+    losses = torch.empty(G, dtype=torch.float32, device=data.device)
+    n_scratch = scratch_floats(plan, K, N, BS, kw["input_scaling"])
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=data.device)
+    err = fn(data.data_ptr(), out.params.data_ptr(), out.m.data_ptr(),
+             out.v.data_ptr(), out.stat.data_ptr(), losses.data_ptr(),
+             scratch.data_ptr(), n_scratch, dims, hyper, stream)
+    from ._build import check
+    check(lib, err, "njode_train_run launch")
+    return out, losses
 
 
 def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
@@ -548,7 +707,7 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
                          "(or tensors on mixed devices)")
     _check_args(num_moments, activation, input_scaling, batch_size, data,
                 n_slots, variance_method)
-    K, P = state.params.shape[0], state.params.shape[-1]
+    P = state.params.shape[-1]
     H = hidden_from_size(P)
     shapes = {"data": tuple(data.shape), "params": (num_moments, P),
               "m": (num_moments, P), "v": (num_moments, P), "stat": (2,)}
@@ -561,39 +720,17 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
                              f"{tuple(x.shape)}, expected {shapes[name]}")
         if not x.is_contiguous():
             raise ValueError(f"fused_train_run: {name} must be contiguous")
-    plan = launch_plan(H, n_slots, batch_size, input_scaling)
+    plan = launch_plan(H, n_slots, batch_size, input_scaling, num_moments)
     if plan is None:
         raise ValueError(f"fused_train_run: hidden_dim {H} and {n_slots} "
-                         "slots do not fit the kernel (H a multiple of 4 up "
-                         f"to {MAX_HIDDEN}, N >= 2, one warp's working set "
-                         "in shared memory)")
-    G = data.shape[0] // batch_size
-    w0 = float(moment_weights[0])
-    w1 = float(moment_weights[1]) if len(moment_weights) > 1 else 1.0
-    b1, b2 = float(betas[0]), float(betas[1])
-    inv_n = 1.0 / float(n_slots)
-    warps, staged, _ = plan
-    dims = (ctypes.c_int * 10)(K, H, n_slots, batch_size, G,
-                               SUPPORTED_ACTS.index(activation),
-                               SCALINGS.index(input_scaling),
-                               int(variance_method == "second_moment"),
-                               warps, int(staged))
-    # constants rounded from double once, as the JAX kernel's python floats
-    hyper = (ctypes.c_float * 13)(lr, weight_decay, b1, b2, 1.0 - b1,
-                                  1.0 - b2, adam_eps, eps, w0, w1, inv_n,
-                                  w0 * inv_n, w1 * inv_n)
-    lib, fn = _load_kernel()
-    out = TrainState(*(x.clone() for x in state))
-    losses = torch.empty(G, dtype=torch.float32, device=device)
-    scratch = torch.empty(_staged_floats(H) + P
-                          + batch_size * (2 * n_slots - 1) + batch_size,
-                          dtype=torch.float32, device=device)
+                         f"slots do not fit the kernel (H up to {MAX_HIDDEN},"
+                         " N >= 2, one warp's working set in shared memory)")
+    if data.shape[0] == 0:
+        return (TrainState(*(x.clone() for x in state)),
+                torch.empty(0, dtype=torch.float32, device=device))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(data.data_ptr(), out.params.data_ptr(), out.m.data_ptr(),
-                 out.v.data_ptr(), out.stat.data_ptr(), losses.data_ptr(),
-                 scratch.data_ptr(), dims, hyper, stream)
-    from ._build import check
-    check(lib, err, "njode_train_run launch")
+        out, losses = _launch(pad_state(state, H, plan.hidden), data, plan,
+                              kw, stream)
     LAUNCHES += 1
-    return out, losses
+    return unpad_state(out, plan.hidden, H), losses

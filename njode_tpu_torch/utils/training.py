@@ -456,8 +456,8 @@ class Trainer:
                                                       m._scale_key):
             problems.append(f"hidden_dim {m.hidden_dim} with {n_slots} "
                             "observation slots does not fit the kernel "
-                            "(hidden_dim a multiple of 4, at least 2 slots, "
-                            "one warp's working set in shared memory)")
+                            "(at least 2 slots, one warp's working set in "
+                            "shared memory)")
         if m.dtype != torch.float32:
             problems.append("float32 only")
         if not self.ignore_first_continuity:

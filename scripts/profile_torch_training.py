@@ -8,12 +8,14 @@
    that take the most device and host time.  The kernel path's Chrome trace
    goes to chiprun_out/.
 2. The kernel's own split: a copy of ops/csrc/train_run.cu with clock64()
-   probes inserted at fixed places (after the forward, after the cotangents
-   and backward, around the block barriers, the gradient reduction and
-   Adam) is built with nvcc into a temporary directory and run for one
-   8-step epoch at the default shape; it prints the cycles each warp spent
-   in each phase.  The probes cost a few percent; the shipped kernel has
-   none.
+   probes read by each block's first thread (the weights' staging and the
+   valid count, phase A's forwards to the block barrier after them, its
+   cotangents and backward, the block's partial sums, the grid barrier
+   after phase A, phase B's sums of the partials with Adam, the grid
+   barrier ending the step) is built with nvcc into a temporary directory
+   and run for one 8-step epoch call at the default shape; it prints the
+   cycles of each phase, mean over blocks.  The probes cost a few percent;
+   the shipped kernel has none.
 
 With ``--production``, instead: torch.profiler over 5 epochs of the
 production recipe (``scripts/run_black_scholes.sh``: hidden 50, shared
@@ -73,8 +75,13 @@ from njode_tpu_torch.utils import (Trainer, create_data_loaders,  # noqa: E402
                                    make_adam)
 
 EPOCHS = 10
-PHASES = ("forward", "cotangents+backward", "wait before reduce", "reduce",
-          "wait after reduce", "Adam + pass barrier")
+PHASES = ("staging: both networks' weights, the valid count",
+          "phase A: forwards, to the barrier after them",
+          "phase A: cotangents and backward, to the barrier after them",
+          "phase A: the block's partial sums",
+          "grid barrier after phase A",
+          "phase B: the partials summed, Adam, the loss",
+          "grid barrier ending the step")
 
 
 def device_us(prof) -> float:
@@ -443,48 +450,38 @@ def profile_trainer(dev: torch.device, card: str, out_dir: str) -> None:
 
 
 def instrumented_source() -> str:
-    """ops/csrc/train_run.cu with per-warp cycle counters at fixed places;
-    fails if the source no longer has the places it anchors to."""
+    """ops/csrc/train_run.cu with cycle counters read by each block's
+    thread 0 at fixed places; fails if an anchor is gone."""
     src = (_build.CSRC / "train_run.cu").read_text()
+    prof = ("do { if (tid == 0) atomicAdd(&g_prof[blk * 16 + (K_)], "
+            "(unsigned long long)(clock64() - tP)); tP = clock64(); } "
+            "while (0)")
+    barrier = ("__syncthreads();  // net 0's predictions to net 1's "
+               "cotangents")
+    sums = "// the chunk's sums into the block's partial"
+    reduce = ("reduce_chunk<CPT>(slots, slot_f, nc, c0 == lo, d, part, warp, "
+              "nw, lane);")
     edits = [
-        ("namespace {\n\nconstexpr int kWarp = 32;",
-         "__device__ unsigned long long g_prof[16 * 8];\n"
+        ("namespace cg = cooperative_groups;",
+         "namespace cg = cooperative_groups;\n"
+         "__device__ unsigned long long g_prof[128 * 16];\n"
          "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
          "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
          "}\n"
-         "namespace {\n"
-         "#define PROF(k, t0) if (lane == 0) atomicAdd(&g_prof[warp * 8 + (k)],"
-         " (unsigned long long)(clock64() - (t0)))\n\n"
-         "constexpr int kWarp = 32;"),
-        ("        const int b = b0 + warp;\n        if (b < BS) {",
-         "        const int b = b0 + warp;\n        long long tA = clock64();\n"
-         "        if (b < BS) {"),
-        ("          forward<CPT>(mine, net, d, lane);",
-         "          forward<CPT>(mine, net, d, lane);\n"
-         "          PROF(0, tA); tA = clock64();"),
-        ("            backward<CPT>(mine, net, d, lane);\n          }\n        }",
-         "            backward<CPT>(mine, net, d, lane);\n"
-         "            PROF(1, tA);\n          }\n        }\n"
-         "        tA = clock64();"),
-        ("        if (mode != kPredOnly) {\n          __syncthreads();",
-         "        if (mode != kPredOnly) {\n          __syncthreads();\n"
-         "          PROF(2, tA); tA = clock64();"),
-        ("          reduce_chunk<CPT>(slots, slot_f, nc, d, gacc, warp, C, "
-         "lane);\n          __syncthreads();",
-         "          reduce_chunk<CPT>(slots, slot_f, nc, d, gacc, warp, C, "
-         "lane);\n          PROF(3, tA); tA = clock64();\n"
-         "          __syncthreads();\n          PROF(4, tA);"),
-        ("      if (mode != kPredOnly) {  // Adam",
-         "      long long tB = clock64();\n"
-         "      if (mode != kPredOnly) {  // Adam"),
-        ("          vk[e] = v;\n        }\n      }\n      __syncthreads();",
-         "          vk[e] = v;\n        }\n      }\n      __syncthreads();\n"
-         "      PROF(5, tB);"),
-        ("  for (int step = 0; step < d.G; ++step) {",
-         "  const long long tS = clock64();\n"
-         "  for (int step = 0; step < d.G; ++step) {"),
-        ("  if (tid == 0) {\n    stat[0] = sh_c1;",
-         "  PROF(7, tS);\n  if (tid == 0) {\n    stat[0] = sh_c1;"),
+         f"#define PROFW(K_) {prof}"),
+        ("    c1 *= hp.b1;  // this step's bias-correction powers\n",
+         "    long long tP = clock64();\n"
+         "    c1 *= hp.b1;  // this step's bias-correction powers\n"),
+        ("    // ---- phase A: the block's share",
+         "    PROFW(0);\n    // ---- phase A: the block's share"),
+        (f"      {barrier}\n", f"      {barrier}\n      PROFW(1);\n"),
+        (f"      {sums}\n", f"      PROFW(2);\n      {sums}\n"),
+        (f"      {reduce}\n", f"      {reduce}\n      PROFW(3);\n"),
+        ("    grid.sync();\n\n    // ---- phase B",
+         "    grid.sync();\n    PROFW(4);\n\n    // ---- phase B"),
+        ("    grid.sync();\n  }\n  if (blk == 0 && tid == 0) {",
+         "    PROFW(5);\n    grid.sync();\n    PROFW(6);\n  }\n"
+         "  if (blk == 0 && tid == 0) {"),
     ]
     for old, new in edits:
         if src.count(old) != 1:
@@ -494,19 +491,21 @@ def instrumented_source() -> str:
 
 
 def kernel_split(dev: torch.device, card: str) -> None:
+    """The training kernel at the default shape (one epoch call: 8 steps of
+    128, K 2, H 32, N 10), one call of an instrumented copy: the cycles of
+    each block's thread 0 in each phase."""
     with tempfile.TemporaryDirectory() as tmp:
         cu = os.path.join(tmp, "train_run_probes.cu")
         so = os.path.join(tmp, "libtrain_run_probes.so")
         with open(cu, "w") as f:
             f.write(instrumented_source())
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-                       check=True, capture_output=True, text=True)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", so, cu], check=True,
+                       capture_output=True, text=True)
         lib = ctypes.CDLL(so)
+        _, shipped_fn = tk._load_kernel()
         fn = lib.njode_train_run
-        fn.argtypes = ([ctypes.c_void_p] * 7
-                       + [ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = shipped_fn.argtypes, shipped_fn.restype
         lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
         lib.njode_cuda_error_string.restype = ctypes.c_char_p
         model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
@@ -520,7 +519,7 @@ def kernel_split(dev: torch.device, card: str) -> None:
             with torch.no_grad():
                 tk.fused_train_run(state, data, **kw)          # warm-up
                 torch.cuda.synchronize()
-                cycles = (ctypes.c_ulonglong * 128)()
+                cycles = (ctypes.c_ulonglong * (128 * 16))()
                 lib.njode_prof_read(cycles)
                 before = list(cycles)
                 tk.fused_train_run(state, data, **kw)
@@ -528,18 +527,21 @@ def kernel_split(dev: torch.device, card: str) -> None:
                 lib.njode_prof_read(cycles)
         finally:
             tk._load_kernel = shipped
-        warps = tk.launch_plan(32, chip_smoke.TRAIN_N, 128)[0]
-        total = [cycles[w * 8 + 7] - before[w * 8 + 7] for w in range(warps)]
+        plan = tk.launch_plan(32, chip_smoke.TRAIN_N, 128)
+        nblk = plan.blocks
+        per = [[cycles[b * 16 + k] - before[b * 16 + k] for b in range(nblk)]
+               for k in range(len(PHASES))]
+        total = sum(sum(p) / nblk for p in per)
         print(f"training kernel phase split on {card} (one epoch call: 8 "
-              f"steps, K=2, H=32, N={chip_smoke.TRAIN_N}, batch 128, "
-              f"{warps} warps), cycles per warp summed over the call, mean "
-              f"over warps, share of the call:", flush=True)
+              f"steps of 128, K=2, H=32, N={chip_smoke.TRAIN_N}; plan "
+              f"{tuple(plan)}), cycles of each block's thread 0, mean over "
+              f"blocks, share of the call:", flush=True)
         for k, name in enumerate(PHASES):
-            per = [cycles[w * 8 + k] - before[w * 8 + k] for w in range(warps)]
-            mean = sum(per) / warps
-            print(f"  {name}: {mean:.0f} cycles ({100.0 * mean / total[0]:.1f}%)"
-                  f", warps {min(per)}-{max(per)}", flush=True)
-        print(f"  whole call: {total[0]} cycles", flush=True)
+            mean = sum(per[k]) / nblk
+            print(f"  {name}: {mean:.0f} cycles ({100.0 * mean / total:.1f}%)"
+                  f", blocks {min(per[k])}-{max(per[k])}", flush=True)
+        print(f"  whole call: {total:.0f} cycles, "
+              f"{total / 8:.0f} a step", flush=True)
 
 
 def main() -> None:
