@@ -6,7 +6,8 @@
 Phases, one line each; each prints its wall time, and any failure is an
 uncaught exception and a nonzero exit:
 
-1. device: the card's name and power limit (nvidia-smi); TF32 off.
+1. device: the card's name and power limit (nvidia-smi); TF32 off, bf16
+   products with f32 accumulation.
 2. build:  compile the seven CUDA sources from njode_tpu_torch/ops/csrc, one
    nvcc per source, started together; the gap kernel's ptxas line.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
@@ -128,12 +129,37 @@ uncaught exception and a nonzero exit:
    twin, in turns after a warm-up epoch; rows 2-6 per call at their
    main-path shapes against their plain versions and bounds; the residual
    stride A/B (1, 4, 8, 16) at n_sub 100.
+24. bf16 fused-step kernels vs plain: rows 9b-10b (the bf16 instances of
+   njode_step_fwd / njode_step_bwd, compute_dtype bfloat16) bitwise against
+   their plain versions on a case whose every f32 operation is exact (one
+   trajectory, H 16, one hidden layer) but which the bf16 rounding
+   changes; then on phase 17's grid and the scaled path's shape: the
+   forward at rtol 2e-2 / atol 2e-3, every dW plane and dV row within 5e-2
+   of its norm (one-ulp flips of downstream bf16 roundings under another
+   f32 summation order), two backward calls bitwise equal.
+25. the bf16 scaled training path: run_experiment of the scaled config with
+   compute_dtype bfloat16 (scripts/run_scaled_sweep.sh --compute-dtype
+   bfloat16 through build_config) for 2 epochs, then resumed to 3: row 10b
+   once a step, row 9b once a step and once per validation and
+   relative-loss call, rows 9-10 and every other kernel 0; then one bf16
+   epoch of identical data through rows 9b-10b and through their plain
+   versions from identical weights (per-step losses at phase 24's forward
+   tolerance, each parameter within 5e-2 of its norm).
+26. bf16 times: the bf16 recipe (100 epochs) through Trainer.train on rows
+   9b-10b with its launches by row; the bf16 kernels, the f32 kernels and
+   the composed bf16 path (cuBLAS bf16 products, f32 accumulation), each
+   warmed by one epoch, 10 epochs each in turns, scaled to 100 (the A/B
+   behind "auto"'s compute dtypes), then 2 epochs of each profiled (device
+   time, idle share, launches); rows 9b and 10b per call at 4,096 rows
+   (9b also at 5,000) against their plain versions and bounds (bf16 peak);
+   val MSE of the bf16 and f32 recipes at seeds 0 and 1 (reported, not
+   gated).
 
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
 the walk-train kernel, 18 for the fused-step kernels, 22 for rows 2-6, one
-window per forced path, every row's count read in each) and read just
-after.  The last line is the JSON
+window per forced path, 25 for rows 9b-10b, every row's count read in
+each) and read just after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
 """
@@ -174,8 +200,10 @@ WALK_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/walk_train.cu"
 STEP_SOURCE = "njode_tpu_torch/ops/csrc/fused_step.cu"
 SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train", "fused_step",
            "gap_train", "fused_cell"]
-# the H100 SXM's published peaks: f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# the H100 SXM's published peaks: f32 outside the tensor cores, bf16 dense
+# on the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+BF16 = torch.bfloat16
 
 
 def device_phase() -> tuple[torch.device, str]:
@@ -189,6 +217,11 @@ def device_phase() -> tuple[torch.device, str]:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (the composed bf16 path) accumulate in f32, as the JAX
+    # package's preferred_element_type=f32 does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("matmul: TF32 off, bf16 reduced-precision reduction off",
+          flush=True)
     return torch.device("cuda:0"), card
 
 
@@ -242,7 +275,8 @@ def ptxas_instances(name: str) -> str:
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             args = re.findall(r"L[ib](\d+)E", entry)
-            out.append(f"<{', '.join(args)}> {m.group(1)} registers, "
+            typ = "bf16 " if "nv_bfloat16" in entry else ""
+            out.append(f"{typ}<{', '.join(args)}> {m.group(1)} registers, "
                        f"{spill} spill bytes")
             entry, spill = None, 0
     return "; ".join(out) if out else "no ptxas output"
@@ -525,8 +559,9 @@ def gap_bound(args: tuple) -> tuple[float, str]:
     return bound_of(flops, n_bytes)
 
 
-def bound_of(flops: float, n_bytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+def bound_of(flops: float, n_bytes: float,
+             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1396,25 +1431,31 @@ def step_case(gen: torch.Generator, H: int, N: int, shared: bool, L: int,
          "values": torch.exp(torch.randn(rows, N, 1, generator=gen) * 0.3),
          "gy": torch.randn(rows, 2 * N - 1, 1, 2, generator=gen)}
     c = {k: v.to(dev).contiguous() for k, v in c.items()}
+    c["Wb"] = c["W"].to(BF16)            # the planes as FusedStep casts them
     c["lo"] = fs.layout_of(model)
     return c
 
 
-def step_fwd(c: dict, act: str, scale: str, kernel: bool):
+def step_fwd(c: dict, act: str, scale: str, kernel: bool, cdt=None):
+    """Row 9 (cdt None) or 9b (cdt bf16), or its plain version."""
     if kernel:
-        return fs._launch_fwd(c["W"], c["V"], c["times"], c["values"], c["lo"],
-                              act, scale, step_plan(c)[0])
+        return fs._launch_fwd(c["W" if cdt is None else "Wb"], c["V"],
+                              c["times"], c["values"], c["lo"], act, scale,
+                              step_plan(c)[0])
     return fs.fused_step_forward_reference(c["W"], c["V"], c["times"],
-                                           c["values"], c["lo"], act, scale)
+                                           c["values"], c["lo"], act, scale,
+                                           cdt)
 
 
-def step_bwd(c: dict, act: str, scale: str, kernel: bool):
+def step_bwd(c: dict, act: str, scale: str, kernel: bool, cdt=None):
+    """Row 10 (cdt None) or 10b (cdt bf16), or its plain version."""
     if kernel:
-        return fs._launch_bwd(c["W"], c["V"], c["times"], c["values"],
-                              c["gy"], c["lo"], act, scale, step_plan(c)[1])
+        return fs._launch_bwd(c["W" if cdt is None else "Wb"], c["V"],
+                              c["times"], c["values"], c["gy"], c["lo"], act,
+                              scale, step_plan(c)[1])
     return fs.fused_step_backward_reference(c["W"], c["V"], c["times"],
                                             c["values"], c["gy"], c["lo"],
-                                            act, scale)
+                                            act, scale, cdt)
 
 
 def step_plan(c: dict) -> tuple:
@@ -1423,31 +1464,46 @@ def step_plan(c: dict) -> tuple:
                           lo.d_x, lo.d_y, lo.K)
 
 
-def step_kernel_phase(dev: torch.device) -> tuple[float, float, float]:
-    """Rows 9-10 against their plain versions on the card: H in (32, 50,
-    256) x N in (1, 2, 10) x separate/shared x L in (1, 2), the activation
-    pairs and row counts (4,096, 1,696, 5,000) taken in turn, then the
-    scaled path's own shape (H 256, N 2, separate, L 1, relu/identity,
-    4,096 rows).  Forward at rtol 1e-4 / atol 1e-5; every dW plane and dV
-    within GRAD_RTOL of its norm; two backward calls bitwise equal.  Returns
-    (forward max abs err, backward max abs err, the largest normwise
-    backward error)."""
+# rows 9b-10b against their plain versions: both sum bf16-exact products in
+# f32, in other orders; where that moves a downstream activation across a
+# bf16 rounding boundary, it moves by one bf16 ulp (2^-8 relative) and
+# carries on.  Forward entrywise at BF16_RTOL / BF16_ATOL, each dW plane and
+# dV row within BF16_GRAD_RTOL of its norm (the plain version summed in
+# float64 against float32 on the CPU, this phase's grid at 512 rows: at
+# most 5.5e-4 abs forward and 1.2e-2 of a norm backward)
+BF16_RTOL, BF16_ATOL, BF16_GRAD_RTOL = 2e-2, 2e-3, 5e-2
+
+
+def step_kernel_phase(dev: torch.device, cdt=None
+                      ) -> tuple[float, float, float]:
+    """Rows 9-10 (cdt None) or 9b-10b (cdt bf16) against their plain
+    versions on the card: H in (32, 50, 256) x N in (1, 2, 10) x
+    separate/shared x L in (1, 2), the activation pairs and row counts
+    (4,096, 1,696, 5,000) taken in turn, then the scaled path's own shape
+    (H 256, N 2, separate, L 1, relu/identity, 4,096 rows).  Forward at
+    rtol 1e-4 / atol 1e-5 (bf16: BF16_RTOL / BF16_ATOL); every dW plane and
+    dV within GRAD_RTOL of its norm (bf16: BF16_GRAD_RTOL); two backward
+    calls bitwise equal.  Returns (forward max abs err, backward max abs
+    err, the largest normwise backward error)."""
     gen = torch.Generator().manual_seed(91)
     worst = {"f": 0.0, "b": 0.0, "rel": 0.0, "at": ""}
+    rtol, atol, grad_rtol = ((RTOL, ATOL, GRAD_RTOL) if cdt is None
+                             else (BF16_RTOL, BF16_ATOL, BF16_GRAD_RTOL))
+    rows_name = "rows 9-10" if cdt is None else "rows 9b-10b (bf16)"
 
     def check(H, N, shared, L, act, scale, rows) -> float:
         """One case; returns its largest normwise backward error."""
         c = step_case(gen, H, N, shared, L, act, scale, rows, dev)
         where = f"H={H} N={N} shared={shared} L={L} {act}/{scale} rows={rows}"
         with torch.no_grad():
-            y_k = step_fwd(c, act, scale, True)
-            y_p = step_fwd(c, act, scale, False)
-            g_k = step_bwd(c, act, scale, True)
-            g_k2 = step_bwd(c, act, scale, True)
-            g_p = step_bwd(c, act, scale, False)
+            y_k = step_fwd(c, act, scale, True, cdt)
+            y_p = step_fwd(c, act, scale, False, cdt)
+            g_k = step_bwd(c, act, scale, True, cdt)
+            g_k2 = step_bwd(c, act, scale, True, cdt)
+            g_p = step_bwd(c, act, scale, False, cdt)
         torch.cuda.synchronize()
         worst["f"] = max(worst["f"], assert_close(
-            y_k, y_p, f"fused-step forward at {where}"))
+            y_k, y_p, f"{rows_name} forward at {where}", rtol, atol))
         case_rel = 0.0
         for a, a2, b, what in zip(g_k, g_k2, g_p, ("dW", "dV")):
             if not torch.equal(a, a2):
@@ -1456,7 +1512,8 @@ def step_kernel_phase(dev: torch.device) -> tuple[float, float, float]:
             for i in range(a.shape[0]):
                 for j in range(a.shape[1]):
                     worst["b"] = max(worst["b"], assert_close_norm(
-                        a[i, j], b[i, j], f"{what}[{i}, {j}] at {where}"))
+                        a[i, j], b[i, j], f"{what}[{i}, {j}] at {where}",
+                        grad_rtol))
                     rel = float((a[i, j] - b[i, j]).norm()
                                 / b[i, j].norm().clamp_min(1e-30))
                     case_rel = max(case_rel, rel)
@@ -1476,18 +1533,76 @@ def step_kernel_phase(dev: torch.device) -> tuple[float, float, float]:
                     n += 1
     main_rel = check(SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS)
     n += 1
-    print(f"fused-step kernels vs plain: {n} cases (H in (32, 50, 256) x N "
-          f"in (1, 2, 10) x separate/shared x L in (1, 2); relu/identity, "
-          f"tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in turn; "
-          f"then the scaled path's shape, H {SCALED_H}, N 2, separate, L 1, "
-          f"relu/identity, {SCALED_BS} rows): forward max abs err "
-          f"{worst['f']:.3e} (rtol {RTOL} / atol {ATOL}); backward (each dW "
-          f"plane and dV row) max abs err {worst['b']:.3e}, largest "
-          f"error/norm {worst['rel']:.3e} = {worst['rel'] / GRAD_RTOL:.1%} "
-          f"of its limit {GRAD_RTOL} ({worst['at']}), at the scaled path's "
-          f"shape {main_rel:.3e} = {main_rel / GRAD_RTOL:.1%}; two backward "
+    print(f"fused-step kernels, {rows_name}, vs plain: {n} cases (H in (32, "
+          f"50, 256) x N in (1, 2, 10) x separate/shared x L in (1, 2); "
+          f"relu/identity, tanh/tanh, elu/sigmoid and rows 4,096, 1,696, "
+          f"5,000 in turn; then the scaled path's shape, H {SCALED_H}, N 2, "
+          f"separate, L 1, relu/identity, {SCALED_BS} rows): forward max abs "
+          f"err {worst['f']:.3e} (rtol {rtol} / atol {atol}); backward (each "
+          f"dW plane and dV row) max abs err {worst['b']:.3e}, largest "
+          f"error/norm {worst['rel']:.3e} = {worst['rel'] / grad_rtol:.1%} "
+          f"of its limit {grad_rtol} ({worst['at']}), at the scaled path's "
+          f"shape {main_rel:.3e} = {main_rel / grad_rtol:.1%}; two backward "
           f"calls bitwise equal", flush=True)
     return worst["f"], worst["b"], worst["rel"]
+
+
+def bf16_exact_case(H: int = 16, seed: int = 3) -> tuple:
+    """One trajectory of N 2, one hidden layer, two networks, relu/identity,
+    whose every f32 operation is exact: weights and V in multiples of 1/8,
+    values 1 + k/1024, times 0 and 0.5, cotangents in multiples of 1/4.
+    The jump's activations then carry more bits than bf16 holds, so the
+    bf16 rounding at each product changes the result (it differs from the
+    float32 plain version), while every sum is exact in any order."""
+    model = NeuralJumpODE(1, H, 1, num_moments=2, device="cpu")
+    lo = fs.layout_of(model)
+    g = torch.Generator().manual_seed(seed)
+
+    def eighths(*shape, div=8):
+        return torch.randint(-4, 5, shape, generator=g).float() / div
+    c = {"W": eighths(lo.Kn, lo.n_mats, H, H), "V": eighths(lo.Kn, lo.n_rows, H),
+         "times": torch.tensor([[0.0, 0.5]]),
+         "values": 1 + torch.randint(1, 64, (1, 2, 1), generator=g).float()
+         / 1024, "gy": eighths(1, 3, 1, 2, div=4)}
+    return c, lo
+
+
+def bf16_bitwise_check(dev: torch.device) -> None:
+    """Rows 9b-10b bitwise against their plain version on bf16_exact_case,
+    after the CPU shows the case exact (the plain version in float32 equals
+    it in float64) and sensitive to the rounding (it differs from the
+    float32 mode)."""
+    c, lo = bf16_exact_case()
+    args = ("relu", "identity")
+    f32 = [c[k] for k in ("W", "V", "times", "values")]
+    f64 = [x.double() for x in f32]
+    y32 = fs.fused_step_forward_reference(*f32, lo, *args, BF16)
+    y64 = fs.fused_step_forward_reference(*f64, lo, *args, BF16)
+    b32 = fs.fused_step_backward_reference(*f32, c["gy"], lo, *args, BF16)
+    b64 = fs.fused_step_backward_reference(*f64, c["gy"].double(), lo, *args,
+                                           BF16)
+    y_f32_mode = fs.fused_step_forward_reference(*f32, lo, *args)
+    if not (torch.equal(y32.double(), y64)
+            and all(torch.equal(a.double(), b) for a, b in zip(b32, b64))):
+        raise AssertionError("the bitwise case is not exact in float32")
+    if torch.equal(y32, y_f32_mode):
+        raise AssertionError("the bitwise case does not see the bf16 rounding")
+    cd = {k: v.to(dev) for k, v in c.items()}
+    cd["Wb"], cd["lo"] = cd["W"].to(BF16), lo
+    with torch.no_grad():
+        y_k = step_fwd(cd, *args, True, BF16)
+        g_k = step_bwd(cd, *args, True, BF16)
+    torch.cuda.synchronize()
+    if not (torch.equal(y_k.cpu(), y32)
+            and all(torch.equal(a.cpu(), b) for a, b in zip(g_k, b32))):
+        raise AssertionError(
+            f"rows 9b-10b differ from their plain version on the exact case: "
+            f"forward max abs err {float((y_k.cpu() - y32).abs().max()):.3e}")
+    print(f"rows 9b-10b on the exact case (H 16, N 2, one trajectory, one "
+          f"hidden layer, relu/identity, every f32 operation exact): forward "
+          f"and backward bitwise equal to the plain version, which differs "
+          f"from the float32 mode by up to "
+          f"{float((y32 - y_f32_mode).abs().max()):.3e}", flush=True)
 
 
 SCALED_STEPS = -(-SCALED_TRAIN // SCALED_BS)    # 25; the last has 1,696 rows
@@ -1534,10 +1649,12 @@ def scaled_path_phase(dev: torch.device, tmp: Path) -> None:
                              f"launches {counts()} (expected {want}) and "
                              f"losses {hist3} after {hist}")
     others = (gap_scan.LAUNCHES, tk.LAUNCHES, wt.LAUNCHES,
-              walk_scan.LAUNCHES_FWD, walk_scan.LAUNCHES_BWD)
+              walk_scan.LAUNCHES_FWD, walk_scan.LAUNCHES_BWD,
+              fs.LAUNCHES_FWD_BF16, fs.LAUNCHES_BWD_BF16)
     if any(others):
         raise AssertionError(f"the scaled path launched other kernels: gap, "
-                             f"train_run, walk_train, walk fwd/bwd {others}")
+                             f"train_run, walk_train, walk fwd/bwd, fused "
+                             f"step bf16 fwd/bwd {others}")
     print(f"scaled training path: run_experiment (hidden {SCALED_H}, two "
           f"networks, K=2, batch {SCALED_BS}, {SCALED_TRAIN:,} fresh "
           f"trajectories per epoch in {SCALED_STEPS} steps, {SCALED_VAL:,} "
@@ -1546,13 +1663,14 @@ def scaled_path_phase(dev: torch.device, tmp: Path) -> None:
           f"{res['history']['val_loss'][-1]:.4f}; resumed to 3 (loss "
           f"{hist3[-1]:.4f}); launches in this window: fused-step forward "
           f"{fs.LAUNCHES_FWD}, backward {fs.LAUNCHES_BWD}; gap, train_run, "
-          f"walk_train, walk forward/backward {others}", flush=True)
+          f"walk_train, walk forward/backward, bf16 forward/backward "
+          f"{others}", flush=True)
 
 
-def scaled_model(dev: torch.device, use_pallas, seed: int = 0
-                 ) -> NeuralJumpODE:
+def scaled_model(dev: torch.device, use_pallas, seed: int = 0,
+                 compute_dtype=None) -> NeuralJumpODE:
     return NeuralJumpODE(1, SCALED_H, 1, num_moments=2, use_pallas=use_pallas,
-                         device=dev,
+                         compute_dtype=compute_dtype, device=dev,
                          generator=torch.Generator().manual_seed(seed))
 
 
@@ -1904,22 +2022,268 @@ def fused_cell_kernel_phase(dev: torch.device) -> float:
     return worst
 
 
+# ------------------------------ bf16 scaled training (rows 9b and 10b)
+
+BF16_TIMED_EPOCHS = 10       # timed epochs of each arm in each turn
+BF16_SEEDS = (0, 1)          # val MSE of bf16 and f32 recipes at each
+
+
+def scaled_bf16_config(n_epochs: int, name: str) -> dict:
+    """scaled_config with scripts/run_scaled_sweep.sh --compute-dtype
+    bfloat16 (build_config's "compute_dtype")."""
+    cfg = scaled_config(n_epochs, name)
+    cfg["compute_dtype"] = "bfloat16"
+    return cfg
+
+
+def scaled_bf16_path_phase(dev: torch.device, tmp: Path) -> dict:
+    """run_experiment of the bf16 scaled config, 2 epochs then a resume to
+    3, in one window the caller opens: row 10b once a step; row 9b once a
+    step, once for each epoch's validation and once for the relative loss
+    (epoch 0); rows 9-10 in f32 and every other kernel not at all."""
+    res = run_experiment(scaled_bf16_config(2, "scaled_bf16"),
+                         save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist = res["history"]["train_loss"]
+    expect_counts("the bf16 scaled path, 2 epochs",
+                  {"9b": 2 * SCALED_STEPS + 2 + 1, "10b": 2 * SCALED_STEPS})
+    if len(hist) != 2 or not all(math.isfinite(x) for x in
+                                 hist + res["history"]["val_loss"]):
+        raise AssertionError(f"bf16 scaled losses {res['history']}")
+    res3 = run_experiment(scaled_bf16_config(3, "scaled_bf16"),
+                          save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist3 = res3["history"]["train_loss"]
+    got = expect_counts("the bf16 scaled path resumed to 3 epochs",
+                        {"9b": 3 * SCALED_STEPS + 3 + 1,
+                         "10b": 3 * SCALED_STEPS})
+    if len(hist3) != 3 or hist3[:2] != hist:
+        raise AssertionError(f"the resume gave losses {hist3} after {hist}")
+    print(f"bf16 scaled training path: run_experiment (the scaled config "
+          f"with compute_dtype bfloat16, use_pallas 'step') 2 epochs: train "
+          f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, val "
+          f"{res['history']['val_loss'][-1]:.4f}; resumed to 3 (loss "
+          f"{hist3[-1]:.4f}); launches in this window by row {got}",
+          flush=True)
+    return got
+
+
+class PlainFusedStep(torch.autograd.Function):
+    """fs.FusedStep with the plain versions on the card's tensors: the
+    kernels' yardstick over an epoch."""
+
+    @staticmethod
+    def forward(ctx, W, V, times, values, lo, act, scale, cdt=None):
+        ctx.save_for_backward(W, V, times, values)
+        ctx.meta = (lo, act, scale, cdt)
+        return fs.fused_step_forward_reference(W, V, times, values, lo, act,
+                                               scale, cdt)
+
+    @staticmethod
+    def backward(ctx, gy):
+        W, V, times, values = ctx.saved_tensors
+        dW, dV = fs.fused_step_backward_reference(W, V, times, values, gy,
+                                                  *ctx.meta)
+        return dW, dV, None, None, None, None, None, None
+
+
+def bf16_vs_plain_epoch_phase(dev: torch.device) -> float:
+    """One epoch of identical data (the scaled recipe's law, 25 minibatches
+    of 4,096, the last trajectory-masked) through apply_loss + autograd +
+    Adam of a bf16 "step" model, on rows 9b-10b and on their plain versions
+    (PlainFusedStep in FusedStep's place), from identical weights:
+    per-step losses at BF16_RTOL / BF16_ATOL, each parameter within
+    BF16_GRAD_RTOL of its norm after the epoch.  Returns the losses' max
+    abs err."""
+    cfg = scaled_bf16_config(1, "ab")
+    train_fn, _ = create_data_loaders(base_seed=8, device=dev, **cfg["data"])
+    times, values, mask, _ = as_dense(train_fn(0), dev)
+    losses, params = [], []
+    for plain in (False, True):
+        model = scaled_model(dev, "step", seed=4, compute_dtype=BF16)
+        tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                     ignore_first_continuity=True,
+                     moment_weights=list(SCALED_MW), use_train_kernel=False)
+        idx, valid = tr._minibatches(0, times.shape[0], SCALED_BS, True)
+        kernel_step, step_losses = fs.FusedStep, []
+        fs.FusedStep = PlainFusedStep if plain else kernel_step
+        try:
+            for ids, vm in zip(idx, valid):
+                tr.optimizer.zero_grad(set_to_none=True)
+                loss = tr._loss(times[ids], values[ids], mask[ids],
+                                traj_mask=vm, training=True)
+                loss.backward()
+                tr.optimizer.step()
+                step_losses.append(loss.detach())
+        finally:
+            fs.FusedStep = kernel_step
+        losses.append(torch.stack(step_losses))
+        params.append({k: v.detach() for k, v in model.named_parameters()})
+    err = assert_close(losses[0], losses[1],
+                       "rows 9b-10b vs plain per-step losses", BF16_RTOL,
+                       BF16_ATOL)
+    p_err = max(assert_close_norm(params[0][k], params[1][k],
+                                  f"rows 9b-10b vs plain {k}", BF16_GRAD_RTOL)
+                for k in params[1])
+    print(f"rows 9b-10b vs their plain versions: one bf16 epoch "
+          f"({SCALED_STEPS} steps of {SCALED_BS}) from identical weights, "
+          f"per-step losses max abs err {err:.3e} (rtol {BF16_RTOL} / atol "
+          f"{BF16_ATOL}), parameters max abs err {p_err:.3e} (each within "
+          f"{BF16_GRAD_RTOL} of its norm)", flush=True)
+    return err
+
+
+def profiled_epochs(trainer: Trainer, loaders: tuple, cfg: dict,
+                    n: int) -> tuple:
+    """torch.profiler over n epochs of Trainer.train after the caller's
+    warm-up: (host wall ms an epoch, device ms an epoch, the device's idle
+    share, device launches an epoch: kernels and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed_epochs(trainer, *loaders, cfg, n, SCALED_BS)
+    cuda = torch.autograd.DeviceType.CUDA
+    on_dev = [e for e in prof.events() if e.device_type == cuda]
+    dev_s = sum(e.time_range.elapsed_us() for e in on_dev) / 1e6
+    return 1e3 * wall / n, 1e3 * dev_s / n, 1.0 - dev_s / wall, len(on_dev) / n
+
+
+def bf16_times_phase(dev: torch.device, card: str) -> dict:
+    """Host clock around synchronized Trainer.train calls, CUDA events for
+    rows 9b-10b.  The bf16 recipe on rows 9b-10b (its launches by row over
+    the run); then, each warmed by one epoch, BF16_TIMED_EPOCHS epochs of
+    the bf16 kernels, the f32 kernels and the composed bf16 path in turns
+    (the A/B behind "auto"'s compute dtypes), then 2 epochs of each under
+    torch.profiler (device time, idle share, launches); rows 9b-10b per
+    call against their plain versions and bounds; val MSE of bf16 and f32
+    recipes at BF16_SEEDS.  Returns each kernel's (ms, plain ms, bound ms,
+    bound_by)."""
+    E, n_t = SCALED_EPOCHS, BF16_TIMED_EPOCHS
+    cfg = scaled_bf16_config(E, "timed_bf16")
+    loaders = {s: create_data_loaders(base_seed=1 + s, device=dev,
+                                      **cfg["data"]) for s in BF16_SEEDS}
+
+    def trainer(up, cdt, seed: int = 0) -> Trainer:
+        m = scaled_model(dev, up, seed, cdt)
+        return Trainer(m, make_adam(m.parameters(), 1e-3, 5e-4),
+                       ignore_first_continuity=True,
+                       moment_weights=list(SCALED_MW), use_train_kernel=False)
+
+    def epochs(tr, n, seed: int = 0):
+        return timed_epochs(tr, *loaders[seed], cfg, n, SCALED_BS)
+
+    def val(tr):
+        return val_metrics(tr.model, dev, SCALED_MW, n=SCALED_VAL,
+                           obs_fraction=0.02)
+    if not scaled_model(dev, "auto", compute_dtype=BF16)._use_fused_step(
+            2, SCALED_BS):
+        raise AssertionError("'auto' does not take rows 9b-10b at the bf16 "
+                             "scaled recipe's shape")
+    reset_counts()
+    bf = trainer("step", BF16)
+    bf_s = epochs(bf, E)
+    launches = expect_counts("the bf16 recipe", {
+        "9b": E * SCALED_STEPS + E + 1, "10b": E * SCALED_STEPS})
+    mse = {("bf16", 0): val(bf)}
+    for name, cdt in (("bf16", BF16), ("f32", None)):
+        for seed in BF16_SEEDS:
+            if (name, seed) not in mse:
+                tr = trainer("step", cdt, seed)
+                epochs(tr, E, seed)
+                mse[name, seed] = val(tr)
+    arms = {"bf16 kernels": bf, "f32 kernels": trainer("step", None),
+            "bf16 composed": trainer(False, BF16)}
+    for tr in arms.values():
+        epochs(tr, 1)
+    turns = {k: [] for k in arms}
+    for k in ("bf16 kernels", "f32 kernels", "bf16 composed",
+              "bf16 composed", "f32 kernels", "bf16 kernels"):
+        turns[k].append(epochs(arms[k], n_t) * E / n_t)
+    ahead = max(turns["bf16 kernels"]) < min(turns["bf16 composed"])
+    prof = {k: profiled_epochs(tr, loaders[0], cfg, 2)
+            for k, tr in arms.items()}
+
+    gen = torch.Generator().manual_seed(17)
+    c = step_case(gen, SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS,
+                  dev)
+    c_val = step_case(gen, SCALED_H, 2, False, 1, "relu", "identity",
+                      SCALED_VAL, dev)
+    args = ("relu", "identity")
+    with torch.no_grad():
+        run = {(k, b): (lambda k=k, b=b: (step_bwd if b else step_fwd)(
+            c, *args, k, BF16)) for k in (True, False) for b in (False, True)}
+        t = {key: [] for key in run}
+        for key in ((True, False), (False, False), (True, True),
+                    (False, True)) * 2:
+            t[key].append(time_ms(run[key], warmup=3, reps=20))
+        f_val = time_ms(lambda: step_fwd(c_val, *args, True, BF16))
+    med = {key: statistics.median(v) for key, v in t.items()}
+    flops = step_flops(SCALED_H, 2, c["lo"], SCALED_BS)
+    # W in bf16, the rest f32: each input read once, each output written
+    # once
+    io = (2 * c["W"].numel() + 4 * (c["V"].numel() + c["times"].numel()
+                                    + c["values"].numel()))
+    f_bound = bound_of(flops, io + 4 * c["gy"].numel(), PEAK_BF16_FLOPS)
+    b_bound = bound_of(3 * flops, io + 4 * (c["gy"].numel() + c["W"].numel()
+                                            + c["V"].numel()),
+                       PEAK_BF16_FLOPS)
+    n = E * SCALED_TRAIN
+
+    def fmt(xs, unit="s"):
+        return ", ".join(f"{x:.4f}" for x in xs) + f" {unit}"
+    print(f"bf16 scaled times on {card}: the bf16 recipe ({E} epochs x "
+          f"{SCALED_TRAIN:,} fresh trajectories, batch {SCALED_BS}, hidden "
+          f"{SCALED_H}, validation {SCALED_VAL:,}) through Trainer.train on "
+          f"rows 9b-10b {bf_s:.3f} s = {n / bf_s:.0f} traj/s (final train "
+          f"loss {bf.train_losses[E - 1]:.4f}); launches by row over the run "
+          f"{launches}; in turns after a warm-up epoch, {n_t} epochs scaled "
+          f"to {E}: bf16 kernels {fmt(turns['bf16 kernels'])}, f32 kernels "
+          f"{fmt(turns['f32 kernels'])}, composed bf16 "
+          f"{fmt(turns['bf16 composed'])} (cuBLAS bf16, f32 accumulation); "
+          f"the A/B behind 'auto': the bf16 kernels "
+          f"{'ahead of' if ahead else 'not ahead of'} the composed bf16 path "
+          f"in every turn", flush=True)
+    print("profiled, 2 epochs each after the turns (torch.profiler): " +
+          "; ".join(f"{k}: wall {w:.1f} ms an epoch, device {d:.1f} ms, "
+                    f"idle {100.0 * i:.1f}%, {n_l:.1f} device launches an "
+                    f"epoch" for k, (w, d, i, n_l) in prof.items()),
+          flush=True)
+    print("val MSE after the recipe (" + f"{SCALED_VAL:,} trajectories; "
+          "mean, var, relative loss): " + "; ".join(
+              f"{name} seed {seed} {m[0]:.3e} / {m[1]:.3e} / {m[2]:.4f}"
+              for (name, seed), m in sorted(mse.items())), flush=True)
+    print(f"rows 9b-10b on {card}, two networks, H {SCALED_H}, N 2, "
+          f"{SCALED_BS} rows: forward {fmt(t[True, False], 'ms')} (plain "
+          f"{fmt(t[False, False], 'ms')}; bound {f_bound[0]:.4f} ms "
+          f"{f_bound[1]}); backward {fmt(t[True, True], 'ms')} (plain "
+          f"{fmt(t[False, True], 'ms')}; bound {b_bound[0]:.4f} ms "
+          f"{b_bound[1]}); forward at {SCALED_VAL:,} validation rows "
+          f"{f_val:.4f} ms", flush=True)
+    return {"fused_step_fwd_bf16": (med[True, False], med[False, False],
+                                    *f_bound),
+            "fused_step_bwd_bf16": (med[True, True], med[False, True],
+                                    *b_bound)}
+
+
 def kernel_counts() -> dict:
     """Every kernel's launch count, by its row in the TPU kernel table
-    (row 12 is row 11's kernel)."""
+    (row 12 is row 11's kernel; 9b and 10b the bf16 instances of rows 9
+    and 10)."""
     return {1: gap_scan.LAUNCHES, 2: gap_scan.LAUNCHES_RES_FWD["full"],
             3: gap_scan.LAUNCHES_RES_FWD["checkpointed"],
             4: gap_scan.LAUNCHES_BWD["full"],
             5: gap_scan.LAUNCHES_BWD["checkpointed"], 6: fused_cell.LAUNCHES,
             7: walk_scan.LAUNCHES_FWD, 8: walk_scan.LAUNCHES_BWD,
-            9: fs.LAUNCHES_FWD, 10: fs.LAUNCHES_BWD, 11: tk.LAUNCHES,
-            13: wt.LAUNCHES}
+            9: fs.LAUNCHES_FWD, 10: fs.LAUNCHES_BWD,
+            "9b": fs.LAUNCHES_FWD_BF16, "10b": fs.LAUNCHES_BWD_BF16,
+            11: tk.LAUNCHES, 13: wt.LAUNCHES}
 
 
 def reset_counts() -> None:
     gap_scan.LAUNCHES = fused_cell.LAUNCHES = tk.LAUNCHES = wt.LAUNCHES = 0
     walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = 0
     fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
+    fs.LAUNCHES_FWD_BF16 = fs.LAUNCHES_BWD_BF16 = 0
     for counter in (gap_scan.LAUNCHES_RES_FWD, gap_scan.LAUNCHES_BWD):
         for mode in counter:
             counter[mode] = 0
@@ -2306,9 +2670,7 @@ def main() -> None:
     sf_err, sb_err, _ = step_kernel_phase(dev)
     t = phase_time("fused-step kernels vs plain", t)
     with tempfile.TemporaryDirectory() as tmp:
-        fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
-        gap_scan.LAUNCHES = tk.LAUNCHES = wt.LAUNCHES = 0
-        walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = 0
+        reset_counts()
         scaled_path_phase(dev, Path(tmp))
         step_launches = (fs.LAUNCHES_FWD, fs.LAUNCHES_BWD)
     step_vs_composed_phase(dev)
@@ -2345,6 +2707,17 @@ def main() -> None:
         gap_errs[mode] = [max(a, b) for a, b in zip(gap_errs[mode], e)]
     t = phase_time("forced times", t)
 
+    bf16_bitwise_check(dev)
+    bf_f_err, bf_b_err, _ = step_kernel_phase(dev, BF16)
+    t = phase_time("bf16 fused-step kernels vs plain", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        bf16_launches = scaled_bf16_path_phase(dev, Path(tmp))
+    bf16_vs_plain_epoch_phase(dev)
+    t = phase_time("bf16 scaled training path", t)
+    times.update(bf16_times_phase(dev, card))
+    t = phase_time("bf16 times", t)
+
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
         ms, plain, bound, by = tm
@@ -2358,6 +2731,8 @@ def main() -> None:
     f_dt = ("forced production training at dt_ode_step 0.1 "
             "(run_experiment, one epoch)")
     f_default = "forced default training (run_experiment, use_pallas True)"
+    bf16_scaled = ("bf16 scaled training (run_experiment, compute_dtype "
+                   "bfloat16)")
     print(json.dumps({"kernels": [
         entry("gap_scan_fwd", KERNEL_SOURCE, REPLACES,
               "serving (predict_at, NJODEFilter)", launches, max_err,
@@ -2392,7 +2767,13 @@ def main() -> None:
               "njode_tpu/ops/gap_scan.py:295", f_prod, forced[5],
               gap_errs["checkpointed"][1], forced_times[5]),
         entry("fused_cell", CELL_SOURCE, "njode_tpu/ops/fused_cell.py:73",
-              f_default, forced[6], cell_err, forced_times[6])]}),
+              f_default, forced[6], cell_err, forced_times[6]),
+        entry("fused_step_fwd_bf16", STEP_SOURCE,
+              "njode_tpu/ops/fused_step.py:223", bf16_scaled,
+              bf16_launches["9b"], bf_f_err, times["fused_step_fwd_bf16"]),
+        entry("fused_step_bwd_bf16", STEP_SOURCE,
+              "njode_tpu/ops/fused_step.py:316", bf16_scaled,
+              bf16_launches["10b"], bf_b_err, times["fused_step_bwd_bf16"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

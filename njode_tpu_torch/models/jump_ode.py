@@ -56,14 +56,25 @@ whole-step kernels of :mod:`njode_tpu_torch.ops.fused_step` wherever
 ``dt_ode_step``, euler, shapes within ``fused_step_fits``): the CUDA
 kernels for CUDA tensors, their plain versions on the CPU.  ``"auto"``
 takes them on the card only at the shape an H100 A/B had them ahead
-(the scaled recipe's: hidden 256, two slots, >= 4,096 rows).
+(the scaled recipe's: hidden 256, two slots, >= 4,096 rows), in float32
+and in bfloat16.
+
+Mixed precision (``compute_dtype``, ``njode_tpu/models/jump_ode.py:150-157``
+and ``_mp``/``_mp_in``/``_mp_out`` ``:346-357``): bfloat16 or float16 runs
+the three networks in that dtype (weights and input cast, products, biases,
+activations and dropout in it, the output cast back), while the parameters,
+the solver's carry and the time features stay in ``dtype``.  As in the JAX
+package, the gap, fused-cell and walk kernels are float32 only, so a model
+with a compute dtype takes the composed route for them; the fused step
+takes bfloat16 (its bf16 kernels, :mod:`njode_tpu_torch.ops.fused_step`)
+but not float16.
 
 The model's device defaults to ``cuda``; the CPU is used only when asked
 for (``device="cpu"``).  Without a CUDA device the default raises.
 
-Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10), mixed
-precision (``compute_dtype``) and Pallas interpret mode (``"interpret"``,
-``"step-interpret"``); the constructor arguments that select them raise.
+Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10) and
+Pallas interpret mode (``"interpret"``, ``"step-interpret"``); the
+constructor arguments that select the latter raise.
 """
 
 from __future__ import annotations
@@ -98,20 +109,52 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+_COMPUTE_DTYPES = {"float32": None, "none": None,
+                   "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                   "float16": torch.float16, "fp16": torch.float16}
+
+
+def parse_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """The JAX package's names (``njode_tpu/models/jump_ode.py:150-157``):
+    None, "float32" and "none" mean full precision (None); "bfloat16" /
+    "bf16" and "float16" / "fp16" their torch dtypes, which are also taken
+    as given; anything else raises ``ValueError``."""
+    if compute_dtype is None or compute_dtype in (torch.bfloat16,
+                                                  torch.float16):
+        return compute_dtype
+    if (isinstance(compute_dtype, str)
+            and compute_dtype.lower() in _COMPUTE_DTYPES):
+        return _COMPUTE_DTYPES[compute_dtype.lower()]
+    raise ValueError(f"Unknown compute_dtype: {compute_dtype}")
+
+
 def run_net(net: nn.Module, x: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A network's layers in order, with inverted dropout (torch's
     train-mode law) drawn from ``generator`` where one is given, and no
-    dropout otherwise, whatever the module's train/eval mode."""
+    dropout otherwise, whatever the module's train/eval mode.
+
+    With a ``compute_dtype`` the input and each Linear's weights are cast to
+    it and every layer runs in it, a Linear as ``x @ w + b`` (two roundings,
+    as the JAX package's ``_linear``); the output is cast back to the
+    input's dtype.  Autograd carries the gradients back through the casts
+    in the parameters' own dtype."""
+    out_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     for layer in net.net:
         if isinstance(layer, nn.Dropout):
             if generator is not None and layer.p > 0.0:
                 keep = torch.rand(x.shape, generator=generator,
                                   device=x.device) >= layer.p
                 x = torch.where(keep, x / (1.0 - layer.p), 0.0)
+        elif compute_dtype is not None and isinstance(layer, nn.Linear):
+            x = (x @ layer.weight.to(compute_dtype).t()
+                 + layer.bias.to(compute_dtype))
         else:
             x = layer(x)
-    return x
+    return x.to(out_dtype)
 
 
 def _raise_on_grid_misalignment(bad: bool, worst: float,
@@ -149,6 +192,11 @@ class NeuralJumpODE(nn.Module):
                  "interpret" and "step-interpret" select Pallas interpret
                  mode, which has no port, and raise: on the CPU, True and
                  "step" run the kernels' plain versions.
+      compute_dtype: None / "float32" (full precision), "bfloat16" or
+                 "float16" (:func:`parse_compute_dtype`): the networks'
+                 dtype; the parameters stay ``dtype``.  Under a compute
+                 dtype no gap, cell or walk kernel runs, and "step" takes
+                 the fused step's bf16 kernels for bfloat16 only.
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
@@ -167,10 +215,6 @@ class NeuralJumpODE(nn.Module):
         if grid_walk and dt_ode_step is None:
             raise ValueError("grid_walk=True requires dt_ode_step (gaps "
                              "without substeps are already a single step)")
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype: mixed precision is not ported yet "
-                "(ROADMAP.md, Queue 2 rows 9-10, bf16)")
         if use_pallas == "step-interpret":
             raise NotImplementedError(
                 "use_pallas='step-interpret' runs the fused training-step "
@@ -202,7 +246,9 @@ class NeuralJumpODE(nn.Module):
         self.variance_method = variance_method
         self.t_max = t_max
         self.use_pallas = use_pallas
+        # the parameters' dtype; the networks compute in compute_dtype
         self.dtype = dtype
+        self.compute_dtype = parse_compute_dtype(compute_dtype)
         self.ode_solver = ode_solver
         self.debug_checks = debug_checks
         self.grid_walk = bool(grid_walk)
@@ -325,7 +371,8 @@ class NeuralJumpODE(nn.Module):
         per-gap route with the gap kernel instead: there the walk route's
         grid guard (one host read) cost more than the walk kernel saves,
         at 256 and 2,000 rows on an H100 (PERF.md)."""
-        if self.use_pallas is False or self.ode_solver != "euler":
+        if (self.use_pallas is False or self.ode_solver != "euler"
+                or self.compute_dtype is not None):
             return False
         if inference and self.device.type == "cuda":
             return False
@@ -336,9 +383,10 @@ class NeuralJumpODE(nn.Module):
     def _use_fused(self) -> bool:
         """Route ``_euler``'s Euler steps through the fused Euler cell
         (``njode_tpu/models/jump_ode.py:270-273``): only when forced,
-        ``use_pallas=True``, for an eligible ODEFunc (CUDA tensors take the
-        kernel, CPU tensors its plain version)."""
-        return self._fused_eligible and self.use_pallas is True
+        ``use_pallas=True``, for an eligible ODEFunc without a compute dtype
+        (CUDA tensors take the kernel, CPU tensors its plain version)."""
+        return (self._fused_eligible and self.use_pallas is True
+                and self.compute_dtype is None)
 
     def _use_gap_scan(self, inference: bool = False) -> bool:
         """Route a ``dt_ode_step`` gap through the gap kernels
@@ -348,8 +396,10 @@ class NeuralJumpODE(nn.Module):
         ``AUTO_MAX_ROWS``, was measured on the TPU).  Under ``use_pallas=
         True`` a gap under autograd takes the training pair too, where
         ``gap_train_fits`` holds, and ``debug_checks`` keeps the plain loop
-        (its steps go through the fused cell), as in the JAX package."""
-        if not self._gap_eligible:
+        (its steps go through the fused cell), as in the JAX package.  The
+        kernels are float32 only: under a compute dtype no gap kernel runs
+        (the JAX package's ``_pallas_on``)."""
+        if not self._gap_eligible or self.compute_dtype is not None:
             return False
         if self.use_pallas is not True:
             return inference
@@ -380,14 +430,19 @@ class NeuralJumpODE(nn.Module):
         where the H100 A/B of the scaled recipe had the kernels ahead of the
         composed path (PERF.md, section 6): on the card, separate networks,
         (hidden, ``n_slots``, layers, d_x, d_y, K) equal to
-        ``AUTO_SHAPE_H100`` and ``n_batch`` >= ``AUTO_MIN_BATCH_H100``
-        rows.  Elsewhere the composed route."""
-        if not self._step_eligible:
+        ``AUTO_SHAPE_H100``, ``n_batch`` >= ``AUTO_MIN_BATCH_H100`` rows
+        and the compute dtype in ``AUTO_COMPUTE_DTYPES_H100``.  The kernels
+        compute float32 and bfloat16, not float16 (JAX ``:251``, ``:260``).
+        Elsewhere the composed route."""
+        if (not self._step_eligible
+                or self.compute_dtype not in (None, torch.bfloat16)):
             return False
         if self.use_pallas == "auto":
             shape = (self.hidden_dim, n_slots, self.n_hidden_layers,
                      self.input_dim, self.output_dim, self.num_moments)
             if (self.device.type != "cuda" or self.shared_network
+                    or self.compute_dtype
+                    not in fused_step.AUTO_COMPUTE_DTYPES_H100
                     or shape != fused_step.AUTO_SHAPE_H100
                     or n_batch < fused_step.AUTO_MIN_BATCH_H100):
                 return False
@@ -402,14 +457,21 @@ class NeuralJumpODE(nn.Module):
                     input_scaling=self._scale_key,
                     shared_network=self.shared_network,
                     input_dim=self.input_dim, output_dim=self.output_dim,
-                    n_hidden_layers=self.n_hidden_layers)
+                    n_hidden_layers=self.n_hidden_layers,
+                    compute_dtype=self.compute_dtype)
+
+    def _net(self, net: nn.Module, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One network on x in the model's compute dtype (``_mp``,
+        ``_mp_in``, ``_mp_out``), its output in x's dtype."""
+        return run_net(net, x, generator, self.compute_dtype)
 
     def _jump(self, x: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, d_x) -> h: (K_h, B, d_h)."""
         if self.shared_network:
-            return run_net(self.jump_nn, x, generator)[None]
-        return torch.stack([run_net(net, x, generator)
+            return self._net(self.jump_nn, x, generator)[None]
+        return torch.stack([self._net(net, x, generator)
                             for net in self.jump_nns])
 
     def _readout(self, h: torch.Tensor,
@@ -421,9 +483,9 @@ class NeuralJumpODE(nn.Module):
         (reference models/jump_ode.py:170-172).
         """
         if self.shared_network:
-            y = run_net(self.output_nn, h[0], generator)
+            y = self._net(self.output_nn, h[0], generator)
             return y.reshape(y.shape[0], self.output_dim, self.num_moments)
-        ys = torch.stack([run_net(net, hk, generator)
+        ys = torch.stack([self._net(net, hk, generator)
                           for net, hk in zip(self.output_nns, h)])
         return ys.permute(1, 2, 0)                         # (B, d_y, K)
 
@@ -453,8 +515,9 @@ class NeuralJumpODE(nn.Module):
         x_s = self._scale(x_last)[None].expand(K_h, B, x_last.shape[-1])
         t_rel = t_cur[None, :, None].expand(K_h, B, 1).to(h.dtype)
         t_el = (t_new - t_cur)[None, :, None].expand(K_h, B, 1).to(h.dtype)
+        # built in the carry's dtype, cast inside _net (JAX :432)
         inp = torch.cat([self._scale(h), x_s, t_rel, t_el], dim=-1)
-        return torch.stack([run_net(f, ik, generator)
+        return torch.stack([self._net(f, ik, generator)
                             for f, ik in zip(self._ode_nets(), inp)])
 
     def _euler(self, h: torch.Tensor, x_last: torch.Tensor,

@@ -46,13 +46,29 @@
 // launch plan picks are built; with everything inlined the source took
 // ten times as long to compile.
 //
-// Layout (f32, contiguous): x (B, N, d_x); t (B, N); W, WT (Kn, n_mats, H,
-// H), W (in, out) and WT its transpose per plane; V (Kn, n_rows, H); Y and
-// gy (B, 2N-1, d_y, K): slots 0..N-1 after the jump, N..2N-2 before slots
-// 1..N-1.  Planes: J_1..J_L, O_0..O_{L-1}, W1h, Wmid_1..Wmid_{L-1}, Wlast.
-// Rows: j1[d_x], bj[0..L], w1x[d_x], w1t, w1d, ob[0..L], bo[0..L-1], o2
-// (d_y rows; shared: K d_y rows, c = d K + k).
+// The bf16 instances (rows 9b and 10b: compute_dtype=bfloat16, the TPU
+// kernels' cdt mode, fused_step.py:236-239, :336-346) are the same kernels
+// with the weight type T = __nv_bfloat16: W and WT arrive as bf16 planes
+// (cast once by the wrapper), a staged slice holds twice the rows in the
+// same bytes, and every product rounds its activation operand to bf16
+// (operand<T>) and widens both operands to f32 before the f32 fma, which is
+// JAX's dot(a.astype(bf16), w_bf16, preferred_element_type=f32): the
+// product of two bf16 values is exact in f32, so only the order of the f32
+// sums differs.  The weight-gradient sums round both operands.  The
+// activations stay f32 in shared memory and are rounded where a product
+// reads them, after their f32 epilogue; V, the epilogues, the column sums,
+// the partials and the tile-order reduce stay f32.  The bf16 instances are
+// built for 8 columns a lane only (the scaled recipe's H 256), which serves
+// any H <= 256 with idle columns below 129, to keep the build short.
+//
+// Layout (contiguous): x (B, N, d_x) and t (B, N) f32; W, WT (Kn, n_mats,
+// H, H) in T, W (in, out) and WT its transpose per plane; V (Kn, n_rows, H)
+// f32; Y and gy (B, 2N-1, d_y, K) f32: slots 0..N-1 after the jump,
+// N..2N-2 before slots 1..N-1.  Planes: J_1..J_L, O_0..O_{L-1}, W1h,
+// Wmid_1..Wmid_{L-1}, Wlast.  Rows: j1[d_x], bj[0..L], w1x[d_x], w1t, w1d,
+// ob[0..L], bo[0..L-1], o2 (d_y rows; shared: K d_y rows, c = d K + k).
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -68,8 +84,27 @@ using namespace njode_walk;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarp * kWarps;
-constexpr int kSliceK = 8;      // weight rows per staged slice
+constexpr int kSliceK = 8;      // f32 weight rows per staged slice
 constexpr int kStages = 3;      // slices in flight
+
+using bf16 = __nv_bfloat16;
+
+// a staged slice is kSliceK f32 rows' bytes: 8 rows of f32, 16 of bf16
+template <typename T>
+constexpr int kSliceRows = kSliceK * (int)(sizeof(float) / sizeof(T));
+
+// a weight as the product reads it
+__device__ __forceinline__ float wval(float w) { return w; }
+__device__ __forceinline__ float wval(bf16 w) { return __bfloat162float(w); }
+
+// an activation operand at the product: as is, or rounded to bf16 (to
+// nearest even) and widened back
+template <typename T>
+__device__ __forceinline__ float operand(float a) { return a; }
+template <>
+__device__ __forceinline__ float operand<bf16>(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
 
 struct Layout {
   int L, d_x, d_y, K, shared, Kn, n_mats, n_rows;
@@ -112,44 +147,46 @@ __device__ __forceinline__ float act_grad_v(float v, int act) {
   }
 }
 
-// acc[q][c] = sum_k A[(warp RPW + q) H + k] W[k H + j], j = lane + 32 c:
-// A a row tile in shared memory, W an (in, out) plane in device memory.
-// With H % 4 == 0 the plane streams through the shared stage buffer
-// (offset 0) in slices of kSliceK rows, kStages deep, by asynchronous
-// copies, so the loads of later slices overlap the products of this one;
-// each row of A is then read four k at a time.  Otherwise W is read from
-// device memory directly.  Either way k runs in order.
-template <int CPT, int RPW>
-__device__ __forceinline__ void tile_mm(const float* A, const float* __restrict__ W, int H,
+// acc[q][c] = sum_k operand(A[(warp RPW + q) H + k]) W[k H + j], j = lane
+// + 32 c: A a row tile in shared memory, W an (in, out) plane in device
+// memory.  Where a row of W is whole 16-byte chunks (H % 4 == 0 in f32,
+// H % 8 == 0 in bf16) the plane streams through the shared stage buffer
+// (offset 0) in slices of kSliceRows<T> rows, kStages deep, by
+// asynchronous copies, so the loads of later slices overlap the products
+// of this one; each row of A is then read four k at a time.  Otherwise W is
+// read from device memory directly.  Either way k runs in order.
+template <int CPT, int RPW, typename T>
+__device__ __forceinline__ void tile_mm(const float* A, const T* __restrict__ W, int H,
                                         int warp, int lane, float (&acc)[RPW][CPT]) {
+  constexpr int kRows = kSliceRows<T>, kVec = 16 / (int)sizeof(T);
 #pragma unroll
   for (int q = 0; q < RPW; ++q)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[q][c] = 0.0f;
   const float* a = A + (size_t)warp * RPW * H;
-  auto step = [&](const float* wrow, const float (&av)[RPW]) {
+  auto step = [&](const T* wrow, const float (&av)[RPW]) {
     float w[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int j = lane + kWarp * c;
-      w[c] = j < H ? wrow[j] : 0.0f;
+      w[c] = j < H ? wval(wrow[j]) : 0.0f;
     }
 #pragma unroll
     for (int q = 0; q < RPW; ++q)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
   };
-  if ((H & 3) != 0) {
+  if (H % kVec != 0) {
 #pragma unroll 4
     for (int k = 0; k < H; ++k) {
       float av[RPW];
 #pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a[q * H + k];
+      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a[q * H + k]);
       float w[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
-        w[c] = j < H ? __ldg(W + (size_t)k * H + j) : 0.0f;
+        w[c] = j < H ? wval(__ldg(W + (size_t)k * H + j)) : 0.0f;
       }
 #pragma unroll
       for (int q = 0; q < RPW; ++q)
@@ -158,15 +195,15 @@ __device__ __forceinline__ void tile_mm(const float* A, const float* __restrict_
     }
     return;
   }
-  float* stage = njode_step_smem;
-  const int n_slices = (H + kSliceK - 1) / kSliceK;
+  T* stage = reinterpret_cast<T*>(njode_step_smem);
+  const int n_slices = (H + kRows - 1) / kRows;
   auto fetch = [&](int sl) {       // every thread commits a group, maybe empty
     if (sl < n_slices) {
-      const int k0 = sl * kSliceK, n4 = min(kSliceK, H - k0) * H / 4;
-      float* dst = stage + (sl % kStages) * kSliceK * H;
-      const float* src = W + (size_t)k0 * H;
-      for (int e = threadIdx.x; e < n4; e += kThreads)
-        __pipeline_memcpy_async(dst + 4 * e, src + 4 * e, 16);
+      const int k0 = sl * kRows, n16 = min(kRows, H - k0) * H / kVec;
+      T* dst = stage + (sl % kStages) * kRows * H;
+      const T* src = W + (size_t)k0 * H;
+      for (int e = threadIdx.x; e < n16; e += kThreads)
+        __pipeline_memcpy_async(dst + kVec * e, src + kVec * e, 16);
     }
     __pipeline_commit();
   };
@@ -176,8 +213,8 @@ __device__ __forceinline__ void tile_mm(const float* A, const float* __restrict_
     __pipeline_wait_prior(kStages - 2);    // slice sl has landed
     __syncthreads();                       // for every thread; slice sl - 1 is done
     fetch(sl + kStages - 1);               // into the buffer of slice sl - 1
-    const float* ws = stage + (sl % kStages) * kSliceK * H;
-    const int k0 = sl * kSliceK, rows = min(kSliceK, H - k0);
+    const T* ws = stage + (sl % kStages) * kRows * H;
+    const int k0 = sl * kRows, rows = min(kRows, H - k0);
 #pragma unroll 1
     for (int kk = 0; kk < rows; kk += 4) {
       float4 a4[RPW];
@@ -186,16 +223,16 @@ __device__ __forceinline__ void tile_mm(const float* A, const float* __restrict_
         a4[q] = *reinterpret_cast<const float4*>(a + q * H + k0 + kk);
       float av[RPW];
 #pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].x;
+      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].x);
       step(ws + kk * H, av);
 #pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].y;
+      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].y);
       step(ws + (kk + 1) * H, av);
 #pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].z;
+      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].z);
       step(ws + (kk + 2) * H, av);
 #pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].w;
+      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].w);
       step(ws + (kk + 3) * H, av);
     }
   }
@@ -272,9 +309,10 @@ __device__ __forceinline__ Epi epi(int mode, int act = -1, const float* b = null
 // out = epilogue(A W_m) for the block's row tile: A and out at offsets of
 // the dynamic shared memory (out may be A: the product is held in
 // registers across a barrier), W a plane in device memory.  Not inlined:
-// one copy per (CPT, RPW), shared by both kernels, keeps the build short.
-template <int CPT, int RPW>
-__device__ __noinline__ void mm_store(int a_off, const float* __restrict__ W, int out_off, int H,
+// one copy per (T, CPT, RPW), shared by both kernels, keeps the build
+// short.
+template <typename T, int CPT, int RPW>
+__device__ __noinline__ void mm_store(int a_off, const T* __restrict__ W, int out_off, int H,
                                       Epi e) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   float acc[RPW][CPT];
@@ -315,9 +353,10 @@ __device__ __noinline__ void mm_store(int a_off, const float* __restrict__ W, in
 }
 
 // P[a H + j] (+)= sum_{r < nr} A[r H + a] G[r H + j] (A, G at shared
-// offsets): warp w owns the rows a of 8 at a time, lane l the columns
-// l + 32 c; every entry one owner and the rows in order.  Not inlined.
-template <int CPT>
+// offsets, each rounded as operand<T>): warp w owns the rows a of 8 at a
+// time, lane l the columns l + 32 c; every entry one owner and the rows in
+// order.  Not inlined.
+template <typename T, int CPT>
 __device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H,
                                        float* __restrict__ P, bool first) {
   constexpr int APW = 8;
@@ -347,11 +386,11 @@ __device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H,
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
-        g[c] = j < H ? G[r * H + j] : 0.0f;
+        g[c] = j < H ? operand<T>(G[r * H + j]) : 0.0f;
       }
       float av[APW];
 #pragma unroll
-      for (int i = 0; i < APW; ++i) av[i] = a0 + i < H ? A[r * H + a0 + i] : 0.0f;
+      for (int i = 0; i < APW; ++i) av[i] = a0 + i < H ? operand<T>(A[r * H + a0 + i]) : 0.0f;
 #pragma unroll
       for (int i = 0; i < APW; ++i)
 #pragma unroll
@@ -395,10 +434,10 @@ __device__ __forceinline__ void load_scaled(const float* src, float* dst, int n,
 
 // -------------------------------------------------------------- forward
 
-template <int CPT, int RPW>
+template <typename T, int CPT, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                const float* __restrict__ W, const float* __restrict__ V,
+                const T* __restrict__ W, const float* __restrict__ V,
                 float* __restrict__ Y, int B, int N, int H, Layout lo, int act, int scale) {
   constexpr int RT = RPW * kWarps;
   float* smem = njode_step_smem;
@@ -414,7 +453,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   load_rows(x, s_x, row0, nr, RT, N * d_x);
   load_rows(t, s_t, row0, nr, RT, N);
   load_scaled(s_x, s_xs, RT * N * d_x, scale);
-  const float* Wk = W + (size_t)kn * lo.n_mats * H * H;
+  const T* Wk = W + (size_t)kn * lo.n_mats * H * H;
   const float* Vk = V + (size_t)kn * lo.n_rows * H;
   auto plane = [&](int m) { return Wk + (size_t)m * H * H; };
   auto vrow = [&](int r) { return Vk + (size_t)r * H; };
@@ -422,7 +461,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
   // act(cur W_m + b) into out (out may be cur)
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<CPT, RPW>(cur, plane(m), out, H, epi(kBias, act, vrow(brow)));
+    mm_store<T, CPT, RPW>(cur, plane(m), out, H, epi(kBias, act, vrow(brow)));
   };
   // the readout of the tile at offset `in` into Y's slot `ys`, through s_wk
   auto readout = [&](int in, int ys) {
@@ -474,20 +513,20 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     }
     const GapBase gap{vrow(lo.row_w1t), vrow(lo.row_w1d), vrow(lo.row_ob), vrow(lo.row_w1x),
                       s_t, s_xs, N, H, d_x, s};
-    mm_store<CPT, RPW>(src, plane(lo.mat_w1h), o_wk, H, epi(kGap, act, nullptr, gap));
+    mm_store<T, CPT, RPW>(src, plane(lo.mat_w1h), o_wk, H, epi(kGap, act, nullptr, gap));
     for (int i = 0; i + 1 < lo.L; ++i) layer(o_wk, o_wk, 2 * lo.L + 1 + i, lo.row_ob + i + 1);
-    mm_store<CPT, RPW>(o_wk, plane(lo.mat_last), o_wk, H,
-                       epi(kEuler, -1, vrow(lo.row_ob + lo.L), gap, o_hj));
+    mm_store<T, CPT, RPW>(o_wk, plane(lo.mat_last), o_wk, H,
+                          epi(kEuler, -1, vrow(lo.row_ob + lo.L), gap, o_hj));
     readout(o_wk, N + s);
   }
 }
 
 // ------------------------------------------------------------- backward
 
-template <int CPT, int RPW>
+template <typename T, int CPT, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                const float* __restrict__ W, const float* __restrict__ WT,
+                const T* __restrict__ W, const T* __restrict__ WT,
                 const float* __restrict__ V, const float* __restrict__ gy,
                 float* __restrict__ partial, int B, int N, int H, Layout lo, int act,
                 int scale) {
@@ -516,8 +555,8 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   load_rows(gy, s_gy, row0, nr, RT, n_gy);
   load_scaled(s_x, s_xs, RT * N * d_x, scale);
   const size_t plane_sz = (size_t)H * H;
-  const float* Wk = W + (size_t)kn * lo.n_mats * plane_sz;
-  const float* WTk = WT + (size_t)kn * lo.n_mats * plane_sz;
+  const T* Wk = W + (size_t)kn * lo.n_mats * plane_sz;
+  const T* WTk = WT + (size_t)kn * lo.n_mats * plane_sz;
   const float* Vk = V + (size_t)kn * lo.n_rows * H;
   const size_t psz = lo.n_mats * plane_sz + (size_t)lo.n_rows * H;
   float* Pk = partial + ((size_t)blockIdx.x * lo.Kn + kn) * psz;
@@ -528,10 +567,12 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   __syncthreads();
 
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<CPT, RPW>(cur, Wk + m * plane_sz, out, H, epi(kBias, act, vrow(brow)));
+    mm_store<T, CPT, RPW>(cur, Wk + m * plane_sz, out, H, epi(kBias, act, vrow(brow)));
   };
   // g = g W_m^T, in place
-  auto back = [&](int g, int m) { mm_store<CPT, RPW>(g, WTk + m * plane_sz, g, H, epi(kCopy)); };
+  auto back = [&](int g, int m) {
+    mm_store<T, CPT, RPW>(g, WTk + m * plane_sz, g, H, epi(kCopy));
+  };
   auto times_act_grad = [&](float* g, const float* val) {
     for (int e = threadIdx.x; e < TH; e += kThreads) g[e] *= act_grad_v(val[e], act);
     __syncthreads();
@@ -575,7 +616,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     __syncthreads();
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(gp, s_up + l * TH);
-      outer_sum<CPT>(l == 0 ? in : o_up + (l - 1) * TH, g, nr, H, pw(L + l), first);
+      outer_sum<T, CPT>(l == 0 ? in : o_up + (l - 1) * TH, g, nr, H, pw(L + l), first);
       tile_colsum(gp, nr, H, one, pv(lo.row_bo + l), first);
       __syncthreads();
       back(g, L + l);
@@ -604,12 +645,12 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         src = o_g2;
       }
-      mm_store<CPT, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H,
-                         epi(kGap, act, nullptr, gap));
+      mm_store<T, CPT, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H,
+                            epi(kGap, act, nullptr, gap));
       for (int i = 0; i + 1 < L; ++i)
         layer(o_gp + i * TH, o_gp + (i + 1) * TH, 2 * L + 1 + i, lo.row_ob + i + 1);
-      mm_store<CPT, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H,
-                         epi(kEuler, -1, vrow(lo.row_ob + L), gap, o_hj));
+      mm_store<T, CPT, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H,
+                            epi(kEuler, -1, vrow(lo.row_ob + L), gap, o_hj));
       // ---- the readout before slot s + 1: dHM into s_g2
       readout_bwd(o_hm, N + s, o_g2, false);
       // ---- the gap's backward: dHJ += dHM, dDH = DT dHM
@@ -618,13 +659,13 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         s_g2[e] *= dt_of(e / H);
       }
       __syncthreads();
-      outer_sum<CPT>(o_gp + (L - 1) * TH, o_g2, nr, H, pw(lo.mat_last), first);
+      outer_sum<T, CPT>(o_gp + (L - 1) * TH, o_g2, nr, H, pw(lo.mat_last), first);
       tile_colsum(s_g2, nr, H, one, pv(lo.row_ob + L), first);
       __syncthreads();
       back(o_g2, lo.mat_last);
       for (int i = L - 2; i >= 0; --i) {
         times_act_grad(s_g2, smem + o_gp + (i + 1) * TH);
-        outer_sum<CPT>(o_gp + i * TH, o_g2, nr, H, pw(2 * L + 1 + i), first);
+        outer_sum<T, CPT>(o_gp + i * TH, o_g2, nr, H, pw(2 * L + 1 + i), first);
         tile_colsum(s_g2, nr, H, one, pv(lo.row_ob + i + 1), first);
         __syncthreads();
         back(o_g2, 2 * L + 1 + i);
@@ -636,7 +677,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         hs = o_hm;
       }
-      outer_sum<CPT>(hs, o_g2, nr, H, pw(lo.mat_w1h), first);
+      outer_sum<T, CPT>(hs, o_g2, nr, H, pw(lo.mat_w1h), first);
       for (int d = 0; d < d_x; ++d)
         tile_colsum(s_g2, nr, H, [&](int r) { return s_xs[(r * N + s) * d_x + d]; },
                     pv(lo.row_w1x + d), first);
@@ -648,16 +689,16 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
       if (scale != kIdentity)
         for (int e = threadIdx.x; e < TH; e += kThreads) s_up[e] = scale_grad(hj[e], scale);
       __syncthreads();
-      mm_store<CPT, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H,
-                         scale != kIdentity ? epi(kAddScaled, -1, nullptr, GapBase{}, o_up)
-                                            : epi(kAdd));
+      mm_store<T, CPT, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H,
+                            scale != kIdentity ? epi(kAddScaled, -1, nullptr, GapBase{}, o_up)
+                                               : epi(kAdd));
     }
 
     // ---- the jump's backward
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(s_g, smem + o_jp + l * TH);
       if (l == 0) a1(s);
-      outer_sum<CPT>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, nr, H, pw(l), first);
+      outer_sum<T, CPT>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, nr, H, pw(l), first);
       tile_colsum(s_g, nr, H, one, pv(lo.row_bj + l + 1), first);
       __syncthreads();
       back(o_g, l);
@@ -726,75 +767,89 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 }
 
 struct Args {
-  const float *x, *t, *W, *WT, *V, *gy;
+  const float *x, *t;
+  const void *W, *WT;
+  const float *V, *gy;
   float *Y, *partial;
   int B, N, H;
   Layout lo;
   int act, scale;
 };
 
-template <int C, int R>
+template <typename T, int C, int R>
 cudaError_t launch_fwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
-  auto kern = step_fwd_kernel<C, R>;
+  auto kern = step_fwd_kernel<T, C, R>;
   cudaError_t e = set_smem(kern, smem);
   if (e == cudaSuccess)
-    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, a.W, a.V, a.Y, a.B, a.N, a.H, a.lo, a.act,
-                                      a.scale);
-  return e;
-}
-
-template <int C, int R>
-cudaError_t launch_bwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
-  auto kern = step_bwd_kernel<C, R>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e == cudaSuccess)
-    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, a.W, a.WT, a.V, a.gy, a.partial, a.B, a.N,
+    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const T*>(a.W), a.V, a.Y, a.B, a.N,
                                       a.H, a.lo, a.act, a.scale);
   return e;
 }
 
-// The (CPT, RPW) instances: the forward's tile is 64 rows, the backward's
-// 32 or 16 (ops/fused_step.py FWD_RPW, BWD_RPW).
-cudaError_t dispatch_fwd(int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
+template <typename T, int C, int R>
+cudaError_t launch_bwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
+  auto kern = step_bwd_kernel<T, C, R>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e == cudaSuccess)
+    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const T*>(a.W),
+                                      static_cast<const T*>(a.WT), a.V, a.gy, a.partial, a.B,
+                                      a.N, a.H, a.lo, a.act, a.scale);
+  return e;
+}
+
+// The (T, CPT, RPW) instances: the forward's tile is 64 rows, the
+// backward's 32 or 16 (ops/fused_step.py FWD_RPW, BWD_RPW); f32 for every
+// CPT, bf16 at CPT 8 only (see the top of the file).
+cudaError_t dispatch_fwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
                          cudaStream_t s) {
   if (rpw != 8) return cudaErrorInvalidValue;
+  if (wbf16) return launch_fwd<bf16, 8, 8>(a, grid, smem, s);
   switch (cpt) {
-    case 1: return launch_fwd<1, 8>(a, grid, smem, s);
-    case 2: return launch_fwd<2, 8>(a, grid, smem, s);
-    case 4: return launch_fwd<4, 8>(a, grid, smem, s);
-    default: return launch_fwd<8, 8>(a, grid, smem, s);
+    case 1: return launch_fwd<float, 1, 8>(a, grid, smem, s);
+    case 2: return launch_fwd<float, 2, 8>(a, grid, smem, s);
+    case 4: return launch_fwd<float, 4, 8>(a, grid, smem, s);
+    default: return launch_fwd<float, 8, 8>(a, grid, smem, s);
   }
 }
 
-cudaError_t dispatch_bwd(int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
+cudaError_t dispatch_bwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
                          cudaStream_t s) {
   if (rpw != 4 && rpw != 2) return cudaErrorInvalidValue;
+  if (wbf16)
+    return rpw == 4 ? launch_bwd<bf16, 8, 4>(a, grid, smem, s)
+                    : launch_bwd<bf16, 8, 2>(a, grid, smem, s);
   switch (cpt) {
-    case 1: return rpw == 4 ? launch_bwd<1, 4>(a, grid, smem, s) : launch_bwd<1, 2>(a, grid, smem, s);
-    case 2: return rpw == 4 ? launch_bwd<2, 4>(a, grid, smem, s) : launch_bwd<2, 2>(a, grid, smem, s);
-    case 4: return rpw == 4 ? launch_bwd<4, 4>(a, grid, smem, s) : launch_bwd<4, 2>(a, grid, smem, s);
-    default: return rpw == 4 ? launch_bwd<8, 4>(a, grid, smem, s) : launch_bwd<8, 2>(a, grid, smem, s);
+    case 1: return rpw == 4 ? launch_bwd<float, 1, 4>(a, grid, smem, s)
+                            : launch_bwd<float, 1, 2>(a, grid, smem, s);
+    case 2: return rpw == 4 ? launch_bwd<float, 2, 4>(a, grid, smem, s)
+                            : launch_bwd<float, 2, 2>(a, grid, smem, s);
+    case 4: return rpw == 4 ? launch_bwd<float, 4, 4>(a, grid, smem, s)
+                            : launch_bwd<float, 4, 2>(a, grid, smem, s);
+    default: return rpw == 4 ? launch_bwd<float, 8, 4>(a, grid, smem, s)
+                             : launch_bwd<float, 8, 2>(a, grid, smem, s);
   }
 }
 
 }  // namespace
 
 // The forward: Y (B, 2N-1, d_y, K) without bo2.  rpw: rows per warp of the
-// block's tile (ops/fused_step.py launch_plan).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// block's tile (ops/fused_step.py launch_plan); wbf16: W is bf16 (row 9b)
+// rather than f32 (row 9).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int njode_step_fwd(const void* x, const void* t, const void* W, const void* V,
                               void* Y, int B, int N, int H, int L, int d_x, int d_y, int K,
-                              int shared, int act, int scale, int rpw, void* stream) {
+                              int shared, int act, int scale, int rpw, int wbf16,
+                              void* stream) {
   const int RT = rpw * kWarps;
   const size_t smem = fwd_smem_floats(RT, H, N, d_x) * sizeof(float);
   int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, rpw, smem);
   if (err != 0) return err;
   const Layout lo = make_layout(L, d_x, d_y, K, shared);
-  const Args a{static_cast<const float*>(x), static_cast<const float*>(t),
-               static_cast<const float*>(W), nullptr, static_cast<const float*>(V), nullptr,
-               static_cast<float*>(Y), nullptr, B, N, H, lo, act, scale};
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(t), W, nullptr,
+               static_cast<const float*>(V), nullptr, static_cast<float*>(Y), nullptr,
+               B, N, H, lo, act, scale};
   const dim3 grid((B + RT - 1) / RT, lo.Kn);
-  cudaError_t e = dispatch_fwd(cpt_of(H), rpw, a, grid, smem,
+  cudaError_t e = dispatch_fwd(wbf16 != 0, cpt_of(H), rpw, a, grid, smem,
                                static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -808,25 +863,25 @@ extern "C" long long njode_step_partial_floats(int B, int H, int L, int d_x, int
   return tiles * lo.Kn * ((long long)lo.n_mats * H * H + (long long)lo.n_rows * H);
 }
 
-// The backward: dW (Kn, n_mats, H, H) and dV (Kn, n_rows, H), the
+// The backward: dW (Kn, n_mats, H, H) and dV (Kn, n_rows, H), f32, the
 // cotangents of W and V for gy; partial is scratch of
-// njode_step_partial_floats floats.  Two launches on `stream`.
+// njode_step_partial_floats floats; wbf16: W and WT are bf16 (row 10b).
+// Two launches on `stream`.
 extern "C" int njode_step_bwd(const void* x, const void* t, const void* W, const void* WT,
                               const void* V, const void* gy, void* partial, void* dW, void* dV,
                               int B, int N, int H, int L, int d_x, int d_y, int K, int shared,
-                              int act, int scale, int rpw, void* stream) {
+                              int act, int scale, int rpw, int wbf16, void* stream) {
   const int RT = rpw * kWarps;
   const Layout lo = make_layout(L, d_x, d_y, K, shared);
   const size_t smem = bwd_smem_floats(RT, H, N, lo) * sizeof(float);
   int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, rpw, smem);
   if (err != 0) return err;
   const int tiles = (B + RT - 1) / RT;
-  const Args a{static_cast<const float*>(x), static_cast<const float*>(t),
-               static_cast<const float*>(W), static_cast<const float*>(WT),
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(t), W, WT,
                static_cast<const float*>(V), static_cast<const float*>(gy), nullptr,
                static_cast<float*>(partial), B, N, H, lo, act, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dispatch_bwd(cpt_of(H), rpw, a, dim3(tiles, lo.Kn), smem, s);
+  cudaError_t e = dispatch_bwd(wbf16 != 0, cpt_of(H), rpw, a, dim3(tiles, lo.Kn), smem, s);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

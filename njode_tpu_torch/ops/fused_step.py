@@ -36,7 +36,18 @@ The port's own shape gate (:func:`fused_step_fits`, :func:`launch_plan`):
 scalars, with RT 64 rows forward and 32 or 16 backward.  At H 256 that
 admits L up to 3 and N up to 100; every recipe of the repo fits.
 ``use_pallas="auto"`` takes the kernels on the card only at the shape an
-H100 A/B measured ahead (``AUTO_SHAPE_H100``, ``AUTO_MIN_BATCH_H100``).
+H100 A/B measured ahead (``AUTO_SHAPE_H100``, ``AUTO_MIN_BATCH_H100``), in
+the compute dtypes it measured (``AUTO_COMPUTE_DTYPES_H100``).
+
+Mixed precision (``compute_dtype=torch.bfloat16``, the JAX kernels' ``cdt``
+mode, ``fused_step.py:236-239``, ``:336-346``, ``:503-560``): W is cast to
+bf16 once, outside the kernels, and the backward's WT is the transpose of
+the cast planes; every product rounds its activation operand to bf16 (the
+weight-gradient sums A^T G both operands) and accumulates in float32; V,
+the epilogues, the activations and the column sums stay float32, and dW
+comes back in float32.  The kernels' bf16 instances (rows 9b and 10b) are
+counted apart from the float32 ones (``LAUNCHES_FWD_BF16`` /
+``LAUNCHES_BWD_BF16``).  float16 has no fused step (JAX ``:716``).
 
 Wrappers: :func:`fused_step_apply` / :func:`fused_step_loss` take the
 kernels for CUDA tensors and the plain versions
@@ -56,10 +67,13 @@ import torch
 
 from .activations import _ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD, SCALINGS, SUPPORTED_ACTS
 
-# launches of the forward and backward kernels in this process; callers may
-# reset them to 0
+# launches of the forward and backward kernels in this process, float32
+# weights (rows 9, 10) and bf16 weights (rows 9b, 10b); callers may reset
+# them to 0
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_BF16 = 0
+LAUNCHES_BWD_BF16 = 0
 
 MAX_HIDDEN = 256               # 8 columns a lane of a warp
 WARPS = 8                      # a block: 8 warps, RPW rows each
@@ -74,6 +88,10 @@ SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 rows
 # slots in turn).  No other shape was measured.
 AUTO_SHAPE_H100 = (256, 2, 1, 1, 1, 2)
 AUTO_MIN_BATCH_H100 = 4096
+# the compute dtypes "auto" takes the kernels in at that shape: float32, and
+# bfloat16, whose kernels (rows 9b-10b) the H100 A/B of the bf16 recipe had
+# ahead of the composed bf16 path in every turn (PERF.md, section 6)
+AUTO_COMPUTE_DTYPES_H100 = (None, torch.bfloat16)
 
 
 class StepLayout:
@@ -279,6 +297,21 @@ def _slot_major(times, values):
             times.t())
 
 
+def _products(W, compute_dtype):
+    """(W as the products read it, the rounding of an activation operand):
+    float32 as given, or W cast to bf16 once and every operand rounded to
+    bf16 at the product, in float32 arithmetic on bf16-exact values (the
+    function of JAX's ``jnp.dot(a.astype(bf16), w_bf16,
+    preferred_element_type=f32)``)."""
+    if compute_dtype is None:
+        return W, lambda a: a
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"fused step: no {compute_dtype} mode (float32 or "
+                         "bfloat16)")
+    return (W.to(torch.bfloat16).float(),
+            lambda a: a.to(torch.bfloat16).float())
+
+
 def _gy_rows(gy, kk: int, d: int):
     """(B, 2N-1, d_y, K) -> ((2N-1) B, 1), rows in the slot-major order of
     [HJ; HM]."""
@@ -286,12 +319,16 @@ def _gy_rows(gy, kk: int, d: int):
 
 
 def fused_step_forward_reference(W, V, times, values, lo: StepLayout,
-                                 act_name: str, scale_name: str):
+                                 act_name: str, scale_name: str,
+                                 compute_dtype=None):
     """Plain PyTorch version of the forward kernel (the slot-batched
     ``_fwd_kernel``): Y (B, 2N-1, d_y, K), slots 0..N-1 the after-jump
     outputs, N..2N-2 the before-jump outputs of slots 1..N-1, bo2
-    excluded.  Differentiable."""
+    excluded.  ``compute_dtype=torch.bfloat16``: W and each product's
+    activation operand rounded to bf16 (:func:`_products`).
+    Differentiable."""
     A, SC = _ACT[act_name], _SCALE[scale_name]
+    W, rd = _products(W, compute_dtype)
     B, N = times.shape
     S = N - 1
     X, T = _slot_major(times, values)
@@ -303,7 +340,7 @@ def fused_step_forward_reference(W, V, times, values, lo: StepLayout,
             pre = pre + X[:, d:d + 1] * v[lo.row_j1 + d]
         HJ = A(pre)
         for l in range(lo.L):
-            HJ = A(HJ @ w[lo.mat_jump[l]] + v[lo.row_bj[l + 1]])
+            HJ = A(rd(HJ) @ w[lo.mat_jump[l]] + v[lo.row_bj[l + 1]])
         U = HJ
         if S > 0:
             HJg = HJ[:S * B]
@@ -312,13 +349,13 @@ def fused_step_forward_reference(W, V, times, values, lo: StepLayout,
             BASE = T0 * v[lo.row_w1t] + DT * v[lo.row_w1d] + v[lo.row_ode_b[0]]
             for d in range(lo.d_x):
                 BASE = BASE + SC(X[:S * B, d:d + 1]) * v[lo.row_w1x + d]
-            G = A(SC(HJg) @ w[lo.mat_w1h] + BASE)
+            G = A(rd(SC(HJg)) @ w[lo.mat_w1h] + BASE)
             for i, m in enumerate(lo.mat_ode_mid):
-                G = A(G @ w[m] + v[lo.row_ode_b[i + 1]])
-            DH = G @ w[lo.mat_ode_last] + v[lo.row_ode_b[lo.L]]
+                G = A(rd(G) @ w[m] + v[lo.row_ode_b[i + 1]])
+            DH = rd(G) @ w[lo.mat_ode_last] + v[lo.row_ode_b[lo.L]]
             U = torch.cat([HJ, HJg + DT * DH])
         for l in range(lo.L):
-            U = A(U @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
+            U = A(rd(U) @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
         for kk in (range(lo.K) if lo.shared else (kn,)):
             for d in range(lo.d_y):
                 cols[d, kk] = (U @ v[lo.o2_row(kk, d)]).reshape(2 * N - 1, B).t()
@@ -327,18 +364,26 @@ def fused_step_forward_reference(W, V, times, values, lo: StepLayout,
 
 
 def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
-                                  act_name: str, scale_name: str):
+                                  act_name: str, scale_name: str,
+                                  compute_dtype=None):
     """Plain PyTorch version of the backward kernel (``_bwd_kernel``):
     rematerialize the forward, then the reverse chain; returns (dW, dV),
     the cotangents of W and V for the output cotangent gy (B, 2N-1, d_y,
-    K).  Sums over all rows of A^T G for every plane and column sums for
-    every row of V."""
+    K), float32.  Sums over all rows of A^T G for every plane and column
+    sums for every row of V.  ``compute_dtype=torch.bfloat16``: the
+    products as in the forward, g W^T with g rounded and A^T G with both
+    rounded (``mm`` and ``outer`` of ``fused_step.py:336-346``)."""
     A, AG = _ACT[act_name], _ACT_GRAD[act_name]
     SC, SG = _SCALE[scale_name], _SCALE_GRAD[scale_name]
     B, N = times.shape
     S, L = N - 1, lo.L
     X, T = _slot_major(times, values)
-    dW, dV = torch.zeros_like(W), torch.zeros_like(V)
+    dW = torch.zeros_like(W, dtype=torch.float32)
+    dV = torch.zeros_like(V)
+    W, rd = _products(W, compute_dtype)
+
+    def outer(a, g):
+        return rd(a).t() @ rd(g)
     for kn in range(lo.Kn):
         w, v, dw, dv = W[kn], V[kn], dW[kn], dV[kn]
         # ---- rematerialize
@@ -346,7 +391,8 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
                                        for d in range(lo.d_x))]
         A_val = [A(A_pre[0])]
         for l in range(L):
-            A_pre.append(A_val[l] @ w[lo.mat_jump[l]] + v[lo.row_bj[l + 1]])
+            A_pre.append(rd(A_val[l]) @ w[lo.mat_jump[l]]
+                         + v[lo.row_bj[l + 1]])
             A_val.append(A(A_pre[l + 1]))
         HJ = A_val[L]
         if S > 0:
@@ -358,18 +404,18 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
             BASE = T0 * v[lo.row_w1t] + DT * v[lo.row_w1d] + v[lo.row_ode_b[0]]
             for d in range(lo.d_x):
                 BASE = BASE + X_sc[d] * v[lo.row_w1x + d]
-            G_pre = [HJ_sc @ w[lo.mat_w1h] + BASE]
+            G_pre = [rd(HJ_sc) @ w[lo.mat_w1h] + BASE]
             G_val = [A(G_pre[0])]
             for i, m in enumerate(lo.mat_ode_mid):
-                G_pre.append(G_val[i] @ w[m] + v[lo.row_ode_b[i + 1]])
+                G_pre.append(rd(G_val[i]) @ w[m] + v[lo.row_ode_b[i + 1]])
                 G_val.append(A(G_pre[i + 1]))
-            DH = G_val[L - 1] @ w[lo.mat_ode_last] + v[lo.row_ode_b[L]]
+            DH = rd(G_val[L - 1]) @ w[lo.mat_ode_last] + v[lo.row_ode_b[L]]
             U_in = [torch.cat([HJ, HJg + DT * DH])]
         else:
             U_in = [HJ]
         U_pre = []
         for l in range(L):
-            U_pre.append(U_in[l] @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
+            U_pre.append(rd(U_in[l]) @ w[lo.mat_out[l]] + v[lo.row_bo[l]])
             U_in.append(A(U_pre[l]))
         # ---- readout backward: dU sums GY o2 over the network's columns
         g = 0.0
@@ -380,37 +426,37 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
                 g = g + GY * v[lo.o2_row(kk, d)]
         for l in range(L - 1, -1, -1):
             g_pre = g * AG(U_pre[l])
-            dw[lo.mat_out[l]] += U_in[l].t() @ g_pre
+            dw[lo.mat_out[l]] += outer(U_in[l], g_pre)
             dv[lo.row_bo[l]] += g_pre.sum(0)
-            g = g_pre @ w[lo.mat_out[l]].t()
+            g = rd(g_pre) @ w[lo.mat_out[l]].t()
         dHJ = g[:N * B]
         if S > 0:
             dHM = g[N * B:]
             g = DT * dHM
-            dw[lo.mat_ode_last] += G_val[L - 1].t() @ g
+            dw[lo.mat_ode_last] += outer(G_val[L - 1], g)
             dv[lo.row_ode_b[L]] += g.sum(0)
-            g = g @ w[lo.mat_ode_last].t()
+            g = rd(g) @ w[lo.mat_ode_last].t()
             for i in range(L - 2, -1, -1):
                 g_pre = g * AG(G_pre[i + 1])
-                dw[lo.mat_ode_mid[i]] += G_val[i].t() @ g_pre
+                dw[lo.mat_ode_mid[i]] += outer(G_val[i], g_pre)
                 dv[lo.row_ode_b[i + 1]] += g_pre.sum(0)
-                g = g_pre @ w[lo.mat_ode_mid[i]].t()
+                g = rd(g_pre) @ w[lo.mat_ode_mid[i]].t()
             g = g * AG(G_pre[0])                          # dG1_pre
-            dw[lo.mat_w1h] += HJ_sc.t() @ g
+            dw[lo.mat_w1h] += outer(HJ_sc, g)
             for d in range(lo.d_x):
                 dv[lo.row_w1x + d] += (X_sc[d] * g).sum(0)
             dv[lo.row_w1t] += (T0 * g).sum(0)
             dv[lo.row_w1d] += (DT * g).sum(0)
             dv[lo.row_ode_b[0]] += g.sum(0)
-            dHJg = dHM + (g @ w[lo.mat_w1h].t()) * SG(HJg)
+            dHJg = dHM + (rd(g) @ w[lo.mat_w1h].t()) * SG(HJg)
             dHJ = dHJ + torch.cat([dHJg, torch.zeros_like(dHJ[S * B:])])
         # ---- jump backward
         g = dHJ
         for l in range(L - 1, -1, -1):
             g_pre = g * AG(A_pre[l + 1])
-            dw[lo.mat_jump[l]] += A_val[l].t() @ g_pre
+            dw[lo.mat_jump[l]] += outer(A_val[l], g_pre)
             dv[lo.row_bj[l + 1]] += g_pre.sum(0)
-            g = g_pre @ w[lo.mat_jump[l]].t()
+            g = rd(g_pre) @ w[lo.mat_jump[l]].t()
         g = g * AG(A_pre[0])
         for d in range(lo.d_x):
             dv[lo.row_j1 + d] += (X[:, d:d + 1] * g).sum(0)
@@ -428,13 +474,13 @@ def _load_kernel():
     from ._build import load
     lib = load("fused_step")
     P, I = ctypes.c_void_p, ctypes.c_int
-    # x, t, W, V, Y | B N H L d_x d_y K shared act scale rpw | stream
-    lib.njode_step_fwd.argtypes = [P] * 5 + [I] * 11 + [P]
+    # x, t, W, V, Y | B N H L d_x d_y K shared act scale rpw bf16 | stream
+    lib.njode_step_fwd.argtypes = [P] * 5 + [I] * 12 + [P]
     lib.njode_step_fwd.restype = I
     lib.njode_step_partial_floats.argtypes = [I] * 8
     lib.njode_step_partial_floats.restype = ctypes.c_longlong
     # x, t, W, WT, V, gy, partial, dW, dV | (as the forward) | stream
-    lib.njode_step_bwd.argtypes = [P] * 9 + [I] * 11 + [P]
+    lib.njode_step_bwd.argtypes = [P] * 9 + [I] * 12 + [P]
     lib.njode_step_bwd.restype = I
     return lib
 
@@ -457,8 +503,10 @@ def _check_cuda(W, V, times, values, lo: StepLayout, act_name, scale_name):
     if act_name not in SUPPORTED_ACTS or scale_name not in _SCALE:
         raise ValueError(f"fused step: unsupported activation/scaling "
                          f"{act_name!r}/{scale_name!r}")
-    if any(x.dtype != torch.float32 for x in (W, V, times, values)):
-        raise TypeError("fused step: the CUDA kernels take float32")
+    if (W.dtype not in (torch.float32, torch.bfloat16)
+            or any(x.dtype != torch.float32 for x in (V, times, values))):
+        raise TypeError("fused step: the CUDA kernels take W in float32 or "
+                        "bfloat16 and V, times and values in float32")
     B, N = times.shape
     H = W.shape[-1]
     if (W.shape != (lo.Kn, lo.n_mats, H, H) or V.shape != (lo.Kn, lo.n_rows, H)
@@ -474,7 +522,8 @@ def _check_cuda(W, V, times, values, lo: StepLayout, act_name, scale_name):
 
 
 def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
-    global LAUNCHES_FWD
+    """Row 9 (W float32) or 9b (W bfloat16, the cast planes)."""
+    global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     B, N = times.shape
     H = W.shape[-1]
     dev = W.device
@@ -487,15 +536,20 @@ def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
         err = lib.njode_step_fwd(
             x.data_ptr(), t.data_ptr(), Wc.data_ptr(), Vc.data_ptr(),
             Y.data_ptr(), *_meta_ints(lo, B, N, H, act_name, scale_name),
-            rpw, _stream(dev))
+            rpw, int(W.dtype == torch.bfloat16), _stream(dev))
     from ._build import check
     check(lib, err, "njode_step_fwd launch")
-    LAUNCHES_FWD += 1
+    if W.dtype == torch.bfloat16:
+        LAUNCHES_FWD_BF16 += 1
+    else:
+        LAUNCHES_FWD += 1
     return Y
 
 
 def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, rpw):
-    global LAUNCHES_BWD
+    """Row 10 (W float32) or 10b (W bfloat16, the cast planes; WT their
+    transpose); dW and dV come back in float32."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_BF16
     B, N = times.shape
     H = W.shape[-1]
     dev = W.device
@@ -508,65 +562,79 @@ def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, rpw):
     n_partial = int(lib.njode_step_partial_floats(
         B, H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared), rpw))
     partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
-    dW = torch.empty_like(Wc)
+    dW = torch.empty_like(Wc, dtype=torch.float32)
     dV = torch.empty_like(Vc)
     with torch.cuda.device(dev):
         err = lib.njode_step_bwd(
             x.data_ptr(), t.data_ptr(), Wc.data_ptr(), WT.data_ptr(),
             Vc.data_ptr(), gyc.data_ptr(), partial.data_ptr(), dW.data_ptr(),
-            dV.data_ptr(), *meta, rpw, _stream(dev))
+            dV.data_ptr(), *meta, rpw, int(W.dtype == torch.bfloat16),
+            _stream(dev))
     from ._build import check
     check(lib, err, "njode_step_bwd launch")
-    LAUNCHES_BWD += 1
+    if W.dtype == torch.bfloat16:
+        LAUNCHES_BWD_BF16 += 1
+    else:
+        LAUNCHES_BWD += 1
     return dW, dV
 
 
 class FusedStep(torch.autograd.Function):
-    """Rows 9 and 10 as one differentiable op: (W, V) -> Y (B, 2N-1, d_y,
-    K).  CPU tensors take the plain versions (the explicit backward, not
-    autograd through the forward), CUDA tensors the kernels.  Times and
-    values get no cotangent."""
+    """Rows 9 and 10 (9b and 10b under ``compute_dtype=torch.bfloat16``)
+    as one differentiable op: (W, V) -> Y (B, 2N-1, d_y, K).  CPU tensors
+    take the plain versions (the explicit backward, not autograd through
+    the forward), CUDA tensors the kernels.  In bf16 W is cast once here,
+    as the JAX ``core_fwd`` does, and the backward runs on the cast planes;
+    dW comes back in float32.  Times and values get no cotangent."""
 
     @staticmethod
-    def forward(ctx, W, V, times, values, lo, act_name, scale_name):
+    def forward(ctx, W, V, times, values, lo, act_name, scale_name,
+                compute_dtype=None):
         if all(x.device.type == "cpu" for x in (W, V, times, values)):
             plan = None
             Y = fused_step_forward_reference(W, V, times, values, lo,
-                                             act_name, scale_name)
+                                             act_name, scale_name,
+                                             compute_dtype)
         else:
+            if compute_dtype is not None:   # _check_cuda refuses all but bf16
+                W = W.to(compute_dtype)
             plan = _check_cuda(W, V, times, values, lo, act_name, scale_name)
             Y = _launch_fwd(W, V, times, values, lo, act_name, scale_name,
                             plan[0])
         ctx.save_for_backward(W, V, times, values)
-        ctx.meta = (lo, act_name, scale_name, plan)
+        ctx.meta = (lo, act_name, scale_name, plan, compute_dtype)
         return Y
 
     @staticmethod
     def backward(ctx, gy):
         W, V, times, values = ctx.saved_tensors
-        lo, act_name, scale_name, plan = ctx.meta
+        lo, act_name, scale_name, plan, compute_dtype = ctx.meta
         if plan is None:
             dW, dV = fused_step_backward_reference(W, V, times, values, gy,
-                                                   lo, act_name, scale_name)
+                                                   lo, act_name, scale_name,
+                                                   compute_dtype)
         else:
             dW, dV = _launch_bwd(W, V, times, values, gy, lo, act_name,
                                  scale_name, plan[1])
-        return dW, dV, None, None, None, None, None
+        return dW, dV, None, None, None, None, None, None
 
 
 def fused_step_apply(W, V, bo2, times, values, *, num_moments: int,
                      activation: str, input_scaling: str,
                      shared_network: bool = False, input_dim: int = 1,
-                     output_dim: int = 1, n_hidden_layers: int = 1):
+                     output_dim: int = 1, n_hidden_layers: int = 1,
+                     compute_dtype=None):
     """The fused forward of ``NeuralJumpODE.apply`` on packed (W, V, bo2)
     (:func:`pack_params`): times (B, N), values (B, N, d_x) -> (preds,
     preds_before), each (B, N, d_y, K); preds_before[:, 0] is 0.  The
     kernels for CUDA tensors, the plain versions for CPU tensors; an error
-    otherwise.  Differentiable in (W, V, bo2)."""
+    otherwise.  ``compute_dtype``: None (float32) or ``torch.bfloat16``.
+    Differentiable in (W, V, bo2)."""
     lo = StepLayout(n_hidden_layers, input_dim, output_dim, num_moments,
                     shared_network)
     B, N = times.shape
-    Y = FusedStep.apply(W, V, times, values, lo, activation, input_scaling)
+    Y = FusedStep.apply(W, V, times, values, lo, activation, input_scaling,
+                        compute_dtype)
     bias = bo2.t()                                       # (d_y, K)
     preds = Y[:, :N] + bias
     if N == 1:
@@ -582,7 +650,8 @@ def fused_step_loss(W, V, bo2, times, values, mask=None, *,
                     variance_method: str = "direct", traj_mask=None,
                     extended_moments: bool = False,
                     shared_network: bool = False, input_dim: int = 1,
-                    output_dim: int = 1, n_hidden_layers: int = 1):
+                    output_dim: int = 1, n_hidden_layers: int = 1,
+                    compute_dtype=None):
     """``nj_ode_loss_dense(values, *fused_step_apply(...), mask, ...)``:
     the value and gradients of the JAX lane-space loss, without its
     selector-matmul glue.  Needs output_dim == input_dim."""
@@ -594,7 +663,8 @@ def fused_step_loss(W, V, bo2, times, values, mask=None, *,
         W, V, bo2, times, values, num_moments=num_moments,
         activation=activation, input_scaling=input_scaling,
         shared_network=shared_network, input_dim=input_dim,
-        output_dim=output_dim, n_hidden_layers=n_hidden_layers)
+        output_dim=output_dim, n_hidden_layers=n_hidden_layers,
+        compute_dtype=compute_dtype)
     return nj_ode_loss_dense(
         values, preds, preds_before, mask,
         ignore_first_continuity=ignore_first_continuity,

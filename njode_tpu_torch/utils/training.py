@@ -458,7 +458,9 @@ class Trainer:
                             "observation slots does not fit the kernel "
                             "(at least 2 slots, one warp's working set in "
                             "shared memory)")
-        if m.dtype != torch.float32:
+        # the kernel computes float32: a compute dtype would be dropped
+        # (njode_tpu/utils/training.py:400)
+        if m.dtype != torch.float32 or m.compute_dtype is not None:
             problems.append("float32 only")
         if not self.ignore_first_continuity:
             problems.append("ignore_first_continuity must be enabled")
@@ -502,7 +504,8 @@ class Trainer:
         if m.num_moments not in (1, 2):
             problems.append("num_moments must be 1 or 2 (the kernel's "
                             "closed-form loss covers mean and mean+variance)")
-        if m.dtype != torch.float32:
+        # as the run twin (njode_tpu/utils/training.py:489)
+        if m.dtype != torch.float32 or m.compute_dtype is not None:
             problems.append("float32 only")
         if not self.ignore_first_continuity:
             problems.append("ignore_first_continuity must be enabled")
@@ -720,10 +723,6 @@ def _refuse_unported(config: Dict) -> None:
         raise NotImplementedError("Orbax checkpoints are not ported; the "
                                   "port writes one torch.save file "
                                   "(ROADMAP.md, Queue 1 item 12)")
-    if config.get("compute_dtype") not in (None, "float32", "none"):
-        raise NotImplementedError("compute_dtype: mixed precision is not "
-                                  "ported yet (ROADMAP.md, Queue 2 rows "
-                                  "9-10, bf16)")
     up = config.get("use_pallas", False)
     if up in ("interpret", "step-interpret"):
         raise NotImplementedError(
@@ -733,7 +732,8 @@ def _refuse_unported(config: Dict) -> None:
         raise ValueError(f"Unknown use_pallas: {up!r}")
     if config.get("train_kernel_mxu", "float32") != "float32":
         raise NotImplementedError("train_kernel_mxu: the port's training "
-                                  "kernel runs float32 only")
+                                  "kernel runs float32 only (the bf16 modes "
+                                  "of rows 11-13: ROADMAP.md, Queue 2)")
     process = config.get("data", {}).get("process_type", "black_scholes")
     if process != "black_scholes":
         raise NotImplementedError(f"process {process!r} is not ported yet "
@@ -858,6 +858,7 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         input_scaling=config.get("input_scaling", "identity"),
         variance_method=config.get("variance_method", "direct"),
         t_max=config.get("data", {}).get("T", 1.0),
+        compute_dtype=config.get("compute_dtype"),
         ode_solver=config.get("ode_solver", "euler"),
         use_pallas=up if up in ("auto", "step", True) else False,
         debug_checks=config.get("debug_checks", False),

@@ -256,14 +256,18 @@ def _spy_route(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["step", "dropout", "dt_ode_step",
-                                  "too-wide", "auto", "off"])
+                                  "too-wide", "auto", "off", "step-bf16",
+                                  "step-fp16"])
 def test_routing(case, monkeypatch):
     """"step" takes the fused step where the model is eligible and the
-    shapes fit; dropout in use, a dt_ode_step, a hidden size past
-    fused_step_fits, "auto" and False take the composed route (decided
-    before any launch)."""
+    shapes fit, in float32 and bfloat16; dropout in use, a dt_ode_step, a
+    hidden size past fused_step_fits, float16 (JAX ``jump_ode.py:260``),
+    "auto" and False take the composed route (decided before any
+    launch)."""
     kw = dict(input_dim=1, output_dim=1, num_moments=2, device="cpu")
     hidden, up, extra = 8, "step", {}
+    if case.startswith("step-"):
+        extra = dict(compute_dtype=case[5:])
     if case == "dropout":
         extra = dict(dropout_rate=0.1)
     elif case == "dt_ode_step":
@@ -277,8 +281,9 @@ def test_routing(case, monkeypatch):
     calls = _spy_route(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     model.apply_loss(times, values, generator=gen, training=True).backward()
-    assert bool(calls) == (case == "step")
-    assert model._use_fused_step(3) == (case == "step")
+    takes = case in ("step", "step-bf16")
+    assert bool(calls) == takes
+    assert model._use_fused_step(3) == takes
 
 
 @pytest.mark.parametrize("hidden,shared,N,L,batch_rows,on_card,takes", [
@@ -306,6 +311,25 @@ def test_auto_takes_the_kernels_at_the_measured_shape(hidden, shared, N, L,
     assert model._use_fused_step(N, batch_rows) == takes
 
 
+@pytest.mark.parametrize("cdt", ["bfloat16", "float16"])
+def test_auto_takes_a_compute_dtype_only_where_measured(cdt, monkeypatch):
+    """'auto' at the measured shape on the card takes the kernels in a
+    compute dtype only if AUTO_COMPUTE_DTYPES_H100 lists it: bfloat16,
+    whose H100 A/B had rows 9b-10b ahead of the composed bf16 path
+    (PERF.md); float16 never, even listed: the kernels have no float16
+    mode."""
+    model = NeuralJumpODE(1, 256, 1, num_moments=2, use_pallas="auto",
+                          compute_dtype=cdt, device="cpu")
+    monkeypatch.setattr(NeuralJumpODE, "device",
+                        property(lambda self: torch.device("cuda")))
+    assert fs.AUTO_COMPUTE_DTYPES_H100 == (None, torch.bfloat16)
+    assert model._use_fused_step(2, 4096) == (cdt == "bfloat16")
+    assert not model._use_fused_step(2, 4095)
+    monkeypatch.setattr(fs, "AUTO_COMPUTE_DTYPES_H100",
+                        (None, torch.bfloat16, torch.float16))
+    assert model._use_fused_step(2, 4096) == (cdt == "bfloat16")
+
+
 def test_fits_covers_the_recipes_and_refuses_the_rest():
     for H, N, L in ((256, 2, 1), (32, 10, 1), (50, 10, 1), (50, 11, 2),
                     (256, 10, 2)):
@@ -318,19 +342,29 @@ def test_fits_covers_the_recipes_and_refuses_the_rest():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(use_pallas="step-interpret"), "interpret mode"),
-    (dict(use_pallas="step", compute_dtype="bfloat16"), "mixed precision"),
+    (dict(use_pallas="step", compute_dtype="float8"), "Unknown compute_dtype"),
 ])
 def test_unported_step_modes_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Pallas interpret mode has no port; an unknown compute dtype is a
+    ValueError, as in the JAX package (bf16 runs: tests/test_torch_bf16.py)."""
+    exc = ValueError if "compute_dtype" in kw else NotImplementedError
+    with pytest.raises(exc, match=match):
         NeuralJumpODE(1, 8, 1, device="cpu", **kw)
 
 
 def test_cpu_tensors_launch_no_kernel():
+    """Neither the f32 nor the bf16 instances launch for CPU tensors."""
     _, _, port = bridged(seed=2)
+    bf16 = NeuralJumpODE(1, H, 1, num_moments=2, use_pallas="step",
+                         compute_dtype="bfloat16", device="cpu")
+    bf16.load_state_dict(port.state_dict())
     fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
+    fs.LAUNCHES_FWD_BF16 = fs.LAUNCHES_BWD_BF16 = 0
     times, values, _ = batch(3)
-    port.apply_loss(times, values).backward()
-    assert fs.LAUNCHES_FWD == fs.LAUNCHES_BWD == 0
+    for model in (port, bf16):
+        model.apply_loss(times, values).backward()
+    assert (fs.LAUNCHES_FWD, fs.LAUNCHES_BWD, fs.LAUNCHES_FWD_BF16,
+            fs.LAUNCHES_BWD_BF16) == (0, 0, 0, 0)
 
 
 # ------------------------------------------------------------- trainer

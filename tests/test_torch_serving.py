@@ -213,12 +213,16 @@ def test_filter_unseen_streams_read_zero():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(compute_dtype="bfloat16"), "mixed precision"),
+    (dict(compute_dtype="float8"), "Unknown compute_dtype"),
     (dict(use_pallas="step-interpret"), "fused training-step"),
     (dict(use_pallas="interpret"), "fused Euler cell"),
 ])
 def test_unported_paths_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Pallas interpret mode has no port; an unknown compute dtype is a
+    ValueError, as in the JAX package (bf16 serves:
+    tests/test_torch_bf16.py)."""
+    exc = ValueError if "compute_dtype" in kw else NotImplementedError
+    with pytest.raises(exc, match=match):
         NeuralJumpODE(**PRODUCTION, **kw, device="cpu")
 
 
