@@ -154,12 +154,35 @@ uncaught exception and a nonzero exit:
    (9b also at 5,000) against their plain versions and bounds (bf16 peak);
    val MSE of the bf16 and f32 recipes at seeds 0 and 1 (reported, not
    gated).
+27. bf16 whole-run kernels vs plain: rows 11b-12b and 13b (the bf16
+   instances of train_run.cu and walk_train.cu, train_kernel_mxu
+   "bfloat16") against their plain versions with the same rounding points,
+   on a subset of phases 8 and 13's cases with both recipes' shapes and a
+   trajectory-masked last minibatch: per-step losses at rtol 5e-4 / atol
+   1e-5, params, Adam m and v each within 1e-4 of its norm, and the ratio
+   test (the kernel's largest distance from the plain bf16 run, in the
+   losses and in the params, at most 0.1 x the plain bf16 run's from the
+   plain f32 run), which pins where the kernel rounds; the f32 instance on
+   the same input must fail these checks (the control); the worst case's
+   share of each limit printed, and the plain version's own spread against
+   its float64 run; two calls bitwise equal at each recipe's shape; ptxas
+   registers and spills of the bf16 instances.
+28. the bf16 training paths: run_experiment of the default and the
+   production configs with train_kernel_mxu "bfloat16", 3 epochs then
+   resumed to 4, each in its own window: row 11b / 13b once an epoch, rows
+   11-13 in f32 and rows 2-10 not at all, row 1 only in the production
+   validation; the saved config keeps the mode.
+29. bf16 whole-run times: rows 11b and 13b per epoch call against rows 11
+   and 13 in turns, their plain versions and bounds (bf16 peak); both bf16
+   recipes through Trainer.train in turns with the f32 recipes at seeds 0
+   and 1, each run's launches checked; val MSE of each (reported, not
+   gated).
 
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
 the walk-train kernel, 18 for the fused-step kernels, 22 for rows 2-6, one
-window per forced path, 25 for rows 9b-10b, every row's count read in
-each) and read just after.  The last line is the JSON
+window per forced path, 25 for rows 9b-10b, 28 for rows 11b and 13b,
+every row's count read in each) and read just after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
 """
@@ -639,6 +662,19 @@ def compare_with_plain(ours, ref, where: str,
                for n in names)
 
 
+def bitwise_twice(run, what: str) -> None:
+    """Two calls of a whole-run kernel on the same input: every output
+    bitwise equal."""
+    with torch.no_grad():
+        one, two = run(), run()
+        torch.cuda.synchronize()
+    for a, b, name in zip([*one[0], one[1]], [*two[0], two[1]],
+                          ("params", "Adam m", "Adam v", "powers", "losses")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two calls on the same input "
+                                 f"differ in {name}")
+
+
 def tolerance_share(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest entrywise |a - b| / (ATOL + RTOL |b|)."""
     a, b = a.cpu().double(), b.cpu().double()
@@ -716,15 +752,8 @@ def train_kernel_phase(dev: torch.device) -> float:
                   tolerance_share(ref[0].params, r64[0].params))
     state, data, kw = train_kernel_case(dev, 2, 32, "direct", "relu",
                                         "identity", seed=9)
-    with torch.no_grad():
-        one = tk.fused_train_run(state, data, **kw)
-        two = tk.fused_train_run(state, data, **kw)
-        torch.cuda.synchronize()
-    for a, b, what in zip([*one[0], one[1]], [*two[0], two[1]],
-                          ("params", "Adam m", "Adam v", "powers", "losses")):
-        if not torch.equal(a, b):
-            raise AssertionError(f"training kernel: two calls on the same "
-                                 f"input differ in {what}")
+    bitwise_twice(lambda: tk.fused_train_run(state, data, **kw),
+                  "training kernel")
     print(f"training kernel vs plain: {len(cases)} cases (K in (1, 2) x H in "
           f"(32, 64, 128) x direct/second_moment x relu/identity, tanh/tanh, "
           f"selu/identity at N={TRAIN_N}, batch {TRAIN_BS}, {TRAIN_G} steps; "
@@ -1110,15 +1139,8 @@ def walk_train_phase(dev: torch.device) -> float:
                       n_valid=8 * PROD_BS - PROD_BS // 3)
     kw = walk_train_kwargs(2, "direct", "euler", PROD_BS)
     state = wt.init_walk_state(model)
-    with torch.no_grad():
-        one = wt.fused_walk_train_run(state, data, **kw)
-        two = wt.fused_walk_train_run(state, data, **kw)
-        torch.cuda.synchronize()
-    for a, b, what in zip([*one[0], one[1]], [*two[0], two[1]],
-                          ("params", "Adam m", "Adam v", "powers", "losses")):
-        if not torch.equal(a, b):
-            raise AssertionError(f"walk-train: two calls on the same input "
-                                 f"differ in {what}")
+    bitwise_twice(lambda: wt.fused_walk_train_run(state, data, **kw),
+                  "walk-train")
     print(f"walk-train kernel vs plain: {n} cases (8 steps at H={PROD_H}, "
           f"N={PROD_N}, batch {PROD_BS}, M={PROD_M}; K in (1, 2) x euler/"
           f"heun/rk4 x direct/second_moment at batch 64, 3 steps; 2 steps "
@@ -2265,10 +2287,335 @@ def bf16_times_phase(dev: torch.device, card: str) -> dict:
                                     *b_bound)}
 
 
+# ------------- bf16 products of the whole-run kernels (rows 11b-12b, 13b)
+
+# rows 11b-12b and 13b against their plain versions: both round the same
+# operands to bf16 and sum products exact in f32, in other orders; where
+# that moves a downstream operand across a bf16 rounding boundary it moves
+# by one bf16 ulp (2^-8 relative) and carries on through the steps, and
+# Adam's normalised step turns a changed gradient entry near zero into a
+# parameter change of up to lr.  Each case is held three ways: per-step
+# losses entrywise at MXU_LOSS_RTOL / ATOL; params, Adam m and v each within
+# MXU_STATE_RTOL of its norm; and the ratio test of
+# tests/test_torch_mxu_bf16.py, the kernel's largest distance from the plain
+# bf16 run, in the losses and in the params, at most MXU_RATIO x the plain
+# bf16 run's largest distance from the plain f32 run.  The ratio test pins
+# where the kernel rounds: the bf16 mode moves the params about 1e-3 of
+# their norm, so a kernel that rounded elsewhere would sit near the f32
+# run.  As a control the f32 instance, on the same input, must fail them.
+# The plain version summed in f32 against its float64 run with the same
+# rounding points stays far inside these limits (printed).
+MXU_LOSS_RTOL, MXU_STATE_RTOL, MXU_RATIO = 5e-4, 1e-4, 0.1
+MXU = "bfloat16"
+
+
+def mxu_shares(ours, ref, ref32=None) -> dict:
+    """A bf16 run's (state, losses) against its plain version's: each
+    check's share of its limit (above 1 fails), with the ratio test's where
+    the plain f32 run ref32 is given."""
+    la, lb = ours[1].cpu().double(), ref[1].cpu().double()
+    if not torch.isfinite(la).all() or not all(
+            torch.isfinite(x).all() for x in ours[0]):
+        return {"finite": math.inf}
+    out = {"losses": float(((la - lb).abs() / (ATOL + MXU_LOSS_RTOL
+                                              * lb.abs())).max())}
+    for name, x, y in (("params", ours[0].params, ref[0].params),
+                       ("Adam m", ours[0].m, ref[0].m),
+                       ("Adam v", ours[0].v, ref[0].v)):
+        x, y = x.cpu().double(), y.cpu().double()
+        out[name] = float((x - y).norm() / y.norm().clamp_min(1e-30)
+                          / MXU_STATE_RTOL)
+    if ref32 is not None:
+        for name, a, b, c in (("ratio losses", la, lb, ref32[1]),
+                              ("ratio params", ours[0].params,
+                               ref[0].params, ref32[0].params)):
+            a, b, c = (x.cpu().double() for x in (a, b, c))
+            gap = float((b - c).abs().max())     # 0: the mode is not real
+            out[name] = (float((a - b).abs().max()) / (MXU_RATIO * gap)
+                         if gap > 0 else math.inf)
+    return out
+
+
+def mxu_bf16_check(run, run_plain, state, data, kw, where: str) -> tuple:
+    """One case: the bf16 kernel against the plain bf16 and f32 runs
+    (limits, ratio test), then the f32 instance as the control that must
+    fail them.  Returns (largest abs err, the shares, the control's largest
+    share)."""
+    f32 = {**kw, "mxu_dtype": "float32"}
+    with torch.no_grad():
+        ours = run(state, data, **kw)
+        ctrl = run(state, data, **f32)
+        torch.cuda.synchronize()
+    ref, ref32 = run_plain(state, data, **kw), run_plain(state, data, **f32)
+    shares = mxu_shares(ours, ref, ref32)
+    bad = {k: v for k, v in shares.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"bf16 {where}: beyond the limits (share of "
+                             f"each): {bad}")
+    ctrl_worst = max(mxu_shares(ctrl, ref, ref32).values())
+    if ctrl_worst <= 1.0:
+        raise AssertionError(f"bf16 {where}: the f32 instance passes the "
+                             f"bf16 checks too (largest share "
+                             f"{ctrl_worst:.3f}); they cannot tell the modes "
+                             f"apart")
+    err = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in
+              ((ours[1], ref[1]), *zip(ours[0][:3], ref[0][:3])))
+    return err, shares, ctrl_worst
+
+
+def mxu_f64_shares(run_plain, state, data, kw) -> dict:
+    """The plain version's own spread: its f32 run against its float64 run
+    (same rounding points), as shares of the bf16 limits."""
+    with torch.no_grad():
+        f32 = run_plain(state, data, **kw)
+        f64 = run_plain(type(state)(*(x.double() for x in state)),
+                        data.double(), **kw)
+    return mxu_shares(f32, f64)
+
+
+def bf16_instances(name: str) -> str:
+    """ptxas's line of each bf16 instance (the last template flag set)."""
+    return "; ".join(e for e in ptxas_instances(name).split("; ")
+                     if e.split(">")[0].endswith(", 1")) or "no ptxas output"
+
+
+def mxu_bf16_kernel_phase(dev: torch.device) -> tuple[float, float]:
+    """Phase 27: rows 11b-12b and 13b against their plain versions on the
+    card, on a subset of phases 8 and 13's cases with both recipes' own
+    shapes and a trajectory-masked last minibatch, at the bf16 limits and
+    the ratio test (the worst share of each printed), with the f32
+    instance failing them as the control; two calls bitwise equal at each
+    recipe's shape.  Returns each row's largest abs err."""
+    relu = dict(act="relu", scale="identity")
+    run_cases = [dict(K=2, H=32, method="direct", **relu),
+                 dict(K=1, H=64, method="second_moment", act="tanh",
+                      scale="tanh"),
+                 dict(K=2, H=128, method="direct", act="selu",
+                      scale="identity"),
+                 dict(K=2, H=50, method="second_moment", **relu),
+                 dict(K=2, H=32, method="direct", bs=13, **relu),
+                 dict(K=2, H=32, method="direct", bs=1024, **relu),
+                 dict(K=2, H=128, method="direct", obs_fraction=0.25, G=2,
+                      **relu)]
+    worst = {"11b": [0.0, {}, math.inf], "13b": [0.0, {}, math.inf]}
+
+    def fold(row, err, shares, ctrl):
+        w = worst[row]
+        w[0] = max(w[0], err)
+        for k, v in shares.items():
+            w[1][k] = max(w[1].get(k, 0.0), v)
+        w[2] = min(w[2], ctrl)
+    plans = {}
+    for i, c in enumerate(run_cases):
+        state, data, kw = train_kernel_case(dev, **c)
+        kw["mxu_dtype"] = MXU
+        plan = tk.launch_plan(c["H"], kw["n_slots"], kw["batch_size"],
+                              c["scale"], c["K"])
+        plans[(c["H"], kw["n_slots"], kw["batch_size"])] = tuple(plan)
+        fold("11b", *mxu_bf16_check(tk.fused_train_run,
+                                    tk.fused_train_run_reference, state,
+                                    data, kw, f"at {c} (plan {plan})"))
+        if i == 0:              # the default recipe's shape
+            spread11 = mxu_f64_shares(tk.fused_train_run_reference, state,
+                                      data, kw)
+            bitwise_twice(lambda: tk.fused_train_run(state, data, **kw),
+                          "rows 11b-12b")
+    walk_cases = [(2, "direct", "euler", PROD_BS, 8, PROD_H, relu),
+                  (1, "second_moment", "heun", 64, 3, PROD_H, relu),
+                  (2, "direct", "rk4", 64, 3, PROD_H, relu),
+                  (2, "second_moment", "euler", 64, 3, PROD_H,
+                   dict(act="tanh", scale="tanh")),
+                  (2, "direct", "rk4", WIDE_BS, 2, WIDE_H, relu)]
+    for i, (K, method, solver, bs, G, hidden, act) in enumerate(walk_cases):
+        model = walk_model(dev, K, solver, seed=K + G, hidden=hidden)
+        data = train_data(dev, G * bs, bs, 61 + i, n_valid=G * bs - bs // 3)
+        kw = walk_train_kwargs(K, method, solver, bs, hidden)
+        kw.update(activation=act["act"], input_scaling=act["scale"],
+                  mxu_dtype=MXU)
+        state = wt.init_walk_state(model)
+        where = (f"walk-train K={K} {method} {solver} {act['act']} "
+                 f"H={hidden} batch {bs}")
+        fold("13b", *mxu_bf16_check(wt.fused_walk_train_run,
+                                    wt.fused_walk_train_run_reference, state,
+                                    data, kw, where))
+        if i == 0:              # the production recipe's shape
+            spread13 = mxu_f64_shares(wt.fused_walk_train_run_reference,
+                                      state, data, kw)
+            bitwise_twice(lambda: wt.fused_walk_train_run(state, data, **kw),
+                          "row 13b")
+
+    def fmt(d):
+        return ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+    print(f"bf16 whole-run kernels vs plain: rows 11b-12b over "
+          f"{len(run_cases)} cases (K 1/2, H 32/50/64/128, relu/tanh/selu, "
+          f"direct/second_moment, batch 128/13/1,024, H 128 at N 25; plans "
+          f"{plans}), row 13b over {len(walk_cases)} (8 steps at the "
+          f"production shape; heun, rk4, tanh/tanh at batch 64; H {WIDE_H} "
+          f"batch {WIDE_BS} rk4 chunked); last minibatch a third masked: "
+          f"losses at rtol {MXU_LOSS_RTOL} / atol {ATOL}, params, m, v each "
+          f"within {MXU_STATE_RTOL} of its norm, ratio test at {MXU_RATIO}; "
+          f"worst shares of those limits: 11b {fmt(worst['11b'][1])}; 13b "
+          f"{fmt(worst['13b'][1])}; max abs err 11b {worst['11b'][0]:.3e}, "
+          f"13b {worst['13b'][0]:.3e}; the control (the f32 instance on the "
+          f"same input) fails every case, its largest share at least "
+          f"11b {worst['11b'][2]:.3f}, 13b {worst['13b'][2]:.3f}; the plain "
+          f"versions' own f32-vs-float64 shares at the recipes' shapes: 11b "
+          f"{fmt(spread11)}; 13b {fmt(spread13)}; two calls bitwise equal at "
+          f"both", flush=True)
+    print(f"ptxas, bf16 instances: train_run.cu <columns a lane, all in "
+          f"shared memory, bf16> {bf16_instances('train_run')}; "
+          f"walk_train.cu <columns a lane, stages, relu/identity compiled "
+          f"in, bf16> {bf16_instances('walk_train')}", flush=True)
+    return worst["11b"][0], worst["13b"][0]
+
+
+def mxu_bf16_path_phase(dev: torch.device, tmp: Path) -> dict:
+    """Phase 28: run_experiment of the default and the production configs
+    with train_kernel_mxu "bfloat16" (build_config of their CLI flags plus
+    --train-kernel-mxu bfloat16), 3 epochs then resumed to 4, each in its
+    own window: rows 11b / 13b once an epoch, rows 11-13 in f32 and rows
+    2-10 not at all, row 1 only in the production validation.  Returns the
+    windows' counts by row."""
+    got = {}
+    for row, cfg_of, extra in (("11b", default_config, {}),
+                               ("13b", production_config, {1: None})):
+        reset_counts()
+        res = run_experiment(dict(cfg_of(3, f"mxu_{row}"),
+                                  train_kernel_mxu=MXU), save_dir=str(tmp))
+        torch.cuda.synchronize()
+        expect_counts(f"the bf16 {row} recipe, 3 epochs", {row: 3, **extra})
+        hist = res["history"]["train_loss"]
+        if len(hist) != 3 or not all(math.isfinite(x) for x in
+                                     hist + res["history"]["val_loss"]):
+            raise AssertionError(f"bf16 {row} losses {res['history']}")
+        res4 = run_experiment(dict(cfg_of(4, f"mxu_{row}"),
+                                   train_kernel_mxu=MXU), save_dir=str(tmp))
+        torch.cuda.synchronize()
+        got[row] = expect_counts(f"the bf16 {row} recipe resumed to 4",
+                                 {row: 4, **extra})
+        hist4 = res4["history"]["train_loss"]
+        if len(hist4) != 4 or hist4[:3] != hist:
+            raise AssertionError(f"the resume gave {hist4} after {hist}")
+        saved = json.loads((tmp / f"mxu_{row}" / "config.json").read_text())
+        if saved.get("train_kernel_mxu") != MXU:
+            raise AssertionError(f"saved config {saved}")
+        recipe = "default" if row == "11b" else "production"
+        print(f"bf16 training path ({recipe} config, train_kernel_mxu "
+              f"bfloat16): run_experiment 3 epochs, "
+              f"train loss {hist[0]:.4f} -> {hist[-1]:.4f}, val "
+              f"{res['history']['val_loss'][-1]:.4f}; resumed to 4 (loss "
+              f"{hist4[-1]:.4f}); launches in the window by row {got[row]}",
+              flush=True)
+    return got
+
+
+def mxu_bf16_times_phase(dev: torch.device, card: str) -> dict:
+    """Phase 29: rows 11b and 13b per epoch call against rows 11 and 13 in
+    turns (f32, bf16, bf16, f32), their plain versions and bounds at the
+    bf16 peak; both bf16 recipes through Trainer.train in turns with the
+    f32 recipes (f32 at seed 0, bf16 at 0, bf16 at 1, f32 at 1), each run's
+    launches checked, and val MSE of each (reported, not gated).  Returns
+    each bf16 kernel's (ms, plain ms, bound ms, bound_by)."""
+    out, lines = {}, []
+    # rows 11 / 11b: an epoch call of the default recipe (8 steps of 128)
+    model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    d_data = train_data(dev, 1024, TRAIN_BS, 3, n_valid=1000)
+    d_state, d_kw = tk.init_train_state(model), train_kwargs(2)
+    H, K, S = 32, 2, TRAIN_N - 1
+    fwd = K * 2 * (TRAIN_N * (H + H * H) + (2 * TRAIN_N - 1) * (H * H + H)
+                   + S * ((H + 3) * H + H * H))
+    P = tk.n_params_per_net(H)
+    d_bound = bound_of(3 * fwd * 1000, 4 * (d_data.numel() + 6 * K * P + 4
+                                            + 8), PEAK_BF16_FLOPS)
+    # rows 13 / 13b: an epoch call of the production recipe (40 of 256)
+    n_rows = -(-PROD_TRAIN // PROD_BS) * PROD_BS
+    p_data = train_data(dev, n_rows, PROD_BS, 51, n_valid=PROD_TRAIN)
+    p_state = wt.init_walk_state(walk_model(dev, seed=0))
+    p_kw = walk_train_kwargs(2, "direct", "euler", PROD_BS)
+    pf = 2 * (PROD_N * (PROD_H + PROD_H ** 2)
+              + (2 * PROD_N - 1) * (PROD_H ** 2 + 2 * PROD_H)
+              + PROD_M * ((PROD_H + 3) * PROD_H + PROD_H ** 2))
+    WP = wt.n_params(PROD_H, 2)
+    p_bound = bound_of(3 * pf * PROD_TRAIN,
+                       4 * (p_data.numel() + 6 * WP + 4 + n_rows // PROD_BS),
+                       PEAK_BF16_FLOPS)
+    for row, kernel, plain, state, data, kw, bound in (
+            ("11b", tk.fused_train_run, tk.fused_train_run_reference,
+             d_state, d_data, d_kw, d_bound),
+            ("13b", wt.fused_walk_train_run,
+             wt.fused_walk_train_run_reference, p_state, p_data, p_kw,
+             p_bound)):
+        t = {"float32": [], MXU: []}
+        with torch.no_grad():
+            for mode in ("float32", MXU, MXU, "float32"):
+                t[mode].append(time_ms(lambda: kernel(
+                    state, data, **{**kw, "mxu_dtype": mode}), warmup=2,
+                    reps=10))
+            p_ms = time_ms(lambda: plain(state, data, **{**kw,
+                                                         "mxu_dtype": MXU}),
+                           warmup=1, reps=2 if row == "11b" else 1)
+        ms = statistics.median(t[MXU])
+        out[row] = (ms, p_ms, *bound)
+        lines.append(
+            f"row {row} {', '.join(f'{x:.4f}' for x in t[MXU])} ms against "
+            f"row {row[:-1]} {', '.join(f'{x:.4f}' for x in t['float32'])} "
+            f"ms (in turns f32, bf16, bf16, f32); plain {p_ms:.3f} ms; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}, bf16 peak)")
+    print(f"bf16 whole-run kernels on {card}, an epoch call (11b: 8 steps of "
+          f"128, H 32, K 2; 13b: 40 steps of 256, H {PROD_H}, M {PROD_M}): "
+          + "; ".join(lines), flush=True)
+
+    # the recipes through Trainer.train, f32 and bf16 in turns over seeds
+    recipes = {
+        "default": dict(cfg=default_config(TRAIN_EPOCHS, "timed"),
+                        row=11, H=32, shared=False, dt=None, bs=TRAIN_BS,
+                        mw=(1.0, 10.0), extra={}),
+        "production": dict(cfg=production_config(PROD_EPOCHS, "timed"),
+                           row=13, H=PROD_H, shared=True, dt=PROD_DT,
+                           bs=PROD_BS, mw=PROD_MW, extra={1: None})}
+    rec_lines = []
+    for name, r in recipes.items():
+        E = r["cfg"]["n_epochs"]
+        n = r["cfg"]["data"]["n_train"]
+        secs, mse = {"float32": [], MXU: []}, {}
+        for mode, seed in (("float32", 0), (MXU, 0), (MXU, 1),
+                           ("float32", 1)):
+            m = NeuralJumpODE(1, r["H"], 1, num_moments=2,
+                              shared_network=r["shared"],
+                              dt_ode_step=r["dt"], t_max=1.0,
+                              grid_walk=r["dt"] is not None, device=dev,
+                              generator=torch.Generator().manual_seed(seed))
+            tr = Trainer(m, make_adam(m.parameters(), 1e-3, 5e-4),
+                         ignore_first_continuity=True,
+                         moment_weights=list(r["mw"]), use_train_kernel=True,
+                         train_kernel_opts={"mxu_dtype": mode})
+            loaders = create_data_loaders(base_seed=1 + seed, device=dev,
+                                          **r["cfg"]["data"])
+            reset_counts()
+            secs[mode].append(timed_epochs(tr, *loaders, r["cfg"], E,
+                                           r["bs"]))
+            row = f"{r['row']}b" if mode == MXU else r["row"]
+            expect_counts(f"the {name} recipe, {mode}", {row: E,
+                                                        **r["extra"]})
+            mse[mode, seed] = val_metrics(m, dev, r["mw"])
+        rec_lines.append(
+            f"{name} ({E} epochs x {n:,} fresh trajectories): bf16 "
+            f"{', '.join(f'{x:.3f}' for x in secs[MXU])} s, f32 "
+            f"{', '.join(f'{x:.3f}' for x in secs['float32'])} s (in turns "
+            f"f32 seed 0, bf16 seed 0, bf16 seed 1, f32 seed 1); val MSE "
+            f"mean / var: " + ", ".join(
+                f"{'bf16' if k == MXU else 'f32'} seed {sd} {v[0]:.3e} / "
+                f"{v[1]:.3e}" for (k, sd), v in sorted(mse.items())))
+    print(f"bf16 recipes on {card} through Trainer.train with the whole-run "
+          f"kernels: " + "; ".join(rec_lines), flush=True)
+    return out
+
+
 def kernel_counts() -> dict:
     """Every kernel's launch count, by its row in the TPU kernel table
-    (row 12 is row 11's kernel; 9b and 10b the bf16 instances of rows 9
-    and 10)."""
+    (row 12 is row 11's kernel; 9b, 10b, 11b and 13b the bf16 instances of
+    rows 9, 10, 11-12 and 13)."""
     return {1: gap_scan.LAUNCHES, 2: gap_scan.LAUNCHES_RES_FWD["full"],
             3: gap_scan.LAUNCHES_RES_FWD["checkpointed"],
             4: gap_scan.LAUNCHES_BWD["full"],
@@ -2276,11 +2623,13 @@ def kernel_counts() -> dict:
             7: walk_scan.LAUNCHES_FWD, 8: walk_scan.LAUNCHES_BWD,
             9: fs.LAUNCHES_FWD, 10: fs.LAUNCHES_BWD,
             "9b": fs.LAUNCHES_FWD_BF16, "10b": fs.LAUNCHES_BWD_BF16,
-            11: tk.LAUNCHES, 13: wt.LAUNCHES}
+            11: tk.LAUNCHES, 13: wt.LAUNCHES, "11b": tk.LAUNCHES_BF16,
+            "13b": wt.LAUNCHES_BF16}
 
 
 def reset_counts() -> None:
     gap_scan.LAUNCHES = fused_cell.LAUNCHES = tk.LAUNCHES = wt.LAUNCHES = 0
+    tk.LAUNCHES_BF16 = wt.LAUNCHES_BF16 = 0
     walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = 0
     fs.LAUNCHES_FWD = fs.LAUNCHES_BWD = 0
     fs.LAUNCHES_FWD_BF16 = fs.LAUNCHES_BWD_BF16 = 0
@@ -2628,7 +2977,7 @@ def main() -> None:
 
     print(f"build: train_run.cu in {build_s:.2f} s (with the other sources, "
           f"in parallel); ptxas by instance <columns a lane, all in shared "
-          f"memory> (default recipe: <1, 1>): "
+          f"memory, bf16> (default recipe: <1, 1, 0>): "
           f"{ptxas_instances('train_run')}", flush=True)
     t_err = train_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2643,8 +2992,9 @@ def main() -> None:
     for name in ("walk_scan", "walk_train"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
-    print(f"ptxas: walk_train.cu by instance <columns a lane, stages> "
-          f"(production: <2, 1>): {ptxas_instances('walk_train')}", flush=True)
+    print(f"ptxas: walk_train.cu by instance <columns a lane, stages, "
+          f"relu/identity compiled in, bf16> (production: <2, 1, 1, 0>): "
+          f"{ptxas_instances('walk_train')}", flush=True)
     wf_err, wb_err = walk_kernel_phase(dev)
     wt_err = walk_train_phase(dev)
     t = phase_time("walk kernels vs plain", t)
@@ -2718,6 +3068,14 @@ def main() -> None:
     times.update(bf16_times_phase(dev, card))
     t = phase_time("bf16 times", t)
 
+    mxu_errs = mxu_bf16_kernel_phase(dev)
+    t = phase_time("bf16 whole-run kernels vs plain", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        mxu_launches = mxu_bf16_path_phase(dev, Path(tmp))
+    t = phase_time("bf16 whole-run training paths", t)
+    times.update(mxu_bf16_times_phase(dev, card))
+    t = phase_time("bf16 whole-run times", t)
+
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
         ms, plain, bound, by = tm
@@ -2773,7 +3131,16 @@ def main() -> None:
               bf16_launches["9b"], bf_f_err, times["fused_step_fwd_bf16"]),
         entry("fused_step_bwd_bf16", STEP_SOURCE,
               "njode_tpu/ops/fused_step.py:316", bf16_scaled,
-              bf16_launches["10b"], bf_b_err, times["fused_step_bwd_bf16"])]}),
+              bf16_launches["10b"], bf_b_err, times["fused_step_bwd_bf16"]),
+        entry("train_run_bf16", TRAIN_SOURCE, TRAIN_REPLACES,
+              "bf16 default training (run_experiment, train_kernel_mxu "
+              "bfloat16)", mxu_launches["11b"]["11b"], mxu_errs[0],
+              times["11b"]),
+        entry("walk_train_bf16", WALK_TRAIN_SOURCE,
+              "njode_tpu/ops/walk_train.py:178",
+              "bf16 production training (run_experiment, train_kernel_mxu "
+              "bfloat16)", mxu_launches["13b"]["13b"], mxu_errs[1],
+              times["13b"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

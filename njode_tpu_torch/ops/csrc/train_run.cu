@@ -74,7 +74,21 @@
 // Where even one trajectory's two slots do not fit in shared memory (the
 // largest H and N the gate admits), the slots live in device memory.
 // Instances: CPT in {1, 2, 4} x {everything in shared memory, generic
-// pointers}.
+// pointers} x {f32, bf16 products}.
+//
+// The bf16 instances (BF; rows 11b-12b: the TPU kernels' mxu="bfloat16",
+// train_kernel.py:255-270 and :515-528) round both operands of each of the
+// 12 plane products to bf16 and sum in f32, which is the TPU kernel's
+// dot(bf16, bf16, preferred_element_type=f32): the product of two bf16
+// values is exact in f32, so only the order of the f32 sums differs.  Each
+// operand is rounded once, where it is formed or read, never in place of a
+// value also read in f32: the weight planes when phase B writes them into
+// the padded copy (params, the f32 master Adam updates, stays f32; the
+// vectors stay f32); an activation or cotangent row where warp_mm loads it
+// (hj feeds the readout and, scaled, W1h's product rounded, but hm and
+// s'(hj) in f32); both factors of the four outer products where
+// reduce_chunk loads them.  BASE, every bias, the o2 readout, every column
+// sum of the gradient and Adam stay f32.
 
 // Layout (all f32, contiguous; njode_tpu_torch/ops/train_kernel.py writes
 // it down): data (G*BS, 2N+1) rows [x_0..x_{N-1}, t_0..t_{N-1}, valid];
@@ -123,6 +137,7 @@ struct Dims {
   int K, H, N, BS, G, act, scale, second_moment;
   // the launch plan (launch_plan in ops/train_kernel.py)
   int blocks, slots, wpt, warps, staged, slots_global;
+  int bf16;  // the products' operands rounded to bf16
 };
 
 struct Hyper {
@@ -222,7 +237,8 @@ struct Rows {
 // w[i*ld+j] or, TRANS, w[j*ld+i]; lane owns columns lane + 32 c.  Four rows
 // share each weight load, and in's rows are read as float4 (H % 4 == 0, rows
 // and w's rows 16-byte aligned); i runs in order, as the plain version sums.
-template <int CPT, bool TRANS>
+// BF rounds in's entries as they are loaded (w is rounded where staged).
+template <int CPT, bool TRANS, bool BF>
 __device__ void warp_mm(const float* in, const Rows& rows, const float* w, int ld, int H,
                         float* out, int lane) {
   constexpr int RB = CPT <= 2 ? 4 : 2;  // rows a block: 2 at CPT 4 (registers)
@@ -241,7 +257,12 @@ __device__ void warp_mm(const float* in, const Rows& rows, const float* w, int l
     for (int i4 = 0; i4 < H / 4; ++i4) {
       float4 xv[RB];
 #pragma unroll
-      for (int q = 0; q < RB; ++q) xv[q] = xr[q][i4];
+      for (int q = 0; q < RB; ++q) {
+        xv[q] = xr[q][i4];
+        if constexpr (BF)
+          xv[q] = make_float4(operand<BF>(xv[q].x), operand<BF>(xv[q].y),
+                              operand<BF>(xv[q].z), operand<BF>(xv[q].w));
+      }
       float wv[4][CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
@@ -296,7 +317,7 @@ __device__ __forceinline__ void vec_regs(const float* v, int vi, int H, int lane
 // Forward of one network over the slots [s0, s1) of the trajectory in `s`
 // (x, t of those slots, dt, scx of their gaps loaded): the model is
 // slot-local, so a chain warp needs no other warp's rows.
-template <int CPT>
+template <int CPT, bool BF>
 __device__ void forward(const Slot& s, const Net& net, const Dims& d, int lane, int s0,
                         int s1) {
   const int H = d.H, N = d.N, S = N - 1;
@@ -319,7 +340,7 @@ __device__ void forward(const Slot& s, const Net& net, const Dims& d, int lane, 
       }
     }
   __syncwarp();
-  warp_mm<CPT, false>(s.a1, slots, net.mat[kJ2], net.ld, H, s.hjp, lane);
+  warp_mm<CPT, false, BF>(s.a1, slots, net.mat[kJ2], net.ld, H, s.hjp, lane);
   vec_regs<CPT>(v, kBJ2, H, lane, va);
   for (int r = s0; r < s1; ++r)
 #pragma unroll
@@ -335,7 +356,7 @@ __device__ void forward(const Slot& s, const Net& net, const Dims& d, int lane, 
     }
   __syncwarp();
   // one Euler step per gap: g1 = act(s(hj) W1h + base), hm = hj + dt (g1 W2 + b2)
-  warp_mm<CPT, false>(s.schj, gaps, net.mat[kW1h], net.ld, H, s.g1p, lane);
+  warp_mm<CPT, false, BF>(s.schj, gaps, net.mat[kW1h], net.ld, H, s.g1p, lane);
   vec_regs<CPT>(v, kW1X, H, lane, va);
   vec_regs<CPT>(v, kW1T, H, lane, vb);
   vec_regs<CPT>(v, kW1D, H, lane, vc);
@@ -352,7 +373,7 @@ __device__ void forward(const Slot& s, const Net& net, const Dims& d, int lane, 
       }
     }
   __syncwarp();
-  warp_mm<CPT, false>(s.g1, gaps, net.mat[kW2], net.ld, H, s.in + (size_t)N * H, lane);
+  warp_mm<CPT, false, BF>(s.g1, gaps, net.mat[kW2], net.ld, H, s.in + (size_t)N * H, lane);
   vec_regs<CPT>(v, kB2, H, lane, va);
   for (int g = s0; g < g1; ++g)
 #pragma unroll
@@ -365,7 +386,7 @@ __device__ void forward(const Slot& s, const Net& net, const Dims& d, int lane, 
     }
   __syncwarp();
   // readout of the after-jump states and the before-jump states of the gaps
-  warp_mm<CPT, false>(s.in, reads, net.mat[kO1], net.ld, H, s.up, lane);
+  warp_mm<CPT, false, BF>(s.in, reads, net.mat[kO1], net.ld, H, s.up, lane);
   const float bo2 = v[kNumVec * H];
   vec_regs<CPT>(v, kBO1, H, lane, va);
   vec_regs<CPT>(v, kO2, H, lane, vb);
@@ -448,7 +469,7 @@ __device__ __noinline__ void cotangents_call(const Slot& s, const float* y0, int
 // the partial vectors); leaves the operands of the parameter gradient in
 // the slot (in/dup, g1/ddh, schj/dg1p, a1/dhjp, and the warp's do2v, dj1v,
 // dbj1v rows).
-template <int CPT>
+template <int CPT, bool BF>
 __device__ void backward(const Slot& s, const Net& net, const Dims& d, int lane, int s0,
                          int s1, int wg) {
   const int H = d.H, N = d.N, S = N - 1;
@@ -478,7 +499,7 @@ __device__ void backward(const Slot& s, const Net& net, const Dims& d, int lane,
   }
   __syncwarp();
   // d(in) = dup O1^T, into up (rows < N: d hj, rows >= N: d hm)
-  warp_mm<CPT, true>(s.dup, reads, net.mat[kO1], net.ld, H, s.up, lane);
+  warp_mm<CPT, true, BF>(s.dup, reads, net.mat[kO1], net.ld, H, s.up, lane);
   for (int g = s0; g < g1; ++g)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -486,7 +507,7 @@ __device__ void backward(const Slot& s, const Net& net, const Dims& d, int lane,
       if (j < H) s.ddh[g * H + j] = s.dt[g] * s.up[(N + g) * H + j];
     }
   __syncwarp();
-  warp_mm<CPT, true>(s.ddh, gaps, net.mat[kW2], net.ld, H, s.dg1p, lane);
+  warp_mm<CPT, true, BF>(s.ddh, gaps, net.mat[kW2], net.ld, H, s.dg1p, lane);
   for (int g = s0; g < g1; ++g)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -495,7 +516,7 @@ __device__ void backward(const Slot& s, const Net& net, const Dims& d, int lane,
     }
   __syncwarp();
   // d hj = d in[:N] + [d hm + (dg1p W1h^T) s'(hj), 0]; the product goes to g1p
-  warp_mm<CPT, true>(s.dg1p, gaps, net.mat[kW1h], net.ld, H, s.g1p, lane);
+  warp_mm<CPT, true, BF>(s.dg1p, gaps, net.mat[kW1h], net.ld, H, s.g1p, lane);
   for (int r = s0; r < s1; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -511,7 +532,7 @@ __device__ void backward(const Slot& s, const Net& net, const Dims& d, int lane,
   __syncwarp();
   // d a1_pre = (dhjp J2^T) act'(a1_pre), into up's after-jump rows (dead by
   // now), summed over the rows into the j1 and bj1 gradients
-  warp_mm<CPT, true>(s.dhjp, slots, net.mat[kJ2], net.ld, H, s.up, lane);
+  warp_mm<CPT, true, BF>(s.dhjp, slots, net.mat[kJ2], net.ld, H, s.up, lane);
   float dj1[CPT], dbj1[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) dj1[c] = dbj1[c] = 0.0f;
@@ -560,8 +581,10 @@ __device__ __forceinline__ Offsets slot_offsets(float* base, int H, int N, int s
 // do2v, dj1v, dbj1v over each chain warp's rows as one row each).  Items are owned by
 // warps, item % nw == warp, and their columns by lanes; each sum runs over
 // the chunk's trajectories in order and over their slots in order, so
-// every entry has one owner and one summation order, in every chunk.
-template <int CPT>
+// every entry has one owner and one summation order, in every chunk.  BF
+// rounds both factors of the four matrices' sums (the outer products), not
+// the vectors' (column sums).
+template <int CPT, bool BF>
 __device__ void reduce_chunk(float* slots, int slot_f, int nc, bool first,
                              const Dims& d, float* part, int warp, int nw, int lane) {
   const int H = d.H, N = d.N, S = N - 1, R = 2 * N - 1, HH = H * H, K = d.K;
@@ -593,10 +616,10 @@ __device__ void reduce_chunk(float* slots, int slot_f, int nc, bool first,
       auto add = [&](int m, const float* a, const float* b) {
         float av[RQ];
 #pragma unroll
-        for (int q = 0; q < RQ; ++q) av[q] = a[i0 + q];
+        for (int q = 0; q < RQ; ++q) av[q] = operand<BF>(a[i0 + q]);
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
-          const float bv = col(b, c);
+          const float bv = operand<BF>(col(b, c));
 #pragma unroll
           for (int q = 0; q < RQ; ++q) acc[m][q][c] = fmaf(av[q], bv, acc[m][q][c]);
         }
@@ -694,8 +717,9 @@ __device__ __forceinline__ int padded_index(int e, int H) {
 
 // SMEM: the weights staged and the slots in shared memory (the plan's
 // staged and not slots_global), so every slot and weight access is a
-// shared-memory one; else the pointers are generic.
-template <int CPT, bool SMEM>
+// shared-memory one; else the pointers are generic.  BF: the bf16
+// products (the header).
+template <int CPT, bool SMEM, bool BF>
 __global__ void __launch_bounds__(kWarp * kMaxWarps, 1)
 train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
                  float* adam_v, float* stat, float* losses, float* scratch,
@@ -744,14 +768,15 @@ train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
   const int gw = blk * nw + warp, n_gw = nblk * nw;
   float c1 = stat[0], c2 = stat[1];
 
-  // the padded copy from params, its row padding zero
+  // the padded copy from params, its row padding zero, the matrices as
+  // the products read them
   for (long long f = (long long)blk * n_thr + tid; f < (long long)K * SF;
        f += (long long)nblk * n_thr) {
     const int k = (int)(f / SF), r = (int)(f - (long long)k * SF);
     float val = 0.0f;
     if (r < 4 * H * ld) {
       const int m = r / (H * ld), rem = r - m * H * ld, i = rem / ld, j = rem - i * ld;
-      if (j < H) val = params[(size_t)k * P + m * HH + i * H + j];
+      if (j < H) val = operand<BF>(params[(size_t)k * P + m * HH + i * H + j]);
     } else if (r - 4 * H * ld < kNumVec * H + 1) {
       val = params[(size_t)k * P + 4 * HH + (r - 4 * H * ld)];
     }
@@ -795,7 +820,7 @@ train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
           sl.scx[g] = scale_in(row[g], d.scale);
         }
         __syncwarp();
-        forward<CPT>(sl, net, d, lane, s0, s1);
+        forward<CPT, BF>(sl, net, d, lane, s0, s1);
       }
       __syncthreads();  // net 0's predictions to net 1's cotangents
       // cotangents (the group's first warp) and backward
@@ -811,11 +836,11 @@ train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
             cotangents_call(sl, y0, mode, row[2 * N], nv, d, hp, lt_b, lane);
         }
         if (WPT > 1) group_sync(1 + gi, kWarp * WPT);
-        backward<CPT>(sl, net, d, lane, s0, s1, wg);
+        backward<CPT, BF>(sl, net, d, lane, s0, s1, wg);
       }
       __syncthreads();
       // the chunk's sums into the block's partial
-      reduce_chunk<CPT>(slots, slot_f, nc, c0 == lo, d, part, warp, nw, lane);
+      reduce_chunk<CPT, BF>(slots, slot_f, nc, c0 == lo, d, part, warp, nw, lane);
       if (c0 + d.slots < hi) __syncthreads();  // the slots are reused
     }
     grid.sync();
@@ -858,8 +883,8 @@ train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
         params[e] = pn;
         adam_m[e] = m;
         adam_v[e] = v;
-        const int k = e / P;
-        wpad[(size_t)k * SF + padded_index(e - k * P, H)] = pn;
+        const int k = e / P, ek = e - k * P;
+        wpad[(size_t)k * SF + padded_index(ek, H)] = ek < 4 * HH ? operand<BF>(pn) : pn;
       }
     }
     grid.sync();
@@ -870,11 +895,11 @@ train_run_kernel(const float* __restrict__ data, float* params, float* adam_m,
   }
 }
 
-template <int CPT, bool SMEM>
+template <int CPT, bool SMEM, bool BF>
 cudaError_t launch(const float* data, float* params, float* m, float* v,
                    float* stat, float* losses, float* scratch, const Dims& d,
                    const Hyper& hp, size_t smem, cudaStream_t stream) {
-  auto kernel = train_run_kernel<CPT, SMEM>;
+  auto kernel = train_run_kernel<CPT, SMEM, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -900,14 +925,14 @@ cudaError_t launch(const float* data, float* params, float* m, float* v,
 }
 
 Dims dims_of(const int* dims) {
-  return Dims{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5],  dims[6],
-              dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
+  return Dims{dims[0], dims[1],  dims[2],  dims[3],  dims[4],  dims[5],  dims[6],  dims[7],
+              dims[8], dims[9], dims[10], dims[11], dims[12], dims[13], dims[14]};
 }
 
 }  // namespace
 
 // dims = [K, H, N, BS, G, act, scale, second_moment, blocks, slots, wpt,
-// warps, staged, slots_global]; hyper = [lr, wd, b1, b2, 1-b1, 1-b2, adam_eps, eps,
+// warps, staged, slots_global, bf16]; hyper = [lr, wd, b1, b2, 1-b1, 1-b2, adam_eps, eps,
 // w0, w1, 1/N, w0/N, w1/N] (host arrays).  The launch plan (blocks, the
 // trajectories a block holds in flight, warps a chain, warps a block,
 // whether the weights are staged in shared memory and whether the slots
@@ -930,7 +955,8 @@ extern "C" int njode_train_run(const void* data, void* params, void* m,
       d.slots < 1 || (d.wpt != 1 && d.wpt != 2 && d.wpt != 4) ||
       d.warps < d.slots * d.K * d.wpt || d.warps > kMaxWarps || d.staged < 0 ||
       d.staged > 1 || d.slots_global < 0 || d.slots_global > 1 ||
-      (d.staged && d.slots_global) || scratch_n < scratch_floats(d))
+      (d.staged && d.slots_global) || d.bf16 < 0 || d.bf16 > 1 ||
+      scratch_n < scratch_floats(d))
     return (int)cudaErrorInvalidValue;
   if (d.G == 0) return 0;
   int dev = 0, max_smem = 0;
@@ -949,16 +975,20 @@ extern "C" int njode_train_run(const void* data, void* params, void* m,
   float* f_loss = static_cast<float*>(losses);
   float* f_scr = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NJODE_TR(C)                                                                    \
-  err = sm ? launch<C, true>(f_data, f_p, f_m, f_v, f_stat, f_loss, f_scr, d, hp, smem, s) \
-           : launch<C, false>(f_data, f_p, f_m, f_v, f_stat, f_loss, f_scr, d, hp, smem, s)
+#define NJODE_TR(C, BF)                                                                    \
+  err = sm ? launch<C, true, BF>(f_data, f_p, f_m, f_v, f_stat, f_loss, f_scr, d, hp, smem, s) \
+           : launch<C, false, BF>(f_data, f_p, f_m, f_v, f_stat, f_loss, f_scr, d, hp, smem, s)
   const bool sm = d.staged && !d.slots_global;
-  if (d.H <= 32)
-    NJODE_TR(1);
-  else if (d.H <= 64)
-    NJODE_TR(2);
-  else
-    NJODE_TR(4);
+  if (d.H <= 32) {
+    if (d.bf16) NJODE_TR(1, true);
+    else NJODE_TR(1, false);
+  } else if (d.H <= 64) {
+    if (d.bf16) NJODE_TR(2, true);
+    else NJODE_TR(2, false);
+  } else {
+    if (d.bf16) NJODE_TR(4, true);
+    else NJODE_TR(4, false);
+  }
 #undef NJODE_TR
   return (int)err;
 }

@@ -1,7 +1,7 @@
-// Device helpers shared by the grid-walk kernels (walk_scan.cu, walk_train.cu)
-// and, through gap_cell.cuh, gap_train.cu and fused_cell.cu: the activations
-// and input scalings with their derivatives, and the small row-tile
-// products of one warp.
+// Device helpers shared by the grid-walk kernels (walk_scan.cu, walk_train.cu),
+// train_run.cu and, through gap_cell.cuh, gap_train.cu and fused_cell.cu: the
+// activations and input scalings with their derivatives, a product operand's
+// bf16 rounding, and the small row-tile products of one warp.
 //
 // Codes follow the order of SUPPORTED_ACTS / SCALINGS in ops/activations.py.
 // Built without --use_fast_math, so expf/tanhf/expm1f are the accurate
@@ -9,6 +9,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -61,6 +62,14 @@ __device__ __forceinline__ float scale_grad(float x, int scale) {
     return s * (1.0f - s);
   }
   return 1.0f;
+}
+
+// A product's operand: with BF, x rounded to bf16 (nearest even) and back
+// to f32, the TPU kernels' mxu="bfloat16" cast; else x itself.
+template <bool BF>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

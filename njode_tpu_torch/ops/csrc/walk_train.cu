@@ -74,6 +74,22 @@
 // bias (K)}; stat (2,) = [b1^t, b2^t]; losses (G,); scratch of
 // njode_walk_train_scratch_floats floats.
 //
+// The bf16 instances (BF; row 13b: the TPU kernel's mxu="bfloat16",
+// walk_train.py:213-225) round both operands of every product to bf16 and
+// sum in f32 (a product of two bf16 values is exact in f32, so only the
+// order of the f32 sums differs), at the TPU walk's own points: its drift
+// is one product of [s(state), s(x), t, 1] with [W1h; w1x; w1t; cvec] and
+// one of [hidden, 1] with [W2; b2] (walk_train.py:286-303), so x, t, w1x,
+// w1t, cvec (tel w1_tel + b1, rounded once after it is formed) and b2 round
+// too, and so do the step buffer's records, every column of them: the
+// gradients of W1, b1, w1_tel, W2 and b2 come from rounded factors.  The
+// jump's J2 and the readout's O1 products round both operands, and so do
+// their weight sums, but not their bias columns (bj2, bo1: column sums of
+// f32 cotangents); the j1, bj1, o2 and bo2 sums and the readout's o2 stay
+// f32.  Each operand is rounded once, where it is staged, formed or
+// loaded, never in place of a value also read in f32 (the carry, hj, the
+// pre-jump states, the cotangents dup and dhjp).
+//
 // Numerics: built without --use_fast_math.  Sums run in other orders than
 // the plain PyTorch version's; the recompute of a cell in the backward walk
 // runs the forward's own code, so it is bitwise the forward; the grid cell
@@ -99,6 +115,7 @@ constexpr int kTile = kTO * kTA;
 
 struct Dims {
   int K, H, N, BS, G, M, act, scale, second_moment, warps, four, n_st, chunk, wpt;
+  int bf16;  // the products' operands rounded to bf16
 };
 
 struct Hyper {
@@ -240,8 +257,9 @@ __device__ __forceinline__ void slots_at(const float* row, int N, int s_lo, int 
 // The vector's entries come by shuffles, 16 at a time, with the plane's
 // entries of those rows from shared memory: an unrolled block with no
 // branch, so the loads run ahead of the multiply-adds.  Two accumulators a
-// column, even and odd i.
-template <int CPT, bool TRANS>
+// column, even and odd i.  BF rounds the vector's entries (the plane is
+// rounded where staged).
+template <int CPT, bool TRANS, bool BF>
 __device__ __forceinline__ void part_mm(const float (&v)[CPT], const float* __restrict__ W,
                                         int ld, int H, int lane, int r_lo, int r_hi,
                                         float (&acc)[CPT]) {
@@ -249,7 +267,7 @@ __device__ __forceinline__ void part_mm(const float (&v)[CPT], const float* __re
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     a0[c] = a1[c] = 0.0f;
-    vm[c] = lane + kWarp * c < H ? v[c] : 0.0f;  // entries past H add 0
+    vm[c] = lane + kWarp * c < H ? operand<BF>(v[c]) : 0.0f;  // entries past H add 0
   }
 #pragma unroll 1
   for (int rb = r_lo; rb < r_hi; rb += 16) {
@@ -289,10 +307,10 @@ struct Group {
 
 // The group's product: this warp's rows, then the group's partial sums
 // added in warp order, the same order in every warp of the group.
-template <int CPT, bool TRANS>
+template <int CPT, bool TRANS, bool BF>
 __device__ __forceinline__ void group_mm(const float (&v)[CPT], const float* W, int ld, int H,
                                          int lane, Group& gr, float (&acc)[CPT]) {
-  part_mm<CPT, TRANS>(v, W, ld, H, lane, gr.r_lo, gr.r_hi, acc);
+  part_mm<CPT, TRANS, BF>(v, W, ld, H, lane, gr.r_lo, gr.r_hi, acc);
   if (gr.wpt == 1) return;
   float* pb = gr.part + gr.par * gr.wpt * (kWarp * CPT);
 #pragma unroll
@@ -320,8 +338,9 @@ struct TMat {
 
 // Applies epi(r, c, j, acc), j = lane + 32 c, for the rows r = first,
 // first + step, ... < nrows of in times the plane W or, TRANS, its
-// transpose, 4 rows at a time; the rows' entries are read as broadcasts.
-template <int CPT, bool TRANS, typename Epi>
+// transpose, 4 rows at a time; the rows' entries are read as broadcasts
+// (BF: rounded as they are read; the plane is rounded where staged).
+template <int CPT, bool TRANS, bool BF, typename Epi>
 __device__ __forceinline__ void warp_rows(const TMat& in, int first, int step, int nrows,
                                           const float* W, int ld, int H, int lane, Epi epi) {
   for (int r0 = first; r0 < nrows; r0 += 4 * step) {
@@ -343,7 +362,7 @@ __device__ __forceinline__ void warp_rows(const TMat& in, int first, int step, i
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float xv = x[q][i * kWarp];
+        const float xv = operand<BF>(x[q][i * kWarp]);
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(xv, w[c], acc[q][c]);
       }
@@ -426,10 +445,17 @@ __device__ __forceinline__ JobShape job_shape(int job, const float* scr, const L
 }
 
 // A thread's share of a tile's sums: rows tid, tid + n_thr, ... (n_thr a
-// multiple of 32, so a warp's rows are one tile and its loads coalesce)
+// multiple of 32, so a warp's rows are one tile and its loads coalesce).
+// BF: the columns a < round_below take both factors rounded (the matrix
+// part of the J2 and O1 sums), the others (their bias columns) f32.  The
+// jobs with round_below 0 take the second loop, without the per-FMA choice
+// of factor: with one loop for both, the bf16 instance's epoch call at the
+// production shape took 21.44 ms against the f32 instance's 17.38 (H100);
+// with two, within 5% of it.
+template <bool BF>
 __device__ __forceinline__ void tile_rows(const JobShape& js, const int (&ac)[kTA],
                                           const int (&oc)[kTO], int tid, int n_thr,
-                                          float (&acc)[kTO][kTA]) {
+                                          int round_below, float (&acc)[kTO][kTA]) {
   for (long long r = tid; r < js.rows; r += n_thr) {
     const float* Ar = js.A + (r / kWarp) * js.lda * kWarp + r % kWarp;
     const float* Br = js.B + (r / kWarp) * js.ldb * kWarp + r % kWarp;
@@ -438,6 +464,20 @@ __device__ __forceinline__ void tile_rows(const JobShape& js, const int (&ac)[kT
     for (int q = 0; q < kTA; ++q) av[q] = __ldcg(Ar + ac[q] * kWarp);
 #pragma unroll
     for (int p = 0; p < kTO; ++p) bv[p] = __ldcg(Br + oc[p] * kWarp);
+    if (BF && round_below > 0) {
+      float br[kTO];
+#pragma unroll
+      for (int p = 0; p < kTO; ++p) br[p] = operand<BF>(bv[p]);
+#pragma unroll
+      for (int q = 0; q < kTA; ++q)
+        if (ac[q] < round_below) av[q] = operand<BF>(av[q]);
+#pragma unroll
+      for (int p = 0; p < kTO; ++p)
+#pragma unroll
+        for (int q = 0; q < kTA; ++q)
+          acc[p][q] = fmaf(ac[q] < round_below ? br[p] : bv[p], av[q], acc[p][q]);
+      continue;
+    }
 #pragma unroll
     for (int p = 0; p < kTO; ++p)
 #pragma unroll
@@ -475,7 +515,7 @@ __device__ __forceinline__ void update_from(int job, int o, int a, float s, floa
   }
 }
 
-template <int CPT, int NS, bool RI>
+template <int CPT, int NS, bool RI, bool BF>
 __global__ void __launch_bounds__(kWarp * kMaxWarps)
 walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
                   float* adam_v, float* stat, float* losses, float* scratch, Dims d,
@@ -519,14 +559,14 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
   float c1 = stat[0], c2 = stat[1];
 
   // the planes' padding stays zero; a step stages their H x H entries from
-  // the torch (out, in) matrices, reading params in order
+  // the torch (out, in) matrices, reading params in order (BF: rounded)
   for (int e = tid; e < (d.four ? 4 : 3) * PL; e += n_thr) smem[e] = 0.0f;
   __syncthreads();
   auto stage_plane = [&](float* dst, int src) {
 #pragma unroll 4
     for (int e = tid; e < H * H; e += n_thr) {
       const int o = e / H, i = e - o * H;
-      dst[i * ld + o] = __ldcg(params + src + e);
+      dst[i * ld + o] = operand<BF>(__ldcg(params + src + e));
     }
   };
 
@@ -561,10 +601,10 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
       const float w1 = __ldcg(params + of.W1 + o * (H + 3) + i);
       const float w2 = __ldcg(params + of.W2 + e), j2 = __ldcg(params + of.J2 + e);
       const float o1 = d.four ? __ldcg(params + of.O1 + e) : 0.0f;
-      sW1[i * ld + o] = w1;
-      sW2[i * ld + o] = w2;
-      sJ2[i * ld + o] = j2;
-      if (d.four) sO1[i * ld + o] = o1;
+      sW1[i * ld + o] = operand<BF>(w1);
+      sW2[i * ld + o] = operand<BF>(w2);
+      sJ2[i * ld + o] = operand<BF>(j2);
+      if (d.four) sO1[i * ld + o] = operand<BF>(o1);
     }
     float nv = 0.0f;  // the minibatch's valid count, every warp alike
     for (int bb = lane; bb < BS; bb += kWarp) nv += __ldg(rows + (size_t)bb * row_f + 2 * N);
@@ -572,7 +612,8 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
     const int cell0 = active && lane < N ? cell_of(__ldg(row + N + lane), hp.inv_dt) : -2;
 
     // the walk's per-column constants (the jump network's and the
-    // readout's are read in their phases, so the walk holds fewer registers)
+    // readout's are read in their phases, so the walk holds fewer
+    // registers); BF: as the products read them, cvec rounded once formed
     float w1x[CPT], w1t[CPT], cv[CPT], bb2[CPT];
     {
       float w1tel[CPT], bb1[CPT];
@@ -582,7 +623,12 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
       lane_vec<CPT>(params + of.b1, 1, H, lane, bb1);
       lane_vec<CPT>(params + of.b2, 1, H, lane, bb2);
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) cv[c] = hp.tel != 0.0f ? hp.tel * w1tel[c] + bb1[c] : bb1[c];
+      for (int c = 0; c < CPT; ++c) {
+        cv[c] = operand<BF>(hp.tel != 0.0f ? hp.tel * w1tel[c] + bb1[c] : bb1[c]);
+        w1x[c] = operand<BF>(w1x[c]);
+        w1t[c] = operand<BF>(w1t[c]);
+        bb2[c] = operand<BF>(bb2[c]);
+      }
     }
     __syncthreads();
 
@@ -609,7 +655,8 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
         }
       }
       __syncwarp();
-      warp_rows<CPT, false>(a1, wg, WPT, N, sJ2, ld, H, lane, [&](int r, int c, int j, float acc) {
+      warp_rows<CPT, false, BF>(a1, wg, WPT, N, sJ2, ld, H, lane,
+                                [&](int r, int c, int j, float acc) {
         const float pre = acc + j2b[c];
         hjp[(size_t)r * H + j] = pre;
         inb.at(r, j) = act(pre);
@@ -661,12 +708,13 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
           stage_in<CPT, NS>(carry, k, i, tb, sin);
 #pragma unroll
           for (int c = 0; c < CPT; ++c) v[c] = scl(sin[c]);
-          group_mm<CPT, false>(v, sW1, ld, H, lane, gr, acc);
-          const float ts = tb.dc[i] != 0.0f ? tt + tb.dc[i] : tt;
+          group_mm<CPT, false, BF>(v, sW1, ld, H, lane, gr, acc);
+          const float ts = operand<BF>(tb.dc[i] != 0.0f ? tt + tb.dc[i] : tt);
+          const float xr = operand<BF>(xx);
 #pragma unroll
           for (int c = 0; c < CPT; ++c)
-            v[c] = act(fmaf(ts, w1t[c], fmaf(xx, w1x[c], acc[c])) + cv[c]);
-          group_mm<CPT, false>(v, sW2, ld, H, lane, gr, acc);
+            v[c] = act(fmaf(ts, w1t[c], fmaf(xr, w1x[c], acc[c])) + cv[c]);
+          group_mm<CPT, false, BF>(v, sW2, ld, H, lane, gr, acc);
 #pragma unroll
           for (int c = 0; c < CPT; ++c) k[i][c] = acc[c] + bb2[c];
         }
@@ -702,7 +750,8 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
       const float bo2_0 = __ldcg(params + of.bo2), bo2_1 = __ldcg(params + of.bo2 + K - 1);
       sync_group();
       // ---- 3. readouts of the 2N-1 rows, the group's warps in turn
-      warp_rows<CPT, false>(inb, wg, WPT, R2, sO1, ld, H, lane, [&](int r, int c, int j, float acc) {
+      warp_rows<CPT, false, BF>(inb, wg, WPT, R2, sO1, ld, H, lane,
+                                [&](int r, int c, int j, float acc) {
         const float pre = acc + bo1[c];
         up[(size_t)r * H + j] = pre;
         ua.at(r, j) = act(pre);
@@ -781,7 +830,7 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
           dup.at(r, j) = gsum * actg(up[(size_t)r * H + j]);
         }
       __syncwarp();
-      warp_rows<CPT, true>(dup, wg, WPT, R2, sO1, ld, H, lane,
+      warp_rows<CPT, true, BF>(dup, wg, WPT, R2, sO1, ld, H, lane,
                            [&](int r, int c, int j, float acc) { din[(size_t)r * H + j] = acc; });
       if (wg == 0)
         for (int j = lane; j < H; j += kWarp)
@@ -812,9 +861,10 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
             const int j = min(lane + kWarp * c, H - 1);
             carry[c] = cp[(size_t)g * H + j];
           }
-          const float tt = ct[g], xx = cx[g];
+          const float tt = ct[g], xx = operand<BF>(cx[g]);
           const size_t r0 = ((size_t)b * n_c + (g - lo)) * NS;
-          // recompute the stages, recording what the weight sums read
+          // recompute the stages, recording what the weight sums read (BF:
+          // as the products read them)
 #pragma unroll
           for (int i = 0; i < NS; ++i) {
             float v[CPT], acc[CPT];
@@ -825,16 +875,16 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
             for (int c = 0; c < CPT; ++c) {
               v[c] = scl(sin[i][c]);
               const int j = lane + kWarp * c;
-              if (j < H && rec_sc) rsc[j * kWarp] = v[c];
+              if (j < H && rec_sc) rsc[j * kWarp] = operand<BF>(v[c]);
             }
-            group_mm<CPT, false>(v, sW1, ld, H, lane, gr, acc);
-            const float ts = tb.dc[i] != 0.0f ? tt + tb.dc[i] : tt;
+            group_mm<CPT, false, BF>(v, sW1, ld, H, lane, gr, acc);
+            const float ts = operand<BF>(tb.dc[i] != 0.0f ? tt + tb.dc[i] : tt);
 #pragma unroll
             for (int c = 0; c < CPT; ++c) {
               pre[i][c] = fmaf(ts, w1t[c], fmaf(xx, w1x[c], acc[c])) + cv[c];
               v[c] = act(pre[i][c]);
               const int j = lane + kWarp * c;
-              if (j < H && rec_hid) rhid[j * kWarp] = v[c];
+              if (j < H && rec_hid) rhid[j * kWarp] = operand<BF>(v[c]);
             }
             if (lane == 0 && rec_sc) {
               rsc[H * kWarp] = xx;
@@ -843,7 +893,7 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
             }
             if (lane == 0 && rec_hid) rhid[H * kWarp] = 1.0f;
             if (i + 1 < NS) {  // the last stage's k feeds no later stage
-              group_mm<CPT, false>(v, sW2, ld, H, lane, gr, acc);
+              group_mm<CPT, false, BF>(v, sW2, ld, H, lane, gr, acc);
 #pragma unroll
               for (int c = 0; c < CPT; ++c) k[i][c] = acc[c] + bb2[c];
             }
@@ -864,16 +914,16 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
 #pragma unroll
             for (int c = 0; c < CPT; ++c) {
               const int j = lane + kWarp * c;
-              if (j < H && rec_gk) rgk[j * kWarp] = k[i][c];
+              if (j < H && rec_gk) rgk[j * kWarp] = operand<BF>(k[i][c]);
             }
-            group_mm<CPT, true>(k[i], sW2, ld, H, lane, gr, acc);
+            group_mm<CPT, true, BF>(k[i], sW2, ld, H, lane, gr, acc);
 #pragma unroll
             for (int c = 0; c < CPT; ++c) {
               gp[c] = acc[c] * actg(pre[i][c]);
               const int j = lane + kWarp * c;
-              if (j < H && rec_gp) rgp[j * kWarp] = gp[c];
+              if (j < H && rec_gp) rgp[j * kWarp] = operand<BF>(gp[c]);
             }
-            group_mm<CPT, true>(gp, sW1, ld, H, lane, gr, acc);
+            group_mm<CPT, true, BF>(gp, sW1, ld, H, lane, gr, acc);
 #pragma unroll
             for (int c = 0; c < CPT; ++c) {
               const float gs = acc[c] * sclg(sin[i][c]);
@@ -914,7 +964,7 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
               dhjp.at(s, j) = dhj * actg(hjp[(size_t)s * H + j]);
             }
           __syncwarp();
-          warp_rows<CPT, true>(dhjp, wg, WPT, N, sJ2, ld, H, lane,
+          warp_rows<CPT, true, BF>(dhjp, wg, WPT, N, sJ2, ld, H, lane,
                                [&](int r, int c, int j, float acc) {
                                  da1.at(r, j) = acc * actg(a1p[(size_t)r * H + j]);
                                });
@@ -943,7 +993,8 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
         for (int p = 0; p < kTO; ++p)
 #pragma unroll
           for (int q = 0; q < kTA; ++q) acc[p][q] = 0.0f;
-        tile_rows(js, ac, oc, tid, n_thr, acc);
+        tile_rows<BF>(js, ac, oc, tid, n_thr,
+                      job == kJobO1 || job == kJobJ2 ? H : 0, acc);
 #pragma unroll
         for (int p = 0; p < kTO; ++p)
 #pragma unroll
@@ -986,11 +1037,11 @@ walk_train_kernel(const float* __restrict__ data, float* params, float* adam_m,
   }
 }
 
-template <int CPT, int NS, bool RI>
+template <int CPT, int NS, bool RI, bool BF>
 cudaError_t launch(const float* data, float* params, float* m, float* v, float* stat,
                    float* losses, float* scratch, const Dims& d, const Hyper& hp,
                    const Tab& tb, size_t smem, cudaStream_t stream) {
-  auto kernel = walk_train_kernel<CPT, NS, RI>;
+  auto kernel = walk_train_kernel<CPT, NS, RI, BF>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -1021,8 +1072,8 @@ cudaError_t launch(const float* data, float* params, float* m, float* v, float* 
 }
 
 Dims dims_of(const int* dims) {
-  return Dims{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5], dims[6],
-              dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
+  return Dims{dims[0], dims[1],  dims[2],  dims[3],  dims[4],  dims[5],  dims[6],  dims[7],
+              dims[8], dims[9], dims[10], dims[11], dims[12], dims[13], dims[14]};
 }
 
 }  // namespace
@@ -1034,7 +1085,7 @@ extern "C" long long njode_walk_train_scratch_floats(const int* dims) {
 }
 
 // dims = [K, H, N, BS, G, M, act, scale, second_moment, warps, four, n_st,
-// chunk, wpt]; hyper = [dt, 1/dt, tel, lr, wd, b1, b2, 1-b1, 1-b2, adam_eps,
+// chunk, wpt, bf16]; hyper = [dt, 1/dt, tel, lr, wd, b1, b2, 1-b1, 1-b2, adam_eps,
 // eps, w0, w1, 1/N, w0/N, w1/N]; tab = [da (4 x 4), dc (4), bw (4), gb (4)]
 // (host arrays).  The launch plan (warps a block, warps a trajectory,
 // whether O1 has a plane of its own in shared memory, the shared-memory
@@ -1063,7 +1114,8 @@ extern "C" int njode_walk_train_run(const void* data, void* params, void* m, voi
       d.M < 1 || d.act < 0 || d.act > kSelu || d.scale < 0 || d.scale > kScaleSigmoid ||
       d.warps < 1 || d.warps > kMaxWarps || d.four < 0 || d.four > 1 ||
       (d.n_st != 1 && d.n_st != 2 && d.n_st != 4) || d.chunk < 1 ||
-      (d.wpt != 1 && d.wpt != 2 && d.wpt != 4) || d.warps % d.wpt != 0)
+      (d.wpt != 1 && d.wpt != 2 && d.wpt != 4) || d.warps % d.wpt != 0 || d.bf16 < 0 ||
+      d.bf16 > 1)
     return (int)cudaErrorInvalidValue;
   if (d.G == 0) return 0;
   int dev = 0, max_smem = 0;
@@ -1082,8 +1134,9 @@ extern "C" int njode_walk_train_run(const void* data, void* params, void* m, voi
   float* f_l = static_cast<float*>(losses);
   float* f_x = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NJODE_WT(C, NS, RI) \
-  err = launch<C, NS, RI>(f_data, f_p, f_m, f_v, f_s, f_l, f_x, d, hp, tb, smem, s)
+#define NJODE_WT(C, NS, RI)                                                                  \
+  err = d.bf16 ? launch<C, NS, RI, true>(f_data, f_p, f_m, f_v, f_s, f_l, f_x, d, hp, tb, smem, s) \
+               : launch<C, NS, RI, false>(f_data, f_p, f_m, f_v, f_s, f_l, f_x, d, hp, tb, smem, s)
   // relu and identity (the production recipe's) at compile time with euler
   const bool ri = d.act == kRelu && d.scale == kIdentity;
   if (d.H <= 64) {

@@ -36,6 +36,13 @@ Data: (G * batch_size, 2N + 1) rows [x_0..x_{N-1}, t_0..t_{N-1}, valid]
 (:func:`pack_minibatches`); each consecutive ``batch_size`` rows are one
 minibatch, and rows with valid 0 pad the last one.
 
+``mxu_dtype="bfloat16"`` (the JAX kernel's ``mxu``, ``train_kernel.py:255``)
+rounds both operands of each of the 12 plane products (the 4 forward
+products, their 4 transposed products and the 4 weight-gradient outer
+products) to bf16 and sums in f32; parameters, Adam state, the loss, every
+bias, the ``BASE`` row, the readout ``o2`` and every column-sum gradient
+stay f32.  The kernel's bf16 instances are the same source's.
+
 Wrapper: :func:`fused_train_run` launches the kernel for CUDA tensors and
 takes its plain version :func:`fused_train_run_reference` only for CPU
 tensors.  The functions :func:`init_train_state`, :func:`train_state_params`,
@@ -55,8 +62,12 @@ import torch
 from .activations import (_ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD, SCALINGS,
                           SUPPORTED_ACTS, packed_state_safe)
 
-# launches of the CUDA kernel in this process; callers may reset it to 0
+# launches of the CUDA kernel in this process, by mode (f32, and the bf16
+# products of mxu_dtype="bfloat16"); callers may reset them to 0
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+
+MXU_DTYPES = ("float32", "bfloat16")
 
 N_VEC = 10
 (J1, BJ1, BJ2, W1X, W1T, W1D, B1, B2, BO1, O2) = range(N_VEC)
@@ -419,29 +430,45 @@ def _views(p: torch.Tensor, H: int) -> dict:
     return w
 
 
+def _bf16_round(z: torch.Tensor) -> torch.Tensor:
+    """z rounded to bf16, kept in z's dtype (f32, or f64 for a float64
+    run of the plain version)."""
+    return z.to(torch.bfloat16).to(z.dtype)
+
+
+def _keep(z: torch.Tensor) -> torch.Tensor:
+    return z
+
+
+def _rounding(mxu_dtype: str):
+    """What a product does to each operand under ``mxu_dtype``."""
+    return _bf16_round if mxu_dtype == "bfloat16" else _keep
+
+
 def _forward(w: dict, x: torch.Tensor, t: torch.Tensor, act: str,
-             scale: str) -> tuple[torch.Tensor, dict]:
+             scale: str, r=_keep) -> tuple[torch.Tensor, dict]:
     """Slot-batched forward of one network over a minibatch: x, t (BS, N)
     -> predictions (BS, 2N-1) (rows < N after-jump at each slot, row N+g
-    before-jump at slot g+1) and the residuals of the backward."""
+    before-jump at slot g+1) and the residuals of the backward.  ``r``
+    rounds each operand of the four plane products (:func:`_rounding`)."""
     A, SC = _ACT[act], _SCALE[scale]
     N = x.shape[1]
     S = N - 1
     a1p = x[..., None] * w["j1"] + w["bj1"]                  # (BS, N, H)
     a1 = A(a1p)
-    hjp = torch.matmul(a1, w["J2"]) + w["bj2"]
+    hjp = torch.matmul(r(a1), r(w["J2"])) + w["bj2"]
     hj = A(hjp)
     schj = SC(hj[:, :S])
     scx, t0 = SC(x[:, :S]), t[:, :S]
     dt = t[:, 1:] - t[:, :-1]
     base = (scx[..., None] * w["w1x"] + t0[..., None] * w["w1t"]
             + dt[..., None] * w["w1d"] + w["b1"])
-    g1p = torch.matmul(schj, w["W1h"]) + base
+    g1p = torch.matmul(r(schj), r(w["W1h"])) + base
     g1 = A(g1p)
-    dh = torch.matmul(g1, w["W2"]) + w["b2"]
+    dh = torch.matmul(r(g1), r(w["W2"])) + w["b2"]
     hm = hj[:, :S] + dt[..., None] * dh
     inp = torch.cat([hj, hm], dim=1)                         # (BS, 2N-1, H)
-    up = torch.matmul(inp, w["O1"]) + w["bo1"]
+    up = torch.matmul(r(inp), r(w["O1"])) + w["bo1"]
     u = A(up)
     y = (u * w["o2"]).sum(-1) + w["bo2"]
     res = dict(x=x, t0=t0, dt=dt, scx=scx, a1p=a1p, a1=a1, hjp=hjp, hj=hj,
@@ -499,15 +526,19 @@ def _loss_and_cotangents(x, valid, y0, y1, *, eps, w0, w1, variance_method,
 
 
 def _backward(w: dict, res: dict, gy: torch.Tensor, act: str,
-              scale: str) -> torch.Tensor:
+              scale: str, r=_keep) -> torch.Tensor:
     """The hand-written backward of :func:`_forward`: the (P,) gradient of
-    sum(gy * y) with respect to one network's flat parameters."""
+    sum(gy * y) with respect to one network's flat parameters.  ``r``
+    rounds both operands of the transposed and the outer products."""
     AG, SG = _ACT_GRAD[act], _SCALE_GRAD[scale]
     N = res["x"].shape[1]
     S = N - 1
 
     def outer(a, g):                                   # sum over rows of a^T g
-        return torch.einsum("bri,brj->ij", a, g)
+        return torch.einsum("bri,brj->ij", r(a), r(g))
+
+    def mmT(a, m):                                     # a m^T
+        return torch.matmul(r(a), r(w[m]).t())
 
     def colsum(z):
         return z.sum(dim=(0, 1))
@@ -517,23 +548,23 @@ def _backward(w: dict, res: dict, gy: torch.Tensor, act: str,
     dO1 = outer(res["inp"], dup)
     dbo1 = colsum(dup)
     dbo2 = gy.sum()
-    din = torch.matmul(dup, w["O1"].t())
+    din = mmT(dup, "O1")
     dhm = din[:, N:]
     ddh = res["dt"][..., None] * dhm
     dW2 = outer(res["g1"], ddh)
     db2 = colsum(ddh)
-    dg1p = torch.matmul(ddh, w["W2"].t()) * AG(res["g1p"])
+    dg1p = mmT(ddh, "W2") * AG(res["g1p"])
     dW1h = outer(res["schj"], dg1p)
     dw1x = colsum(res["scx"][..., None] * dg1p)
     dw1t = colsum(res["t0"][..., None] * dg1p)
     dw1d = colsum(res["dt"][..., None] * dg1p)
     db1 = colsum(dg1p)
-    dhjg = dhm + torch.matmul(dg1p, w["W1h"].t()) * SG(res["hj"][:, :S])
+    dhjg = dhm + mmT(dg1p, "W1h") * SG(res["hj"][:, :S])
     dhj = din[:, :N] + torch.cat([dhjg, torch.zeros_like(dhjg[:, :1])], 1)
     dhjp = dhj * AG(res["hjp"])
     dJ2 = outer(res["a1"], dhjp)
     dbj2 = colsum(dhjp)
-    da1p = torch.matmul(dhjp, w["J2"].t()) * AG(res["a1p"])
+    da1p = mmT(dhjp, "J2") * AG(res["a1p"])
     dj1 = colsum(res["x"][..., None] * da1p)
     dbj1 = colsum(da1p)
     return torch.cat([dJ2.reshape(-1), dO1.reshape(-1), dW1h.reshape(-1),
@@ -553,7 +584,10 @@ def _adam_math(p, m, v, g, *, c1, c2, lr, wd, b1, b2, eps_adam):
 
 
 def _check_args(num_moments, activation, input_scaling, batch_size, data,
-                n_slots, variance_method):
+                n_slots, variance_method, mxu_dtype):
+    if mxu_dtype not in MXU_DTYPES:
+        raise ValueError(f"train kernel: mxu_dtype={mxu_dtype!r} must be "
+                         "'float32' or 'bfloat16'")
     if num_moments not in (1, 2):
         raise ValueError("train kernel: K in (1, 2) moments only (the "
                          "closed-form loss covers mean and mean+variance)")
@@ -581,13 +615,17 @@ def fused_train_run_reference(state: TrainState, data: torch.Tensor, *,
                               lr: float = 1e-3, weight_decay: float = 0.0,
                               moment_weights=(1.0, 10.0), eps: float = 1e-10,
                               variance_method: str = "direct",
-                              betas=(0.9, 0.999), adam_eps: float = 1e-8):
+                              betas=(0.9, 0.999), adam_eps: float = 1e-8,
+                              mxu_dtype: str = "float32"):
     """Plain PyTorch version of the kernel, on any device: the same algebra
     as plain tensor ops, a Python loop over the steps.  Same arguments and
     result as :func:`fused_train_run`.  Net 0's forward runs once per step:
-    the kernel's second forward of net 0 recomputes the same values."""
+    the kernel's second forward of net 0 recomputes the same values.  A
+    float64 state and data run it in float64, with the same bf16 rounding
+    points under ``mxu_dtype="bfloat16"``."""
     _check_args(num_moments, activation, input_scaling, batch_size, data,
-                n_slots, variance_method)
+                n_slots, variance_method, mxu_dtype)
+    r = _rounding(mxu_dtype)
     K, N, BS = num_moments, n_slots, batch_size
     H = hidden_from_size(state.params.shape[1])
     w0 = float(moment_weights[0])
@@ -603,7 +641,7 @@ def fused_train_run_reference(state: TrainState, data: torch.Tensor, *,
         x, t, valid = rows[:, :N], rows[:, N:2 * N], rows[:, 2 * N]
         c1, c2 = c1 * b1, c2 * b2
         ws = [_views(params[k], H) for k in range(K)]
-        fw = [_forward(ws[k], x, t, activation, input_scaling)
+        fw = [_forward(ws[k], x, t, activation, input_scaling, r)
               for k in range(K)]
         L, g0, g1 = _loss_and_cotangents(
             x, valid, fw[0][0], fw[1][0] if K == 2 else None, eps=eps, w0=w0,
@@ -611,7 +649,8 @@ def fused_train_run_reference(state: TrainState, data: torch.Tensor, *,
         losses.append(L)
         # net 1 first, as the kernel (and the TPU kernel) order the updates
         for k, gy in reversed(list(enumerate([g0, g1][:K]))):
-            grad = _backward(ws[k], fw[k][1], gy, activation, input_scaling)
+            grad = _backward(ws[k], fw[k][1], gy, activation, input_scaling,
+                             r)
             params[k], m[k], v[k] = _adam_math(params[k], m[k], v[k], grad,
                                                c1=c1, c2=c2, **adam)
     loss = (torch.stack(losses) if losses
@@ -646,12 +685,12 @@ def _launch(state: TrainState, data: torch.Tensor, plan: RunPlan, kw: dict,
     w1 = float(mw[1]) if len(mw) > 1 else 1.0
     b1, b2 = float(betas[0]), float(betas[1])
     inv_n = 1.0 / float(N)
-    dims = (ctypes.c_int * 14)(
+    dims = (ctypes.c_int * 15)(
         K, plan.hidden, N, BS, G, SUPPORTED_ACTS.index(kw["activation"]),
         SCALINGS.index(kw["input_scaling"]),
         int(kw["variance_method"] == "second_moment"), plan.blocks,
         plan.slots, plan.wpt, plan.warps, int(plan.staged),
-        int(plan.slots_global))
+        int(plan.slots_global), int(kw["mxu_dtype"] == "bfloat16"))
     # constants rounded from double once, as the JAX kernel's python floats
     hyper = (ctypes.c_float * 13)(kw["lr"], kw["weight_decay"], b1, b2,
                                   1.0 - b1, 1.0 - b2, kw["adam_eps"],
@@ -676,9 +715,12 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
                     input_scaling: str = "identity", lr: float = 1e-3,
                     weight_decay: float = 0.0, moment_weights=(1.0, 10.0),
                     eps: float = 1e-10, variance_method: str = "direct",
-                    betas=(0.9, 0.999), adam_eps: float = 1e-8):
+                    betas=(0.9, 0.999), adam_eps: float = 1e-8,
+                    mxu_dtype: str = "float32"):
     """Run ``data.shape[0] // batch_size`` Adam steps: the CUDA kernel for
     CUDA tensors, its plain version for CPU tensors, an error otherwise.
+    ``mxu_dtype="bfloat16"`` takes the kernel's bf16 instances (rows
+    11b-12b), counted in ``LAUNCHES_BF16``.
 
     state: from :func:`init_train_state` or :func:`kernel_state_from`, or a
            previous call (the Adam powers carry over, so calls resume).
@@ -686,7 +728,7 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
     Returns (new state, (G,) per-step losses).  The input state is not
     modified.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     tensors = {"data": data, **state._asdict()}
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in tensors.values()):
@@ -697,7 +739,7 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
               input_scaling=input_scaling, lr=lr,
               weight_decay=weight_decay, moment_weights=moment_weights,
               eps=eps, variance_method=variance_method, betas=betas,
-              adam_eps=adam_eps)
+              adam_eps=adam_eps, mxu_dtype=mxu_dtype)
     if all(x.device.type == "cpu" for x in tensors.values()):
         return fused_train_run_reference(state, data, **kw)
     device = data.device
@@ -706,7 +748,7 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
         raise ValueError(f"fused_train_run: no kernel for device {device} "
                          "(or tensors on mixed devices)")
     _check_args(num_moments, activation, input_scaling, batch_size, data,
-                n_slots, variance_method)
+                n_slots, variance_method, mxu_dtype)
     P = state.params.shape[-1]
     H = hidden_from_size(P)
     shapes = {"data": tuple(data.shape), "params": (num_moments, P),
@@ -732,5 +774,8 @@ def fused_train_run(state: TrainState, data: torch.Tensor, *, n_slots: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         out, losses = _launch(pad_state(state, H, plan.hidden), data, plan,
                               kw, stream)
-    LAUNCHES += 1
+    if mxu_dtype == "bfloat16":
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return unpad_state(out, plan.hidden, H), losses

@@ -34,6 +34,16 @@ Layout of the train state (:class:`WalkState`), float32: ``params``, ``m``,
 bias-correction powers [b1^t, b2^t].  Data: the rows of
 :func:`njode_tpu_torch.ops.pack_minibatches`.
 
+``mxu_dtype="bfloat16"`` (the JAX kernel's ``mxu``, ``walk_train.py:213``)
+rounds both operands of every product to bf16 and sums in f32, at the JAX
+walk's own points: the walk folds [scaled state, scaled x, stage time, 1]
+into one product with [W1h; w1x; w1t; cvec] (cvec = t_elapsed w1_tel + b1
+rounded once, after it is formed) and [hidden, 1] into one with [W2; b2],
+so those columns, and the gradients of b1, w1_tel, b2, w1x and w1t, take
+rounded factors too; the jump's J2 and the readout's O1 products round as
+well.  The readout's o2, every other bias gradient, parameters, Adam state
+and the loss stay f32.
+
 Wrapper: :func:`fused_walk_train_run` launches the kernel for CUDA tensors
 and takes its plain version :func:`fused_walk_train_run_reference` only for
 CPU tensors.  :func:`init_walk_state`, :func:`walk_state_from`,
@@ -52,11 +62,13 @@ import torch
 
 from ..models.loss import nj_ode_loss_dense
 from .activations import _ACT, _SCALE, SCALINGS, SUPPORTED_ACTS
-from .train_kernel import _adam_math
+from .train_kernel import MXU_DTYPES, _adam_math, _bf16_round
 from .walk_scan import walk_cells
 
-# launches of the CUDA kernel in this process; callers may reset it to 0
+# launches of the CUDA kernel in this process, by mode (f32, and the bf16
+# products of mxu_dtype="bfloat16"); callers may reset them to 0
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 
 MAX_HIDDEN = 128
 MAX_BATCH = 1024
@@ -275,20 +287,50 @@ def optax_state_into_walk(state: WalkState, n_steps: int,
 # the plain version
 # --------------------------------------------------------------------------
 
+class RoundedMM(torch.autograd.Function):
+    """a @ w with both operands rounded to bf16 and the sums in a's dtype,
+    and the backward of the JAX kernel's ``mmT`` and ``outer``: the
+    cotangent g rounded too, ga = r(g) r(w)^T, gw = r(a)^T r(g) summed over
+    a's leading dimensions (the cast itself passes g straight through)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ra, rw = _bf16_round(a), _bf16_round(w)
+        ctx.save_for_backward(ra, rw)
+        return torch.matmul(ra, rw)
+
+    @staticmethod
+    def backward(ctx, g):
+        ra, rw = ctx.saved_tensors
+        rg = _bf16_round(g)
+        gw = torch.matmul(ra.reshape(-1, ra.shape[-1]).t(),
+                          rg.reshape(-1, rg.shape[-1]))
+        return torch.matmul(rg, rw.t()), gw
+
+
+def _mm(bf16: bool):
+    return RoundedMM.apply if bf16 else torch.matmul
+
+
 def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
                        dt: float, M: int, activation: str,
-                       input_scaling: str, ode_solver: str):
+                       input_scaling: str, ode_solver: str,
+                       mxu_dtype: str = "float32"):
     """The kernel's forward of one minibatch in plain PyTorch,
     differentiable in ``w`` (state-dict entries): x, t (BS, N) ->
     (preds, preds_before), each (BS, N, 1, K).  The walk's arithmetic is
     the kernel's: cell floor(t (1/dt) + 0.5), t_elapsed = dt inside the
-    bias for euler and 0 for the stages of heun and rk4."""
+    bias for euler and 0 for the stages of heun and rk4.  Under
+    ``mxu_dtype="bfloat16"`` each product is a :class:`RoundedMM` over the
+    JAX walk's operands (the module's docstring)."""
     A, SC = _ACT[activation], _SCALE[input_scaling]
+    bf16 = mxu_dtype == "bfloat16"
+    mm = _mm(bf16)
     BS, N = x.shape
     H = w["jump_nn.net.3.bias"].shape[0]
     a1 = A(x[..., None] * w["jump_nn.net.0.weight"][:, 0]
            + w["jump_nn.net.0.bias"])
-    hj = A(torch.matmul(a1, w["jump_nn.net.3.weight"].t())
+    hj = A(mm(a1, w["jump_nn.net.3.weight"].t())
            + w["jump_nn.net.3.bias"])                          # (BS, N, H)
     W1 = w["ode_func.net.0.weight"]
     w1h, w1x, w1t, w1tel = W1[:, :H].t(), W1[:, H], W1[:, H + 1], W1[:, H + 2]
@@ -297,6 +339,9 @@ def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
     tel = dt if ode_solver == "euler" else 0.0
     cvec = (tel * w1tel + w["ode_func.net.0.bias"] if tel
             else w["ode_func.net.0.bias"])
+    if bf16:   # the walk's two products, their bias rows folded in
+        w1eff = torch.cat([w1h, w1x[None], w1t[None], cvec[None]])
+        w2eff = torch.cat([w2, b2[None]])
     inv_dt = float(torch.tensor(1.0 / dt, dtype=torch.float32))
     cells = torch.floor(t * inv_dt + 0.5).long()
 
@@ -307,6 +352,15 @@ def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
             for j, a in aij:
                 s_in = s_in + (dt * a) * ks[j]
             ts = tt + dt * ci if ci else tt
+            if bf16:
+                lead = s_in.shape[:-1] + (1,)
+                pre = mm(torch.cat([SC(s_in), x.expand(lead),
+                                    ts[:, None].expand(lead),
+                                    s_in.new_ones(lead)], -1), w1eff)
+                hid = A(pre)
+                ks.append(mm(torch.cat([hid, hid.new_ones(lead)], -1),
+                             w2eff))
+                continue
             pre = (torch.matmul(SC(s_in), w1h) + x * w1x
                    + ts[:, None] * w1t + cvec)
             ks.append(torch.matmul(A(pre), w2) + b2)
@@ -320,7 +374,7 @@ def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
     c = cells[:, 1:]
     hm = torch.where(((c >= 0) & (c <= M))[..., None], hm, 0.0)
     inp = torch.cat([hj, hm], 1)                              # (BS, 2N-1, H)
-    u = A(torch.matmul(inp, w["output_nn.net.0.weight"].t())
+    u = A(mm(inp, w["output_nn.net.0.weight"].t())
           + w["output_nn.net.0.bias"])
     y = (torch.matmul(u, w["output_nn.net.3.weight"].t())
          + w["output_nn.net.3.bias"])                         # (BS, 2N-1, K)
@@ -331,9 +385,9 @@ def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
 
 def _check_args(num_moments, activation, input_scaling, batch_size, data,
                 n_slots, variance_method, ode_solver, mxu_dtype):
-    if mxu_dtype != "float32":
-        raise ValueError(f"walk-train kernel: mxu_dtype={mxu_dtype!r}; the "
-                         "port's kernel runs float32 only")
+    if mxu_dtype not in MXU_DTYPES:
+        raise ValueError(f"walk-train kernel: mxu_dtype={mxu_dtype!r} must "
+                         "be 'float32' or 'bfloat16'")
     if ode_solver not in _TABLEAU:
         raise ValueError(f"walk-train kernel: unknown ode_solver "
                          f"{ode_solver!r} (one of {sorted(_TABLEAU)})")
@@ -375,7 +429,8 @@ def fused_walk_train_run_reference(state: WalkState, data: torch.Tensor, *,
     :func:`walk_train_forward`, ``nj_ode_loss_dense`` with the trajectory
     mask and ``ignore_first_continuity``, ``torch.autograd.grad`` and
     torch-style Adam.  Same arguments and result as
-    :func:`fused_walk_train_run`."""
+    :func:`fused_walk_train_run`.  A float64 state and data run it in
+    float64, with the same bf16 rounding points."""
     _check_args(num_moments, activation, input_scaling, batch_size, data,
                 n_slots, variance_method, ode_solver, mxu_dtype)
     H, K, N, BS = hidden_dim, num_moments, n_slots, batch_size
@@ -395,7 +450,7 @@ def fused_walk_train_run_reference(state: WalkState, data: torch.Tensor, *,
             preds, before = walk_train_forward(
                 w, x, t, dt=float(dt_ode_step), M=int(max_substeps),
                 activation=activation, input_scaling=input_scaling,
-                ode_solver=ode_solver)
+                ode_solver=ode_solver, mxu_dtype=mxu_dtype)
             L = nj_ode_loss_dense(x[..., None], preds, before, None,
                                   ignore_first_continuity=True,
                                   moment_weights=mw, eps=eps,
@@ -457,7 +512,8 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
                          mxu_dtype: str = "float32"):
     """Run ``data.shape[0] // batch_size`` Adam steps of the grid-walk
     model: the CUDA kernel for CUDA tensors, its plain version for CPU
-    tensors, an error otherwise.
+    tensors, an error otherwise.  ``mxu_dtype="bfloat16"`` takes the
+    kernel's bf16 instances (row 13b), counted in ``LAUNCHES_BF16``.
 
     state: from :func:`init_walk_state` or :func:`walk_state_from`, or a
            previous call (the Adam powers carry over, so calls resume).
@@ -465,7 +521,7 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
            every observation time on the grid {g * dt_ode_step}, g <= M.
     Returns (new state, (G,) per-step losses); the input state is kept.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     tensors = {"data": data, **state._asdict()}
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in tensors.values()):
@@ -514,10 +570,11 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
     w1 = float(moment_weights[1]) if len(moment_weights) > 1 else 1.0
     b1, b2 = float(betas[0]), float(betas[1])
     inv_n = 1.0 / float(N)
-    dims = (ctypes.c_int * 14)(
+    dims = (ctypes.c_int * 15)(
         K, H, N, BS, G, int(max_substeps), SUPPORTED_ACTS.index(activation),
         SCALINGS.index(input_scaling), int(variance_method == "second_moment"),
-        plan.warps, int(plan.four), n_st, plan.chunk, plan.wpt)
+        plan.warps, int(plan.four), n_st, plan.chunk, plan.wpt,
+        int(mxu_dtype == "bfloat16"))
     # constants rounded from double once, as the JAX kernel's python floats
     hyper = (ctypes.c_float * 16)(
         dt, 1.0 / dt, dt if ode_solver == "euler" else 0.0, lr, weight_decay,
@@ -537,5 +594,8 @@ def fused_walk_train_run(state: WalkState, data: torch.Tensor, *,
             plan.smem_bytes, stream)
     from ._build import check
     check(lib, err, "njode_walk_train_run launch")
-    LAUNCHES += 1
+    if mxu_dtype == "bfloat16":
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out, losses

@@ -30,10 +30,13 @@
   with the model's fused-step kernels, and ``use_pallas=True`` (the CLI's
   ``--kernels force``) on the composed path with the model's forced
   per-gap kernels (the gap loop's training pair, the fused Euler cell);
-  both keep the whole-run kernels off.  Ensembles (ROADMAP Queue 1 item
+  both keep the whole-run kernels off.  ``train_kernel_mxu`` reaches the
+  Trainer as ``train_kernel_opts={"mxu_dtype": ...}``: "bfloat16" runs the
+  whole-run kernels' bf16 products (rows 11b-12b, 13b); the composed path
+  ignores it, as the JAX package's does.  Ensembles (ROADMAP Queue 1 item
   11), data/model parallelism and multi-host runs (item 12), other process
-  families (item 9), mixed precision and Pallas interpret mode are not
-  ported and raise ``NotImplementedError`` naming their item.
+  families (item 9) and Pallas interpret mode are not ported and raise
+  ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -191,6 +194,12 @@ class Trainer:
     raises where the configuration is not eligible (on CPU tensors the
     kernel's plain version runs); ``False`` (default) takes the composed
     path.
+
+    ``train_kernel_opts`` (the JAX package's name): ``mxu_dtype``
+    "float32" (default) or "bfloat16", the whole-run kernels' product
+    operands; ``lr`` / ``weight_decay``, where given, must equal the
+    optimizer's (the kernels read every hyperparameter from its one param
+    group).  The composed path ignores them.
     """
 
     def __init__(self, model: NeuralJumpODE,
@@ -199,7 +208,8 @@ class Trainer:
                  moment_weights: Optional[List[float]] = None,
                  variance_method: str = "direct",
                  extended_moments: bool = False, seed: int = 0,
-                 use_train_kernel=False):
+                 use_train_kernel=False,
+                 train_kernel_opts: Optional[Dict] = None):
         asked = None if device in (None, "auto") else torch.device(device)
         if asked is not None and (
                 asked.type != model.device.type
@@ -226,6 +236,7 @@ class Trainer:
         self.extended_moments = extended_moments
         self.seed = seed
         self.use_train_kernel = use_train_kernel
+        self.train_kernel_opts = dict(train_kernel_opts or {})
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self.epoch_times: List[float] = []
@@ -332,7 +343,7 @@ class Trainer:
                   input_scaling=m._scale_key, lr=hp["lr"],
                   weight_decay=hp["weight_decay"], moment_weights=mw,
                   variance_method=self.variance_method, betas=hp["betas"],
-                  adam_eps=hp["adam_eps"])
+                  adam_eps=hp["adam_eps"], mxu_dtype=self._mxu_dtype())
         opt_sd = self.optimizer.state_dict()
         with torch.no_grad():
             if self._twin() == "walk":
@@ -529,20 +540,36 @@ class Trainer:
             raise ValueError("train kernel (walk twin) not applicable: "
                              + "; ".join(problems))
 
+    def _mxu_dtype(self) -> str:
+        return self.train_kernel_opts.get("mxu_dtype", "float32")
+
     def _kernel_opts_problems(self) -> list:
         """The kernel implements ``torch.optim.Adam`` with L2 weight decay
-        and reads its hyperparameters from the optimizer's one param
-        group."""
+        and reads its hyperparameters from the optimizer's one param group;
+        ``train_kernel_opts`` names a known ``mxu_dtype`` and no ``lr`` or
+        ``weight_decay`` other than the optimizer's
+        (``njode_tpu/utils/training.py:417-455``)."""
+        from ..ops.train_kernel import MXU_DTYPES
+        problems = []
+        mxu = self._mxu_dtype()
+        if mxu not in MXU_DTYPES:
+            problems.append(f"train_kernel_opts['mxu_dtype']={mxu!r} must "
+                            "be 'float32' or 'bfloat16'")
         opt = self.optimizer
         if type(opt) is not torch.optim.Adam:
-            return [f"the optimizer is {type(opt).__name__}; the kernel "
-                    "implements torch.optim.Adam"]
-        problems = []
+            return problems + [f"the optimizer is {type(opt).__name__}; the "
+                               "kernel implements torch.optim.Adam"]
         if len(opt.param_groups) != 1:
             problems.append("one optimizer param group only")
+        group = opt.param_groups[0]
         for flag in ("amsgrad", "maximize", "decoupled_weight_decay"):
-            if opt.param_groups[0].get(flag, False):
+            if group.get(flag, False):
                 problems.append(f"Adam {flag}=True unsupported")
+        for k, name in (("lr", "lr"), ("weight_decay", "weight_decay")):
+            got = self.train_kernel_opts.get(k)
+            if got is not None and float(got) != float(group[name]):
+                problems.append(f"train_kernel_opts[{k!r}]={got} != the "
+                                f"optimizer's {name}={group[name]}")
         return problems
 
     def _use_kernel(self, batch_size: Optional[int], n_slots: int,
@@ -619,6 +646,8 @@ class Trainer:
                                               mask)
                 kernel = ("walk-train kernel" if self._twin() == "walk"
                           else "whole-run kernel")
+                if self._mxu_dtype() != "float32":
+                    kernel += f" ({self._mxu_dtype()} products)"
                 # every minibatch has batch_size rows (_minibatches pads)
                 forced = self.model._forced_route()
                 comp = ("composed (fused-step kernels)"
@@ -730,10 +759,6 @@ def _refuse_unported(config: Dict) -> None:
             "the CPU True and 'step' run the kernels' plain versions")
     if up not in (False, None, "auto", "train", "step", True):
         raise ValueError(f"Unknown use_pallas: {up!r}")
-    if config.get("train_kernel_mxu", "float32") != "float32":
-        raise NotImplementedError("train_kernel_mxu: the port's training "
-                                  "kernel runs float32 only (the bf16 modes "
-                                  "of rows 11-13: ROADMAP.md, Queue 2)")
     process = config.get("data", {}).get("process_type", "black_scholes")
     if process != "black_scholes":
         raise NotImplementedError(f"process {process!r} is not ported yet "
@@ -876,7 +901,9 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         moment_weights=config.get("moment_weights"),
         variance_method=config.get("variance_method", "direct"),
         extended_moments=config.get("extended_moments", False),
-        seed=config.get("seed", 0), use_train_kernel=use_train_kernel)
+        seed=config.get("seed", 0), use_train_kernel=use_train_kernel,
+        train_kernel_opts={"mxu_dtype": config.get("train_kernel_mxu",
+                                                   "float32")})
     train_data_fn, val_data_fn = create_data_loaders(
         base_seed=config.get("data_seed", 0), device=device,
         **config["data"])

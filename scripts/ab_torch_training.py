@@ -1,6 +1,7 @@
-"""A/B runs of the whole-run training kernel (rows 11-12) on one CUDA card.
+"""A/B runs of the whole-run training kernels (rows 11-13) on one CUDA card.
 
     python scripts/ab_torch_training.py epoch [--root DIR] [--launch]
+    python scripts/ab_torch_training.py walk [--root DIR]
     python scripts/ab_torch_training.py recipe [--root DIR]
     python scripts/ab_torch_training.py steps K,H,METHOD,ACT,BATCH,G [--root DIR]
 
@@ -9,7 +10,12 @@ shape (H 32, two networks, N 10, 8 steps of 128, the last minibatch 104
 rows valid), CUDA events around the wrapper, median of 20 after 3 of
 warm-up, three times; checked against the plain version.  ``--launch`` adds
 the bare launch on preallocated buffers and the kernel's own time from
-torch.profiler (this tree's kernel interface only).  ``recipe``: the
+torch.profiler (this tree's kernel interface only).  ``walk``: one epoch
+call of ``fused_walk_train_run`` (row 13) at the production recipe's shape
+(H 50, shared, N 10, M 100, 40 steps of 256, the last minibatch 16 rows
+valid), timed the same way and checked normwise (losses, params, m and v
+each within 1e-3 of its norm; chip_smoke.py's phase 13 holds 8 steps
+entrywise, an epoch call here is 40).  ``recipe``: the
 default recipe (200 epochs of 1,000 fresh trajectories) through
 ``Trainer.train`` on the kernel, twice; wall time, and val MSE and relative
 loss against the closed-form moments.  ``--seed S`` sets the model's and
@@ -65,19 +71,24 @@ def default_case(dev: torch.device) -> tuple:
     return tk.init_train_state(model), data, cs.train_kwargs(2)
 
 
-def epoch_ms(state, data, kw, rounds: int = 3) -> tuple[list, float]:
+def epoch_ms(state, data, kw, rounds: int = 3, kernel=None,
+             plain=None) -> tuple[list, float]:
     """(epoch-call ms per round, the largest error against the plain
-    version at chip_smoke's tolerance)."""
+    version at chip_smoke's tolerance; the walk's normwise)."""
+    kernel = kernel or tk.fused_train_run
+    plain = plain or tk.fused_train_run_reference
+    walk = kernel is not tk.fused_train_run
     with torch.no_grad():
-        run = lambda: tk.fused_train_run(state, data, **kw)  # noqa: E731
+        run = lambda: kernel(state, data, **kw)  # noqa: E731
         ours = run()
         torch.cuda.synchronize()
-        ref = tk.fused_train_run_reference(state, data, **kw)
-        err = max(cs.assert_close(a, b, f"{what} at the default shape")
-                  for a, b, what in ((ours[1], ref[1], "losses"),
-                                     (ours[0].params, ref[0].params, "params"),
-                                     (ours[0].m, ref[0].m, "Adam m"),
-                                     (ours[0].v, ref[0].v, "Adam v")))
+        ref = plain(state, data, **kw)
+    pairs = ((ours[1], ref[1], "losses"), (ours[0].params, ref[0].params,
+                                           "params"),
+             (ours[0].m, ref[0].m, "Adam m"), (ours[0].v, ref[0].v, "Adam v"))
+    check = cs.assert_close_norm if walk else cs.assert_close
+    err = max(check(a, b, what) for a, b, what in pairs)
+    with torch.no_grad():
         return [cs.time_ms(run, warmup=3, reps=20)
                 for _ in range(rounds)], err
 
@@ -92,9 +103,9 @@ def launch_times(state, data, kw) -> str:
     losses = torch.empty(8, device=data.device)
     n_s = tk.scratch_floats(plan, 2, 10, 128)
     scratch = torch.empty(n_s, device=data.device)
-    dims = (ctypes.c_int * 14)(2, 32, 10, 128, 8, 0, 0, 0, plan.blocks,
+    dims = (ctypes.c_int * 15)(2, 32, 10, 128, 8, 0, 0, 0, plan.blocks,
                                plan.slots, plan.wpt, plan.warps,
-                               int(plan.staged), int(plan.slots_global))
+                               int(plan.staged), int(plan.slots_global), 0)
     hyper = (ctypes.c_float * 13)(1e-3, 5e-4, 0.9, 0.999, 0.1, 0.001, 1e-8,
                                   1e-10, 1.0, 10.0, 0.1, 0.1, 1.0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -127,6 +138,23 @@ def mode_epoch(dev: torch.device) -> None:
           flush=True)
     if "--launch" in ARGS:
         print(f"[{ROOT}] {launch_times(state, data, kw)}", flush=True)
+
+
+def mode_walk(dev: torch.device) -> None:
+    from njode_tpu_torch.ops import walk_train as wt
+    t0 = time.perf_counter()
+    wt._load_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    n_rows = -(-cs.PROD_TRAIN // cs.PROD_BS) * cs.PROD_BS
+    data = cs.train_data(dev, n_rows, cs.PROD_BS, 51, n_valid=cs.PROD_TRAIN)
+    kw = cs.walk_train_kwargs(2, "direct", "euler", cs.PROD_BS)
+    state = wt.init_walk_state(cs.walk_model(dev, seed=0))
+    ms, err = epoch_ms(state, data, kw, kernel=wt.fused_walk_train_run,
+                       plain=wt.fused_walk_train_run_reference)
+    print(f"[{ROOT}] walk-train epoch call ({n_rows // cs.PROD_BS} steps of "
+          f"{cs.PROD_BS}, H {cs.PROD_H}, M {cs.PROD_M}) ms "
+          f"{[round(x, 4) for x in ms]}; max abs err vs plain {err:.2e}",
+          flush=True)
 
 
 def mode_recipe(dev: torch.device) -> None:
@@ -223,6 +251,8 @@ def main() -> None:
     mode = ARGS[0] if ARGS else ""
     if mode == "epoch":
         mode_epoch(dev)
+    elif mode == "walk":
+        mode_walk(dev)
     elif mode == "recipe":
         mode_recipe(dev)
     elif mode == "steps":

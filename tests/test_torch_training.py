@@ -316,7 +316,6 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
     (dict(ensemble=4), "ensembles"),
     (dict(data_parallel=2), "parallelism"),
     (dict(multihost=True), "parallelism"),
-    (dict(train_kernel_mxu="bfloat16"), "float32 only"),
     (dict(use_pallas="step-interpret"), "not ported"),
     (dict(checkpoint_backend="orbax"), "Orbax"),
     (dict(data={"process_type": "ornstein_uhlenbeck"}), "not ported"),

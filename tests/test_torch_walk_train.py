@@ -249,7 +249,7 @@ def test_gates_and_refusals(case):
         model, data, kw = port_state("euler-direct")
         st = wt.init_walk_state(model)
         with pytest.raises(ValueError, match="mxu_dtype"):
-            wt.fused_walk_train_run(st, data, **kw, mxu_dtype="bfloat16")
+            wt.fused_walk_train_run(st, data, **kw, mxu_dtype="float16")
         with pytest.raises(ValueError, match="whole number"):
             wt.fused_walk_train_run(st, data[:BS - 1], **kw)
         with pytest.raises(ValueError, match="no kernel for device meta"):
