@@ -78,15 +78,25 @@ uncaught exception and a nonzero exit:
    2 timed and scaled; one epoch call of the kernel and of its plain
    version; rows 7-8 at their main-path shapes; the validation A/B that
    sets the walk's row cap; val MSE against the closed-form moments.
-16. build: fused_step.cu's ptxas summary (built in 2).
-17. fused-step kernels vs plain: rows 9-10 (njode_step_fwd, njode_step_bwd)
-   against fused_step_forward_reference / fused_step_backward_reference,
-   H in (32, 50, 256) x N in (1, 2, 10) x separate/shared x L in (1, 2),
-   relu/identity, tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in
-   turn, then the scaled path's own shape (H 256, N 2, separate, L 1,
-   relu/identity, 4,096 rows): the forward at rtol 1e-4 / atol 1e-5, every
-   dW plane and dV row within 1e-3 of its norm (the worst case's share of
-   that limit printed), two backward calls bitwise equal.
+16. build: fused_step.cu's ptxas summary and registers and spills by
+   instance (built in 2), and the tensor-core instructions (HMMA/HGMMA in
+   the SASS, cuobjdump) of each kernel instance: not 0 for any of the three
+   bf16 instances (the f32 ones run on the CUDA cores).
+17. fused-step kernels vs plain: rows 9-10 (njode_step_fwd, njode_step_bwd,
+   f32 on the CUDA cores) against fused_step_forward_reference /
+   fused_step_backward_reference (cuBLAS f32, TF32 off), H in (32, 50, 256)
+   x N in (1, 2, 10) x separate/shared x L in (1, 2), relu/identity,
+   tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in turn, then the
+   scaled path's own shape (H 256, N 2, separate, L 1, relu/identity, 4,096
+   rows): the forward at rtol 1e-4 / atol 1e-5 and within 1e-5 of its norm,
+   every dW plane and dV row within 1e-4 of its norm (1e-3 with relu,
+   whose kinks turn under another summation order); the control, the plain
+   version in 1xTF32 on the same input (its products' operands rounded to
+   TF32, allow_tf32 on: cuBLAS alone keeps f32 where the inner dimension is
+   not a multiple of 4, as at H 50), must fail the forward and the backward
+   check in every case (the worst share of each limit printed for the
+   kernel, the smallest for the control); two backward calls bitwise
+   equal.
 18. the scaled training path: run_experiment of the scaled config
    (scripts/run_scaled_sweep.sh's flags through build_config: hidden 256,
    two networks, batch 4,096, 100,000 fresh trajectories per epoch,
@@ -99,9 +109,10 @@ uncaught exception and a nonzero exit:
    fused-step kernels; the composed path (use_pallas False), warmed by one
    epoch, 5 timed and scaled to 100; the A/B behind the "auto" gate (one
    epoch each, in turns; "auto" must take the kernels at this shape); rows
-   9 and 10
-   per call at 4,096 rows (row 9 also at 5,000) against their plain
-   versions and bounds; val MSE against the closed-form moments.
+   9 and 10 per call at 4,096 rows (row 9 also at 5,000) against their
+   plain versions and bounds (f32-accurate products at 3xTF32 on the tensor
+   cores, the CUDA cores' f32 bound and the tile partials' bytes beside);
+   val MSE against the closed-form moments.
 
 20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2).
 21. gap training kernels vs plain: rows 2-5 (njode_gap_train_fwd at
@@ -130,13 +141,17 @@ uncaught exception and a nonzero exit:
    main-path shapes against their plain versions and bounds; the residual
    stride A/B (1, 4, 8, 16) at n_sub 100.
 24. bf16 fused-step kernels vs plain: rows 9b-10b (the bf16 instances of
-   njode_step_fwd / njode_step_bwd, compute_dtype bfloat16) bitwise against
-   their plain versions on a case whose every f32 operation is exact (one
-   trajectory, H 16, one hidden layer) but which the bf16 rounding
-   changes; then on phase 17's grid and the scaled path's shape: the
-   forward at rtol 2e-2 / atol 2e-3, every dW plane and dV row within 5e-2
-   of its norm (one-ulp flips of downstream bf16 roundings under another
-   f32 summation order), two backward calls bitwise equal.
+   njode_step_fwd / njode_step_bwd, compute_dtype bfloat16, bf16 mma with
+   f32 accumulation) bitwise against their plain versions on a case whose
+   every f32 operation is exact (one trajectory, H 16, one hidden layer)
+   but which the bf16 rounding changes; then on phase 17's grid and the
+   scaled path's shape: the forward at rtol 2e-2 / atol 2e-3, every dW
+   plane and dV row within 5e-2 of its norm (one-ulp flips of downstream
+   bf16 roundings under another f32 summation order), and the ratio test
+   (Y, each dW plane and dV row no further from the plain bf16 run, in
+   norm, than 0.1 x, the backward 0.2 x, the plain bf16 run from the plain
+   f32 run), which the f32 instance on the same input (the control) must
+   fail; two backward calls bitwise equal.
 25. the bf16 scaled training path: run_experiment of the scaled config with
    compute_dtype bfloat16 (scripts/run_scaled_sweep.sh --compute-dtype
    bfloat16 through build_config) for 2 epochs, then resumed to 3: row 10b
@@ -199,6 +214,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from njode_tpu_torch import NeuralJumpODE, NJODEFilter
 from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
@@ -223,9 +239,10 @@ WALK_TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/walk_train.cu"
 STEP_SOURCE = "njode_tpu_torch/ops/csrc/fused_step.cu"
 SOURCES = ["gap_scan", "train_run", "walk_scan", "walk_train", "fused_step",
            "gap_train", "fused_cell"]
-# the H100 SXM's published peaks: f32 outside the tensor cores, bf16 dense
-# on the tensor cores, HBM3
+# the H100 SXM's published peaks: f32 outside the tensor cores, bf16 and
+# TF32 dense on the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12
 BF16 = torch.bfloat16
 
 
@@ -303,6 +320,42 @@ def ptxas_instances(name: str) -> str:
                        f"{spill} spill bytes")
             entry, spill = None, 0
     return "; ".join(out) if out else "no ptxas output"
+
+
+def step_tensor_core_counts() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of fused_step.cu's
+    library (cuobjdump --dump-sass), by kernel instance: a kernel's own and
+    those of the out-of-line product and gradient sum of its template
+    arguments (T, NTW, RPW)."""
+    import re
+    from njode_tpu_torch.ops import _build
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_build._lib_path("fused_step"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per_fn, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            per_fn[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\.", ln):
+            per_fn[fn] += 1
+    pat = re.compile(r"(step_fwd_kernel|step_bwd_kernel|mm_store|outer_sum)"
+                     r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+    by_key, kernels = {}, []
+    for name, n in per_fn.items():
+        m = pat.search(name)
+        if not m:
+            continue
+        key = ("bf16" if m.group(2) != "f" else "f32", int(m.group(3)),
+               int(m.group(4)))
+        by_key[key] = by_key.get(key, 0) + n
+        if m.group(1).startswith("step_"):
+            kernels.append((m.group(1)[5:8], key))
+    return {f"{kind} <{k[0]}, NTW {k[1]}, RPW {k[2]}>": by_key[k]
+            for kind, k in sorted(kernels)}
 
 
 def ptxas_line(name: str) -> str:
@@ -1486,14 +1539,141 @@ def step_plan(c: dict) -> tuple:
                           lo.d_x, lo.d_y, lo.K)
 
 
-# rows 9b-10b against their plain versions: both sum bf16-exact products in
-# f32, in other orders; where that moves a downstream activation across a
-# bf16 rounding boundary, it moves by one bf16 ulp (2^-8 relative) and
-# carries on.  Forward entrywise at BF16_RTOL / BF16_ATOL, each dW plane and
-# dV row within BF16_GRAD_RTOL of its norm (the plain version summed in
-# float64 against float32 on the CPU, this phase's grid at 512 rows: at
-# most 5.5e-4 abs forward and 1.2e-2 of a norm backward)
+# rows 9-10 (f32 fma on the CUDA cores) against their plain versions
+# (cuBLAS in f32, TF32 off): the forward entrywise at RTOL / ATOL and
+# within STEP_FWD_NORM of its norm, each dW plane and dV row within
+# STEP_GRAD_RTOL of its norm, or GRAD_RTOL for relu, whose kinks turn the
+# other way under another summation order (a pre-activation within
+# rounding of zero moves one row's cotangent; the H100 readings: up to
+# 8.9e-4 with relu, 1.4e-5 without).  The limits are set so that the
+# control fails them: the plain version on the same input in 1xTF32
+# (TF32Operands, with allow_tf32 on) must fail the forward and the
+# backward check in every case.  The entrywise forward limit alone does
+# not catch TF32 (a CPU emulation at the scaled shape, relu/identity,
+# 1,024 rows: at 0.88 of it); normwise, 1xTF32 sits at 1.5e-4 - 1.3e-3
+# forward and 5e-4 - 1.3e-1 backward (tests/test_torch_fused_step.py, and
+# the H100 readings).
+STEP_FWD_NORM, STEP_GRAD_RTOL = 1e-5, 1e-4
+# rows 9b-10b against their plain versions: both round the same operands to
+# bf16 and sum bf16-exact products in f32, in other orders; where that
+# moves a downstream activation across a bf16 rounding boundary, it moves
+# by one bf16 ulp (2^-8 relative) and carries on.  Forward entrywise at
+# BF16_RTOL / BF16_ATOL, each dW plane and dV row within BF16_GRAD_RTOL of
+# its norm (the plain version summed in float64 against float32 on the CPU,
+# this phase's grid at 512 rows: at most 5.5e-4 abs forward and 1.2e-2 of a
+# norm backward), and the ratio test (step_ratio_share): the kernel's
+# distance from the plain bf16 run, in Y and in each dW plane and dV row,
+# at most STEP_RATIO x the plain bf16 run's from the plain f32 run (the
+# backward at STEP_RATIO_BWD: a relu kink or a bf16 rounding that turns the
+# other way under another summation order moves single rows, and on the
+# H100 the CUDA-core bf16 kernel read 0.101 at the scaled shape, the tensor
+# cores up to 0.146 with L 2); the f32 instance on the same input is the
+# control and must fail it (it reads 1.0).
 BF16_RTOL, BF16_ATOL, BF16_GRAD_RTOL = 2e-2, 2e-3, 5e-2
+STEP_RATIO, STEP_RATIO_BWD = 0.1, 0.2
+
+
+def step_items(out) -> list:
+    """A fused-step output as the ratio test's items: Y whole, or each dW
+    plane and dV row of (dW, dV)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x[i, j] for x in out for i in range(x.shape[0])
+            for j in range(x.shape[1])]
+
+
+def step_ratio_share(ours, ref, ref32, ratio: float = STEP_RATIO) -> float:
+    """The ratio test's share (above 1 fails): the largest over items of
+    ||ours - ref|| / (ratio ||ref - ref32||) (Frobenius); ref the plain
+    bf16 run, ref32 the plain f32 run.  Normwise, not by the largest entry:
+    a one-ulp flip of a downstream bf16 rounding under another summation
+    order moves single entries by up to 0.15 of the bf16 effect's largest
+    (the plain bf16 version against itself with its hidden units permuted,
+    H 32, N 10, L 2), 0.03 of its norm.  An item the bf16 mode leaves
+    unchanged (a plane with no gradient) counts only if ours moves it."""
+    worst = 0.0
+    for a, b, c in zip(*(step_items(x) for x in (ours, ref, ref32))):
+        a, b, c = (x.detach().cpu().double() for x in (a, b, c))
+        if not torch.isfinite(a).all():
+            return math.inf
+        dist, gap = float((a - b).norm()), float((b - c).norm())
+        if gap > 0:
+            worst = max(worst, dist / (ratio * gap))
+        elif dist > 0:
+            return math.inf
+    return worst
+
+
+def step_fwd_share(a, b, rtol: float = RTOL, atol: float = ATOL,
+                   norm: float = STEP_FWD_NORM) -> float:
+    """The forward check's share of its limits (above 1 fails): entrywise
+    at rtol / atol, and normwise at ``norm`` (None: entrywise only)."""
+    a, b = a.cpu().double(), b.cpu().double()
+    if not torch.isfinite(a).all():
+        return math.inf
+    share = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+    if norm is not None:
+        share = max(share, float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    / norm)
+    return share
+
+
+def step_bwd_share(ours, ref, grad_rtol: float) -> float:
+    """The backward check's share (above 1 fails): the largest ||a - b|| /
+    (grad_rtol ||b||) over the dW planes and dV rows."""
+    worst = 0.0
+    for a, b in zip(step_items(ours), step_items(ref)):
+        a, b = a.cpu().double(), b.cpu().double()
+        if not torch.isfinite(a).all():
+            return math.inf
+        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    / grad_rtol)
+    return worst
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to TF32, 10 mantissa bits, to nearest with ties
+    away from zero (cvt.rna.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+class TF32Operands(TorchFunctionMode):
+    """Every plane product of the plain versions (a 2-D by 2-D float32
+    matmul) on operands rounded to TF32: 1xTF32 products summed in f32,
+    what cuBLAS does with allow_tf32 on where it takes TF32, and also where
+    it keeps f32 (an inner dimension not a multiple of 4, as at H 50)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+                and len(args) == 2 and all(
+                    isinstance(a, torch.Tensor) and a.dim() == 2
+                    and a.dtype == torch.float32 for a in args)):
+            args = tuple(tf32_round(a) for a in args)
+        return func(*args, **(kwargs or {}))
+
+
+def step_plain_tf32(c: dict, act: str, scale: str) -> tuple:
+    """The control of rows 9-10: their plain versions in 1xTF32 (cuBLAS
+    with allow_tf32 on, restored right after, on operands rounded to
+    TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with TF32Operands():
+            y = step_fwd(c, act, scale, False)
+            g = step_bwd(c, act, scale, False)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return y, g
+
+
+def step_grad_rtol(act: str, cdt=None) -> float:
+    """The backward limit of rows 9-10 / 9b-10b, each dW plane and dV row
+    against its norm."""
+    if cdt is not None:
+        return BF16_GRAD_RTOL
+    return GRAD_RTOL if act == "relu" else STEP_GRAD_RTOL
 
 
 def step_kernel_phase(dev: torch.device, cdt=None
@@ -1502,21 +1682,26 @@ def step_kernel_phase(dev: torch.device, cdt=None
     versions on the card: H in (32, 50, 256) x N in (1, 2, 10) x
     separate/shared x L in (1, 2), the activation pairs and row counts
     (4,096, 1,696, 5,000) taken in turn, then the scaled path's own shape
-    (H 256, N 2, separate, L 1, relu/identity, 4,096 rows).  Forward at
-    rtol 1e-4 / atol 1e-5 (bf16: BF16_RTOL / BF16_ATOL); every dW plane and
-    dV within GRAD_RTOL of its norm (bf16: BF16_GRAD_RTOL); two backward
-    calls bitwise equal.  Returns (forward max abs err, backward max abs
-    err, the largest normwise backward error)."""
+    (H 256, N 2, separate, L 1, relu/identity, 4,096 rows).  f32: forward
+    at rtol 1e-4 / atol 1e-5 and STEP_FWD_NORM of its norm, every dW plane
+    and dV row within step_grad_rtol of its norm, and the 1xTF32 control
+    failing both.  bf16: forward at
+    BF16_RTOL / BF16_ATOL, backward within BF16_GRAD_RTOL of the norm, the
+    ratio test in Y, dW and dV, and the f32 instance failing the ratio
+    test.  Two backward calls bitwise equal.  Returns (forward max abs err,
+    backward max abs err, the largest normwise backward error)."""
     gen = torch.Generator().manual_seed(91)
-    worst = {"f": 0.0, "b": 0.0, "rel": 0.0, "at": ""}
-    rtol, atol, grad_rtol = ((RTOL, ATOL, GRAD_RTOL) if cdt is None
-                             else (BF16_RTOL, BF16_ATOL, BF16_GRAD_RTOL))
+    worst = {"f": 0.0, "b": 0.0, "rel": 0.0, "at": "", "fs": 0.0, "bs": 0.0,
+             "rf": 0.0, "rb": 0.0, "cf": math.inf, "cb": math.inf}
+    rtol, atol, norm = ((RTOL, ATOL, STEP_FWD_NORM) if cdt is None
+                        else (BF16_RTOL, BF16_ATOL, None))
     rows_name = "rows 9-10" if cdt is None else "rows 9b-10b (bf16)"
 
     def check(H, N, shared, L, act, scale, rows) -> float:
         """One case; returns its largest normwise backward error."""
         c = step_case(gen, H, N, shared, L, act, scale, rows, dev)
         where = f"H={H} N={N} shared={shared} L={L} {act}/{scale} rows={rows}"
+        grad_rtol = step_grad_rtol(act, cdt)
         with torch.no_grad():
             y_k = step_fwd(c, act, scale, True, cdt)
             y_p = step_fwd(c, act, scale, False, cdt)
@@ -1526,6 +1711,13 @@ def step_kernel_phase(dev: torch.device, cdt=None
         torch.cuda.synchronize()
         worst["f"] = max(worst["f"], assert_close(
             y_k, y_p, f"{rows_name} forward at {where}", rtol, atol))
+        fs_k = step_fwd_share(y_k, y_p, rtol, atol, norm)
+        if not fs_k <= 1.0:
+            raise AssertionError(f"{rows_name} forward at {where}: share "
+                                 f"{fs_k:.3f} of the limits (rtol {rtol}, "
+                                 f"atol {atol}, norm {norm})")
+        worst["fs"] = max(worst["fs"], fs_k)
+        worst["bs"] = max(worst["bs"], step_bwd_share(g_k, g_p, grad_rtol))
         case_rel = 0.0
         for a, a2, b, what in zip(g_k, g_k2, g_p, ("dW", "dV")):
             if not torch.equal(a, a2):
@@ -1542,6 +1734,40 @@ def step_kernel_phase(dev: torch.device, cdt=None
                     if rel > worst["rel"]:
                         worst["rel"] = rel
                         worst["at"] = f"{what}[{i}, {j}] at {where}"
+        if cdt is None:                  # the 1xTF32 control must fail
+            y_c, g_c = step_plain_tf32(c, act, scale)
+            cf = step_fwd_share(y_c, y_p, rtol, atol, norm)
+            cb = step_bwd_share(g_c, g_p, grad_rtol)
+            if not (cf > 1.0 and cb > 1.0):
+                raise AssertionError(
+                    f"the 1xTF32 control passes the f32 checks at {where} "
+                    f"(forward share {cf:.3f}, backward {cb:.3f}); they "
+                    f"cannot tell f32 from 1xTF32")
+            worst["cf"], worst["cb"] = min(worst["cf"], cf), min(worst["cb"],
+                                                                 cb)
+        else:                            # the ratio test, f32 the control
+            with torch.no_grad():
+                y_f = step_fwd(c, act, scale, False)
+                g_f = step_bwd(c, act, scale, False)
+                y_k32 = step_fwd(c, act, scale, True)
+                g_k32 = step_bwd(c, act, scale, True)
+            torch.cuda.synchronize()
+            rf = step_ratio_share(y_k, y_p, y_f)
+            rb = step_ratio_share(g_k, g_p, g_f, STEP_RATIO_BWD)
+            if not (rf <= 1.0 and rb <= 1.0):
+                raise AssertionError(
+                    f"{rows_name} fail the ratio test at {where}: forward "
+                    f"share {rf:.3f}, backward {rb:.3f}")
+            cf = step_ratio_share(y_k32, y_p, y_f)
+            cb = step_ratio_share(g_k32, g_p, g_f, STEP_RATIO_BWD)
+            if not (cf > 1.0 and cb > 1.0):
+                raise AssertionError(
+                    f"the f32 instance passes the ratio test at {where} "
+                    f"(forward share {cf:.3f}, backward {cb:.3f})")
+            worst["rf"], worst["rb"] = max(worst["rf"], rf), max(worst["rb"],
+                                                                 rb)
+            worst["cf"], worst["cb"] = min(worst["cf"], cf), min(worst["cb"],
+                                                                 cb)
         return case_rel
 
     n = 0
@@ -1555,16 +1781,35 @@ def step_kernel_phase(dev: torch.device, cdt=None
                     n += 1
     main_rel = check(SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS)
     n += 1
+    main_lim = step_grad_rtol("relu", cdt)
+    if cdt is None:
+        limits = (f"rtol {rtol} / atol {atol} and {norm} of the norm; "
+                  f"backward each dW plane and dV row within {STEP_GRAD_RTOL} "
+                  f"of its norm ({GRAD_RTOL} with relu)")
+        extra = (f"; the 1xTF32 control (the plain version on TF32 operands, "
+                 f"allow_tf32 on) fails in every case, its smallest share of "
+                 f"the forward limits {worst['cf']:.3f}, of the backward "
+                 f"limit {worst['cb']:.3f}")
+    else:
+        limits = (f"rtol {rtol} / atol {atol}; backward each dW plane and dV "
+                  f"row within {BF16_GRAD_RTOL} of its norm")
+        extra = (f"; the ratio test (no further from the plain bf16 run than "
+                 f"{STEP_RATIO} forward, {STEP_RATIO_BWD} backward x its "
+                 f"distance from plain f32, normwise) worst share forward "
+                 f"{worst['rf']:.3f}, backward {worst['rb']:.3f}; the f32 "
+                 f"instance (the control) fails it in every case, smallest "
+                 f"share forward {worst['cf']:.3f}, backward "
+                 f"{worst['cb']:.3f}")
     print(f"fused-step kernels, {rows_name}, vs plain: {n} cases (H in (32, "
           f"50, 256) x N in (1, 2, 10) x separate/shared x L in (1, 2); "
           f"relu/identity, tanh/tanh, elu/sigmoid and rows 4,096, 1,696, "
           f"5,000 in turn; then the scaled path's shape, H {SCALED_H}, N 2, "
-          f"separate, L 1, relu/identity, {SCALED_BS} rows): forward max abs "
-          f"err {worst['f']:.3e} (rtol {rtol} / atol {atol}); backward (each "
-          f"dW plane and dV row) max abs err {worst['b']:.3e}, largest "
-          f"error/norm {worst['rel']:.3e} = {worst['rel'] / grad_rtol:.1%} "
-          f"of its limit {grad_rtol} ({worst['at']}), at the scaled path's "
-          f"shape {main_rel:.3e} = {main_rel / grad_rtol:.1%}; two backward "
+          f"separate, L 1, relu/identity, {SCALED_BS} rows), limits forward "
+          f"{limits}: forward max abs err {worst['f']:.3e}, worst share "
+          f"{worst['fs']:.3f}; backward max abs err {worst['b']:.3e}, largest "
+          f"error/norm {worst['rel']:.3e} ({worst['at']}), worst share "
+          f"{worst['bs']:.3f}; at the scaled path's shape {main_rel:.3e} = "
+          f"{main_rel / main_lim:.3f} of its limit{extra}; two backward "
           f"calls bitwise equal", flush=True)
     return worst["f"], worst["b"], worst["rel"]
 
@@ -1806,10 +2051,19 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
     flops = step_flops(SCALED_H, 2, lo, SCALED_BS)
     io = 4 * (c["W"].numel() + c["V"].numel() + c["times"].numel()
               + c["values"].numel())
-    f_bound = bound_of(flops, io + 4 * c["gy"].numel())
+    # bound: f32-accurate products at their fastest on this card, 3xTF32 (3
+    # TF32 products each) on the tensor cores; the CUDA cores' f32 bound
+    # printed beside
+    b_io = io + 4 * (c["gy"].numel() + c["W"].numel() + c["V"].numel())
+    f_bound = bound_of(3 * flops, io + 4 * c["gy"].numel(), PEAK_TF32_FLOPS)
     # the backward rematerializes the forward: three forwards' products
-    b_bound = bound_of(3 * flops, io + 4 * (c["gy"].numel() + c["W"].numel()
-                                            + c["V"].numel()))
+    b_bound = bound_of(9 * flops, b_io, PEAK_TF32_FLOPS)
+    f_cc, b_cc = (bound_of(flops, io + 4 * c["gy"].numel())[0],
+                  bound_of(3 * flops, b_io)[0])
+    # the bytes of the backward's tile partials, written and read once
+    tiles = -(-SCALED_BS // (8 * step_plan(c)[1]))
+    partial_b = 2 * 4 * tiles * lo.Kn * (lo.n_mats * SCALED_H ** 2
+                                         + lo.n_rows * SCALED_H)
     n = E * SCALED_TRAIN
     print(f"scaled times on {card}: the recipe ({E} epochs x "
           f"{SCALED_TRAIN:,} fresh trajectories, batch {SCALED_BS}, hidden "
@@ -1828,10 +2082,14 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
           f"{SCALED_BS} rows: forward "
           f"{', '.join(f'{x:.4f}' for x in t[True, False])} ms (plain "
           f"{', '.join(f'{x:.4f}' for x in t[False, False])} ms; bound "
-          f"{f_bound[0]:.4f} ms {f_bound[1]}); backward "
+          f"{f_bound[0]:.4f} ms {f_bound[1]} at 3xTF32, {f_cc:.4f} ms at the "
+          f"CUDA cores' f32 peak); backward "
           f"{', '.join(f'{x:.4f}' for x in t[True, True])} ms (plain "
           f"{', '.join(f'{x:.4f}' for x in t[False, True])} ms; bound "
-          f"{b_bound[0]:.4f} ms {b_bound[1]}); forward at {SCALED_VAL:,} "
+          f"{b_bound[0]:.4f} ms {b_bound[1]} at 3xTF32, {b_cc:.4f} ms at the "
+          f"CUDA cores' f32 peak; the tile partials {partial_b / 1e6:.1f} MB "
+          f"written and read, {1e3 * partial_b / PEAK_BYTES:.4f} ms at "
+          f"3.35 TB/s); forward at {SCALED_VAL:,} "
           f"validation rows {f_val:.4f} ms; launch plan (rows per warp) "
           f"{step_plan(c)}", flush=True)
     return {"fused_step_fwd": (med[True, False], med[False, False], *f_bound),
@@ -3016,7 +3274,17 @@ def main() -> None:
     t = phase_time("walk kernel times", t)
 
     print(f"build: fused_step.cu in {build_s:.2f} s (with the other sources, "
-          f"in parallel); ptxas: {ptxas_summary('fused_step')}", flush=True)
+          f"in parallel); ptxas: {ptxas_summary('fused_step')}; by instance "
+          f"<T, NTW, RPW>: {ptxas_instances('fused_step')}", flush=True)
+    hmma = step_tensor_core_counts()
+    print("fused_step.cu tensor-core instructions (HMMA/HGMMA in the SASS) "
+          "by kernel instance (the bf16 instances on the tensor cores, the "
+          "f32 ones on the CUDA cores): " + "; ".join(
+              f"{k} {n}" for k, n in hmma.items()), flush=True)
+    moved = [n for k, n in hmma.items() if "bf16" in k]
+    if len(moved) != 3 or not all(moved):
+        raise AssertionError(f"a bf16 fused-step instance runs no tensor-core "
+                             f"instruction: {hmma}")
     sf_err, sb_err, _ = step_kernel_phase(dev)
     t = phase_time("fused-step kernels vs plain", t)
     with tempfile.TemporaryDirectory() as tmp:

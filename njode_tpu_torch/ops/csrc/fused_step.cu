@@ -14,52 +14,81 @@
 //
 // x enters the jump unscaled and the ODE scaled.  bo2 is added outside.
 //
-// What bounds it on the H100: the f32 products, 2 H^2 flops per row and
-// plane pass (1.84 MFLOP per trajectory forward at H 256, K 2, N 2; the
-// backward, which rematerializes the forward, three times that), on the
-// CUDA cores (TF32 and the tensor cores are a later step).  The TPU kernel
-// keeps every weight plane in VMEM; at H 256 one f32 plane is 256 KB, more
-// than a block's shared memory, so here each block keeps its row tile's
-// activations in shared memory between layers and streams each plane
-// through a shared stage of kStages slices of kSliceK rows by asynchronous
-// copies (tile_mm): the copies of the next slices overlap the products of
-// this one, which the L2 latency otherwise bounds with 8 warps an SM.  A
-// block is 8 warps over a tile of RT = 8 RPW rows (64 forward; 32 or 16
-// backward, where 3 L + 3 buffers must fit): warp w owns rows w RPW .. w
-// RPW + RPW - 1 and lane l the columns l + 32 c, so a product reads each
-// weight row once per warp and each activation as a warp-wide broadcast,
-// and holds the whole RT x H result in registers: a layer can overwrite
-// its own input after a barrier.  Activations are kept as values; the
-// backward takes act' from the value (relu, tanh, sigmoid, elu, leaky relu
-// and selu all allow it).
+// What bounds it on the H100: the products, 2 H^2 flops per row and plane
+// pass (1.84 MFLOP per trajectory forward at H 256, K 2, N 2; the
+// backward, which rematerializes the forward, three times that), and the
+// bytes around them: each block streams every plane it multiplies through
+// L2, and the backward writes and reads back its partial sums.  The TPU
+// kernel keeps every weight plane in VMEM; at H 256 one f32 plane is 256 KB,
+// more than a block's shared memory, so here each block keeps its row
+// tile's activations in shared memory between layers and streams each plane
+// through shared memory by asynchronous copies (tile_mm_tc, tile_mm_cc).  A block is 8
+// warps over a tile of RT = 8 RPW rows (64 forward; 32 or 16 backward,
+// where 3 L + 3 buffers must fit).
 //
-// The weight-gradient sums cross row tiles, and blocks run concurrently, so
-// no float atomics (two calls must be bitwise equal): each block writes its
-// tile's partial dW and dV (A^T G for every plane, column sums for every V
-// row, summed over its slots in slot order), and a second kernel sums the
-// partials in tile order.  At B 4096, H 256, K 2 the partials are 128
-// tiles x 2 x 1.06 MB, written and read once per call.
+// The bf16 instances (rows 9b and 10b: compute_dtype=bfloat16, the TPU
+// kernels' cdt mode, fused_step.py:236-239, :336-346) run their products
+// and weight-gradient sums on the tensor cores, mma.sync m16n8k16 with bf16
+// inputs and f32 accumulation; W and WT arrive as bf16 planes (cast once by
+// the wrapper).  A bf16 x bf16 product is exact in f32, so a product is
+// JAX's dot(a.astype(bf16), w_bf16, preferred_element_type=f32) with only
+// the order of the f32 sums changed.
+//   * Products (tile_mm_tc): warp w owns the output columns of n-tiles w
+//     NTW .. w NTW + NTW - 1 over all RT rows (MT = RT / 16 row tiles), so
+//     each weight column is read by one warp and each activation by all
+//     eight, and holds its RT x 8 NTW result in registers: a layer can
+//     overwrite its own input after a barrier.  Each warp streams its own
+//     columns of the plane through its own strip of the stage, kStages
+//     slices of one k-step (16 rows) in flight, by asynchronous copies, so
+//     the warps need no block barrier inside a product.  The activation
+//     operand is rounded to bf16 (to nearest even) where its fragment is
+//     packed, after its f32 epilogue: the buffer stays f32.  Activation
+//     rows are act_stride(H) floats apart (8 more than a multiple of 32)
+//     and the strip's 16-byte chunks are permuted by row (Strip::pos), so
+//     every fragment load is free of shared-memory bank conflicts.  H need
+//     not be a multiple of 16: the last k-step masks the activation columns
+//     past H, the strip zero-fills its rows past H, and the columns past H
+//     are computed and not stored.  Each k-step's products are summed by
+//     the tensor cores into a fresh accumulator and added to the running
+//     sum in f32 (add4).
+//   * Gradient sums (outer_sum_tc): P = A^T G over the tile's RT rows as
+//     the k dimension, both operands rounded (as JAX's outer rounds them)
+//     and read from the activation buffers; rows of the tile past B carry
+//     zero cotangents, so they add exact zeros.
+//   * Built for NTW 4 only (the scaled recipe's H 256), which serves any H
+//     <= 256 with idle warps, to keep the build short.
+//
+// The f32 instances (rows 9 and 10) stay on the CUDA cores (tile_mm_cc,
+// outer_sum_cc): warp w owns rows w RPW .. w RPW + RPW - 1 of the tile and
+// lane l the columns l + 32 c, one f32 fma per operand pair, the plane
+// streamed through a block-wide stage of kStages slices of kSliceK rows.
+// 3xTF32 on the tensor cores (each operand split into hi = tf32(x) and lo =
+// tf32(x - hi), lo.hi + hi.lo + hi.hi) was built and measured on the H100:
+// its products carry about 2^-21 of relative error a term against 2^-24
+// for an fma, which doubled the forward's distance from cuBLAS f32 and with
+// it the relu kinks that flip under another summation order, and the
+// backward came out 4.71e-3 and 2.69e-3 of a plane's norm from the plain
+// version in two of phase 17's relu cases (limit 1e-3; the CUDA-core
+// kernel 2.6e-6 and 8.9e-4); it was also slower, the backward 2.00-2.02 ms
+// against 1.68-1.74 ms at the scaled shape (PERF.md, section 6).
+//
+// Activations are kept as values; the backward takes act' from the value
+// (relu, tanh, sigmoid, elu, leaky relu and selu all allow it).
+//
+// The weight-gradient sums cross row tiles, and blocks run concurrently,
+// so no float atomics (two calls must be bitwise equal): each block writes
+// its tile's partial dW and dV (A^T G for every plane, column sums for
+// every V row, summed over its slots in slot order), and a second kernel
+// sums the partials in tile order.  At B 4096, H 256, K 2 the partials are
+// 128 tiles x 2 x 1.06 MB, written and read once per call.  V, the
+// epilogues, the column sums, the partials and the tile-order reduce stay
+// f32 in both instances.
 //
 // The build: the product with its epilogue (mm_store) and the weight-
 // gradient sum (outer_sum) are device functions kept out of line, one copy
 // per template instance shared by both kernels, and only the instances the
 // launch plan picks are built; with everything inlined the source took
 // ten times as long to compile.
-//
-// The bf16 instances (rows 9b and 10b: compute_dtype=bfloat16, the TPU
-// kernels' cdt mode, fused_step.py:236-239, :336-346) are the same kernels
-// with the weight type T = __nv_bfloat16: W and WT arrive as bf16 planes
-// (cast once by the wrapper), a staged slice holds twice the rows in the
-// same bytes, and every product rounds its activation operand to bf16
-// (operand<T>) and widens both operands to f32 before the f32 fma, which is
-// JAX's dot(a.astype(bf16), w_bf16, preferred_element_type=f32): the
-// product of two bf16 values is exact in f32, so only the order of the f32
-// sums differs.  The weight-gradient sums round both operands.  The
-// activations stay f32 in shared memory and are rounded where a product
-// reads them, after their f32 epilogue; V, the epilogues, the column sums,
-// the partials and the tile-order reduce stay f32.  The bf16 instances are
-// built for 8 columns a lane only (the scaled recipe's H 256), which serves
-// any H <= 256 with idle columns below 129, to keep the build short.
 //
 // Layout (contiguous): x (B, N, d_x) and t (B, N) f32; W, WT (Kn, n_mats,
 // H, H) in T, W (in, out) and WT its transpose per plane; V (Kn, n_rows, H)
@@ -72,6 +101,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "walk_cell.cuh"
 
@@ -89,22 +119,42 @@ constexpr int kStages = 3;      // slices in flight
 
 using bf16 = __nv_bfloat16;
 
-// a staged slice is kSliceK f32 rows' bytes: 8 rows of f32, 16 of bf16
+// a staged slice is kSliceK f32 rows' bytes: 8 rows of f32 (one m16n8k8
+// k-step), 16 of bf16 (one m16n8k16 k-step)
 template <typename T>
 constexpr int kSliceRows = kSliceK * (int)(sizeof(float) / sizeof(T));
 
-// a weight as the product reads it
-__device__ __forceinline__ float wval(float w) { return w; }
-__device__ __forceinline__ float wval(bf16 w) { return __bfloat162float(w); }
-
-// an activation operand at the product: as is, or rounded to bf16 (to
-// nearest even) and widened back
+// the products and gradient sums of an instance: on the tensor cores for
+// bf16 weights, on the CUDA cores for f32 (see the top of the file)
 template <typename T>
-__device__ __forceinline__ float operand(float a) { return a; }
-template <>
-__device__ __forceinline__ float operand<bf16>(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
-}
+constexpr bool kTensorCores = sizeof(T) == 2;
+
+// floats between activation rows in shared memory: 8 more than a multiple
+// of 32, so a fragment's 8 rows x 4 column pairs fall in distinct banks
+__host__ __device__ __forceinline__ int act_stride(int H) { return (H + 31) / 32 * 32 + 8; }
+
+// floats of the stage: bf16, each warp's strip of kStages slices of 16
+// rows by up to 32 columns (NTW 4); f32, kStages slices of 8 rows of H <=
+// 256 for the block
+constexpr int kStageFloats = kWarps * kStages * kSliceK * 32;
+
+// A warp's staged strip of a bf16 weight plane: the warp's 8 NTW columns
+// of 16 rows a slice, row after row, each row's 16-byte chunks (one n-tile
+// each) permuted by an XOR of the row (pos), so that ldmatrix's 8 rows of
+// one chunk hit distinct banks without padding.
+template <int NTW>
+struct Strip {
+  static constexpr int kVec = 8;                      // bf16 a 16-byte chunk
+  static constexpr int kCols = 8 * NTW;
+  static constexpr int kCpr = kCols / kVec;           // chunks a row
+  static constexpr int kRows = kSliceRows<bf16>;
+  static constexpr int kSlice = kRows * kCols;        // elements a slice
+  __device__ static int pos(int r, int c) { return c ^ ((r >> 1) & (kCpr - 1)); }
+  // element (r, n) of a slice, n the strip's column
+  __device__ static int at(int r, int n) {
+    return r * kCols + pos(r, n / kVec) * kVec + n % kVec;
+  }
+};
 
 struct Layout {
   int L, d_x, d_y, K, shared, Kn, n_mats, n_rows;
@@ -147,122 +197,202 @@ __device__ __forceinline__ float act_grad_v(float v, int act) {
   }
 }
 
-// acc[q][c] = sum_k operand(A[(warp RPW + q) H + k]) W[k H + j], j = lane
-// + 32 c: A a row tile in shared memory, W an (in, out) plane in device
-// memory.  Where a row of W is whole 16-byte chunks (H % 4 == 0 in f32,
-// H % 8 == 0 in bf16) the plane streams through the shared stage buffer
-// (offset 0) in slices of kSliceRows<T> rows, kStages deep, by
-// asynchronous copies, so the loads of later slices overlap the products
-// of this one; each row of A is then read four k at a time.  Otherwise W is
-// read from device memory directly.  Either way k runs in order.
-template <int CPT, int RPW, typename T>
-__device__ __forceinline__ void tile_mm(const float* A, const T* __restrict__ W, int H,
-                                        int warp, int lane, float (&acc)[RPW][CPT]) {
-  constexpr int kRows = kSliceRows<T>, kVec = 16 / (int)sizeof(T);
+// ------------------------------------------------- tensor-core fragments
+
+// two f32 values rounded to bf16 (to nearest even) in one register, lo in
+// the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a b, m16n8k16, bf16 inputs, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the B fragments of two n-tiles (x4) or one (x2) of a k16 step from a
+// (k, n) row-major bf16 stage: lane l addresses row (l / 8 & 1) 8 + l % 8
+// of the columns n0 + (l / 16) 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_addr(p)));
+}
+
+// ------------------------------------------------------------- products
+
+// rows k0 .. k0 + 15 of the bf16 (in, out) plane W, columns n0 .. n0 + 8
+// NTW - 1, into this warp's strip slice dst: 16-byte asynchronous copies
+// where a row is whole chunks (H % 8 == 0), else plain copies; rows past H
+// are zero, columns past H not read
+template <int NTW>
+__device__ __forceinline__ void fetch_strip(bf16* dst, const bf16* __restrict__ W, int H, int k0,
+                                            int n0, int lane) {
+  using S = Strip<NTW>;
+  for (int e = lane; e < S::kRows * S::kCpr; e += kWarp) {
+    const int r = e / S::kCpr, c = e % S::kCpr, col = n0 + c * S::kVec;
+    bf16* d = dst + r * S::kCols + S::pos(r, c) * S::kVec;
+    if (k0 + r >= H) {
 #pragma unroll
-  for (int q = 0; q < RPW; ++q)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[q][c] = 0.0f;
-  const float* a = A + (size_t)warp * RPW * H;
-  auto step = [&](const T* wrow, const float (&av)[RPW]) {
-    float w[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + kWarp * c;
-      w[c] = j < H ? wval(wrow[j]) : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < RPW; ++q)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
-  };
-  if (H % kVec != 0) {
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      float av[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a[q * H + k]);
-      float w[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        w[c] = j < H ? wval(__ldg(W + (size_t)k * H + j)) : 0.0f;
+      for (int i = 0; i < S::kVec; ++i) d[i] = __float2bfloat16_rn(0.0f);
+    } else if (col < H) {
+      const bf16* src = W + (size_t)(k0 + r) * H + col;
+      if (H % S::kVec == 0) {
+        __pipeline_memcpy_async(d, src, 16);
+      } else {
+        for (int i = 0; i < S::kVec && col + i < H; ++i) d[i] = src[i];
       }
-#pragma unroll
-      for (int q = 0; q < RPW; ++q)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
     }
-    return;
   }
-  T* stage = reinterpret_cast<T*>(njode_step_smem);
-  const int n_slices = (H + kRows - 1) / kRows;
-  auto fetch = [&](int sl) {       // every thread commits a group, maybe empty
-    if (sl < n_slices) {
-      const int k0 = sl * kRows, n16 = min(kRows, H - k0) * H / kVec;
-      T* dst = stage + (sl % kStages) * kRows * H;
-      const T* src = W + (size_t)k0 * H;
-      for (int e = threadIdx.x; e < n16; e += kThreads)
-        __pipeline_memcpy_async(dst + kVec * e, src + kVec * e, 16);
+}
+
+// activation columns c, c + 1 of a row; columns past H read as 0 where the
+// k-step runs past H
+__device__ __forceinline__ float2 act_pair(const float* p, int c, int H, bool tail) {
+  float2 v = *reinterpret_cast<const float2*>(p);
+  if (tail) {
+    v.x = c < H ? v.x : 0.0f;
+    v.y = c + 1 < H ? v.y : 0.0f;
+  }
+  return v;
+}
+
+// acc += d, one rounding to nearest each.  A k-step's products are summed
+// by the tensor cores into a fresh d and added here: the tensor cores
+// truncate each sum they accumulate, and chained over a whole product
+// that bias grows (on the H100, 3xTF32 products chained in the
+// accumulator took the f32 forward to 3e-6 of its norm against 5e-7 for
+// f32 fma).
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] += d[c];
+}
+
+// one k16 step of the bf16 product over the warp's tiles: A the f32
+// activations (row stride HS), ws the staged slice (rows k0 .. k0 + 15)
+template <int NTW, int MT>
+__device__ __forceinline__ void kstep(const float* A, int HS, const bf16* ws, int k0, int H,
+                                      int nt0, int lane, float (&acc)[MT][NTW][4]) {
+  using S = Strip<NTW>;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t b[NTW][2];
+  if constexpr (NTW == 1) {
+    ldmatrix_x2_trans(b[0][0], b[0][1], ws + S::at(lane & 15, 0));
+  } else {
+#pragma unroll
+    for (int j = 0; j < NTW; j += 2) {
+      uint32_t r[4] = {0u, 0u, 0u, 0u};
+      if ((nt0 + j) * 8 < H)
+        ldmatrix_x4_trans(r, ws + S::at((lane >> 3 & 1) * 8 + (lane & 7), (j + (lane >> 4)) * 8));
+      b[j][0] = r[0]; b[j][1] = r[1]; b[j + 1][0] = r[2]; b[j + 1][1] = r[3];
     }
+  }
+  const bool tail = k0 + 16 > H;
+  const int c = k0 + 2 * t;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float* p0 = A + (i * 16 + g) * HS + c;
+    const float* p1 = p0 + 8 * HS;
+    const float2 x00 = act_pair(p0, c, H, tail), x10 = act_pair(p1, c, H, tail);
+    const float2 x01 = act_pair(p0 + 8, c + 8, H, tail), x11 = act_pair(p1 + 8, c + 8, H, tail);
+    const uint32_t a[4] = {pack_bf16(x00.x, x00.y), pack_bf16(x10.x, x10.y),
+                           pack_bf16(x01.x, x01.y), pack_bf16(x11.x, x11.y)};
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      if ((nt0 + j) * 8 < H) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(d, a, b[j][0], b[j][1]);
+        add4(acc[i][j], d);
+      }
+  }
+}
+
+// bf16: acc = bf16(A) W over the warp's tiles: A a row tile in shared
+// memory (row stride HS), W an (in, out) plane in device memory.  Warp w owns the
+// n-tiles nt0 = w NTW .. nt0 + NTW - 1 (a warp whose first is at or past H
+// idles) and every row tile, and streams its own columns of W through its
+// strip of the stage in slices of one k-step, kStages deep, so the loads
+// of later slices overlap the products of this one; k runs in order.  The
+// warps run apart: no block barrier until the caller's after the product.
+template <int NTW, int MT>
+__device__ __forceinline__ void tile_mm_tc(const float* A, const bf16* __restrict__ W, int H,
+                                           int HS, int warp, int lane, float (&acc)[MT][NTW][4]) {
+  using S = Strip<NTW>;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+  const int nt0 = warp * NTW;
+  if (nt0 * 8 >= H) return;
+  bf16* strip = reinterpret_cast<bf16*>(njode_step_smem) + warp * kStages * S::kSlice;
+  const int n_slices = (H + S::kRows - 1) / S::kRows;
+  auto fetch = [&](int sl) {       // every lane commits a group, maybe empty
+    if (sl < n_slices)
+      fetch_strip<NTW>(strip + (sl % kStages) * S::kSlice, W, H, sl * S::kRows, nt0 * 8, lane);
     __pipeline_commit();
   };
   for (int sl = 0; sl + 1 < kStages; ++sl) fetch(sl);
 #pragma unroll 1
   for (int sl = 0; sl < n_slices; ++sl) {
     __pipeline_wait_prior(kStages - 2);    // slice sl has landed
-    __syncthreads();                       // for every thread; slice sl - 1 is done
+    __syncwarp();                          // for every lane; slice sl - 1 is done
     fetch(sl + kStages - 1);               // into the buffer of slice sl - 1
-    const T* ws = stage + (sl % kStages) * kRows * H;
-    const int k0 = sl * kRows, rows = min(kRows, H - k0);
-#pragma unroll 1
-    for (int kk = 0; kk < rows; kk += 4) {
-      float4 a4[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q)
-        a4[q] = *reinterpret_cast<const float4*>(a + q * H + k0 + kk);
-      float av[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].x);
-      step(ws + kk * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].y);
-      step(ws + (kk + 1) * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].z);
-      step(ws + (kk + 2) * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = operand<T>(a4[q].w);
-      step(ws + (kk + 3) * H, av);
-    }
+    kstep<NTW, MT>(A, HS, strip + (sl % kStages) * S::kSlice, sl * S::kRows, H, nt0, lane, acc);
   }
 }
 
-// out[r][j] = f(r, j, acc[q][c]) over the warp's rows and the lane's columns
-template <int CPT, int RPW, typename F>
-__device__ __forceinline__ void tile_store(float* out, const float (&acc)[RPW][CPT], int H,
-                                           int warp, int lane, F f) {
-#pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    const int r = warp * RPW + q;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + kWarp * c;
-      if (j < H) out[r * H + j] = f(r, j, acc[q][c]);
-    }
-  }
+// the (row, column) of accumulator entry (i, j, c) of this thread
+__device__ __forceinline__ int acc_row(int i, int c, int lane) {
+  return i * 16 + (lane >> 2) + (c >> 1) * 8;
+}
+__device__ __forceinline__ int acc_col(int nt0, int j, int c, int lane) {
+  return (nt0 + j) * 8 + 2 * (lane & 3) + (c & 1);
 }
 
-// out[r][j] = act(out[r][j]) over the entries tile_store gave this thread
+// out[r][j] = f(r, j, acc) over the warp's tiles, columns below H
+template <int NTW, int MT, typename F>
+__device__ __forceinline__ void tile_store_tc(float* out, const float (&acc)[MT][NTW][4], int H,
+                                              int HS, int warp, int lane, F f) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = acc_row(i, c, lane), col = acc_col(warp * NTW, j, c, lane);
+        if (col < H) out[r * HS + col] = f(r, col, acc[i][j][c]);
+      }
+}
+
+// out[r][j] = act(out[r][j]) over the entries tile_store_tc gave this thread
 // (no barrier needed between the two); a loop, not unrolled, so the
 // activation's code appears once
-template <int RPW>
-__device__ __forceinline__ void tile_act(float* out, int H, int warp, int lane, int act) {
+template <int NTW, int MT>
+__device__ __forceinline__ void tile_act_tc(float* out, int H, int HS, int warp, int lane,
+                                            int act) {
 #pragma unroll 1
-  for (int q = 0; q < RPW; ++q) {
-    float* o = out + (warp * RPW + q) * H;
-#pragma unroll 1
-    for (int j = lane; j < H; j += kWarp) o[j] = activate(o[j], act);
+  for (int e = 0; e < MT * NTW * 4; ++e) {
+    const int i = e / (NTW * 4), j = e / 4 % NTW, c = e % 4;
+    const int r = acc_row(i, c, lane), col = acc_col(warp * NTW, j, c, lane);
+    if (col < H) out[r * HS + col] = activate(out[r * HS + col], act);
   }
 }
 
@@ -306,63 +436,298 @@ __device__ __forceinline__ Epi epi(int mode, int act = -1, const float* b = null
   return Epi{mode, act, b, gap, res};
 }
 
+// f32: acc[q][c] = sum_k A[(warp RPW + q) HS + k] W[k H + j], j = lane + 32
+// c, on the CUDA cores: A a row tile in shared memory, W an (in, out) plane
+// in device memory.  Where a row of W is whole 16-byte chunks (H % 4 == 0)
+// the plane streams through the shared stage buffer (offset 0) in slices
+// of kSliceK rows, kStages deep, by asynchronous copies, so the loads of
+// later slices overlap the products of this one; each row of A is then
+// read four k at a time.  Otherwise W is read from device memory directly.
+// Either way k runs in order.
+template <int CPT, int RPW>
+__device__ __forceinline__ void tile_mm_cc(const float* A, const float* __restrict__ W, int H,
+                                           int HS, int warp, int lane,
+                                           float (&acc)[RPW][CPT]) {
+#pragma unroll
+  for (int q = 0; q < RPW; ++q)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[q][c] = 0.0f;
+  const float* a = A + (size_t)warp * RPW * HS;
+  auto step = [&](const float* wrow, const float (&av)[RPW]) {
+    float w[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = lane + kWarp * c;
+      w[c] = j < H ? wrow[j] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < RPW; ++q)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
+  };
+  if (H % 4 != 0) {
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      float av[RPW];
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) av[q] = a[q * HS + k];
+      float w[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        w[c] = j < H ? __ldg(W + (size_t)k * H + j) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < RPW; ++q)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
+    }
+    return;
+  }
+  float* stage = njode_step_smem;
+  const int n_slices = (H + kSliceK - 1) / kSliceK;
+  auto fetch = [&](int sl) {       // every thread commits a group, maybe empty
+    if (sl < n_slices) {
+      const int k0 = sl * kSliceK, n16 = min(kSliceK, H - k0) * H / 4;
+      float* dst = stage + (sl % kStages) * kSliceK * H;
+      const float* src = W + (size_t)k0 * H;
+      for (int e = threadIdx.x; e < n16; e += kThreads)
+        __pipeline_memcpy_async(dst + 4 * e, src + 4 * e, 16);
+    }
+    __pipeline_commit();
+  };
+  for (int sl = 0; sl + 1 < kStages; ++sl) fetch(sl);
+#pragma unroll 1
+  for (int sl = 0; sl < n_slices; ++sl) {
+    __pipeline_wait_prior(kStages - 2);    // slice sl has landed
+    __syncthreads();                       // for every thread; slice sl - 1 is done
+    fetch(sl + kStages - 1);               // into the buffer of slice sl - 1
+    const float* ws = stage + (sl % kStages) * kSliceK * H;
+    const int k0 = sl * kSliceK, rows = min(kSliceK, H - k0);
+#pragma unroll 1
+    for (int kk = 0; kk < rows; kk += 4) {
+      float4 a4[RPW];
+#pragma unroll
+      for (int q = 0; q < RPW; ++q)
+        a4[q] = *reinterpret_cast<const float4*>(a + q * HS + k0 + kk);
+      float av[RPW];
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) av[q] = a4[q].x;
+      step(ws + kk * H, av);
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) av[q] = a4[q].y;
+      step(ws + (kk + 1) * H, av);
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) av[q] = a4[q].z;
+      step(ws + (kk + 2) * H, av);
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) av[q] = a4[q].w;
+      step(ws + (kk + 3) * H, av);
+    }
+  }
+}
+
+// out[r][j] = f(r, j, acc[q][c]) over the warp's rows and the lane's columns
+template <int CPT, int RPW, typename F>
+__device__ __forceinline__ void tile_store_cc(float* out, const float (&acc)[RPW][CPT], int H,
+                                              int HS, int warp, int lane, F f) {
+#pragma unroll
+  for (int q = 0; q < RPW; ++q) {
+    const int r = warp * RPW + q;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = lane + kWarp * c;
+      if (j < H) out[r * HS + j] = f(r, j, acc[q][c]);
+    }
+  }
+}
+
+// out[r][j] = act(out[r][j]) over the entries tile_store_cc gave this
+// thread; a loop, not unrolled, so the activation's code appears once
+template <int RPW>
+__device__ __forceinline__ void tile_act_cc(float* out, int H, int HS, int warp, int lane,
+                                            int act) {
+#pragma unroll 1
+  for (int q = 0; q < RPW; ++q) {
+    float* o = out + (warp * RPW + q) * HS;
+#pragma unroll 1
+    for (int j = lane; j < H; j += kWarp) o[j] = activate(o[j], act);
+  }
+}
+
 // out = epilogue(A W_m) for the block's row tile: A and out at offsets of
-// the dynamic shared memory (out may be A: the product is held in
-// registers across a barrier), W a plane in device memory.  Not inlined:
-// one copy per (T, CPT, RPW), shared by both kernels, keeps the build
-// short.
-template <typename T, int CPT, int RPW>
+// the dynamic shared memory, row stride HS (out may be A: the product is
+// held in registers across a barrier), W a plane in device memory; on the
+// tensor cores in bf16 (C = NTW n-tiles a warp), on the CUDA cores in f32
+// (C = CPT columns a lane).  Not inlined: one copy per (T, C, RPW), shared
+// by both kernels, keeps the build short.
+template <typename T, int C, int RPW>
 __device__ __noinline__ void mm_store(int a_off, const T* __restrict__ W, int out_off, int H,
-                                      Epi e) {
+                                      int HS, Epi e) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float acc[RPW][CPT];
-  tile_mm<CPT, RPW>(njode_step_smem + a_off, W, H, warp, lane, acc);
-  __syncthreads();
   float* out = njode_step_smem + out_off;
   const float* res = njode_step_smem + e.res;
   const float* b = e.b;
-  switch (e.mode) {
-    case kBias:
-      tile_store<CPT, RPW>(out, acc, H, warp, lane,
-                           [&](int, int j, float v) { return v + __ldg(b + j); });
-      break;
-    case kGap:
-      tile_store<CPT, RPW>(out, acc, H, warp, lane, e.gap);
-      break;
-    case kEuler: {
-      const GapBase& g = e.gap;
-      tile_store<CPT, RPW>(out, acc, H, warp, lane, [&](int r, int j, float v) {
-        return res[r * H + j] + g.dt(r) * (v + __ldg(b + j));
-      });
-      break;
+  // the epilogue through `store`, which writes f(r, j, product) over the
+  // entries this thread holds
+  auto epilogue = [&](auto store) {
+    switch (e.mode) {
+      case kBias:
+        store([&](int, int j, float v) { return v + __ldg(b + j); });
+        break;
+      case kGap:
+        store(e.gap);
+        break;
+      case kEuler: {
+        const GapBase& g = e.gap;
+        store([&](int r, int j, float v) { return res[r * HS + j] + g.dt(r) * (v + __ldg(b + j)); });
+        break;
+      }
+      case kCopy:
+        store([](int, int, float v) { return v; });
+        break;
+      case kAdd:
+        store([&](int r, int j, float v) { return out[r * HS + j] + v; });
+        break;
+      default:
+        store([&](int r, int j, float v) { return out[r * HS + j] + v * res[r * HS + j]; });
     }
-    case kCopy:
-      tile_store<CPT, RPW>(out, acc, H, warp, lane, [](int, int, float v) { return v; });
-      break;
-    case kAdd:
-      tile_store<CPT, RPW>(out, acc, H, warp, lane,
-                           [&](int r, int j, float v) { return out[r * H + j] + v; });
-      break;
-    default:
-      tile_store<CPT, RPW>(out, acc, H, warp, lane, [&](int r, int j, float v) {
-        return out[r * H + j] + v * res[r * H + j];
-      });
+  };
+  if constexpr (kTensorCores<T>) {
+    constexpr int MT = RPW / 2;
+    float acc[MT][C][4];
+    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);
+    __syncthreads();
+    epilogue([&](auto f) { tile_store_tc<C, MT>(out, acc, H, HS, warp, lane, f); });
+    if (e.act >= 0) tile_act_tc<C, MT>(out, H, HS, warp, lane, e.act);
+  } else {
+    float acc[RPW][C];
+    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);
+    __syncthreads();
+    epilogue([&](auto f) { tile_store_cc<C, RPW>(out, acc, H, HS, warp, lane, f); });
+    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);
   }
-  if (e.act >= 0) tile_act<RPW>(out, H, warp, lane, e.act);
   __syncthreads();
 }
 
-// P[a H + j] (+)= sum_{r < nr} A[r H + a] G[r H + j] (A, G at shared
-// offsets, each rounded as operand<T>): warp w owns the rows a of 8 at a
-// time, lane l the columns l + 32 c; every entry one owner and the rows in
-// order.  Not inlined.
-template <typename T, int CPT>
-__device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H,
-                                       float* __restrict__ P, bool first) {
+// ------------------------------------------------- weight-gradient sums
+
+// the fragments of one k-step of P = A^T G: A^T's row tile a0 (m = a, k =
+// the tile's rows from r0) and G's column tile j0 (k = rows, n = j), from
+// the activation buffers (row stride HS).  bf16 (k16): both rounded, slot
+// 2t on row r0 + t, 2t + 1 on r0 + t + 4, 2t + 8 on r0 + t + 8, 2t + 9 on
+// r0 + t + 12, so that a load's 32 lanes hit 32 banks.
+__device__ __forceinline__ void sum_a_frag(const float* A, int HS, int r0, int a0, int lane,
+                                           uint32_t (&a)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = A + (r0 + t) * HS + a0 + g;
+  a[0] = pack_bf16(p[0], p[4 * HS]);
+  a[1] = pack_bf16(p[8], p[4 * HS + 8]);
+  a[2] = pack_bf16(p[8 * HS], p[12 * HS]);
+  a[3] = pack_bf16(p[8 * HS + 8], p[12 * HS + 8]);
+}
+
+__device__ __forceinline__ void sum_b_frag(const float* G, int HS, int r0, int j0, int lane,
+                                           uint32_t& b0, uint32_t& b1) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = G + (r0 + t) * HS + j0 + g;
+  b0 = pack_bf16(p[0], p[4 * HS]);
+  b1 = pack_bf16(p[8 * HS], p[12 * HS]);
+}
+
+// entries p[0], p[1] of a partial row: one 8-byte access where both are
+// in the row and p is 8-byte aligned (H even), else one or two scalars
+__device__ __forceinline__ float2 load_pair(const float* p, bool both) {
+  if (both && (reinterpret_cast<size_t>(p) & 7) == 0) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], both ? p[1] : 0.0f);
+}
+__device__ __forceinline__ void store_pair(float* p, float2 v, bool both) {
+  if (both && (reinterpret_cast<size_t>(p) & 7) == 0) {
+    *reinterpret_cast<float2*>(p) = v;
+  } else {
+    p[0] = v.x;
+    if (both) p[1] = v.y;
+  }
+}
+
+// bf16: P[a H + j] (+)= sum_{r < RT} bf16(A[r HS + a]) bf16(G[r HS + j])
+// (A, G shared rows): warp w owns the columns of n-tiles w NTW .. w NTW +
+// NTW - 1 and takes the row tiles of a two at a time; every entry one
+// owner, the tile's rows summed by the tensor cores (rows past B have G =
+// 0, so they add exact zeros).
+template <int NTW, int RPW>
+__device__ __forceinline__ void outer_sum_tc(const float* A, const float* G, int H, int HS,
+                                             float* __restrict__ P, bool first) {
+  constexpr int RT = RPW * kWarps, MG = 2;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2;
+  const int nt0 = warp * NTW;
+  if (nt0 * 8 >= H) return;
+  const int n_mt = (H + 15) / 16;
+#pragma unroll 1
+  for (int m0 = 0; m0 < n_mt; m0 += MG) {
+    // the earlier slots' partial, loaded before the products so that its
+    // latency overlaps them
+    float old[MG][NTW][4], acc[MG][NTW][4];
+#pragma unroll
+    for (int i = 0; i < MG; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int a = (m0 + i) * 16 + g + h * 8, col = acc_col(nt0, j, 0, lane);
+          float2 o = make_float2(0.0f, 0.0f);
+          if (!first && a < H && col < H) o = load_pair(P + (size_t)a * H + col, col + 1 < H);
+          old[i][j][2 * h] = o.x;
+          old[i][j][2 * h + 1] = o.y;
+          acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.0f;
+        }
+#pragma unroll
+    for (int r0 = 0; r0 < RT; r0 += 16) {
+      uint32_t b[NTW][2];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        b[j][0] = b[j][1] = 0u;
+        if ((nt0 + j) * 8 < H) sum_b_frag(G, HS, r0, (nt0 + j) * 8, lane, b[j][0], b[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MG; ++i) {
+        if (m0 + i >= n_mt) break;
+        uint32_t a[4];
+        sum_a_frag(A, HS, r0, (m0 + i) * 16, lane, a);
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if ((nt0 + j) * 8 < H) {
+            float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(d, a, b[j][0], b[j][1]);
+            add4(acc[i][j], d);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MG; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int a = (m0 + i) * 16 + g + h * 8, col = acc_col(nt0, j, 0, lane);
+          if (a < H && col < H)
+            store_pair(P + (size_t)a * H + col,
+                       make_float2(old[i][j][2 * h] + acc[i][j][2 * h],
+                                   old[i][j][2 * h + 1] + acc[i][j][2 * h + 1]),
+                       col + 1 < H);
+        }
+  }
+}
+
+// f32: P[a H + j] (+)= sum_{r < nr} A[r HS + a] G[r HS + j] on the CUDA
+// cores: warp w owns the rows a of 8 at a time, lane l the columns l + 32
+// c; every entry one owner and the rows in order.
+template <int CPT>
+__device__ __forceinline__ void outer_sum_cc(const float* A, const float* G, int nr, int H,
+                                             int HS, float* __restrict__ P, bool first) {
   constexpr int APW = 8;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const float* A = njode_step_smem + a_off;
-  const float* G = njode_step_smem + g_off;
   for (int a0 = warp * APW; a0 < H; a0 += kWarps * APW) {
     // the earlier slots' partial, loaded before the row loop so that its
     // latency overlaps the products (read at the store, it cost a quarter
@@ -386,11 +751,11 @@ __device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H,
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
-        g[c] = j < H ? operand<T>(G[r * H + j]) : 0.0f;
+        g[c] = j < H ? G[r * HS + j] : 0.0f;
       }
       float av[APW];
 #pragma unroll
-      for (int i = 0; i < APW; ++i) av[i] = a0 + i < H ? operand<T>(A[r * H + a0 + i]) : 0.0f;
+      for (int i = 0; i < APW; ++i) av[i] = a0 + i < H ? A[r * HS + a0 + i] : 0.0f;
 #pragma unroll
       for (int i = 0; i < APW; ++i)
 #pragma unroll
@@ -408,14 +773,27 @@ __device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H,
   }
 }
 
-// P[j] (+)= sum_{r < nr} f(r) G[r H + j], one thread a column, rows in order
+// The weight-gradient sum of a plane, P (+)= A^T G over the tile's rows (A
+// and G at shared offsets, row stride HS; nr rows hold trajectories), on
+// the tensor cores in bf16 (C = NTW), on the CUDA cores in f32 (C = CPT).
+// Not inlined: one copy per (T, C, RPW).
+template <typename T, int C, int RPW>
+__device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H, int HS,
+                                       float* __restrict__ P, bool first) {
+  const float* A = njode_step_smem + a_off;
+  const float* G = njode_step_smem + g_off;
+  if constexpr (kTensorCores<T>) outer_sum_tc<C, RPW>(A, G, H, HS, P, first);
+  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);
+}
+
+// P[j] (+)= sum_{r < nr} f(r) G[r HS + j], one thread a column, rows in order
 template <typename F>
-__device__ __forceinline__ void tile_colsum(const float* G, int nr, int H, F f,
+__device__ __forceinline__ void tile_colsum(const float* G, int nr, int H, int HS, F f,
                                             float* __restrict__ P, bool first) {
   for (int j = threadIdx.x; j < H; j += kThreads) {
     const float old = first ? 0.0f : P[j];
     float s = 0.0f;
-    for (int r = 0; r < nr; ++r) s = fmaf(f(r), G[r * H + j], s);
+    for (int r = 0; r < nr; ++r) s = fmaf(f(r), G[r * HS + j], s);
     P[j] = first ? s : old + s;
   }
 }
@@ -434,7 +812,7 @@ __device__ __forceinline__ void load_scaled(const float* src, float* dst, int n,
 
 // -------------------------------------------------------------- forward
 
-template <typename T, int CPT, int RPW>
+template <typename T, int C, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
                 const T* __restrict__ W, const float* __restrict__ V,
@@ -443,8 +821,8 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   float* smem = njode_step_smem;
   const int kn = blockIdx.y, warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int row0 = blockIdx.x * RT, nr = min(RT, B - row0);
-  const int d_x = lo.d_x, n_out = 2 * N - 1, TH = RT * H;
-  const int o_hj = kStages * kSliceK * H, o_wk = o_hj + TH;  // HJ, a work buffer
+  const int d_x = lo.d_x, n_out = 2 * N - 1, HS = act_stride(H), TH = RT * HS;
+  const int o_hj = kStageFloats, o_wk = o_hj + TH;  // HJ, a work buffer
   float* s_hj = smem + o_hj;
   float* s_wk = smem + o_wk;
   float* s_x = smem + o_wk + TH;
@@ -461,7 +839,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
   // act(cur W_m + b) into out (out may be cur)
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<T, CPT, RPW>(cur, plane(m), out, H, epi(kBias, act, vrow(brow)));
+    mm_store<T, C, RPW>(cur, plane(m), out, H, HS, epi(kBias, act, vrow(brow)));
   };
   // the readout of the tile at offset `in` into Y's slot `ys`, through s_wk
   auto readout = [&](int in, int ys) {
@@ -478,7 +856,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         for (int q = 0; q < RPW; ++q) {
           const int r = warp * RPW + q;
           float s = 0.0f;
-          for (int j = lane; j < H; j += kWarp) s = fmaf(u[r * H + j], __ldg(o2 + j), s);
+          for (int j = lane; j < H; j += kWarp) s = fmaf(u[r * HS + j], __ldg(o2 + j), s);
           s = warp_sum(s);
           if (lane == 0 && r < nr)
             Y[(((size_t)(row0 + r) * n_out + ys) * lo.d_y + d) * lo.K + kk] = s;
@@ -491,12 +869,12 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     // jump: layer 0 is rank d_x, elementwise
     {
       const float* b0 = vrow(lo.row_bj);
-      for (int e = threadIdx.x; e < TH; e += kThreads) {
+      for (int e = threadIdx.x; e < RT * H; e += kThreads) {
         const int r = e / H, j = e - r * H;
         float pre = __ldg(b0 + j);
         for (int d = 0; d < d_x; ++d)
           pre = pre + s_x[(r * N + s) * d_x + d] * __ldg(vrow(lo.row_j1 + d) + j);
-        s_hj[e] = activate(pre, act);
+        s_hj[r * HS + j] = activate(pre, act);
       }
       __syncthreads();
     }
@@ -513,9 +891,9 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     }
     const GapBase gap{vrow(lo.row_w1t), vrow(lo.row_w1d), vrow(lo.row_ob), vrow(lo.row_w1x),
                       s_t, s_xs, N, H, d_x, s};
-    mm_store<T, CPT, RPW>(src, plane(lo.mat_w1h), o_wk, H, epi(kGap, act, nullptr, gap));
+    mm_store<T, C, RPW>(src, plane(lo.mat_w1h), o_wk, H, HS, epi(kGap, act, nullptr, gap));
     for (int i = 0; i + 1 < lo.L; ++i) layer(o_wk, o_wk, 2 * lo.L + 1 + i, lo.row_ob + i + 1);
-    mm_store<T, CPT, RPW>(o_wk, plane(lo.mat_last), o_wk, H,
+    mm_store<T, C, RPW>(o_wk, plane(lo.mat_last), o_wk, H, HS,
                           epi(kEuler, -1, vrow(lo.row_ob + lo.L), gap, o_hj));
     readout(o_wk, N + s);
   }
@@ -523,7 +901,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
 // ------------------------------------------------------------- backward
 
-template <typename T, int CPT, int RPW>
+template <typename T, int C, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
                 const T* __restrict__ W, const T* __restrict__ WT,
@@ -535,8 +913,8 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   const int kn = blockIdx.y;
   const int row0 = blockIdx.x * RT, nr = min(RT, B - row0);
   const int L = lo.L, d_x = lo.d_x, n_out = 2 * N - 1, n_gy = n_out * lo.d_y * lo.K;
-  const int TH = RT * H;
-  const int o_jp = kStages * kSliceK * H;  // L buffers: the jump's layer values
+  const int HS = act_stride(H), TH = RT * HS;
+  const int o_jp = kStageFloats;  // L buffers: the jump's layer values
   const int o_up = o_jp + L * TH;   // L: the readout's
   const int o_gp = o_up + L * TH;   // L: the ODEFunc's hidden layers
   const int o_hm = o_gp + L * TH;
@@ -567,11 +945,11 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   __syncthreads();
 
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<T, CPT, RPW>(cur, Wk + m * plane_sz, out, H, epi(kBias, act, vrow(brow)));
+    mm_store<T, C, RPW>(cur, Wk + m * plane_sz, out, H, HS, epi(kBias, act, vrow(brow)));
   };
   // g = g W_m^T, in place
   auto back = [&](int g, int m) {
-    mm_store<T, CPT, RPW>(g, WTk + m * plane_sz, g, H, epi(kCopy));
+    mm_store<T, C, RPW>(g, WTk + m * plane_sz, g, H, HS, epi(kCopy));
   };
   auto times_act_grad = [&](float* g, const float* val) {
     for (int e = threadIdx.x; e < TH; e += kThreads) g[e] *= act_grad_v(val[e], act);
@@ -581,12 +959,12 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     return s_gy[r * n_gy + (ys * lo.d_y + d) * lo.K + kk];
   };
   auto a1 = [&](int s) {           // the jump's layer 0 into s_g2
-    for (int e = threadIdx.x; e < TH; e += kThreads) {
+    for (int e = threadIdx.x; e < RT * H; e += kThreads) {
       const int r = e / H, j = e - r * H;
       float pre = __ldg(vrow(lo.row_bj) + j);
       for (int d = 0; d < d_x; ++d)
         pre = pre + s_x[(r * N + s) * d_x + d] * __ldg(vrow(lo.row_j1 + d) + j);
-      s_g2[e] = activate(pre, act);
+      s_g2[r * HS + j] = activate(pre, act);
     }
     __syncthreads();
   };
@@ -601,23 +979,23 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     }
     float* gp = smem + g;
     const int k_lo = lo.shared ? 0 : kn, k_hi = lo.shared ? lo.K : kn + 1;
-    for (int e = threadIdx.x; e < TH; e += kThreads) {
+    for (int e = threadIdx.x; e < RT * H; e += kThreads) {
       const int r = e / H, j = e - r * H;
       float sum = 0.0f;
       for (int kk = k_lo; kk < k_hi; ++kk)
         for (int d = 0; d < lo.d_y; ++d)
           sum = sum + gyv(r, ys, d, kk) * __ldg(vrow(o2_row(lo, kk, d)) + j);
-      gp[e] = sum;
+      gp[r * HS + j] = sum;
     }
     for (int kk = k_lo; kk < k_hi; ++kk)
       for (int d = 0; d < lo.d_y; ++d)
-        tile_colsum(smem + cur, nr, H, [&](int r) { return gyv(r, ys, d, kk); },
+        tile_colsum(smem + cur, nr, H, HS, [&](int r) { return gyv(r, ys, d, kk); },
                     pv(o2_row(lo, kk, d)), first);
     __syncthreads();
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(gp, s_up + l * TH);
-      outer_sum<T, CPT>(l == 0 ? in : o_up + (l - 1) * TH, g, nr, H, pw(L + l), first);
-      tile_colsum(gp, nr, H, one, pv(lo.row_bo + l), first);
+      outer_sum<T, C, RPW>(l == 0 ? in : o_up + (l - 1) * TH, g, nr, H, HS, pw(L + l), first);
+      tile_colsum(gp, nr, H, HS, one, pv(lo.row_bo + l), first);
       __syncthreads();
       back(g, L + l);
     }
@@ -645,28 +1023,28 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         src = o_g2;
       }
-      mm_store<T, CPT, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H,
+      mm_store<T, C, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H, HS,
                             epi(kGap, act, nullptr, gap));
       for (int i = 0; i + 1 < L; ++i)
         layer(o_gp + i * TH, o_gp + (i + 1) * TH, 2 * L + 1 + i, lo.row_ob + i + 1);
-      mm_store<T, CPT, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H,
+      mm_store<T, C, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H, HS,
                             epi(kEuler, -1, vrow(lo.row_ob + L), gap, o_hj));
       // ---- the readout before slot s + 1: dHM into s_g2
       readout_bwd(o_hm, N + s, o_g2, false);
       // ---- the gap's backward: dHJ += dHM, dDH = DT dHM
       for (int e = threadIdx.x; e < TH; e += kThreads) {
         s_g[e] += s_g2[e];
-        s_g2[e] *= dt_of(e / H);
+        s_g2[e] *= dt_of(e / HS);
       }
       __syncthreads();
-      outer_sum<T, CPT>(o_gp + (L - 1) * TH, o_g2, nr, H, pw(lo.mat_last), first);
-      tile_colsum(s_g2, nr, H, one, pv(lo.row_ob + L), first);
+      outer_sum<T, C, RPW>(o_gp + (L - 1) * TH, o_g2, nr, H, HS, pw(lo.mat_last), first);
+      tile_colsum(s_g2, nr, H, HS, one, pv(lo.row_ob + L), first);
       __syncthreads();
       back(o_g2, lo.mat_last);
       for (int i = L - 2; i >= 0; --i) {
         times_act_grad(s_g2, smem + o_gp + (i + 1) * TH);
-        outer_sum<T, CPT>(o_gp + i * TH, o_g2, nr, H, pw(2 * L + 1 + i), first);
-        tile_colsum(s_g2, nr, H, one, pv(lo.row_ob + i + 1), first);
+        outer_sum<T, C, RPW>(o_gp + i * TH, o_g2, nr, H, HS, pw(2 * L + 1 + i), first);
+        tile_colsum(s_g2, nr, H, HS, one, pv(lo.row_ob + i + 1), first);
         __syncthreads();
         back(o_g2, 2 * L + 1 + i);
       }
@@ -677,19 +1055,20 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         hs = o_hm;
       }
-      outer_sum<T, CPT>(hs, o_g2, nr, H, pw(lo.mat_w1h), first);
+      outer_sum<T, C, RPW>(hs, o_g2, nr, H, HS, pw(lo.mat_w1h), first);
       for (int d = 0; d < d_x; ++d)
-        tile_colsum(s_g2, nr, H, [&](int r) { return s_xs[(r * N + s) * d_x + d]; },
+        tile_colsum(s_g2, nr, H, HS, [&](int r) { return s_xs[(r * N + s) * d_x + d]; },
                     pv(lo.row_w1x + d), first);
-      tile_colsum(s_g2, nr, H, [&](int r) { return s_t[r * N + s]; }, pv(lo.row_w1t), first);
-      tile_colsum(s_g2, nr, H, dt_of, pv(lo.row_w1d), first);
-      tile_colsum(s_g2, nr, H, one, pv(lo.row_ob), first);
+      tile_colsum(s_g2, nr, H, HS, [&](int r) { return s_t[r * N + s]; }, pv(lo.row_w1t),
+                  first);
+      tile_colsum(s_g2, nr, H, HS, dt_of, pv(lo.row_w1d), first);
+      tile_colsum(s_g2, nr, H, HS, one, pv(lo.row_ob), first);
       // dHJ += (dG1_pre W1h^T) s'(HJ), s'(HJ) in s_up (free: the readouts
       // are done)
       if (scale != kIdentity)
         for (int e = threadIdx.x; e < TH; e += kThreads) s_up[e] = scale_grad(hj[e], scale);
       __syncthreads();
-      mm_store<T, CPT, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H,
+      mm_store<T, C, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H, HS,
                             scale != kIdentity ? epi(kAddScaled, -1, nullptr, GapBase{}, o_up)
                                                : epi(kAdd));
     }
@@ -698,16 +1077,17 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(s_g, smem + o_jp + l * TH);
       if (l == 0) a1(s);
-      outer_sum<T, CPT>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, nr, H, pw(l), first);
-      tile_colsum(s_g, nr, H, one, pv(lo.row_bj + l + 1), first);
+      outer_sum<T, C, RPW>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, nr, H, HS, pw(l),
+                           first);
+      tile_colsum(s_g, nr, H, HS, one, pv(lo.row_bj + l + 1), first);
       __syncthreads();
       back(o_g, l);
     }
     times_act_grad(s_g, s_g2);                         // s_g2 holds layer 0
     for (int d = 0; d < d_x; ++d)
-      tile_colsum(s_g, nr, H, [&](int r) { return s_x[(r * N + s) * d_x + d]; },
+      tile_colsum(s_g, nr, H, HS, [&](int r) { return s_x[(r * N + s) * d_x + d]; },
                   pv(lo.row_j1 + d), first);
-    tile_colsum(s_g, nr, H, one, pv(lo.row_bj), first);
+    tile_colsum(s_g, nr, H, HS, one, pv(lo.row_bj), first);
     __syncthreads();
   }
   if (N == 1) {                    // no gap: the ODEFunc's sums are zero
@@ -732,16 +1112,18 @@ __global__ void step_reduce_kernel(const float* __restrict__ partial, float* __r
   else dV[kn * v_per + off - w_per] = sum;
 }
 
+// f32: columns a lane of the CUDA-core products
 int cpt_of(int H) { return H <= 32 ? 1 : (H <= 64 ? 2 : (H <= 128 ? 4 : 8)); }
 
-// per block: the weight stage, the tile's activation buffers, then x, s(x)
-// and t (and gy)
+// per block: the weight stage, the tile's activation buffers (row stride
+// act_stride), then x, s(x) and t (and gy)
 size_t fwd_smem_floats(int RT, int H, int N, int d_x) {
-  return (size_t)kStages * kSliceK * H + 2 * (size_t)RT * H + (size_t)RT * N * (2 * d_x + 1);
+  return (size_t)kStageFloats + 2 * (size_t)RT * act_stride(H) +
+         (size_t)RT * N * (2 * d_x + 1);
 }
 
 size_t bwd_smem_floats(int RT, int H, int N, const Layout& lo) {
-  return (size_t)kStages * kSliceK * H + (size_t)(3 * lo.L + 3) * RT * H +
+  return (size_t)kStageFloats + (size_t)(3 * lo.L + 3) * RT * act_stride(H) +
          (size_t)RT * N * (2 * lo.d_x + 1) + (size_t)RT * (2 * N - 1) * lo.d_y * lo.K;
 }
 
@@ -749,7 +1131,7 @@ int check_args(int B, int N, int H, int L, int d_x, int d_y, int K, int act, int
                size_t smem) {
   if (B < 1 || N < 1 || H < 1 || H > 256 || L < 1 || d_x < 1 || d_y < 1 || K < 1 ||
       K > 65535 || act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid ||
-      (rpw != 1 && rpw != 2 && rpw != 4 && rpw != 8))
+      (rpw != 2 && rpw != 4 && rpw != 8))
     return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -797,13 +1179,14 @@ cudaError_t launch_bwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
   return e;
 }
 
-// The (T, CPT, RPW) instances: the forward's tile is 64 rows, the
+// The (T, C, RPW) instances: the forward's tile is 64 rows, the
 // backward's 32 or 16 (ops/fused_step.py FWD_RPW, BWD_RPW); f32 for every
-// CPT, bf16 at CPT 8 only (see the top of the file).
+// CPT (columns a lane: 1, 2, 4, 8 for H up to 32, 64, 128, 256), bf16 at
+// NTW 4 only (see the top of the file).
 cudaError_t dispatch_fwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
                          cudaStream_t s) {
   if (rpw != 8) return cudaErrorInvalidValue;
-  if (wbf16) return launch_fwd<bf16, 8, 8>(a, grid, smem, s);
+  if (wbf16) return launch_fwd<bf16, 4, 8>(a, grid, smem, s);
   switch (cpt) {
     case 1: return launch_fwd<float, 1, 8>(a, grid, smem, s);
     case 2: return launch_fwd<float, 2, 8>(a, grid, smem, s);
@@ -816,8 +1199,8 @@ cudaError_t dispatch_bwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid,
                          cudaStream_t s) {
   if (rpw != 4 && rpw != 2) return cudaErrorInvalidValue;
   if (wbf16)
-    return rpw == 4 ? launch_bwd<bf16, 8, 4>(a, grid, smem, s)
-                    : launch_bwd<bf16, 8, 2>(a, grid, smem, s);
+    return rpw == 4 ? launch_bwd<bf16, 4, 4>(a, grid, smem, s)
+                    : launch_bwd<bf16, 4, 2>(a, grid, smem, s);
   switch (cpt) {
     case 1: return rpw == 4 ? launch_bwd<float, 1, 4>(a, grid, smem, s)
                             : launch_bwd<float, 1, 2>(a, grid, smem, s);

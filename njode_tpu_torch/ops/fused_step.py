@@ -30,11 +30,12 @@ and the lane-space loss, whose value and gradients :func:`fused_step_loss`
 reproduces as ``nj_ode_loss_dense`` of :func:`fused_step_apply`.
 
 The port's own shape gate (:func:`fused_step_fits`, :func:`launch_plan`):
-1 <= H <= 256 (8 columns a lane), and a block's working set in the H100's
-227 KB of shared memory: the weight stage (3 slices of 8 rows of H), 2
-(forward) or 3 L + 3 (backward) buffers of RT x H floats, and the tile's
-scalars, with RT 64 rows forward and 32 or 16 backward.  At H 256 that
-admits L up to 3 and N up to 100; every recipe of the repo fits.
+1 <= H <= 256 (8 warps of up to 4 tensor-core n-tiles), and a block's
+working set in the H100's 227 KB of shared memory: the weight stage (3
+slices of 8 f32 or 16 bf16 rows, padded), 2 (forward) or 3 L + 3
+(backward) buffers of RT padded rows of H floats, and the tile's scalars,
+with RT 64 rows forward and 32 or 16 backward.  At H 256 that
+admits N up to 94 at L 1-2 and 11 at L 3; every recipe of the repo fits.
 ``use_pallas="auto"`` takes the kernels on the card only at the shape an
 H100 A/B measured ahead (``AUTO_SHAPE_H100``, ``AUTO_MIN_BATCH_H100``), in
 the compute dtypes it measured (``AUTO_COMPUTE_DTYPES_H100``).
@@ -45,9 +46,11 @@ bf16 once, outside the kernels, and the backward's WT is the transpose of
 the cast planes; every product rounds its activation operand to bf16 (the
 weight-gradient sums A^T G both operands) and accumulates in float32; V,
 the epilogues, the activations and the column sums stay float32, and dW
-comes back in float32.  The kernels' bf16 instances (rows 9b and 10b) are
-counted apart from the float32 ones (``LAUNCHES_FWD_BF16`` /
-``LAUNCHES_BWD_BF16``).  float16 has no fused step (JAX ``:716``).
+comes back in float32.  The kernels' bf16 instances (rows 9b and 10b) run
+their products and weight-gradient sums on the tensor cores (the f32 ones
+on the CUDA cores) and are counted apart from the float32 ones
+(``LAUNCHES_FWD_BF16`` / ``LAUNCHES_BWD_BF16``).  float16 has no fused
+step (JAX ``:716``).
 
 Wrappers: :func:`fused_step_apply` / :func:`fused_step_loss` take the
 kernels for CUDA tensors and the plain versions
@@ -75,12 +78,12 @@ LAUNCHES_BWD = 0
 LAUNCHES_FWD_BF16 = 0
 LAUNCHES_BWD_BF16 = 0
 
-MAX_HIDDEN = 256               # 8 columns a lane of a warp
+MAX_HIDDEN = 256               # 8 warps of 4 n-tiles of 8 columns
 WARPS = 8                      # a block: 8 warps, RPW rows each
 SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
 FWD_RPW = (8,)                 # rows per warp the kernels are built for
 BWD_RPW = (4, 2)
-SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 rows
+SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 f32 rows
 # use_pallas="auto" takes the kernels on the card only at the one shape the
 # H100 A/B of the scaled recipe had them ahead of the composed path (PERF.md,
 # section 6): separate networks, (H, N, L, d_x, d_y, K) as below, and at least
@@ -151,12 +154,16 @@ def fused_step_available(input_dim: int, output_dim: int,
 def _smem_floats(backward: bool, rt: int, H: int, N: int, L: int, d_x: int,
                  d_y: int, K: int) -> int:
     """Shared memory of one block, in floats (csrc/fused_step.cu's
-    ``fwd_smem_floats`` / ``bwd_smem_floats``)."""
+    ``fwd_smem_floats`` / ``bwd_smem_floats``): the weight stage (each
+    warp's strip of 3 slices of 8 f32 or 16 bf16 rows by up to 32 columns),
+    and activation rows padded to ``act_stride`` floats, so the tensor
+    cores' fragment loads are free of bank conflicts."""
     scal = rt * N * (2 * d_x + 1)                     # x, s(x), t
-    stage = STAGES * SLICE_K * H
+    stage = WARPS * STAGES * SLICE_K * 32
+    HS = -(-H // 32) * 32 + 8                          # act_stride
     if not backward:
-        return stage + 2 * rt * H + scal
-    return stage + (3 * L + 3) * rt * H + scal + rt * (2 * N - 1) * d_y * K
+        return stage + 2 * rt * HS + scal
+    return stage + (3 * L + 3) * rt * HS + scal + rt * (2 * N - 1) * d_y * K
 
 
 def launch_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,

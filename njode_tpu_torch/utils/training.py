@@ -197,9 +197,10 @@ class Trainer:
 
     ``train_kernel_opts`` (the JAX package's name): ``mxu_dtype``
     "float32" (default) or "bfloat16", the whole-run kernels' product
-    operands; ``lr`` / ``weight_decay``, where given, must equal the
-    optimizer's (the kernels read every hyperparameter from its one param
-    group).  The composed path ignores them.
+    operands; ``lr``, ``weight_decay``, ``adam_eps`` (Adam's ``eps``) and
+    ``betas``, where given, must equal the optimizer's (the kernels read
+    every hyperparameter from its one param group).  The composed path
+    ignores them.
     """
 
     def __init__(self, model: NeuralJumpODE,
@@ -546,9 +547,9 @@ class Trainer:
     def _kernel_opts_problems(self) -> list:
         """The kernel implements ``torch.optim.Adam`` with L2 weight decay
         and reads its hyperparameters from the optimizer's one param group;
-        ``train_kernel_opts`` names a known ``mxu_dtype`` and no ``lr`` or
-        ``weight_decay`` other than the optimizer's
-        (``njode_tpu/utils/training.py:417-455``)."""
+        ``train_kernel_opts`` names a known ``mxu_dtype`` and no ``lr``,
+        ``weight_decay``, ``adam_eps`` or ``betas`` other than the
+        optimizer's (``njode_tpu/utils/training.py:417-458``)."""
         from ..ops.train_kernel import MXU_DTYPES
         problems = []
         mxu = self._mxu_dtype()
@@ -565,11 +566,17 @@ class Trainer:
         for flag in ("amsgrad", "maximize", "decoupled_weight_decay"):
             if group.get(flag, False):
                 problems.append(f"Adam {flag}=True unsupported")
-        for k, name in (("lr", "lr"), ("weight_decay", "weight_decay")):
+        for k, name in (("lr", "lr"), ("weight_decay", "weight_decay"),
+                        ("adam_eps", "eps")):
             got = self.train_kernel_opts.get(k)
             if got is not None and float(got) != float(group[name]):
                 problems.append(f"train_kernel_opts[{k!r}]={got} != the "
-                                f"optimizer's {name}={group[name]}")
+                                f"optimizer's {k}={group[name]}")
+        got_b = self.train_kernel_opts.get("betas")
+        if got_b is not None and (tuple(map(float, got_b))
+                                  != tuple(map(float, group["betas"]))):
+            problems.append(f"train_kernel_opts['betas']={got_b} != the "
+                            f"optimizer's betas={group['betas']}")
         return problems
 
     def _use_kernel(self, batch_size: Optional[int], n_slots: int,

@@ -1,7 +1,8 @@
-"""A/B runs of the whole-run training kernels (rows 11-13) on one CUDA card.
+"""A/B runs of the training kernels (rows 9-13) on one CUDA card.
 
     python scripts/ab_torch_training.py epoch [--root DIR] [--launch]
     python scripts/ab_torch_training.py walk [--root DIR]
+    python scripts/ab_torch_training.py step [--root DIR]
     python scripts/ab_torch_training.py recipe [--root DIR]
     python scripts/ab_torch_training.py steps K,H,METHOD,ACT,BATCH,G [--root DIR]
 
@@ -15,7 +16,12 @@ call of ``fused_walk_train_run`` (row 13) at the production recipe's shape
 (H 50, shared, N 10, M 100, 40 steps of 256, the last minibatch 16 rows
 valid), timed the same way and checked normwise (losses, params, m and v
 each within 1e-3 of its norm; chip_smoke.py's phase 13 holds 8 steps
-entrywise, an epoch call here is 40).  ``recipe``: the
+entrywise, an epoch call here is 40).  ``step``: one call each of the
+fused-step kernels, rows 9 and 10 (f32) and 9b and 10b (bf16), at the
+scaled recipe's shape (H 256, N 2, two networks, L 1, relu/identity,
+4,096 rows), timed the same way, each checked against its plain version
+(the forward's largest abs err, the backward's largest error/norm over the
+dW planes and dV rows).  ``recipe``: the
 default recipe (200 epochs of 1,000 fresh trajectories) through
 ``Trainer.train`` on the kernel, twice; wall time, and val MSE and relative
 loss against the closed-form moments.  ``--seed S`` sets the model's and
@@ -157,6 +163,33 @@ def mode_walk(dev: torch.device) -> None:
           flush=True)
 
 
+def mode_step(dev: torch.device) -> None:
+    from njode_tpu_torch.ops import fused_step as fs
+    t0 = time.perf_counter()
+    fs._load_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    c = cs.step_case(torch.Generator().manual_seed(17), 256, 2, False, 1,
+                     "relu", "identity", 4096, dev)
+    args = ("relu", "identity")
+    for rows, cdt in (("9-10", None), ("9b-10b", cs.BF16)):
+        with torch.no_grad():
+            y_k, y_p = (cs.step_fwd(c, *args, k, cdt) for k in (True, False))
+            g_k, g_p = (cs.step_bwd(c, *args, k, cdt) for k in (True, False))
+            torch.cuda.synchronize()
+            rel = max(float((a[i, j] - b[i, j]).norm() / b[i, j].norm())
+                      for a, b in zip(g_k, g_p) for i in range(a.shape[0])
+                      for j in range(a.shape[1]))
+            f_ms = [cs.time_ms(lambda: cs.step_fwd(c, *args, True, cdt),
+                               warmup=3, reps=20) for _ in range(3)]
+            b_ms = [cs.time_ms(lambda: cs.step_bwd(c, *args, True, cdt),
+                               warmup=3, reps=20) for _ in range(3)]
+        print(f"[{ROOT}] rows {rows} (H 256, N 2, two networks, L 1, "
+              f"4,096 rows): forward ms {[round(x, 4) for x in f_ms]}, "
+              f"backward ms {[round(x, 4) for x in b_ms]}; vs plain: forward "
+              f"max abs err {float((y_k - y_p).abs().max()):.2e}, backward "
+              f"largest error/norm {rel:.2e}", flush=True)
+
+
 def mode_recipe(dev: torch.device) -> None:
     tk._load_kernel()
     arm = "kernel"
@@ -253,6 +286,8 @@ def main() -> None:
         mode_epoch(dev)
     elif mode == "walk":
         mode_walk(dev)
+    elif mode == "step":
+        mode_step(dev)
     elif mode == "recipe":
         mode_recipe(dev)
     elif mode == "steps":

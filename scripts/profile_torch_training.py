@@ -39,10 +39,10 @@ networks, batch 4,096, 100,000 fresh trajectories per epoch, validation on
 after one epoch of warm-up: host wall and device time per epoch, the
 device's idle share, device launches per epoch and the top ops; the
 fused-step arm's Chrome trace goes to the same output directory.  Then
-rows 9-10's own split at that shape, from a copy of ops/csrc/fused_step.cu
-with clock64() probes read by each block's first thread (the products to
-the barrier after them, their epilogues, the weight-gradient sums, the
-rest), over one call of each.
+rows 9-10's and 9b-10b's own split at that shape, from a copy of
+ops/csrc/fused_step.cu with clock64() probes read by each block's first
+thread (the tensor-core products to the barrier after them, their
+epilogues, the weight-gradient sums, the rest), over one call of each.
 
 With ``--forced``, instead: torch.profiler over 3 epochs of each forced
 recipe (``use_pallas=True``, the CLI's ``--kernels force``; the production
@@ -235,22 +235,29 @@ def instrumented_step_source() -> str:
          "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
          "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
          "}\n"),
-        ("  float acc[RPW][CPT];\n  tile_mm<CPT, RPW>(njode_step_smem + a_off, "
-         "W, H, warp, lane, acc);\n  __syncthreads();\n",
-         "  const long long t0 = clock64();\n  float acc[RPW][CPT];\n"
-         "  tile_mm<CPT, RPW>(njode_step_smem + a_off, W, H, warp, lane, "
-         "acc);\n  __syncthreads();\n  " + add.format(k=0, t="t0")
-         + "\n  const long long t1 = clock64();\n"),
-        ("  if (e.act >= 0) tile_act<RPW>(out, H, warp, lane, e.act);\n"
-         "  __syncthreads();\n}",
-         "  if (e.act >= 0) tile_act<RPW>(out, H, warp, lane, e.act);\n"
-         "  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
+        ("  if constexpr (kTensorCores<T>) {\n    constexpr int MT = RPW / 2;\n",
+         "  const long long t0 = clock64();\n  long long t1 = 0;\n"
+         "  if constexpr (kTensorCores<T>) {\n    constexpr int MT = RPW / 2;\n"),
+        ("    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, "
+         "acc);\n    __syncthreads();\n",
+         "    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, "
+         "acc);\n    __syncthreads();\n    " + add.format(k=0, t="t0")
+         + "\n    t1 = clock64();\n"),
+        ("    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, "
+         "acc);\n    __syncthreads();\n",
+         "    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, "
+         "acc);\n    __syncthreads();\n    " + add.format(k=0, t="t0")
+         + "\n    t1 = clock64();\n"),
+        ("    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);\n"
+         "  }\n  __syncthreads();\n}",
+         "    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);\n"
+         "  }\n  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
         ("  const float* G = njode_step_smem + g_off;\n",
          "  const float* G = njode_step_smem + g_off;\n"
          "  const long long t0 = clock64();\n"),
-        ("      }\n    }\n  }\n}\n\n// P[j] (+)= sum",
-         "      }\n    }\n  }\n  " + add.format(k=2, t="t0")
-         + "\n}\n\n// P[j] (+)= sum"),
+        ("  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);\n}",
+         "  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);\n  "
+         + add.format(k=2, t="t0") + "\n}"),
         ("                float* __restrict__ Y, int B, int N, int H, Layout lo, "
          "int act, int scale) {\n",
          "                float* __restrict__ Y, int B, int N, int H, Layout lo, "
@@ -275,9 +282,9 @@ def instrumented_step_source() -> str:
 
 
 def fused_step_split(dev: torch.device, card: str) -> None:
-    """Rows 9-10 at the scaled recipe's shape (two networks, H 256, N 2,
-    4,096 rows), one call each of an instrumented copy: the cycles of each
-    block's thread 0 in each phase, summed over blocks."""
+    """Rows 9-10 and 9b-10b at the scaled recipe's shape (two networks, H
+    256, N 2, 4,096 rows), one call each of an instrumented copy: the cycles
+    of each block's thread 0 in each phase, summed over blocks."""
     from njode_tpu_torch.ops import fused_step as fs
     with tempfile.TemporaryDirectory() as tmp:
         cu = os.path.join(tmp, "fused_step_probes.cu")
@@ -301,16 +308,19 @@ def fused_step_split(dev: torch.device, card: str) -> None:
         original = fs._load_kernel
         fs._load_kernel = lambda: lib
         try:
-            for name, bwd in (("forward (row 9)", False),
-                              ("backward (row 10)", True)):
+            for name, bwd, cdt in (
+                    ("forward (row 9)", False, None),
+                    ("backward (row 10)", True, None),
+                    ("bf16 forward (row 9b)", False, chip_smoke.BF16),
+                    ("bf16 backward (row 10b)", True, chip_smoke.BF16)):
                 run = chip_smoke.step_bwd if bwd else chip_smoke.step_fwd
                 with torch.no_grad():
-                    run(c, "relu", "identity", True)             # warm-up
+                    run(c, "relu", "identity", True, cdt)        # warm-up
                     torch.cuda.synchronize()
                     cycles = (ctypes.c_ulonglong * 4)()
                     lib.njode_prof_read(cycles)
                     before = list(cycles)
-                    run(c, "relu", "identity", True)
+                    run(c, "relu", "identity", True, cdt)
                     torch.cuda.synchronize()
                     lib.njode_prof_read(cycles)
                 per = [cycles[k] - before[k] for k in range(4)]

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from njode_tpu import NeuralJumpODE as JaxModel
 from njode_tpu.models import nj_ode_loss_dense as jax_loss
 from njode_tpu.ops import fused_step as jfs
@@ -600,3 +601,60 @@ def test_bf16_loss_helper_agrees_with_apply():
         direct = nj_ode_loss_dense(torch.tensor(values), preds, before,
                                    torch.tensor(mask))
     assert torch.equal(loss, direct)
+
+
+# ------------- the ratio test of chip_smoke.py phase 24 (rows 9b-10b)
+
+def _ratio_case(H_, N_, L, act, scale, rows=512, seed=0):
+    """Fused-step inputs for two networks: weights uniform in +-1/sqrt(H),
+    as torch's Linear init, sorted times, log-normal values, normal output
+    cotangents."""
+    rng = np.random.default_rng(seed)
+    lo = fs.StepLayout(L, 1, 1, 2, False)
+    bound = 1.0 / np.sqrt(H_)
+    W = rng.uniform(-bound, bound, (lo.Kn, lo.n_mats, H_, H_))
+    V = rng.uniform(-bound, bound, (lo.Kn, lo.n_rows, H_))
+    times = np.sort(rng.uniform(0.0, 1.0, (rows, N_)), axis=1)
+    times[:, 0] = 0.0
+    values = np.exp(rng.normal(size=(rows, N_, 1)) * 0.3)
+    gy = rng.normal(size=(rows, 2 * N_ - 1, 1, 2))
+    return [torch.tensor(x, dtype=torch.float32)
+            for x in (W, V, times, values, gy)] + [lo]
+
+
+@pytest.mark.parametrize("H_,N_,L,act,scale", [
+    (256, 2, 1, "relu", "identity"), (32, 10, 2, "tanh", "tanh"),
+    (50, 10, 1, "elu", "sigmoid")])
+def test_step_ratio_test_tells_the_rounding_points(H_, N_, L, act, scale):
+    """chip_smoke.step_ratio_share, phase 24's ratio test (each of Y, the
+    dW planes and the dV rows within 0.1 of the bf16 mode's own distance
+    from f32, normwise): the plain bf16 version passes it against itself
+    in another summation order (its hidden units permuted, which changes
+    the order of every sum and no rounding point), and a mode that rounds
+    only the weights, not the activation operands, fails it, as does the
+    f32 mode."""
+    W, V, times, values, gy, lo = _ratio_case(H_, N_, L, act, scale)
+    args = (lo, act, scale)
+    perm = torch.randperm(H_, generator=torch.Generator().manual_seed(1))
+    inv = torch.argsort(perm)
+    Wp = W[:, :, perm][:, :, :, perm].contiguous()
+    Vp = V[:, :, perm].contiguous()
+    bf = torch.bfloat16
+    y = fs.fused_step_forward_reference(W, V, times, values, *args, bf)
+    g = fs.fused_step_backward_reference(W, V, times, values, gy, *args, bf)
+    y32 = fs.fused_step_forward_reference(W, V, times, values, *args)
+    g32 = fs.fused_step_backward_reference(W, V, times, values, gy, *args)
+    yp = fs.fused_step_forward_reference(Wp, Vp, times, values, *args, bf)
+    dWp, dVp = fs.fused_step_backward_reference(Wp, Vp, times, values, gy,
+                                                *args, bf)
+    gp = (dWp[:, :, inv][:, :, :, inv], dVp[:, :, inv])
+    assert not torch.equal(yp, y)               # another order, other bits
+    assert cs.step_ratio_share(yp, y, y32) <= 0.5
+    assert cs.step_ratio_share(gp, g, g32) <= 0.5
+    Wr = W.to(bf).float()                       # rounds the weights only
+    yw = fs.fused_step_forward_reference(Wr, V, times, values, *args)
+    gw = fs.fused_step_backward_reference(Wr, V, times, values, gy, *args)
+    assert cs.step_ratio_share(yw, y, y32) > 2.0
+    assert cs.step_ratio_share(gw, g, g32) > 2.0
+    assert cs.step_ratio_share(y32, y, y32) > 2.0
+    assert cs.step_ratio_share(g32, g, g32) > 2.0

@@ -20,7 +20,9 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
+import chip_smoke as cs
 from njode_tpu import NeuralJumpODE as JaxModel
 from njode_tpu.ops import fused_step as jfs
 from njode_tpu.utils.training import make_adam as jax_make_adam
@@ -492,3 +494,65 @@ def test_run_experiment_with_step_writes_artifacts(tmp_path, capsys):
     hist = res["history"]
     assert len(hist["train_loss"]) == 2
     assert np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+
+
+# ---------- phase 17's f32 limits against emulated TF32 products
+
+class _Exact3xTF32(TorchFunctionMode):
+    """Every plane product of the plain versions (a 2-D by 2-D matmul) in
+    3xTF32: each operand split into hi = tf32(x) and lo = tf32(x - hi), the
+    products lo hi + hi lo + hi hi summed exactly (float64) and rounded to
+    f32 once, as accurate as f32.  The readout's dot with o2 (2-D by 1-D)
+    stays f32, as in the kernels."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+                and len(args) == 2 and args[0].dim() == args[1].dim() == 2):
+            a, b = args
+            ah, bh = cs.tf32_round(a), cs.tf32_round(b)
+            al, bl = cs.tf32_round(a - ah), cs.tf32_round(b - bh)
+            return (ah.double() @ bh.double() + ah.double() @ bl.double()
+                    + al.double() @ bh.double()).float()
+        return func(*args, **(kwargs or {}))
+
+
+def _f32_step_case(act, scale, H_=256, N_=2, L=1, rows=512, seed=0):
+    """The scaled recipe's shape (two networks, one hidden layer) at a few
+    hundred rows: weights uniform in +-1/sqrt(H), as torch's Linear init."""
+    rng = np.random.default_rng(seed)
+    lo = fs.StepLayout(L, 1, 1, 2, False)
+    bound = 1.0 / np.sqrt(H_)
+    W = rng.uniform(-bound, bound, (lo.Kn, lo.n_mats, H_, H_))
+    V = rng.uniform(-bound, bound, (lo.Kn, lo.n_rows, H_))
+    times = np.sort(rng.uniform(0.0, 1.0, (rows, N_)), axis=1)
+    times[:, 0] = 0.0
+    values = np.exp(rng.normal(size=(rows, N_, 1)) * 0.3)
+    gy = rng.normal(size=(rows, 2 * N_ - 1, 1, 2))
+    return [torch.tensor(x, dtype=torch.float32)
+            for x in (W, V, times, values, gy)] + [lo]
+
+
+@pytest.mark.parametrize("act,scale", [("relu", "identity"), ("tanh", "tanh"),
+                                       ("elu", "sigmoid")])
+def test_3xtf32_holds_the_f32_limits_and_1xtf32_does_not(act, scale):
+    """chip_smoke.py phase 17's limits for rows 9-10 (forward rtol 1e-4 /
+    atol 1e-5 and STEP_FWD_NORM of its norm, each dW plane and dV row within
+    step_grad_rtol of its norm) tell f32-accurate products from TF32 ones:
+    at the scaled shape 3xTF32 products summed exactly stay inside both
+    against the plain f32 version, and the phase's control (TF32Operands,
+    1xTF32) falls outside both."""
+    W, V, times, values, gy, lo = _f32_step_case(act, scale)
+    args = (lo, act, scale)
+    y = fs.fused_step_forward_reference(W, V, times, values, *args)
+    g = fs.fused_step_backward_reference(W, V, times, values, gy, *args)
+    shares = {}
+    for three in (True, False):
+        with _Exact3xTF32() if three else cs.TF32Operands():
+            ye = fs.fused_step_forward_reference(W, V, times, values, *args)
+            ge = fs.fused_step_backward_reference(W, V, times, values, gy,
+                                                  *args)
+        assert not torch.equal(ye, y)          # the mode reached the products
+        shares[three] = (cs.step_fwd_share(ye, y),
+                         cs.step_bwd_share(ge, g, cs.step_grad_rtol(act)))
+    assert max(shares[True]) <= 0.2, shares
+    assert min(shares[False]) > 1.0, shares

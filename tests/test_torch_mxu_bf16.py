@@ -388,6 +388,33 @@ def test_kernel_check_names_mxu_and_hyperparameters():
     assert wtr._use_kernel(BS, N) is True
 
 
+@pytest.mark.parametrize("opts", [{"adam_eps": 1e-6}, {"betas": (0.5, 0.9)}],
+                         ids=["adam_eps", "betas"])
+def test_kernel_check_names_adam_eps_and_betas(opts):
+    """train_kernel_opts' adam_eps and betas, where they differ from a
+    default Adam's, are listed as problems by the port's check and by the
+    JAX package's (njode_tpu/utils/training.py:446-458) on the same setup;
+    equal values are not."""
+    (key, value), = opts.items()
+    base = {"lr": LR, "weight_decay": WD}
+    jtr = JaxTrainer(JaxModel(**model_kw(False)), jax_make_adam(LR, WD),
+                     ignore_first_continuity=True, use_train_kernel=False,
+                     train_kernel_opts={**base, **opts})
+    assert any(f"train_kernel_opts[{key!r}]" in p
+               for p in jtr._kernel_opts_problems())
+    model = NeuralJumpODE(**model_kw(False), device="cpu")
+    tr = Trainer(model, make_adam(model.parameters(), LR, WD),
+                 ignore_first_continuity=True, use_train_kernel=True,
+                 train_kernel_opts={**base, **opts})
+    problems = tr._kernel_opts_problems()
+    assert len(problems) == 1 and f"train_kernel_opts[{key!r}]" in problems[0]
+    with pytest.raises(ValueError, match=key):
+        tr._train_kernel_check(BS, N)
+    same = {"adam_eps": 1e-8, "betas": (0.9, 0.999)}[key]
+    tr.train_kernel_opts[key] = same
+    assert tr._kernel_opts_problems() == []
+
+
 def _config(tmp_path, walk, **over):
     cfg = {
         "experiment_name": "bf16_walk" if walk else "bf16_run",
