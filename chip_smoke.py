@@ -78,12 +78,14 @@ uncaught exception and a nonzero exit:
    2 timed and scaled; one epoch call of the kernel and of its plain
    version; rows 7-8 at their main-path shapes; the validation A/B that
    sets the walk's row cap; val MSE against the closed-form moments.
-16. build: fused_step.cu's ptxas summary and registers and spills by
-   instance (built in 2), and the tensor-core instructions (HMMA/HGMMA in
-   the SASS, cuobjdump) of each kernel instance: not 0 for any of the three
-   bf16 instances (the f32 ones run on the CUDA cores).
+16. build: fused_step.cu's ptxas summary and registers and spill bytes by
+   function (built in 2: the f32 forward and backward, their out-of-line
+   product chunks by rows a thread, the dW sum and its chunk sum, the bf16
+   kernels), and the tensor-core instructions (HMMA/HGMMA in the SASS,
+   cuobjdump) of each kernel: not 0 for any of the three bf16 kernels, 0
+   for the f32 ones (CUDA-core fma).
 17. fused-step kernels vs plain: rows 9-10 (njode_step_fwd, njode_step_bwd,
-   f32 on the CUDA cores) against fused_step_forward_reference /
+   f32 on the CUDA cores: csrc/step_f32.cuh) against fused_step_forward_reference /
    fused_step_backward_reference (cuBLAS f32, TF32 off), H in (32, 50, 256)
    x N in (1, 2, 10) x separate/shared x L in (1, 2), relu/identity,
    tanh/tanh, elu/sigmoid and rows 4,096, 1,696, 5,000 in turn, then the
@@ -111,7 +113,8 @@ uncaught exception and a nonzero exit:
    epoch each, in turns; "auto" must take the kernels at this shape); rows
    9 and 10 per call at 4,096 rows (row 9 also at 5,000) against their
    plain versions and bounds (f32-accurate products at 3xTF32 on the tensor
-   cores, the CUDA cores' f32 bound and the tile partials' bytes beside);
+   cores, the CUDA cores' f32 bound and the bytes of the backward's records
+   and partials beside);
    val MSE against the closed-form moments.
 
 20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2).
@@ -322,11 +325,60 @@ def ptxas_instances(name: str) -> str:
     return "; ".join(out) if out else "no ptxas output"
 
 
+# fused_step.cu's functions by kind: the f32 instances (step_f32.cuh: the
+# forward and backward, the out-of-line product chunks, the dW sum and its
+# reduce) and the bf16 kernels with their out-of-line product and gradient
+# sum of the same (NTW, RPW)
+STEP_FUNCTIONS = (
+    (r"f3211step_kernelILb0E", "f32 forward"),
+    (r"f3211step_kernelILb1E", "f32 backward"),
+    (r"f328mm_chunkILi(\d+)E", "f32 product chunk TM {}"),
+    (r"f3214step_dw_kernel", "f32 dW sum"),
+    (r"f3218step_reduce_kernel", "f32 chunk sum"),
+    (r"step_fwd_kernelILi(\d+)ELi(\d+)E", "bf16 forward <NTW {}, RPW {}>"),
+    (r"step_bwd_kernelILi(\d+)ELi(\d+)E", "bf16 backward <NTW {}, RPW {}>"),
+)
+
+
+def step_function_kind(name: str):
+    """The STEP_FUNCTIONS label of a mangled fused_step.cu function, None
+    for the rest (the bf16 mm_store / outer_sum count with their kernels)."""
+    import re
+    for pat, label in STEP_FUNCTIONS:
+        m = re.search(pat, name)
+        if m:
+            return label.format(*m.groups())
+    return None
+
+
+def step_instances() -> dict:
+    """Registers (kernels) and spill bytes of fused_step.cu's functions by
+    STEP_FUNCTIONS label, as ptxas reported them in this process's build."""
+    import re
+    from njode_tpu_torch.ops import _build
+    out, fn, entry = {}, None, None
+    for ln in _build.BUILD_LOG.get("fused_step", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = step_function_kind(m.group(1))
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = step_function_kind(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            out.setdefault(fn, [None, 0])[1] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.setdefault(entry, [None, 0])[0] = int(m.group(1))
+    return out
+
+
 def step_tensor_core_counts() -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in the SASS of fused_step.cu's
-    library (cuobjdump --dump-sass), by kernel instance: a kernel's own and
-    those of the out-of-line product and gradient sum of its template
-    arguments (T, NTW, RPW)."""
+    library (cuobjdump --dump-sass) by STEP_FUNCTIONS label; a bf16
+    kernel's count includes its out-of-line mm_store and outer_sum of the
+    same (NTW, RPW)."""
     import re
     from njode_tpu_torch.ops import _build
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -342,20 +394,18 @@ def step_tensor_core_counts() -> dict:
             per_fn[fn] = 0
         elif fn and re.search(r"\bHG?MMA\.", ln):
             per_fn[fn] += 1
-    pat = re.compile(r"(step_fwd_kernel|step_bwd_kernel|mm_store|outer_sum)"
-                     r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
-    by_key, kernels = {}, []
+    out = {}
     for name, n in per_fn.items():
-        m = pat.search(name)
-        if not m:
-            continue
-        key = ("bf16" if m.group(2) != "f" else "f32", int(m.group(3)),
-               int(m.group(4)))
-        by_key[key] = by_key.get(key, 0) + n
-        if m.group(1).startswith("step_"):
-            kernels.append((m.group(1)[5:8], key))
-    return {f"{kind} <{k[0]}, NTW {k[1]}, RPW {k[2]}>": by_key[k]
-            for kind, k in sorted(kernels)}
+        label = step_function_kind(name)
+        helper = re.search(r"(mm_store|outer_sum)ILi(\d+)ELi(\d+)E", name)
+        if label is not None:
+            out[label] = out.get(label, 0) + n
+        elif helper:
+            for kind in ("forward", "backward"):
+                key = f"bf16 {kind} <NTW {helper.group(2)}, RPW {helper.group(3)}>"
+                if key in out or any(step_function_kind(f) == key for f in per_fn):
+                    out[key] = out.get(key, 0) + n
+    return dict(sorted(out.items()))
 
 
 def ptxas_line(name: str) -> str:
@@ -1516,7 +1566,7 @@ def step_fwd(c: dict, act: str, scale: str, kernel: bool, cdt=None):
     if kernel:
         return fs._launch_fwd(c["W" if cdt is None else "Wb"], c["V"],
                               c["times"], c["values"], c["lo"], act, scale,
-                              step_plan(c)[0])
+                              step_plan(c, cdt)[0])
     return fs.fused_step_forward_reference(c["W"], c["V"], c["times"],
                                            c["values"], c["lo"], act, scale,
                                            cdt)
@@ -1527,16 +1577,18 @@ def step_bwd(c: dict, act: str, scale: str, kernel: bool, cdt=None):
     if kernel:
         return fs._launch_bwd(c["W" if cdt is None else "Wb"], c["V"],
                               c["times"], c["values"], c["gy"], c["lo"], act,
-                              scale, step_plan(c)[1])
+                              scale, step_plan(c, cdt)[1])
     return fs.fused_step_backward_reference(c["W"], c["V"], c["times"],
                                             c["values"], c["gy"], c["lo"],
                                             act, scale, cdt)
 
 
-def step_plan(c: dict) -> tuple:
+def step_plan(c: dict, cdt=None) -> tuple:
+    """(trajectories a tile, slots a group) of the forward and backward of
+    the f32 (cdt None) or bf16 instances."""
     lo = c["lo"]
-    return fs.launch_plan(c["W"].shape[-1], c["times"].shape[1], lo.L,
-                          lo.d_x, lo.d_y, lo.K)
+    return fs.kernel_plan(c["W"].shape[-1], c["times"].shape[1], lo.L,
+                          lo.d_x, lo.d_y, lo.K, cdt is not None)
 
 
 # rows 9-10 (f32 fma on the CUDA cores) against their plain versions
@@ -2060,10 +2112,11 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
     b_bound = bound_of(9 * flops, b_io, PEAK_TF32_FLOPS)
     f_cc, b_cc = (bound_of(flops, io + 4 * c["gy"].numel())[0],
                   bound_of(3 * flops, b_io)[0])
-    # the bytes of the backward's tile partials, written and read once
-    tiles = -(-SCALED_BS // (8 * step_plan(c)[1]))
-    partial_b = 2 * 4 * tiles * lo.Kn * (lo.n_mats * SCALED_H ** 2
-                                         + lo.n_rows * SCALED_H)
+    # the bytes of the backward's scratch (the records, the dW chunk
+    # partials, the tiles' dV partials), written and read once
+    scratch_b = 2 * 4 * fs._load_kernel().njode_step_scratch_floats(
+        SCALED_BS, 2, SCALED_H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared),
+        step_plan(c)[1][0], 0)
     n = E * SCALED_TRAIN
     print(f"scaled times on {card}: the recipe ({E} epochs x "
           f"{SCALED_TRAIN:,} fresh trajectories, batch {SCALED_BS}, hidden "
@@ -2087,11 +2140,11 @@ def scaled_times_phase(dev: torch.device, card: str) -> dict:
           f"{', '.join(f'{x:.4f}' for x in t[True, True])} ms (plain "
           f"{', '.join(f'{x:.4f}' for x in t[False, True])} ms; bound "
           f"{b_bound[0]:.4f} ms {b_bound[1]} at 3xTF32, {b_cc:.4f} ms at the "
-          f"CUDA cores' f32 peak; the tile partials {partial_b / 1e6:.1f} MB "
-          f"written and read, {1e3 * partial_b / PEAK_BYTES:.4f} ms at "
-          f"3.35 TB/s); forward at {SCALED_VAL:,} "
-          f"validation rows {f_val:.4f} ms; launch plan (rows per warp) "
-          f"{step_plan(c)}", flush=True)
+          f"CUDA cores' f32 peak; the records and partials "
+          f"{scratch_b / 1e6:.1f} MB written and read, "
+          f"{1e3 * scratch_b / PEAK_BYTES:.4f} ms at 3.35 TB/s); forward at "
+          f"{SCALED_VAL:,} validation rows {f_val:.4f} ms; launch plan "
+          f"(trajectories a tile, slots a group) {step_plan(c)}", flush=True)
     return {"fused_step_fwd": (med[True, False], med[False, False], *f_bound),
             "fused_step_bwd": (med[True, True], med[False, True], *b_bound)}
 
@@ -3209,6 +3262,32 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
     return out, errs
 
 
+def step_build_phase(build_s: float) -> None:
+    """Phase 16: fused_step.cu's registers and spill bytes by function
+    (printed; section 6 of PERF.md says where the f32 instances spill) and
+    its tensor-core instructions: none in the f32 kernels (CUDA-core fma),
+    some in each of the three bf16 kernels."""
+    inst = step_instances()
+    print(f"build: fused_step.cu in {build_s:.2f} s (with the other sources, "
+          f"in parallel); ptxas: {ptxas_summary('fused_step')}; by function: "
+          + "; ".join(f"{k}: {'' if r is None else f'{r} registers, '}"
+                      f"{sp} spill bytes" for k, (r, sp) in sorted(inst.items())),
+          flush=True)
+    hmma = step_tensor_core_counts()
+    print("fused_step.cu tensor-core instructions (HMMA/HGMMA in the SASS) "
+          "by function (the bf16 kernels on the tensor cores, the f32 "
+          "instances on the CUDA cores): " + "; ".join(
+              f"{k} {n}" for k, n in hmma.items()), flush=True)
+    bf = [n for k, n in hmma.items() if k.startswith("bf16")]
+    f32 = {k: n for k, n in hmma.items() if k.startswith("f32")}
+    if len(bf) != 3 or not all(bf):
+        raise AssertionError(f"a bf16 fused-step kernel runs no tensor-core "
+                             f"instruction: {hmma}")
+    if len(f32) < 4 or any(f32.values()):
+        raise AssertionError(f"an f32 fused-step function runs tensor-core "
+                             f"instructions (or is missing): {hmma}")
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -3273,18 +3352,7 @@ def main() -> None:
     times.update(walk_times_phase(dev, card))
     t = phase_time("walk kernel times", t)
 
-    print(f"build: fused_step.cu in {build_s:.2f} s (with the other sources, "
-          f"in parallel); ptxas: {ptxas_summary('fused_step')}; by instance "
-          f"<T, NTW, RPW>: {ptxas_instances('fused_step')}", flush=True)
-    hmma = step_tensor_core_counts()
-    print("fused_step.cu tensor-core instructions (HMMA/HGMMA in the SASS) "
-          "by kernel instance (the bf16 instances on the tensor cores, the "
-          "f32 ones on the CUDA cores): " + "; ".join(
-              f"{k} {n}" for k, n in hmma.items()), flush=True)
-    moved = [n for k, n in hmma.items() if "bf16" in k]
-    if len(moved) != 3 or not all(moved):
-        raise AssertionError(f"a bf16 fused-step instance runs no tensor-core "
-                             f"instruction: {hmma}")
+    step_build_phase(build_s)
     sf_err, sb_err, _ = step_kernel_phase(dev)
     t = phase_time("fused-step kernels vs plain", t)
     with tempfile.TemporaryDirectory() as tmp:

@@ -16,23 +16,37 @@
 //
 // What bounds it on the H100: the products, 2 H^2 flops per row and plane
 // pass (1.84 MFLOP per trajectory forward at H 256, K 2, N 2; the
-// backward, which rematerializes the forward, three times that), and the
-// bytes around them: each block streams every plane it multiplies through
-// L2, and the backward writes and reads back its partial sums.  The TPU
+// backward, which rematerializes the forward, three times that).  The TPU
 // kernel keeps every weight plane in VMEM; at H 256 one f32 plane is 256 KB,
 // more than a block's shared memory, so here each block keeps its row
 // tile's activations in shared memory between layers and streams each plane
-// through shared memory by asynchronous copies (tile_mm_tc, tile_mm_cc).  A block is 8
-// warps over a tile of RT = 8 RPW rows (64 forward; 32 or 16 backward,
-// where 3 L + 3 buffers must fit).
+// through shared memory by asynchronous copies.
+//
+// The f32 instances (rows 9 and 10) are step_f32.cuh's: 16 warps a block
+// over 32 trajectories, the slots in groups so that each plane is applied
+// once to all the rows of a group that use it, f32 fma on the CUDA cores
+// over a register tile of contiguous rows and columns, and the backward's
+// weight-gradient sums out of the slot walk: it writes each plane's input
+// rows and cotangents as records, and a second kernel sums A^T G over the
+// whole batch (see the note at the top of step_f32.cuh).  3xTF32 on the
+// tensor cores (each operand split into hi = tf32(x) and lo = tf32(x - hi),
+// lo.hi + hi.lo + hi.hi) was built and measured on the H100 for them: its
+// products carry about 2^-21 of relative error a term against 2^-24 for an
+// fma, which doubled the forward's distance from cuBLAS f32 and with it the
+// relu kinks that flip under another summation order, and the backward came
+// out 4.71e-3 and 2.69e-3 of a plane's norm from the plain version in two of
+// phase 17's relu cases (limit 1e-3); it was also slower (PERF.md, section 6).
 //
 // The bf16 instances (rows 9b and 10b: compute_dtype=bfloat16, the TPU
-// kernels' cdt mode, fused_step.py:236-239, :336-346) run their products
-// and weight-gradient sums on the tensor cores, mma.sync m16n8k16 with bf16
-// inputs and f32 accumulation; W and WT arrive as bf16 planes (cast once by
-// the wrapper).  A bf16 x bf16 product is exact in f32, so a product is
-// JAX's dot(a.astype(bf16), w_bf16, preferred_element_type=f32) with only
-// the order of the f32 sums changed.
+// kernels' cdt mode, fused_step.py:236-239, :336-346) are the kernels of
+// this file.  A block is 8 warps over a tile of RT = 8 RPW rows (64
+// forward; 32 or 16 backward, where 3 L + 3 buffers must fit) and walks the
+// slots one at a time.  They run their products and weight-gradient sums on
+// the tensor cores, mma.sync m16n8k16 with bf16 inputs and f32
+// accumulation; W and WT arrive as bf16 planes (cast once by the wrapper).
+// A bf16 x bf16 product is exact in f32, so a product is JAX's
+// dot(a.astype(bf16), w_bf16, preferred_element_type=f32) with only the
+// order of the f32 sums changed.
 //   * Products (tile_mm_tc): warp w owns the output columns of n-tiles w
 //     NTW .. w NTW + NTW - 1 over all RT rows (MT = RT / 16 row tiles), so
 //     each weight column is read by one warp and each activation by all
@@ -58,20 +72,6 @@
 //   * Built for NTW 4 only (the scaled recipe's H 256), which serves any H
 //     <= 256 with idle warps, to keep the build short.
 //
-// The f32 instances (rows 9 and 10) stay on the CUDA cores (tile_mm_cc,
-// outer_sum_cc): warp w owns rows w RPW .. w RPW + RPW - 1 of the tile and
-// lane l the columns l + 32 c, one f32 fma per operand pair, the plane
-// streamed through a block-wide stage of kStages slices of kSliceK rows.
-// 3xTF32 on the tensor cores (each operand split into hi = tf32(x) and lo =
-// tf32(x - hi), lo.hi + hi.lo + hi.hi) was built and measured on the H100:
-// its products carry about 2^-21 of relative error a term against 2^-24
-// for an fma, which doubled the forward's distance from cuBLAS f32 and with
-// it the relu kinks that flip under another summation order, and the
-// backward came out 4.71e-3 and 2.69e-3 of a plane's norm from the plain
-// version in two of phase 17's relu cases (limit 1e-3; the CUDA-core
-// kernel 2.6e-6 and 8.9e-4); it was also slower, the backward 2.00-2.02 ms
-// against 1.68-1.74 ms at the scaled shape (PERF.md, section 6).
-//
 // Activations are kept as values; the backward takes act' from the value
 // (relu, tanh, sigmoid, elu, leaky relu and selu all allow it).
 //
@@ -79,10 +79,8 @@
 // so no float atomics (two calls must be bitwise equal): each block writes
 // its tile's partial dW and dV (A^T G for every plane, column sums for
 // every V row, summed over its slots in slot order), and a second kernel
-// sums the partials in tile order.  At B 4096, H 256, K 2 the partials are
-// 128 tiles x 2 x 1.06 MB, written and read once per call.  V, the
-// epilogues, the column sums, the partials and the tile-order reduce stay
-// f32 in both instances.
+// sums the partials in tile order.  V, the epilogues, the column sums, the
+// partials and the tile-order reduce stay f32.
 //
 // The build: the product with its epilogue (mm_store) and the weight-
 // gradient sum (outer_sum) are device functions kept out of line, one copy
@@ -90,12 +88,7 @@
 // launch plan picks are built; with everything inlined the source took
 // ten times as long to compile.
 //
-// Layout (contiguous): x (B, N, d_x) and t (B, N) f32; W, WT (Kn, n_mats,
-// H, H) in T, W (in, out) and WT its transpose per plane; V (Kn, n_rows, H)
-// f32; Y and gy (B, 2N-1, d_y, K) f32: slots 0..N-1 after the jump,
-// N..2N-2 before slots 1..N-1.  Planes: J_1..J_L, O_0..O_{L-1}, W1h,
-// Wmid_1..Wmid_{L-1}, Wlast.  Rows: j1[d_x], bj[0..L], w1x[d_x], w1t, w1d,
-// ob[0..L], bo[0..L-1], o2 (d_y rows; shared: K d_y rows, c = d K + k).
+// Layout: as step_f32.cuh, with W and WT in bf16 for the bf16 instances.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -103,40 +96,26 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "walk_cell.cuh"
-
-// the blocks' dynamic shared memory (both kernels)
-extern __shared__ float njode_step_smem[];
+#include "step_f32.cuh"
 
 namespace {
 
-using namespace njode_walk;
+using namespace njode_step;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarp * kWarps;
-constexpr int kSliceK = 8;      // f32 weight rows per staged slice
+constexpr int kSliceK = 16;     // bf16 weight rows per staged slice (one k-step)
 constexpr int kStages = 3;      // slices in flight
 
 using bf16 = __nv_bfloat16;
-
-// a staged slice is kSliceK f32 rows' bytes: 8 rows of f32 (one m16n8k8
-// k-step), 16 of bf16 (one m16n8k16 k-step)
-template <typename T>
-constexpr int kSliceRows = kSliceK * (int)(sizeof(float) / sizeof(T));
-
-// the products and gradient sums of an instance: on the tensor cores for
-// bf16 weights, on the CUDA cores for f32 (see the top of the file)
-template <typename T>
-constexpr bool kTensorCores = sizeof(T) == 2;
 
 // floats between activation rows in shared memory: 8 more than a multiple
 // of 32, so a fragment's 8 rows x 4 column pairs fall in distinct banks
 __host__ __device__ __forceinline__ int act_stride(int H) { return (H + 31) / 32 * 32 + 8; }
 
-// floats of the stage: bf16, each warp's strip of kStages slices of 16
-// rows by up to 32 columns (NTW 4); f32, kStages slices of 8 rows of H <=
-// 256 for the block
-constexpr int kStageFloats = kWarps * kStages * kSliceK * 32;
+// floats of the stage: each warp's strip of kStages slices of 16 bf16 rows
+// by up to 32 columns (NTW 4)
+constexpr int kStageFloats = kWarps * kStages * kSliceK * 32 / 2;
 
 // A warp's staged strip of a bf16 weight plane: the warp's 8 NTW columns
 // of 16 rows a slice, row after row, each row's 16-byte chunks (one n-tile
@@ -147,7 +126,7 @@ struct Strip {
   static constexpr int kVec = 8;                      // bf16 a 16-byte chunk
   static constexpr int kCols = 8 * NTW;
   static constexpr int kCpr = kCols / kVec;           // chunks a row
-  static constexpr int kRows = kSliceRows<bf16>;
+  static constexpr int kRows = kSliceK;
   static constexpr int kSlice = kRows * kCols;        // elements a slice
   __device__ static int pos(int r, int c) { return c ^ ((r >> 1) & (kCpr - 1)); }
   // element (r, n) of a slice, n the strip's column
@@ -155,47 +134,6 @@ struct Strip {
     return r * kCols + pos(r, n / kVec) * kVec + n % kVec;
   }
 };
-
-struct Layout {
-  int L, d_x, d_y, K, shared, Kn, n_mats, n_rows;
-  int mat_w1h, mat_last, row_j1, row_bj, row_w1x, row_w1t, row_w1d, row_ob, row_bo, row_o2;
-};
-
-Layout make_layout(int L, int d_x, int d_y, int K, int shared) {
-  Layout lo;
-  lo.L = L; lo.d_x = d_x; lo.d_y = d_y; lo.K = K; lo.shared = shared;
-  lo.Kn = shared ? 1 : K;
-  lo.n_mats = 3 * L + 1;
-  lo.mat_w1h = 2 * L;
-  lo.mat_last = 3 * L;
-  int r = 0;
-  lo.row_j1 = r; r += d_x;
-  lo.row_bj = r; r += L + 1;
-  lo.row_w1x = r; r += d_x;
-  lo.row_w1t = r; r += 1;
-  lo.row_w1d = r; r += 1;
-  lo.row_ob = r; r += L + 1;
-  lo.row_bo = r; r += L;
-  lo.row_o2 = r;
-  lo.n_rows = r + (shared ? K * d_y : d_y);
-  return lo;
-}
-
-__device__ __forceinline__ int o2_row(const Layout& lo, int kk, int d) {
-  return lo.row_o2 + (lo.shared ? d * lo.K + kk : d);
-}
-
-// act'(pre) from v = act(pre)
-__device__ __forceinline__ float act_grad_v(float v, int act) {
-  switch (act) {
-    case kTanh: return 1.0f - v * v;
-    case kSigmoid: return v * (1.0f - v);
-    case kElu: return v > 0.0f ? 1.0f : v + 1.0f;
-    case kLeakyRelu: return v > 0.0f ? 1.0f : 0.01f;
-    case kSelu: return v > 0.0f ? kSeluL : v + kSeluL * kSeluA;
-    default: return v > 0.0f ? 1.0f : 0.0f;
-  }
-}
 
 // ------------------------------------------------- tensor-core fragments
 
@@ -436,133 +374,13 @@ __device__ __forceinline__ Epi epi(int mode, int act = -1, const float* b = null
   return Epi{mode, act, b, gap, res};
 }
 
-// f32: acc[q][c] = sum_k A[(warp RPW + q) HS + k] W[k H + j], j = lane + 32
-// c, on the CUDA cores: A a row tile in shared memory, W an (in, out) plane
-// in device memory.  Where a row of W is whole 16-byte chunks (H % 4 == 0)
-// the plane streams through the shared stage buffer (offset 0) in slices
-// of kSliceK rows, kStages deep, by asynchronous copies, so the loads of
-// later slices overlap the products of this one; each row of A is then
-// read four k at a time.  Otherwise W is read from device memory directly.
-// Either way k runs in order.
-template <int CPT, int RPW>
-__device__ __forceinline__ void tile_mm_cc(const float* A, const float* __restrict__ W, int H,
-                                           int HS, int warp, int lane,
-                                           float (&acc)[RPW][CPT]) {
-#pragma unroll
-  for (int q = 0; q < RPW; ++q)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[q][c] = 0.0f;
-  const float* a = A + (size_t)warp * RPW * HS;
-  auto step = [&](const float* wrow, const float (&av)[RPW]) {
-    float w[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + kWarp * c;
-      w[c] = j < H ? wrow[j] : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < RPW; ++q)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
-  };
-  if (H % 4 != 0) {
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      float av[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a[q * HS + k];
-      float w[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        w[c] = j < H ? __ldg(W + (size_t)k * H + j) : 0.0f;
-      }
-#pragma unroll
-      for (int q = 0; q < RPW; ++q)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[q][c] = fmaf(av[q], w[c], acc[q][c]);
-    }
-    return;
-  }
-  float* stage = njode_step_smem;
-  const int n_slices = (H + kSliceK - 1) / kSliceK;
-  auto fetch = [&](int sl) {       // every thread commits a group, maybe empty
-    if (sl < n_slices) {
-      const int k0 = sl * kSliceK, n16 = min(kSliceK, H - k0) * H / 4;
-      float* dst = stage + (sl % kStages) * kSliceK * H;
-      const float* src = W + (size_t)k0 * H;
-      for (int e = threadIdx.x; e < n16; e += kThreads)
-        __pipeline_memcpy_async(dst + 4 * e, src + 4 * e, 16);
-    }
-    __pipeline_commit();
-  };
-  for (int sl = 0; sl + 1 < kStages; ++sl) fetch(sl);
-#pragma unroll 1
-  for (int sl = 0; sl < n_slices; ++sl) {
-    __pipeline_wait_prior(kStages - 2);    // slice sl has landed
-    __syncthreads();                       // for every thread; slice sl - 1 is done
-    fetch(sl + kStages - 1);               // into the buffer of slice sl - 1
-    const float* ws = stage + (sl % kStages) * kSliceK * H;
-    const int k0 = sl * kSliceK, rows = min(kSliceK, H - k0);
-#pragma unroll 1
-    for (int kk = 0; kk < rows; kk += 4) {
-      float4 a4[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q)
-        a4[q] = *reinterpret_cast<const float4*>(a + q * HS + k0 + kk);
-      float av[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].x;
-      step(ws + kk * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].y;
-      step(ws + (kk + 1) * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].z;
-      step(ws + (kk + 2) * H, av);
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) av[q] = a4[q].w;
-      step(ws + (kk + 3) * H, av);
-    }
-  }
-}
-
-// out[r][j] = f(r, j, acc[q][c]) over the warp's rows and the lane's columns
-template <int CPT, int RPW, typename F>
-__device__ __forceinline__ void tile_store_cc(float* out, const float (&acc)[RPW][CPT], int H,
-                                              int HS, int warp, int lane, F f) {
-#pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    const int r = warp * RPW + q;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + kWarp * c;
-      if (j < H) out[r * HS + j] = f(r, j, acc[q][c]);
-    }
-  }
-}
-
-// out[r][j] = act(out[r][j]) over the entries tile_store_cc gave this
-// thread; a loop, not unrolled, so the activation's code appears once
-template <int RPW>
-__device__ __forceinline__ void tile_act_cc(float* out, int H, int HS, int warp, int lane,
-                                            int act) {
-#pragma unroll 1
-  for (int q = 0; q < RPW; ++q) {
-    float* o = out + (warp * RPW + q) * HS;
-#pragma unroll 1
-    for (int j = lane; j < H; j += kWarp) o[j] = activate(o[j], act);
-  }
-}
-
 // out = epilogue(A W_m) for the block's row tile: A and out at offsets of
 // the dynamic shared memory, row stride HS (out may be A: the product is
-// held in registers across a barrier), W a plane in device memory; on the
-// tensor cores in bf16 (C = NTW n-tiles a warp), on the CUDA cores in f32
-// (C = CPT columns a lane).  Not inlined: one copy per (T, C, RPW), shared
-// by both kernels, keeps the build short.
-template <typename T, int C, int RPW>
-__device__ __noinline__ void mm_store(int a_off, const T* __restrict__ W, int out_off, int H,
+// held in registers across a barrier), W a bf16 plane in device memory, on
+// the tensor cores (C = NTW n-tiles a warp).  Not inlined: one copy per (C,
+// RPW), shared by both kernels, keeps the build short.
+template <int C, int RPW>
+__device__ __noinline__ void mm_store(int a_off, const bf16* __restrict__ W, int out_off, int H,
                                       int HS, Epi e) {
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   float* out = njode_step_smem + out_off;
@@ -593,20 +411,12 @@ __device__ __noinline__ void mm_store(int a_off, const T* __restrict__ W, int ou
         store([&](int r, int j, float v) { return out[r * HS + j] + v * res[r * HS + j]; });
     }
   };
-  if constexpr (kTensorCores<T>) {
-    constexpr int MT = RPW / 2;
-    float acc[MT][C][4];
-    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);
-    __syncthreads();
-    epilogue([&](auto f) { tile_store_tc<C, MT>(out, acc, H, HS, warp, lane, f); });
-    if (e.act >= 0) tile_act_tc<C, MT>(out, H, HS, warp, lane, e.act);
-  } else {
-    float acc[RPW][C];
-    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);
-    __syncthreads();
-    epilogue([&](auto f) { tile_store_cc<C, RPW>(out, acc, H, HS, warp, lane, f); });
-    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);
-  }
+  constexpr int MT = RPW / 2;
+  float acc[MT][C][4];
+  tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);
+  __syncthreads();
+  epilogue([&](auto f) { tile_store_tc<C, MT>(out, acc, H, HS, warp, lane, f); });
+  if (e.act >= 0) tile_act_tc<C, MT>(out, H, HS, warp, lane, e.act);
   __syncthreads();
 }
 
@@ -720,70 +530,13 @@ __device__ __forceinline__ void outer_sum_tc(const float* A, const float* G, int
   }
 }
 
-// f32: P[a H + j] (+)= sum_{r < nr} A[r HS + a] G[r HS + j] on the CUDA
-// cores: warp w owns the rows a of 8 at a time, lane l the columns l + 32
-// c; every entry one owner and the rows in order.
-template <int CPT>
-__device__ __forceinline__ void outer_sum_cc(const float* A, const float* G, int nr, int H,
-                                             int HS, float* __restrict__ P, bool first) {
-  constexpr int APW = 8;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int a0 = warp * APW; a0 < H; a0 += kWarps * APW) {
-    // the earlier slots' partial, loaded before the row loop so that its
-    // latency overlaps the products (read at the store, it cost a quarter
-    // of the backward)
-    float old[APW][CPT];
-#pragma unroll
-    for (int i = 0; i < APW; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        old[i][c] = !first && a0 + i < H && j < H ? P[(size_t)(a0 + i) * H + j] : 0.0f;
-      }
-    float acc[APW][CPT];
-#pragma unroll
-    for (int i = 0; i < APW; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
-#pragma unroll 2
-    for (int r = 0; r < nr; ++r) {
-      float g[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        g[c] = j < H ? G[r * HS + j] : 0.0f;
-      }
-      float av[APW];
-#pragma unroll
-      for (int i = 0; i < APW; ++i) av[i] = a0 + i < H ? A[r * HS + a0 + i] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < APW; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(av[i], g[c], acc[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < APW; ++i) {
-      if (a0 + i >= H) break;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        if (j < H) P[(size_t)(a0 + i) * H + j] = first ? acc[i][c] : old[i][c] + acc[i][c];
-      }
-    }
-  }
-}
-
 // The weight-gradient sum of a plane, P (+)= A^T G over the tile's rows (A
-// and G at shared offsets, row stride HS; nr rows hold trajectories), on
-// the tensor cores in bf16 (C = NTW), on the CUDA cores in f32 (C = CPT).
-// Not inlined: one copy per (T, C, RPW).
-template <typename T, int C, int RPW>
-__device__ __noinline__ void outer_sum(int a_off, int g_off, int nr, int H, int HS,
+// and G at shared offsets, row stride HS), on the tensor cores (C = NTW).
+// Not inlined: one copy per (C, RPW).
+template <int C, int RPW>
+__device__ __noinline__ void outer_sum(int a_off, int g_off, int H, int HS,
                                        float* __restrict__ P, bool first) {
-  const float* A = njode_step_smem + a_off;
-  const float* G = njode_step_smem + g_off;
-  if constexpr (kTensorCores<T>) outer_sum_tc<C, RPW>(A, G, H, HS, P, first);
-  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);
+  outer_sum_tc<C, RPW>(njode_step_smem + a_off, njode_step_smem + g_off, H, HS, P, first);
 }
 
 // P[j] (+)= sum_{r < nr} f(r) G[r HS + j], one thread a column, rows in order
@@ -798,24 +551,12 @@ __device__ __forceinline__ void tile_colsum(const float* G, int nr, int H, int H
   }
 }
 
-// the block's row scalars: x (RT, N, d_x) and t (RT, N), rows past B zero
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, float* dst, int row0,
-                                          int nr, int RT, int per_row) {
-  for (int e = threadIdx.x; e < RT * per_row; e += kThreads)
-    dst[e] = e / per_row < nr ? src[(size_t)row0 * per_row + e] : 0.0f;
-}
-
-// dst = s(src) over n entries, each thread the entries load_rows gave it
-__device__ __forceinline__ void load_scaled(const float* src, float* dst, int n, int scale) {
-  for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = scale_in(src[e], scale);
-}
-
 // -------------------------------------------------------------- forward
 
-template <typename T, int C, int RPW>
+template <int C, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                const T* __restrict__ W, const float* __restrict__ V,
+                const bf16* __restrict__ W, const float* __restrict__ V,
                 float* __restrict__ Y, int B, int N, int H, Layout lo, int act, int scale) {
   constexpr int RT = RPW * kWarps;
   float* smem = njode_step_smem;
@@ -831,7 +572,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   load_rows(x, s_x, row0, nr, RT, N * d_x);
   load_rows(t, s_t, row0, nr, RT, N);
   load_scaled(s_x, s_xs, RT * N * d_x, scale);
-  const T* Wk = W + (size_t)kn * lo.n_mats * H * H;
+  const bf16* Wk = W + (size_t)kn * lo.n_mats * H * H;
   const float* Vk = V + (size_t)kn * lo.n_rows * H;
   auto plane = [&](int m) { return Wk + (size_t)m * H * H; };
   auto vrow = [&](int r) { return Vk + (size_t)r * H; };
@@ -839,7 +580,7 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
   // act(cur W_m + b) into out (out may be cur)
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<T, C, RPW>(cur, plane(m), out, H, HS, epi(kBias, act, vrow(brow)));
+    mm_store<C, RPW>(cur, plane(m), out, H, HS, epi(kBias, act, vrow(brow)));
   };
   // the readout of the tile at offset `in` into Y's slot `ys`, through s_wk
   auto readout = [&](int in, int ys) {
@@ -891,9 +632,9 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     }
     const GapBase gap{vrow(lo.row_w1t), vrow(lo.row_w1d), vrow(lo.row_ob), vrow(lo.row_w1x),
                       s_t, s_xs, N, H, d_x, s};
-    mm_store<T, C, RPW>(src, plane(lo.mat_w1h), o_wk, H, HS, epi(kGap, act, nullptr, gap));
+    mm_store<C, RPW>(src, plane(lo.mat_w1h), o_wk, H, HS, epi(kGap, act, nullptr, gap));
     for (int i = 0; i + 1 < lo.L; ++i) layer(o_wk, o_wk, 2 * lo.L + 1 + i, lo.row_ob + i + 1);
-    mm_store<T, C, RPW>(o_wk, plane(lo.mat_last), o_wk, H, HS,
+    mm_store<C, RPW>(o_wk, plane(lo.mat_last), o_wk, H, HS,
                           epi(kEuler, -1, vrow(lo.row_ob + lo.L), gap, o_hj));
     readout(o_wk, N + s);
   }
@@ -901,10 +642,10 @@ step_fwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
 // ------------------------------------------------------------- backward
 
-template <typename T, int C, int RPW>
+template <int C, int RPW>
 __global__ void __launch_bounds__(kThreads)
 step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                const T* __restrict__ W, const T* __restrict__ WT,
+                const bf16* __restrict__ W, const bf16* __restrict__ WT,
                 const float* __restrict__ V, const float* __restrict__ gy,
                 float* __restrict__ partial, int B, int N, int H, Layout lo, int act,
                 int scale) {
@@ -933,8 +674,8 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   load_rows(gy, s_gy, row0, nr, RT, n_gy);
   load_scaled(s_x, s_xs, RT * N * d_x, scale);
   const size_t plane_sz = (size_t)H * H;
-  const T* Wk = W + (size_t)kn * lo.n_mats * plane_sz;
-  const T* WTk = WT + (size_t)kn * lo.n_mats * plane_sz;
+  const bf16* Wk = W + (size_t)kn * lo.n_mats * plane_sz;
+  const bf16* WTk = WT + (size_t)kn * lo.n_mats * plane_sz;
   const float* Vk = V + (size_t)kn * lo.n_rows * H;
   const size_t psz = lo.n_mats * plane_sz + (size_t)lo.n_rows * H;
   float* Pk = partial + ((size_t)blockIdx.x * lo.Kn + kn) * psz;
@@ -945,11 +686,11 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
   __syncthreads();
 
   auto layer = [&](int cur, int out, int m, int brow) {
-    mm_store<T, C, RPW>(cur, Wk + m * plane_sz, out, H, HS, epi(kBias, act, vrow(brow)));
+    mm_store<C, RPW>(cur, Wk + m * plane_sz, out, H, HS, epi(kBias, act, vrow(brow)));
   };
   // g = g W_m^T, in place
   auto back = [&](int g, int m) {
-    mm_store<T, C, RPW>(g, WTk + m * plane_sz, g, H, HS, epi(kCopy));
+    mm_store<C, RPW>(g, WTk + m * plane_sz, g, H, HS, epi(kCopy));
   };
   auto times_act_grad = [&](float* g, const float* val) {
     for (int e = threadIdx.x; e < TH; e += kThreads) g[e] *= act_grad_v(val[e], act);
@@ -994,7 +735,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     __syncthreads();
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(gp, s_up + l * TH);
-      outer_sum<T, C, RPW>(l == 0 ? in : o_up + (l - 1) * TH, g, nr, H, HS, pw(L + l), first);
+      outer_sum<C, RPW>(l == 0 ? in : o_up + (l - 1) * TH, g, H, HS, pw(L + l), first);
       tile_colsum(gp, nr, H, HS, one, pv(lo.row_bo + l), first);
       __syncthreads();
       back(g, L + l);
@@ -1023,11 +764,11 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         src = o_g2;
       }
-      mm_store<T, C, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H, HS,
+      mm_store<C, RPW>(src, Wk + lo.mat_w1h * plane_sz, o_gp, H, HS,
                             epi(kGap, act, nullptr, gap));
       for (int i = 0; i + 1 < L; ++i)
         layer(o_gp + i * TH, o_gp + (i + 1) * TH, 2 * L + 1 + i, lo.row_ob + i + 1);
-      mm_store<T, C, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H, HS,
+      mm_store<C, RPW>(o_gp + (L - 1) * TH, Wk + lo.mat_last * plane_sz, o_hm, H, HS,
                             epi(kEuler, -1, vrow(lo.row_ob + L), gap, o_hj));
       // ---- the readout before slot s + 1: dHM into s_g2
       readout_bwd(o_hm, N + s, o_g2, false);
@@ -1037,13 +778,13 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         s_g2[e] *= dt_of(e / HS);
       }
       __syncthreads();
-      outer_sum<T, C, RPW>(o_gp + (L - 1) * TH, o_g2, nr, H, HS, pw(lo.mat_last), first);
+      outer_sum<C, RPW>(o_gp + (L - 1) * TH, o_g2, H, HS, pw(lo.mat_last), first);
       tile_colsum(s_g2, nr, H, HS, one, pv(lo.row_ob + L), first);
       __syncthreads();
       back(o_g2, lo.mat_last);
       for (int i = L - 2; i >= 0; --i) {
         times_act_grad(s_g2, smem + o_gp + (i + 1) * TH);
-        outer_sum<T, C, RPW>(o_gp + i * TH, o_g2, nr, H, HS, pw(2 * L + 1 + i), first);
+        outer_sum<C, RPW>(o_gp + i * TH, o_g2, H, HS, pw(2 * L + 1 + i), first);
         tile_colsum(s_g2, nr, H, HS, one, pv(lo.row_ob + i + 1), first);
         __syncthreads();
         back(o_g2, 2 * L + 1 + i);
@@ -1055,7 +796,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
         __syncthreads();
         hs = o_hm;
       }
-      outer_sum<T, C, RPW>(hs, o_g2, nr, H, HS, pw(lo.mat_w1h), first);
+      outer_sum<C, RPW>(hs, o_g2, H, HS, pw(lo.mat_w1h), first);
       for (int d = 0; d < d_x; ++d)
         tile_colsum(s_g2, nr, H, HS, [&](int r) { return s_xs[(r * N + s) * d_x + d]; },
                     pv(lo.row_w1x + d), first);
@@ -1068,7 +809,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
       if (scale != kIdentity)
         for (int e = threadIdx.x; e < TH; e += kThreads) s_up[e] = scale_grad(hj[e], scale);
       __syncthreads();
-      mm_store<T, C, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H, HS,
+      mm_store<C, RPW>(o_g2, WTk + lo.mat_w1h * plane_sz, o_g, H, HS,
                             scale != kIdentity ? epi(kAddScaled, -1, nullptr, GapBase{}, o_up)
                                                : epi(kAdd));
     }
@@ -1077,7 +818,7 @@ step_bwd_kernel(const float* __restrict__ x, const float* __restrict__ t,
     for (int l = L - 1; l >= 0; --l) {
       times_act_grad(s_g, smem + o_jp + l * TH);
       if (l == 0) a1(s);
-      outer_sum<T, C, RPW>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, nr, H, HS, pw(l),
+      outer_sum<C, RPW>(l == 0 ? o_g2 : o_jp + (l - 1) * TH, o_g, H, HS, pw(l),
                            first);
       tile_colsum(s_g, nr, H, HS, one, pv(lo.row_bj + l + 1), first);
       __syncthreads();
@@ -1112,11 +853,8 @@ __global__ void step_reduce_kernel(const float* __restrict__ partial, float* __r
   else dV[kn * v_per + off - w_per] = sum;
 }
 
-// f32: columns a lane of the CUDA-core products
-int cpt_of(int H) { return H <= 32 ? 1 : (H <= 64 ? 2 : (H <= 128 ? 4 : 8)); }
-
-// per block: the weight stage, the tile's activation buffers (row stride
-// act_stride), then x, s(x) and t (and gy)
+// bf16, per block: the weight stage, the tile's activation buffers (row
+// stride act_stride), then x, s(x) and t (and gy)
 size_t fwd_smem_floats(int RT, int H, int N, int d_x) {
   return (size_t)kStageFloats + 2 * (size_t)RT * act_stride(H) +
          (size_t)RT * N * (2 * d_x + 1);
@@ -1127,11 +865,23 @@ size_t bwd_smem_floats(int RT, int H, int N, const Layout& lo) {
          (size_t)RT * N * (2 * lo.d_x + 1) + (size_t)RT * (2 * N - 1) * lo.d_y * lo.K;
 }
 
-int check_args(int B, int N, int H, int L, int d_x, int d_y, int K, int act, int scale, int rpw,
-               size_t smem) {
+// the tile: bf16, 8 RPW rows (RPW 8 forward, 4 or 2 backward); f32, 64, 32
+// or 16 rows and 1 <= group <= N slots a group
+bool plan_ok(bool wbf16, bool bwd, int rows, int group, int N) {
+  if (wbf16) return bwd ? rows == 32 || rows == 16 : rows == 64;
+  return (rows == 64 || rows == 32 || rows == 16) && group >= 1 && group <= N;
+}
+
+size_t smem_bytes(bool wbf16, bool bwd, int rows, int group, int H, int N, const Layout& lo) {
+  if (!wbf16) return f32::smem_floats(bwd, rows, group, H, N, lo) * sizeof(float);
+  return (bwd ? bwd_smem_floats(rows, H, N, lo) : fwd_smem_floats(rows, H, N, lo.d_x)) *
+         sizeof(float);
+}
+
+int check_args(int B, int N, int H, int L, int d_x, int d_y, int K, int act, int scale,
+               bool plan, size_t smem) {
   if (B < 1 || N < 1 || H < 1 || H > 256 || L < 1 || d_x < 1 || d_y < 1 || K < 1 ||
-      K > 65535 || act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid ||
-      (rpw != 2 && rpw != 4 && rpw != 8))
+      K > 65535 || act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid || !plan)
     return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1152,126 +902,148 @@ struct Args {
   const float *x, *t;
   const void *W, *WT;
   const float *V, *gy;
-  float *Y, *partial;
+  float *Y, *scratch;
   int B, N, H;
   Layout lo;
   int act, scale;
 };
 
-template <typename T, int C, int R>
-cudaError_t launch_fwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
-  auto kern = step_fwd_kernel<T, C, R>;
+// bf16: the (C, RPW) instances are NTW 4 (see the top of the file) with the
+// forward's RPW 8 and the backward's 4 or 2
+template <int R>
+cudaError_t launch_fwd_bf16(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
+  auto kern = step_fwd_kernel<4, R>;
   cudaError_t e = set_smem(kern, smem);
   if (e == cudaSuccess)
-    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const T*>(a.W), a.V, a.Y, a.B, a.N,
-                                      a.H, a.lo, a.act, a.scale);
-  return e;
-}
-
-template <typename T, int C, int R>
-cudaError_t launch_bwd(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
-  auto kern = step_bwd_kernel<T, C, R>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e == cudaSuccess)
-    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const T*>(a.W),
-                                      static_cast<const T*>(a.WT), a.V, a.gy, a.partial, a.B,
+    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const bf16*>(a.W), a.V, a.Y, a.B,
                                       a.N, a.H, a.lo, a.act, a.scale);
   return e;
 }
 
-// The (T, C, RPW) instances: the forward's tile is 64 rows, the
-// backward's 32 or 16 (ops/fused_step.py FWD_RPW, BWD_RPW); f32 for every
-// CPT (columns a lane: 1, 2, 4, 8 for H up to 32, 64, 128, 256), bf16 at
-// NTW 4 only (see the top of the file).
-cudaError_t dispatch_fwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
-                         cudaStream_t s) {
-  if (rpw != 8) return cudaErrorInvalidValue;
-  if (wbf16) return launch_fwd<bf16, 4, 8>(a, grid, smem, s);
-  switch (cpt) {
-    case 1: return launch_fwd<float, 1, 8>(a, grid, smem, s);
-    case 2: return launch_fwd<float, 2, 8>(a, grid, smem, s);
-    case 4: return launch_fwd<float, 4, 8>(a, grid, smem, s);
-    default: return launch_fwd<float, 8, 8>(a, grid, smem, s);
-  }
+template <int R>
+cudaError_t launch_bwd_bf16(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
+  auto kern = step_bwd_kernel<4, R>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e == cudaSuccess)
+    kern<<<grid, kThreads, smem, s>>>(a.x, a.t, static_cast<const bf16*>(a.W),
+                                      static_cast<const bf16*>(a.WT), a.V, a.gy, a.scratch, a.B,
+                                      a.N, a.H, a.lo, a.act, a.scale);
+  return e;
 }
 
-cudaError_t dispatch_bwd(bool wbf16, int cpt, int rpw, const Args& a, dim3 grid, size_t smem,
-                         cudaStream_t s) {
-  if (rpw != 4 && rpw != 2) return cudaErrorInvalidValue;
-  if (wbf16)
-    return rpw == 4 ? launch_bwd<bf16, 4, 4>(a, grid, smem, s)
-                    : launch_bwd<bf16, 4, 2>(a, grid, smem, s);
-  switch (cpt) {
-    case 1: return rpw == 4 ? launch_bwd<float, 1, 4>(a, grid, smem, s)
-                            : launch_bwd<float, 1, 2>(a, grid, smem, s);
-    case 2: return rpw == 4 ? launch_bwd<float, 2, 4>(a, grid, smem, s)
-                            : launch_bwd<float, 2, 2>(a, grid, smem, s);
-    case 4: return rpw == 4 ? launch_bwd<float, 4, 4>(a, grid, smem, s)
-                            : launch_bwd<float, 4, 2>(a, grid, smem, s);
-    default: return rpw == 4 ? launch_bwd<float, 8, 4>(a, grid, smem, s)
-                             : launch_bwd<float, 8, 2>(a, grid, smem, s);
+// f32: the forward or the rematerializing backward of step_f32.cuh
+template <bool BWD>
+cudaError_t launch_f32(const Args& a, int rows, int group, size_t smem, cudaStream_t s) {
+  auto kern = f32::step_kernel<BWD>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e == cudaSuccess)
+    kern<<<dim3((a.B + rows - 1) / rows, a.lo.Kn), f32::kThreads, smem, s>>>(
+        a.x, a.t, static_cast<const float*>(a.W), static_cast<const float*>(a.WT), a.V, a.gy,
+        a.Y, a.scratch, a.B, a.N, a.H, a.lo, a.act, a.scale, rows, group);
+  return e;
+}
+
+// f32: dW from the backward's records (split-k chunk partials, then their
+// sum with the tiles' dV partials)
+cudaError_t launch_f32_sums(const Args& a, int rows, float* dW, float* dV, cudaStream_t s) {
+  const Layout& lo = a.lo;
+  const int tiles = (a.B + rows - 1) / rows, nT = (a.H + f32::kDwRows - 1) / f32::kDwRows;
+  const f32::Scratch sz = f32::scratch_floats(lo, a.B, a.N, a.H, rows);
+  long long units = 0;
+  for (int m = 0; m < lo.n_mats; ++m)
+    units += (long long)lo.Kn * f32::dw_chunks(lo, m, a.N, tiles, rows) * nT;
+  if (units > 0) {
+    const size_t smem = (size_t)f32::kDwStages * f32::kDwBK * (f32::kDwRows + f32::kDwCols) *
+                        sizeof(float);
+    cudaError_t e = set_smem(f32::step_dw_kernel, smem);
+    if (e != cudaSuccess) return e;
+    f32::step_dw_kernel<<<(unsigned)units, f32::kDwThreads, smem, s>>>(
+        a.scratch, a.scratch + sz.rec, tiles, a.N, a.H, lo, rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
+  const long long n = lo.Kn * ((long long)lo.n_mats * a.H * a.H + (long long)lo.n_rows * a.H);
+  f32::step_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      a.scratch, dW, dV, tiles, a.N, a.H, lo, rows, sz.rec, sz.dwp);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The forward: Y (B, 2N-1, d_y, K) without bo2.  rpw: rows per warp of the
-// block's tile (ops/fused_step.py launch_plan); wbf16: W is bf16 (row 9b)
-// rather than f32 (row 9).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// The forward: Y (B, 2N-1, d_y, K) without bo2.  rows, group: the tile's
+// trajectories and (f32) the slots a group (ops/fused_step.py
+// kernel_plan); wbf16: W is bf16 (row 9b) rather than f32 (row 9).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int njode_step_fwd(const void* x, const void* t, const void* W, const void* V,
                               void* Y, int B, int N, int H, int L, int d_x, int d_y, int K,
-                              int shared, int act, int scale, int rpw, int wbf16,
+                              int shared, int act, int scale, int rows, int group, int wbf16,
                               void* stream) {
-  const int RT = rpw * kWarps;
-  const size_t smem = fwd_smem_floats(RT, H, N, d_x) * sizeof(float);
-  int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, rpw, smem);
-  if (err != 0) return err;
   const Layout lo = make_layout(L, d_x, d_y, K, shared);
+  const bool plan = plan_ok(wbf16 != 0, false, rows, group, N);
+  const size_t smem = plan ? smem_bytes(wbf16 != 0, false, rows, group, H, N, lo) : 0;
+  int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, plan, smem);
+  if (err != 0) return err;
   const Args a{static_cast<const float*>(x), static_cast<const float*>(t), W, nullptr,
                static_cast<const float*>(V), nullptr, static_cast<float*>(Y), nullptr,
                B, N, H, lo, act, scale};
-  const dim3 grid((B + RT - 1) / RT, lo.Kn);
-  cudaError_t e = dispatch_fwd(wbf16 != 0, cpt_of(H), rpw, a, grid, smem,
-                               static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      wbf16 ? launch_fwd_bf16<8>(a, dim3((B + rows - 1) / rows, lo.Kn), smem, s)
+            : launch_f32<false>(a, rows, group, smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// Floats of the backward's partial buffer: tiles x Kn x (n_mats H^2 + n_rows H).
-extern "C" long long njode_step_partial_floats(int B, int H, int L, int d_x, int d_y, int K,
-                                               int shared, int rpw) {
+// Floats of the backward's scratch: bf16, the tile partials, tiles x Kn x
+// (n_mats H^2 + n_rows H); f32, the records, the dW chunk partials and the
+// tiles' dV partials (step_f32.cuh).
+extern "C" long long njode_step_scratch_floats(int B, int N, int H, int L, int d_x, int d_y,
+                                               int K, int shared, int rows, int wbf16) {
   const Layout lo = make_layout(L, d_x, d_y, K, shared);
-  const long long tiles = (B + rpw * kWarps - 1) / (rpw * kWarps);
+  if (!wbf16) {
+    const f32::Scratch sz = f32::scratch_floats(lo, B, N, H, rows);
+    return (long long)(sz.rec + sz.dwp + sz.dvp);
+  }
+  const long long tiles = (B + rows - 1) / rows;
   return tiles * lo.Kn * ((long long)lo.n_mats * H * H + (long long)lo.n_rows * H);
 }
 
 // The backward: dW (Kn, n_mats, H, H) and dV (Kn, n_rows, H), f32, the
-// cotangents of W and V for gy; partial is scratch of
-// njode_step_partial_floats floats; wbf16: W and WT are bf16 (row 10b).
-// Two launches on `stream`.
+// cotangents of W and V for gy; scratch holds njode_step_scratch_floats
+// floats; wbf16: W and WT are bf16 (row 10b).  Launches on `stream`: bf16,
+// the backward and the tile-order sum; f32, the backward, the dW chunks and
+// their sum.
 extern "C" int njode_step_bwd(const void* x, const void* t, const void* W, const void* WT,
-                              const void* V, const void* gy, void* partial, void* dW, void* dV,
+                              const void* V, const void* gy, void* scratch, void* dW, void* dV,
                               int B, int N, int H, int L, int d_x, int d_y, int K, int shared,
-                              int act, int scale, int rpw, int wbf16, void* stream) {
-  const int RT = rpw * kWarps;
+                              int act, int scale, int rows, int group, int wbf16, void* stream) {
   const Layout lo = make_layout(L, d_x, d_y, K, shared);
-  const size_t smem = bwd_smem_floats(RT, H, N, lo) * sizeof(float);
-  int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, rpw, smem);
+  const bool plan = plan_ok(wbf16 != 0, true, rows, group, N);
+  const size_t smem = plan ? smem_bytes(wbf16 != 0, true, rows, group, H, N, lo) : 0;
+  int err = check_args(B, N, H, L, d_x, d_y, K, act, scale, plan, smem);
   if (err != 0) return err;
-  const int tiles = (B + RT - 1) / RT;
   const Args a{static_cast<const float*>(x), static_cast<const float*>(t), W, WT,
                static_cast<const float*>(V), static_cast<const float*>(gy), nullptr,
-               static_cast<float*>(partial), B, N, H, lo, act, scale};
+               static_cast<float*>(scratch), B, N, H, lo, act, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dispatch_bwd(wbf16 != 0, cpt_of(H), rpw, a, dim3(tiles, lo.Kn), smem, s);
+  const int tiles = (B + rows - 1) / rows;
+  if (!wbf16) {
+    cudaError_t e = launch_f32<true>(a, rows, group, smem, s);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = launch_f32_sums(a, rows, static_cast<float*>(dW), static_cast<float*>(dV), s);
+    return (int)e;
+  }
+  const dim3 grid(tiles, lo.Kn);
+  cudaError_t e = rows == 32 ? launch_bwd_bf16<4>(a, grid, smem, s)
+                             : launch_bwd_bf16<2>(a, grid, smem, s);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long w_per = (long long)lo.n_mats * H * H, v_per = (long long)lo.n_rows * H;
   const long long n = lo.Kn * (w_per + v_per);
   step_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      a.partial, static_cast<float*>(dW), static_cast<float*>(dV), tiles, lo.Kn, w_per, v_per);
+      a.scratch, static_cast<float*>(dW), static_cast<float*>(dV), tiles, lo.Kn, w_per, v_per);
   return (int)cudaGetLastError();
 }
 

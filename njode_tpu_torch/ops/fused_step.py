@@ -29,16 +29,26 @@ padding, the 16-row minimum of V, the lane packing of inputs and outputs
 and the lane-space loss, whose value and gradients :func:`fused_step_loss`
 reproduces as ``nj_ode_loss_dense`` of :func:`fused_step_apply`.
 
-The port's own shape gate (:func:`fused_step_fits`, :func:`launch_plan`):
-1 <= H <= 256 (8 warps of up to 4 tensor-core n-tiles), and a block's
-working set in the H100's 227 KB of shared memory: the weight stage (3
-slices of 8 f32 or 16 bf16 rows, padded), 2 (forward) or 3 L + 3
-(backward) buffers of RT padded rows of H floats, and the tile's scalars,
-with RT 64 rows forward and 32 or 16 backward.  At H 256 that
-admits N up to 94 at L 1-2 and 11 at L 3; every recipe of the repo fits.
+The port's own shape gate (:func:`fused_step_fits`): 1 <= H <= 256 and a
+block's working set of both instances in the H100's 227 KB of shared
+memory.  The bf16 instances (:func:`launch_plan`): 8 warps of up to 4
+tensor-core n-tiles, the weight stage (3 slices of 16 bf16 rows), 2
+(forward) or 3 L + 3 (backward) buffers of RT padded rows of H floats and
+the tile's scalars, with RT 64 rows forward and 32 or 16 backward; at H
+256 that admits N up to 94 at L 1-2 and 11 at L 3.  The f32 instances
+(:func:`f32_plan`): 8 warps over RT = 64, 32 or 16 trajectories, the
+slots in groups of SG, the weight stage (3 slices of 8 f32 rows), one
+buffer of the group's rows (the slots and their gaps) and the tile's
+scalars; they fit wherever the bf16 instances do.  Every recipe of the
+repo fits.
 ``use_pallas="auto"`` takes the kernels on the card only at the shape an
 H100 A/B measured ahead (``AUTO_SHAPE_H100``, ``AUTO_MIN_BATCH_H100``), in
 the compute dtypes it measured (``AUTO_COMPUTE_DTYPES_H100``).
+
+The f32 backward (row 10) writes each plane's input rows and cotangents
+as records and sums dW = A^T G over the whole batch in a second pass;
+:func:`fused_step_records_reference` and :func:`step_dw_reference` are the
+plain versions of those two passes.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the JAX kernels' ``cdt``
 mode, ``fused_step.py:236-239``, ``:336-346``, ``:503-560``): W is cast to
@@ -79,11 +89,16 @@ LAUNCHES_FWD_BF16 = 0
 LAUNCHES_BWD_BF16 = 0
 
 MAX_HIDDEN = 256               # 8 warps of 4 n-tiles of 8 columns
-WARPS = 8                      # a block: 8 warps, RPW rows each
 SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
+# bf16 instances: a block of 8 warps, RPW rows each
+WARPS = 8
 FWD_RPW = (8,)                 # rows per warp the kernels are built for
 BWD_RPW = (4, 2)
-SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 f32 rows
+SLICE_K, STAGES = 8, 3         # the weight stage: 3 slices of 8 f32 rows' bytes
+# f32 instances (csrc/step_f32.cuh): RT trajectories a block, the slots in
+# groups of SG
+F32_ROWS = (64, 32, 16)
+F32_BK, F32_STAGES = 8, 3      # the weight stage: 3 slices of 8 f32 rows
 # use_pallas="auto" takes the kernels on the card only at the one shape the
 # H100 A/B of the scaled recipe had them ahead of the composed path (PERF.md,
 # section 6): separate networks, (H, N, L, d_x, d_y, K) as below, and at least
@@ -153,11 +168,11 @@ def fused_step_available(input_dim: int, output_dim: int,
 
 def _smem_floats(backward: bool, rt: int, H: int, N: int, L: int, d_x: int,
                  d_y: int, K: int) -> int:
-    """Shared memory of one block, in floats (csrc/fused_step.cu's
-    ``fwd_smem_floats`` / ``bwd_smem_floats``): the weight stage (each
-    warp's strip of 3 slices of 8 f32 or 16 bf16 rows by up to 32 columns),
-    and activation rows padded to ``act_stride`` floats, so the tensor
-    cores' fragment loads are free of bank conflicts."""
+    """Shared memory of one block of the bf16 instances, in floats
+    (csrc/fused_step.cu's ``fwd_smem_floats`` / ``bwd_smem_floats``): the
+    weight stage (each warp's strip of 3 slices of 16 bf16 rows by up to
+    32 columns), and activation rows padded to ``act_stride`` floats, so
+    the tensor cores' fragment loads are free of bank conflicts."""
     scal = rt * N * (2 * d_x + 1)                     # x, s(x), t
     stage = WARPS * STAGES * SLICE_K * 32
     HS = -(-H // 32) * 32 + 8                          # act_stride
@@ -166,11 +181,62 @@ def _smem_floats(backward: bool, rt: int, H: int, N: int, L: int, d_x: int,
     return stage + (3 * L + 3) * rt * HS + scal + rt * (2 * N - 1) * d_y * K
 
 
+def _f32_smem_floats(backward: bool, rt: int, sg: int, H: int, N: int,
+                     d_x: int, d_y: int, K: int) -> int:
+    """Shared memory of one block of the f32 instances, in floats
+    (csrc/step_f32.cuh's ``smem_floats``): 80 floats of the stage's
+    barriers and the block's constants, the weight stage, the group's
+    buffer (H padded to 16 features of the group's rows, 4 floats apart
+    more), and the tile's scalars."""
+    Hp = -(-H // 16) * 16
+    rows = min(2 * sg, 2 * N - 1) * rt
+    f = 80 + F32_STAGES * F32_BK * Hp + Hp * (rows + 4) + rt * N * (2 * d_x + 1)
+    return f + (rt * (2 * N - 1) * d_y * K if backward else 0)
+
+
+def f32_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
+             input_dim: int = 1, output_dim: int = 1, num_moments: int = 1
+             ) -> Optional[tuple[tuple[int, int], tuple[int, int]]]:
+    """(trajectories a tile, slots a group) of the f32 forward and backward
+    on an H100: the first of ``F32_ROWS`` with a group that fits
+    ``SMEM_BYTES``, and the most slots a group that fit; None where the
+    shapes do not fit."""
+    H, N, L = hidden_dim, n_slots, n_hidden_layers
+    if not (1 <= H <= MAX_HIDDEN and N >= 1 and L >= 1 and input_dim >= 1
+            and output_dim >= 1 and num_moments >= 1):
+        return None
+    plan = []
+    for backward in (False, True):
+        fit = [(rt, sg) for rt in F32_ROWS
+               for sg in range(N, 0, -1)
+               if 4 * _f32_smem_floats(backward, rt, sg, H, N, input_dim,
+                                       output_dim, num_moments) <= SMEM_BYTES]
+        if not fit:
+            return None
+        plan.append(fit[0])
+    return plan[0], plan[1]
+
+
+def kernel_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int,
+                input_dim: int, output_dim: int, num_moments: int,
+                bf16: bool) -> Optional[tuple[tuple[int, int], tuple[int, int]]]:
+    """(trajectories a tile, slots a group) of the forward and backward
+    kernels, as ``njode_step_fwd`` / ``_bwd`` take them: the f32 instances'
+    :func:`f32_plan`, or the bf16 instances' :func:`launch_plan` (8 RPW
+    rows a tile, every slot in turn)."""
+    args = (hidden_dim, n_slots, n_hidden_layers, input_dim, output_dim,
+            num_moments)
+    if not bf16:
+        return f32_plan(*args)
+    plan = launch_plan(*args)
+    return None if plan is None else tuple((WARPS * r, n_slots) for r in plan)
+
+
 def launch_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
                 input_dim: int = 1, output_dim: int = 1,
                 num_moments: int = 1) -> Optional[tuple[int, int]]:
-    """Rows per warp (forward, backward) of the kernels on an H100: the
-    most of ``FWD_RPW`` / ``BWD_RPW`` whose block fits ``SMEM_BYTES``;
+    """Rows per warp (forward, backward) of the bf16 instances on an H100:
+    the most of ``FWD_RPW`` / ``BWD_RPW`` whose block fits ``SMEM_BYTES``;
     None where the shapes do not fit."""
     H, N, L = hidden_dim, n_slots, n_hidden_layers
     if not (1 <= H <= MAX_HIDDEN and N >= 1 and L >= 1 and input_dim >= 1
@@ -190,9 +256,11 @@ def launch_plan(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
 def fused_step_fits(hidden_dim: int, n_slots: int, n_hidden_layers: int = 1,
                     input_dim: int = 1, output_dim: int = 1,
                     num_moments: int = 1) -> bool:
-    """The port's shape gate: both kernels have a launch plan."""
-    return launch_plan(hidden_dim, n_slots, n_hidden_layers, input_dim,
-                       output_dim, num_moments) is not None
+    """The port's shape gate: both kernels have a launch plan, in both
+    instances."""
+    args = (hidden_dim, n_slots, n_hidden_layers, input_dim, output_dim,
+            num_moments)
+    return launch_plan(*args) is not None and f32_plan(*args) is not None
 
 
 # --------------------------------------------------------------------------
@@ -377,22 +445,49 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
     rematerialize the forward, then the reverse chain; returns (dW, dV),
     the cotangents of W and V for the output cotangent gy (B, 2N-1, d_y,
     K), float32.  Sums over all rows of A^T G for every plane and column
-    sums for every row of V.  ``compute_dtype=torch.bfloat16``: the
-    products as in the forward, g W^T with g rounded and A^T G with both
-    rounded (``mm`` and ``outer`` of ``fused_step.py:336-346``)."""
+    sums for every row of V: :func:`fused_step_records_reference`, then
+    :func:`step_dw_reference`, the two passes of the f32 kernels.
+    ``compute_dtype=torch.bfloat16``: the products as in the forward, g W^T
+    with g rounded and A^T G with both rounded (``mm`` and ``outer`` of
+    ``fused_step.py:336-346``)."""
+    records, dV = fused_step_records_reference(W, V, times, values, gy, lo,
+                                               act_name, scale_name,
+                                               compute_dtype)
+    return step_dw_reference(records, W.shape[-1], compute_dtype), dV
+
+
+def step_dw_reference(records, hidden_dim: int, compute_dtype=None):
+    """Plain version of the f32 backward's second pass: dW (Kn, n_mats, H,
+    H) float32 from the records of :func:`fused_step_records_reference`,
+    each plane's A^T G over all its rows (both rounded to bf16 under
+    ``compute_dtype=torch.bfloat16``); a plane without records (the ODE's
+    at N 1) gets zeros."""
+    _, rd = _products(torch.zeros(()), compute_dtype)
+    a0 = records[0][0][0]                 # the jump planes always have rows
+    zero = a0.new_zeros(hidden_dim, hidden_dim)
+    return torch.stack([torch.stack([
+        zero if rec is None else rd(rec[0]).t() @ rd(rec[1])
+        for rec in planes]) for planes in records]).to(torch.float32)
+
+
+def fused_step_records_reference(W, V, times, values, gy, lo: StepLayout,
+                                 act_name: str, scale_name: str,
+                                 compute_dtype=None):
+    """Plain version of the f32 backward's first pass: rematerialize the
+    forward, then the reverse chain; returns (records, dV): records[kn][m]
+    = (A, G), plane m's input rows and the cotangents of its pre-activation
+    rows (None where the plane has no rows), and dV (Kn, n_rows, H), the
+    cotangents of V for gy."""
     A, AG = _ACT[act_name], _ACT_GRAD[act_name]
     SC, SG = _SCALE[scale_name], _SCALE_GRAD[scale_name]
     B, N = times.shape
     S, L = N - 1, lo.L
     X, T = _slot_major(times, values)
-    dW = torch.zeros_like(W, dtype=torch.float32)
     dV = torch.zeros_like(V)
     W, rd = _products(W, compute_dtype)
-
-    def outer(a, g):
-        return rd(a).t() @ rd(g)
+    records = [[None] * lo.n_mats for _ in range(lo.Kn)]
     for kn in range(lo.Kn):
-        w, v, dw, dv = W[kn], V[kn], dW[kn], dV[kn]
+        w, v, dv, rec = W[kn], V[kn], dV[kn], records[kn]
         # ---- rematerialize
         A_pre = [v[lo.row_bj[0]] + sum(X[:, d:d + 1] * v[lo.row_j1 + d]
                                        for d in range(lo.d_x))]
@@ -433,23 +528,23 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
                 g = g + GY * v[lo.o2_row(kk, d)]
         for l in range(L - 1, -1, -1):
             g_pre = g * AG(U_pre[l])
-            dw[lo.mat_out[l]] += outer(U_in[l], g_pre)
+            rec[lo.mat_out[l]] = (U_in[l], g_pre)
             dv[lo.row_bo[l]] += g_pre.sum(0)
             g = rd(g_pre) @ w[lo.mat_out[l]].t()
         dHJ = g[:N * B]
         if S > 0:
             dHM = g[N * B:]
             g = DT * dHM
-            dw[lo.mat_ode_last] += outer(G_val[L - 1], g)
+            rec[lo.mat_ode_last] = (G_val[L - 1], g)
             dv[lo.row_ode_b[L]] += g.sum(0)
             g = rd(g) @ w[lo.mat_ode_last].t()
             for i in range(L - 2, -1, -1):
                 g_pre = g * AG(G_pre[i + 1])
-                dw[lo.mat_ode_mid[i]] += outer(G_val[i], g_pre)
+                rec[lo.mat_ode_mid[i]] = (G_val[i], g_pre)
                 dv[lo.row_ode_b[i + 1]] += g_pre.sum(0)
                 g = rd(g_pre) @ w[lo.mat_ode_mid[i]].t()
             g = g * AG(G_pre[0])                          # dG1_pre
-            dw[lo.mat_w1h] += outer(HJ_sc, g)
+            rec[lo.mat_w1h] = (HJ_sc, g)
             for d in range(lo.d_x):
                 dv[lo.row_w1x + d] += (X_sc[d] * g).sum(0)
             dv[lo.row_w1t] += (T0 * g).sum(0)
@@ -461,14 +556,14 @@ def fused_step_backward_reference(W, V, times, values, gy, lo: StepLayout,
         g = dHJ
         for l in range(L - 1, -1, -1):
             g_pre = g * AG(A_pre[l + 1])
-            dw[lo.mat_jump[l]] += outer(A_val[l], g_pre)
+            rec[lo.mat_jump[l]] = (A_val[l], g_pre)
             dv[lo.row_bj[l + 1]] += g_pre.sum(0)
             g = rd(g_pre) @ w[lo.mat_jump[l]].t()
         g = g * AG(A_pre[0])
         for d in range(lo.d_x):
             dv[lo.row_j1 + d] += (X[:, d:d + 1] * g).sum(0)
         dv[lo.row_bj[0]] += g.sum(0)
-    return dW, dV
+    return records, dV
 
 
 # --------------------------------------------------------------------------
@@ -481,13 +576,15 @@ def _load_kernel():
     from ._build import load
     lib = load("fused_step")
     P, I = ctypes.c_void_p, ctypes.c_int
-    # x, t, W, V, Y | B N H L d_x d_y K shared act scale rpw bf16 | stream
-    lib.njode_step_fwd.argtypes = [P] * 5 + [I] * 12 + [P]
+    # x, t, W, V, Y | B N H L d_x d_y K shared act scale rows group bf16
+    # | stream
+    lib.njode_step_fwd.argtypes = [P] * 5 + [I] * 13 + [P]
     lib.njode_step_fwd.restype = I
-    lib.njode_step_partial_floats.argtypes = [I] * 8
-    lib.njode_step_partial_floats.restype = ctypes.c_longlong
-    # x, t, W, WT, V, gy, partial, dW, dV | (as the forward) | stream
-    lib.njode_step_bwd.argtypes = [P] * 9 + [I] * 12 + [P]
+    # B N H L d_x d_y K shared rows bf16
+    lib.njode_step_scratch_floats.argtypes = [I] * 10
+    lib.njode_step_scratch_floats.restype = ctypes.c_longlong
+    # x, t, W, WT, V, gy, scratch, dW, dV | (as the forward) | stream
+    lib.njode_step_bwd.argtypes = [P] * 9 + [I] * 13 + [P]
     lib.njode_step_bwd.restype = I
     return lib
 
@@ -521,15 +618,17 @@ def _check_cuda(W, V, times, values, lo: StepLayout, act_name, scale_name):
         raise ValueError(f"fused step: W {tuple(W.shape)}, V {tuple(V.shape)}"
                          f", values {tuple(values.shape)} do not match the "
                          f"layout {lo.key()}")
-    plan = launch_plan(H, N, lo.L, lo.d_x, lo.d_y, lo.K)
+    plan = kernel_plan(H, N, lo.L, lo.d_x, lo.d_y, lo.K,
+                       W.dtype == torch.bfloat16)
     if plan is None:
         raise ValueError(f"fused step: H={H}, N={N}, L={lo.L}, d_x={lo.d_x},"
                          f" d_y={lo.d_y}, K={lo.K} outside fused_step_fits")
     return plan
 
 
-def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
-    """Row 9 (W float32) or 9b (W bfloat16, the cast planes)."""
+def _launch_fwd(W, V, times, values, lo, act_name, scale_name, plan):
+    """Row 9 (W float32) or 9b (W bfloat16, the cast planes); plan: the
+    forward's (trajectories a tile, slots a group) of :func:`kernel_plan`."""
     global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     B, N = times.shape
     H = W.shape[-1]
@@ -543,7 +642,7 @@ def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
         err = lib.njode_step_fwd(
             x.data_ptr(), t.data_ptr(), Wc.data_ptr(), Vc.data_ptr(),
             Y.data_ptr(), *_meta_ints(lo, B, N, H, act_name, scale_name),
-            rpw, int(W.dtype == torch.bfloat16), _stream(dev))
+            *plan, int(W.dtype == torch.bfloat16), _stream(dev))
     from ._build import check
     check(lib, err, "njode_step_fwd launch")
     if W.dtype == torch.bfloat16:
@@ -553,9 +652,10 @@ def _launch_fwd(W, V, times, values, lo, act_name, scale_name, rpw):
     return Y
 
 
-def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, rpw):
+def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, plan):
     """Row 10 (W float32) or 10b (W bfloat16, the cast planes; WT their
-    transpose); dW and dV come back in float32."""
+    transpose); dW and dV come back in float32.  plan: the backward's
+    (trajectories a tile, slots a group) of :func:`kernel_plan`."""
     global LAUNCHES_BWD, LAUNCHES_BWD_BF16
     B, N = times.shape
     H = W.shape[-1]
@@ -566,17 +666,17 @@ def _launch_bwd(W, V, times, values, gy, lo, act_name, scale_name, rpw):
     gyc = gy.contiguous()
     meta = _meta_ints(lo, B, N, H, act_name, scale_name)
     lib = _load_kernel()
-    n_partial = int(lib.njode_step_partial_floats(
-        B, H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared), rpw))
-    partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    bf16 = int(W.dtype == torch.bfloat16)
+    scratch = torch.empty(int(lib.njode_step_scratch_floats(
+        B, N, H, lo.L, lo.d_x, lo.d_y, lo.K, int(lo.shared), plan[0], bf16)),
+        dtype=torch.float32, device=dev)
     dW = torch.empty_like(Wc, dtype=torch.float32)
     dV = torch.empty_like(Vc)
     with torch.cuda.device(dev):
         err = lib.njode_step_bwd(
             x.data_ptr(), t.data_ptr(), Wc.data_ptr(), WT.data_ptr(),
-            Vc.data_ptr(), gyc.data_ptr(), partial.data_ptr(), dW.data_ptr(),
-            dV.data_ptr(), *meta, rpw, int(W.dtype == torch.bfloat16),
-            _stream(dev))
+            Vc.data_ptr(), gyc.data_ptr(), scratch.data_ptr(), dW.data_ptr(),
+            dV.data_ptr(), *meta, *plan, bf16, _stream(dev))
     from ._build import check
     check(lib, err, "njode_step_bwd launch")
     if W.dtype == torch.bfloat16:

@@ -216,55 +216,51 @@ def profile_forced(dev: torch.device, card: str, out_dir: str) -> None:
                                                   "trace_forced.json"))
 
 
-STEP_PHASES = ("products (tile_mm, to the barrier after it)",
-               "epilogues (store, activation, barrier)",
-               "weight-gradient sums (outer_sum)", "the rest")
+STEP_PHASES = ("products (to the barrier after them)",
+               "epilogues (store, activation, records, barrier)",
+               "weight-gradient sums (bf16: outer_sum; f32: step_dw_kernel, "
+               "its own blocks)", "the rest")
 
 
-def instrumented_step_source() -> str:
-    """ops/csrc/fused_step.cu with cycle counters read by each block's
-    thread 0: mm_store's product and epilogue, outer_sum, and the whole
-    kernel; fails if an anchor is gone."""
-    src = (_build.CSRC / "fused_step.cu").read_text()
+def _probe_edits(src: str, edits) -> str:
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"fused_step source has no unique anchor {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def instrumented_step_sources() -> tuple[str, str]:
+    """(ops/csrc/fused_step.cu, ops/csrc/step_f32.cuh) with cycle counters
+    read by each block's thread 0: the products and epilogues of every
+    product (mm_store, mm_chunk), the bf16 outer_sum, the f32 dW kernel,
+    and each step kernel whole; fails if an anchor is gone."""
     add = "if (threadIdx.x == 0) atomicAdd(&g_prof[{k}], " \
           "(unsigned long long)(clock64() - {t}));"
-    edits = [
-        ("extern __shared__ float njode_step_smem[];\n",
-         "extern __shared__ float njode_step_smem[];\n"
-         "__device__ unsigned long long g_prof[4];\n"
-         "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
-         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
-         "}\n"),
-        ("  if constexpr (kTensorCores<T>) {\n    constexpr int MT = RPW / 2;\n",
-         "  const long long t0 = clock64();\n  long long t1 = 0;\n"
-         "  if constexpr (kTensorCores<T>) {\n    constexpr int MT = RPW / 2;\n"),
-        ("    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, "
-         "acc);\n    __syncthreads();\n",
-         "    tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, "
-         "acc);\n    __syncthreads();\n    " + add.format(k=0, t="t0")
-         + "\n    t1 = clock64();\n"),
-        ("    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, "
-         "acc);\n    __syncthreads();\n",
-         "    tile_mm_cc<C, RPW>(njode_step_smem + a_off, W, H, HS, warp, lane, "
-         "acc);\n    __syncthreads();\n    " + add.format(k=0, t="t0")
-         + "\n    t1 = clock64();\n"),
-        ("    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);\n"
-         "  }\n  __syncthreads();\n}",
-         "    if (e.act >= 0) tile_act_cc<RPW>(out, H, HS, warp, lane, e.act);\n"
-         "  }\n  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
-        ("  const float* G = njode_step_smem + g_off;\n",
-         "  const float* G = njode_step_smem + g_off;\n"
-         "  const long long t0 = clock64();\n"),
-        ("  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);\n}",
-         "  else outer_sum_cc<C>(A, G, nr, H, HS, P, first);\n  "
-         + add.format(k=2, t="t0") + "\n}"),
+    cu = _probe_edits((_build.CSRC / "fused_step.cu").read_text(), [
+        ("  constexpr int MT = RPW / 2;\n  float acc[MT][C][4];\n"
+         "  tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);\n"
+         "  __syncthreads();\n",
+         "  const long long t0 = clock64();\n"
+         "  constexpr int MT = RPW / 2;\n  float acc[MT][C][4];\n"
+         "  tile_mm_tc<C, MT>(njode_step_smem + a_off, W, H, HS, warp, lane, acc);\n"
+         "  __syncthreads();\n  " + add.format(k=0, t="t0")
+         + "\n  const long long t1 = clock64();\n"),
+        ("  if (e.act >= 0) tile_act_tc<C, MT>(out, H, HS, warp, lane, e.act);\n"
+         "  __syncthreads();\n}",
+         "  if (e.act >= 0) tile_act_tc<C, MT>(out, H, HS, warp, lane, e.act);\n"
+         "  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
+        ("  outer_sum_tc<C, RPW>(njode_step_smem + a_off, njode_step_smem + g_off, "
+         "H, HS, P, first);\n}",
+         "  const long long t0 = clock64();\n"
+         "  outer_sum_tc<C, RPW>(njode_step_smem + a_off, njode_step_smem + g_off, "
+         "H, HS, P, first);\n  " + add.format(k=2, t="t0") + "\n}"),
         ("                float* __restrict__ Y, int B, int N, int H, Layout lo, "
          "int act, int scale) {\n",
          "                float* __restrict__ Y, int B, int N, int H, Layout lo, "
          "int act, int scale) {\n  const long long tK = clock64();\n"),
         ("    readout(o_wk, N + s);\n  }\n}",
-         "    readout(o_wk, N + s);\n  }\n  " + add.format(k=3, t="tK")
-         + "\n}"),
+         "    readout(o_wk, N + s);\n  }\n  " + add.format(k=3, t="tK") + "\n}"),
         ("                float* __restrict__ partial, int B, int N, int H, "
          "Layout lo, int act,\n                int scale) {\n",
          "                float* __restrict__ partial, int B, int N, int H, "
@@ -273,46 +269,101 @@ def instrumented_step_source() -> str:
         ("pv(lo.row_ob)[e] = 0.0f;\n  }\n}",
          "pv(lo.row_ob)[e] = 0.0f;\n  }\n  " + add.format(k=3, t="tK")
          + "\n}"),
-    ]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"fused_step.cu has no unique anchor {old!r}")
-        src = src.replace(old, new)
-    return src
+    ])
+    cuh = _probe_edits((_build.CSRC / "step_f32.cuh").read_text(), [
+        ("extern __shared__ float njode_step_smem[];\n",
+         "extern __shared__ float njode_step_smem[];\n"
+         "__device__ unsigned long long g_prof[4];\n"
+         "extern \"C\" int njode_prof_read(unsigned long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
+         "}\n"),
+        ("  float* stage = njode_step_smem + kHead;\n"
+         "  const float* A = U + p.a_row + r0 + rg * TM;\n",
+         "  float* stage = njode_step_smem + kHead;\n"
+         "  const float* A = U + p.a_row + r0 + rg * TM;\n"
+         "  const long long t0 = clock64();\n"),
+        ("  __syncthreads();  // every operand read: out may overwrite them\n",
+         "  __syncthreads();  // every operand read: out may overwrite them\n  "
+         + add.format(k=0, t="t0") + "\n  const long long t1 = clock64();\n"),
+        ("      default: finish([](float v) { return v; });\n    }\n  }\n"
+         "  __syncthreads();\n}",
+         "      default: finish([](float v) { return v; });\n    }\n  }\n"
+         "  __syncthreads();\n  " + add.format(k=1, t="t1") + "\n}"),
+        ("            int SG) {\n  if (threadIdx.x == 0) {\n",
+         "            int SG) {\n  const long long tK = clock64();\n"
+         "  if (threadIdx.x == 0) {\n"),
+        ("    jump_bwd(s0);\n  }\n}",
+         "    jump_bwd(s0);\n  }\n  " + add.format(k=3, t="tK") + "\n}"),
+        ("               Layout lo, int RT) {\n",
+         "               Layout lo, int RT) {\n  const long long tD = clock64();\n"),
+        ("      if (j < H) P[(size_t)a * H + j] = acc[i][q];\n    }\n  }\n}",
+         "      if (j < H) P[(size_t)a * H + j] = acc[i][q];\n    }\n  }\n  "
+         + add.format(k=2, t="tD") + "\n}"),
+    ])
+    return cu, cuh
+
+
+def step_kernel_times(run, n: int = 10) -> str:
+    """Device time a call of each CUDA kernel ``run`` launches
+    (torch.profiler over n calls), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            name = e.name.split("(")[0].split("<")[0].split("::")[-1]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+    return ", ".join(f"{k} {v / n / 1e3:.4f} ms" for k, v in by.items())
 
 
 def fused_step_split(dev: torch.device, card: str) -> None:
     """Rows 9-10 and 9b-10b at the scaled recipe's shape (two networks, H
     256, N 2, 4,096 rows), one call each of an instrumented copy: the cycles
-    of each block's thread 0 in each phase, summed over blocks."""
+    of each block's thread 0 in each phase, summed over blocks (the f32 dW
+    kernel's blocks apart: they run after the backward's), and the device
+    time of each kernel a call launches (torch.profiler, the shipped
+    build)."""
     from njode_tpu_torch.ops import fused_step as fs
+    c = chip_smoke.step_case(torch.Generator().manual_seed(17),
+                             chip_smoke.SCALED_H, 2, False, 1, "relu",
+                             "identity", chip_smoke.SCALED_BS, dev)
+    cases = (("forward (row 9)", False, None), ("backward (row 10)", True, None),
+             ("bf16 forward (row 9b)", False, chip_smoke.BF16),
+             ("bf16 backward (row 10b)", True, chip_smoke.BF16))
+    for name, bwd, cdt in cases:
+        run = chip_smoke.step_bwd if bwd else chip_smoke.step_fwd
+        with torch.no_grad():
+            run(c, "relu", "identity", True, cdt)
+            print(f"fused-step {name} device time a call on {card}: "
+                  + step_kernel_times(lambda: run(c, "relu", "identity", True,
+                                                  cdt)), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cu = os.path.join(tmp, "fused_step_probes.cu")
         so = os.path.join(tmp, "libfused_step_probes.so")
+        src, hdr = instrumented_step_sources()
         with open(cu, "w") as f:
-            f.write(instrumented_step_source())
+            f.write(src)
+        with open(os.path.join(tmp, "step_f32.cuh"), "w") as f:
+            f.write(hdr)
         subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
                         f"-I{_build.CSRC}", "-o", so, cu], check=True,
                        capture_output=True, text=True)
         lib = ctypes.CDLL(so)
         shipped = fs._load_kernel()
-        for name in ("njode_step_fwd", "njode_step_bwd",
-                     "njode_step_partial_floats"):
-            fn, ref = getattr(lib, name), getattr(shipped, name)
+        for fn_name in ("njode_step_fwd", "njode_step_bwd",
+                        "njode_step_scratch_floats"):
+            fn, ref = getattr(lib, fn_name), getattr(shipped, fn_name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
         lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
         lib.njode_cuda_error_string.restype = ctypes.c_char_p
-        c = chip_smoke.step_case(torch.Generator().manual_seed(17),
-                                 chip_smoke.SCALED_H, 2, False, 1, "relu",
-                                 "identity", chip_smoke.SCALED_BS, dev)
         original = fs._load_kernel
         fs._load_kernel = lambda: lib
         try:
-            for name, bwd, cdt in (
-                    ("forward (row 9)", False, None),
-                    ("backward (row 10)", True, None),
-                    ("bf16 forward (row 9b)", False, chip_smoke.BF16),
-                    ("bf16 backward (row 10b)", True, chip_smoke.BF16)):
+            for name, bwd, cdt in cases:
                 run = chip_smoke.step_bwd if bwd else chip_smoke.step_fwd
                 with torch.no_grad():
                     run(c, "relu", "identity", True, cdt)        # warm-up
@@ -324,14 +375,19 @@ def fused_step_split(dev: torch.device, card: str) -> None:
                     torch.cuda.synchronize()
                     lib.njode_prof_read(cycles)
                 per = [cycles[k] - before[k] for k in range(4)]
-                per[3] -= per[0] + per[1] + per[2]
-                total = sum(per)
+                # the kernel's own: in the f32 backward the dW kernel's
+                # blocks are not inside it
+                per[3] -= per[0] + per[1] + (per[2] if cdt is not None else 0)
+                total = per[0] + per[1] + per[3] + (per[2] if cdt is not None else 0)
                 print(f"fused-step {name} phase split on {card} (two "
                       f"networks, H {chip_smoke.SCALED_H}, N 2, "
-                      f"{chip_smoke.SCALED_BS} rows, rows per warp "
-                      f"{chip_smoke.step_plan(c)}), cycles of each block's "
-                      f"thread 0 summed over blocks:", flush=True)
+                      f"{chip_smoke.SCALED_BS} rows, plan "
+                      f"{chip_smoke.step_plan(c, cdt)}), cycles of each block's "
+                      f"thread 0 summed over blocks (shares of the step "
+                      f"kernel's):", flush=True)
                 for k, phase in enumerate(STEP_PHASES):
+                    if k == 2 and not bwd:
+                        continue
                     print(f"  {phase}: {per[k]} ({100.0 * per[k] / total:.1f}%)",
                           flush=True)
         finally:

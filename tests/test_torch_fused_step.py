@@ -163,6 +163,61 @@ def test_loss_and_gradients_match_jax(name):
                                    err_msg=key, **GRAD_TOL)
 
 
+@pytest.mark.parametrize("name", ["direct-ifc", "direct-N1",
+                                  "wide-second-moment", "shared"])
+def test_records_and_dw_passes_match_jax_bwd_kernel(name):
+    """The f32 backward's two passes in their plain versions,
+    fused_step_records_reference (every plane's input rows A and
+    pre-activation cotangents G over all rows, and dV) then
+    step_dw_reference (dW = A^T G), held against the parameter cotangents
+    of the JAX _bwd_kernel (interpret mode) through jax.value_and_grad of
+    its fused_step_loss, at the gradient tolerance; the readout bias bo2
+    stays outside the kernels and is not compared."""
+    from njode_tpu_torch.models.loss import nj_ode_loss_dense
+    c = LOSS_CFGS[name]
+    N, d, L, K = c["N"], c.get("d", 1), c.get("L", 1), c.get("K", 2)
+    shared = c.get("shared", False)
+    _, params, port = bridged(seed=5, d=d, L=L, K=K, shared=shared)
+    times, values, mask = batch(N, d, seed=13, padded=True)
+    mw = [1.0] + [10.0] * (K - 1)
+    kw = dict(ignore_first_continuity=c["ifc"], moment_weights=mw,
+              variance_method=c.get("varm", "direct"),
+              extended_moments=c.get("ext", False))
+
+    def jax_loss(p):
+        return jfs.fused_step_loss(
+            p, jnp.asarray(times), jnp.asarray(values), jnp.asarray(mask),
+            **jax_kw(d, L, K, shared), **kw)
+    _, g_ref = jax.value_and_grad(jax_loss)(params)
+    W, V, bo2 = (x.detach() for x in fs.pack_params(port))
+    lo = fs.layout_of(port)
+    T, X = torch.tensor(times), torch.tensor(values)
+    Y = fs.fused_step_forward_reference(W, V, T, X, lo, "relu",
+                                        "identity").requires_grad_()
+    preds = Y[:, :N] + bo2.t()
+    before = torch.cat([torch.zeros_like(preds[:, :1]), Y[:, N:] + bo2.t()],
+                       1)
+    loss = nj_ode_loss_dense(X, preds, before, torch.tensor(mask), **kw)
+    gy, = torch.autograd.grad(loss, Y)
+    records, dV = fs.fused_step_records_reference(W, V, T, X, gy, lo, "relu",
+                                                  "identity")
+    for planes in records:
+        for m, rec in enumerate(planes):
+            slots = N if m < L else (2 * N - 1 if m < 2 * L else N - 1)
+            assert (rec is None) == (slots == 0)
+            if rec is not None:
+                assert rec[0].shape == rec[1].shape == (slots * B, H)
+    dW = fs.step_dw_reference(records, H)
+    got = fs.unpack_params(dW, dV, torch.zeros_like(bo2), num_moments=K,
+                           hidden_dim=H, shared_network=shared, input_dim=d,
+                           output_dim=d, n_hidden_layers=L)
+    for key, ref in jax_grads_as_port(g_ref, K, shared, L).items():
+        if key.startswith("output_nn") and key.endswith(f"net.{3 * L}.bias"):
+            continue
+        np.testing.assert_allclose(got[key].numpy(), ref.numpy(),
+                                   err_msg=key, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("shared,L,N,act,scale", [
     (False, 1, 2, "relu", "identity"), (True, 2, 5, "tanh", "tanh"),
     (False, 2, 3, "selu", "sigmoid"), (True, 1, 1, "elu", "identity")])
