@@ -9,19 +9,24 @@ uncaught exception and a nonzero exit:
 1. device: the card's name and power limit (nvidia-smi); TF32 off, bf16
    products with f32 accumulation.
 2. build:  compile the seven CUDA sources from njode_tpu_torch/ops/csrc, one
-   nvcc per source, started together; the gap kernel's ptxas line.
+   nvcc per source, started together; the gap kernel's registers by
+   instance, failing on any spill.
 3. kernel vs plain: the whole-gap kernel against its plain PyTorch version
-   over activation x scaling x K_h x d_h x rows, zero/partial gaps and
-   max_substeps=0: h to rtol 1e-4 / atol 1e-5 (fma contraction and
-   summation order over 100 substeps), t_L bitwise.
+   over activation x scaling x K_h x d_h (50, 256, and 300 in 256-column
+   chunks) x rows, zero/partial gaps and max_substeps=0; one 100-substep
+   row in a warp's group with short rows (d_h 256: R 4 and 67); one block
+   a network whose rows take 3 passes of its sort: h to rtol 1e-4 / atol
+   1e-5 (fma contraction and summation order over 100 substeps), t_L
+   bitwise; two calls at the predict_at shape bitwise equal.
 4. batch serving: 1,000 Black-Scholes streams x 21 queries through
    NeuralJumpODE.predict_at of the production model (hidden 50, shared, two
    moments, dt_ode_step 0.01), checked against the same model on the CPU
    (where the plain version runs); one separate-network request too.
 5. streaming serving: NJODEFilter on 256 streams for 20 ticks, checked
    against predict_at on the same history.
-6. times (CUDA events, median of 30 after warm-up): kernel vs plain,
-   predict_at queries/s, filter tick latency.
+6. times (CUDA events, median of 30 after warm-up): kernel vs plain and
+   its bound at the predict_at, filter and d_h 256 shapes, predict_at
+   queries/s, filter tick latency.
 7. build: the training kernel's registers and spill bytes by template
    instance (built in 2).
 8. training kernel vs plain: fused_train_run against its plain version over
@@ -49,13 +54,18 @@ uncaught exception and a nonzero exit:
    version, each warmed by one epoch, then 20 epochs timed and scaled to
    200; val MSE of the trained model against the closed-form moments
    (bench.py:435-455).
-11. build: the walk sources' ptxas summaries (built in 2).
+11. build: the walk sources' ptxas summaries (built in 2); walk_scan.cu's
+   registers by kernel instance, failing on any spill.
 12. walk kernels vs plain: walk_gaps_fused (forward, and its backward
    through autograd) against walk_gaps_reference, d_h in (12, 50, 125) x
    rows in (16, 256, 2000) x K_h in (1, 2) x three activation/scaling
    pairs, M = 100, ragged rows and slots at t = T: the forward at rtol 1e-4
    / atol 1e-5, every cotangent within 1e-3 of its norm (section 6 of
-   PERF.md says why not entrywise).
+   PERF.md says why not entrywise); then the production shape (256 rows, H
+   50) at K_h 1 and 2, and 384 rows at K_h 2 (2 warps a row), against
+   walk_vjp_reference (the plain pair of the kernels' data flow: residuals,
+   the backward's records, the weight sums in chunk order) at the same
+   tolerances, and two calls bitwise equal.
 13. walk-train kernel vs plain: fused_walk_train_run against its plain
    version, 8 steps at the production shape (H 50, N 10, batch 256,
    M 100), then K x euler/heun/rk4 x direct/second_moment at batch 64,
@@ -69,15 +79,20 @@ uncaught exception and a nonzero exit:
    (scripts/run_black_scholes.sh's flags through build_config, --kernels
    auto) for 3 epochs, then resumed to 5, one walk-train launch per epoch;
    one epoch of Trainer.train on the composed grid-walk path (the walk
-   kernels under autograd); then one epoch of identical packed data through
-   the walk-train kernel and the composed path from identical weights.
+   kernels under autograd); run_experiment of the production config without
+   --shared-network (K_h 2) under --kernels auto, 2 epochs then resumed to
+   3: the walk-train kernel needs a shared network, so rows 7 and 8 launch
+   once a step, row 1 in validation, nothing else; then one epoch of
+   identical packed data through the walk-train kernel and the composed path
+   from identical weights.
 15. production times: the full production recipe (200 epochs x 10,000
    fresh trajectories) through Trainer.train with the walk-train kernel
    (all epochs when they fit in 90 s, else 20 scaled); the composed
    grid-walk path and the per-gap composed path, each warmed by one epoch,
    2 timed and scaled; one epoch call of the kernel and of its plain
-   version; rows 7-8 at their main-path shapes; the validation A/B that
-   sets the walk's row cap; val MSE against the closed-form moments.
+   version; rows 7-8 at their main-path shapes (256 rows, K_h 2 and 1)
+   against their plain versions and bounds; the validation A/B that sets
+   the walk's row cap; val MSE against the closed-form moments.
 16. build: fused_step.cu's ptxas summary and registers and spill bytes by
    function (built in 2: the f32 forward and backward, their out-of-line
    product chunks by rows a thread, the dW sum and its chunk sum, the bf16
@@ -197,9 +212,10 @@ uncaught exception and a nonzero exit:
    gated).
 
 Each kernel's launch count is reset just before its main path (phases 4-5
-for the gap kernel, 9 for the training kernel, 14 for the walk kernels and
-the walk-train kernel, 18 for the fused-step kernels, 22 for rows 2-6, one
-window per forced path, 25 for rows 9b-10b, 28 for rows 11b and 13b,
+for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
+separate-network path) and the walk-train kernel, 18 for the fused-step
+kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
+for rows 11b and 13b,
 every row's count read in each) and read just after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
@@ -232,6 +248,7 @@ from njode_tpu_torch.utils.training import as_dense
 
 RTOL, ATOL = 1e-4, 1e-5
 DT, N_SUB = 0.01, 100
+GAP_WIDE_DH = 300      # row 1's wide case: past 256 columns, in chunks
 KERNEL_SOURCE = "njode_tpu_torch/ops/csrc/gap_scan.cu"
 REPLACES = "njode_tpu/ops/gap_scan.py:201"
 TRAIN_SOURCE = "njode_tpu_torch/ops/csrc/train_run.cu"
@@ -283,7 +300,9 @@ def build_phase() -> float:
     fused_cell._load_kernel()
     took = time.perf_counter() - t0
     print(f"build: gap_scan.cu in {took:.2f} s (with {', '.join(SOURCES[1:])}"
-          f", in parallel); ptxas: {ptxas_line('gap_scan')}", flush=True)
+          f", in parallel); ptxas by instance <columns a lane, weights "
+          f"staged, wide>: {ptxas_check('gap_scan')}",
+          flush=True)
     return took
 
 
@@ -323,6 +342,56 @@ def ptxas_instances(name: str) -> str:
                        f"{spill} spill bytes")
             entry, spill = None, 0
     return "; ".join(out) if out else "no ptxas output"
+
+
+def kernel_label(entry: str) -> str:
+    """kernel<template arguments> of a mangled ``*_kernel`` entry name (the
+    name is the identifier ending in "_kernel" whose length prefix fits)."""
+    import re
+    for m in re.finditer(r"_kernel(?=[IE])", entry):
+        end = m.end()
+        for start in range(m.start() - 1, 0, -1):
+            name = entry[start:end]
+            if entry[:start].endswith(str(len(name))) and (
+                    name[0].isalpha() or name[0] == "_"):
+                t = re.match(r"I((?:L[ib]\d+E)+)E", entry[end:])
+                args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return entry
+
+
+def ptxas_kernels(name: str) -> list[tuple[str, int, int]]:
+    """(kernel<template arguments>, registers, spill bytes) of each kernel
+    instance of a source, as ptxas reported them in this process's build."""
+    import re
+    from njode_tpu_torch.ops import _build
+    out, entry, spill = [], None, 0
+    for ln in _build.BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append((kernel_label(entry), int(m.group(1)), spill))
+            entry = None
+    return out
+
+
+def ptxas_check(name: str, gated: tuple = ()) -> str:
+    """ptxas_kernels as one line; fails if a kernel named in ``gated``
+    (all when empty) spills."""
+    kernels = ptxas_kernels(name)
+    if not kernels:
+        return "no ptxas output (built before this process)"
+    spills = [k for k in kernels if k[2] and (
+        not gated or k[0].split("<")[0] in gated)]
+    if spills:
+        raise AssertionError(f"{name}.cu: kernels spill: {spills}")
+    return "; ".join(f"{k} {r} registers, {sp} spill bytes"
+                     for k, r, sp in kernels)
 
 
 # fused_step.cu's functions by kind: the f32 instances (step_f32.cuh: the
@@ -408,12 +477,6 @@ def step_tensor_core_counts() -> dict:
     return dict(sorted(out.items()))
 
 
-def ptxas_line(name: str) -> str:
-    from njode_tpu_torch.ops import _build
-    return " | ".join(ln.strip() for ln in _build.BUILD_LOG.get(
-        name, "").splitlines() if "registers" in ln or "spill" in ln)
-
-
 def gap_case(gen: torch.Generator, K: int, R: int, d_h: int, d_x: int,
              n_sub: int, dev: torch.device) -> dict:
     """Random gap inputs: zero gaps, gaps shorter than dt, gaps ending on a
@@ -448,6 +511,32 @@ def substep_args(c: dict, n_sub: int, act: str, scale: str) -> tuple:
         DT, n_sub, act, scale)
 
 
+def gap_pair_close(args: tuple, where: str) -> float:
+    """Row 1 against its plain version on the kernel's own arguments: t_L
+    bitwise, h_L at RTOL / ATOL; returns the largest abs err of h."""
+    h_k, t_k = gap_scan.gap_substeps(*args)
+    h_p, t_p = gap_scan.gap_substeps_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(t_k, t_p):
+        raise AssertionError(f"t_L not bitwise equal at {where}: "
+                             f"{int((t_k != t_p).sum())} rows differ")
+    return assert_close(h_k, h_p, f"h_L at {where}")
+
+
+def long_among_short_case(gen: torch.Generator, K: int, R: int,
+                          dev: torch.device) -> dict:
+    """gap_case's inputs at d_h 256 with every row short (0 to 3 substeps)
+    but one, which takes all N_SUB substeps.  At d_h 256 the weights are
+    read through L1 and a warp runs one group of 4 rows with no long tier,
+    so the long row shares its warp's group with short rows: at R 4 the
+    one block's one group, at R 67 a block of 17 owning 3 or 4 rows."""
+    c = gap_case(gen, K, R, 256, 1, N_SUB, dev)
+    gap = torch.randint(0, 4, (R,), generator=gen).float() * DT
+    gap[R // 2] = (N_SUB + 0.5) * DT
+    c["t_target"] = c["t_last"] + gap.to(dev)
+    return c
+
+
 def kernel_phase(dev: torch.device) -> float:
     gen = torch.Generator().manual_seed(3)
     worst_abs = worst_rel = 0.0
@@ -455,6 +544,11 @@ def kernel_phase(dev: torch.device) -> float:
     cases = [(d_h, R, K, act, scale, N_SUB)
              for d_h in (50, 256) for R in (1, 37, 21000) for K in (1, 2)
              for act in gap_scan.SUPPORTED_ACTS for scale in gap_scan.SCALINGS]
+    # past 256 columns: the wide instance's 256-column chunks (w1t, b2 and
+    # the base reread through L1)
+    cases += [(GAP_WIDE_DH, R, K, act, scale, N_SUB)
+              for R in (37, 4000) for K in (1, 2)
+              for act in gap_scan.SUPPORTED_ACTS for scale in gap_scan.SCALINGS]
     cases += [(50, 37, K, act, "tanh", 0) for K in (1, 2)
               for act in ("relu", "selu")]
     with torch.no_grad():
@@ -487,10 +581,48 @@ def kernel_phase(dev: torch.device) -> float:
                 worst_rel = max(worst_rel, float(
                     (err / (b.abs() + ATOL)).max()))
             n_cases += 1
+        # one row of N_SUB substeps in one warp's group with short rows
+        # (the warp leaves the loop only when none of its rows moves)
+        for K, R, act, scale in ((1, 4, "relu", "identity"),
+                                 (2, 4, "tanh", "tanh"),
+                                 (2, 67, "selu", "sigmoid")):
+            c = long_among_short_case(gen, K, R, dev)
+            worst_abs = max(worst_abs, gap_pair_close(
+                substep_args(c, N_SUB, act, scale),
+                f"one {N_SUB}-substep row in a warp's group with short ones, "
+                f"d_h 256, R={R} K={K} {act}/{scale}"))
+        # more rows a block than one pass of its sort holds: K past the
+        # card's wave (at most 8 blocks an SM) leaves one block a network,
+        # which owns all R rows and sorts them in ceil(R / GAP_MAX_PASS)
+        # passes
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        K_mp, R_mp = 4 * n_sm + 2, 2 * gap_scan.GAP_MAX_PASS + 104
+        for act, scale in (("relu", "identity"), ("tanh", "tanh")):
+            c = gap_case(gen, K_mp, R_mp, 50, 1, N_SUB, dev)
+            worst_abs = max(worst_abs, gap_pair_close(
+                substep_args(c, N_SUB, act, scale),
+                f"one block a network, K={K_mp} R={R_mp} (3 passes) "
+                f"{act}/{scale}"))
+            del c
+        # two calls at the predict_at shape bitwise equal (the rows' groups
+        # form as the block's atomics fall; a row's arithmetic does not
+        # depend on them)
+        model = production_model(dev)
+        args = gap_rows(model, *batch_request(dev))
+        one, two = gap_scan.gap_substeps(*args), gap_scan.gap_substeps(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise AssertionError("row 1: two calls at the predict_at shape "
+                                 "differ")
+    plan = gap_scan.gap_plan(50, "identity")
     print(f"kernel vs plain: {n_cases} cases (act x scaling x K_h in (1, 2) x "
-          f"d_h in (50, 256) x R in (1, 37, 21000), + max_substeps=0): "
-          f"max abs err {worst_abs:.3e}, max err/(|ref|+atol) "
-          f"{worst_rel:.3e}; t_L bitwise equal", flush=True)
+          f"d_h in (50, 256) x R in (1, 37, 21000), d_h {GAP_WIDE_DH} x R in "
+          f"(37, 4000), + max_substeps=0), one {N_SUB}-substep row in a "
+          f"warp's group with short ones (d_h 256, R 4 and 67), one block a "
+          f"network over 3 passes of its sort (K {K_mp}, R {R_mp}): max abs "
+          f"err {worst_abs:.3e}, max err/(|ref|+atol) {worst_rel:.3e}; t_L "
+          f"bitwise equal; two calls at the predict_at shape bitwise equal; "
+          f"plan at d_h 50 {tuple(plan)}", flush=True)
     return worst_abs
 
 
@@ -656,12 +788,16 @@ def timing_phase(dev: torch.device, card: str, model: NeuralJumpODE,
         filt.predict(s, ts[-1] + 0.02)
     tick_ms = time_ms(tick)
     n_q = query.numel()
+    (b_pa, _), (b_f, _), (b_w, _) = (gap_bound(a) for a in (args, f_args,
+                                                              wide))
     print(f"times on {card}: gap kernel {k_ms:.4f} / {k2_ms:.4f} ms vs plain "
-          f"{p_ms:.4f} / {p2_ms:.4f} ms at the predict_at shape (R={n_q}, "
-          f"d_h=50, max_substeps={model.max_substeps}); at the filter shape "
-          f"(R={xs.shape[1]}, gap 0.02) kernel {fk_ms:.4f} ms vs plain "
-          f"{fp_ms:.4f} ms; at d_h=256 (R={n_q}, random gaps) kernel "
-          f"{wk_ms:.4f} ms vs plain {wp_ms:.4f} ms; predict_at {pa_ms:.4f} ms = "
+          f"{p_ms:.4f} / {p2_ms:.4f} ms, bound {b_pa:.4f} ms, at the "
+          f"predict_at shape (R={n_q}, d_h=50, max_substeps="
+          f"{model.max_substeps}); at the filter shape (R={xs.shape[1]}, gap "
+          f"0.02) kernel {fk_ms:.4f} ms vs plain {fp_ms:.4f} ms, bound "
+          f"{b_f:.4f} ms; at d_h=256 (R={n_q}, random gaps) kernel "
+          f"{wk_ms:.4f} ms vs plain {wp_ms:.4f} ms, bound {b_w:.4f} ms; "
+          f"predict_at {pa_ms:.4f} ms = "
           f"{n_q / (pa_ms / 1e3):.0f} queries/s; filter tick (update + "
           f"predict, {xs.shape[1]} streams) {tick_ms:.4f} ms", flush=True)
     return statistics.median([k_ms, k2_ms]), statistics.median([p_ms, p2_ms])
@@ -1133,6 +1269,8 @@ def walk_run(c: dict, act: str, scale: str, fn, grad: bool = True):
 
 
 GRAD_RTOL = 1e-3
+# row 8's kernels (csrc/walk_scan.cu), held to 0 spill bytes by phase 11
+WALK_BWD_KERNELS = ("walk_bwd_kernel", "walk_dw_kernel", "walk_reduce_kernel")
 
 
 def assert_close_norm(a, b, what: str, rtol: float = GRAD_RTOL) -> float:
@@ -1177,12 +1315,48 @@ def walk_kernel_phase(dev: torch.device) -> tuple[float, float]:
                         worst_b = max(worst_b, assert_close_norm(
                             a, b, f"walk d{name} at {where}"))
                     n += 1
+    # the production shape (256 rows, H 50), K_h 1 and 2, and 384 rows at
+    # K_h 2 (768 walk rows: 2 warps a row, the record writes split between
+    # them): the kernels against the explicit plain pair of their data flow
+    # (residuals, the backward's records, the weight sums in chunk order),
+    # and two backward calls bitwise equal (the sums run in a fixed order)
+    plans = []
+    for K, B in ((1, PROD_BS), (2, PROD_BS), (2, 384)):
+        c = walk_case(gen, K, B, PROD_H, dev)
+        ours = walk_run(c, "relu", "identity", walk_scan.walk_gaps_fused)
+        again = walk_run(c, "relu", "identity", walk_scan.walk_gaps_fused)
+        torch.cuda.synchronize()
+        g_idx = torch.round(c["times"] / PROD_DT).long()
+        with torch.no_grad():
+            ref = walk_scan.walk_vjp_reference(
+                c["hj"], c["x"], c["times"], c["mask"], g_idx, c["w"],
+                PROD_DT, PROD_M, "relu", "identity", c["ct"])
+        where = f"H {PROD_H}, {B} rows, K_h={K}, vs the records' plain pair"
+        worst_f = max(worst_f, assert_close(ours[0], ref[0],
+                                            f"walk h_minus at {where}"))
+        for name, a, b in zip(("h_jump", "W1", "b1", "W2", "b2"), ours[1:],
+                              ref[1]):
+            worst_b = max(worst_b, assert_close_norm(
+                a, b, f"walk d{name} at {where}"))
+        for name, a, b in zip(("h_minus", "h_jump", "W1", "b1", "W2", "b2"),
+                              ours, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"rows 7-8 at {B} rows, K_h={K}: two "
+                                     f"calls differ in {name}")
+        plans.append(tuple(walk_scan.walk_bwd_plan(PROD_H, B, PROD_N,
+                                                   PROD_M, K)))
+        n += 1
     print(f"walk kernels vs plain: {n} cases (d_h in (12, 50, 125) x rows in "
           f"(16, 256, 2000) x K_h in (1, 2) x relu/identity, tanh/tanh, "
           f"selu/identity; M={PROD_M}, N={PROD_N}, ragged rows and slots at "
-          f"t=T): forward max abs err {worst_f:.3e} (rtol {RTOL} / atol "
-          f"{ATOL}); backward (h_jump, W1, b1, W2, b2) max abs err "
-          f"{worst_b:.3e} (each within {GRAD_RTOL} of its norm)", flush=True)
+          f"t=T; then the production shape at K_h 1 and 2, and 384 rows at "
+          f"K_h 2, against the plain pair of the records' data flow): "
+          f"forward max abs err "
+          f"{worst_f:.3e} (rtol {RTOL} / atol {ATOL}); backward (h_jump, W1, "
+          f"b1, W2, b2) max abs err {worst_b:.3e} (each within {GRAD_RTOL} "
+          f"of its norm); two calls bitwise equal at those three shapes; "
+          f"backward plans (warps a row, warps a block, rows a chunk, "
+          f"chunks, shared bytes) {plans}", flush=True)
     return worst_f, worst_b
 
 
@@ -1322,6 +1496,37 @@ def composed_grid_walk_phase(dev: torch.device) -> None:
           f"{walk_scan.LAUNCHES_BWD}, walk-train {wt.LAUNCHES}", flush=True)
 
 
+def separate_grid_walk_path_phase(dev: torch.device, tmp: Path) -> dict:
+    """run_experiment of the production config without --shared-network
+    (two ODE networks, K_h 2) under the CLI's default --kernels auto, 2
+    epochs then a resume to 3: the walk-train kernel needs a shared network,
+    so "auto" walks the grid with rows 7 and 8 under autograd, once a step
+    each, and validation takes row 1.  The caller resets the counts before;
+    returns the window's counts by row."""
+    def cfg(n):
+        c = production_config(n, "separate_walk")
+        c["shared_network"] = False
+        return c
+    res = run_experiment(cfg(2), save_dir=str(tmp))
+    hist = res["history"]["train_loss"]
+    res3 = run_experiment(cfg(3), save_dir=str(tmp))
+    torch.cuda.synchronize()
+    hist3 = res3["history"]["train_loss"]
+    if (len(hist3) != 3 or hist3[:2] != hist or not all(
+            math.isfinite(x) for x in hist3 + res3["history"]["val_loss"])):
+        raise AssertionError(f"separate-network grid walk: losses {hist} then "
+                             f"{hist3}")
+    got = expect_counts("separate-network grid walk (--kernels auto)",
+                        {1: None, 7: 3 * PROD_STEPS, 8: 3 * PROD_STEPS})
+    print(f"separate-network grid-walk path: run_experiment (production "
+          f"config without --shared-network, K_h 2, --kernels auto) 2 epochs "
+          f"then resumed to 3: train loss {hist3[0]:.4f} -> {hist3[-1]:.4f}; "
+          f"launches in this window: walk forward {got[7]}, backward "
+          f"{got[8]} (once a step), walk-train {got[13]}, gap kernel "
+          f"(validation) {got[1]}", flush=True)
+    return got
+
+
 def walk_twin_vs_composed_phase(dev: torch.device) -> float:
     """One epoch of identical packed data (2,560 trajectories, 10 steps of
     256, the last a third masked) through the walk-train kernel and through
@@ -1449,36 +1654,44 @@ def walk_times_phase(dev: torch.device, card: str) -> dict:
     validation A/B.  Returns each kernel's (ms, plain ms, bound ms,
     bound_by)."""
     # rows 7-8 at the shape their path launches them: a minibatch of 256
-    # rows under autograd, the forward writing its residuals
-    c_tr = walk_case(torch.Generator().manual_seed(62), 1, PROD_BS, PROD_H,
-                     dev)
-    hj = c_tr["hj"].detach().requires_grad_()
-    w = [x.detach().requires_grad_() for x in c_tr["w"]]
-    g_idx = torch.round(c_tr["times"] / PROD_DT).long()
+    # rows under autograd, the forward writing its residuals; K_h 2 (two
+    # networks, the --kernels auto path of separate_grid_walk_path_phase)
+    # and 1 (the composed walk of the shared network)
+    rows_78 = {}
+    for K in (1, 2):
+        c_tr = walk_case(torch.Generator().manual_seed(62), K, PROD_BS,
+                         PROD_H, dev)
+        hj = c_tr["hj"].detach().requires_grad_()
+        w = [x.detach().requires_grad_() for x in c_tr["w"]]
+        g_idx = torch.round(c_tr["times"] / PROD_DT).long()
 
-    def walk_fwd(fn):
-        return fn(hj, c_tr["x"], c_tr["times"], c_tr["mask"], g_idx, w,
-                  PROD_DT, PROD_M, "relu", "identity")
-    f_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_fused))
-    fp_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_reference),
-                    warmup=1, reps=5)
-    out = walk_fwd(walk_scan.walk_gaps_fused)
-    b_ms = time_ms(lambda: torch.autograd.grad(out, [hj, *w], c_tr["ct"],
-                                               retain_graph=True))
-    ref_out = walk_fwd(walk_scan.walk_gaps_reference)
-    bp_ms = time_ms(lambda: torch.autograd.grad(ref_out, [hj, *w],
-                                                c_tr["ct"],
-                                                retain_graph=True),
-                    warmup=1, reps=5)
-    d, M, S, R = PROD_H, PROD_M, PROD_N - 1, PROD_BS
-    per_row = walk_flops_per_row(d, M)
-    w_bytes = 4 * (2 * d * d + 6 * d)
-    # forward: h_jump, x, t, both cells and the weights in; h_minus and
-    # the residuals (h, t, x per cell) out
-    f_bytes = 4 * R * (PROD_N * (d + 4) + S * d + M * (d + 2)) + w_bytes
-    f_bound = bound_of(per_row * R, f_bytes)
-    b_bytes = 4 * R * (S * d + M * (d + 2) + PROD_N * (d + 2)) + 2 * w_bytes
-    b_bound = bound_of(2 * per_row * R, b_bytes)
+        def walk_fwd(fn):
+            return fn(hj, c_tr["x"], c_tr["times"], c_tr["mask"], g_idx, w,
+                      PROD_DT, PROD_M, "relu", "identity")
+        f_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_fused))
+        fp_ms = time_ms(lambda: walk_fwd(walk_scan.walk_gaps_reference),
+                        warmup=1, reps=5)
+        out = walk_fwd(walk_scan.walk_gaps_fused)
+        b_ms = time_ms(lambda: torch.autograd.grad(out, [hj, *w], c_tr["ct"],
+                                                   retain_graph=True))
+        ref_out = walk_fwd(walk_scan.walk_gaps_reference)
+        bp_ms = time_ms(lambda: torch.autograd.grad(ref_out, [hj, *w],
+                                                    c_tr["ct"],
+                                                    retain_graph=True),
+                        warmup=1, reps=5)
+        d, M, S, R = PROD_H, PROD_M, PROD_N - 1, PROD_BS
+        per_row = walk_flops_per_row(d, M)
+        w_bytes = 4 * K * (2 * d * d + 6 * d)
+        # forward: h_jump, x, t, both cells and the weights in; h_minus and
+        # the residuals (h, t, x per cell) out; the backward: the output
+        # cotangent and the residuals in, the jump cotangent and the
+        # weights' out
+        f_bytes = 4 * R * (K * PROD_N * d + 4 * PROD_N + K * S * d
+                           + M * (K * d + 2)) + w_bytes
+        b_bytes = 4 * R * (K * S * d + M * (K * d + 2) + 2 * PROD_N
+                           + K * PROD_N * d) + 2 * w_bytes
+        rows_78[K] = ((f_ms, fp_ms, *bound_of(K * per_row * R, f_bytes)),
+                      (b_ms, bp_ms, *bound_of(2 * K * per_row * R, b_bytes)))
 
     # the validation A/B behind the model's rule that a walk without
     # autograd on the card takes the per-gap route: under no_grad, on the
@@ -1517,16 +1730,16 @@ def walk_times_phase(dev: torch.device, card: str) -> dict:
             ab[rows] = (time_ms(walk_arm), time_ms(guarded_walk_arm),
                         time_ms(per_gap_arm), diff)
     print(f"walk kernels on {card}, at {PROD_BS} rows under autograd: "
-          f"forward with residuals {f_ms:.4f} ms (plain {fp_ms:.4f} ms, "
-          f"bound {f_bound[0]:.4f} ms {f_bound[1]}); backward {b_ms:.4f} ms "
-          f"(plain {bp_ms:.4f} ms, bound {b_bound[0]:.4f} ms {b_bound[1]}); "
-          f"validation A/B without autograd, walk kernel alone / with the "
+          + "; ".join(f"K_h {K}: forward with residuals {f[0]:.4f} ms (plain "
+                      f"{f[1]:.4f} ms, bound {f[2]:.4f} ms {f[3]}), backward "
+                      f"{b[0]:.4f} ms (plain {b[1]:.4f} ms, bound {b[2]:.4f} "
+                      f"ms {b[3]})" for K, (f, b) in rows_78.items())
+          + "; validation A/B without autograd, walk kernel alone / with the "
           f"grid guard vs per-gap route (gap kernel): "
           + "; ".join(f"{r} rows {a:.4f} / {g:.4f} vs {b:.4f} ms (max abs "
                       f"diff {e:.2e})" for r, (a, g, b, e) in ab.items()),
           flush=True)
-    return {"walk_fwd": (f_ms, fp_ms, *f_bound),
-            "walk_bwd": (b_ms, bp_ms, *b_bound)}
+    return {"walk_fwd": rows_78[2][0], "walk_bwd": rows_78[2][1]}
 
 
 # ------------------------------------------------------- scaled training
@@ -3329,6 +3542,10 @@ def main() -> None:
     for name in ("walk_scan", "walk_train"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
+    print(f"ptxas: walk_scan.cu by kernel (forward <columns a lane, weights "
+          f"staged, residuals kept>, backward <columns a lane, relu/identity "
+          f"compiled in>; the backward's kernels may not spill): "
+          f"{ptxas_check('walk_scan', WALK_BWD_KERNELS)}", flush=True)
     print(f"ptxas: walk_train.cu by instance <columns a lane, stages, "
           f"relu/identity compiled in, bf16> (production: <2, 1, 1, 0>): "
           f"{ptxas_instances('walk_train')}", flush=True)
@@ -3344,7 +3561,9 @@ def main() -> None:
         prod_launches = wt.LAUNCHES
     walk_scan.LAUNCHES_FWD = walk_scan.LAUNCHES_BWD = wt.LAUNCHES = 0
     composed_grid_walk_phase(dev)
-    comp_launches = (walk_scan.LAUNCHES_FWD, walk_scan.LAUNCHES_BWD)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        separate = separate_grid_walk_path_phase(dev, Path(tmp))
     wt_err = max(wt_err, walk_twin_vs_composed_phase(dev))
     t = phase_time("production training path", t)
     times = {"walk_train": production_times_phase(dev, card)}
@@ -3419,7 +3638,8 @@ def main() -> None:
                 "replaces": replaces, "path": path, "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": None}
-    composed = "composed grid-walk training (Trainer.train, one epoch)"
+    composed = ("production training without --shared-network (run_experiment"
+                ", --kernels auto)")
     scaled = "scaled training (run_experiment)"
     f_prod = "forced production training (run_experiment, use_pallas True)"
     f_dt = ("forced production training at dt_ode_step 0.1 "
@@ -3435,9 +3655,9 @@ def main() -> None:
               "default training (run_experiment)", t_launches, t_err,
               (tk_ms, tp_ms, t_bound, t_by)),
         entry("walk_scan_fwd", WALK_SOURCE, "njode_tpu/ops/walk_scan.py:148",
-              composed, comp_launches[0], wf_err, times["walk_fwd"]),
+              composed, separate[7], wf_err, times["walk_fwd"]),
         entry("walk_scan_bwd", WALK_SOURCE, "njode_tpu/ops/walk_scan.py:226",
-              composed, comp_launches[1], wb_err, times["walk_bwd"]),
+              composed, separate[8], wb_err, times["walk_bwd"]),
         entry("walk_train", WALK_TRAIN_SOURCE,
               "njode_tpu/ops/walk_train.py:178",
               "production training (run_experiment)", prod_launches, wt_err,

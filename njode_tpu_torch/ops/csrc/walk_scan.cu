@@ -32,16 +32,34 @@
 // Backward: the cells in reverse, each recomputing pre from its residual;
 // the carry's h-cotangent at a reset cell goes to h_jump[s], and the new
 // carry is the sum of the cotangents of the pre-jump states read at that
-// cell.  Blocks own 4 rows, one a warp; the weight cotangents of a cell are
-// summed in shared memory, each entry by one owning thread over the 4 rows
-// in order, then the blocks' partials are summed in tile order by a second
-// kernel: a run repeats bitwise.
+// cell.  The design is walk_train.cu's backward walk (row 13) without the
+// loss and Adam:
+//
+//   * each row walks on a group of WPT warps (4 at the production shape,
+//     256 rows a network) that split every product by input rows (part_mm,
+//     group_mm of walk_cell.cuh: the vector's entries by shuffles, the
+//     zero-padded weight planes in shared memory, the group's partial sums
+//     meeting at one named barrier a product); the carry's cotangent lives
+//     in registers, alike in every warp of the group; no block barrier
+//     inside the walk; each cell's residual is loaded one cell ahead;
+//   * the weight cotangents leave the walk: at every cell the row writes
+//     the records the sums read, hid = act(pre), gp = the pre-activation's
+//     cotangent and gdh = dt x the carry's, each by one warp of the group,
+//     at a place fixed in advance ((K, M, B, d), like the residuals); then
+//     walk_dw_kernel computes [dW1h; dw1x; dw1t; dcvec] = [s(h), x, t, 1]^T
+//     gp and [dW2; db2] = [hid, 1]^T gdh as long-k products over the M B
+//     rows of a network, in split-k chunks of rows summed in row order, and
+//     walk_reduce_kernel sums the chunks in chunk order: no float atomics,
+//     and two calls are bitwise equal.
 //
 // Layout (f32 unless said): hj (K, B, N, d); xs, ts (B, N) (x scaled);
 // reset_cell, read_cell (B, N) int32; w1 (K, d+3, d) (in, out), rows [h, x,
 // t_rel, t_elapsed] (the last row unread); cvec, b2 (K, d); w2 (K, d, d)
 // (in, out); hminus (K, B, N-1, d); res_h (K, M, B, d); res_t, res_x (M, B);
-// partial (tiles, K, 2 d^2 + 4 d) = [dW1h, dW2, dw1x, dw1t, dcvec, db2].
+// records (3, K, M, B, d) = [hid, gp, gdh]; partial (chunks, K, 2 d^2 + 4 d)
+// = [dW1h, dW2, dw1x, dw1t, dcvec, db2].  The backward's launch plan (warps
+// a row, warps a block, rows a chunk of the sums) is the caller's
+// (walk_bwd_plan in ops/walk_scan.py) and is checked here.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -52,15 +70,16 @@ namespace {
 
 using namespace njode_walk;
 
-// one row a warp: a row's walk is a chain of dependent cells, so the card
-// is kept busy by many warps in flight rather than by sharing weight loads
-// among a warp's rows; in the backward it also keeps a block's gradient sums
-// of a cell (every entry by one thread) to 4 rows
+// the forward: one row a warp: a row's walk is a chain of dependent cells,
+// so the card is kept busy by many warps in flight rather than by sharing
+// weight loads among a warp's rows
 constexpr int kWarps = 4;
 constexpr int kFwdRPW = 1;
 constexpr int kFwdTile = kFwdRPW * kWarps;
-constexpr int kBwdRPW = 1;
-constexpr int kBwdTile = kBwdRPW * kWarps;
+// the backward walk's widest block, and the sums' staged rows and output tile
+constexpr int kBwdMaxWarps = 8;
+constexpr int kDwRows = 32, kTA = 4, kTB = 8;
+constexpr int kDwMaxThreads = 576;  // d = 128: 33 x 16 tiles, in whole warps
 
 __host__ __device__ __forceinline__ int grad_floats(int d) { return 2 * d * d + 4 * d; }
 
@@ -197,176 +216,243 @@ walk_fwd_kernel(const float* __restrict__ hj, const float* __restrict__ xs,
 
 // ------------------------------------------------------------- backward
 
-template <int CPT, bool STAGE>
-__global__ void __launch_bounds__(kWarp * kWarps)
+// The backward walk.  Grid (ceil(B / rows a block), K); block (32, warps),
+// WPT warps a row.  Shared memory: the W1h and W2 planes (HP x (HP + 1),
+// zero past d), each row's two partial-product buffers (group_mm), each
+// row's slot cells.  Writes ct_hj at the reset slots and the records.
+template <int CPT, bool RI>
+__global__ void __launch_bounds__(kWarp * kBwdMaxWarps, 1)
 walk_bwd_kernel(const float* __restrict__ ct_hm, const float* __restrict__ res_h,
                 const float* __restrict__ res_t, const float* __restrict__ res_x,
                 const int* __restrict__ reset_cell, const int* __restrict__ read_cell,
                 const float* __restrict__ w1, const float* __restrict__ cvec,
                 const float* __restrict__ w2, float* __restrict__ ct_hj,
-                float* __restrict__ partial, int B, int N, int d, int M, float dt,
-                int act, int scale) {
-  constexpr int RPW = kBwdRPW;
+                float* __restrict__ rec_hid, float* __restrict__ rec_gp,
+                float* __restrict__ rec_gdh, int B, int N, int d, int M, float dt,
+                int act, int scale, int wpt) {
   extern __shared__ float smem[];
-  const int k = blockIdx.y, K = gridDim.y, lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * kWarp + lane, n_threads = kWarp * blockDim.y;
-  const int row0 = blockIdx.x * kBwdTile;
-  const int n_rows = min(kBwdTile, B - row0);
-  const int ld = STAGE ? (d | 1) : d;
-  const int S = N - 1, TD = kBwdTile * d, P = grad_floats(d);
+  const int k = blockIdx.y, lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kWarp + lane, n_thr = kWarp * blockDim.y;
+  const int rpb = blockDim.y / wpt, row0 = blockIdx.x * rpb;
+  const int HP = kWarp * CPT, ld = HP + 1, PL = HP * ld;
+  float* sW1 = smem;
+  float* sW2 = smem + PL;
+  float* part = smem + 2 * PL;
+  int* s_reset = reinterpret_cast<int*>(part + (size_t)rpb * 2 * wpt * HP);
+  int* s_read = s_reset + rpb * N;
   const float* W1 = w1 + (size_t)k * (d + 3) * d;
   const float* W2 = w2 + (size_t)k * d * d;
+  for (int e = tid; e < PL; e += n_thr) {
+    const int i = e / ld, j = e - i * ld;
+    const bool in = i < d && j < d;
+    sW1[e] = in ? W1[i * d + j] : 0.0f;
+    sW2[e] = in ? W2[i * d + j] : 0.0f;
+  }
+  for (int e = tid; e < rpb * N; e += n_thr) {
+    const bool in = row0 + e / N < B;
+    s_reset[e] = in ? reset_cell[(size_t)row0 * N + e] : -2;
+    s_read[e] = in ? read_cell[(size_t)row0 * N + e] : -2;
+  }
+  __syncthreads();
+
+  // this warp's row and its place in the row's group; a group whose row is
+  // past B leaves at once (only its own named barrier waits for it)
+  const int grp = warp / wpt, wg = warp % wpt;
+  const int b = row0 + grp;
+  if (b >= B) return;
+  Group gr;
+  gr.wpt = wpt;
+  gr.wg = wg;
+  gr.bar_id = 1 + grp;
+  gr.bar_n = kWarp * wpt;
+  gr.r_lo = wg * (HP / wpt);
+  gr.r_hi = min(gr.r_lo + HP / wpt, (d + 15) / 16 * 16);
+  gr.par = 0;
+  gr.part = part + (size_t)grp * 2 * wpt * HP;
+  // relu and identity (the production recipe's) fixed at compile time (RI)
+  auto actf = [&](float x) { return RI ? (x < 0.0f ? 0.0f : x) : activate(x, act); };
+  auto actg = [&](float x) { return RI ? (x > 0.0f ? 1.0f : 0.0f) : act_grad(x, act); };
+  auto scl = [&](float x) { return RI ? x : scale_in(x, scale); };
+  auto sclg = [&](float x) { return RI ? 1.0f : scale_grad(x, scale); };
   float w1x[CPT], w1t[CPT], cv[CPT];
   vec_regs<CPT>(W1 + (size_t)d * d, d, lane, w1x);
   vec_regs<CPT>(W1 + (size_t)(d + 1) * d, d, lane, w1t);
   vec_regs<CPT>(cvec + (size_t)k * d, d, lane, cv);
-  float* base = smem;
-  if constexpr (STAGE) {
-    float* s_w1 = smem;
-    float* s_w2 = smem + (size_t)d * ld;
-    for (int e = tid; e < d * d; e += n_threads) {
-      const int i = e / d, j = e - i * d;
-      s_w1[i * ld + j] = W1[e];
-      s_w2[i * ld + j] = W2[e];
-    }
-    W1 = s_w1;
-    W2 = s_w2;
-    base = smem + 2 * (size_t)d * ld;
-  }
-  float* gacc = base;             // P
-  float* s_hp = gacc + P;         // post-reset h
-  float* s_pre = s_hp + TD;
-  float* s_hid = s_pre + TD;
-  float* s_gdh = s_hid + TD;
-  float* s_gpre = s_gdh + TD;
-  float* s_gh = s_gpre + TD;      // the carry's h-cotangent
-  float* s_t = s_gh + TD;
-  float* s_x = s_t + kBwdTile;
-  float* s_sc = scale == kIdentity ? s_hp : s_x + kBwdTile;
-  int* s_reset = reinterpret_cast<int*>(s_x + kBwdTile + (scale == kIdentity ? 0 : TD));
-  int* s_read = s_reset + kBwdTile * N;
-  for (int e = tid; e < P; e += n_threads) gacc[e] = 0.0f;
-  for (int e = tid; e < TD; e += n_threads) s_gh[e] = 0.0f;
-  for (int e = tid; e < kBwdTile * N; e += n_threads) {
-    const int b = row0 + e / N;
-    s_reset[e] = b < B ? reset_cell[(size_t)row0 * N + e] : -2;
-    s_read[e] = b < B ? read_cell[(size_t)row0 * N + e] : -2;
-  }
+  const int* my_reset = s_reset + grp * N;
+  const int* my_read = s_read + grp * N;
+  const int S = N - 1;
+  // each record by one warp of the group
+  const bool w_hid = wg == 0, w_gp = wg == 1 % wpt, w_gdh = wg == 2 % wpt;
 
-  const int r_w = warp * RPW;
-  float* my_hp = s_hp + r_w * d;
-  float* my_sc = s_sc + r_w * d;
-  float* my_pre = s_pre + r_w * d;
-  float* my_hid = s_hid + r_w * d;
-  float* my_gdh = s_gdh + r_w * d;
-  float* my_gpre = s_gpre + r_w * d;
-  float* my_gh = s_gh + r_w * d;
-  bool valid[RPW];
+  // the carry's cotangent; at g = M only the reads of the final carry.  A
+  // cell's residual (hn, tn, xn) is loaded one cell ahead, so that its
+  // latency overlaps the cell before.
+  float gh[CPT], hn[CPT], tn = 0.0f, xn = 0.0f;
 #pragma unroll
-  for (int q = 0; q < RPW; ++q) valid[q] = row0 + r_w + q < B;
-  __syncthreads();
-  // the final carry's cotangent: the pre-jump states read at cell M
+  for (int c = 0; c < CPT; ++c) gh[c] = hn[c] = 0.0f;
+  for (int g = M; g >= 0; --g) {
+    float hv[CPT];
+    const float tq = tn, xq = xn;
 #pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    if (!valid[q]) continue;
-    const int b = row0 + r_w + q;
-    for_slots_at(s_read + (r_w + q) * N, N, 1, M, lane, [&](int s) {
-      const float* src = ct_hm + (((size_t)k * B + b) * S + s - 1) * d;
-      for (int j = lane; j < d; j += kWarp) my_gh[q * d + j] += src[j];
-    });
-  }
-  float acc[RPW][CPT];
-
-  for (int g = M - 1; g >= 0; --g) {
-    // ---- row phase: this warp's rows
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      const int b = row0 + r_w + q;
-      const float* src = res_h + (((size_t)k * M + g) * B + (valid[q] ? b : 0)) * d;
-      for (int j = lane; j < d; j += kWarp) {
-        const float hv = valid[q] ? src[j] : 0.0f;
-        my_hp[q * d + j] = hv;
-        if (scale != kIdentity) my_sc[q * d + j] = scale_in(hv, scale);
-      }
-      if (lane == 0) {
-        s_t[r_w + q] = valid[q] ? res_t[(size_t)g * B + b] : 0.0f;
-        s_x[r_w + q] = valid[q] ? res_x[(size_t)g * B + b] : 0.0f;
-      }
-    }
-    __syncwarp();
-    rows_mm<CPT, RPW, false, (STAGE ? kLoadPlain : kLoadNc)>(my_sc, d, RPW, W1, ld, d, lane, acc);
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      const float tq = s_t[r_w + q], xq = s_x[r_w + q];
+    for (int c = 0; c < CPT; ++c) hv[c] = hn[c];
+    if (g > 0) {
+      const size_t rn = ((size_t)k * M + g - 1) * B + b;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
+        hn[c] = j < d ? res_h[rn * d + j] : 0.0f;
+      }
+      tn = res_t[(size_t)(g - 1) * B + b];
+      xn = res_x[(size_t)(g - 1) * B + b];
+    }
+    if (g < M) {
+      const size_t rr = ((size_t)k * M + g) * B + b;  // the cell's record row
+      float v[CPT], pre[CPT], acc[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) v[c] = scl(hv[c]);
+      group_mm<CPT, false, false>(v, sW1, ld, d, lane, gr, acc);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        pre[c] = acc[c] + xq * w1x[c] + tq * w1t[c] + cv[c];
+        v[c] = dt * gh[c];  // gdh
         if (j < d) {
-          const float pre = acc[q][c] + xq * w1x[c] + tq * w1t[c] + cv[c];
-          my_pre[q * d + j] = pre;
-          my_hid[q * d + j] = activate(pre, act);
-          my_gdh[q * d + j] = dt * my_gh[q * d + j];
+          if (w_hid) rec_hid[rr * d + j] = actf(pre[c]);
+          if (w_gdh) rec_gdh[rr * d + j] = v[c];
         }
       }
-    }
-    __syncwarp();
-    rows_mm<CPT, RPW, true, (STAGE ? kLoadPlain : kLoadNc)>(my_gdh, d, RPW, W2, ld, d, lane, acc);
-#pragma unroll
-    for (int q = 0; q < RPW; ++q)
+      group_mm<CPT, true, false>(v, sW2, ld, d, lane, gr, acc);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
-        if (j < d) my_gpre[q * d + j] = acc[q][c] * act_grad(my_pre[q * d + j], act);
+        v[c] = acc[c] * actg(pre[c]);  // gp
+        if (j < d && w_gp) rec_gp[rr * d + j] = v[c];
       }
-    __syncwarp();
-    rows_mm<CPT, RPW, true, (STAGE ? kLoadPlain : kLoadNc)>(my_gpre, d, RPW, W1, ld, d, lane, acc);
+      group_mm<CPT, true, false>(v, sW1, ld, d, lane, gr, acc);
 #pragma unroll
-    for (int q = 0; q < RPW; ++q)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        if (j < d)
-          my_gh[q * d + j] += acc[q][c] * scale_grad(my_hp[q * d + j], scale);
-      }
-    // resets: the post-reset cotangent goes to the jump state; the carry
-    // before the reset gets only the reads of this cell
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      if (!valid[q]) continue;
-      const int b = row0 + r_w + q;
+      for (int c = 0; c < CPT; ++c) gh[c] += acc[c] * sclg(hv[c]);
+      // resets: the post-reset cotangent goes to the jump state; the carry
+      // before the reset gets only the reads of this cell
       bool has = false;
-      for_slots_at(s_reset + (r_w + q) * N, N, 0, g, lane, [&](int s) {
+      for_slots_at(my_reset, N, 0, g, lane, [&](int s) {
         has = true;
+        if (wg != 0) return;
         float* dst = ct_hj + (((size_t)k * B + b) * N + s) * d;
-        for (int j = lane; j < d; j += kWarp) dst[j] = my_gh[q * d + j];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int j = lane + kWarp * c;
+          if (j < d) dst[j] = gh[c];
+        }
       });
-      if (has)
-        for (int j = lane; j < d; j += kWarp) my_gh[q * d + j] = 0.0f;
-      for_slots_at(s_read + (r_w + q) * N, N, 1, g, lane, [&](int s) {
-        const float* src = ct_hm + (((size_t)k * B + b) * S + s - 1) * d;
-        for (int j = lane; j < d; j += kWarp) my_gh[q * d + j] += src[j];
-      });
+      if (has) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) gh[c] = 0.0f;
+      }
     }
-    __syncthreads();
-    // ---- block phase: the weight sums of this cell, every entry by its
-    // owner (outer_acc, col_acc), rows in order
-    outer_acc<CPT, kBwdTile>(s_sc, s_gpre, n_rows, d, gacc, warp, kWarps, lane);
-    outer_acc<CPT, kBwdTile>(s_hid, s_gdh, n_rows, d, gacc + d * d, warp, kWarps, lane);
-    if (warp == 0)
-      col_acc<CPT, kBwdTile>(s_x, s_gpre, n_rows, d, gacc + 2 * d * d, lane);
-    else if (warp == 1)
-      col_acc<CPT, kBwdTile>(s_t, s_gpre, n_rows, d, gacc + 2 * d * d + d, lane);
-    else if (warp == 2)
-      col_acc<CPT, kBwdTile>(nullptr, s_gpre, n_rows, d, gacc + 2 * d * d + 2 * d, lane);
-    else
-      col_acc<CPT, kBwdTile>(nullptr, s_gdh, n_rows, d, gacc + 2 * d * d + 3 * d, lane);
-    __syncthreads();
+    for_slots_at(my_read, N, 1, g, lane, [&](int s) {
+      const float* src = ct_hm + (((size_t)k * B + b) * S + s - 1) * d;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        if (j < d) gh[c] += src[j];
+      }
+    });
   }
-  float* out = partial + ((size_t)blockIdx.x * K + k) * P;
-  for (int e = tid; e < P; e += n_threads) out[e] = gacc[e];
 }
 
-// sums the tiles' partials in tile order: out[e] = sum_t partial[t][e]
+// The weight sums of the backward over one chunk of a network's M B record
+// rows, in row order.  Grid (chunks, K, 2): job 0 sums [s(h), x, t, 1]^T gp
+// (d + 3 rows a: dW1h, dw1x, dw1t, dcvec), job 1 [hid, 1]^T gdh (d + 1
+// rows: dW2, db2).  kDwRows rows at a time are staged in shared memory
+// (the A rows padded to lda floats, the G rows to ldg); thread t owns the
+// output tile a in [4 ta, 4 ta + 4), c in [8 tb, 8 tb + 8), read as float4.
+__global__ void __launch_bounds__(kDwMaxThreads, 1)
+walk_dw_kernel(const float* __restrict__ res_h, const float* __restrict__ res_t,
+               const float* __restrict__ res_x, const float* __restrict__ rec_hid,
+               const float* __restrict__ rec_gp, const float* __restrict__ rec_gdh,
+               float* __restrict__ partial, int B, int d, int M, int chunk_rows,
+               int scale) {
+  extern __shared__ float4 smem4[];
+  float* sA = reinterpret_cast<float*>(smem4);
+  const int job = blockIdx.z, k = blockIdx.y, K = gridDim.y, ch = blockIdx.x;
+  const int lda = (d + 3 + 3) / 4 * 4, ldg = (d + 7) / 8 * 8;
+  float* sG = sA + kDwRows * lda;
+  const int na = job == 0 ? d + 3 : d + 1;
+  const int ntb = (d + kTB - 1) / kTB;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ta = tid / ntb, tb = tid - ta * ntb;
+  const bool owner = ta * kTA < na;
+  const long long MB = (long long)M * B;
+  const long long r_lo = (long long)ch * chunk_rows;
+  const long long r_hi = min(MB, r_lo + chunk_rows);
+  const float* A = (job == 0 ? res_h : rec_hid) + (size_t)k * MB * d;
+  const float* G = (job == 0 ? rec_gp : rec_gdh) + (size_t)k * MB * d;
+  float acc[kTA][kTB];
+#pragma unroll
+  for (int i = 0; i < kTA; ++i)
+#pragma unroll
+    for (int j = 0; j < kTB; ++j) acc[i][j] = 0.0f;
+  for (long long r0 = r_lo; r0 < r_hi; r0 += kDwRows) {
+    const int nr = (int)min((long long)kDwRows, r_hi - r0);
+    __syncthreads();  // the last tile is consumed
+    for (int e = tid; e < kDwRows * lda; e += nt) {
+      const int rr = e / lda, a = e - rr * lda;
+      float v = 0.0f;
+      if (rr < nr) {
+        const long long r = r0 + rr;  // = g B + b, the residuals' index too
+        if (a < d) {
+          v = A[(size_t)r * d + a];
+          if (job == 0) v = scale_in(v, scale);
+        } else if (a == d) {
+          v = job == 0 ? res_x[r] : 1.0f;
+        } else if (job == 0 && a == d + 1) {
+          v = res_t[r];
+        } else if (job == 0 && a == d + 2) {
+          v = 1.0f;
+        }
+      }
+      sA[e] = v;
+    }
+    for (int e = tid; e < kDwRows * ldg; e += nt) {
+      const int rr = e / ldg, c = e - rr * ldg;
+      sG[e] = rr < nr && c < d ? G[(size_t)(r0 + rr) * d + c] : 0.0f;
+    }
+    __syncthreads();
+    if (owner) {
+#pragma unroll 4
+      for (int rr = 0; rr < nr; ++rr) {
+        const float4 av = *reinterpret_cast<const float4*>(sA + rr * lda + kTA * ta);
+        const float4 g0 = *reinterpret_cast<const float4*>(sG + rr * ldg + kTB * tb);
+        const float4 g1 = *reinterpret_cast<const float4*>(sG + rr * ldg + kTB * tb + 4);
+        const float a4[kTA] = {av.x, av.y, av.z, av.w};
+        const float g8[kTB] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int i = 0; i < kTA; ++i)
+#pragma unroll
+          for (int j = 0; j < kTB; ++j) acc[i][j] = fmaf(a4[i], g8[j], acc[i][j]);
+      }
+    }
+  }
+  if (!owner) return;
+  const int dd = d * d;
+  float* out = partial + ((size_t)ch * K + k) * grad_floats(d);
+#pragma unroll
+  for (int i = 0; i < kTA; ++i) {
+    const int a = kTA * ta + i;
+    if (a >= na) break;
+    int off;
+    if (a < d) off = (job == 0 ? 0 : dd) + a * d;
+    else if (job == 1) off = 2 * dd + 3 * d;  // db2
+    else off = 2 * dd + (a - d) * d;          // dw1x, dw1t, dcvec
+#pragma unroll
+    for (int j = 0; j < kTB; ++j) {
+      const int c = kTB * tb + j;
+      if (c < d) out[off + c] = acc[i][j];
+    }
+  }
+}
+
+// sums the chunks' partials in chunk order: out[e] = sum_t partial[t][e]
 __global__ void walk_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ out, int tiles, int n) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -399,12 +485,19 @@ size_t fwd_rows_bytes(int d, int N, int scale) {
          sizeof(float);
 }
 
-size_t bwd_rows_bytes(int d, int N, int scale) {
-  return ((size_t)grad_floats(d) + (scale == kIdentity ? 6 : 7) * (size_t)kBwdTile * d +
-          2 * kBwdTile + 2 * (size_t)kBwdTile * N) * sizeof(float);
+size_t stage_bytes(int d) { return 2 * (size_t)d * (d | 1) * sizeof(float); }
+
+// the backward walk's shared bytes (walk_bwd_plan in ops/walk_scan.py)
+size_t bwd_smem_bytes(int d, int N, int wpt, int warps) {
+  const size_t HP = d <= 64 ? 64 : 128, rpb = warps / wpt;
+  return (2 * HP * (HP + 1) + rpb * 2 * wpt * HP + 2 * rpb * (size_t)N) * sizeof(float);
 }
 
-size_t stage_bytes(int d) { return 2 * (size_t)d * (d | 1) * sizeof(float); }
+// the sums' threads: one a 4 x 8 output tile of job 0, in whole warps
+int dw_threads(int d) {
+  const int tiles = (d + 3 + kTA - 1) / kTA * ((d + kTB - 1) / kTB);
+  return (tiles + kWarp - 1) / kWarp * kWarp;
+}
 
 }  // namespace
 
@@ -470,62 +563,74 @@ extern "C" int njode_walk_fwd(const void* hj, const void* xs, const void* ts,
   return (int)cudaGetLastError();
 }
 
-// Floats of the backward's partial buffer: tiles x K x (2 d^2 + 4 d).
-extern "C" long long njode_walk_partial_floats(int K, int B, int d) {
-  return (long long)((B + kBwdTile - 1) / kBwdTile) * K * grad_floats(d);
-}
-
-// The backward walk.  ct_hj must be zeroed by the caller (slots that never
-// reset get no cotangent); grads (K, 2 d^2 + 4 d) receives the summed weight
-// cotangents [dW1h, dW2, dw1x, dw1t, dcvec, db2]; partial is scratch of
-// njode_walk_partial_floats floats.  Two launches on `stream`.
-extern "C" int njode_walk_bwd(const void* ct_hm, const void* res_h,
-                              const void* res_t, const void* res_x,
-                              const void* reset_cell, const void* read_cell,
-                              const void* w1, const void* cvec, const void* w2,
-                              void* ct_hj, void* partial, void* grads, int K,
-                              int B, int N, int d, int M, float dt, int act,
-                              int scale, void* stream) {
-  if (K < 1 || K > 65535 || B < 1 || N < 2 || d < 1 || d > 128 || M < 0 ||
-      act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid)
+// The backward walk, the weight sums and their chunk-order sum: three
+// launches on `stream`.  ct_hj must be zeroed by the caller (slots that
+// never reset get no cotangent); records is scratch of 3 K M B d floats,
+// partial of chunks K (2 d^2 + 4 d), chunks = ceil(M B / chunk_rows);
+// grads (K, 2 d^2 + 4 d) receives [dW1h, dW2, dw1x, dw1t, dcvec, db2].
+// plan = [wpt, warps, chunk_rows] (walk_bwd_plan in ops/walk_scan.py),
+// smem_bytes the walk's shared bytes.  Returns the CUDA error (0 on success).
+extern "C" int njode_walk_bwd(const void* ct_hm, const void* res_h, const void* res_t,
+                              const void* res_x, const void* reset_cell,
+                              const void* read_cell, const void* w1, const void* cvec,
+                              const void* w2, void* ct_hj, void* records, void* partial,
+                              void* grads, int K, int B, int N, int d, int M, float dt,
+                              int act, int scale, const int* plan, long long smem_bytes,
+                              void* stream) {
+  const int wpt = plan[0], warps = plan[1], chunk_rows = plan[2];
+  if (K < 1 || K > 65535 || B < 1 || N < 2 || d < 1 || d > 128 || M < 0 || act < 0 ||
+      act > kSelu || scale < 0 || scale > kScaleSigmoid ||
+      (wpt != 1 && wpt != 2 && wpt != 4) || warps < wpt || warps > kBwdMaxWarps ||
+      warps % wpt != 0 || chunk_rows < kDwRows || chunk_rows % kDwRows != 0)
     return (int)cudaErrorInvalidValue;
   int max_smem = 0;
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
-  const size_t rows_b = bwd_rows_bytes(d, N, scale);
-  const bool stage = rows_b + stage_bytes(d) <= (size_t)max_smem;
-  const size_t smem = rows_b + (stage ? stage_bytes(d) : 0);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const int tiles = (B + kBwdTile - 1) / kBwdTile;
-  const dim3 grid(tiles, K), block(kWarp, kWarps);
+  if ((size_t)smem_bytes < bwd_smem_bytes(d, N, wpt, warps) || smem_bytes > max_smem)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_bytes;
+  const int rpb = warps / wpt;
+  const dim3 grid((B + rpb - 1) / rpb, K), block(kWarp, warps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *f_ct = static_cast<const float*>(ct_hm), *f_rh = static_cast<const float*>(res_h),
               *f_rt = static_cast<const float*>(res_t), *f_rx = static_cast<const float*>(res_x),
               *f_w1 = static_cast<const float*>(w1), *f_cv = static_cast<const float*>(cvec),
               *f_w2 = static_cast<const float*>(w2);
   const int *i_rs = static_cast<const int*>(reset_cell), *i_rd = static_cast<const int*>(read_cell);
-  float *f_cj = static_cast<float*>(ct_hj), *f_pt = static_cast<float*>(partial);
+  float* f_cj = static_cast<float*>(ct_hj);
+  const size_t rec = (size_t)K * M * B * d;
+  float* f_hid = static_cast<float*>(records);
+  float *f_gp = f_hid + rec, *f_gdh = f_hid + 2 * rec;
+  float* f_pt = static_cast<float*>(partial);
   cudaError_t e = cudaSuccess;
-#define NJODE_WALK_BWD(STG)                                                          \
-  {                                                                                  \
-    auto kern = walk_bwd_kernel<C, STG>;                                             \
-    e = set_smem(kern, smem);                                                        \
-    if (e == cudaSuccess)                                                            \
-      kern<<<grid, block, smem, s>>>(f_ct, f_rh, f_rt, f_rx, i_rs, i_rd, f_w1, f_cv, \
-                                     f_w2, f_cj, f_pt, B, N, d, M, dt, act, scale);  \
+  const bool ri = act == kRelu && scale == kIdentity;
+#define NJODE_WALK_BWD(C, RI)                                                             \
+  {                                                                                       \
+    auto kern = walk_bwd_kernel<C, RI>;                                                   \
+    e = set_smem(kern, smem);                                                             \
+    if (e == cudaSuccess)                                                                 \
+      kern<<<grid, block, smem, s>>>(f_ct, f_rh, f_rt, f_rx, i_rs, i_rd, f_w1, f_cv, f_w2, \
+                                     f_cj, f_hid, f_gp, f_gdh, B, N, d, M, dt, act, scale, \
+                                     wpt);                                                \
   }
-  const int cpt = cpt_of(d);
-  if (stage) {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_BWD(true))
+  if (d <= 64) {
+    if (ri) NJODE_WALK_BWD(2, true) else NJODE_WALK_BWD(2, false)
   } else {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_BWD(false))
+    if (ri) NJODE_WALK_BWD(4, true) else NJODE_WALK_BWD(4, false)
   }
 #undef NJODE_WALK_BWD
   if (e != cudaSuccess) return (int)e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long MB = (long long)M * B;
+  const int chunks = (int)((MB + chunk_rows - 1) / chunk_rows);
+  if (chunks > 0) {
+    const size_t dw_smem = (size_t)kDwRows * ((d + 6) / 4 * 4 + (d + 7) / 8 * 8) * sizeof(float);
+    walk_dw_kernel<<<dim3(chunks, K, 2), dw_threads(d), dw_smem, s>>>(
+        f_rh, f_rt, f_rx, f_hid, f_gp, f_gdh, f_pt, B, d, M, chunk_rows, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
   const int n = K * grad_floats(d);
-  walk_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(f_pt, static_cast<float*>(grads), tiles, n);
+  walk_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(f_pt, static_cast<float*>(grads), chunks, n);
   return (int)cudaGetLastError();
 }
 

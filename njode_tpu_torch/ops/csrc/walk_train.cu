@@ -205,9 +205,6 @@ __host__ __device__ __forceinline__ Lay layout(const Dims& d) {
   return l;
 }
 
-// rows of a weight plane: 32 a lane's column
-__host__ __device__ __forceinline__ int plane_rows(int H) { return H <= 64 ? 64 : 128; }
-
 // the block's shared memory: W1h, W2, J2 and (four) O1, each in a plane
 // (part_mm), a gradient tile a warp and two partial products a warp
 __host__ __device__ __forceinline__ size_t smem_floats(int H, int warps, bool four) {
@@ -242,87 +239,6 @@ __device__ __forceinline__ void slots_at(const float* row, int N, int s_lo, int 
       f(s0 + bit);
     }
   }
-}
-
-// The weight planes in shared memory: an H x H matrix held (in, out) in a
-// plane of HP x (HP + 1) floats, HP = 32 CPT, zero past H in both
-// dimensions, so that every lane's columns and every 16-row block of the
-// input read real zeros and no product loop has a branch inside a block.
-
-// A trajectory's warps (its group, WPT of them) split each product of the
-// walk by input rows: a warp sums rows [r_lo, r_hi) (multiples of 16) of
-//   TRANS false: acc[c] = sum_i v[i] W[i][j],   TRANS true: sum_i v[i] W[j][i]
-// for j = lane + 32 c, the vector held a lane's CPT entries at a time
-// (entry j = lane + 32 c in v[c]; every warp of the group holds all of it).
-// The vector's entries come by shuffles, 16 at a time, with the plane's
-// entries of those rows from shared memory: an unrolled block with no
-// branch, so the loads run ahead of the multiply-adds.  Two accumulators a
-// column, even and odd i.  BF rounds the vector's entries (the plane is
-// rounded where staged).
-template <int CPT, bool TRANS, bool BF>
-__device__ __forceinline__ void part_mm(const float (&v)[CPT], const float* __restrict__ W,
-                                        int ld, int H, int lane, int r_lo, int r_hi,
-                                        float (&acc)[CPT]) {
-  float a0[CPT], a1[CPT], vm[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    a0[c] = a1[c] = 0.0f;
-    vm[c] = lane + kWarp * c < H ? operand<BF>(v[c]) : 0.0f;  // entries past H add 0
-  }
-#pragma unroll 1
-  for (int rb = r_lo; rb < r_hi; rb += 16) {
-    const int cc = rb / kWarp, s0 = rb % kWarp;
-    float src = vm[0];
-#pragma unroll
-    for (int t = 1; t < CPT; ++t)
-      if (cc == t) src = vm[t];
-    const float* Wb = TRANS ? W + rb : W + rb * ld;
-#pragma unroll
-    for (int s = 0; s < 16; s += 2) {
-      const float x0 = __shfl_sync(0xffffffffu, src, s0 + s);
-      const float x1 = __shfl_sync(0xffffffffu, src, s0 + s + 1);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        a0[c] = fmaf(x0, TRANS ? Wb[j * ld + s] : Wb[s * ld + j], a0[c]);
-        a1[c] = fmaf(x1, TRANS ? Wb[j * ld + s + 1] : Wb[(s + 1) * ld + j], a1[c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = a0[c] + a1[c];
-}
-
-// a barrier of the nt threads of named barrier id (a trajectory's group)
-__device__ __forceinline__ void group_sync(int id, int nt) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nt) : "memory");
-}
-
-// A trajectory's group of warps and the shared-memory rows in which their
-// partial products meet: two buffers used in turn, so one barrier a product.
-struct Group {
-  int wpt, wg, bar_id, bar_n, r_lo, r_hi, par;
-  float* part;  // 2 x wpt x (32 CPT) floats
-};
-
-// The group's product: this warp's rows, then the group's partial sums
-// added in warp order, the same order in every warp of the group.
-template <int CPT, bool TRANS, bool BF>
-__device__ __forceinline__ void group_mm(const float (&v)[CPT], const float* W, int ld, int H,
-                                         int lane, Group& gr, float (&acc)[CPT]) {
-  part_mm<CPT, TRANS, BF>(v, W, ld, H, lane, gr.r_lo, gr.r_hi, acc);
-  if (gr.wpt == 1) return;
-  float* pb = gr.part + gr.par * gr.wpt * (kWarp * CPT);
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) pb[(gr.wg * CPT + c) * kWarp + lane] = acc[c];
-  group_sync(gr.bar_id, gr.bar_n);
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    float s = pb[c * kWarp + lane];
-    for (int w = 1; w < gr.wpt; ++w) s += pb[(w * CPT + c) * kWarp + lane];
-    acc[c] = s;
-  }
-  gr.par ^= 1;
 }
 
 // A matrix of ncols columns in device memory stored in tiles of 32 rows

@@ -9,16 +9,19 @@ query row.
 
 Kernel: ``csrc/gap_scan.cu`` (``njode_gap_scan_fwd``), which replaces the
 TPU kernel ``njode_tpu/ops/gap_scan.py:_fwd_kernel_lean`` (primal only, no
-residuals).  It runs the whole full-step loop per row tile on chip; the
-hoisted ``base`` and the final partial step stay in PyTorch around it, as the
-JAX package leaves them to XLA.  On the H100 the loop is bound by the two
-(d_h x d_h) f32 products per substep (4 d_h^2 flops per row and substep);
-device memory is touched once per gap.  The design keeps h, the hidden
-activations and ``base`` in shared memory and t in registers for the whole
-loop, stages the weights in shared memory when they fit, shares each weight
-load across 4 rows, and lets each warp leave the loop once none of its rows
-still moves, so a batch of short gaps pays for few substeps.  See the source
-for the layout.
+residuals).  It runs the whole full-step loop on chip; the hoisted ``base``
+and the final partial step stay in PyTorch around it, as the JAX package
+leaves them to XLA.  On the H100 the loop is bound by the two (d_h x d_h)
+f32 products per substep (4 d_h^2 flops per row and substep) and by how the
+rows, whose substep counts differ widely within a request, are spread over
+warps and SMs.  The design: one wave of blocks, each owning a strided sample
+of the rows, which it sorts by their substep count (longest first) before its
+warps take groups of rows of about equal length, the longest rows one a
+row group; each warp computes a register micro-tile of TR rows x TC columns
+per lane over 32-bit broadcast loads of the weights (staged in shared
+memory where they fit) and of the rows.  The launch plan is
+:func:`gap_plan`, which mirrors the source's shared-memory layout.  See the
+source for the rest.
 
 Feature split (exact algebra of the ODEFunc concat, reference
 models/jump_ode.py:52-63; W1 rows are [h, x, t_rel, t_elapsed]):
@@ -82,6 +85,102 @@ LAUNCHES_BWD = {"full": 0, "checkpointed": 0}
 CK = 8
 # the training kernels' widest state (csrc/gap_train.cu: 4 columns a lane)
 MAX_HIDDEN = 128
+
+
+# row 1's launch plan (csrc/gap_scan.cu): columns a lane TC from GAP_TCS,
+# GAP_WARPS warps a block, a pass of the block's sort holding GAP_MAX_PASS
+# rows in GAP_BINS length classes; past GAP_WIDE columns, chunks of 256 (TC
+# 8 x 32 lanes).  The weights are staged in shared memory while their two
+# planes take at most GAP_STAGE_BYTES; then GAP_TR_STAGED rows a row group
+# and the rows of at least 2 / 4 of the pass's longest count one a row group,
+# else GAP_TR_UNSTAGED and no long tier (each weight load through L1 serves
+# more rows).  The H100 A/B behind them: PERF.md section 6.
+GAP_TCS = (1, 2, 4, 5, 8)
+GAP_TR_STAGED, GAP_TR_UNSTAGED = 2, 4
+GAP_WARPS = 8
+GAP_MAX_PASS, GAP_BINS = 2048, 128
+GAP_WIDE = 256
+GAP_STAGE_BYTES = 64 * 1024
+SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
+
+
+class GapPlan(NamedTuple):
+    """Row 1's launch plan: TC columns a lane (lane l of a row group owns
+    columns l, l + L, ...), TR rows a row group (set by the staging), L
+    lanes a row group, G row groups a warp, warps a block, the row buffers'
+    stride ldx and the staged planes' row length ldw = L TC (floats),
+    whether the weights are staged (and the longest rows then run one a row
+    group), whether the columns run in 256-wide chunks, and the shared
+    bytes."""
+    tc: int
+    tr: int
+    lanes: int
+    groups: int
+    warps: int
+    ldx: int
+    ldw: int
+    stage: bool
+    wide: bool
+    smem: int
+
+    def ints(self) -> list[int]:
+        """The plan as njode_gap_scan_fwd takes it (TR follows stage)."""
+        return [self.tc, self.lanes, self.groups, self.warps, self.ldx,
+                self.ldw, int(self.stage), int(self.wide)]
+
+
+def _gap_smem_bytes(d_h: int, groups: int, tr: int, warps: int, ldx: int,
+                    ldw: int, stage: bool, scale_name: str) -> int:
+    """csrc/gap_scan.cu's ``smem_bytes_of``: each warp's h, hid (and, unless
+    identity scaling, s(h)) rows, the block's sort (keys, order, bins, the
+    group counter), and the staged weight planes (d_h rows of ldw)."""
+    nbuf = 2 if scale_name == "identity" else 3
+    rows = warps * nbuf * groups * tr * ldx
+    sort = 2 * GAP_MAX_PASS + GAP_BINS + 4
+    planes = 2 * d_h * ldw if stage else 0
+    return 4 * (rows + sort + planes)
+
+
+@functools.lru_cache(maxsize=None)
+def gap_plan(d_h: int, scale_name: str = "identity") -> GapPlan | None:
+    """Row 1's launch plan for width d_h, or None where no block fits the
+    shared memory.  TC is the one of ``GAP_TCS`` that leaves the fewest
+    lanes idle (G = 32 // ceil(d_h / TC) row groups a warp), the smaller on
+    a tie; past ``GAP_WIDE`` columns, TC 8 over all 32 lanes in chunks.  TR
+    follows the staging (``GAP_TR_STAGED``, ``GAP_TR_UNSTAGED``).  Warps
+    halve from ``GAP_WARPS`` until the block fits."""
+    d_h = int(d_h)
+    if d_h < 1:
+        return None
+    wide = d_h > GAP_WIDE
+    if wide:
+        tc, lanes, groups = 8, 32, 1
+    else:
+        best = None
+        for tc in GAP_TCS:
+            lanes = -(-d_h // tc)
+            if lanes > 32:
+                continue
+            groups = 32 // lanes
+            eff = groups * d_h / (32 * tc)
+            if best is None or eff > best[0]:
+                best = (eff, tc, lanes, groups)
+        _, tc, lanes, groups = best
+    ldx = -(-d_h // 4) * 4
+    ldw = lanes * tc
+    stage = not wide and 2 * 4 * d_h * ldw <= GAP_STAGE_BYTES
+    tr = GAP_TR_STAGED if stage else GAP_TR_UNSTAGED
+    warps = GAP_WARPS
+
+    def need(w):
+        return _gap_smem_bytes(d_h, groups, tr, w, ldx, ldw, stage,
+                               scale_name)
+    while warps > 1 and need(warps) > SMEM_BYTES:
+        warps //= 2
+    if need(warps) > SMEM_BYTES:
+        return None
+    return GapPlan(tc, tr, lanes, groups, warps, ldx, ldw, stage, wide,
+                   need(warps))
 
 
 def use_remat(n_sub: int) -> bool:
@@ -206,7 +305,9 @@ def _load_kernel():
     lib = load("gap_scan")
     fn = lib.njode_gap_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -224,6 +325,12 @@ def _load_train_kernel():
     lib.njode_gap_train_bwd.argtypes = [P] * 15 + [I] * 3 + [F] + [I] * 5 + [P]
     lib.njode_gap_train_bwd.restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(plan: GapPlan):
+    """The plan as the C array njode_gap_scan_fwd reads (one a plan)."""
+    return (ctypes.c_int * 8)(*plan.ints())
 
 
 def _check_cuda_inputs(named: dict[str, torch.Tensor],
@@ -290,6 +397,9 @@ def gap_substeps(h, base, t_last, t_target, w1h, w1t, w2, b2,
                                       w2, b2, dt, n_sub, act_name, scale_name)
     device = _check_call(tensors, act_name, scale_name, "gap_substeps")
     K, R, d_h = h.shape
+    plan = gap_plan(d_h, scale_name)
+    if plan is None:
+        raise ValueError(f"gap_substeps: no launch plan fits d_h {d_h}")
     lib, fn = _load_kernel()
     h_out = torch.empty_like(h)
     t_out = torch.empty_like(t_last)
@@ -299,6 +409,7 @@ def gap_substeps(h, base, t_last, t_target, w1h, w1t, w2, b2,
                  w2.data_ptr(), b2.data_ptr(), h_out.data_ptr(),
                  t_out.data_ptr(), K, R, d_h, float(dt), int(n_sub),
                  SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
+                 _plan_arg(plan), plan.smem,
                  _stream(device))
     from ._build import check
     check(lib, err, "njode_gap_scan_fwd launch")

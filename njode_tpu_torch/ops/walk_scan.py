@@ -13,7 +13,12 @@ Kernels: ``csrc/walk_scan.cu``, ``njode_walk_fwd`` (replaces the TPU kernel
 ``:226`` ``_bwd_kernel``), joined by :class:`WalkScan`, a
 ``torch.autograd.Function``.  The TPU lane layout (``[h, t, x, 1]`` in 128
 lanes, row pairs, per-cell DMA streams) is not copied: the kernels take
-logical shapes.  See the source for the design.
+logical shapes.  The backward walks each row on a group of warps that split
+every product (the walk-train kernel's design), writes at every cell the
+records the weight cotangents are sums over, and sums them afterwards as
+long-k products in a fixed order; :func:`walk_bwd_plan` is its launch plan,
+:func:`walk_forward_reference` and :func:`walk_backward_reference` the plain
+versions of that data flow.  See the source for the design.
 
 Semantics, as the JAX kernel's (``walk_scan.py:467-559``): the walk's
 t_elapsed feature is the constant dt, folded into the cell-invariant bias
@@ -34,11 +39,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .activations import _ACT, _SCALE, SCALINGS, SUPPORTED_ACTS
+from .activations import (_ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD,
+                          SCALINGS, SUPPORTED_ACTS)
 
 # launches of the forward and backward kernels in this process; callers may
 # reset them to 0
@@ -46,6 +52,64 @@ LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 # the kernels' widest hidden size (4 columns per lane)
 MAX_HIDDEN = 128
+SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
+# row 8's launch plan (csrc/walk_scan.cu): a row's warps by the walk's rows
+# (B K): 4 up to BWD_WPT_ROWS[0], 2 up to BWD_WPT_ROWS[1], else 1; at most
+# BWD_MAX_WARPS warps a block; the weight sums over chunks of at least
+# DW_MIN_CHUNK record rows, at most DW_MAX_CHUNKS chunks a network
+BWD_WPT_ROWS = (512, 1024)
+BWD_MAX_WARPS = 8
+DW_MIN_CHUNK, DW_MAX_CHUNKS = 128, 256
+
+
+class WalkBwdPlan(NamedTuple):
+    """Row 8's launch plan: warps a row (its group), warps a block, the
+    record rows of a chunk of the weight sums and their chunks, and the
+    walk's shared bytes."""
+    wpt: int
+    warps: int
+    chunk_rows: int
+    chunks: int
+    smem: int
+
+    def ints(self) -> list[int]:
+        """The plan as njode_walk_bwd takes it."""
+        return [self.wpt, self.warps, self.chunk_rows]
+
+
+def _bwd_smem_bytes(d: int, N: int, wpt: int, warps: int) -> int:
+    """csrc/walk_scan.cu's ``bwd_smem_bytes``: the W1h and W2 planes (HP x
+    (HP + 1), HP 64 or 128), each row's two partial-product buffers of its
+    group, each row's reset and read cells."""
+    hp, rpb = (64 if d <= 64 else 128), warps // wpt
+    return 4 * (2 * hp * (hp + 1) + rpb * 2 * wpt * hp + 2 * rpb * N)
+
+
+@functools.lru_cache(maxsize=None)
+def walk_bwd_plan(d: int, B: int, N: int, M: int,
+                  K: int = 1) -> Optional[WalkBwdPlan]:
+    """Row 8's launch plan, or None where the shapes do not fit.  A row's
+    warps follow the walk's rows B K (``BWD_WPT_ROWS``), so that the card
+    holds several warps a scheduler; warps a block halve from
+    ``BWD_MAX_WARPS`` until the block fits the shared memory; the M B
+    record rows of a network are summed in chunks of a multiple of 32
+    rows."""
+    d, B, N, M, K = int(d), int(B), int(N), int(M), int(K)
+    if not (1 <= d <= MAX_HIDDEN and B >= 1 and N >= 2 and M >= 0
+            and K >= 1):
+        return None
+    rows = B * K
+    wpt = 4 if rows <= BWD_WPT_ROWS[0] else 2 if rows <= BWD_WPT_ROWS[1] else 1
+    warps = BWD_MAX_WARPS
+    while warps > wpt and _bwd_smem_bytes(d, N, wpt, warps) > SMEM_BYTES:
+        warps //= 2
+    smem = _bwd_smem_bytes(d, N, wpt, warps)
+    if smem > SMEM_BYTES:
+        return None
+    mb = M * B
+    per_chunk = -(-mb // DW_MAX_CHUNKS)
+    chunk_rows = max(DW_MIN_CHUNK, -(-per_chunk // 32) * 32)
+    return WalkBwdPlan(wpt, warps, chunk_rows, -(-mb // chunk_rows), smem)
 
 
 def walk_scan_available(n_hidden_layers: int, activation: str,
@@ -141,6 +205,144 @@ def walk_gaps_reference(h_jump, x_scaled, times, mask, g_idx,
     return h_minus.reshape(K, B * (N - 1), d)
 
 
+def _walk_split(w1_io, d):
+    return w1_io[:, :d], w1_io[:, d], w1_io[:, d + 1]
+
+
+def walk_forward_reference(hj, xs, ts, reset, read, w1_io, cvec, w2_io, b2,
+                           dt: float, M: int, act_name: str,
+                           scale_name: str):
+    """Plain PyTorch version of the forward kernel (row 7) with its
+    residuals, on the kernel's own arguments: hj (K, B, N, d); xs, ts (B,
+    N) (x scaled); reset, read (B, N) int32 (:func:`slot_cells`); w1_io (K,
+    d+3, d), cvec (K, d), w2_io (K, d, d), b2 (K, d) as
+    :func:`split_walk_weights` returns them.  Returns (h_minus (K, B, N-1,
+    d), res_h (K, M, B, d), res_t (M, B), res_x (M, B)): the post-reset
+    carry of every cell."""
+    act, scale = _ACT[act_name], _SCALE[scale_name]
+    d = hj.shape[-1]
+    w1h, w1x, w1t = _walk_split(w1_io, d)
+    res = []
+
+    def euler(h, x, t):
+        res.append((h, t, x))
+        pre = (torch.matmul(scale(h), w1h) + x[None, :, None] * w1x[:, None]
+               + t[None, :, None] * w1t[:, None] + cvec[:, None])
+        return h + dt * (torch.matmul(act(pre), w2_io) + b2[:, None])
+
+    h_minus = walk_cells(hj, xs[..., None], ts, reset, read, M, dt,
+                         lambda h, x, t: euler(h, x[:, 0], t))
+    K, B = hj.shape[:2]
+    if not res:
+        empty = hj.new_zeros(0, B)
+        return h_minus, hj.new_zeros(K, 0, B, d), empty, empty
+    return (h_minus, torch.stack([r[0] for r in res], 1),
+            torch.stack([r[1] for r in res]), torch.stack([r[2] for r in res]))
+
+
+def walk_backward_reference(ct_hm, res_h, res_t, res_x, reset, read, w1_io,
+                            cvec, w2_io, dt: float, act_name: str,
+                            scale_name: str, chunk_rows: Optional[int] = None):
+    """Plain PyTorch version of the backward (row 8) with the kernel's data
+    flow: the cells in reverse, each recomputing pre from its residual and
+    writing the records hid = act(pre), gp (the pre-activation's cotangent)
+    and gdh = dt x the carry's cotangent; the carry's cotangent at a reset
+    goes to its jump slot, the reads of a cell are added slot by slot.  Then
+    the weight sums as long-k products over the M B record rows of each
+    network, [s(h), x, t, 1]^T gp and [hid, 1]^T gdh, each chunk of
+    ``chunk_rows`` rows (:func:`walk_bwd_plan`'s by default) summed alone
+    and the chunks added in order.  ct_hm (K, B, N-1, d); the rest as
+    :func:`walk_forward_reference` returns or takes them.  Returns (ct_hj
+    (K, B, N, d), grads (K, 2 d^2 + 4 d) = [dW1h, dW2, dw1x, dw1t, dcvec,
+    db2], each matrix (in, out))."""
+    act, dact = _ACT[act_name], _ACT_GRAD[act_name]
+    scale, dscale = _SCALE[scale_name], _SCALE_GRAD[scale_name]
+    K, M, B, d = res_h.shape
+    N = reset.shape[1]
+    w1h, w1x, w1t = _walk_split(w1_io, d)
+    gh = ct_hm.new_zeros(K, B, d)
+    ct_hj = ct_hm.new_zeros(K, B, N, d)
+
+    def add_reads(gh, g):
+        for s in range(1, N):
+            hit = (read[:, s] == g)[None, :, None]
+            gh = gh + torch.where(hit, ct_hm[:, :, s - 1], 0.0)
+        return gh
+    gh = add_reads(gh, M)
+    hid, gp, gdh = [None] * M, [None] * M, [None] * M
+    for g in reversed(range(M)):
+        h, t, x = res_h[:, g], res_t[g], res_x[g]
+        pre = (torch.matmul(scale(h), w1h) + x[None, :, None] * w1x[:, None]
+               + t[None, :, None] * w1t[:, None] + cvec[:, None])
+        hid[g], gdh[g] = act(pre), dt * gh
+        gp[g] = torch.matmul(gdh[g], w2_io.transpose(1, 2)) * dact(pre)
+        gh = gh + torch.matmul(gp[g], w1h.transpose(1, 2)) * dscale(h)
+        hits = reset == g                                  # (B, N)
+        for s in range(N):
+            ct_hj[:, hits[:, s], s] = gh[:, hits[:, s]]
+        gh = torch.where(hits.any(1)[None, :, None], 0.0, gh)
+        gh = add_reads(gh, g)
+    mb = M * B
+    if chunk_rows is None:
+        chunk_rows = walk_bwd_plan(d, B, N, M, K).chunk_rows
+    out = []
+    if M:
+        ones = res_h.new_ones(K, M, B, 1)
+        col = (lambda v: v[None, ..., None].expand(K, M, B, 1))
+        a0 = torch.cat([scale(res_h), col(res_x), col(res_t), ones], -1)
+        a1 = torch.cat([torch.stack(hid, 1), ones], -1)
+        for a, gm in ((a0, torch.stack(gp, 1)), (a1, torch.stack(gdh, 1))):
+            a, gm = a.reshape(K, mb, -1), gm.reshape(K, mb, d)
+            total = None
+            for c0 in range(0, mb, chunk_rows):
+                part = torch.matmul(a[:, c0:c0 + chunk_rows].transpose(1, 2),
+                                    gm[:, c0:c0 + chunk_rows])
+                total = part if total is None else total + part
+            out.append(total)
+    else:
+        out = [res_h.new_zeros(K, d + 3, d), res_h.new_zeros(K, d + 1, d)]
+    s1, s2 = out
+    grads = torch.cat([s1[:, :d].reshape(K, d * d),
+                       s2[:, :d].reshape(K, d * d),
+                       s1[:, d], s1[:, d + 1], s1[:, d + 2], s2[:, d]], -1)
+    return ct_hj, grads
+
+
+def weight_cotangents(grads, d: int, dt: float):
+    """The ODEFunc weights' cotangents, torch orientation, from the
+    backward's sums (K, 2 d^2 + 4 d): W1's t_elapsed column gets dt times
+    the cotangent of cvec, b1 that cotangent.  Returns (dW1, db1, dW2,
+    db2)."""
+    K, dd = grads.shape[0], d * d
+    d_w1h = grads[:, :dd].reshape(K, d, d)
+    d_w2 = grads[:, dd:2 * dd].reshape(K, d, d)
+    d_w1x, d_w1t, d_cvec, d_b2 = grads[:, 2 * dd:].reshape(K, 4, d).unbind(1)
+    d_w1 = torch.cat([d_w1h, d_w1x[:, None], d_w1t[:, None],
+                      (dt * d_cvec)[:, None]], dim=1)     # (in, out)
+    return d_w1.transpose(1, 2), d_cvec, d_w2.transpose(1, 2), d_b2
+
+
+def walk_vjp_reference(h_jump, x_scaled, times, mask, g_idx,
+                       weights: Sequence[torch.Tensor], dt_ode_step: float,
+                       n_cells: int, act_name: str, scale_name: str, ct):
+    """The kernel pair's plain versions end to end: h_minus (K, B*(N-1), d)
+    as :func:`walk_gaps_fused` returns it, and the cotangents [h_jump, W1,
+    b1, W2, b2] of ``ct`` (K, B*(N-1), d) through
+    :func:`walk_backward_reference`."""
+    K, B, N, d = h_jump.shape
+    dt, M = float(dt_ode_step), int(n_cells)
+    reset, read = slot_cells(mask, g_idx, M)
+    w1_io, cvec, w2_io, b2 = split_walk_weights(weights, dt)
+    h_minus, res_h, res_t, res_x = walk_forward_reference(
+        h_jump, x_scaled[..., 0], times, reset, read, w1_io, cvec, w2_io, b2,
+        dt, M, act_name, scale_name)
+    ct_hj, grads = walk_backward_reference(
+        ct.reshape(K, B, N - 1, d), res_h, res_t, res_x, reset, read, w1_io,
+        cvec, w2_io, dt, act_name, scale_name)
+    return (h_minus.reshape(K, B * (N - 1), d),
+            [ct_hj, *weight_cotangents(grads, d, dt)])
+
+
 # --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
@@ -153,10 +355,9 @@ def _load_kernel():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.njode_walk_fwd.argtypes = [P] * 13 + [I] * 5 + [F] + [I] * 2 + [P]
     lib.njode_walk_fwd.restype = I
-    lib.njode_walk_bwd.argtypes = [P] * 12 + [I] * 5 + [F] + [I] * 2 + [P]
+    lib.njode_walk_bwd.argtypes = ([P] * 13 + [I] * 5 + [F] + [I] * 2
+                                   + [ctypes.POINTER(I), ctypes.c_longlong, P])
     lib.njode_walk_bwd.restype = I
-    lib.njode_walk_partial_floats.argtypes = [I] * 3
-    lib.njode_walk_partial_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -215,30 +416,31 @@ class WalkScan(torch.autograd.Function):
         dev = ct_hm.device
         ct_hm = ct_hm.contiguous()
         ct_hj = torch.zeros(K, B, N, d, dtype=torch.float32, device=dev)
+        plan = walk_bwd_plan(d, B, N, M, K)
+        if plan is None:
+            raise ValueError(f"WalkScan: no backward plan fits d_h {d}, "
+                             f"{N} slots")
         lib = _load_kernel()
-        partial = torch.empty(int(lib.njode_walk_partial_floats(K, B, d)),
-                              dtype=torch.float32, device=dev)
-        grads = torch.empty(K, 2 * d * d + 4 * d, dtype=torch.float32,
-                            device=dev)
+        P = 2 * d * d + 4 * d
+        records = torch.empty(3 * K * M * B * d, dtype=torch.float32,
+                              device=dev)
+        partial = torch.empty(plan.chunks * K * P, dtype=torch.float32,
+                              device=dev)
+        grads = torch.empty(K, P, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             err = lib.njode_walk_bwd(
                 ct_hm.data_ptr(), res_h.data_ptr(), res_t.data_ptr(),
                 res_x.data_ptr(), reset.data_ptr(), read.data_ptr(),
                 w1_io.data_ptr(), cvec.data_ptr(), w2_io.data_ptr(),
-                ct_hj.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-                K, B, N, d, M, dt, SUPPORTED_ACTS.index(act_name),
-                SCALINGS.index(scale_name), _stream(dev))
+                ct_hj.data_ptr(), records.data_ptr(), partial.data_ptr(),
+                grads.data_ptr(), K, B, N, d, M, dt,
+                SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
+                (ctypes.c_int * 3)(*plan.ints()), plan.smem, _stream(dev))
         from ._build import check
         check(lib, err, "njode_walk_bwd launch")
         LAUNCHES_BWD += 1
-        dd = d * d
-        d_w1h = grads[:, :dd].reshape(K, d, d)
-        d_w2 = grads[:, dd:2 * dd].reshape(K, d, d)
-        d_w1x, d_w1t, d_cvec, d_b2 = grads[:, 2 * dd:].reshape(K, 4, d).unbind(1)
-        d_w1 = torch.cat([d_w1h, d_w1x[:, None], d_w1t[:, None],
-                          (dt * d_cvec)[:, None]], dim=1)     # (in, out)
-        return (ct_hj, d_w1.transpose(1, 2), d_cvec, d_w2.transpose(1, 2),
-                d_b2, None, None, None, None, None, None, None, None)
+        return (ct_hj, *weight_cotangents(grads, d, dt),
+                None, None, None, None, None, None, None, None)
 
 
 def walk_gaps_fused(h_jump, x_scaled, times, mask, g_idx,

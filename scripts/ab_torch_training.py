@@ -1,7 +1,9 @@
-"""A/B runs of the training kernels (rows 9-13) on one CUDA card.
+"""A/B runs of the kernels (rows 1, 7-13) on one CUDA card.
 
+    python scripts/ab_torch_training.py gap [--root DIR]
+    python scripts/ab_torch_training.py walkscan [--root DIR]
     python scripts/ab_torch_training.py epoch [--root DIR] [--launch]
-    python scripts/ab_torch_training.py walk [--root DIR]
+    python scripts/ab_torch_training.py walk [--root DIR] [--bf16]
     python scripts/ab_torch_training.py step [--root DIR]
     python scripts/ab_torch_training.py recipe [--root DIR]
     python scripts/ab_torch_training.py steps K,H,METHOD,ACT,BATCH,G [--root DIR]
@@ -16,7 +18,9 @@ call of ``fused_walk_train_run`` (row 13) at the production recipe's shape
 (H 50, shared, N 10, M 100, 40 steps of 256, the last minibatch 16 rows
 valid), timed the same way and checked normwise (losses, params, m and v
 each within 1e-3 of its norm; chip_smoke.py's phase 13 holds 8 steps
-entrywise, an epoch call here is 40).  ``step``: one call each of the
+entrywise, an epoch call here is 40); ``--bf16`` runs row 13b, the same call
+with ``mxu_dtype="bfloat16"`` against its plain version with the same
+rounding points.  ``step``: one call each of the
 fused-step kernels, rows 9 and 10 (f32) and 9b and 10b (bf16), at the
 scaled recipe's shape (H 256, N 2, two networks, L 1, relu/identity,
 4,096 rows), timed the same way, each checked against its plain version
@@ -28,6 +32,22 @@ loss against the closed-form moments.  ``--seed S`` sets the model's and
 the data's seed of ``recipe`` (default 0 and 1); ``--plain`` runs the
 kernel's plain version in its place (the same recipe in another summation
 order).
+
+``gap``: row 1 (``gap_substeps``, the serving path's kernel) at the
+``predict_at`` shape of chip_smoke.py (the production model, 1,000 streams x 21
+queries, 21,000 rows, d_h 50), at the filter's (256 rows, gap 0.02) and at d_h
+256 (21,000 rows, random gaps), CUDA events around the wrapper, median of 30
+after 5 of warm-up, three times each, every result checked against the plain
+version (h_L at rtol 1e-4 / atol 1e-5, t_L bitwise); then ``predict_at``
+itself, and the launches of one ``predict_at`` and one filter ``predict``: the
+gap kernel's and all device launches (kernels and copies, torch.profiler).
+``walkscan``: rows 7 and 8 (the grid walk's forward with residuals and its
+backward through autograd) at the composed production step's shape (256 rows,
+H 50, M 100, N 10), K_h 1 and 2, timed the same way and checked against the
+plain version (the forward at rtol 1e-4 / atol 1e-5, every cotangent within
+1e-3 of its norm), then each kernel's device time a forward and backward
+(torch.profiler, 5 calls), and the forward kernel's device time over 5
+forward calls alone (no backward between them).
 
 ``steps``: one case of chip_smoke.py's ``train_kernel_phase`` (its weights
 and data; the activation's scaling from ``ACT_PAIRS``), run for 1, 2, ...,
@@ -154,11 +174,15 @@ def mode_walk(dev: torch.device) -> None:
     n_rows = -(-cs.PROD_TRAIN // cs.PROD_BS) * cs.PROD_BS
     data = cs.train_data(dev, n_rows, cs.PROD_BS, 51, n_valid=cs.PROD_TRAIN)
     kw = cs.walk_train_kwargs(2, "direct", "euler", cs.PROD_BS)
+    if "--bf16" in ARGS:
+        kw["mxu_dtype"] = "bfloat16"
     state = wt.init_walk_state(cs.walk_model(dev, seed=0))
     ms, err = epoch_ms(state, data, kw, kernel=wt.fused_walk_train_run,
                        plain=wt.fused_walk_train_run_reference)
-    print(f"[{ROOT}] walk-train epoch call ({n_rows // cs.PROD_BS} steps of "
-          f"{cs.PROD_BS}, H {cs.PROD_H}, M {cs.PROD_M}) ms "
+    row = "13b" if "--bf16" in ARGS else "13"
+    print(f"[{ROOT}] walk-train (row {row}) epoch call "
+          f"({n_rows // cs.PROD_BS} steps of {cs.PROD_BS}, H {cs.PROD_H}, M "
+          f"{cs.PROD_M}) ms "
           f"{[round(x, 4) for x in ms]}; max abs err vs plain {err:.2e}",
           flush=True)
 
@@ -188,6 +212,125 @@ def mode_step(dev: torch.device) -> None:
               f"backward ms {[round(x, 4) for x in b_ms]}; vs plain: forward "
               f"max abs err {float((y_k - y_p).abs().max()):.2e}, backward "
               f"largest error/norm {rel:.2e}", flush=True)
+
+
+def mode_gap(dev: torch.device) -> None:
+    from njode_tpu_torch import NJODEFilter
+    from njode_tpu_torch.ops import gap_scan
+    t0 = time.perf_counter()
+    gap_scan._load_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    model = cs.production_model(dev)
+    request = cs.batch_request(dev)
+    obs_t, obs_v, query, mask = request
+    ts, xs = cs.stream_ticks()
+    xs = xs.to(dev)
+    filt = NJODEFilter(model)
+    state = filt.update(filt.init_state(xs.shape[1]), ts[-1], xs[-1])
+    shapes = (
+        ("predict_at (21,000 rows, d_h 50)",
+         cs.gap_rows(model, obs_t, obs_v, query, mask)),
+        ("filter (256 rows, gap 0.02)",
+         cs.gap_rows(model, state.t_last[:, None], xs[-1][:, None],
+                     state.t_last[:, None] + 0.02)),
+        ("d_h 256 (21,000 rows, random gaps)",
+         cs.substep_args(cs.gap_case(torch.Generator().manual_seed(4), 1,
+                                     query.numel(), 256, 1, cs.N_SUB, dev),
+                         cs.N_SUB, "relu", "identity")))
+    for name, args in shapes:
+        with torch.no_grad():
+            h_k, t_k = gap_scan.gap_substeps(*args)
+            h_p, t_p = gap_scan.gap_substeps_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(t_k, t_p):
+                raise AssertionError(f"t_L differs at {name}")
+            err = cs.assert_close(h_k, h_p, f"h_L at {name}")
+            ms = [cs.time_ms(lambda: gap_scan.gap_substeps(*args))
+                  for _ in range(3)]
+        print(f"[{ROOT}] row 1 at {name}: ms {[round(x, 4) for x in ms]}; "
+              f"max abs err vs plain {err:.2e}", flush=True)
+    pa = [cs.time_ms(lambda: model.predict_at(obs_t, obs_v, query, mask))
+          for _ in range(3)]
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for call in (lambda: model.predict_at(obs_t, obs_v, query, mask),
+                 lambda: filt.predict(state, ts[-1] + 0.02)):
+        gap_scan.LAUNCHES = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        counts.append((gap_scan.LAUNCHES, sum(
+            e.device_type == cuda for e in prof.events())))
+    print(f"[{ROOT}] predict_at (21,000 queries) ms "
+          f"{[round(x, 4) for x in pa]}; launches a call (gap kernel / all "
+          f"device launches): predict_at {counts[0][0]} / {counts[0][1]}, "
+          f"filter predict {counts[1][0]} / {counts[1][1]}", flush=True)
+
+
+def mode_walkscan(dev: torch.device) -> None:
+    from njode_tpu_torch.ops import walk_scan
+    t0 = time.perf_counter()
+    walk_scan._load_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    for K in (1, 2):
+        c = cs.walk_case(torch.Generator().manual_seed(62 + K), K, cs.PROD_BS,
+                         cs.PROD_H, dev)
+        hj = c["hj"].detach().requires_grad_()
+        w = [x.detach().requires_grad_() for x in c["w"]]
+        g_idx = torch.round(c["times"] / cs.PROD_DT).long()
+
+        def fwd(fn):
+            return fn(hj, c["x"], c["times"], c["mask"], g_idx, w, cs.PROD_DT,
+                      cs.PROD_M, "relu", "identity")
+        out = fwd(walk_scan.walk_gaps_fused)
+        ours = [out.detach()] + list(torch.autograd.grad(
+            out, [hj, *w], c["ct"], retain_graph=True))
+        ref_out = fwd(walk_scan.walk_gaps_reference)
+        ref = [ref_out.detach()] + list(torch.autograd.grad(
+            ref_out, [hj, *w], c["ct"]))
+        torch.cuda.synchronize()
+        err_f = cs.assert_close(ours[0], ref[0], f"h_minus at K {K}")
+        err_b = max(cs.assert_close_norm(a, b, f"d{n} at K {K}")
+                    for n, a, b in zip(("h_jump", "W1", "b1", "W2", "b2"),
+                                       ours[1:], ref[1:]))
+        f_ms = [cs.time_ms(lambda: fwd(walk_scan.walk_gaps_fused))
+                for _ in range(3)]
+        b_ms = [cs.time_ms(lambda: torch.autograd.grad(
+            out, [hj, *w], c["ct"], retain_graph=True)) for _ in range(3)]
+        from torch.profiler import ProfilerActivity, profile
+        import re
+
+        def device_ms(step):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+            by_kernel = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    nm = e.name.replace("(anonymous namespace)::", "")
+                    m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", nm)
+                    name = m.group(1) if m else (nm or "?")
+                    by_kernel[name] = (by_kernel.get(name, 0.0)
+                                       + e.time_range.elapsed_us() / 5e3)
+            return by_kernel
+
+        def fwd_bwd():
+            fwd(walk_scan.walk_gaps_fused)
+            torch.autograd.grad(out, [hj, *w], c["ct"], retain_graph=True)
+        by_kernel = device_ms(fwd_bwd)
+        fwd_alone = device_ms(lambda: fwd(walk_scan.walk_gaps_fused))
+        print(f"[{ROOT}] rows 7-8 at {cs.PROD_BS} rows, H {cs.PROD_H}, K_h "
+              f"{K}: forward ms {[round(x, 4) for x in f_ms]}, backward ms "
+              f"{[round(x, 4) for x in b_ms]}; vs plain: forward max abs err "
+              f"{err_f:.2e}, backward max abs err {err_b:.2e}; device ms a "
+              f"forward + backward by kernel (profiler): " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in sorted(by_kernel.items(),
+                                                    key=lambda x: -x[1]))
+              + f"; the forward alone (5 calls, no backward between): "
+              f"walk_fwd_kernel {fwd_alone.get('walk_fwd_kernel', 0.0):.4f}",
+              flush=True)
 
 
 def mode_recipe(dev: torch.device) -> None:
@@ -282,7 +425,11 @@ def main() -> None:
         raise SystemExit("ab_torch_training: no CUDA device")
     dev, _ = cs.device_phase()
     mode = ARGS[0] if ARGS else ""
-    if mode == "epoch":
+    if mode == "gap":
+        mode_gap(dev)
+    elif mode == "walkscan":
+        mode_walkscan(dev)
+    elif mode == "epoch":
         mode_epoch(dev)
     elif mode == "walk":
         mode_walk(dev)

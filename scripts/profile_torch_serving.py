@@ -4,8 +4,10 @@ Runs the chip_smoke.py workloads of the production model (hidden 50, shared,
 two moments, dt_ode_step 0.01): one batched predict_at of 1,000 streams x 21
 queries, and NJODEFilter ticks (update + predict) on 256 streams.  For each
 it prints the host wall time per call, the device time summed over kernels
-(torch.profiler), the device's idle share of the wall time, and the ops that
-take the most device and host time.  Chrome traces go to chiprun_out/.
+(torch.profiler), the device's idle share of the wall time, the device
+launches (kernels and copies) and the gap kernel's (row 1) launches per
+call, row 1's own device time per call, and the ops that take the most
+device and host time.  Chrome traces go to chiprun_out/.
 
     PYTHONPATH=. python scripts/profile_torch_serving.py
 """
@@ -23,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from njode_tpu_torch import NJODEFilter  # noqa: E402
+from njode_tpu_torch.ops import gap_scan  # noqa: E402
 
 N_CALLS = 20
 
@@ -38,6 +41,7 @@ def report(name: str, fn, card: str, out_dir: str) -> None:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
+    gap_scan.LAUNCHES = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -46,9 +50,16 @@ def report(name: str, fn, card: str, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = device_us(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    row1 = sum(e.time_range.elapsed_us() for e in events
+               if "gap_scan_fwd_kernel" in e.name)
     print(f"{name} on {card}: wall {wall_us / N_CALLS:.1f} us/call "
           f"(profiled), device {dev / N_CALLS:.1f} us/call, device idle "
-          f"{100.0 * (1.0 - dev / wall_us):.1f}%", flush=True)
+          f"{100.0 * (1.0 - dev / wall_us):.1f}%; device launches "
+          f"{len(events) / N_CALLS:.1f}/call, gap-kernel (row 1) launches "
+          f"{gap_scan.LAUNCHES / N_CALLS:.1f}/call, row 1 device time "
+          f"{row1 / N_CALLS:.1f} us/call", flush=True)
     sort = ("self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total")
         else "self_cuda_time_total")

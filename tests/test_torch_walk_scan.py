@@ -6,6 +6,13 @@ and of the ODEFunc weights.  On the CPU the wrapper runs the plain version;
 the CUDA kernels (``ops/csrc/walk_scan.cu``) are held against it on the card
 by ``chip_smoke.py``.
 
+The kernels' own data flow has explicit plain versions too: the forward
+with its residuals and the backward that writes the records (hid, gp, gdh)
+at every cell and then sums the weight cotangents as A^T G over the record
+rows in the kernel's chunk order (``walk_forward_reference``,
+``walk_backward_reference``); they are held against the JAX package's VJP
+and against autograd through ``walk_gaps_reference``.
+
 Inputs come from numpy with a seed: times on the grid {g * 0.05}, M = 20
 cells, a ragged mask, and a slot at t = T (cell M, which reads the final
 carry).  Tolerance rtol 1e-5 / atol 1e-6: the TPU kernel sums the t, x and
@@ -97,6 +104,59 @@ def test_walk_matches_jax_kernel(K, act, scale, d):
                                    atol=1e-6 * max(1.0, np.abs(b).max()))
     # padded slots get no jump cotangent; the endpoint slot reads the final
     # carry and never resets
+    hj_grad = grads[0]
+    assert np.all(hj_grad[:, 2, 3:] == 0) and np.all(hj_grad[:, 3, 4:] == 0)
+    assert np.all(hj_grad[:, 1, -1] == 0)
+
+
+def records_side(case, act, scale, chunk_rows=None):
+    """The plain forward with residuals and the plain backward of the
+    kernels' data flow (records, then chunked sums)."""
+    times, x, mask, hj, weights, ct = case
+    K, _, _, d = hj.shape
+    tt = torch.tensor(times)
+    g = torch.round(tt / DT).to(torch.int64)
+    sc = {"identity": lambda v: v, "tanh": torch.tanh}[scale]
+    reset, read = walk_scan.slot_cells(torch.tensor(mask), g, M)
+    w1_io, cvec, w2_io, b2 = walk_scan.split_walk_weights(
+        [torch.tensor(w) for w in weights], DT)
+    h_minus, res_h, res_t, res_x = walk_scan.walk_forward_reference(
+        torch.tensor(hj), sc(torch.tensor(x))[..., 0], tt, reset, read,
+        w1_io, cvec, w2_io, b2, DT, M, act, scale)
+    ct_hj, grads = walk_scan.walk_backward_reference(
+        torch.tensor(ct).reshape(K, B, N - 1, d), res_h, res_t, res_x, reset,
+        read, w1_io, cvec, w2_io, DT, act, scale, chunk_rows)
+    assert res_h.shape == (K, M, B, d) and res_t.shape == res_x.shape == (M, B)
+    return (h_minus.reshape(K, B * (N - 1), d).numpy(),
+            [g_.numpy() for g_ in (ct_hj, *walk_scan.weight_cotangents(
+                grads, d, DT))])
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 32])
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("act,scale,d", [("relu", "identity", 12),
+                                         ("tanh", "tanh", 12),
+                                         ("selu", "identity", 70)])
+def test_plain_records_backward_matches_jax_and_autograd(K, act, scale, d,
+                                                         chunk_rows):
+    """Row 8's data flow in plain PyTorch (the records of every cell, the
+    weight sums over the M B record rows in chunks of 32 or of the launch
+    plan's size, the chunks added in order) against the JAX package's VJP
+    (Pallas interpret mode) and autograd through walk_gaps_reference, at
+    the existing test's tolerance; padded slots and the endpoint slot get
+    no jump cotangent."""
+    case = make_case(K, d, seed=K * d + 1)
+    ref, ref_grads = jax_side(case, act, scale)
+    auto, auto_grads = port_side(case, act, scale)
+    out, grads = records_side(case, act, scale, chunk_rows)
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, auto, **TOL)
+    for name, a, b, c in zip(("h_jump", "W1", "b1", "W2", "b2"), grads,
+                             ref_grads, auto_grads):
+        for other in (b, c):
+            np.testing.assert_allclose(
+                a, other, err_msg=name, rtol=1e-5,
+                atol=1e-6 * max(1.0, np.abs(other).max()))
     hj_grad = grads[0]
     assert np.all(hj_grad[:, 2, 3:] == 0) and np.all(hj_grad[:, 3, 4:] == 0)
     assert np.all(hj_grad[:, 1, -1] == 0)
