@@ -55,7 +55,7 @@ uncaught exception and a nonzero exit:
    200; val MSE of the trained model against the closed-form moments
    (bench.py:435-455).
 11. build: the walk sources' ptxas summaries (built in 2); walk_scan.cu's
-   registers by kernel instance, failing on any spill.
+   registers by kernel instance, failing on any spill (rows 7 and 8).
 12. walk kernels vs plain: walk_gaps_fused (forward, and its backward
    through autograd) against walk_gaps_reference, d_h in (12, 50, 125) x
    rows in (16, 256, 2000) x K_h in (1, 2) x three activation/scaling
@@ -65,7 +65,9 @@ uncaught exception and a nonzero exit:
    50) at K_h 1 and 2, and 384 rows at K_h 2 (2 warps a row), against
    walk_vjp_reference (the plain pair of the kernels' data flow: residuals,
    the backward's records, the weight sums in chunk order) at the same
-   tolerances, and two calls bitwise equal.
+   tolerances, and two calls bitwise equal; the forward alone at 512, 513,
+   1,024 and 1,025 rows (K_h 1), where walk_fwd_plan's warps a row switch
+   from 4 to 2 to 1, at the forward's tolerance, two calls bitwise equal.
 13. walk-train kernel vs plain: fused_walk_train_run against its plain
    version, 8 steps at the production shape (H 50, N 10, batch 256,
    M 100), then K x euler/heun/rk4 x direct/second_moment at batch 64,
@@ -132,7 +134,9 @@ uncaught exception and a nonzero exit:
    and partials beside);
    val MSE against the closed-form moments.
 
-20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2).
+20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2);
+   gap_train.cu's registers by kernel instance, failing on any spill of
+   the backward (rows 4-5).
 21. gap training kernels vs plain: rows 2-5 (njode_gap_train_fwd at
    residual stride 1 and 8, njode_gap_train_bwd) against
    gap_train_forward_reference / gap_train_backward_reference, n_sub in
@@ -141,7 +145,13 @@ uncaught exception and a nonzero exit:
    h_L and the stored states at rtol 1e-4 / atol 1e-5, t_L and the stored
    t bitwise, every backward output and every cotangent through autograd
    (integrate_gap_fused against integrate_gap_reference) within 1e-3 of
-   its norm, two backward calls bitwise equal; then row 6 (njode_fused_cell)
+   its norm, each backward output also within 1e-3 of its norm of the
+   plain pair of the backward's data flow (gap_bwd_records_reference: the
+   substep counts, whose t sequence must be the forward's t_L bitwise, the
+   longest-first order, records by segment, chunked sums), two backward
+   calls bitwise equal; then row 5's scheduling at n_sub 100: a long gap
+   amid short ones, counts straddling the long threshold, 18,000 rows at
+   d_h 128 and K_h 2 (the step buffer's largest case); then row 6 (njode_fused_cell)
    against fused_cell_reference at the forced default path's shapes, the
    production width and a ragged wide one: out and pre at rtol 1e-4 / atol
    1e-5, the Function's gradients within 1e-3 of their norm.
@@ -1269,8 +1279,17 @@ def walk_run(c: dict, act: str, scale: str, fn, grad: bool = True):
 
 
 GRAD_RTOL = 1e-3
-# row 8's kernels (csrc/walk_scan.cu), held to 0 spill bytes by phase 11
-WALK_BWD_KERNELS = ("walk_bwd_kernel", "walk_dw_kernel", "walk_reduce_kernel")
+# rows 4-5 against the plain pair of their own data flow
+# (gap_bwd_records_reference: the kernel's counts, order, records and sum
+# order), each output's error/norm: the pair forms each product in another
+# order, so a relu or selu kink within rounding of zero can turn the other
+# way (readings on the H100 up to 2.6e-5 over gap_train_kernel_phase's cases)
+RECORDS_RTOL = 1e-4
+# rows 7 and 8's kernels (csrc/walk_scan.cu), held to 0 spill bytes by phase
+# 11, and row 4-5's (csrc/gap_train.cu) by phase 20
+WALK_KERNELS = ("walk_fwd_kernel", "walk_bwd_kernel", "walk_dw_kernel",
+                "walk_reduce_kernel")
+GAP_BWD_KERNELS = ("gap_bwd_kernel",)
 
 
 def assert_close_norm(a, b, what: str, rtol: float = GRAD_RTOL) -> float:
@@ -1346,15 +1365,37 @@ def walk_kernel_phase(dev: torch.device) -> tuple[float, float]:
         plans.append(tuple(walk_scan.walk_bwd_plan(PROD_H, B, PROD_N,
                                                    PROD_M, K)))
         n += 1
+    # row 7 where walk_fwd_plan's warps a row switch (512 / 513 and 1,024 /
+    # 1,025 walk rows), the forward alone against the plain version, and two
+    # forward calls bitwise equal
+    switch = []
+    for B in (512, 513, 1024, 1025):
+        c = walk_case(gen, 1, B, PROD_H, dev)
+        ours = walk_run(c, "relu", "identity", walk_scan.walk_gaps_fused,
+                        grad=False)
+        again = walk_run(c, "relu", "identity", walk_scan.walk_gaps_fused,
+                         grad=False)
+        ref = walk_run(c, "relu", "identity", walk_scan.walk_gaps_reference,
+                       grad=False)
+        torch.cuda.synchronize()
+        worst_f = max(worst_f, assert_close(
+            ours[0], ref[0], f"walk h_minus at {B} rows (row 7's plan)"))
+        if not torch.equal(ours[0], again[0]):
+            raise AssertionError(f"row 7 at {B} rows: two calls differ")
+        switch.append((B, walk_scan.walk_fwd_plan(PROD_H, B, PROD_N, PROD_M,
+                                                  1).wpt))
+        n += 1
     print(f"walk kernels vs plain: {n} cases (d_h in (12, 50, 125) x rows in "
           f"(16, 256, 2000) x K_h in (1, 2) x relu/identity, tanh/tanh, "
           f"selu/identity; M={PROD_M}, N={PROD_N}, ragged rows and slots at "
           f"t=T; then the production shape at K_h 1 and 2, and 384 rows at "
-          f"K_h 2, against the plain pair of the records' data flow): "
+          f"K_h 2, against the plain pair of the records' data flow; the "
+          f"forward alone at 512, 513, 1,024 and 1,025 rows, K_h 1, where "
+          f"row 7's warps a row switch: {switch}): "
           f"forward max abs err "
           f"{worst_f:.3e} (rtol {RTOL} / atol {ATOL}); backward (h_jump, W1, "
           f"b1, W2, b2) max abs err {worst_b:.3e} (each within {GRAD_RTOL} "
-          f"of its norm); two calls bitwise equal at those three shapes; "
+          f"of its norm); two calls bitwise equal at those seven shapes; "
           f"backward plans (warps a row, warps a block, rows a chunk, "
           f"chunks, shared bytes) {plans}", flush=True)
     return worst_f, worst_b
@@ -2399,9 +2440,15 @@ def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
     """Rows 2-5 (the residual stride of n_sub) against their plain versions
     on one input: h_L and the stored states at rtol 1e-4 / atol 1e-5, t_L
     and the stored t bitwise; each backward output (gh0, the three row
-    sums, dW1h, dW2), from the cotangent ct, within GRAD_RTOL of its norm,
-    and two backward calls bitwise equal.  Returns the forward's and the
-    backward's max abs err and the backward's largest error/norm."""
+    sums, dW1h, dW2), from the cotangent ct, within GRAD_RTOL of its norm
+    against the reverse loop's plain version and within RECORDS_RTOL of it
+    against the plain pair of the kernel's own data flow
+    (gap_bwd_records_reference on the kernel's residuals: counts by the
+    float sequence, the longest-first order, records by segment, chunked
+    sums in the kernel's order), and two backward calls bitwise equal; the
+    counts' t sequence bitwise the forward's t_L.  Returns the forward's
+    and the backward's max abs err, the backward's largest error/norm
+    against the reverse loop and against the records' plain pair."""
     tail = (dt, n_sub, gap_scan.residual_stride(n_sub), act, scale)
     bargs = (ct, args[1], args[3], *args[4:])
     with torch.no_grad():
@@ -2411,8 +2458,11 @@ def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
         bk2 = gap_scan._launch_train_bwd(*bargs, fk[2], fk[3], *tail)
         bp = gap_scan.gap_train_backward_reference(*bargs, fp[2], fp[3],
                                                    *tail)
+        bq = gap_scan.gap_bwd_records_reference(*bargs, fk[2], fk[3], *tail)
+        _, t_count = gap_scan.gap_substep_counts(args[2], args[3], dt, n_sub)
     torch.cuda.synchronize()
-    for a, b, what in ((fk[1], fp[1], "t_L"), (fk[3], fp[3], "stored t")):
+    for a, b, what in ((fk[1], fp[1], "t_L"), (fk[3], fp[3], "stored t"),
+                       (t_count, fk[1], "the counts' t sequence")):
         if not torch.equal(a, b):
             raise AssertionError(f"{what} not bitwise equal at {where}")
     f_err = max(assert_close(a, b, f"gap training forward {what} at {where}")
@@ -2428,7 +2478,56 @@ def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
             a, b, f"gap backward {what} at {where}"))
         rel = max(rel, float((a - b).double().norm()
                              / b.double().norm().clamp_min(1e-30)))
-    return f_err, b_err, rel
+    rec_rel = 0.0
+    for a, b, what in zip(bk, bq, ("gh0", "gpre_sum", "acc_t", "gdh_sum",
+                                   "dW1h", "dW2")):
+        b_err = max(b_err, assert_close_norm(
+            a, b, f"gap backward {what} vs the records' plain pair at "
+            f"{where}", rtol=RECORDS_RTOL))
+        rec_rel = max(rec_rel, float((a - b).double().norm()
+                                     / b.double().norm().clamp_min(1e-30)))
+    return f_err, b_err, rel, rec_rel
+
+
+def row5_cases(gen: torch.Generator, dev: torch.device) -> list:
+    """Row 5's scheduling cases (stride 8), gap_train_case's inputs with set
+    substep counts (gaps of count + 1/2 steps), as (where, case, n_sub): at
+    n_sub 100 a long gap amid short ones (one row of 100 substeps among rows
+    of 0-8, so one row walks on a group of warps and every other one a
+    warp); counts straddling the long threshold (the longest 60, so rows of
+    at least 30 are long; most rows at 29, 30 and 31, every seventh short),
+    K_h 2; 18,000 rows at d_h 128 and K_h 2, gap_train_case's gaps (the step
+    buffer's largest case: 2 x 8 x 2 x 18,000 x 4 x 128 floats); and at
+    n_sub 1,100, past the sort's 1,024 keys, where rows are keyed by their
+    segment count (gap_bwd_plan's key_seg): one gap of 1,100 substeps amid
+    short ones, rows of 541-556 (segment keys 68-70 about the long
+    threshold of 69, several counts to a key), and rows of 100-300, K_h 2."""
+    out = []
+    c = gap_train_case(gen, 1, 2304, PROD_H, N_SUB, dev)
+    steps = torch.randint(0, 9, (2304,), generator=gen).float()
+    steps[1234] = N_SUB
+    c["t_target"] = c["t_last"] + ((steps + 0.5) * DT).to(dev)
+    out.append(("a long gap amid short ones (2,304 rows, d_h 50)", c, N_SUB))
+    c = gap_train_case(gen, 2, 1001, PROD_H, N_SUB, dev)
+    steps = torch.tensor([29.0, 30.0, 31.0])[
+        torch.randint(0, 3, (1001,), generator=gen)]
+    steps[::7] = torch.randint(0, 9, (143,), generator=gen).float()
+    steps[500] = 60
+    c["t_target"] = c["t_last"] + ((steps + 0.5) * DT).to(dev)
+    out.append(("counts straddling the long threshold (1,001 rows, d_h 50, "
+                "K_h 2)", c, N_SUB))
+    out.append(("18,000 rows at d_h 128, K_h 2",
+                gap_train_case(gen, 2, 18000, 128, N_SUB, dev), N_SUB))
+    n_long = 1100
+    c = gap_train_case(gen, 2, 300, PROD_H, n_long, dev)
+    steps = torch.randint(0, 9, (300,), generator=gen).float()
+    steps[10:42] = torch.arange(541, 557).repeat(2).float()
+    steps[100:120] = torch.randint(100, 301, (20,), generator=gen).float()
+    steps[257] = n_long
+    c["t_target"] = c["t_last"] + ((steps + 0.5) * DT).to(dev)
+    out.append(("n_sub 1,100: rows keyed by segment count (300 rows, d_h 50, "
+                "K_h 2)", c, n_long))
+    return out
 
 
 def gap_train_kernel_phase(dev: torch.device) -> dict:
@@ -2444,7 +2543,7 @@ def gap_train_kernel_phase(dev: torch.device) -> dict:
     backward) max abs err of each residual mode."""
     gen = torch.Generator().manual_seed(71)
     worst = {"full": [0.0, 0.0], "checkpointed": [0.0, 0.0]}
-    worst_rel = 0.0
+    worst_rel = worst_rec = 0.0
     n = 0
     for n_sub in (1, 10, 16, 17, N_SUB):
         for d_h in (12, 50, 128):
@@ -2457,11 +2556,12 @@ def gap_train_kernel_phase(dev: torch.device) -> dict:
                 args = substep_args(c, n_sub, act, scale)[:8]
                 stride = gap_scan.residual_stride(n_sub)
                 w_mode = worst["full" if stride == 1 else "checkpointed"]
-                f_err, b_err, rel = gap_pair_check(args, c["ct"], DT, n_sub,
-                                                   act, scale, where)
+                f_err, b_err, rel, rec = gap_pair_check(
+                    args, c["ct"], DT, n_sub, act, scale, where)
                 w_mode[0] = max(w_mode[0], f_err)
                 w_mode[1] = max(w_mode[1], b_err)
                 worst_rel = max(worst_rel, rel)
+                worst_rec = max(worst_rec, rec)
                 ours = gap_autograd(c, n_sub, act, scale,
                                     gap_scan.integrate_gap_fused)
                 ref = gap_autograd(c, n_sub, act, scale,
@@ -2475,16 +2575,32 @@ def gap_train_kernel_phase(dev: torch.device) -> dict:
                     worst_rel = max(worst_rel, float(
                         (a - b).norm() / b.norm().clamp_min(1e-30)))
                 n += 1
+    # row 5's scheduling: the long tier, its threshold, the largest buffer
+    for where, c, n_sub in row5_cases(gen, dev):
+        args = substep_args(c, n_sub, "relu", "identity")[:8]
+        f_err, b_err, rel, rec = gap_pair_check(args, c["ct"], DT, n_sub,
+                                                "relu", "identity", where)
+        worst["checkpointed"][0] = max(worst["checkpointed"][0], f_err)
+        worst["checkpointed"][1] = max(worst["checkpointed"][1], b_err)
+        worst_rel = max(worst_rel, rel)
+        worst_rec = max(worst_rec, rec)
+        n += 1
     print(f"gap training kernels vs plain: {n} cases (n_sub in (1, 10, 16, "
           f"17, 100) x d_h in (12, 50, 128) x K_h in (1, 2); relu/identity, "
           f"tanh/tanh, selu/sigmoid and rows 16, 2,304, 18,000, 1,001 in "
-          f"turn): max abs err, forward / backward, full residuals "
+          f"turn; then at n_sub 100 a long gap amid short ones, counts "
+          f"straddling the long threshold, 18,000 rows at d_h 128 and K_h "
+          f"2, and at n_sub 1,100 rows keyed by segment count; each "
+          f"backward also against the records' plain pair): max "
+          f"abs err, forward / backward, full residuals "
           f"{worst['full'][0]:.3e} / {worst['full'][1]:.3e}, checkpointed "
           f"{worst['checkpointed'][0]:.3e} / {worst['checkpointed'][1]:.3e} "
           f"(forward at rtol {RTOL} / atol {ATOL}, t_L and stored t bitwise; "
           f"backward: kernel outputs and autograd cotangents, largest "
-          f"error/norm {worst_rel:.3e}, limit {GRAD_RTOL}); two backward "
-          f"calls bitwise equal", flush=True)
+          f"error/norm {worst_rel:.3e}, limit {GRAD_RTOL}; kernel outputs "
+          f"against the records' plain pair, largest error/norm "
+          f"{worst_rec:.3e}, limit {RECORDS_RTOL}); two backward calls "
+          f"bitwise equal", flush=True)
     return worst
 
 
@@ -3332,8 +3448,9 @@ def gap_train_bounds(args: tuple, dt: float, n_sub: int,
     """Least times of the training pair on the H100 for one call: the
     larger of the f32 work of the substeps these gaps take (forward 4 d^2
     + 4 d a row, network and substep; backward 10 d^2: pre again, g_dh
-    W2^T, g_pre W1h^T, dW1h and dW2, and 4 d^2 more for the checkpointed
-    recompute) over 67 TFLOP/s and the bytes in and out once over
+    W2^T, g_pre W1h^T, dW1h and dW2, and 2 d^2 more for the checkpointed
+    recompute, whose W1h product is that pre and whose W2 product rebuilds
+    the next state) over 67 TFLOP/s and the bytes in and out once over
     3.35 TB/s."""
     h, base, t_last, t_target, w1h, w1t, w2, b2 = args
     K, R, d = h.shape
@@ -3346,7 +3463,7 @@ def gap_train_bounds(args: tuple, dt: float, n_sub: int,
     res_bytes = 4 * n_res * (K * R * d + R)
     f_bytes = 4 * (3 * K * R * d + 3 * R) + w_bytes + res_bytes
     b_bytes = 4 * (6 * K * R * d + R + 2 * K * d * d) + w_bytes + res_bytes
-    recompute = 4 * d * d if stride > 1 else 0
+    recompute = 2 * d * d if stride > 1 else 0
     return (bound_of(K * steps * (4 * d * d + 4 * d), f_bytes),
             bound_of(K * steps * (10 * d * d + recompute), b_bytes))
 
@@ -3409,7 +3526,7 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
     for dt, n_sub, rows in ((PROD_DT, PROD_M, (3, 5)), (0.1, 10, (2, 4))):
         stride = gap_scan.residual_stride(n_sub)
         args, bwd, f_ms, b_ms = pair_times(dt, n_sub, stride)
-        f_err, b_err, rel = gap_pair_check(
+        f_err, b_err, rel, rec = gap_pair_check(
             args, ct, dt, n_sub, "relu", "identity",
             f"the main path's shape (dt {dt}, n_sub {n_sub})")
         errs["full" if stride == 1 else "checkpointed"] = [f_err, b_err]
@@ -3417,8 +3534,9 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
               f"(K_h 1, {PROD_BS * (PROD_N - 1):,} gaps, d_h {PROD_H}, dt "
               f"{dt}, n_sub {n_sub}, relu/identity): max abs err, forward "
               f"{f_err:.3e}, backward {b_err:.3e} (error/norm {rel:.3e}, "
-              f"limit {GRAD_RTOL}); t_L and stored t bitwise, two backward "
-              f"calls bitwise equal", flush=True)
+              f"limit {GRAD_RTOL}; against the records' plain pair "
+              f"{rec:.3e}, limit {RECORDS_RTOL}); t_L and stored t bitwise, "
+              f"two backward calls bitwise equal", flush=True)
         fwd = (*args, dt, n_sub, stride, "relu", "identity")
         with torch.no_grad():
             fp_ms = time_ms(lambda: gap_scan.gap_train_forward_reference(
@@ -3542,10 +3660,10 @@ def main() -> None:
     for name in ("walk_scan", "walk_train"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
-    print(f"ptxas: walk_scan.cu by kernel (forward <columns a lane, weights "
-          f"staged, residuals kept>, backward <columns a lane, relu/identity "
-          f"compiled in>; the backward's kernels may not spill): "
-          f"{ptxas_check('walk_scan', WALK_BWD_KERNELS)}", flush=True)
+    print(f"ptxas: walk_scan.cu by kernel (forward <columns a lane, "
+          f"relu/identity compiled in, residuals kept>, backward <columns a "
+          f"lane, relu/identity compiled in>; none may spill): "
+          f"{ptxas_check('walk_scan', WALK_KERNELS)}", flush=True)
     print(f"ptxas: walk_train.cu by instance <columns a lane, stages, "
           f"relu/identity compiled in, bf16> (production: <2, 1, 1, 0>): "
           f"{ptxas_instances('walk_train')}", flush=True)
@@ -3586,6 +3704,10 @@ def main() -> None:
     for name in ("gap_train", "fused_cell"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
+    print(f"ptxas: gap_train.cu by kernel (forward <columns a lane, weights "
+          f"staged>, backward <columns a lane, relu/identity compiled in>; "
+          f"the backward may not spill): "
+          f"{ptxas_check('gap_train', GAP_BWD_KERNELS)}", flush=True)
     gap_errs = gap_train_kernel_phase(dev)
     cell_err = fused_cell_kernel_phase(dev)
     t = phase_time("forced kernels vs plain", t)

@@ -29,38 +29,44 @@
 // not.
 //
 // What bounds it on the H100: by work, the f32 products, 4 d^2 flops per
-// row, network and substep taken forward, and 10 d^2 backward plus 4 d^2 for
-// the recompute of a checkpointed segment, on the CUDA cores; device memory
-// holds only the inputs, the outputs and the residuals (n_res K R d
-// floats).  In practice the latency of the longest gap of a launch: a warp
-// (forward) or block (backward) runs until its last row stops, each
-// substep a chain of dependent products (PERF.md, section 6).
+// row, network and substep taken forward, and 10 d^2 backward (the
+// pre-activation again, g_dh W2^T, g_pre W1h^T and the two weight sums)
+// plus 2 d^2 for the recompute of a checkpointed segment's states, on the
+// CUDA cores; device memory
+// holds the inputs, the outputs, the residuals (n_res K R d floats) and the
+// backward's scratch.  In practice the latency of the longest gap of a
+// launch: a row's substeps are a chain of dependent products, and the
+// longest gap of a minibatch takes about 9x the mean (PERF.md, section 6).
 // What the design does about it:
-//   * forward: row 1's layout (h, s(h), the hidden activations and base of a
-//     tile in shared memory, t in registers, weights staged in shared memory
-//     when they fit in 100 KB), 2 rows a warp sharing each weight load, and
-//     a warp leaves the loop once none of its rows moves, storing its
-//     remaining checkpoints from the final (unchanging) state;
-//   * backward: one row a warp and 4 rows a block; each warp recomputes its
-//     row's segment into shared memory and runs the row algebra with no block
-//     barrier; then the block sums the substep's weight cotangents in shared
-//     memory (every entry by one owning thread over the tile's rows in
-//     order).  A substep (or a whole segment) that no row of the tile takes
-//     contributes exactly zero and is skipped on a block vote.  Blocks walk
-//     row tiles in a fixed order, as many blocks as the card holds at once,
-//     and a second kernel sums the blocks' partials in block order: a run
-//     repeats bitwise, with no atomics.
+//   * forward (rows 2-3): row 1's layout (h, s(h), the hidden activations
+//     and base of a tile in shared memory, t in registers, weights staged in
+//     shared memory when they fit in 100 KB), 2 rows a warp sharing each
+//     weight load, and a warp leaves the loop once none of its rows moves,
+//     storing its remaining checkpoints from the final (unchanging) state;
+//   * backward (rows 4-5): the rows sorted longest first on the device,
+//     the long rows on groups of 4 warps that split every product, the
+//     rest a warp each, with no block barrier inside a row's walk; the
+//     weight cotangents leave the reverse loop as records of every substep
+//     in a step buffer of one segment, which the whole grid sums after a
+//     grid barrier into per-chunk accumulators in a fixed order (the
+//     section "backward" below): a run repeats bitwise, with no float
+//     atomics.
 //
 // Layout (f32, contiguous): h0, base, hout (K, R, d); t0, ttgt, tout (R,);
 // w1h, w2 (K, d, d) as (in, out); w1t, b2 (K, d); res_h (n_res, K, R, d);
 // res_t (n_res, R), n_res = ceil(n_sub / stride); ghL, gh0, gpre_sum,
-// acc_t, gdh_sum (K, R, d); partial (blocks, K, 2, d, d); dw (K, 2, d, d) =
-// [dW1h, dW2] as (in, out).
+// acc_t, gdh_sum (K, R, d); dw (K, 2, d, d) = [dW1h, dW2] as (in, out); the
+// backward's scratch as bwd_layout says.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <mutex>
+
 #include "gap_cell.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,8 +75,6 @@ using namespace njode_gap;
 constexpr int kFwdWarps = 4;
 constexpr int kFwdRPW = 2;
 constexpr int kFwdTile = kFwdWarps * kFwdRPW;
-constexpr int kBwdWarps = 4;        // one row a warp
-constexpr int kBwdTile = kBwdWarps;
 constexpr int kMaxHidden = 128;     // 4 columns a lane
 constexpr int kMaxStride = 64;
 // weights are staged in shared memory only while the block stays small
@@ -83,13 +87,6 @@ size_t stage_bytes(int d) { return 2 * (size_t)d * (d | 1) * sizeof(float); }
 
 size_t fwd_rows_bytes(int d, int scale) {
   return (scale == kIdentity ? 3 : 4) * (size_t)kFwdTile * d * sizeof(float);
-}
-
-// gacc (2 d^2), five row buffers (s(h), hid, g_dh, g_pre, base) and the
-// segment (stride states and times): at d 128 and stride 8 157,824 bytes
-size_t bwd_rows_bytes(int d, int stride) {
-  return (2 * (size_t)d * d + 5 * (size_t)kBwdTile * d + (size_t)stride * kBwdTile * (d + 1)) *
-         sizeof(float);
 }
 
 // ---------------------------------------------------------------- forward
@@ -204,191 +201,643 @@ gap_res_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ base,
 }
 
 // --------------------------------------------------------------- backward
+//
+// One cooperative launch; grid.sync() separates its phases.
+//
+//   count: each block counts the substeps of a contiguous share of the rows
+//     with the forward's own float sequence from res_t[0] (t + dt < t_tgt,
+//     t += dt) and histograms their keys (the count, or past kBins - 1
+//     substeps the segment count);
+//   rank: a key's rows are counted over the blocks in block order; each
+//     block then ranks its rows longest first, by key and then by row (a
+//     stable counting sort: ranks by prefix sums, no atomics decide an
+//     order), into order / cs (the sorted rows and their counts);
+//   walk, segment by segment from the top down (a segment: L substeps, the
+//     residual stride's multiple from kSegMin up, so 8 at stride 1 and 8):
+//     in segment s the rows whose count passes s * L (a prefix of the
+//     sorted order) each rebuild the segment's states (the stored ones
+//     loaded, the others recomputed with the forward's substep), keeping
+//     every substep's state and pre-activation, then walk it in reverse
+//     with two products a substep (g_dh W2^T, g_pre W1h^T), adding the row
+//     sums into their outputs and writing the records [s(h), g_pre,
+//     act(pre), g_dh] of substep c at (c, sorted row p) of step buffer s & 1
+//     (zeros for the segment's substeps the row does not take).  A network's
+//     blocks walk its rows: the long rows (at least kLongNum / kLongDen of
+//     the longest count) one a group of kGroup warps that split every
+//     product by input rows (group_mm), the rest one a warp; a single warp
+//     computes the group's four row quarters and adds them in the group's
+//     order, so a row's arithmetic is the same on either;
+//   sums: after the walk of segment s, the whole grid adds segment s + 1's
+//     records (the other buffer) into its chunk accumulators: job (chunk j
+//     of chunk_rows sorted rows, network, matrix) belongs to block blocks -
+//     1 - job % blocks in every segment, each output entry to one thread of
+//     it, so acc_j is a sum over the segments from the top down; after
+//     segment 0, dw = sum_j acc_j in chunk order.  No float atomics: two
+//     calls are bitwise equal.
+//
+// Scratch (floats; the int arrays share it): bwd_layout below, mirrored by
+// gap_bwd_plan in ops/gap_scan.py, which is checked here.
 
-template <int CPT, bool STAGE>
-__global__ void __launch_bounds__(kWarp * kBwdWarps)
-gap_bwd_kernel(const float* __restrict__ ghL, const float* __restrict__ base,
-               const float* __restrict__ ttgt, const float* __restrict__ w1h,
-               const float* __restrict__ w1t, const float* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ res_h,
-               const float* __restrict__ res_t, float* __restrict__ gh0,
-               float* __restrict__ gpre_sum, float* __restrict__ acct,
-               float* __restrict__ gdh_sum, float* __restrict__ partial, int R, int d,
-               float dt, int n_sub, int stride, int n_res, int act, int scale) {
-  constexpr int TR = kBwdTile;
-  constexpr int LOAD = STAGE ? kLoadPlain : kLoadNc;
-  extern __shared__ float smem[];
-  const int k = blockIdx.y, K = gridDim.y, lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * kWarp + lane, n_threads = kWarp * blockDim.y;
-  const int ld = STAGE ? (d | 1) : d;
-  const size_t dd = (size_t)d * d;
-  const float* W1 = w1h + (size_t)k * dd;
-  const float* W2 = w2 + (size_t)k * dd;
-  float* rest = smem;
-  if constexpr (STAGE) {
-    float* s_w1 = smem;
-    float* s_w2 = smem + (size_t)d * ld;
-    for (int e = tid; e < d * d; e += n_threads) {
-      const int i = e / d, j = e - i * d;
-      s_w1[i * ld + j] = W1[e];
-      s_w2[i * ld + j] = W2[e];
-    }
-    W1 = s_w1;
-    W2 = s_w2;
-    rest = smem + 2 * (size_t)d * ld;
-  }
-  float* gacc = rest;                 // [dW1h | dW2], entry a * d + c
-  float* s_sc = gacc + 2 * dd;        // s(h) of the substep, one row a warp
-  float* s_hid = s_sc + TR * d;
-  float* s_gdh = s_hid + TR * d;
-  float* s_gpre = s_gdh + TR * d;
-  float* s_base = s_gpre + TR * d;
-  float* seg_h = s_base + TR * d;     // segment state c of warp w: (c TR + w) d
-  float* seg_t = seg_h + (size_t)stride * TR * d;
-  for (size_t e = tid; e < 2 * dd; e += n_threads) gacc[e] = 0.0f;
-  float w1t_r[CPT], b2_r[CPT];
-  vec_regs<CPT>(w1t + (size_t)k * d, d, lane, w1t_r);
-  vec_regs<CPT>(b2 + (size_t)k * d, d, lane, b2_r);
-  float* my_sc = s_sc + warp * d;
-  float* my_hid = s_hid + warp * d;
-  float* my_gdh = s_gdh + warp * d;
-  float* my_gpre = s_gpre + warp * d;
-  float* my_base = s_base + warp * d;
-  const int n_tiles = (R + TR - 1) / TR;
-  __syncthreads();
+constexpr int kBwdWarps = 8;      // a block: two groups of kGroup warps, or 8 single warps
+constexpr int kGroup = 4;         // the warps of a long row
+constexpr int kLongNum = 1, kLongDen = 2;  // long: count >= ceil(longest * 1 / 2)
+constexpr int kBins = 1024;       // sort keys: the count, or the segment count past that
+constexpr int kDwRows = 32;       // record rows a block stages at a time
+constexpr int kTA = 4, kTB = 4;   // a sum thread's output tile
+constexpr int kSegMin = 8;        // a segment: the multiple of the stride from CK = 8 up
+// a block an SM: the kernel's 190-255 registers a thread leave no room for a
+// second
+constexpr int kMaxBlocksPerSm = 1;
+constexpr int kMaxBlocks = 8 * kWarp * 8;  // the widest grid the plan gives (2,048)
+enum Rec { kRecSh = 0, kRecGp = 1, kRecHid = 2, kRecGdh = 3 };
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row = tile * TR + warp;
-    const bool valid = row < R;
-    const int n_rows = min(TR, R - tile * TR);
-    const size_t g = ((size_t)k * R + (valid ? row : 0)) * d;
-    const float tt = valid ? ttgt[row] : 0.0f;
-    float gh[CPT], gp_sum[CPT], at_sum[CPT], gd_sum[CPT];
+struct BwdLayout {
+  long long cnt, order, cs, ghist, total, rec, rec_buf, acc, seg, seg_warp, floats;
+};
+
+__host__ __device__ inline long long round32(long long x) { return (x + 31) / 32 * 32; }
+
+// the scratch: counts, sorted rows and their counts (ints, R each), the
+// keys' per-block counts (key-major) and totals, the two step buffers (K x 4
+// records x seg x R x d each), the chunk accumulators (chunks x K x 2 d^2),
+// each warp's segment states (seg x (h, pre: HP each; t: a lane each))
+__host__ __device__ inline BwdLayout bwd_layout(int K, int R, int d, int seg, int nbins,
+                                                int blocks, int chunks) {
+  BwdLayout L;
+  long long o = 0;
+  L.cnt = o;
+  o += round32(R);
+  L.order = o;
+  o += round32(R);
+  L.cs = o;
+  o += round32(R);
+  L.ghist = o;
+  o += round32((long long)blocks * nbins);
+  L.total = o;
+  o += round32(nbins);
+  L.rec_buf = (long long)K * 4 * seg * R * d;
+  L.rec = o;
+  o += round32(2 * L.rec_buf);
+  L.acc = o;
+  o += round32((long long)chunks * K * 2 * d * d);
+  L.seg_warp = (long long)seg * (2 * plane_rows(d) + kWarp);
+  L.seg = o;
+  o += (long long)blocks * kBwdWarps * L.seg_warp;
+  L.floats = o;
+  return L;
+}
+
+__host__ __device__ inline int dw_ld(int d) { return (d + 7) / 8 * 8; }
+
+// shared floats: the W1h and W2 planes (HP x (HP + 1), zero past d), the two
+// groups' partial-product buffers, the sums' staged rows (A and G), each
+// warp's vector of a single-warp product, the sort's keys (bases, then this
+// block's offsets), the segments' active rows, and 32 words of the scan and
+// the plan
+size_t bwd_smem_bytes(int d) {
+  const size_t hp = plane_rows(d);
+  return (2 * hp * (hp + 1) + (size_t)(kBwdWarps / kGroup) * 2 * kGroup * hp +
+          2 * (size_t)kDwRows * dw_ld(d) + (size_t)kBwdWarps * hp + 2 * (size_t)kBins + 32) *
+         sizeof(float);
+}
+
+struct BwdArgs {
+  const float *ghL, *base, *ttgt, *w1h, *w1t, *w2, *b2, *res_h, *res_t;
+  float *gh0, *gpre_sum, *acct, *gdh_sum, *dw, *scratch;
+  int K, R, d, n_sub, stride, seg, n_seg, act, scale, nbins, key_seg, chunk_rows;
+  float dt;
+  BwdLayout L;
+};
+
+// One warp's product with the arithmetic of a group of kGroup warps
+// (group_mm): each quarter of the plane's rows summed as part_mm sums it (two
+// accumulators a column, even and odd rows, in order), the quarters added in
+// the group's order.  The vector's entries are read back from the warp's
+// HP floats of shared memory (xs) as broadcasts, four at a time, in place
+// of part_mm's shuffles.
+template <int CPT, bool TRANS>
+__device__ __forceinline__ void quarter_mm(const float (&v)[CPT], const float* W, int ld, int d,
+                                           int lane, float* xs, float (&acc)[CPT]) {
+  constexpr int Q = kWarp * CPT / kGroup;
+  const int top = (d + 15) / 16 * 16;
+  __syncwarp();  // the last product's reads of xs are done
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + kWarp * c;
-      gh[c] = valid && j < d ? ghL[g + j] : 0.0f;
-      gp_sum[c] = at_sum[c] = gd_sum[c] = 0.0f;
+  for (int c = 0; c < CPT; ++c) xs[lane + kWarp * c] = lane + kWarp * c < d ? v[c] : 0.0f;
+  __syncwarp();
+#pragma unroll 1
+  for (int w = 0; w < kGroup; ++w) {
+    float a0[CPT], a1[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) a0[c] = a1[c] = 0.0f;
+    const int r_hi = min((w + 1) * Q, top);
+#pragma unroll 1
+    for (int rb = w * Q; rb < r_hi; rb += 16) {
+      const float* Wb = TRANS ? W + rb : W + rb * ld;
+#pragma unroll
+      for (int s = 0; s < 16; s += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + rb + s);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int j = lane + kWarp * c;
+          a0[c] = fmaf(x.x, TRANS ? Wb[j * ld + s] : Wb[s * ld + j], a0[c]);
+          a1[c] = fmaf(x.y, TRANS ? Wb[j * ld + s + 1] : Wb[(s + 1) * ld + j], a1[c]);
+          a0[c] = fmaf(x.z, TRANS ? Wb[j * ld + s + 2] : Wb[(s + 2) * ld + j], a0[c]);
+          a1[c] = fmaf(x.w, TRANS ? Wb[j * ld + s + 3] : Wb[(s + 3) * ld + j], a1[c]);
+        }
+      }
     }
-    for (int j = lane; j < d; j += kWarp) my_base[j] = valid ? base[g + j] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[c] = w == 0 ? a0[c] + a1[c] : acc[c] + (a0[c] + a1[c]);
+  }
+}
 
-    for (int s = n_res - 1; s >= 0; --s) {
-      const int n_c = min(stride, n_sub - s * stride);  // substeps of segment s
-      float t_c = valid ? res_t[(size_t)s * R + row] : 0.0f;
-      const float* ck = res_h + (((size_t)s * K + k) * R + (valid ? row : 0)) * d;
-      float* seg0 = seg_h + (size_t)warp * d;
-      for (int j = lane; j < d; j += kWarp) seg0[j] = valid ? ck[j] : 0.0f;
-      bool pred = valid && (t_c + dt) < tt;
-      // pred never turns true again within a row: a segment whose first
-      // substep no row of the tile takes is zero throughout
-      if (!__syncthreads_or(pred)) continue;
-      if (lane == 0) seg_t[warp] = t_c;
-      // recompute the segment's entering states (this warp's row)
-      for (int c = 1; c < n_c; ++c) {
-        const float* prev = seg_h + ((size_t)(c - 1) * TR + warp) * d;
-        float* cur = seg_h + ((size_t)c * TR + warp) * d;
-        for (int j = lane; j < d; j += kWarp) {
-          cur[j] = prev[j];
-          if (pred && scale != kIdentity) my_sc[j] = scale_in(prev[j], scale);
+// out[i] = sum_{j > i} in[j] for i < n <= kBins (in: device memory written
+// by other blocks of the launch; out: shared).  Ends with __syncthreads.
+__device__ void suffix_scan(const int* in, int* out, int n, int* warp_tot, int tid, int lane,
+                            int warp) {
+  constexpr int nthr = kWarp * kBwdWarps, IPT = kBins / nthr;
+  int v[IPT], lt = 0;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    const int b = tid * IPT + i;
+    v[i] = b < n ? __ldcg(in + b) : 0;
+    lt += v[i];
+  }
+  int x = lt;  // this lane's and the higher lanes' totals
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int y = __shfl_down_sync(0xffffffffu, x, off);
+    if (lane + off < kWarp) x += y;
+  }
+  if (lane == 0) warp_tot[warp] = x;
+  __syncthreads();
+  int run = x - lt;
+  for (int w = warp + 1; w < kBwdWarps; ++w) run += warp_tot[w];
+#pragma unroll
+  for (int i = IPT - 1; i >= 0; --i) {
+    const int b = tid * IPT + i;
+    if (b < n) out[b] = run;
+    run += v[i];
+  }
+  __syncthreads();
+}
+
+template <int CPT, bool RI>
+__global__ void __launch_bounds__(kWarp * kBwdWarps, 1) gap_bwd_kernel(const BwdArgs a) {
+  constexpr int HP = kWarp * CPT, LDP = HP + 1, PL = HP * LDP, Q = HP / kGroup;
+  // output tiles a thread in a pass over a job's rows, and the passes: d 128
+  // has 32 x 32 tiles, in two passes of two a thread (the registers)
+  constexpr int TPT = CPT == 4 ? 2 : 1, NPASS = CPT == 4 ? 2 : 1;
+  constexpr int nthr = kWarp * kBwdWarps;
+  constexpr int SE = kDwRows * HP / nthr;  // staged entries a thread (ld <= HP)
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x, warp = threadIdx.y, tid = warp * kWarp + lane;
+  const int nb = gridDim.x, blk = blockIdx.x;
+  const int K = a.K, R = a.R, d = a.d, stride = a.stride, n_sub = a.n_sub, nbins = a.nbins;
+  const int L = a.seg;  // substeps a segment, a multiple of the residual stride
+  const int act = a.act, scale = a.scale, CHR = a.chunk_rows;
+  const float dt = a.dt;
+  const size_t dd = (size_t)d * d;
+  const int ld = dw_ld(d);
+  float* sW1 = smem;
+  float* sW2 = smem + PL;
+  float* part = smem + 2 * PL;
+  float* sA = part + (kBwdWarps / kGroup) * 2 * kGroup * HP;
+  float* sG = sA + kDwRows * ld;
+  float* xs = sG + kDwRows * ld + warp * HP;  // this warp's vector (quarter_mm)
+  int* s_key = reinterpret_cast<int*>(sG + kDwRows * ld + kBwdWarps * HP);
+  int* s_nact = s_key + kBins;
+  int* s_misc = s_nact + kBins;  // [0, 8) scan, 8 longest key, 9 long rows, 10 top segment
+  int* cnt = reinterpret_cast<int*>(a.scratch + a.L.cnt);
+  int* order = reinterpret_cast<int*>(a.scratch + a.L.order);
+  int* cs = reinterpret_cast<int*>(a.scratch + a.L.cs);
+  int* ghist = reinterpret_cast<int*>(a.scratch + a.L.ghist);
+  int* total = reinterpret_cast<int*>(a.scratch + a.L.total);
+  float* rec = a.scratch + a.L.rec;
+  float* accg = a.scratch + a.L.acc;
+  auto key_of = [&](int c) { return a.key_seg ? (c + L - 1) / L : c; };
+  // relu and identity (the production recipe's) fixed at compile time (RI)
+  auto actf = [&](float x) { return RI ? (x < 0.0f ? 0.0f : x) : activate(x, act); };
+  auto actg = [&](float x) { return RI ? (x > 0.0f ? 1.0f : 0.0f) : act_grad(x, act); };
+  auto scl = [&](float x) { return RI ? x : scale_in(x, scale); };
+  auto sclg = [&](float x) { return RI ? 1.0f : scale_grad(x, scale); };
+
+  // ---- count: outputs initialised (rows that take no substep keep them),
+  // this block's rows counted, its key histogram, the network's planes
+  const size_t KRd = (size_t)K * R * d;
+  for (size_t e = (size_t)blk * nthr + tid; e < KRd; e += (size_t)nb * nthr) {
+    a.gh0[e] = __ldg(a.ghL + e);
+    a.gpre_sum[e] = a.acct[e] = a.gdh_sum[e] = 0.0f;
+  }
+  for (int i = tid; i < nbins; i += nthr) s_key[i] = 0;
+  const int kb = blk % K, bi = blk / K, nbk = (nb - kb + K - 1) / K;
+  {
+    // four entries a thread at a time, their loads issued together
+    const float* W1 = a.w1h + (size_t)kb * dd;
+    const float* W2 = a.w2 + (size_t)kb * dd;
+    for (int e0 = tid; e0 < PL; e0 += 4 * nthr) {
+      float v1[4], v2[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * nthr, i = e / LDP, j = e - i * LDP;
+        const bool in = e < PL && i < d && j < d;
+        v1[u] = in ? __ldg(W1 + i * d + j) : 0.0f;
+        v2[u] = in ? __ldg(W2 + i * d + j) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (e0 + u * nthr < PL) {
+          sW1[e0 + u * nthr] = v1[u];
+          sW2[e0 + u * nthr] = v2[u];
         }
-        __syncwarp();
-        if (pred) {
-          const float tq[1] = {t_c};
-          const bool pq[1] = {true};
-          euler_substep<CPT, 1, LOAD>(cur, scale == kIdentity ? cur : my_sc, my_hid, my_base,
-                                      tq, pq, W1, W2, ld, d, lane, w1t_r, b2_r, dt, act,
-                                      scale);
-          t_c += dt;
-          pred = (t_c + dt) < tt;
+    }
+  }
+  const int RB = (R + nb - 1) / nb, lo = min(R, blk * RB), hi = min(R, lo + RB);
+  __syncthreads();
+  for (int r = lo + tid; r < hi; r += nthr) {
+    float t = __ldg(a.res_t + r);
+    const float tt = __ldg(a.ttgt + r);
+    int c = 0;
+    while (c < n_sub && t + dt < tt) {
+      t += dt;
+      ++c;
+    }
+    cnt[r] = c;
+    atomicAdd(&s_key[key_of(c)], 1);
+  }
+  __syncthreads();
+  for (int i = tid; i < nbins; i += nthr) ghist[(size_t)i * nb + blk] = s_key[i];
+  grid.sync();
+
+  // ---- rank, 1: each key's rows before each block (block order) and its
+  // total, a warp a key
+  {
+    const int gw = blk * kBwdWarps + warp, n_gw = nb * kBwdWarps;
+    for (int i = gw; i < nbins; i += n_gw) {
+      int* row = ghist + (size_t)i * nb;
+      int run = 0;
+      for (int b0 = 0; b0 < nb; b0 += 8 * kWarp) {
+        int v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int b = b0 + q * kWarp + lane;
+          v[q] = b < nb ? __ldcg(row + b) : 0;
         }
-        if (lane == 0) seg_t[c * TR + warp] = t_c;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          int x = v[q];
+#pragma unroll
+          for (int off = 1; off < kWarp; off <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, x, off);
+            if (lane >= off) x += y;
+          }
+          const int b = b0 + q * kWarp + lane;
+          if (b < nb) row[b] = run + x - v[q];
+          run += __shfl_sync(0xffffffffu, x, kWarp - 1);
+        }
+      }
+      if (lane == 0) total[i] = run;
+    }
+  }
+  grid.sync();
+
+  // ---- rank, 2: the rows of longer keys before each key; the segments'
+  // active rows; the long rows; this block's ranks (warp 0, 32 rows a round)
+  suffix_scan(total, s_key, nbins, s_misc, tid, lane, warp);
+  if (tid == 0) s_misc[8] = 0;
+  __syncthreads();
+  for (int i = tid; i < nbins; i += nthr)
+    if (__ldcg(total + i) > 0) atomicMax(&s_misc[8], i);
+  for (int s = tid; s < a.n_seg; s += nthr) s_nact[s] = s_key[key_of(s * L)];
+  __syncthreads();
+  if (tid == 0) {
+    const int top = s_misc[8];
+    const int thr = (top * kLongNum + kLongDen - 1) / kLongDen;
+    s_misc[9] = top > 0 ? s_key[max(thr, 1) - 1] : 0;
+    int s_top = -1;
+    for (int s = a.n_seg - 1; s >= 0; --s)
+      if (s_nact[s] > 0) {
+        s_top = s;
+        break;
+      }
+    s_misc[10] = s_top;
+  }
+  __syncthreads();
+  for (int i = tid; i < nbins; i += nthr) s_key[i] += __ldcg(ghist + (size_t)i * nb + blk);
+  __syncthreads();
+  if (warp == 0) {
+    for (int r0 = lo; r0 < hi; r0 += kWarp) {
+      const int r = r0 + lane;
+      const bool in = r < hi;
+      const int c = in ? __ldcg(cnt + r) : 0;
+      const int key = in ? key_of(c) : -1;
+      const unsigned m = __match_any_sync(0xffffffffu, key);
+      if (in) {
+        const int pos = s_key[key] + __popc(m & ((1u << lane) - 1u));
+        order[pos] = r;
+        cs[pos] = c;
       }
       __syncwarp();
-
-      // the segment in reverse
-      for (int c = n_c - 1; c >= 0; --c) {
-        const float* hj = seg_h + ((size_t)c * TR + warp) * d;
-        const float tj = seg_t[c * TR + warp];
-        const bool p = valid && (tj + dt) < tt;
-        // also the barrier between the last substep's block sums and this
-        // one's row buffers
-        if (!__syncthreads_or(p)) continue;
-        if (p) {
-          float acc[1][CPT], pre[CPT];
-#pragma unroll
-          for (int c2 = 0; c2 < CPT; ++c2) {
-            const int j = lane + kWarp * c2;
-            if (j < d) my_sc[j] = scale_in(hj[j], scale);
-          }
-          __syncwarp();
-          rows_mm<CPT, 1, false, LOAD>(my_sc, d, 1, W1, ld, d, lane, acc);
-#pragma unroll
-          for (int c2 = 0; c2 < CPT; ++c2) {
-            const int j = lane + kWarp * c2;
-            pre[c2] = 0.0f;
-            if (j < d) {
-              pre[c2] = fmaf(tj, w1t_r[c2], acc[0][c2] + my_base[j]);
-              my_hid[j] = activate(pre[c2], act);
-              const float gdh = dt * gh[c2];
-              my_gdh[j] = gdh;
-              gd_sum[c2] += gdh;
-            }
-          }
-          __syncwarp();
-          rows_mm<CPT, 1, true, LOAD>(my_gdh, d, 1, W2, ld, d, lane, acc);  // g_dh W2^T
-#pragma unroll
-          for (int c2 = 0; c2 < CPT; ++c2) {
-            const int j = lane + kWarp * c2;
-            if (j < d) {
-              const float gp = acc[0][c2] * act_grad(pre[c2], act);
-              my_gpre[j] = gp;
-              gp_sum[c2] += gp;
-              at_sum[c2] = fmaf(tj, gp, at_sum[c2]);
-            }
-          }
-          __syncwarp();
-          rows_mm<CPT, 1, true, LOAD>(my_gpre, d, 1, W1, ld, d, lane, acc);  // g_pre W1h^T
-#pragma unroll
-          for (int c2 = 0; c2 < CPT; ++c2) {
-            const int j = lane + kWarp * c2;
-            if (j < d) gh[c2] = fmaf(acc[0][c2], scale_grad(hj[j], scale), gh[c2]);
-          }
-        } else {
-          // a row that does not take the substep adds exactly zero
-          for (int j = lane; j < d; j += kWarp)
-            my_sc[j] = my_hid[j] = my_gdh[j] = my_gpre[j] = 0.0f;
-        }
-        __syncthreads();
-        outer_acc<CPT, TR>(s_sc, s_gpre, n_rows, d, gacc, warp, kBwdWarps, lane);
-        outer_acc<CPT, TR>(s_hid, s_gdh, n_rows, d, gacc + dd, warp, kBwdWarps, lane);
-      }
+      if (in && lane == __ffs(m) - 1) s_key[key] += __popc(m);
+      __syncwarp();
     }
-    if (valid) {
+  }
+  const int n_long = s_misc[9], s_top = s_misc[10];
+  grid.sync();
+
+  // ---- the walkers of this block (network kb): the network's first nbg
+  // blocks walk the long rows, a group each (round robin over their groups);
+  // then every warp of the network's blocks walks the short rows, one a
+  // warp, round robin over the other blocks' warps and then the group
+  // blocks' (which take short rows only where they outnumber the others)
+  constexpr int GPB = kBwdWarps / kGroup;
+  const int nbg = min(nbk, (n_long + GPB - 1) / GPB);
+  const bool grouped = bi < nbg;
+  const int g_id = bi * GPB + warp / kGroup, g_n = nbg * GPB;
+  const int w_id = (grouped ? bi + nbk - nbg : bi - nbg) * kBwdWarps + warp;
+  const int w_n = nbk * kBwdWarps;
+  Group gr;
+  gr.wpt = kGroup;
+  gr.wg = warp % kGroup;
+  gr.bar_id = 1 + warp / kGroup;
+  gr.bar_n = kWarp * kGroup;
+  gr.r_lo = gr.wg * Q;
+  gr.r_hi = min(gr.r_lo + Q, (d + 15) / 16 * 16);
+  gr.par = 0;
+  gr.part = part + (warp / kGroup) * 2 * kGroup * HP;
+  float w1t_r[CPT], b2_r[CPT];
+  vec_regs<CPT>(a.w1t + (size_t)kb * d, d, lane, w1t_r);
+  vec_regs<CPT>(a.b2 + (size_t)kb * d, d, lane, b2_r);
+  float* states = a.scratch + a.L.seg + (size_t)(blk * kBwdWarps + warp) * a.L.seg_warp;
+  constexpr int SLOT = 2 * HP + kWarp;
+  auto walk = [&](int p, int s, int n_c, float* rbuf, bool on_group) {
+    // each record and output by one warp of a group
+    const int wg = on_group ? gr.wg : 0;
+    auto writes = [&](int kind) { return !on_group || wg == kind; };
+    const int r = __ldcg(order + p);
+    const int n_t = min(__ldcg(cs + p) - s * L, n_c);
+    const size_t g = ((size_t)kb * R + r) * d;
+    // the stored state entering substep j0 (a multiple of the stride)
+    auto load_state = [&](int j0, float (&hv)[CPT], float& tv) {
+      const float* ck = a.res_h + (((size_t)(j0 / stride) * K + kb) * R + r) * d;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = lane + kWarp * c;
-        if (j < d) {
-          gh0[g + j] = gh[c];
-          gpre_sum[g + j] = gp_sum[c];
-          acct[g + j] = at_sum[c];
-          gdh_sum[g + j] = gd_sum[c];
+        hv[c] = j < d ? __ldg(ck + j) : 0.0f;
+      }
+      tv = __ldg(a.res_t + (size_t)(j0 / stride) * R + r);
+    };
+    float h[CPT], bs[CPT], gh[CPT], gps[CPT], ats[CPT], gds[CPT], t;
+    load_state(s * L, h, t);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = lane + kWarp * c;
+      const bool in = j < d;
+      bs[c] = in ? __ldg(a.base + g + j) : 0.0f;
+      gh[c] = in ? __ldcg(a.gh0 + g + j) : 0.0f;
+      gps[c] = in ? __ldcg(a.gpre_sum + g + j) : 0.0f;
+      ats[c] = in ? __ldcg(a.acct + g + j) : 0.0f;
+      gds[c] = in ? __ldcg(a.gdh_sum + g + j) : 0.0f;
+    }
+    // the segment's states and pre-activations: the stored ones loaded (a
+    // substep ahead), the others recomputed with the forward's substep
+    for (int c = 0; c < n_t; ++c) {
+      float v[CPT], acc[CPT], hs[CPT], ts = 0.0f;
+      const int j1 = s * L + c + 1;
+      const bool stored = j1 % stride == 0;
+      if (stored && c + 1 < n_t) load_state(j1, hs, ts);
+      float* slot = states + (size_t)c * SLOT;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) v[q] = scl(h[q]);
+      if (on_group) group_mm<CPT, false, false>(v, sW1, LDP, d, lane, gr, acc);
+      else quarter_mm<CPT, false>(v, sW1, LDP, d, lane, xs, acc);
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const int j = lane + kWarp * q;
+        const float pre = fmaf(t, w1t_r[q], acc[q] + bs[q]);
+        slot[j] = h[q];
+        slot[HP + j] = pre;
+        v[q] = actf(pre);
+      }
+      slot[2 * HP + lane] = t;
+      if (c + 1 < n_t) {
+        if (stored) {
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) h[q] = hs[q];
+          t = ts;
+        } else {
+          if (on_group) group_mm<CPT, false, false>(v, sW2, LDP, d, lane, gr, acc);
+          else quarter_mm<CPT, false>(v, sW2, LDP, d, lane, xs, acc);
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) h[q] = fmaf(dt, acc[q] + b2_r[q], h[q]);
+          t += dt;
         }
       }
     }
-  }
-  __syncthreads();
-  float* out = partial + ((size_t)blockIdx.x * K + k) * 2 * dd;
-  for (size_t e = tid; e < 2 * dd; e += n_threads) out[e] = gacc[e];
-}
+    // the segment in reverse; substep c - 1's state loaded during substep c
+    auto rec_row = [&](int kind, int c) {
+      return rbuf + ((((size_t)kb * 4 + kind) * L + c) * R + p) * d;
+    };
+    float hc[CPT], pc[CPT], tc;
+    {
+      const float* slot = states + (size_t)(n_t - 1) * SLOT;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        hc[q] = __ldcg(slot + lane + kWarp * q);
+        pc[q] = __ldcg(slot + HP + lane + kWarp * q);
+      }
+      tc = __ldcg(slot + 2 * HP + lane);
+    }
+    for (int c = n_t - 1; c >= 0; --c) {
+      float hn[CPT], pn[CPT], tn = 0.0f;
+      if (c > 0) {
+        const float* slot = states + (size_t)(c - 1) * SLOT;
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+          hn[q] = __ldcg(slot + lane + kWarp * q);
+          pn[q] = __ldcg(slot + HP + lane + kWarp * q);
+        }
+        tn = __ldcg(slot + 2 * HP + lane);
+      }
+      float gdh[CPT], gp[CPT], acc[CPT];
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) gdh[q] = dt * gh[q];
+      if (on_group) group_mm<CPT, true, false>(gdh, sW2, LDP, d, lane, gr, acc);
+      else quarter_mm<CPT, true>(gdh, sW2, LDP, d, lane, xs, acc);
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) gp[q] = acc[q] * actg(pc[q]);
+      if (on_group) group_mm<CPT, true, false>(gp, sW1, LDP, d, lane, gr, acc);
+      else quarter_mm<CPT, true>(gp, sW1, LDP, d, lane, xs, acc);
+      float* o_sh = rec_row(kRecSh, c);
+      float* o_gp = rec_row(kRecGp, c);
+      float* o_hid = rec_row(kRecHid, c);
+      float* o_gdh = rec_row(kRecGdh, c);
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const int j = lane + kWarp * q;
+        gh[q] = fmaf(acc[q], sclg(hc[q]), gh[q]);
+        gps[q] += gp[q];
+        ats[q] = fmaf(tc, gp[q], ats[q]);
+        gds[q] += gdh[q];
+        if (j < d) {
+          if (writes(kRecSh)) o_sh[j] = scl(hc[q]);
+          if (writes(kRecGp)) o_gp[j] = gp[q];
+          if (writes(kRecHid)) o_hid[j] = actf(pc[q]);
+          if (writes(kRecGdh)) o_gdh[j] = gdh[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        hc[q] = hn[q];
+        pc[q] = pn[q];
+      }
+      tc = tn;
+    }
+    // the segment's substeps this row does not take add exactly zero
+    for (int c = n_t; c < n_c; ++c)
+      for (int kind = 0; kind < 4; ++kind)
+        if (writes(kind)) {
+          float* o = rec_row(kind, c);
+          for (int j = lane; j < d; j += kWarp) o[j] = 0.0f;
+        }
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      const int j = lane + kWarp * q;
+      if (j < d && wg == 0) {
+        a.gh0[g + j] = gh[q];
+        a.gpre_sum[g + j] = gps[q];
+        a.acct[g + j] = ats[q];
+        a.gdh_sum[g + j] = gds[q];
+      }
+    }
+  };
 
-// sums the blocks' partials in block order: out[e] = sum_b partial[b][e]
-__global__ void gap_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                  int blocks, int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float sum = 0.0f;
-  for (int b = 0; b < blocks; ++b) sum += partial[(size_t)b * n + e];
-  out[e] = sum;
+  // the records of segment s2 into the chunk accumulators
+  auto sums = [&](int s2) {
+    const int na = s_nact[s2], n_c = min(L, n_sub - s2 * L);
+    const float* rb = rec + (size_t)(s2 & 1) * a.L.rec_buf;
+    const int nch = (na + CHR - 1) / CHR, jobs = nch * K * 2;
+    const int ntb = (d + kTB - 1) / kTB, ntiles = (d + kTA - 1) / kTA * ntb;
+    // job % nb runs on block nb - 1 - job % nb: the first jobs (the longest
+    // rows' chunk) on the last blocks, which walk the short rows
+    for (int job = nb - 1 - blk; job < jobs; job += nb) {
+      const int j = job / (2 * K), k = job / 2 % K, m = job % 2;
+      const int p0 = j * CHR, np = min(CHR, na - p0);
+      const float* A = rb + ((size_t)k * 4 + (m ? kRecHid : kRecSh)) * L * R * d;
+      const float* G = rb + ((size_t)k * 4 + (m ? kRecGdh : kRecGp)) * L * R * d;
+      for (int pass = 0; pass < NPASS; ++pass) {
+      float acc[TPT][kTA][kTB];
+#pragma unroll
+      for (int u = 0; u < TPT; ++u)
+#pragma unroll
+        for (int x = 0; x < kTA; ++x)
+#pragma unroll
+          for (int y = 0; y < kTB; ++y) acc[u][x][y] = 0.0f;
+      // a round: up to kDwRows sorted rows of one substep c, in (c, p)
+      // order; the next round loaded into registers while this one is
+      // summed
+      const int nrb = (np + kDwRows - 1) / kDwRows, rounds = n_c * nrb;
+      float na_[SE], ng_[SE];
+      auto fetch = [&](int rd) {
+        const int c = rd / nrb, pb = (rd - c * nrb) * kDwRows;
+        const int nr = min(kDwRows, np - pb);
+        const size_t row0 = (size_t)c * R + p0 + pb;
+#pragma unroll
+        for (int u = 0; u < SE; ++u) {
+          const int e = tid + u * nthr, rr = e / ld, col = e - rr * ld;
+          float va = 0.0f, vg = 0.0f;
+          if (rr < nr && col < d) {
+            const size_t off = (row0 + rr) * d + col;
+            va = __ldcg(A + off);
+            vg = __ldcg(G + off);
+          }
+          na_[u] = va;
+          ng_[u] = vg;
+        }
+        return nr;
+      };
+      int nr_next = fetch(0);
+      for (int rd = 0; rd < rounds; ++rd) {
+        const int nr = nr_next;
+        __syncthreads();  // the last rows are consumed
+#pragma unroll
+        for (int u = 0; u < SE; ++u) {
+          const int e = tid + u * nthr;
+          if (e < kDwRows * ld) {
+            sA[e] = na_[u];
+            sG[e] = ng_[u];
+          }
+        }
+        __syncthreads();
+        if (rd + 1 < rounds) nr_next = fetch(rd + 1);
+#pragma unroll
+        for (int u = 0; u < TPT; ++u) {
+          const int tile = tid + (pass * TPT + u) * nthr;
+          if (tile >= ntiles) continue;
+          const int ta = tile / ntb, tb = tile - ta * ntb;
+#pragma unroll 4
+          for (int rr = 0; rr < nr; ++rr) {
+            const float4 av = *reinterpret_cast<const float4*>(sA + rr * ld + kTA * ta);
+            const float4 gv = *reinterpret_cast<const float4*>(sG + rr * ld + kTB * tb);
+            const float a4[kTA] = {av.x, av.y, av.z, av.w};
+            const float g8[kTB] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+            for (int x = 0; x < kTA; ++x)
+#pragma unroll
+              for (int y = 0; y < kTB; ++y) acc[u][x][y] = fmaf(a4[x], g8[y], acc[u][x][y]);
+          }
+        }
+      }
+      // the chunk's first segment (from the top) writes, the others add
+      const bool first = s2 == s_top || s_nact[s2 + 1] <= p0;
+      float* out = accg + (((size_t)j * K + k) * 2 + m) * dd;
+#pragma unroll
+      for (int u = 0; u < TPT; ++u) {
+        const int tile = tid + (pass * TPT + u) * nthr;
+        if (tile >= ntiles) continue;
+        const int ta = tile / ntb, tb = tile - ta * ntb;
+#pragma unroll
+        for (int x = 0; x < kTA; ++x) {
+          const int ra = kTA * ta + x;
+          if (ra >= d) break;
+#pragma unroll
+          for (int y = 0; y < kTB; ++y) {
+            const int cc = kTB * tb + y;
+            if (cc < d) {
+              float* o = out + (size_t)ra * d + cc;
+              *o = first ? acc[u][x][y] : __ldcg(o) + acc[u][x][y];
+            }
+          }
+        }
+      }
+      }
+    }
+  };
+
+  // ---- the segments from the top down: walk s, then segment s + 1's sums
+  for (int s = s_top; s >= 0; --s) {
+    const int na = s_nact[s], n_c = min(L, n_sub - s * L);
+    float* rbuf = rec + (size_t)(s & 1) * a.L.rec_buf;
+    if (grouped)
+      for (int p = g_id; p < min(na, n_long); p += g_n) walk(p, s, n_c, rbuf, true);
+    for (int p = n_long + w_id; p < na; p += w_n) walk(p, s, n_c, rbuf, false);
+    if (s < s_top) sums(s + 1);
+    grid.sync();
+  }
+  if (s_top >= 0) {
+    sums(0);
+    grid.sync();
+  }
+  // ---- dw = the chunks' accumulators in chunk order, an entry a thread
+  const int nch0 = s_top >= 0 ? (s_nact[0] + CHR - 1) / CHR : 0;
+  const size_t n_out = (size_t)K * 2 * dd, step = (size_t)K * 2 * dd;
+  for (size_t e = (size_t)blk * nthr + tid; e < n_out; e += (size_t)nb * nthr) {
+    float sum = 0.0f;
+    for (int j = 0; j < nch0; ++j) sum += __ldcg(accg + j * step + e);
+    a.dw[e] = sum;
+  }
 }
 
 bool bad_args(int K, int R, int d, float dt, int n_sub, int stride, int act, int scale) {
@@ -397,15 +846,46 @@ bool bad_args(int K, int R, int d, float dt, int n_sub, int stride, int act, int
          scale < 0 || scale > kScaleSigmoid;
 }
 
-// the backward's shared memory and whether it stages the weights
-int bwd_plan(int d, int stride, size_t* smem, bool* stage) {
-  int max_smem = 0;
-  const int err = max_smem_optin(&max_smem);
-  if (err != 0) return err;
-  const size_t rows_b = bwd_rows_bytes(d, stride);
-  if (rows_b > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  *stage = rows_b + stage_bytes(d) <= kStageBytes;
-  *smem = rows_b + (*stage ? stage_bytes(d) : 0);
+// blocks an SM of the backward's instances for width d (cooperative
+// residency; the fewer of the two activation instances), cached per device
+// and width.  Each instance's shared-memory limit is set once, at its widest
+// width, so that a narrower width's query never lowers it.
+template <int CPT>
+cudaError_t bwd_occupancy(int d, int* per_sm) {
+  const size_t smem_max = bwd_smem_bytes(CPT == 2 ? 64 : kMaxHidden), smem = bwd_smem_bytes(d);
+  int n0 = 0, n1 = 0;
+  cudaError_t e = set_smem(gap_bwd_kernel<CPT, false>, smem_max);
+  if (e == cudaSuccess) e = set_smem(gap_bwd_kernel<CPT, true>, smem_max);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n0, gap_bwd_kernel<CPT, false>,
+                                                      kWarp * kBwdWarps, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n1, gap_bwd_kernel<CPT, true>,
+                                                      kWarp * kBwdWarps, smem);
+  *per_sm = min(n0, n1);
+  return e;
+}
+
+int bwd_per_sm(int d, int* per_sm, int* n_sm) {
+  // one entry a device and width, read and written under the lock
+  static std::mutex mu;
+  static int cache[8][kMaxHidden + 1][2];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < 8 && cache[dev][d][0] > 0) {
+    *per_sm = cache[dev][d][0];
+    *n_sm = cache[dev][d][1];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = plane_rows(d) == 64 ? bwd_occupancy<2>(d, per_sm) : bwd_occupancy<4>(d, per_sm);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 8) {
+    cache[dev][d][0] = *per_sm;
+    cache[dev][d][1] = *n_sm;
+  }
   return 0;
 }
 
@@ -458,87 +938,96 @@ extern "C" int njode_gap_train_fwd(const void* h0, const void* base, const void*
   return (int)cudaGetLastError();
 }
 
-// The backward's grid width: as many blocks (per network) as the card
-// holds at once, at most one per row tile.  The partial buffer of
-// njode_gap_train_bwd has blocks x K x 2 d^2 floats.
-extern "C" int njode_gap_train_bwd_blocks(int K, int R, int d, int stride, int* blocks) {
-  if (bad_args(K, R, d, 1.0f, 1, stride, 0, 0)) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  bool stage = false;
-  int err = bwd_plan(d, stride, &smem, &stage);
+// The backward's grid: blocks an SM (the occupancy of the instance for
+// width d, at most kMaxBlocksPerSm) times the SMs; every block is resident,
+// as the cooperative launch needs.
+extern "C" int njode_gap_train_bwd_grid(int d, int* blocks) {
+  if (d < 1 || d > kMaxHidden) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, n_sm = 0;
+  const int err = bwd_per_sm(d, &per_sm, &n_sm);
   if (err != 0) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-#define NJODE_GAP_OCC(STG)                                                                 \
-  {                                                                                        \
-    auto kern = gap_bwd_kernel<C, STG>;                                                    \
-    if (e == cudaSuccess) e = set_smem(kern, smem);                                        \
-    if (e == cudaSuccess)                                                                  \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kWarp * kBwdWarps,  \
-                                                        smem);                             \
-  }
-  if (stage) {
-    NJODE_GAP_DISPATCH(cpt_of(d), NJODE_GAP_OCC(true))
-  } else {
-    NJODE_GAP_DISPATCH(cpt_of(d), NJODE_GAP_OCC(false))
-  }
-#undef NJODE_GAP_OCC
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = (R + kBwdTile - 1) / kBwdTile;
-  const int fit = per_sm * n_sm / K;
-  *blocks = fit < 1 ? 1 : (fit < tiles ? fit : tiles);
-  return 0;
+  *blocks = min(per_sm, kMaxBlocksPerSm) * n_sm;
+  return *blocks > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-// The reverse loop (stride 1: row 4, stride > 1: row 5, recomputing each
-// segment) and the block-order sum of the weight cotangents into dw.  Two
-// launches on `stream`; returns cudaGetLastError() (0 on success).
+// The reverse loop (stride 1: row 4; stride > 1: row 5, recomputing each
+// segment), its records and their sums into dw, in one cooperative launch
+// on `stream`.  plan = [blocks, chunk_rows, nbins, key_seg] (gap_bwd_plan in
+// ops/gap_scan.py); scratch holds scratch_floats floats (bwd_layout).
+// Returns the CUDA error (0 on success).
 extern "C" int njode_gap_train_bwd(const void* ghL, const void* base, const void* ttgt,
                                    const void* w1h, const void* w1t, const void* w2,
                                    const void* b2, const void* res_h, const void* res_t,
                                    void* gh0, void* gpre_sum, void* acct, void* gdh_sum,
-                                   void* partial, void* dw, int K, int R, int d, float dt,
-                                   int n_sub, int stride, int blocks, int act, int scale,
-                                   void* stream) {
-  if (bad_args(K, R, d, dt, n_sub, stride, act, scale) || blocks < 1)
+                                   void* dw, void* scratch, long long scratch_floats, int K,
+                                   int R, int d, float dt, int n_sub, int stride, int act,
+                                   int scale, const int* plan, void* stream) {
+  if (bad_args(K, R, d, dt, n_sub, stride, act, scale)) return (int)cudaErrorInvalidValue;
+  const int blocks = plan[0], chunk_rows = plan[1], nbins = plan[2], key_seg = plan[3];
+  const int seg = (kSegMin + stride - 1) / stride * stride, n_seg = (n_sub + seg - 1) / seg;
+  // the sort's keys: the count (n_sub + 1 of them), else the segment count
+  const bool seg_keys = n_sub + 1 > kBins;
+  if (key_seg != (int)seg_keys || nbins != (seg_keys ? n_seg + 1 : n_sub + 1) ||
+      nbins > kBins || blocks < K || blocks > kMaxBlocks || chunk_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const int n_res = (n_sub + stride - 1) / stride;
-  size_t smem = 0;
-  bool stage = false;
-  int err = bwd_plan(d, stride, &smem, &stage);
+  int per_sm = 0, n_sm = 0;
+  int err = bwd_per_sm(d, &per_sm, &n_sm);
   if (err != 0) return err;
-  const dim3 grid(blocks, K), block(kWarp, kBwdWarps);
+  if (blocks > min(per_sm, kMaxBlocksPerSm) * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int chunks = (R + chunk_rows - 1) / chunk_rows;
+  BwdArgs args;
+  args.L = bwd_layout(K, R, d, seg, nbins, blocks, chunks);
+  if (scratch_floats < args.L.floats) return (int)cudaErrorInvalidValue;
+  args.ghL = static_cast<const float*>(ghL);
+  args.base = static_cast<const float*>(base);
+  args.ttgt = static_cast<const float*>(ttgt);
+  args.w1h = static_cast<const float*>(w1h);
+  args.w1t = static_cast<const float*>(w1t);
+  args.w2 = static_cast<const float*>(w2);
+  args.b2 = static_cast<const float*>(b2);
+  args.res_h = static_cast<const float*>(res_h);
+  args.res_t = static_cast<const float*>(res_t);
+  args.gh0 = static_cast<float*>(gh0);
+  args.gpre_sum = static_cast<float*>(gpre_sum);
+  args.acct = static_cast<float*>(acct);
+  args.gdh_sum = static_cast<float*>(gdh_sum);
+  args.dw = static_cast<float*>(dw);
+  args.scratch = static_cast<float*>(scratch);
+  args.K = K;
+  args.R = R;
+  args.d = d;
+  args.n_sub = n_sub;
+  args.stride = stride;
+  args.seg = seg;
+  args.n_seg = n_seg;
+  args.act = act;
+  args.scale = scale;
+  args.nbins = nbins;
+  args.key_seg = key_seg;
+  args.chunk_rows = chunk_rows;
+  args.dt = dt;
+  const size_t smem = bwd_smem_bytes(d);
+  void* kargs[] = {(void*)&args};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *f_g = static_cast<const float*>(ghL), *f_base = static_cast<const float*>(base),
-              *f_tt = static_cast<const float*>(ttgt), *f_w1h = static_cast<const float*>(w1h),
-              *f_w1t = static_cast<const float*>(w1t), *f_w2 = static_cast<const float*>(w2),
-              *f_b2 = static_cast<const float*>(b2), *f_rh = static_cast<const float*>(res_h),
-              *f_rt = static_cast<const float*>(res_t);
-  float *f_gh0 = static_cast<float*>(gh0), *f_gp = static_cast<float*>(gpre_sum),
-        *f_at = static_cast<float*>(acct), *f_gd = static_cast<float*>(gdh_sum),
-        *f_pt = static_cast<float*>(partial);
-  cudaError_t e = cudaSuccess;
-#define NJODE_GAP_BWD(STG)                                                                 \
-  {                                                                                        \
-    auto kern = gap_bwd_kernel<C, STG>;                                                    \
-    e = set_smem(kern, smem);                                                              \
-    if (e == cudaSuccess)                                                                  \
-      kern<<<grid, block, smem, s>>>(f_g, f_base, f_tt, f_w1h, f_w1t, f_w2, f_b2, f_rh,    \
-                                     f_rt, f_gh0, f_gp, f_at, f_gd, f_pt, R, d, dt, n_sub, \
-                                     stride, n_res, act, scale);                           \
-  }
-  if (stage) {
-    NJODE_GAP_DISPATCH(cpt_of(d), NJODE_GAP_BWD(true))
+  const dim3 grid(blocks), block(kWarp, kBwdWarps);
+  const bool ri = act == kRelu && scale == kIdentity;
+  cudaError_t e;
+  if (plane_rows(d) == 64) {
+    if (ri)
+      e = cudaLaunchCooperativeKernel((const void*)gap_bwd_kernel<2, true>, grid, block, kargs,
+                                      smem, s);
+    else
+      e = cudaLaunchCooperativeKernel((const void*)gap_bwd_kernel<2, false>, grid, block, kargs,
+                                      smem, s);
   } else {
-    NJODE_GAP_DISPATCH(cpt_of(d), NJODE_GAP_BWD(false))
+    if (ri)
+      e = cudaLaunchCooperativeKernel((const void*)gap_bwd_kernel<4, true>, grid, block, kargs,
+                                      smem, s);
+    else
+      e = cudaLaunchCooperativeKernel((const void*)gap_bwd_kernel<4, false>, grid, block, kargs,
+                                      smem, s);
   }
-#undef NJODE_GAP_BWD
   if (e != cudaSuccess) return (int)e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n = K * 2 * d * d;
-  gap_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(f_pt, static_cast<float*>(dw), blocks, n);
   return (int)cudaGetLastError();
 }
 

@@ -22,12 +22,19 @@
 //
 // What bounds it on the H100: the f32 products, 2 (d_h+2) d_h + 2 d_h^2
 // flops per row, cell and network forward and about twice that backward, on
-// the CUDA cores; rows are independent in the forward, so blocks own tiles
-// of 4 rows, one a warp, and each warp walks its row with no block
-// barrier.  Each row's slot
-// cells sit in shared memory, and at every cell the lanes test 32 slots at
-// once (a warp ballot).  Device memory holds only the inputs, the outputs
+// the CUDA cores; in practice each row's walk, a chain of M dependent cells
+// of two products each.  Device memory holds only the inputs, the outputs
 // and the residuals (M B d_h floats, in L2 at the training shapes).
+//
+// Forward (row 7): walk_train.cu's forward walk (row 13), as the backward
+// below runs it: each row on a group of WPT warps (4 at the production
+// shape, 256 rows a network) that split both products by input rows
+// (group_mm of walk_cell.cuh over the zero-padded planes in shared memory,
+// one named barrier a product), no block barrier in the walk; the carry h
+// in registers, alike in every warp of the group; each row's slot cells in
+// shared memory, tested 32 at a time by a warp ballot; the jump state of
+// the next cell's reset loaded a cell ahead; each cell's writes (pre-jump
+// states, residuals) split between the group's warps by 16-column blocks.
 //
 // Backward: the cells in reverse, each recomputing pre from its residual;
 // the carry's h-cotangent at a reset cell goes to h_jump[s], and the new
@@ -57,9 +64,9 @@
 // t_rel, t_elapsed] (the last row unread); cvec, b2 (K, d); w2 (K, d, d)
 // (in, out); hminus (K, B, N-1, d); res_h (K, M, B, d); res_t, res_x (M, B);
 // records (3, K, M, B, d) = [hid, gp, gdh]; partial (chunks, K, 2 d^2 + 4 d)
-// = [dW1h, dW2, dw1x, dw1t, dcvec, db2].  The backward's launch plan (warps
-// a row, warps a block, rows a chunk of the sums) is the caller's
-// (walk_bwd_plan in ops/walk_scan.py) and is checked here.
+// = [dW1h, dW2, dw1x, dw1t, dcvec, db2].  The launch plans (warps a row,
+// warps a block; the backward's rows a chunk of the sums) are the caller's
+// (walk_fwd_plan, walk_bwd_plan in ops/walk_scan.py) and are checked here.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -70,13 +77,7 @@ namespace {
 
 using namespace njode_walk;
 
-// the forward: one row a warp: a row's walk is a chain of dependent cells,
-// so the card is kept busy by many warps in flight rather than by sharing
-// weight loads among a warp's rows
-constexpr int kWarps = 4;
-constexpr int kFwdRPW = 1;
-constexpr int kFwdTile = kFwdRPW * kWarps;
-// the backward walk's widest block, and the sums' staged rows and output tile
+// the walks' widest block, and the sums' staged rows and output tile
 constexpr int kBwdMaxWarps = 8;
 constexpr int kDwRows = 32, kTA = 4, kTB = 8;
 constexpr int kDwMaxThreads = 576;  // d = 128: 33 x 16 tiles, in whole warps
@@ -85,8 +86,14 @@ __host__ __device__ __forceinline__ int grad_floats(int d) { return 2 * d * d + 
 
 // -------------------------------------------------------------- forward
 
-template <int CPT, bool STAGE, bool SAVE>
-__global__ void __launch_bounds__(kWarp * kWarps)
+// The forward walk.  Grid (ceil(B / rows a block), K); block (32, warps),
+// WPT warps a row (walk_fwd_plan).  Shared memory as the backward walk's:
+// the W1h and W2 planes (HP x (HP + 1), zero past d), each row's two
+// partial-product buffers (group_mm), each row's slot cells.  The carry h
+// lives in registers, alike in every warp of the row's group; each 16-column
+// block of a row's writes (pre-jump states, residuals) is one warp's.
+template <int CPT, bool RI, bool SAVE>
+__global__ void __launch_bounds__(kWarp * kBwdMaxWarps, 1)
 walk_fwd_kernel(const float* __restrict__ hj, const float* __restrict__ xs,
                 const float* __restrict__ ts, const int* __restrict__ reset_cell,
                 const int* __restrict__ read_cell, const float* __restrict__ w1,
@@ -94,123 +101,122 @@ walk_fwd_kernel(const float* __restrict__ hj, const float* __restrict__ xs,
                 const float* __restrict__ b2, float* __restrict__ hminus,
                 float* __restrict__ res_h, float* __restrict__ res_t,
                 float* __restrict__ res_x, int B, int N, int d, int M, float dt,
-                int act, int scale) {
-  constexpr int RPW = kFwdRPW;
+                int act, int scale, int wpt) {
   extern __shared__ float smem[];
   const int k = blockIdx.y, lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * kWarp + lane, n_threads = kWarp * blockDim.y;
-  const int row0 = blockIdx.x * kFwdTile;
-  const int ld = STAGE ? (d | 1) : d;
+  const int tid = warp * kWarp + lane, n_thr = kWarp * blockDim.y;
+  const int rpb = blockDim.y / wpt, row0 = blockIdx.x * rpb;
+  const int HP = kWarp * CPT, ld = HP + 1, PL = HP * ld;
+  float* sW1 = smem;
+  float* sW2 = smem + PL;
+  float* part = smem + 2 * PL;
+  int* s_reset = reinterpret_cast<int*>(part + (size_t)rpb * 2 * wpt * HP);
+  int* s_read = s_reset + rpb * N;
   const float* W1 = w1 + (size_t)k * (d + 3) * d;
   const float* W2 = w2 + (size_t)k * d * d;
+  for (int e = tid; e < PL; e += n_thr) {
+    const int i = e / ld, j = e - i * ld;
+    const bool in = i < d && j < d;
+    sW1[e] = in ? W1[i * d + j] : 0.0f;
+    sW2[e] = in ? W2[i * d + j] : 0.0f;
+  }
+  for (int e = tid; e < rpb * N; e += n_thr) {
+    const bool in = row0 + e / N < B;
+    s_reset[e] = in ? reset_cell[(size_t)row0 * N + e] : -2;
+    s_read[e] = in ? read_cell[(size_t)row0 * N + e] : -2;
+  }
+  __syncthreads();
+
+  // this warp's row and its place in the row's group; a group whose row is
+  // past B leaves at once (only its own named barrier waits for it)
+  const int grp = warp / wpt, wg = warp % wpt;
+  const int b = row0 + grp;
+  if (b >= B) return;
+  Group gr;
+  gr.wpt = wpt;
+  gr.wg = wg;
+  gr.bar_id = 1 + grp;
+  gr.bar_n = kWarp * wpt;
+  gr.r_lo = wg * (HP / wpt);
+  gr.r_hi = min(gr.r_lo + HP / wpt, (d + 15) / 16 * 16);
+  gr.par = 0;
+  gr.part = part + (size_t)grp * 2 * wpt * HP;
+  // relu and identity (the production recipe's) fixed at compile time (RI)
+  auto actf = [&](float x) { return RI ? (x < 0.0f ? 0.0f : x) : activate(x, act); };
+  auto scl = [&](float x) { return RI ? x : scale_in(x, scale); };
   float w1x[CPT], w1t[CPT], cv[CPT], bb2[CPT];
   vec_regs<CPT>(W1 + (size_t)d * d, d, lane, w1x);
   vec_regs<CPT>(W1 + (size_t)(d + 1) * d, d, lane, w1t);
   vec_regs<CPT>(cvec + (size_t)k * d, d, lane, cv);
   vec_regs<CPT>(b2 + (size_t)k * d, d, lane, bb2);
-  float* rows = smem;
-  if constexpr (STAGE) {
-    float* s_w1 = smem;
-    float* s_w2 = smem + (size_t)d * ld;
-    for (int e = tid; e < d * d; e += n_threads) {
-      const int i = e / d, j = e - i * d;
-      s_w1[i * ld + j] = W1[e];
-      s_w2[i * ld + j] = W2[e];
-    }
-    W1 = s_w1;
-    W2 = s_w2;
-    rows = smem + 2 * (size_t)d * ld;
-  }
-  float* s_h = rows;
-  float* s_hid = s_h + kFwdTile * d;
-  float* s_sc = scale == kIdentity ? s_h : s_hid + kFwdTile * d;
-  int* s_reset = reinterpret_cast<int*>(s_hid + (scale == kIdentity ? 1 : 2) * kFwdTile * d);
-  int* s_read = s_reset + kFwdTile * N;
-  for (int e = tid; e < kFwdTile * d; e += n_threads) {
-    s_h[e] = 0.0f;
-    if (scale != kIdentity) s_sc[e] = scale_in(0.0f, scale);
-  }
-  for (int e = tid; e < kFwdTile * N; e += n_threads) {
-    const int b = row0 + e / N;
-    s_reset[e] = b < B ? reset_cell[(size_t)row0 * N + e] : -2;
-    s_read[e] = b < B ? read_cell[(size_t)row0 * N + e] : -2;
-  }
-  __syncthreads();
-
-  const int r_w = warp * RPW;
-  float* my_h = s_h + r_w * d;
-  float* my_sc = s_sc + r_w * d;
-  float* my_hid = s_hid + r_w * d;
-  bool valid[RPW];
-  float t[RPW], x[RPW];
-#pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    valid[q] = row0 + r_w + q < B;
-    t[q] = 0.0f;
-    x[q] = 0.0f;
-  }
-  float acc[RPW][CPT];
+  const int* my_reset = s_reset + grp * N;
+  const int* my_read = s_read + grp * N;
   const int S = N - 1;
+  // entry j = lane + 32 c lies in the row's 16-column block 2 c + lane / 16
+  auto mine = [&](int c) { return (2 * c + (lane >> 4)) % wpt == wg; };
 
+  // the carry (h, t, x); the jump state, t and x of the next cell's reset
+  // (the last valid slot at that cell) are loaded a cell ahead
+  float h[CPT], hn[CPT], t = 0.0f, x = 0.0f, tn = 0.0f, xn = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) h[c] = hn[c] = 0.0f;
+  auto fetch = [&](int g) {
+    int last = -1;
+    for_slots_at(my_reset, N, 0, g, lane, [&](int s) { last = s; });
+    if (last >= 0) {
+      const float* src = hj + (((size_t)k * B + b) * N + last) * d;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        hn[c] = j < d ? src[j] : 0.0f;
+      }
+      tn = ts[(size_t)b * N + last];
+      xn = xs[(size_t)b * N + last];
+    }
+    return last;
+  };
+  int next = M > 0 ? fetch(0) : -1;
   for (int g = 0; g <= M; ++g) {
-    // pre-jump reads of the arriving carry, then the resets
+    // pre-jump reads of the arriving carry, then the reset
+    for_slots_at(my_read, N, 1, g, lane, [&](int s) {
+      float* out = hminus + (((size_t)k * B + b) * S + s - 1) * d;
 #pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      if (!valid[q]) continue;
-      const int b = row0 + r_w + q;
-      for_slots_at(s_read + (r_w + q) * N, N, 1, g, lane, [&](int s) {
-        float* out = hminus + (((size_t)k * B + b) * S + s - 1) * d;
-        for (int j = lane; j < d; j += kWarp) out[j] = my_h[q * d + j];
-      });
-      if (g == M) continue;
-      for_slots_at(s_reset + (r_w + q) * N, N, 0, g, lane, [&](int s) {
-        const float* src = hj + (((size_t)k * B + b) * N + s) * d;
-        for (int j = lane; j < d; j += kWarp) {
-          const float hv = src[j];
-          my_h[q * d + j] = hv;
-          if (scale != kIdentity) my_sc[q * d + j] = scale_in(hv, scale);
-        }
-        t[q] = ts[(size_t)b * N + s];
-        x[q] = xs[(size_t)b * N + s];
-      });
-      if constexpr (SAVE) {
-        float* dst = res_h + (((size_t)k * M + g) * B + b) * d;
-        for (int j = lane; j < d; j += kWarp) dst[j] = my_h[q * d + j];
-        if (k == 0 && lane == 0) {
-          res_t[(size_t)g * B + b] = t[q];
-          res_x[(size_t)g * B + b] = x[q];
-        }
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        if (j < d && mine(c)) out[j] = h[c];
       }
-    }
+    });
     if (g == M) break;
-    __syncwarp();
-    rows_mm<CPT, RPW, false, (STAGE ? kLoadPlain : kLoadNc)>(my_sc, d, RPW, W1, ld, d, lane, acc);
+    if (next >= 0) {
 #pragma unroll
-    for (int q = 0; q < RPW; ++q)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        if (j < d) {
-          const float pre = acc[q][c] + x[q] * w1x[c] + t[q] * w1t[c] + cv[c];
-          my_hid[q * d + j] = activate(pre, act);
-        }
-      }
-    __syncwarp();
-    rows_mm<CPT, RPW, false, (STAGE ? kLoadPlain : kLoadNc)>(my_hid, d, RPW, W2, ld, d, lane, acc);
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = lane + kWarp * c;
-        if (j < d) {
-          const float hv = my_h[q * d + j] + dt * (acc[q][c] + bb2[c]);
-          my_h[q * d + j] = hv;
-          if (scale != kIdentity) my_sc[q * d + j] = scale_in(hv, scale);
-        }
-      }
-      t[q] += dt;
+      for (int c = 0; c < CPT; ++c) h[c] = hn[c];
+      t = tn;
+      x = xn;
     }
-    __syncwarp();
+    next = g + 1 < M ? fetch(g + 1) : -1;
+    if constexpr (SAVE) {
+      float* dst = res_h + (((size_t)k * M + g) * B + b) * d;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = lane + kWarp * c;
+        if (j < d && mine(c)) dst[j] = h[c];
+      }
+      if (k == 0 && wg == 0 && lane == 0) {
+        res_t[(size_t)g * B + b] = t;
+        res_x[(size_t)g * B + b] = x;
+      }
+    }
+    // one Euler step: the group's two products
+    float v[CPT], acc[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) v[c] = scl(h[c]);
+    group_mm<CPT, false, false>(v, sW1, ld, d, lane, gr, acc);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) v[c] = actf(acc[c] + x * w1x[c] + t * w1t[c] + cv[c]);
+    group_mm<CPT, false, false>(v, sW2, ld, d, lane, gr, acc);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) h[c] = h[c] + dt * (acc[c] + bb2[c]);
+    t += dt;
   }
 }
 
@@ -462,8 +468,6 @@ __global__ void walk_reduce_kernel(const float* __restrict__ partial,
   out[e] = sum;
 }
 
-int cpt_of(int d) { return d <= 32 ? 1 : (d <= 64 ? 2 : 4); }
-
 int max_smem_optin(int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -479,16 +483,9 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// row buffers and the rows' slot cells (reset and read, ints)
-size_t fwd_rows_bytes(int d, int N, int scale) {
-  return ((scale == kIdentity ? 2 : 3) * (size_t)kFwdTile * d + 2 * (size_t)kFwdTile * N) *
-         sizeof(float);
-}
-
-size_t stage_bytes(int d) { return 2 * (size_t)d * (d | 1) * sizeof(float); }
-
-// the backward walk's shared bytes (walk_bwd_plan in ops/walk_scan.py)
-size_t bwd_smem_bytes(int d, int N, int wpt, int warps) {
+// the walks' shared bytes, forward and backward (walk_fwd_plan and
+// walk_bwd_plan in ops/walk_scan.py)
+size_t walk_smem_bytes(int d, int N, int wpt, int warps) {
   const size_t HP = d <= 64 ? 64 : 128, rpb = warps / wpt;
   return (2 * HP * (HP + 1) + rpb * 2 * wpt * HP + 2 * rpb * (size_t)N) * sizeof(float);
 }
@@ -501,35 +498,33 @@ int dw_threads(int d) {
 
 }  // namespace
 
-#define NJODE_WALK_DISPATCH(CPT_VAL, CALL) \
-  switch (CPT_VAL) {                       \
-    case 1: { constexpr int C = 1; CALL; } break; \
-    case 2: { constexpr int C = 2; CALL; } break; \
-    default: { constexpr int C = 4; CALL; } break; \
-  }
-
 // The forward walk.  res_h/res_t/res_x may be null (no residuals kept).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// plan = [wpt, warps] (walk_fwd_plan in ops/walk_scan.py), smem_bytes the
+// walk's shared bytes.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int njode_walk_fwd(const void* hj, const void* xs, const void* ts,
                               const void* reset_cell, const void* read_cell,
                               const void* w1, const void* cvec, const void* w2,
                               const void* b2, void* hminus, void* res_h,
                               void* res_t, void* res_x, int K, int B, int N,
                               int d, int M, float dt, int act, int scale,
-                              void* stream) {
+                              const int* plan, long long smem_bytes, void* stream) {
+  const int wpt = plan[0], warps = plan[1];
   if (K < 1 || K > 65535 || B < 1 || N < 2 || d < 1 || d > 128 || M < 0 ||
-      act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid)
+      act < 0 || act > kSelu || scale < 0 || scale > kScaleSigmoid ||
+      (wpt != 1 && wpt != 2 && wpt != 4) || warps < wpt || warps > kBwdMaxWarps ||
+      warps % wpt != 0)
     return (int)cudaErrorInvalidValue;
   const bool save = res_h != nullptr;
   if (save && (res_t == nullptr || res_x == nullptr)) return (int)cudaErrorInvalidValue;
   int max_smem = 0;
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
-  const size_t rows_b = fwd_rows_bytes(d, N, scale);
-  const bool stage = rows_b + stage_bytes(d) <= (size_t)max_smem;
-  const size_t smem = rows_b + (stage ? stage_bytes(d) : 0);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + kFwdTile - 1) / kFwdTile, K), block(kWarp, kWarps);
+  if ((size_t)smem_bytes < walk_smem_bytes(d, N, wpt, warps) || smem_bytes > max_smem)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_bytes;
+  const int rpb = warps / wpt;
+  const dim3 grid((B + rpb - 1) / rpb, K), block(kWarp, warps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *f_hj = static_cast<const float*>(hj), *f_xs = static_cast<const float*>(xs),
               *f_ts = static_cast<const float*>(ts), *f_w1 = static_cast<const float*>(w1),
@@ -539,25 +534,24 @@ extern "C" int njode_walk_fwd(const void* hj, const void* xs, const void* ts,
   float *f_hm = static_cast<float*>(hminus), *f_rh = static_cast<float*>(res_h),
         *f_rt = static_cast<float*>(res_t), *f_rx = static_cast<float*>(res_x);
   cudaError_t e = cudaSuccess;
-#define NJODE_WALK_FWD(STG, SV)                                                   \
+  const bool ri = act == kRelu && scale == kIdentity;
+#define NJODE_WALK_FWD(C, RI, SV)                                                 \
   {                                                                               \
-    auto kern = walk_fwd_kernel<C, STG, SV>;                                      \
+    auto kern = walk_fwd_kernel<C, RI, SV>;                                       \
     e = set_smem(kern, smem);                                                     \
     if (e == cudaSuccess)                                                         \
       kern<<<grid, block, smem, s>>>(f_hj, f_xs, f_ts, i_rs, i_rd, f_w1, f_cv,    \
                                      f_w2, f_b2, f_hm, f_rh, f_rt, f_rx, B, N, d, \
-                                     M, dt, act, scale);                          \
+                                     M, dt, act, scale, wpt);                     \
   }
-  const int cpt = cpt_of(d);
-  if (stage && save) {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_FWD(true, true))
-  } else if (stage) {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_FWD(true, false))
-  } else if (save) {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_FWD(false, true))
+#define NJODE_WALK_FWD_SV(C, RI)                            \
+  if (save) NJODE_WALK_FWD(C, RI, true) else NJODE_WALK_FWD(C, RI, false)
+  if (d <= 64) {
+    if (ri) NJODE_WALK_FWD_SV(2, true) else NJODE_WALK_FWD_SV(2, false)
   } else {
-    NJODE_WALK_DISPATCH(cpt, NJODE_WALK_FWD(false, false))
+    if (ri) NJODE_WALK_FWD_SV(4, true) else NJODE_WALK_FWD_SV(4, false)
   }
+#undef NJODE_WALK_FWD_SV
 #undef NJODE_WALK_FWD
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -586,7 +580,7 @@ extern "C" int njode_walk_bwd(const void* ct_hm, const void* res_h, const void* 
   int max_smem = 0;
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
-  if ((size_t)smem_bytes < bwd_smem_bytes(d, N, wpt, warps) || smem_bytes > max_smem)
+  if ((size_t)smem_bytes < walk_smem_bytes(d, N, wpt, warps) || smem_bytes > max_smem)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)smem_bytes;
   const int rpb = warps / wpt;

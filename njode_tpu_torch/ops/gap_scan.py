@@ -45,7 +45,12 @@ replaces ``_fwd_kernel`` (:134) and ``_fwd_kernel_ck`` (:235) with one
 forward that stores the state entering every ``stride``-th substep (stride 1
 up to ``2 * CK`` substeps, else ``CK``; ``_use_remat``, :126-127), and
 ``_bwd_kernel`` (:422) and ``_bwd_kernel_ck`` (:295) with one reverse loop
-that recomputes each segment from its checkpoint.  :class:`GapScan`, a
+that recomputes each segment from its checkpoint: one cooperative launch
+that sorts the rows by their substep count on the device, walks the longest
+on groups of warps and the rest one a warp, and sums the weight cotangents
+from each segment's records over the whole grid in a fixed order
+(:func:`gap_bwd_plan`, its plain pair :func:`gap_bwd_records_reference`).
+:class:`GapScan`, a
 ``torch.autograd.Function``, joins them; its backward returns the
 cotangents of h, base, w1h, w1t, w2 and b2 (those of the times are None),
 summing the kernel's per-row ``acc_t`` and ``gdh_sum`` over rows into w1t's
@@ -183,6 +188,121 @@ def gap_plan(d_h: int, scale_name: str = "identity") -> GapPlan | None:
                    need(warps))
 
 
+# row 5's launch plan (csrc/gap_train.cu, the backward, row 4 at stride 1):
+# GAP_BWD_WARPS warps a block; the long rows (a substep count of at least
+# GAP_BWD_LONG[0] / GAP_BWD_LONG[1] of the call's longest, rounded up) walk
+# on a group of GAP_BWD_WPT warps, the rest one a warp; the device sort's
+# keys are the counts, at most GAP_BWD_BINS of them (else the segment
+# counts); the weight sums stage GAP_BWD_DW_ROWS record rows at a time over
+# chunks of whole 32-row tiles of sorted rows; the grid is the card's
+# resident blocks (GAP_BWD_BLOCKS on an H100 at a block an SM), at most
+# GAP_BWD_MAX_BLOCKS.  The residual stride is at most MAX_STRIDE; a segment
+# of the walk is the stride's multiple from CK up (bwd_segment).
+GAP_BWD_WARPS, GAP_BWD_WPT = 8, 4
+GAP_BWD_LONG = (1, 2)
+GAP_BWD_BINS = 1024
+GAP_BWD_DW_ROWS = 32
+GAP_BWD_BLOCKS = 132
+GAP_BWD_MAX_BLOCKS = 2048
+MAX_STRIDE = 64
+
+
+class GapBwdPlan(NamedTuple):
+    """Row 5's launch plan: warps a long row's group, warps a block, the
+    long threshold (a count of at least long_num / long_den of the longest),
+    blocks, substeps a segment, sorted rows a chunk of the weight sums and
+    their chunks, the sort's keys (nbins, segment counts when key_seg), the
+    shared bytes and the scratch floats."""
+    wpt: int
+    warps: int
+    long_num: int
+    long_den: int
+    blocks: int
+    seg: int
+    chunk_rows: int
+    chunks: int
+    nbins: int
+    key_seg: bool
+    smem: int
+    scratch: int
+
+    def ints(self) -> list[int]:
+        """The plan as njode_gap_train_bwd takes it."""
+        return [self.blocks, self.chunk_rows, self.nbins, int(self.key_seg)]
+
+
+def _plane_rows(d_h: int) -> int:
+    return 64 if d_h <= 64 else 128
+
+
+def _round32(x: int) -> int:
+    return -(-x // 32) * 32
+
+
+def _gap_bwd_smem_bytes(d_h: int) -> int:
+    """csrc/gap_train.cu's ``bwd_smem_bytes``: the W1h and W2 planes (HP x
+    (HP + 1)), the two groups' partial-product buffers, the sums' staged A
+    and G rows, each warp's vector (HP floats) of a single-warp product, the
+    sort's keys and the segments' active rows (GAP_BWD_BINS each), 32
+    words."""
+    hp, ld = _plane_rows(d_h), -(-d_h // 8) * 8
+    return 4 * (2 * hp * (hp + 1)
+                + GAP_BWD_WARPS // GAP_BWD_WPT * 2 * GAP_BWD_WPT * hp
+                + 2 * GAP_BWD_DW_ROWS * ld + GAP_BWD_WARPS * hp
+                + 2 * GAP_BWD_BINS + 32)
+
+
+def bwd_segment(stride: int) -> int:
+    """Substeps a segment of the backward's walk: the residual stride's
+    multiple from CK up (csrc/gap_train.cu: kSegMin), so that a call at
+    stride 1 meets a grid barrier every CK substeps, not every one."""
+    return -(-CK // stride) * stride
+
+
+def _gap_bwd_scratch_floats(K: int, R: int, d_h: int, seg: int,
+                            nbins: int, blocks: int, chunks: int) -> int:
+    """csrc/gap_train.cu's ``bwd_layout``: counts, sorted rows and their
+    counts, the keys' per-block counts and totals (ints), the two step
+    buffers of one segment's records, the chunk accumulators and each
+    warp's segment states, each part a whole number of 32 floats but the
+    last."""
+    seg_warp = seg * (2 * _plane_rows(d_h) + 32)
+    return (3 * _round32(R) + _round32(blocks * nbins) + _round32(nbins)
+            + _round32(2 * K * 4 * seg * R * d_h)
+            + _round32(chunks * K * 2 * d_h * d_h)
+            + blocks * GAP_BWD_WARPS * seg_warp)
+
+
+@functools.lru_cache(maxsize=None)
+def gap_bwd_plan(d_h: int, R: int, n_sub: int, stride: int, K: int = 1,
+                 blocks: int = GAP_BWD_BLOCKS) -> GapBwdPlan | None:
+    """Row 5's (and row 4's) launch plan for K networks of R rows of width
+    d_h, n_sub substeps stored every ``stride``, on a grid of ``blocks``
+    (the card's resident blocks; the kernel checks them), or None where the
+    kernel does not take the shape.  The weight sums' chunks hold
+    ceil(R / blocks) sorted rows rounded up to 32 (at least 32), so that
+    segment 0's chunks spread over the grid."""
+    d_h, R, n_sub, stride, K, blocks = (int(d_h), int(R), int(n_sub),
+                                        int(stride), int(K), int(blocks))
+    if not (1 <= d_h <= MAX_HIDDEN and R >= 1 and n_sub >= 1
+            and 1 <= stride <= MAX_STRIDE and 1 <= K <= blocks
+            <= GAP_BWD_MAX_BLOCKS):
+        return None
+    seg = bwd_segment(stride)
+    n_seg = -(-n_sub // seg)
+    key_seg = n_sub + 1 > GAP_BWD_BINS
+    nbins = n_seg + 1 if key_seg else n_sub + 1
+    smem = _gap_bwd_smem_bytes(d_h)
+    if nbins > GAP_BWD_BINS or smem > SMEM_BYTES:
+        return None
+    chunk_rows = max(32, _round32(-(-R // blocks)))
+    chunks = -(-R // chunk_rows)
+    return GapBwdPlan(GAP_BWD_WPT, GAP_BWD_WARPS, *GAP_BWD_LONG, blocks, seg,
+                      chunk_rows, chunks, nbins, key_seg, smem,
+                      _gap_bwd_scratch_floats(K, R, d_h, seg, nbins,
+                                              blocks, chunks))
+
+
 def use_remat(n_sub: int) -> bool:
     """Whether the training pair checkpoints (``_use_remat``)."""
     return n_sub > 2 * CK
@@ -196,7 +316,8 @@ def residual_stride(n_sub: int) -> int:
 def gap_train_fits(d_h: int) -> bool:
     """Whether the training kernels take this width (d_h <= MAX_HIDDEN; the
     backward's shared memory then fits at either residual stride, which
-    csrc/gap_train.cu's ``bwd_plan`` checks on the card)."""
+    :func:`gap_bwd_plan` mirrors and csrc/gap_train.cu checks on the
+    card)."""
     return 1 <= d_h <= MAX_HIDDEN
 
 
@@ -298,6 +419,109 @@ def gap_train_backward_reference(g_h, base, t_target, w1h, w1t, w2, b2,
     return gh, gpre_sum, acc_t, gdh_sum, dw1h, dw2
 
 
+def gap_substep_counts(t_last, t_target, dt: float, n_sub: int):
+    """Each row's taken substeps by the loop's own float sequence (t + dt <
+    t_target, t += dt) from t_last, as the backward counts them on the
+    device: (counts (R,) int64, t_L (R,), bitwise the forward's)."""
+    t = t_last.clone()
+    counts = torch.zeros(t.shape, dtype=torch.int64, device=t.device)
+    for _ in range(n_sub):
+        pred = (t + dt) < t_target
+        t = torch.where(pred, t + dt, t)
+        counts += pred
+    return counts, t
+
+
+def gap_bwd_order(counts, n_sub: int, seg: int):
+    """The backward's row order: longest first by the sort key (the count,
+    or past GAP_BWD_BINS - 1 substeps the count of segments of ``seg``
+    substeps), rows of one key in row order (a stable sort)."""
+    key = counts if n_sub + 1 <= GAP_BWD_BINS else -(-counts // seg)
+    return torch.sort(-key, stable=True).indices
+
+
+def gap_bwd_records_reference(g_h, base, t_target, w1h, w1t, w2, b2, res_h,
+                              res_t, dt: float, n_sub: int, stride: int,
+                              act_name: str, scale_name: str,
+                              chunk_rows: int | None = None):
+    """Plain PyTorch version of the backward (rows 4-5) with the kernel's
+    data flow: each row's substeps counted by the float sequence, the rows
+    sorted longest first (:func:`gap_bwd_order`), then segments of
+    :func:`bwd_segment` substeps from the top down, each active row (a
+    prefix of the sorted rows) rebuilding its segment's states (the stored
+    ones loaded, the others recomputed) and walking it in reverse, writing
+    the records s(h), g_pre, act(pre) and g_dh of every substep of the segment
+    (zeros where it takes none); each segment's records summed by chunks of
+    ``chunk_rows`` sorted rows (:func:`gap_bwd_plan`'s by default), a
+    chunk's sum added to its accumulator segment by segment, the
+    accumulators added in chunk order.  Same arguments and result as
+    :func:`gap_train_backward_reference`."""
+    act, dact = _ACT[act_name], _ACT_GRAD[act_name]
+    scale, dscale = _SCALE[scale_name], _SCALE_GRAD[scale_name]
+    K, R, d = g_h.shape
+    seg = bwd_segment(stride)
+    if chunk_rows is None:
+        chunk_rows = gap_bwd_plan(d, R, n_sub, stride, K).chunk_rows
+    counts, _ = gap_substep_counts(res_t[0], t_target, dt, n_sub)
+    order = gap_bwd_order(counts, n_sub, seg)
+    cs = counts[order]
+    w1h_t, w2_t = w1h.transpose(1, 2), w2.transpose(1, 2)
+    gh, gps, ats, gds = (x[:, order].clone() for x in (
+        g_h, torch.zeros_like(g_h), torch.zeros_like(g_h),
+        torch.zeros_like(g_h)))
+    base_s = base[:, order]
+    acc = {}
+    for s in reversed(range(-(-n_sub // seg))):
+        na = int((cs > s * seg).sum())
+        if na == 0:
+            continue
+        n_c = min(seg, n_sub - s * seg)
+        rows = order[:na]
+        n_t = torch.clamp(cs[:na] - s * seg, max=n_c)
+        states = []
+        for c in range(n_c):
+            j = s * seg + c
+            if j % stride == 0:          # stored; the others recomputed
+                h, t = res_h[j // stride][:, rows], res_t[j // stride][rows]
+            pre = (torch.matmul(scale(h), w1h) + base_s[:, :na]
+                   + t[None, :, None] * w1t[:, None])
+            states.append((h, pre, t))
+            take = (c + 1 < n_t)[None, :, None]
+            h = torch.where(take, h + dt * (torch.matmul(act(pre), w2)
+                                            + b2[:, None]), h)
+            t = torch.where(take[0, :, 0], t + dt, t)
+        recs = [None] * n_c
+        for c in reversed(range(n_c)):
+            h, pre, t = states[c]
+            m = (c < n_t)[None, :, None]
+            g_dh = torch.where(m, dt * gh[:, :na], 0.0)
+            g_pre = torch.matmul(g_dh, w2_t) * dact(pre)
+            gh[:, :na] = gh[:, :na] + torch.where(
+                m, torch.matmul(g_pre, w1h_t) * dscale(h), 0.0)
+            gps[:, :na] += g_pre
+            ats[:, :na] += t[None, :, None] * g_pre
+            gds[:, :na] += g_dh
+            recs[c] = (torch.where(m, scale(h), 0.0), g_pre,
+                       torch.where(m, act(pre), 0.0), g_dh)
+        sh, gp, hid, gdh = (torch.stack([r[i] for r in recs], 1)
+                            for i in range(4))          # (K, n_c, na, d)
+        for j, p0 in enumerate(range(0, na, chunk_rows)):
+            sl = slice(p0, p0 + chunk_rows)
+
+            def flat(x):
+                return x[:, :, sl].reshape(K, -1, d)
+            part = torch.stack([
+                torch.matmul(flat(sh).transpose(1, 2), flat(gp)),
+                torch.matmul(flat(hid).transpose(1, 2), flat(gdh))], 1)
+            acc[j] = part if j not in acc else acc[j] + part
+    dw = torch.zeros(K, 2, d, d, dtype=g_h.dtype, device=g_h.device)
+    for j in sorted(acc):
+        dw = dw + acc[j]
+    inv = torch.argsort(order)
+    return (gh[:, inv], gps[:, inv], ats[:, inv], gds[:, inv], dw[:, 0],
+            dw[:, 1])
+
+
 @functools.cache
 def _load_kernel():
     """Build (first call only) and bind ``njode_gap_scan_fwd``."""
@@ -320,9 +544,11 @@ def _load_train_kernel():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.njode_gap_train_fwd.argtypes = [P] * 12 + [I] * 3 + [F] + [I] * 4 + [P]
     lib.njode_gap_train_fwd.restype = I
-    lib.njode_gap_train_bwd_blocks.argtypes = [I] * 4 + [ctypes.POINTER(I)]
-    lib.njode_gap_train_bwd_blocks.restype = I
-    lib.njode_gap_train_bwd.argtypes = [P] * 15 + [I] * 3 + [F] + [I] * 5 + [P]
+    lib.njode_gap_train_bwd_grid.argtypes = [I, ctypes.POINTER(I)]
+    lib.njode_gap_train_bwd_grid.restype = I
+    lib.njode_gap_train_bwd.argtypes = ([P] * 15 + [ctypes.c_longlong]
+                                        + [I] * 3 + [F] + [I] * 4
+                                        + [ctypes.POINTER(I), P])
     lib.njode_gap_train_bwd.restype = I
     return lib
 
@@ -456,11 +682,33 @@ def _launch_train_fwd(h, base, t_last, t_target, w1h, w1t, w2, b2,
     return h_out, t_out, res_h, res_t
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_launch(device_index: int, d_h: int, R: int, n_sub: int, stride: int,
+                K: int):
+    """The backward's plan on this card (its grid from
+    njode_gap_train_bwd_grid: resident blocks by the occupancy of the
+    instances for d_h) and the plan as the C array the kernel reads; one
+    query a card and shape."""
+    lib = _load_train_kernel()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.njode_gap_train_bwd_grid(int(d_h), ctypes.byref(blocks))
+    from ._build import check
+    check(lib, err, "njode_gap_train_bwd_grid")
+    plan = gap_bwd_plan(d_h, R, n_sub, stride, K,
+                        min(blocks.value, GAP_BWD_MAX_BLOCKS))
+    if plan is None:
+        raise ValueError(f"gap_train_backward: no launch plan fits d_h {d_h},"
+                         f" {K} networks, n_sub {n_sub}, stride {stride}")
+    return plan, (ctypes.c_int * 4)(*plan.ints())
+
+
 def _launch_train_bwd(g_h, base, t_target, w1h, w1t, w2, b2, res_h, res_t,
                       dt: float, n_sub: int, stride: int, act_name: str,
                       scale_name: str):
-    """The backward kernel (row 4 at stride 1, row 5 beyond) and its
-    block-order sum: what :func:`gap_train_backward_reference` returns."""
+    """The backward kernel (row 4 at stride 1, row 5 beyond), one
+    cooperative launch with its weight sums: what
+    :func:`gap_train_backward_reference` returns."""
     tensors = {"h": g_h, "base": base, "t_target": t_target, "w1h": w1h,
                "w1t": w1t, "w2": w2, "b2": b2}
     device = _check_call(tensors, act_name, scale_name, "gap_train_backward")
@@ -474,23 +722,24 @@ def _launch_train_bwd(g_h, base, t_target, w1h, w1t, w2, b2, res_h, res_t,
                          f" stride {stride}")
     lib = _load_train_kernel()
     from ._build import check
-    blocks = ctypes.c_int(0)
+    plan, plan_arg = _bwd_launch(device.index or 0, d_h, R, int(n_sub),
+                                 int(stride), K)
+    # the four row outputs, dw and the scratch in one allocation
+    n = K * R * d_h
+    buf = torch.empty(4 * n + 2 * K * d_h * d_h + plan.scratch,
+                      dtype=torch.float32, device=device)
+    outs = [buf[i * n:(i + 1) * n].view(K, R, d_h) for i in range(4)]
+    dw = buf[4 * n:4 * n + 2 * K * d_h * d_h].view(K, 2, d_h, d_h)
+    scratch = buf[4 * n + 2 * K * d_h * d_h:]
     with torch.cuda.device(device):
-        check(lib, lib.njode_gap_train_bwd_blocks(K, R, d_h, int(stride),
-                                                  ctypes.byref(blocks)),
-              "njode_gap_train_bwd_blocks")
-        outs = [torch.empty_like(g_h) for _ in range(4)]
-        partial = torch.empty(blocks.value, K, 2, d_h, d_h,
-                              dtype=g_h.dtype, device=device)
-        dw = torch.empty(K, 2, d_h, d_h, dtype=g_h.dtype, device=device)
         err = lib.njode_gap_train_bwd(
             g_h.data_ptr(), base.data_ptr(), t_target.data_ptr(),
             w1h.data_ptr(), w1t.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             res_h.data_ptr(), res_t.data_ptr(),
-            *(x.data_ptr() for x in outs), partial.data_ptr(), dw.data_ptr(),
-            K, R, d_h, float(dt), int(n_sub), int(stride), blocks.value,
+            *(x.data_ptr() for x in outs), dw.data_ptr(), scratch.data_ptr(),
+            plan.scratch, K, R, d_h, float(dt), int(n_sub), int(stride),
             SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
-            _stream(device))
+            plan_arg, _stream(device))
     check(lib, err, "njode_gap_train_bwd launch")
     LAUNCHES_BWD[_mode(stride)] += 1
     return (*outs, dw[:, 0], dw[:, 1])

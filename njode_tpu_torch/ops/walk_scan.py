@@ -13,10 +13,11 @@ Kernels: ``csrc/walk_scan.cu``, ``njode_walk_fwd`` (replaces the TPU kernel
 ``:226`` ``_bwd_kernel``), joined by :class:`WalkScan`, a
 ``torch.autograd.Function``.  The TPU lane layout (``[h, t, x, 1]`` in 128
 lanes, row pairs, per-cell DMA streams) is not copied: the kernels take
-logical shapes.  The backward walks each row on a group of warps that split
-every product (the walk-train kernel's design), writes at every cell the
-records the weight cotangents are sums over, and sums them afterwards as
-long-k products in a fixed order; :func:`walk_bwd_plan` is its launch plan,
+logical shapes.  Both walk each row on a group of warps that split every
+product (the walk-train kernel's design); the backward writes at every cell
+the records the weight cotangents are sums over, and sums them afterwards
+as long-k products in a fixed order; :func:`walk_fwd_plan` and
+:func:`walk_bwd_plan` are their launch plans,
 :func:`walk_forward_reference` and :func:`walk_backward_reference` the plain
 versions of that data flow.  See the source for the design.
 
@@ -53,13 +54,25 @@ LAUNCHES_BWD = 0
 # the kernels' widest hidden size (4 columns per lane)
 MAX_HIDDEN = 128
 SMEM_BYTES = 232_448           # the H100's opt-in shared memory per block
-# row 8's launch plan (csrc/walk_scan.cu): a row's warps by the walk's rows
-# (B K): 4 up to BWD_WPT_ROWS[0], 2 up to BWD_WPT_ROWS[1], else 1; at most
-# BWD_MAX_WARPS warps a block; the weight sums over chunks of at least
-# DW_MIN_CHUNK record rows, at most DW_MAX_CHUNKS chunks a network
+# rows 7 and 8's launch plans (csrc/walk_scan.cu): a row's warps by the
+# walk's rows (B K): 4 up to BWD_WPT_ROWS[0], 2 up to BWD_WPT_ROWS[1], else
+# 1; at most BWD_MAX_WARPS warps a block; row 8's weight sums over chunks of
+# at least DW_MIN_CHUNK record rows, at most DW_MAX_CHUNKS chunks a network
 BWD_WPT_ROWS = (512, 1024)
 BWD_MAX_WARPS = 8
 DW_MIN_CHUNK, DW_MAX_CHUNKS = 128, 256
+
+
+class WalkFwdPlan(NamedTuple):
+    """Row 7's launch plan: warps a row (its group), warps a block, the
+    walk's shared bytes."""
+    wpt: int
+    warps: int
+    smem: int
+
+    def ints(self) -> list[int]:
+        """The plan as njode_walk_fwd takes it."""
+        return [self.wpt, self.warps]
 
 
 class WalkBwdPlan(NamedTuple):
@@ -78,11 +91,41 @@ class WalkBwdPlan(NamedTuple):
 
 
 def _bwd_smem_bytes(d: int, N: int, wpt: int, warps: int) -> int:
-    """csrc/walk_scan.cu's ``bwd_smem_bytes``: the W1h and W2 planes (HP x
-    (HP + 1), HP 64 or 128), each row's two partial-product buffers of its
-    group, each row's reset and read cells."""
+    """csrc/walk_scan.cu's ``walk_smem_bytes`` (both walks): the W1h and W2
+    planes (HP x (HP + 1), HP 64 or 128), each row's two partial-product
+    buffers of its group, each row's reset and read cells."""
     hp, rpb = (64 if d <= 64 else 128), warps // wpt
     return 4 * (2 * hp * (hp + 1) + rpb * 2 * wpt * hp + 2 * rpb * N)
+
+
+def _walk_group(d: int, B: int, N: int, K: int) -> tuple[int, int] | None:
+    """A row's warps by the walk's rows B K (``BWD_WPT_ROWS``) and the
+    block's warps, halving from ``BWD_MAX_WARPS`` until the block fits the
+    shared memory; None where it never does."""
+    rows = B * K
+    wpt = 4 if rows <= BWD_WPT_ROWS[0] else 2 if rows <= BWD_WPT_ROWS[1] else 1
+    warps = BWD_MAX_WARPS
+    while warps > wpt and _bwd_smem_bytes(d, N, wpt, warps) > SMEM_BYTES:
+        warps //= 2
+    if _bwd_smem_bytes(d, N, wpt, warps) > SMEM_BYTES:
+        return None
+    return wpt, warps
+
+
+@functools.lru_cache(maxsize=None)
+def walk_fwd_plan(d: int, B: int, N: int, M: int,
+                  K: int = 1) -> Optional[WalkFwdPlan]:
+    """Row 7's launch plan, or None where the shapes do not fit: the
+    backward's groups (:func:`walk_bwd_plan`), so that at the production
+    shape (256 rows, K_h 2) each row walks on 4 warps, 2,048 warps in all."""
+    d, B, N, M, K = int(d), int(B), int(N), int(M), int(K)
+    if not (1 <= d <= MAX_HIDDEN and B >= 1 and N >= 2 and M >= 0
+            and K >= 1):
+        return None
+    group = _walk_group(d, B, N, K)
+    if group is None:
+        return None
+    return WalkFwdPlan(*group, _bwd_smem_bytes(d, N, *group))
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,14 +141,11 @@ def walk_bwd_plan(d: int, B: int, N: int, M: int,
     if not (1 <= d <= MAX_HIDDEN and B >= 1 and N >= 2 and M >= 0
             and K >= 1):
         return None
-    rows = B * K
-    wpt = 4 if rows <= BWD_WPT_ROWS[0] else 2 if rows <= BWD_WPT_ROWS[1] else 1
-    warps = BWD_MAX_WARPS
-    while warps > wpt and _bwd_smem_bytes(d, N, wpt, warps) > SMEM_BYTES:
-        warps //= 2
-    smem = _bwd_smem_bytes(d, N, wpt, warps)
-    if smem > SMEM_BYTES:
+    group = _walk_group(d, B, N, K)
+    if group is None:
         return None
+    wpt, warps = group
+    smem = _bwd_smem_bytes(d, N, wpt, warps)
     mb = M * B
     per_chunk = -(-mb // DW_MAX_CHUNKS)
     chunk_rows = max(DW_MIN_CHUNK, -(-per_chunk // 32) * 32)
@@ -353,12 +393,19 @@ def _load_kernel():
     from ._build import load
     lib = load("walk_scan")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.njode_walk_fwd.argtypes = [P] * 13 + [I] * 5 + [F] + [I] * 2 + [P]
+    lib.njode_walk_fwd.argtypes = ([P] * 13 + [I] * 5 + [F] + [I] * 2
+                                   + [ctypes.POINTER(I), ctypes.c_longlong, P])
     lib.njode_walk_fwd.restype = I
     lib.njode_walk_bwd.argtypes = ([P] * 13 + [I] * 5 + [F] + [I] * 2
                                    + [ctypes.POINTER(I), ctypes.c_longlong, P])
     lib.njode_walk_bwd.restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(plan: WalkFwdPlan):
+    """The plan as the C array njode_walk_fwd reads (one a plan)."""
+    return (ctypes.c_int * 2)(*plan.ints())
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -391,6 +438,10 @@ class WalkScan(torch.autograd.Function):
                 torch.empty(M, B, dtype=torch.float32, device=dev),
                 torch.empty(M, B, dtype=torch.float32, device=dev))
                if save else (None, None, None))
+        plan = walk_fwd_plan(d, B, N, M, K)
+        if plan is None:
+            raise ValueError(f"WalkScan: no forward plan fits d_h {d}, "
+                             f"{N} slots")
         lib = _load_kernel()
         with torch.cuda.device(dev):
             err = lib.njode_walk_fwd(
@@ -399,7 +450,7 @@ class WalkScan(torch.autograd.Function):
                 w2_io.data_ptr(), b2c.data_ptr(), h_minus.data_ptr(),
                 *(_ptr(r) for r in res), K, B, N, d, M, float(dt),
                 SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
-                _stream(dev))
+                _plan_arg(plan), plan.smem, _stream(dev))
         from ._build import check
         check(lib, err, "njode_walk_fwd launch")
         LAUNCHES_FWD += 1

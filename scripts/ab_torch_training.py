@@ -1,6 +1,7 @@
-"""A/B runs of the kernels (rows 1, 7-13) on one CUDA card.
+"""A/B runs of the kernels (rows 1-5, 7-13) on one CUDA card.
 
     python scripts/ab_torch_training.py gap [--root DIR]
+    python scripts/ab_torch_training.py gaptrain [--root DIR]
     python scripts/ab_torch_training.py walkscan [--root DIR]
     python scripts/ab_torch_training.py epoch [--root DIR] [--launch]
     python scripts/ab_torch_training.py walk [--root DIR] [--bf16]
@@ -48,6 +49,18 @@ plain version (the forward at rtol 1e-4 / atol 1e-5, every cotangent within
 1e-3 of its norm), then each kernel's device time a forward and backward
 (torch.profiler, 5 calls), and the forward kernel's device time over 5
 forward calls alone (no backward between them).
+
+``gaptrain``: the forced path's training pair at its main-path shapes, a
+production minibatch of chip_smoke.py's ``forced_times_phase`` (256
+trajectories x 9 gaps, 2,304 rows, K_h 1, d_h 50, relu/identity): rows 3 and
+5 at dt 0.01 (n_sub 100, checkpoints every 8 substeps), rows 2 and 4 at dt
+0.1 (n_sub 10, every state stored); CUDA events around each wrapper
+(``_launch_train_fwd``, ``_launch_train_bwd``), median of 30 after 5 of
+warm-up, three times each, every result checked against the plain versions
+(t_L bitwise, the backward's six outputs' largest error/norm), then each
+kernel's device time over 5 forward and backward calls (torch.profiler),
+the forward kernel's device time over 5 forward calls alone (no backward
+between them) and the minibatch's substep counts (longest, mean).
 
 ``steps``: one case of chip_smoke.py's ``train_kernel_phase`` (its weights
 and data; the activation's scaling from ``ACT_PAIRS``), run for 1, 2, ...,
@@ -268,6 +281,84 @@ def mode_gap(dev: torch.device) -> None:
           f"filter predict {counts[1][0]} / {counts[1][1]}", flush=True)
 
 
+def device_ms(step, n: int = 5) -> dict:
+    """Device ms a call of ``step`` by kernel name (torch.profiler over n
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    import re
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            nm = e.name.replace("(anonymous namespace)::", "")
+            m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", nm)
+            name = m.group(1) if m else (nm or "?")
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.time_range.elapsed_us() / (1e3 * n))
+    return by_kernel
+
+
+def mode_gaptrain(dev: torch.device) -> None:
+    from njode_tpu_torch.ops import gap_scan
+    from njode_tpu_torch.simulation import simulate_batch
+    t0 = time.perf_counter()
+    gap_scan._load_train_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    b = simulate_batch(cs.PROD_BS, "black_scholes", 0.1, True, generator=gen,
+                       device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    model = NeuralJumpODE(use_pallas=True, device=dev,
+                          generator=torch.Generator().manual_seed(0),
+                          **cs.PROD_MODEL_KW)
+    ct = torch.randn(1, cs.PROD_BS * (cs.PROD_N - 1), cs.PROD_H, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    for dt, n_sub, rows in ((cs.PROD_DT, cs.PROD_M, (3, 5)),
+                            (0.1, 10, (2, 4))):
+        stride = gap_scan.residual_stride(n_sub)
+        args = cs.forced_rows(model, b.times, b.values, dt)
+        fwd = (*args, dt, n_sub, stride, "relu", "identity")
+        with torch.no_grad():
+            res = gap_scan._launch_train_fwd(*fwd)
+            ref = gap_scan.gap_train_forward_reference(*fwd)
+            bwd = (ct, args[1], args[3], *args[4:], res[2], res[3], dt,
+                   n_sub, stride, "relu", "identity")
+            ours = gap_scan._launch_train_bwd(*bwd)
+            plain = gap_scan.gap_train_backward_reference(*bwd)
+            torch.cuda.synchronize()
+            if not torch.equal(res[1], ref[1]):
+                raise AssertionError(f"t_L differs at dt {dt}")
+            rel = max(float((a - p).double().norm()
+                            / p.double().norm().clamp_min(1e-30))
+                      for a, p in zip(ours, plain))
+            if rel > cs.GRAD_RTOL:
+                raise AssertionError(f"backward error/norm {rel:.2e} at dt "
+                                     f"{dt}")
+            f_ms = [cs.time_ms(lambda: gap_scan._launch_train_fwd(*fwd))
+                    for _ in range(3)]
+            b_ms = [cs.time_ms(lambda: gap_scan._launch_train_bwd(*bwd))
+                    for _ in range(3)]
+            by_kernel = device_ms(lambda: (gap_scan._launch_train_fwd(*fwd),
+                                           gap_scan._launch_train_bwd(*bwd)))
+            fwd_alone = device_ms(lambda: gap_scan._launch_train_fwd(*fwd))
+        steps = torch.round((ref[1] - args[2]) / dt)
+        print(f"[{ROOT}] rows {rows[0]}/{rows[1]} (2,304 rows, d_h "
+              f"{cs.PROD_H}, dt {dt}, n_sub {n_sub}, stride {stride}; "
+              f"substeps longest {int(steps.max())}, mean "
+              f"{float(steps.mean()):.2f}): forward ms "
+              f"{[round(x, 4) for x in f_ms]}, backward ms "
+              f"{[round(x, 4) for x in b_ms]}; backward vs plain largest "
+              f"error/norm {rel:.2e}; device ms a forward + backward by "
+              f"kernel (profiler): " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in sorted(by_kernel.items(),
+                                                    key=lambda x: -x[1]))
+              + f"; the forward alone (5 calls, no backward between): "
+              f"gap_res_fwd_kernel "
+              f"{fwd_alone.get('gap_res_fwd_kernel', 0.0):.4f}", flush=True)
+
+
 def mode_walkscan(dev: torch.device) -> None:
     from njode_tpu_torch.ops import walk_scan
     t0 = time.perf_counter()
@@ -298,24 +389,6 @@ def mode_walkscan(dev: torch.device) -> None:
                 for _ in range(3)]
         b_ms = [cs.time_ms(lambda: torch.autograd.grad(
             out, [hj, *w], c["ct"], retain_graph=True)) for _ in range(3)]
-        from torch.profiler import ProfilerActivity, profile
-        import re
-
-        def device_ms(step):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    step()
-                torch.cuda.synchronize()
-            by_kernel = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    nm = e.name.replace("(anonymous namespace)::", "")
-                    m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", nm)
-                    name = m.group(1) if m else (nm or "?")
-                    by_kernel[name] = (by_kernel.get(name, 0.0)
-                                       + e.time_range.elapsed_us() / 5e3)
-            return by_kernel
-
         def fwd_bwd():
             fwd(walk_scan.walk_gaps_fused)
             torch.autograd.grad(out, [hj, *w], c["ct"], retain_graph=True)
@@ -427,6 +500,8 @@ def main() -> None:
     mode = ARGS[0] if ARGS else ""
     if mode == "gap":
         mode_gap(dev)
+    elif mode == "gaptrain":
+        mode_gaptrain(dev)
     elif mode == "walkscan":
         mode_walkscan(dev)
     elif mode == "epoch":

@@ -49,7 +49,14 @@ recipe (``use_pallas=True``, the CLI's ``--kernels force``; the production
 config with grid_walk off, on the gap loop's training pair, and the
 default config, on the fused Euler cell) through ``Trainer.train``, each
 after one epoch of warm-up: the same report, the production arm's Chrome
-trace to the same output directory.
+trace to the same output directory.  Then row 5's and row 4's own split
+(ops/csrc/gap_train.cu's backward at the forced production minibatch,
+2,304 gaps at dt 0.01 and at dt 0.1), from a copy with %globaltimer
+probes read by each block's first thread (a segment's walk end is the
+latest of the block's warps): the count and sort phases, then each
+segment's walk, the weight sums of the segment above it and the grid
+barrier, the last segment's sums and the final chunk sum; median and
+latest block, microseconds from the kernel's start.
 
     PYTHONPATH=. python scripts/profile_torch_training.py [--production | --scaled | --forced]
 """
@@ -214,6 +221,123 @@ def profile_forced(dev: torch.device, card: str, out_dir: str) -> None:
         if "production" in name:
             prof.export_chrome_trace(os.path.join(out_dir,
                                                   "trace_forced.json"))
+
+
+def instrumented_gap_bwd_source() -> str:
+    """ops/csrc/gap_train.cu with %globaltimer probes read by each block's
+    thread 0 (a segment's walk end: the latest lane 0 of the block's warps)
+    at fixed places; fails if an anchor is gone."""
+    src = (_build.CSRC / "gap_train.cu").read_text()
+    edits = [
+        ("namespace {\n",
+         "namespace {\n"
+         "__device__ unsigned long long g_probe[2048 * 64];\n"
+         "__device__ __forceinline__ unsigned long long gtime() {\n"
+         "  unsigned long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+         "  return t;\n}\n"
+         "#define PROBE(i) do { if (tid == 0) g_probe[blk * 64 + (i)] = gtime(); } while (0)\n"
+         "#define PROBE_MAX(i) do { if (lane == 0) atomicMax(&g_probe[blk * 64 + (i)], gtime()); } while (0)\n"),
+        ("  // ---- count: outputs initialised",
+         "  PROBE(0);\n  // ---- count: outputs initialised"),
+        ("  grid.sync();\n\n  // ---- the walkers",
+         "  grid.sync();\n  PROBE(1);\n\n  // ---- the walkers"),
+        ("    for (int p = n_long + w_id; p < na; p += w_n) walk(p, s, n_c, rbuf, false);\n"
+         "    if (s < s_top) sums(s + 1);\n    grid.sync();",
+         "    for (int p = n_long + w_id; p < na; p += w_n) walk(p, s, n_c, rbuf, false);\n"
+         "    PROBE_MAX(2 + 3 * (s_top - s));\n    if (s < s_top) sums(s + 1);\n"
+         "    PROBE(3 + 3 * (s_top - s));\n    grid.sync();\n"
+         "    PROBE(4 + 3 * (s_top - s));"),
+        ("    sums(0);\n    grid.sync();\n  }",
+         "    sums(0);\n    PROBE(60);\n    grid.sync();\n  }"),
+        ("    a.dw[e] = sum;\n  }\n}",
+         "    a.dw[e] = sum;\n  }\n  __syncthreads();\n  PROBE(61);\n"
+         "  if (tid == 0) g_probe[blk * 64 + 63] = s_top + 1;\n}"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"gap_train.cu has no unique anchor {old!r}")
+        src = src.replace(old, new)
+    return src + (
+        "\nextern \"C\" int njode_prof_read(unsigned long long* out) {\n"
+        "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
+
+
+def gap_bwd_split(dev: torch.device, card: str) -> None:
+    """Rows 5 and 4 (gap_train.cu's backward) by phase, one call each at
+    the forced production minibatch, from the instrumented copy."""
+    from njode_tpu_torch.ops import gap_scan
+    from njode_tpu_torch.simulation import simulate_batch
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = os.path.join(tmp, "gap_train_probes.cu")
+        so = os.path.join(tmp, "libgap_train_probes.so")
+        with open(cu, "w") as f:
+            f.write(instrumented_gap_bwd_source())
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", so, cu], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+        shipped = gap_scan._load_train_kernel()
+        for name in ("njode_gap_train_fwd", "njode_gap_train_bwd_grid",
+                     "njode_gap_train_bwd"):
+            fn, ref = getattr(lib, name), getattr(shipped, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.njode_cuda_error_string.restype = ctypes.c_char_p
+        gen = torch.Generator(device=dev).manual_seed(33)
+        b = simulate_batch(chip_smoke.PROD_BS, "black_scholes", 0.1, True,
+                           generator=gen, device=dev, mu=0.1, sigma=0.5,
+                           x0=1.0)
+        model = NeuralJumpODE(use_pallas=True, device=dev,
+                              generator=torch.Generator().manual_seed(0),
+                              **chip_smoke.PROD_MODEL_KW)
+        ct = torch.randn(1, chip_smoke.PROD_BS * (chip_smoke.PROD_N - 1),
+                         chip_smoke.PROD_H, device=dev)
+        original = gap_scan._load_train_kernel
+        gap_scan._load_train_kernel = lambda: lib
+        gap_scan._bwd_launch.cache_clear()
+        try:
+            for row, dt, n_sub in ((5, chip_smoke.PROD_DT, chip_smoke.PROD_M),
+                                   (4, 0.1, 10)):
+                stride = gap_scan.residual_stride(n_sub)
+                args = chip_smoke.forced_rows(model, b.times, b.values, dt)
+                tail = (dt, n_sub, stride, "relu", "identity")
+                with torch.no_grad():
+                    res = gap_scan._launch_train_fwd(*args, *tail)
+                    bwd = (ct, args[1], args[3], *args[4:], res[2], res[3],
+                           *tail)
+                    gap_scan._launch_train_bwd(*bwd)                # warm-up
+                    gap_scan._launch_train_bwd(*bwd)
+                    torch.cuda.synchronize()
+                probes = (ctypes.c_ulonglong * (2048 * 64))()
+                lib.njode_prof_read(probes)
+                plan, _ = gap_scan._bwd_launch(0, chip_smoke.PROD_H,
+                                               args[0].shape[1], n_sub,
+                                               stride, 1)
+                per = [[probes[blk * 64 + i] for i in range(64)]
+                       for blk in range(plan.blocks)]
+                t0 = min(p[0] for p in per)
+                top = per[0][63] - 1
+
+                def at(i):
+                    v = sorted(p[i] - t0 for p in per)
+                    return f"{v[len(v) // 2] / 1e3:.1f}/{v[-1] / 1e3:.1f}"
+                names = [(1, "count and sort")]
+                for s_ in range(top, -1, -1):
+                    j = 3 * (top - s_)
+                    names += [(2 + j, f"segment {s_} walked"),
+                              (3 + j, f"segment {s_ + 1}'s sums"),
+                              (4 + j, "grid barrier")]
+                names += [(60, "segment 0's sums"), (61, "chunk sum")]
+                print(f"row {row} split on {card} (2,304 gaps, d_h "
+                      f"{chip_smoke.PROD_H}, dt {dt}, n_sub {n_sub}, stride "
+                      f"{stride}; plan {tuple(plan)[:9]}), microseconds from "
+                      f"the kernel's start to each phase's end, median / "
+                      f"latest block: " + "; ".join(
+                          f"{nm} {at(i)}" for i, nm in names), flush=True)
+        finally:
+            gap_scan._load_train_kernel = original
+            gap_scan._bwd_launch.cache_clear()
 
 
 STEP_PHASES = ("products (to the barrier after them)",
@@ -626,6 +750,7 @@ def main() -> None:
         return
     if "--forced" in sys.argv[1:]:
         profile_forced(dev, card, out_dir)
+        gap_bwd_split(dev, card)
         return
     profile_trainer(dev, card, out_dir)
     kernel_split(dev, card)

@@ -1,4 +1,4 @@
-"""The launch plans of rows 1 and 8.
+"""The launch plans of rows 1, 4-5, 7 and 8.
 
 Row 1 (njode_tpu_torch/ops/gap_scan.py ``gap_plan``, csrc/gap_scan.cu) and
 row 8 (njode_tpu_torch/ops/walk_scan.py ``walk_bwd_plan``,
@@ -185,7 +185,7 @@ def test_walk_bwd_plan_admits_every_old_shape(rows):
 def test_walk_bwd_plan_at_the_production_shape_and_the_source():
     """256 rows, H 50, N 10, M 100: 4 warps a row at K_h 1 and 2, 2 rows a
     block, 200 chunks of 128 record rows; the shared bytes as
-    csrc/walk_scan.cu's ``bwd_smem_bytes`` counts them, written out; the
+    csrc/walk_scan.cu's ``walk_smem_bytes`` counts them, written out; the
     sums' block (one thread a 4 x 8 output tile) within its bound at every
     width."""
     for K in (1, 2):
@@ -199,3 +199,188 @@ def test_walk_bwd_plan_at_the_production_shape_and_the_source():
     for d in range(1, walk_scan.MAX_HIDDEN + 1):
         tiles = -(-(d + 3) // 4) * -(-d // 8)
         assert -(-tiles // 32) * 32 <= cap
+
+
+# ---------------------------------------------------------------- rows 4-5
+
+def _r32(x):
+    return -(-x // 32) * 32
+
+
+def old_gap_bwd_fits(d, stride):
+    """The gate of rows 4-5's first kernel, frozen (csrc/gap_train.cu's
+    ``bwd_rows_bytes`` of one row a warp, 4 rows a block): the weight
+    cotangents' accumulator, five row buffers and the segment's states."""
+    return (2 * d * d + 5 * 4 * d + stride * 4 * (d + 1)) * 4 <= SMEM
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_gap_bwd_plan_admits_every_old_shape(K):
+    """Every width and residual stride at which the first backward had a
+    plan, at the n_sub whose stride ``residual_stride`` picks (GapScan's
+    shapes) and at the stride A/B's strides 1, 4, 8, 16 (n_sub up to
+    1,000): row 5 has a plan within the shared memory, sort keys that fit,
+    chunks of whole 32-row tiles covering the rows."""
+    for d in range(1, gap_scan.MAX_HIDDEN + 1):
+        for n_sub in (1, 10, 16, 17, 100, 1000, 5000):
+            strides = {gap_scan.residual_stride(n_sub)}
+            if n_sub <= 1000:
+                strides |= {1, 4, 8, 16}
+            for stride in strides:
+                if not old_gap_bwd_fits(d, stride):
+                    continue
+                for R in (1, 16, 2304, 18000):
+                    p = gap_scan.gap_bwd_plan(d, R, n_sub, stride, K)
+                    assert p is not None and p.smem <= SMEM, (d, n_sub, R)
+                    assert p.nbins <= gap_scan.GAP_BWD_BINS
+                    assert p.chunk_rows % 32 == 0
+                    assert p.chunks * p.chunk_rows >= R
+                    assert (p.chunks - 1) * p.chunk_rows < R
+
+
+def test_gap_bwd_plan_at_the_forced_shapes():
+    """Row 5 at the forced production shape (2,304 gaps, d_h 50, n_sub 100,
+    stride 8), row 4 at dt 0.1 (n_sub 10, stride 1) and the step buffer's
+    largest case of chip_smoke.py (18,000 rows, d_h 128, K_h 2): groups of 4
+    warps, 8 warps a block, the long threshold 1 / 2, a block an SM, the
+    shared bytes and the scratch written out."""
+    p = gap_scan.gap_bwd_plan(50, 2304, 100, 8, 1)
+    assert (p.wpt, p.warps, p.long_num, p.long_den, p.blocks) == (4, 8, 1, 2,
+                                                                  132)
+    assert (p.chunk_rows, p.chunks, p.nbins, p.key_seg) == (32, 72, 101,
+                                                            False)
+    assert p.ints() == [132, 32, 101, 0] and p.seg == 8
+    assert p.smem == 4 * (2 * 64 * 65 + 2 * 2 * 4 * 64 + 2 * 32 * 56
+                          + 8 * 64 + 2 * 1024 + 32)
+    # counts, order, sorted counts; 132 x 101 key counts and 101 totals,
+    # each rounded up to 32; two step buffers; 72 chunk accumulators; each
+    # warp's 8 slots of 2 x 64 + 32 floats
+    step = 2 * 4 * 8 * 2304 * 50
+    assert p.scratch == (3 * 2304 + 13344 + 128 + step + 72 * 2 * 2500
+                         + 132 * 8 * 8 * 160)
+    p = gap_scan.gap_bwd_plan(50, 2304, 10, 1, 1)
+    assert (p.seg, p.nbins, p.chunk_rows) == (8, 11, 32)
+    assert p.scratch == (3 * 2304 + _r32(132 * 11) + 32 + step
+                         + 72 * 2 * 2500 + 132 * 8 * 8 * 160)
+    p = gap_scan.gap_bwd_plan(128, 18000, 100, 8, 2)
+    assert (p.chunk_rows, p.chunks) == (160, 113)
+    assert p.smem == 4 * (2 * 128 * 129 + 2 * 2 * 4 * 128 + 2 * 32 * 128
+                          + 8 * 128 + 2 * 1024 + 32) <= SMEM
+    # one segment's records, double-buffered: 2 x 8 x K R 4 d floats
+    assert p.scratch > 2 * 8 * 2 * 18000 * 4 * 128
+    assert gap_scan.gap_bwd_plan(50, 2304, 100, 8, 1, blocks=264).chunk_rows \
+        == 32
+    assert gap_scan.gap_bwd_plan(129, 16, 100, 8) is None
+    assert gap_scan.gap_bwd_plan(50, 16, 100, 65) is None
+    assert gap_scan.gap_bwd_plan(50, 16, 100, 8, K=3, blocks=2) is None
+
+
+def test_gap_bwd_plan_keys_past_the_bins():
+    """The sort keys are the substep counts up to GAP_BWD_BINS - 1 substeps,
+    then the counts of segments (the stride's multiple from CK up: 8 at
+    strides 1, 4 and 8, 16 at 16); a plan whose segments outnumber the bins
+    is refused."""
+    assert [gap_scan.bwd_segment(s) for s in (1, 2, 3, 4, 8, 16, 64)] == [
+        8, 8, 9, 8, 8, 16, 64]
+    p = gap_scan.gap_bwd_plan(50, 100, 1023, 8)
+    assert (p.seg, p.nbins, p.key_seg) == (8, 1024, False)
+    p = gap_scan.gap_bwd_plan(50, 100, 1024, 8)
+    assert (p.nbins, p.key_seg) == (129, True)
+    assert gap_scan.gap_bwd_plan(50, 100, 1024, 1).nbins == 129
+    assert gap_scan.gap_bwd_plan(50, 100, 8184, 8).nbins == 1024
+    assert gap_scan.gap_bwd_plan(50, 100, 8185, 8) is None
+    assert gap_scan.gap_bwd_plan(50, 100, 16368, 16).nbins == 1024
+
+
+def test_gap_bwd_plan_mirrors_the_source():
+    """``_gap_bwd_smem_bytes`` and the plan's constants against
+    csrc/gap_train.cu (``bwd_smem_bytes``, ``kBwdWarps``, ``kGroup``,
+    ``kLongNum`` / ``kLongDen``, ``kBins``, ``kDwRows``, ``kMaxStride``,
+    ``kMaxBlocks``), the shared sum written out at every width."""
+    src = "gap_train.cu"
+    assert source_constant("kBwdWarps", src) == gap_scan.GAP_BWD_WARPS
+    assert source_constant("kGroup", src) == gap_scan.GAP_BWD_WPT
+    assert source_constant("kBins", src) == gap_scan.GAP_BWD_BINS
+    assert source_constant("kDwRows", src) == gap_scan.GAP_BWD_DW_ROWS
+    assert source_constant("kMaxStride", src) == gap_scan.MAX_STRIDE
+    assert source_constant("kSegMin", src) == gap_scan.CK
+    text = (CSRC / src).read_text()
+    assert (f"kLongNum = {gap_scan.GAP_BWD_LONG[0]}, kLongDen = "
+            f"{gap_scan.GAP_BWD_LONG[1]}") in text
+    assert "kMaxBlocks = 8 * kWarp * 8" in text
+    assert 8 * 32 * 8 == gap_scan.GAP_BWD_MAX_BLOCKS
+    for d in range(1, gap_scan.MAX_HIDDEN + 1):
+        hp = 64 if d <= 64 else 128
+        ld = -(-d // 8) * 8
+        want = 4 * (2 * hp * (hp + 1) + 2 * 2 * 4 * hp + 2 * 32 * ld
+                    + 8 * hp + 2 * 1024 + 32)
+        assert gap_scan._gap_bwd_smem_bytes(d) == want <= SMEM, d
+
+
+def compiled_gap_bwd_instances():
+    """The columns a lane of csrc/gap_train.cu's backward instances, read
+    from its cooperative launches."""
+    src = (CSRC / "gap_train.cu").read_text()
+    return {int(c) for c in re.findall(
+        r"cudaLaunchCooperativeKernel\(\(const void\*\)gap_bwd_kernel<(\d), (?:true|false)>",
+        src)}
+
+
+def test_gap_bwd_plans_reach_only_compiled_instances():
+    """Every width 1-128 takes a plane of 64 or 128 rows, 2 or 4 columns a
+    lane: exactly the two instances the source launches (held to 0 spill
+    bytes on the card)."""
+    reached = {(64 if d <= 64 else 128) // 32
+               for d in range(1, gap_scan.MAX_HIDDEN + 1)
+               if gap_scan.gap_bwd_plan(d, 16, 100, 8) is not None}
+    assert compiled_gap_bwd_instances() == reached == {2, 4}
+
+
+# ------------------------------------------------------------------ row 7
+
+@pytest.mark.parametrize("rows", [1, 256, 512, 4000])
+def test_walk_fwd_plan_admits_every_old_shape(rows):
+    """Every walk_scan_available width at slot counts up to where the first
+    kernels' gates closed: row 7 has a plan within the shared memory, with
+    the backward's groups (a row's warps dividing the block's)."""
+    for d, N, scale in itertools.product(
+            range(1, walk_scan.MAX_HIDDEN + 1),
+            (2, 3, 10, 100, 1000, 2000, 2600, 5000, 7000, 10000),
+            ("identity", "tanh")):
+        if not old_walk_fits(d, N, scale):
+            continue
+        for M in (0, 1, 100):
+            plan = walk_scan.walk_fwd_plan(d, rows, N, M)
+            assert plan is not None and plan.smem <= SMEM, (d, N, M)
+            assert plan.wpt in (1, 2, 4) and plan.warps % plan.wpt == 0
+            assert plan.warps <= walk_scan.BWD_MAX_WARPS
+            bwd = walk_scan.walk_bwd_plan(d, rows, N, M)
+            assert (plan.wpt, plan.warps, plan.smem) == (bwd.wpt, bwd.warps,
+                                                         bwd.smem)
+
+
+@pytest.mark.parametrize("K,rows,wpt", [(1, 512, 4), (1, 513, 2), (1, 1024, 2),
+                                        (1, 1025, 1), (2, 256, 4), (2, 257, 2),
+                                        (2, 512, 2), (2, 513, 1)])
+def test_walk_fwd_plan_switches_with_the_walk_rows(K, rows, wpt):
+    """A row's warps switch at 512 / 513 and 1,024 / 1,025 walk rows (B
+    K_h), the cases chip_smoke.py's phase 12 runs on the card."""
+    assert walk_scan.walk_fwd_plan(50, rows, 10, 100, K).wpt == wpt
+
+
+def test_walk_fwd_plan_at_the_production_shape_and_the_source():
+    """256 rows, H 50, N 10, M 100 at K_h 2: 4 warps a row, 2 rows a block,
+    the shared bytes as csrc/walk_scan.cu's ``walk_smem_bytes`` counts
+    them, written out; the source launches the forward with the plan's
+    bytes and compiles <2 or 4 columns a lane, relu/identity, residuals>
+    only."""
+    plan = walk_scan.walk_fwd_plan(50, 256, 10, 100, 2)
+    assert plan.ints() == [4, 8]
+    assert plan.smem == 4 * (2 * 64 * 65 + 2 * 2 * 4 * 64 + 2 * 2 * 10)
+    assert walk_scan.walk_fwd_plan(129, 256, 10, 100) is None
+    assert walk_scan.walk_fwd_plan(50, 256, 1, 100) is None
+    src = (CSRC / "walk_scan.cu").read_text()
+    assert "walk_smem_bytes(d, N, wpt, warps)" in src
+    found = set(re.findall(r"NJODE_WALK_FWD_SV\((\d), (true|false)\)", src))
+    assert found == {("2", "true"), ("2", "false"), ("4", "true"),
+                     ("4", "false")}
