@@ -135,8 +135,9 @@ uncaught exception and a nonzero exit:
    val MSE against the closed-form moments.
 
 20. build: gap_train.cu's and fused_cell.cu's ptxas summaries (built in 2);
-   gap_train.cu's registers by kernel instance, failing on any spill of
-   the backward (rows 4-5).
+   gap_train.cu's and fused_cell.cu's registers by kernel instance, failing
+   on any spill of the forward (rows 2-3), the backward (rows 4-5) or row
+   6's instances with the weights in registers.
 21. gap training kernels vs plain: rows 2-5 (njode_gap_train_fwd at
    residual stride 1 and 8, njode_gap_train_bwd) against
    gap_train_forward_reference / gap_train_backward_reference, n_sub in
@@ -151,10 +152,15 @@ uncaught exception and a nonzero exit:
    longest-first order, records by segment, chunked sums), two backward
    calls bitwise equal; then row 5's scheduling at n_sub 100: a long gap
    amid short ones, counts straddling the long threshold, 18,000 rows at
-   d_h 128 and K_h 2 (the step buffer's largest case); then row 6 (njode_fused_cell)
-   against fused_cell_reference at the forced default path's shapes, the
-   production width and a ragged wide one: out and pre at rtol 1e-4 / atol
-   1e-5, the Function's gradients within 1e-3 of their norm.
+   d_h 128 and K_h 2 (the step buffer's largest case), and n_sub 1,100;
+   on the long gap amid short ones, the pair at stride 1 and at stride 8
+   bitwise equal (h_L, t_L, the checkpoints at the shared positions, every
+   backward output) and the forward on permuted rows and on subsets of
+   the rows that move rows to another walker bitwise equal row by row;
+   then row 6 (njode_fused_cell) against fused_cell_reference at the
+   forced default path's shapes, the production width, a ragged wide one
+   and d_h 512 and 1,800 (fewer warps a block): out and pre at rtol 1e-4 /
+   atol 1e-5, the Function's gradients within 1e-3 of their norm.
 22. the forced training paths (use_pallas True, the CLI's --kernels
    force): run_experiment of the production config with grid_walk off, 2
    epochs then resumed to 3, rows 3 and 5 once a step and row 1 in
@@ -166,8 +172,12 @@ uncaught exception and a nonzero exit:
    tolerances.
 23. forced times: one epoch of each forced recipe against its composed
    twin, in turns after a warm-up epoch; rows 2-6 per call at their
-   main-path shapes against their plain versions and bounds; the residual
-   stride A/B (1, 4, 8, 16) at n_sub 100.
+   main-path shapes against their plain versions and bounds, with each
+   kernel's device time (torch.profiler); at those shapes rows 2-5 held
+   against their plain versions, the pair at stride 1 and at stride 8 on
+   the forced production minibatch bitwise equal, and the forward on
+   permuted rows and on subsets of the rows bitwise equal; the
+   residual stride A/B (1, 4, 8, 16) at n_sub 100.
 24. bf16 fused-step kernels vs plain: rows 9b-10b (the bf16 instances of
    njode_step_fwd / njode_step_bwd, compute_dtype bfloat16, bf16 mma with
    f32 accumulation) bitwise against their plain versions on a case whose
@@ -400,6 +410,21 @@ def ptxas_check(name: str, gated: tuple = ()) -> str:
         not gated or k[0].split("<")[0] in gated)]
     if spills:
         raise AssertionError(f"{name}.cu: kernels spill: {spills}")
+    return "; ".join(f"{k} {r} registers, {sp} spill bytes"
+                     for k, r, sp in kernels)
+
+
+def cell_ptxas_check() -> str:
+    """fused_cell.cu's kernels as ptxas_check prints them; fails if an
+    instance with the weights in registers (the forced default path's)
+    spills."""
+    kernels = ptxas_kernels("fused_cell")
+    if not kernels:
+        return "no ptxas output (built before this process)"
+    bad = [k for k in kernels if k[2] and k[0].startswith("fused_cell_kernel<1, 1")]
+    if bad:
+        raise AssertionError(f"fused_cell.cu: the register instances spill: "
+                             f"{bad}")
     return "; ".join(f"{k} {r} registers, {sp} spill bytes"
                      for k, r, sp in kernels)
 
@@ -753,6 +778,21 @@ def time_ms(fn, warmup: int = 5, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_time_ms(fn, n: int = 10) -> float:
+    """Device time of one call of fn, every kernel and copy it launches
+    (torch.profiler over n calls after one of warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda) / (1e3 * n)
 
 
 def gap_rows(model: NeuralJumpODE, obs_t, obs_v, query, mask=None) -> tuple:
@@ -1289,7 +1329,7 @@ RECORDS_RTOL = 1e-4
 # 11, and row 4-5's (csrc/gap_train.cu) by phase 20
 WALK_KERNELS = ("walk_fwd_kernel", "walk_bwd_kernel", "walk_dw_kernel",
                 "walk_reduce_kernel")
-GAP_BWD_KERNELS = ("gap_bwd_kernel",)
+GAP_TRAIN_KERNELS = ("gap_fwd_kernel", "gap_bwd_kernel")
 
 
 def assert_close_norm(a, b, what: str, rtol: float = GRAD_RTOL) -> float:
@@ -2435,6 +2475,9 @@ def gap_autograd(c: dict, n_sub: int, act: str, scale: str, fn) -> list:
                                                      c["ct"]))
 
 
+GAP_OUTPUTS = ("gh0", "gpre_sum", "acc_t", "gdh_sum", "dW1h", "dW2")
+
+
 def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
                    act: str, scale: str, where: str) -> tuple:
     """Rows 2-5 (the residual stride of n_sub) against their plain versions
@@ -2469,8 +2512,7 @@ def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
                 for a, b, what in ((fk[0], fp[0], "h_L"),
                                    (fk[2], fp[2], "stored h")))
     b_err = rel = 0.0
-    for a, a2, b, what in zip(bk, bk2, bp, ("gh0", "gpre_sum", "acc_t",
-                                            "gdh_sum", "dW1h", "dW2")):
+    for a, a2, b, what in zip(bk, bk2, bp, GAP_OUTPUTS):
         if not torch.equal(a, a2):
             raise AssertionError(f"two backward calls differ in {what} at "
                                  f"{where}")
@@ -2479,14 +2521,108 @@ def gap_pair_check(args: tuple, ct: torch.Tensor, dt: float, n_sub: int,
         rel = max(rel, float((a - b).double().norm()
                              / b.double().norm().clamp_min(1e-30)))
     rec_rel = 0.0
-    for a, b, what in zip(bk, bq, ("gh0", "gpre_sum", "acc_t", "gdh_sum",
-                                   "dW1h", "dW2")):
+    for a, b, what in zip(bk, bq, GAP_OUTPUTS):
         b_err = max(b_err, assert_close_norm(
             a, b, f"gap backward {what} vs the records' plain pair at "
             f"{where}", rtol=RECORDS_RTOL))
         rec_rel = max(rec_rel, float((a - b).double().norm()
                                      / b.double().norm().clamp_min(1e-30)))
     return f_err, b_err, rel, rec_rel
+
+
+def gap_stride_bitwise_check(args: tuple, ct: torch.Tensor, dt: float,
+                             n_sub: int, act: str, scale: str,
+                             where: str) -> None:
+    """The pair at stride 1 (rows 2 and 4) and at stride CK (rows 3 and 5)
+    on one input: h_L, t_L, the checkpoints at the shared positions
+    (res_h[CK m] and res_t[CK m] at stride 1 against res_h[m], res_t[m] at
+    stride CK) and every backward output bitwise equal.  The forward and the
+    backward's rebuild take each substep from one function, so the states
+    the backward differentiates at stride CK are the ones the forward
+    stored at stride 1."""
+    ck = gap_scan.CK
+    bargs = (ct, args[1], args[3], *args[4:])
+    with torch.no_grad():
+        f1 = gap_scan._launch_train_fwd(*args, dt, n_sub, 1, act, scale)
+        fc = gap_scan._launch_train_fwd(*args, dt, n_sub, ck, act, scale)
+        b1 = gap_scan._launch_train_bwd(*bargs, f1[2], f1[3], dt, n_sub, 1,
+                                        act, scale)
+        bc = gap_scan._launch_train_bwd(*bargs, fc[2], fc[3], dt, n_sub, ck,
+                                        act, scale)
+    torch.cuda.synchronize()
+    pairs = [(f1[0], fc[0], "h_L"), (f1[1], fc[1], "t_L"),
+             (f1[2][::ck], fc[2], "checkpointed h"),
+             (f1[3][::ck], fc[3], "checkpointed t")]
+    pairs += [(a, b, f"backward {w}") for a, b, w in zip(b1, bc, GAP_OUTPUTS)]
+    for a, b, what in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"stride 1 and stride {ck} differ in {what} at {where}: "
+                f"{int((a != b).sum())} entries, max abs "
+                f"{float((a - b).abs().max()):.3e}")
+
+
+def gap_schedule_check(args: tuple, dt: float, n_sub: int, act: str,
+                       scale: str, where: str) -> tuple[int, int]:
+    """The forward (rows 2-3) on the rows in a permuted order, on the rows
+    that walked one a warp alone (the long threshold falls, so some of them
+    walk on groups), and with one row of n_sub substeps added
+    (the threshold rises where no row took n_sub, so rows that walked on
+    groups walk one a warp): each row's h_L, t_L and stored states bitwise
+    equal to the whole call's.  Returns (calls compared, rows whose walker
+    changed); fails if no row changed its walker."""
+    stride = gap_scan.residual_stride(n_sub)
+    h, base, t_last, t_target = args[:4]
+    K, R, d = h.shape
+    tail = (dt, n_sub, stride, act, scale)
+    counts, _ = gap_scan.gap_substep_counts(t_last, t_target, dt, n_sub)
+
+    def long_set(c):
+        order, n_long = gap_scan.gap_fwd_order(c.cpu(), n_sub, stride)
+        out = torch.zeros(c.shape[0], dtype=torch.bool)
+        out[order[:n_long]] = True
+        return out
+    is_long = long_set(counts)
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(R)).to(
+        h.device)
+    calls = [("permuted rows", perm, None)]
+    rest = torch.nonzero(~is_long).flatten().to(h.device)
+    if len(rest):
+        calls.append(("the rows that walked one a warp", rest, None))
+    calls.append((f"one row of {n_sub} substeps added",
+                  torch.arange(R, device=h.device), 0))
+    with torch.no_grad():
+        ref = gap_scan._launch_train_fwd(*args, *tail)
+        moved = 0
+        for what, rows, extra in calls:
+            sub = [h[:, rows], base[:, rows], t_last[rows], t_target[rows]]
+            if extra is not None:
+                sub = [torch.cat([h[:, rows], h[:, extra:extra + 1]], 1),
+                       torch.cat([base[:, rows], base[:, extra:extra + 1]], 1),
+                       torch.cat([t_last[rows], t_last[extra:extra + 1]]),
+                       torch.cat([t_target[rows], t_last[extra:extra + 1]
+                                  + 2 * n_sub * dt])]
+            sub = [x.contiguous() for x in sub]
+            c_sub, _ = gap_scan.gap_substep_counts(sub[2], sub[3], dt, n_sub)
+            moved += int((long_set(c_sub)[:len(rows)]
+                          != is_long[rows.cpu()]).sum())
+            out = gap_scan._launch_train_fwd(*sub, *args[4:], *tail)
+            n = len(rows)
+            got = (out[0][:, :n], out[1][:n], out[2][:, :, :n],
+                   out[3][:, :n])
+            want = (ref[0][:, rows], ref[1][rows], ref[2][:, :, rows],
+                    ref[3][:, rows])
+            for a, b, name in zip(got, want, ("h_L", "t_L", "stored h",
+                                               "stored t")):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"the forward on {what} differs in {name} at "
+                        f"{where}: {int((a != b).sum())} entries")
+    torch.cuda.synchronize()
+    if moved == 0:
+        raise AssertionError(f"no row changed its walker in the forward's "
+                             f"schedule check at {where}")
+    return len(calls), moved
 
 
 def row5_cases(gen: torch.Generator, dev: torch.device) -> list:
@@ -2575,11 +2711,18 @@ def gap_train_kernel_phase(dev: torch.device) -> dict:
                     worst_rel = max(worst_rel, float(
                         (a - b).norm() / b.norm().clamp_min(1e-30)))
                 n += 1
-    # row 5's scheduling: the long tier, its threshold, the largest buffer
-    for where, c, n_sub in row5_cases(gen, dev):
+    # row 5's scheduling: the long tier, its threshold, the largest buffer;
+    # on the first, rows 2-5's walker and stride independence
+    n_same = moved = 0
+    for i, (where, c, n_sub) in enumerate(row5_cases(gen, dev)):
         args = substep_args(c, n_sub, "relu", "identity")[:8]
         f_err, b_err, rel, rec = gap_pair_check(args, c["ct"], DT, n_sub,
                                                 "relu", "identity", where)
+        if i == 0:
+            gap_stride_bitwise_check(args, c["ct"], DT, n_sub, "relu",
+                                     "identity", where)
+            n_same, moved = gap_schedule_check(args, DT, n_sub, "relu",
+                                               "identity", where)
         worst["checkpointed"][0] = max(worst["checkpointed"][0], f_err)
         worst["checkpointed"][1] = max(worst["checkpointed"][1], b_err)
         worst_rel = max(worst_rel, rel)
@@ -2600,7 +2743,11 @@ def gap_train_kernel_phase(dev: torch.device) -> dict:
           f"error/norm {worst_rel:.3e}, limit {GRAD_RTOL}; kernel outputs "
           f"against the records' plain pair, largest error/norm "
           f"{worst_rec:.3e}, limit {RECORDS_RTOL}); two backward calls "
-          f"bitwise equal", flush=True)
+          f"bitwise equal; on the long gap amid short ones, the pair at "
+          f"stride 1 and at stride {gap_scan.CK} bitwise equal (h_L, t_L, "
+          f"shared checkpoints, every backward output) and the forward on "
+          f"permuted rows and on subsets that move {moved} rows to another "
+          f"walker ({n_same} calls) bitwise equal row by row", flush=True)
     return worst
 
 
@@ -2641,16 +2788,20 @@ def cell_run(c: dict, act: str, scale: str, fn) -> list:
                                                      c["ct"]))
 
 
-CELL_SHAPES = ((2, 1152, 32), (1, 2304, 50), (2, 200, 32), (2, 37, 300))
+CELL_SHAPES = ((2, 1152, 32), (1, 2304, 50), (2, 200, 32), (2, 37, 300),
+               (1, 37, 512), (1, 9, 1800))
 
 
 def fused_cell_kernel_phase(dev: torch.device) -> float:
     """Row 6 against its plain version on the card at the forced default
     path's shape (K_h 2, 1,152 rows, d_h 32), its validation's (200 rows),
-    the production width (K_h 1, 2,304 rows, d_h 50) and a ragged wide one
-    (37 rows, d_h 300: several column chunks): out and pre at rtol 1e-4 /
-    atol 1e-5, and the Function's gradients against plain autograd each
-    within GRAD_RTOL of their norm, for three activation/scaling pairs."""
+    the production width (K_h 1, 2,304 rows, d_h 50), a ragged wide one
+    (37 rows, d_h 300: several column chunks), and d_h 512 and 1,800, where
+    fewer than 8 warps' rows fit a block's shared memory (1,800: one warp,
+    near the widest that the block-staged kernel before it took): out and
+    pre at rtol 1e-4 / atol 1e-5, and the Function's gradients against
+    plain autograd each within GRAD_RTOL of their norm, for three
+    activation/scaling pairs."""
     gen = torch.Generator().manual_seed(81)
     worst = 0.0
     n = 0
@@ -3508,7 +3659,9 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
                        device=dev, mu=0.1, sigma=0.5, x0=1.0)
     model = NeuralJumpODE(use_pallas=True, device=dev, **PROD_MODEL_KW)
     ct = torch.randn(1, PROD_BS * (PROD_N - 1), PROD_H, device=dev)
-    ab, errs = {}, {}
+    # each row's call, profiled at the end (a profiler session slows the
+    # host's launches after it)
+    ab, errs, calls = {}, {}, {}
 
     def pair_times(dt, n_sub, stride):
         args = forced_rows(model, b.times, b.values, dt)
@@ -3526,9 +3679,14 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
     for dt, n_sub, rows in ((PROD_DT, PROD_M, (3, 5)), (0.1, 10, (2, 4))):
         stride = gap_scan.residual_stride(n_sub)
         args, bwd, f_ms, b_ms = pair_times(dt, n_sub, stride)
+        where = f"the main path's shape (dt {dt}, n_sub {n_sub})"
         f_err, b_err, rel, rec = gap_pair_check(
-            args, ct, dt, n_sub, "relu", "identity",
-            f"the main path's shape (dt {dt}, n_sub {n_sub})")
+            args, ct, dt, n_sub, "relu", "identity", where)
+        n_same, moved = gap_schedule_check(args, dt, n_sub, "relu",
+                                           "identity", where)
+        if stride > 1:
+            gap_stride_bitwise_check(args, ct, dt, n_sub, "relu", "identity",
+                                     where)
         errs["full" if stride == 1 else "checkpointed"] = [f_err, b_err]
         print(f"rows {rows[0]}/{rows[1]} vs plain at the main path's shape "
               f"(K_h 1, {PROD_BS * (PROD_N - 1):,} gaps, d_h {PROD_H}, dt "
@@ -3536,8 +3694,15 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
               f"{f_err:.3e}, backward {b_err:.3e} (error/norm {rel:.3e}, "
               f"limit {GRAD_RTOL}; against the records' plain pair "
               f"{rec:.3e}, limit {RECORDS_RTOL}); t_L and stored t bitwise, "
-              f"two backward calls bitwise equal", flush=True)
+              f"two backward calls bitwise equal; the forward on permuted "
+              f"rows and on subsets that move {moved} rows to another walker "
+              f"({n_same} calls) bitwise equal row by row"
+              + (f"; the pair at stride 1 and at stride {stride} bitwise "
+                 f"equal (h_L, t_L, shared checkpoints, every backward "
+                 f"output)" if stride > 1 else ""), flush=True)
         fwd = (*args, dt, n_sub, stride, "relu", "identity")
+        calls[rows[0]] = lambda fwd=fwd: gap_scan._launch_train_fwd(*fwd)
+        calls[rows[1]] = lambda bwd=bwd: gap_scan._launch_train_bwd(*bwd)
         with torch.no_grad():
             fp_ms = time_ms(lambda: gap_scan.gap_train_forward_reference(
                 *fwd), warmup=1, reps=5)
@@ -3561,6 +3726,7 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
             b.times[:, 1:].reshape(-1), m6._ode_weights())]
         args6 = (cell[0], h0.contiguous(), *cell[1:], "relu")
         c_ms = time_ms(lambda: fused_cell._launch(*args6))
+        calls[6] = lambda: fused_cell._launch(*args6)
         cp_ms = time_ms(lambda: fused_cell.fused_cell_reference(*args6))
     inp, h6 = args6[0], args6[1]
     K6, R6, d_in = inp.shape
@@ -3570,6 +3736,9 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
     out[6] = (c_ms, cp_ms, *bound_of(2 * K6 * R6 * (d_in * d6 + d6 * d6),
                                      c_bytes))
 
+    with torch.no_grad():
+        dev_t = {r: device_time_ms(fn) for r, fn in calls.items()}
+
     def ms(v):
         return ", ".join(f"{x:.4f}" for x in v)
     for name, t in epochs.items():
@@ -3578,8 +3747,9 @@ def forced_times_phase(dev: torch.device, card: str) -> dict:
               f"forced): forced kernels {ms(t[True])} s, composed per-gap "
               f"path {ms(t[False])} s", flush=True)
     rows_txt = "; ".join(
-        f"row {r} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {v[2]:.4f} ms "
-        f"{v[3]})" for r, v in sorted(out.items()))
+        f"row {r} {v[0]:.4f} ms (device {dev_t[r]:.4f} ms by profiler, plain "
+        f"{v[1]:.4f} ms, bound {v[2]:.4f} ms {v[3]})"
+        for r, v in sorted(out.items()))
     print(f"forced kernels on {card}: {rows_txt}; rows 2-5 at {PROD_BS} "
           f"trajectories x {PROD_N - 1} gaps (K_h 1, d_h {PROD_H}, relu/"
           f"identity; rows 3/5 dt {PROD_DT}, n_sub {PROD_M}; rows 2/4 dt 0.1,"
@@ -3704,10 +3874,12 @@ def main() -> None:
     for name in ("gap_train", "fused_cell"):
         print(f"build: {name}.cu in {build_s:.2f} s (with the other sources, "
               f"in parallel); ptxas: {ptxas_summary(name)}", flush=True)
-    print(f"ptxas: gap_train.cu by kernel (forward <columns a lane, weights "
-          f"staged>, backward <columns a lane, relu/identity compiled in>; "
-          f"the backward may not spill): "
-          f"{ptxas_check('gap_train', GAP_BWD_KERNELS)}", flush=True)
+    print(f"ptxas: gap_train.cu by kernel (forward <columns a lane, "
+          f"relu/identity compiled in>, backward <columns a "
+          f"lane, relu/identity compiled in>; neither may spill): "
+          f"{ptxas_check('gap_train', GAP_TRAIN_KERNELS)}; fused_cell.cu by "
+          f"kernel <columns a lane, weights in registers, relu compiled in>: "
+          f"{cell_ptxas_check()}", flush=True)
     gap_errs = gap_train_kernel_phase(dev)
     cell_err = fused_cell_kernel_phase(dev)
     t = phase_time("forced kernels vs plain", t)

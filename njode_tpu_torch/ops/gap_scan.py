@@ -303,6 +303,104 @@ def gap_bwd_plan(d_h: int, R: int, n_sub: int, stride: int, K: int = 1,
                                               blocks, chunks))
 
 
+# rows 2-3's launch plan (csrc/gap_train.cu, the forward): one cooperative
+# launch of GAP_FWD_WARPS warps a block, the long rows (a key of at least
+# GAP_BWD_LONG[0] / GAP_BWD_LONG[1] of the longest, rounded up, as the
+# backward's) on a group of GAP_BWD_WPT warps, the rest one a warp; the
+# sort's keys as the backward's (:func:`gap_fwd_key_div`); the grid
+# GAP_FWD_BLOCKS_PER_SM blocks an SM (GAP_FWD_BLOCKS on an H100).  The H100
+# A/B behind them: PERF.md section 6, row 3's design.
+GAP_FWD_WARPS = 8
+GAP_FWD_BLOCKS_PER_SM = 1
+GAP_FWD_BLOCKS = 132
+
+
+class GapFwdPlan(NamedTuple):
+    """Rows 2-3's launch plan: warps a long row's group, warps a block,
+    blocks, the sort's keys (nbins of them, a count's key the count over
+    key_div, rounded up), the shared bytes and the scratch ints."""
+    wpt: int
+    warps: int
+    blocks: int
+    nbins: int
+    key_div: int
+    smem: int
+    scratch: int
+
+    def ints(self) -> list[int]:
+        """The plan as njode_gap_train_fwd takes it."""
+        return [self.blocks, self.nbins, self.key_div]
+
+
+def gap_fwd_key_div(n_sub: int, stride: int) -> int:
+    """The forward's sort key of a row is its substep count over this,
+    rounded up: 1 up to GAP_BWD_BINS - 1 substeps, else the backward's
+    segment (:func:`bwd_segment`), so that the two kernels' orders are one,
+    times the least whole factor that keeps the keys within GAP_BWD_BINS
+    (csrc/gap_train.cu's ``fwd_key_div``)."""
+    if n_sub + 1 <= GAP_BWD_BINS:
+        return 1
+    seg = bwd_segment(stride)
+    n_seg = -(-n_sub // seg)
+    return seg * -(-n_seg // (GAP_BWD_BINS - 1))
+
+
+def _gap_fwd_smem_bytes(d_h: int) -> int:
+    """csrc/gap_train.cu's ``fwd_smem_bytes``: the W1h and W2 planes (HP x
+    (HP + 1)), the two groups' partial-product buffers, each warp's vector
+    (HP floats) of a single-warp product, the sort's keys (GAP_BWD_BINS)
+    and 32 words."""
+    hp = _plane_rows(d_h)
+    return 4 * (2 * hp * (hp + 1)
+                + GAP_FWD_WARPS // GAP_BWD_WPT * 2 * GAP_BWD_WPT * hp
+                + GAP_FWD_WARPS * hp + GAP_BWD_BINS + 32)
+
+
+def _gap_fwd_scratch_ints(K: int, R: int, nbins: int, blocks: int) -> int:
+    """csrc/gap_train.cu's ``fwd_layout``: the sort's counts, sorted rows and
+    their counts, the keys' per-block counts and totals, each part a whole
+    number of 32 ints, then two counters a network."""
+    return (3 * _round32(R) + _round32(blocks * nbins) + _round32(nbins)
+            + _round32(2 * K))
+
+
+@functools.lru_cache(maxsize=None)
+def gap_fwd_plan(d_h: int, R: int, n_sub: int, stride: int, K: int = 1,
+                 blocks: int = GAP_FWD_BLOCKS) -> GapFwdPlan | None:
+    """Rows 2-3's launch plan for K networks of R rows of width d_h, n_sub
+    substeps stored every ``stride``, on a grid of ``blocks`` (the card's
+    resident blocks; the kernel checks them), or None where the kernel does
+    not take the shape."""
+    d_h, R, n_sub, stride, K, blocks = (int(d_h), int(R), int(n_sub),
+                                        int(stride), int(K), int(blocks))
+    if not (1 <= d_h <= MAX_HIDDEN and R >= 1 and n_sub >= 1
+            and 1 <= stride <= MAX_STRIDE and 1 <= K <= blocks
+            <= GAP_BWD_MAX_BLOCKS):
+        return None
+    key_div = gap_fwd_key_div(n_sub, stride)
+    nbins = -(-n_sub // key_div) + 1
+    smem = _gap_fwd_smem_bytes(d_h)
+    if nbins > GAP_BWD_BINS or smem > SMEM_BYTES:
+        return None
+    return GapFwdPlan(GAP_BWD_WPT, GAP_FWD_WARPS, blocks, nbins, key_div,
+                      smem, _gap_fwd_scratch_ints(K, R, nbins, blocks))
+
+
+def gap_fwd_order(counts, n_sub: int, stride: int):
+    """The forward's row order and its long rows (device sort): longest
+    first by the key (:func:`gap_fwd_key_div`), rows of one key in row
+    order; the long rows, those whose key is at least ceil(longest key *
+    GAP_BWD_LONG[0] / GAP_BWD_LONG[1]) (at least 1), are the order's first
+    n_long.  Returns (order, n_long)."""
+    key_div = gap_fwd_key_div(n_sub, stride)
+    key = -(-counts // key_div)
+    order = torch.sort(-key, stable=True).indices
+    top = int(key.max())
+    num, den = GAP_BWD_LONG
+    thr = max(-(-top * num // den), 1)
+    return order, (int((key >= thr).sum()) if top > 0 else 0)
+
+
 def use_remat(n_sub: int) -> bool:
     """Whether the training pair checkpoints (``_use_remat``)."""
     return n_sub > 2 * CK
@@ -542,8 +640,12 @@ def _load_train_kernel():
     from ._build import load
     lib = load("gap_train")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.njode_gap_train_fwd.argtypes = [P] * 12 + [I] * 3 + [F] + [I] * 4 + [P]
+    lib.njode_gap_train_fwd.argtypes = ([P] * 13 + [ctypes.c_longlong]
+                                        + [I] * 3 + [F] + [I] * 4
+                                        + [ctypes.POINTER(I), P])
     lib.njode_gap_train_fwd.restype = I
+    lib.njode_gap_train_fwd_grid.argtypes = [I, ctypes.POINTER(I)]
+    lib.njode_gap_train_fwd_grid.restype = I
     lib.njode_gap_train_bwd_grid.argtypes = [I, ctypes.POINTER(I)]
     lib.njode_gap_train_bwd_grid.restype = I
     lib.njode_gap_train_bwd.argtypes = ([P] * 15 + [ctypes.c_longlong]
@@ -554,9 +656,10 @@ def _load_train_kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_arg(plan: GapPlan):
-    """The plan as the C array njode_gap_scan_fwd reads (one a plan)."""
-    return (ctypes.c_int * 8)(*plan.ints())
+def _plan_arg(plan: GapPlan | GapFwdPlan):
+    """The plan as the C array its kernel's entry reads (one a plan)."""
+    ints = plan.ints()
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def _check_cuda_inputs(named: dict[str, torch.Tensor],
@@ -651,6 +754,20 @@ def _mode(stride: int) -> str:
     return "full" if stride == 1 else "checkpointed"
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_blocks(device_index: int, d_h: int) -> int:
+    """The forward's grid on this card (njode_gap_train_fwd_grid:
+    GAP_FWD_BLOCKS_PER_SM blocks an SM where its instances' occupancy for
+    d_h allows); one query a card and width."""
+    lib = _load_train_kernel()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.njode_gap_train_fwd_grid(int(d_h), ctypes.byref(blocks))
+    from ._build import check
+    check(lib, err, "njode_gap_train_fwd_grid")
+    return min(blocks.value, GAP_BWD_MAX_BLOCKS)
+
+
 def _launch_train_fwd(h, base, t_last, t_target, w1h, w1t, w2, b2,
                       dt: float, n_sub: int, stride: int, act_name: str,
                       scale_name: str):
@@ -665,17 +782,24 @@ def _launch_train_fwd(h, base, t_last, t_target, w1h, w1t, w2, b2,
                          f"<= {MAX_HIDDEN}, got {n_sub}, {d_h}")
     n_res = -(-n_sub // stride)
     lib = _load_train_kernel()
+    plan = gap_fwd_plan(d_h, R, int(n_sub), int(stride), K,
+                        _fwd_blocks(device.index or 0, d_h))
+    if plan is None:
+        raise ValueError(f"gap_train_forward: no launch plan fits d_h {d_h},"
+                         f" {K} networks, n_sub {n_sub}, stride {stride}")
     h_out, t_out = torch.empty_like(h), torch.empty_like(t_last)
     res_h = torch.empty(n_res, K, R, d_h, dtype=h.dtype, device=device)
     res_t = torch.empty(n_res, R, dtype=h.dtype, device=device)
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.njode_gap_train_fwd(
             h.data_ptr(), base.data_ptr(), t_last.data_ptr(),
             t_target.data_ptr(), w1h.data_ptr(), w1t.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), h_out.data_ptr(), t_out.data_ptr(),
-            res_h.data_ptr(), res_t.data_ptr(), K, R, d_h, float(dt),
-            int(n_sub), int(stride), SUPPORTED_ACTS.index(act_name),
-            SCALINGS.index(scale_name), _stream(device))
+            res_h.data_ptr(), res_t.data_ptr(), scratch.data_ptr(),
+            plan.scratch, K, R, d_h, float(dt), int(n_sub), int(stride),
+            SUPPORTED_ACTS.index(act_name), SCALINGS.index(scale_name),
+            _plan_arg(plan), _stream(device))
     from ._build import check
     check(lib, err, "njode_gap_train_fwd launch")
     LAUNCHES_RES_FWD[_mode(stride)] += 1

@@ -1,7 +1,9 @@
-"""A/B runs of the kernels (rows 1-5, 7-13) on one CUDA card.
+"""A/B runs of the kernels (rows 1-13) on one CUDA card.
 
     python scripts/ab_torch_training.py gap [--root DIR]
     python scripts/ab_torch_training.py gaptrain [--root DIR]
+    python scripts/ab_torch_training.py cell [--root DIR]
+    python scripts/ab_torch_training.py bwd --other DIR [--root DIR]
     python scripts/ab_torch_training.py walkscan [--root DIR]
     python scripts/ab_torch_training.py epoch [--root DIR] [--launch]
     python scripts/ab_torch_training.py walk [--root DIR] [--bf16]
@@ -59,8 +61,32 @@ trajectories x 9 gaps, 2,304 rows, K_h 1, d_h 50, relu/identity): rows 3 and
 warm-up, three times each, every result checked against the plain versions
 (t_L bitwise, the backward's six outputs' largest error/norm), then each
 kernel's device time over 5 forward and backward calls (torch.profiler),
-the forward kernel's device time over 5 forward calls alone (no backward
-between them) and the minibatch's substep counts (longest, mean).
+the forward's device time over 5 forward calls alone (no backward between
+them; every kernel of the forward, by name), the backward's over 5
+backward calls alone on the same residuals, and the minibatch's substep
+counts (longest, mean).
+
+``cell``: row 6 (the fused Euler cell) at the forced default path's shape, a
+default minibatch (128 trajectories x 9 gaps, K_h 2, d_h 32, d_in 35,
+relu/identity) as ``forced_times_phase`` builds it: the kernel's device time
+(torch.profiler, 20 calls), the ``_launch`` wrapper (CUDA events, median of
+30 after 5 of warm-up, three times), the model's step ``ode_euler_fused``
+with its preparation under autograd (the input concatenation, the step
+times, the weights turned to (in, out)) timed the same way, and the device
+launches of one such step by name; out and pre checked against the plain
+version at rtol 1e-4 / atol 1e-5.
+
+``bwd``: this tree's and the ``--other`` tree's csrc/gap_train.cu, each
+built as shipped and with nvcc's ``-fmad=false`` (no multiply and add
+contracted into one fma), run the backward (rows 5 and 4) in one process
+on the same inputs at the forced production minibatch (the residuals from
+this tree's forward): the shipped builds' device ms (torch.profiler, 20
+calls) in turns, this, other, other, this, twice, and whether each of the
+six outputs of the ``-fmad=false`` builds is bitwise equal between the
+trees, that is, whether the two sources do the same arithmetic in the same
+order apart from nvcc's choice of which products to contract; then, for
+each shipped build, each backward instance's registers and spill bytes
+(ptxas) and its count of machine instructions (``cuobjdump -sass``).
 
 ``steps``: one case of chip_smoke.py's ``train_kernel_phase`` (its weights
 and data; the activation's scaling from ``ACT_PAIRS``), run for 1, 2, ...,
@@ -343,6 +369,7 @@ def mode_gaptrain(dev: torch.device) -> None:
             by_kernel = device_ms(lambda: (gap_scan._launch_train_fwd(*fwd),
                                            gap_scan._launch_train_bwd(*bwd)))
             fwd_alone = device_ms(lambda: gap_scan._launch_train_fwd(*fwd))
+            bwd_alone = device_ms(lambda: gap_scan._launch_train_bwd(*bwd))
         steps = torch.round((ref[1] - args[2]) / dt)
         print(f"[{ROOT}] rows {rows[0]}/{rows[1]} (2,304 rows, d_h "
               f"{cs.PROD_H}, dt {dt}, n_sub {n_sub}, stride {stride}; "
@@ -355,8 +382,201 @@ def mode_gaptrain(dev: torch.device) -> None:
                   f"{n} {t:.4f}" for n, t in sorted(by_kernel.items(),
                                                     key=lambda x: -x[1]))
               + f"; the forward alone (5 calls, no backward between): "
-              f"gap_res_fwd_kernel "
-              f"{fwd_alone.get('gap_res_fwd_kernel', 0.0):.4f}", flush=True)
+              f"{sum(fwd_alone.values()):.4f} (" + ", ".join(
+                  f"{n} {t:.4f}" for n, t in sorted(fwd_alone.items()))
+              + "); the backward alone (5 calls on the same residuals): "
+              f"{sum(bwd_alone.values()):.4f}", flush=True)
+
+
+def mode_bwd(dev: torch.device, other: str) -> None:
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+    from njode_tpu_torch.ops import _build, gap_scan
+    from njode_tpu_torch.simulation import simulate_batch
+    shipped = gap_scan._load_train_kernel()
+    libs, code = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, root, flags in (
+                ("this tree", ROOT, []), ("other tree", other, []),
+                ("this tree, no fmad", ROOT, ["-fmad=false"]),
+                ("other tree, no fmad", other, ["-fmad=false"])):
+            csrc = Path(root) / "njode_tpu_torch" / "ops" / "csrc"
+            d = Path(tmp) / name.replace(" ", "_").replace(",", "")
+            d.mkdir()
+            for f in csrc.glob("*.cuh"):
+                shutil.copy(f, d)
+            shutil.copy(csrc / "gap_train.cu", d)
+            so = d / "libgap_train.so"
+            log = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                                  *flags, f"-I{d}", "-o", str(so),
+                                  str(d / "gap_train.cu")], check=True,
+                                 capture_output=True, text=True)
+            if not flags:
+                code[name] = bwd_code(log.stdout + log.stderr, so)
+            lib = ctypes.CDLL(str(so))
+            for fn in ("njode_gap_train_bwd_grid", "njode_gap_train_bwd"):
+                getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
+                getattr(lib, fn).restype = getattr(shipped, fn).restype
+            lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.njode_cuda_error_string.restype = ctypes.c_char_p
+            libs[name] = lib
+        gen = torch.Generator(device=dev).manual_seed(33)
+        b = simulate_batch(cs.PROD_BS, "black_scholes", 0.1, True,
+                           generator=gen, device=dev, mu=0.1, sigma=0.5,
+                           x0=1.0)
+        model = NeuralJumpODE(use_pallas=True, device=dev,
+                              generator=torch.Generator().manual_seed(0),
+                              **cs.PROD_MODEL_KW)
+        ct = torch.randn(1, cs.PROD_BS * (cs.PROD_N - 1), cs.PROD_H,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+        original = gap_scan._load_train_kernel
+        try:
+            for row, dt, n_sub in ((5, cs.PROD_DT, cs.PROD_M), (4, 0.1, 10)):
+                gap_scan._load_train_kernel = original
+                stride = gap_scan.residual_stride(n_sub)
+                args = cs.forced_rows(model, b.times, b.values, dt)
+                with torch.no_grad():
+                    res = gap_scan._launch_train_fwd(*args, dt, n_sub, stride,
+                                                     "relu", "identity")
+                    bwd = (ct, args[1], args[3], *args[4:], res[2], res[3],
+                           dt, n_sub, stride, "relu", "identity")
+                    outs, times = {}, {}
+                    for name in ["this tree", "other tree", "other tree",
+                                 "this tree"] * 2 + ["this tree, no fmad",
+                                                     "other tree, no fmad"]:
+                        gap_scan._load_train_kernel = (
+                            lambda lib=libs[name]: lib)
+                        gap_scan._bwd_launch.cache_clear()
+                        outs[name] = gap_scan._launch_train_bwd(*bwd)
+                        if "fmad" not in name:
+                            times.setdefault(name, []).append(sum(device_ms(
+                                lambda: gap_scan._launch_train_bwd(*bwd),
+                                n=20).values()))
+                torch.cuda.synchronize()
+                same = [torch.equal(a, o) for a, o in zip(
+                    outs["this tree, no fmad"], outs["other tree, no fmad"])]
+                print(f"[{ROOT} against {other}] row {row} (2,304 gaps, dt "
+                      f"{dt}, n_sub {n_sub}): the backward's device ms in "
+                      f"turns, this tree " + ", ".join(
+                          f"{t:.4f}" for t in times["this tree"])
+                      + ", other tree " + ", ".join(
+                          f"{t:.4f}" for t in times["other tree"])
+                      + "; both built with -fmad=false, the outputs bitwise "
+                      "equal: " + ", ".join(
+                          f"{n} {v}" for n, v in zip(cs.GAP_OUTPUTS, same)),
+                      flush=True)
+        finally:
+            gap_scan._load_train_kernel = original
+            gap_scan._bwd_launch.cache_clear()
+    for name, text in code.items():
+        print(f"[{ROOT if name == 'this tree' else other}] {name}'s backward "
+              f"instances: {text}", flush=True)
+
+
+def bwd_code(log: str, so) -> str:
+    """gap_bwd_kernel's instances in a build: registers and spill bytes from
+    its ptxas log, and the count of machine instructions from ``cuobjdump
+    -sass``."""
+    import re
+    import subprocess
+    from pathlib import Path
+    from njode_tpu_torch.ops import _build
+    regs, entry, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            regs[entry] = (int(m.group(1)), spill)
+            entry = None
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    try:
+        sass = subprocess.run([str(tool), "-sass", str(so)], check=True,
+                              capture_output=True, text=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        sass = ""
+        print(f"cuobjdump -sass failed: {e}", flush=True)
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            counts[fn] += 1
+    out = []
+    for e, (r, sp) in sorted(regs.items()):
+        if "gap_bwd_kernel" in e:
+            out.append(f"{cs.kernel_label(e)} {r} registers, {sp} spill "
+                       f"bytes, {counts.get(e, 0)} instructions")
+    return "; ".join(out) if out else "no ptxas output"
+
+
+def mode_cell(dev: torch.device) -> None:
+    from njode_tpu_torch.ops import fused_cell
+    from njode_tpu_torch.simulation import simulate_batch
+    t0 = time.perf_counter()
+    fused_cell._load_kernel()
+    print(f"[{ROOT}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    b = simulate_batch(cs.TRAIN_BS, "black_scholes", 0.1, True, generator=gen,
+                       device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    model = NeuralJumpODE(use_pallas=True, device=dev,
+                          generator=torch.Generator().manual_seed(0),
+                          **cs.DEFAULT_MODEL_KW)
+    B, N = b.times.shape
+    weights = model._ode_weights()
+    with torch.no_grad():
+        h_j = model._jump(b.values.reshape(B * N, 1))
+        K, d = h_j.shape[0], h_j.shape[-1]
+        h0 = h_j.reshape(K, B, N, d)[:, :, :-1].reshape(K, -1, d).contiguous()
+        x_s = model._scale(b.values[:, :-1].reshape(-1, 1))
+        h_s = model._scale(h0)
+        t_cur = b.times[:, :-1].reshape(-1)
+        t_new = b.times[:, 1:].reshape(-1)
+        cell = [a.contiguous() for a in fused_cell._cell_inputs(
+            h0, x_s, h_s, t_cur, t_new, weights)]
+        args = (cell[0], h0, *cell[1:], "relu")
+        out, pre = fused_cell._launch(*args)
+        ref = fused_cell.fused_cell_reference(*args)
+        torch.cuda.synchronize()
+        err = max(cs.assert_close(out, ref[0], "cell out"),
+                  cs.assert_close(pre, ref[1], "cell pre"))
+        wrap = [cs.time_ms(lambda: fused_cell._launch(*args))
+                for _ in range(3)]
+
+    def step():
+        return fused_cell.ode_euler_fused(h0, x_s, h_s, t_cur, t_new, weights,
+                                          "relu")
+    # host-clocked times first: a profiler session slows the launches after
+    # it
+    step_ms = [cs.time_ms(step) for _ in range(3)]
+    with torch.no_grad():
+        kern = device_ms(lambda: fused_cell._launch(*args), n=20)
+    one = device_ms(step, n=1)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    n_launch = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[{ROOT}] row 6 at {B} x {N - 1} gaps (K_h {K}, d_h {d}, d_in "
+          f"{cell[0].shape[-1]}, relu/identity): vs plain max abs err "
+          f"{err:.2e}; kernel device ms (profiler, 20 calls) " + ", ".join(
+              f"{n} {t:.4f}" for n, t in kern.items())
+          + f"; _launch ms {[round(x, 4) for x in wrap]}; ode_euler_fused "
+          f"with its preparation, under autograd, ms "
+          f"{[round(x, 4) for x in step_ms]}, {n_launch} device launches a "
+          f"call: " + ", ".join(f"{n} {t:.4f}" for n, t in one.items()),
+          flush=True)
 
 
 def mode_walkscan(dev: torch.device) -> None:
@@ -502,6 +722,10 @@ def main() -> None:
         mode_gap(dev)
     elif mode == "gaptrain":
         mode_gaptrain(dev)
+    elif mode == "cell":
+        mode_cell(dev)
+    elif mode == "bwd" and "--other" in ARGS:
+        mode_bwd(dev, os.path.abspath(ARGS[ARGS.index("--other") + 1]))
     elif mode == "walkscan":
         mode_walkscan(dev)
     elif mode == "epoch":

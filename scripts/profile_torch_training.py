@@ -56,7 +56,12 @@ probes read by each block's first thread (a segment's walk end is the
 latest of the block's warps): the count and sort phases, then each
 segment's walk, the weight sums of the segment above it and the grid
 barrier, the last segment's sums and the final chunk sum; median and
-latest block, microseconds from the kernel's start.
+latest block, microseconds from the kernel's start.  Then row 3's and row
+2's (the forward at the same minibatches), from a copy with the same
+probes: the count, the sort (to the grid barrier before the walk), the
+long rows on groups (the latest warp of a block to leave them), all rows
+(the latest warp), and the time the walkers spend issuing their
+checkpoint and output stores (summed over a block's warps).
 
     PYTHONPATH=. python scripts/profile_torch_training.py [--production | --scaled | --forced]
 """
@@ -278,8 +283,8 @@ def gap_bwd_split(dev: torch.device, card: str) -> None:
                        capture_output=True, text=True)
         lib = ctypes.CDLL(so)
         shipped = gap_scan._load_train_kernel()
-        for name in ("njode_gap_train_fwd", "njode_gap_train_bwd_grid",
-                     "njode_gap_train_bwd"):
+        for name in ("njode_gap_train_fwd", "njode_gap_train_fwd_grid",
+                     "njode_gap_train_bwd_grid", "njode_gap_train_bwd"):
             fn, ref = getattr(lib, name), getattr(shipped, name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
         lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
@@ -338,6 +343,120 @@ def gap_bwd_split(dev: torch.device, card: str) -> None:
         finally:
             gap_scan._load_train_kernel = original
             gap_scan._bwd_launch.cache_clear()
+
+
+def instrumented_gap_fwd_source() -> str:
+    """ops/csrc/gap_train.cu with %globaltimer probes in the forward's
+    cooperative schedule, read by each block's thread 0 (a phase's end over
+    the warps: the latest lane 0), and each put's issue time summed by lane
+    0 of each writing warp; fails if an anchor is gone."""
+    src = (_build.CSRC / "gap_train.cu").read_text()
+    edits = [
+        ("namespace {\n",
+         "namespace {\n"
+         "__device__ unsigned long long g_fprobe[2048 * 16];\n"
+         "__device__ __forceinline__ unsigned long long ftime() {\n"
+         "  unsigned long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+         "  return t;\n}\n"
+         "#define FPROBE(i) do { if (tid == 0) g_fprobe[blk * 16 + (i)] = ftime(); } while (0)\n"
+         "#define FPROBE_MAX(i) do { if (lane == 0) atomicMax(&g_fprobe[blk * 16 + (i)], ftime()); } while (0)\n"),
+        ("  count_rows(a.t0, a.ttgt, dt, a.n_sub, R, a.nbins, cnt, ghist, s_key, key_of);\n",
+         "  FPROBE(0);\n"
+         "  count_rows(a.t0, a.ttgt, dt, a.n_sub, R, a.nbins, cnt, ghist, s_key, key_of);\n"
+         "  FPROBE(1);\n"),
+        ("  // the long rows on groups, from the network's first counter, then every\n",
+         "  FPROBE(2);\n"
+         "  // the long rows on groups, from the network's first counter, then every\n"),
+        ("    walk(__ldcg(order + p), __ldcg(cs + p), true);\n  }\n",
+         "    walk(__ldcg(order + p), __ldcg(cs + p), true);\n  }\n  FPROBE_MAX(3);\n"),
+        ("    walk(__ldcg(order + p), __ldcg(cs + p), false);\n  }\n}\n",
+         "    walk(__ldcg(order + p), __ldcg(cs + p), false);\n  }\n  FPROBE_MAX(4);\n}\n"),
+        ("    auto put = [&](float* dst_h, float* dst_t) {\n      if (!writer) return;\n",
+         "    auto put = [&](float* dst_h, float* dst_t) {\n      if (!writer) return;\n"
+         "      const unsigned long long t_put = ftime();\n"),
+        ("      if (kb == 0 && lane == 0) *dst_t = t;\n    };\n",
+         "      if (kb == 0 && lane == 0) *dst_t = t;\n"
+         "      if (lane == 0) atomicAdd(&g_fprobe[blk * 16 + 5], ftime() - t_put);\n    };\n"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"gap_train.cu has no unique anchor {old!r}")
+        src = src.replace(old, new)
+    return src + (
+        "\nextern \"C\" int njode_fprof_reset() {\n"
+        "  static unsigned long long zero[2048 * 16];\n"
+        "  return (int)cudaMemcpyToSymbol(g_fprobe, zero, sizeof(zero));\n}\n"
+        "extern \"C\" int njode_fprof_read(unsigned long long* out) {\n"
+        "  return (int)cudaMemcpyFromSymbol(out, g_fprobe, sizeof(g_fprobe));\n}\n")
+
+
+def gap_fwd_split(dev: torch.device, card: str) -> None:
+    """Rows 3 and 2 (gap_train.cu's forward) by phase, one call each at the
+    forced production minibatch, from the instrumented copy."""
+    from njode_tpu_torch.ops import gap_scan
+    from njode_tpu_torch.simulation import simulate_batch
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = os.path.join(tmp, "gap_fwd_probes.cu")
+        so = os.path.join(tmp, "libgap_fwd_probes.so")
+        with open(cu, "w") as f:
+            f.write(instrumented_gap_fwd_source())
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", so, cu], check=True,
+                       capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+        shipped = gap_scan._load_train_kernel()
+        for name in ("njode_gap_train_fwd", "njode_gap_train_fwd_grid",
+                     "njode_gap_train_bwd_grid", "njode_gap_train_bwd"):
+            fn, ref = getattr(lib, name), getattr(shipped, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        lib.njode_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.njode_cuda_error_string.restype = ctypes.c_char_p
+        gen = torch.Generator(device=dev).manual_seed(33)
+        b = simulate_batch(chip_smoke.PROD_BS, "black_scholes", 0.1, True,
+                           generator=gen, device=dev, mu=0.1, sigma=0.5,
+                           x0=1.0)
+        model = NeuralJumpODE(use_pallas=True, device=dev,
+                              generator=torch.Generator().manual_seed(0),
+                              **chip_smoke.PROD_MODEL_KW)
+        original = gap_scan._load_train_kernel
+        gap_scan._load_train_kernel = lambda: lib
+        gap_scan._fwd_blocks.cache_clear()
+        try:
+            for row, dt, n_sub in ((3, chip_smoke.PROD_DT, chip_smoke.PROD_M),
+                                   (2, 0.1, 10)):
+                stride = gap_scan.residual_stride(n_sub)
+                args = chip_smoke.forced_rows(model, b.times, b.values, dt)
+                tail = (dt, n_sub, stride, "relu", "identity")
+                with torch.no_grad():
+                    gap_scan._launch_train_fwd(*args, *tail)      # warm-up
+                    torch.cuda.synchronize()
+                    lib.njode_fprof_reset()
+                    gap_scan._launch_train_fwd(*args, *tail)
+                    torch.cuda.synchronize()
+                probes = (ctypes.c_ulonglong * (2048 * 16))()
+                lib.njode_fprof_read(probes)
+                blocks = gap_scan._fwd_blocks(0, chip_smoke.PROD_H)
+                per = [[probes[blk * 16 + i] for i in range(16)]
+                       for blk in range(blocks)]
+                t0 = min(p[0] for p in per)
+
+                def at(i):
+                    v = sorted(p[i] - t0 for p in per)
+                    return f"{v[len(v) // 2] / 1e3:.1f}/{v[-1] / 1e3:.1f}"
+                stores = sorted(p[5] for p in per)
+                print(f"row {row} split on {card} (2,304 gaps, d_h "
+                      f"{chip_smoke.PROD_H}, dt {dt}, n_sub {n_sub}, stride "
+                      f"{stride}; {blocks} blocks), microseconds from the "
+                      f"kernel's start to each phase's end, median / latest "
+                      f"block: count {at(1)}; sort {at(2)}; long rows on "
+                      f"groups {at(3)}; all rows {at(4)}; the walkers' "
+                      f"store issue, summed over a block's warps, median / "
+                      f"largest block {stores[len(stores) // 2] / 1e3:.1f}/"
+                      f"{stores[-1] / 1e3:.1f}", flush=True)
+        finally:
+            gap_scan._load_train_kernel = original
+            gap_scan._fwd_blocks.cache_clear()
 
 
 STEP_PHASES = ("products (to the barrier after them)",
@@ -751,6 +870,7 @@ def main() -> None:
     if "--forced" in sys.argv[1:]:
         profile_forced(dev, card, out_dir)
         gap_bwd_split(dev, card)
+        gap_fwd_split(dev, card)
         return
     profile_trainer(dev, card, out_dir)
     kernel_split(dev, card)
