@@ -230,12 +230,41 @@ uncaught exception and a nonzero exit:
    recipes through Trainer.train in turns with the f32 recipes at seeds 0
    and 1, each run's launches checked; val MSE of each (reported, not
    gated).
+30. the other families' default recipes: run_experiment of the default
+   config with the OU, Heston and hybrid process (bench.py:169-176's
+   parameters; obs-only for OU and hybrid, Heston on the grid), 20 epochs
+   each in its own window: rows 11-12 once an epoch, no other kernel; then
+   one epoch of identical data of each family through rows 11-12 and the
+   composed path from identical weights (phase 9's check); seconds,
+   trajectories/s, idle share (2 profiled epochs of Trainer.train) and val
+   MSE against the family's closed forms.
+31. their production recipes (scripts/run_{ou,heston,hybrid}.sh's flags):
+   3 epochs each in its own window, row 13 once an epoch, row 1 in
+   validation and the relative loss, nothing else; Heston's 100-step
+   variance recurrence on the card; the same figures; then Heston's data
+   generation an epoch beside the epochs it feeds.
+32. rows 9-10 at d_x = d_y = 2 (the scaled d=2 shape, H 256, N 2, two
+   networks, L 1; relu/identity at 4,096 rows, tanh/tanh at 1,696) against
+   their plain versions at phase 17's limits, the 1xTF32 control failing
+   them, two backward calls bitwise equal; their CUDA-event times at d_x 2
+   beside d_x 1 in turns, with the bound at d_x 2.
+33. the scaled d=2 recipe (bench.py --process black_scholes_nd --dims 2
+   --scaled), then ornstein_uhlenbeck_nd: run_experiment, one epoch each in
+   its own window, row 10 once a step, row 9 once a step, once for the
+   validation and once for the relative loss, nothing else; the same
+   figures.
+34. serving at d_x 2: predict_at of a production-d=2 model (hidden 50,
+   shared, dt_ode_step 0.01) for 1,000 black_scholes_nd streams x 21
+   queries in its own window (row 1 only), row 1 against its plain version
+   on its own arguments (t_L bitwise, h at rtol 1e-4 / atol 1e-5),
+   predict_at against the CPU model, and row 1's times at d_x 2 beside
+   d_x 1 in turns.
 
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
 separate-network path) and the walk-train kernel, 18 for the fused-step
 kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
-for rows 11b and 13b,
+for rows 11b and 13b, 30, 31, 33 and 34 a window per run,
 every row's count read in each) and read just after.  The last line is the JSON
 result; the line before it lists the kernels.  There is no CPU run:
 without a CUDA device the script fails.
@@ -261,9 +290,11 @@ from njode_tpu_torch.ops import fused_step as fs
 from njode_tpu_torch.ops import fused_cell, gap_scan, walk_scan
 from njode_tpu_torch.ops import train_kernel as tk
 from njode_tpu_torch.ops import walk_train as wt
-from njode_tpu_torch.simulation import moments_at_obs, simulate_batch
-from njode_tpu_torch.utils import (Trainer, create_data_loaders, make_adam,
-                                   run_experiment)
+from njode_tpu_torch.simulation import (moments_at_obs, simulate_batch,
+                                        supports_obs_only)
+from njode_tpu_torch.utils import (Trainer, conditional_moment_mse,
+                                   create_data_loaders, load_checkpoint,
+                                   make_adam, run_experiment)
 from njode_tpu_torch.utils.training import as_dense
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -881,6 +912,18 @@ def bound_of(flops: float, n_bytes: float,
 # ---------------------------------------------------------------- training
 
 TRAIN_N, TRAIN_BS, TRAIN_G = 10, 128, 8
+# each family's parameters in its recipes (bench.py:169-176, the defaults of
+# experiments/experiment_{black_scholes,ou,heston,hybrid}.py)
+FAMILY_PARAMS = {
+    "black_scholes": dict(mu=0.1, sigma=0.5, x0=1.0),
+    "ornstein_uhlenbeck": dict(theta=1.0, mu=0.5, sigma=0.3, x0=0.0),
+    "heston": dict(mu=0.5, kappa=2.0, theta=0.04, xi=0.5, rho=-0.5, x0=1.0,
+                   v0=0.04),
+    "hybrid_ou_bs": dict(theta_ou=1.0, mu_ou=0.5, sigma_ou=0.3, mu_bs=0.1,
+                         sigma_bs=0.2, switch_time=None, x0=1.0),
+    "black_scholes_nd": dict(mu=0.1, sigma=0.5, dims=2),
+    "ornstein_uhlenbeck_nd": dict(theta=1.0, mu=0.5, sigma=0.3, dims=2),
+}
 TRAIN_EPOCHS = 200           # the default recipe's
 COMPARED_EPOCHS = 20         # timed epochs of the composed and plain arms
 ACT_PAIRS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "identity"))
@@ -916,14 +959,17 @@ def default_config(n_epochs: int, name: str) -> dict:
 
 
 def train_data(dev: torch.device, n_traj: int, bs: int, seed: int,
-               n_valid=None, obs_fraction: float = 0.1) -> torch.Tensor:
-    """Packed kernel rows of fresh obs-only BS trajectories (the default
-    recipe's law; N = 100 obs_fraction slots), the last n_traj - n_valid
-    rows padding that repeats row 0, as the Trainer pads its last
+               n_valid=None, obs_fraction: float = 0.1,
+               process: str = "black_scholes") -> torch.Tensor:
+    """Packed kernel rows of fresh trajectories of a 1-d family at its
+    default recipe's parameters (FAMILY_PARAMS; obs-only where the family
+    has an exact sampler; N = 100 obs_fraction slots), the last n_traj -
+    n_valid rows padding that repeats row 0, as the Trainer pads its last
     minibatch."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b = simulate_batch(n_traj, "black_scholes", obs_fraction, True,
-                       generator=gen, device=dev, mu=0.1, sigma=0.5, x0=1.0)
+    b = simulate_batch(n_traj, process, obs_fraction,
+                       supports_obs_only(process), generator=gen, device=dev,
+                       **FAMILY_PARAMS[process])
     n_valid = n_traj if n_valid is None else n_valid
     valid = torch.arange(n_traj, device=dev) < n_valid
     times = torch.where(valid[:, None], b.times, b.times[:1])
@@ -1097,6 +1143,18 @@ def kernel_vs_composed_phase(dev: torch.device) -> float:
     model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
                           generator=torch.Generator().manual_seed(5))
     data = train_data(dev, 1024, TRAIN_BS, 11, n_valid=1000)
+    err = kernel_vs_composed(model, data)
+    print(f"kernel vs composed path: one epoch (8 steps) from identical "
+          f"weights, per-step losses and params max abs err {err:.3e}",
+          flush=True)
+    return err
+
+
+def kernel_vs_composed(model: NeuralJumpODE, data: torch.Tensor) -> float:
+    """One epoch of packed data (minibatches of TRAIN_BS rows of N =
+    TRAIN_N slots, weights [1, 10]) through rows 11-12 and through
+    apply_loss + autograd + Adam from the model's weights: the per-step
+    losses and the params after the epoch at RTOL / ATOL."""
     kw = train_kwargs(2)
     with torch.no_grad():
         state, k_losses = tk.fused_train_run(tk.init_train_state(model),
@@ -1116,12 +1174,8 @@ def kernel_vs_composed_phase(dev: torch.device) -> float:
     err = assert_close(k_losses, torch.stack(c_losses),
                        "kernel vs composed per-step losses")
     ref = tk.init_train_state(model).params
-    err = max(err, assert_close(state.params, ref,
-                                "kernel vs composed params after an epoch"))
-    print(f"kernel vs composed path: one epoch (8 steps) from identical "
-          f"weights, per-step losses and params max abs err {err:.3e}",
-          flush=True)
-    return err
+    return max(err, assert_close(state.params, ref,
+                                 "kernel vs composed params after an epoch"))
 
 
 def val_metrics(model: NeuralJumpODE, dev: torch.device,
@@ -1831,12 +1885,13 @@ STEP_ACTS = (("relu", "identity"), ("tanh", "tanh"), ("elu", "sigmoid"))
 
 
 def step_case(gen: torch.Generator, H: int, N: int, shared: bool, L: int,
-              act: str, scale: str, rows: int, dev: torch.device) -> dict:
+              act: str, scale: str, rows: int, dev: torch.device,
+              d: int = 1) -> dict:
     """Random fused-step inputs: a model's packed weights (torch's default
-    law), sorted times from 0 with the last slots of every fifth row
-    repeating the one before (padding: DT = 0), log-normal values and an
-    output cotangent."""
-    model = NeuralJumpODE(1, H, 1, num_moments=2, n_hidden_layers=L,
+    law) for d_x = d_y = d, sorted times from 0 with the last slots of
+    every fifth row repeating the one before (padding: DT = 0), log-normal
+    values and an output cotangent."""
+    model = NeuralJumpODE(d, H, d, num_moments=2, n_hidden_layers=L,
                           activation=act, input_scaling=scale,
                           shared_network=shared, device="cpu",
                           generator=torch.Generator().manual_seed(H + N + L))
@@ -1847,8 +1902,8 @@ def step_case(gen: torch.Generator, H: int, N: int, shared: bool, L: int,
     if N > 2:
         t[::5, -1] = t[::5, -2]
     c = {"W": W, "V": V, "times": t,
-         "values": torch.exp(torch.randn(rows, N, 1, generator=gen) * 0.3),
-         "gy": torch.randn(rows, 2 * N - 1, 1, 2, generator=gen)}
+         "values": torch.exp(torch.randn(rows, N, d, generator=gen) * 0.3),
+         "gy": torch.randn(rows, 2 * N - 1, d, 2, generator=gen)}
     c = {k: v.to(dev).contiguous() for k, v in c.items()}
     c["Wb"] = c["W"].to(BF16)            # the planes as FusedStep casts them
     c["lo"] = fs.layout_of(model)
@@ -3789,6 +3844,399 @@ def step_build_phase(build_s: float) -> None:
                              f"instructions (or is missing): {hmma}")
 
 
+# ------------------------------------ the other process families and d_x 2
+
+FAMILIES_1D = ("ornstein_uhlenbeck", "heston", "hybrid_ou_bs")
+FAMILIES_ND = ("black_scholes_nd", "ornstein_uhlenbeck_nd")
+FAMILY_EPOCHS = 20           # epochs of each family's default recipe
+
+
+def family_config(cfg: dict, process: str) -> dict:
+    """A recipe's config for another family: build_config's data keys with
+    the family's parameters and obs_only as the CLI's 'auto' resolves it
+    (on where the family has an exact sampler), the rest of the recipe as
+    it is; a d-dimensional family's widths follow its dims (bench.py:177)."""
+    keep = ("n_train", "n_val", "obs_fraction", "cache_data", "T", "n_steps")
+    cfg = copy.deepcopy(cfg)
+    cfg["data"] = {**{k: cfg["data"][k] for k in keep},
+                   "process_type": process,
+                   "obs_only": supports_obs_only(process),
+                   **FAMILY_PARAMS[process]}
+    cfg["experiment_name"] += f"_{process}"
+    if process.endswith("_nd"):
+        del cfg["input_dim"], cfg["output_dim"]
+    return cfg
+
+
+def recipe_model(cfg: dict, dev: torch.device, seed: int = 0
+                 ) -> NeuralJumpODE:
+    """The model run_experiment builds for a config (the grid walk where
+    the config's dt_ode_step asks for it, as the card resolves 'auto')."""
+    d = int(cfg["data"].get("dims", 1))
+    up = cfg["use_pallas"]
+    return NeuralJumpODE(
+        cfg.get("input_dim", d), cfg["hidden_dim"], cfg.get("output_dim", d),
+        num_moments=2, shared_network=cfg["shared_network"],
+        dt_ode_step=cfg["dt_ode_step"],
+        grid_walk=cfg["dt_ode_step"] is not None,
+        use_pallas=up if up in ("auto", "step", True) else False, device=dev,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def trained_model(res: dict, dev: torch.device) -> NeuralJumpODE:
+    """The model a run_experiment call trained, from its checkpoint."""
+    model = recipe_model(res["config"], dev)
+    sd, _, _ = load_checkpoint(str(Path(res["save_path"]) / "model.ckpt"),
+                               map_location=dev)
+    model.load_state_dict(sd)
+    return model
+
+
+def family_val_mse(model: NeuralJumpODE, dev: torch.device, process: str,
+                   n: int, obs_fraction: float) -> tuple:
+    """bench.py:435-455 for any family: n fresh grid-simulated trajectories,
+    the MSE of the before-jump mean and variance against the closed-form
+    truths past slot 0 (hybrid: at the drawn switch times; Heston: the BS
+    approximation with xi)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = FAMILY_PARAMS[process]
+    vb = simulate_batch(n, process, obs_fraction, generator=gen, device=dev,
+                        **p)
+    mse = conditional_moment_mse(
+        model, vb, process,
+        use_batch_switch_times=vb.switch_times is not None, **p)
+    return mse["mean"], mse["var"]
+
+
+def profiled_recipe(cfg: dict, dev: torch.device, n: int) -> tuple:
+    """torch.profiler over n epochs of Trainer.train of a recipe (the
+    kernels run_experiment takes for it) after one epoch of warm-up:
+    (host wall ms an epoch, device ms an epoch, the device's idle share,
+    device launches an epoch, the profiled epochs in words)."""
+    from torch.profiler import ProfilerActivity, profile
+    model = recipe_model(cfg, dev, seed=1)
+    trainer = Trainer(
+        model, make_adam(model.parameters(), 1e-3, 5e-4),
+        ignore_first_continuity=True, moment_weights=cfg["moment_weights"],
+        use_train_kernel="auto" if cfg["use_pallas"] == "auto" else False)
+    loaders = create_data_loaders(base_seed=1, device=dev, **cfg["data"])
+    timed_epochs(trainer, *loaders, cfg, 1, cfg["batch_size"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed_epochs(trainer, *loaders, cfg, n, cfg["batch_size"])
+    cuda = torch.autograd.DeviceType.CUDA
+    on_dev = [e for e in prof.events() if e.device_type == cuda]
+    dev_s = sum(e.time_range.elapsed_us() for e in on_dev) / 1e6
+    return (1e3 * wall / n, 1e3 * dev_s / n, 1.0 - dev_s / wall,
+            len(on_dev) / n, f"{n} epoch{'s' * (n > 1)}")
+
+
+def family_run(cfg: dict, tmp: Path, window: str, want: dict) -> tuple:
+    """run_experiment of a config in its own launch window (the counts set
+    to 0 just before, read just after): (result, seconds, the window's
+    counts).  The losses must be finite."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, save_dir=str(tmp))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = expect_counts(window, want)
+    hist = res["history"]
+    if not all(math.isfinite(x) for x in hist["train_loss"] + hist["val_loss"]
+               + hist["relative_loss"]):
+        raise AssertionError(f"{window}: non-finite losses {hist}")
+    return res, secs, got
+
+
+def recipe_line(process: str, res: dict, secs: float, n_traj: int,
+                got: dict, prof: tuple, mse: tuple) -> str:
+    """One run's figures: run_experiment's seconds and trajectories/s, its
+    losses and launches, the profiled epochs (wall, device, idle share,
+    launches) and the val MSE."""
+    hist = res["history"]
+    E = len(hist["train_loss"])
+    return (f"{process}: {E} epoch{'s' * (E > 1)} in {secs:.3f} s = "
+            f"{E * n_traj / secs:.0f} traj/s (run_experiment), train loss "
+            f"{hist['train_loss'][0]:.4f} -> {hist['train_loss'][-1]:.4f}, "
+            f"val {hist['val_loss'][-1]:.4f}, relative loss "
+            f"{hist['relative_loss'][-1]:.4f}; launches "
+            f"{ {k: v for k, v in got.items() if v} }; profiled "
+            f"(Trainer.train, {prof[4]} after one): {prof[0]:.2f} ms of wall "
+            f"an epoch, {prof[1]:.2f} ms of device time, idle "
+            f"{100 * prof[2]:.1f}%, {prof[3]:.0f} device launches an epoch; "
+            f"val MSE mean {mse[0]:.3e} var {mse[1]:.3e}")
+
+
+def families_default_phase(dev: torch.device, card: str, tmp: Path) -> dict:
+    """Phase 30: the default recipe of OU, Heston and hybrid (hidden 32, two
+    networks, batch 128, 1,000 fresh trajectories an epoch, obs fraction
+    0.1, weights [1, 10]) through run_experiment for FAMILY_EPOCHS epochs
+    each, every epoch one launch of rows 11-12 and no other kernel; then
+    one epoch of identical data of the family through rows 11-12 and
+    through the composed path from identical weights (phase 9's check).
+    Returns {process: seconds an epoch}."""
+    out, lines, errs = {}, [], []
+    for process in FAMILIES_1D:
+        cfg = family_config(default_config(FAMILY_EPOCHS, "default"),
+                            process)
+        res, secs, got = family_run(cfg, tmp, f"default {process}",
+                                    {11: FAMILY_EPOCHS})
+        mse = family_val_mse(trained_model(res, dev), dev, process, 200, 0.1)
+        prof = profiled_recipe(cfg, dev, 2)
+        model = NeuralJumpODE(1, 32, 1, num_moments=2, device=dev,
+                              generator=torch.Generator().manual_seed(5))
+        errs.append(kernel_vs_composed(model, train_data(
+            dev, 1024, TRAIN_BS, 11, n_valid=1000, process=process)))
+        lines.append(recipe_line(process, res, secs, 1000, got, prof, mse))
+        out[process] = secs / FAMILY_EPOCHS
+    print(f"families, default recipe on {card} (rows 11-12; hidden 32, two "
+          f"networks, batch 128, 1,000 fresh trajectories an epoch, obs-only "
+          f"where exact, Heston on the grid): " + "; ".join(lines)
+          + f"; kernel vs composed, one epoch of each family's data from "
+          f"identical weights, per-step losses and params at rtol {RTOL} / "
+          f"atol {ATOL}: max abs err "
+          + ", ".join(f"{e:.3e}" for e in errs), flush=True)
+    return out
+
+
+def families_production_phase(dev: torch.device, card: str,
+                              tmp: Path) -> dict:
+    """Phase 31: the production recipe of OU, Heston and hybrid
+    (scripts/run_{ou,heston,hybrid}.sh: hidden 50, shared, dt_ode_step
+    0.01, batch 256, 10,000 fresh trajectories an epoch, validation 2,000,
+    weights [1, 15]) through run_experiment for 3 epochs each: row 13 once
+    an epoch, row 1 in validation and the relative loss, no other kernel.
+    OU and hybrid sample obs-only, Heston on the grid.  Returns {process:
+    seconds an epoch}."""
+    out, lines = {}, []
+    for process in FAMILIES_1D:
+        cfg = family_config(production_config(3, "production"), process)
+        res, secs, got = family_run(cfg, tmp, f"production {process}",
+                                    {13: 3, 1: None})
+        mse = family_val_mse(trained_model(res, dev), dev, process, PROD_VAL,
+                             0.1)
+        prof = profiled_recipe(cfg, dev, 2)
+        lines.append(recipe_line(process, res, secs, PROD_TRAIN, got, prof,
+                                 mse))
+        out[process] = secs / 3
+    print(f"families, production recipe on {card} (row 13, row 1 in "
+          f"validation; hidden {PROD_H}, shared, dt {PROD_DT}, batch "
+          f"{PROD_BS}, {PROD_TRAIN:,} fresh trajectories an epoch, "
+          f"{PROD_VAL:,} validation): " + "; ".join(lines), flush=True)
+    return out
+
+
+def heston_datagen_phase(card: str, dev: torch.device, epoch_s: dict) -> None:
+    """Heston's data generation an epoch (the 100-step variance recurrence
+    on the card, then the observations), host clock around synchronized
+    calls, median of 5 after one, beside the epoch it feeds."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    parts = []
+    for recipe, n in (("default", 1000), ("production", PROD_TRAIN)):
+        def one():
+            simulate_batch(n, "heston", 0.1, generator=gen, device=dev,
+                           **FAMILY_PARAMS["heston"])
+            torch.cuda.synchronize()
+        one()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            one()
+            ts.append(time.perf_counter() - t0)
+        ms = 1e3 * statistics.median(ts)
+        share = ms / (1e3 * epoch_s[recipe])
+        parts.append(f"{recipe} ({n:,} grid paths) {ms:.3f} ms an epoch, "
+                     f"{100 * share:.1f}% of its run_experiment epoch "
+                     f"({1e3 * epoch_s[recipe]:.2f} ms)")
+    print(f"Heston data generation on {card}: " + "; ".join(parts),
+          flush=True)
+
+
+def step_nd2_phase(dev: torch.device, card: str) -> dict:
+    """Phase 32: rows 9-10 at d_x = d_y = 2 against their plain versions
+    (the scaled d=2 shape, H 256, N 2, two networks, L 1, relu/identity at
+    4,096 rows, and tanh/tanh at 1,696), at phase 17's limits: the forward
+    at rtol 1e-4 / atol 1e-5 and STEP_FWD_NORM of its norm, every dW plane
+    and dV row within step_grad_rtol of its norm, the 1xTF32 control
+    failing both, two backward calls bitwise equal.  Then CUDA-event times
+    at d_x 2 beside d_x 1 in turns, and the bound at d_x 2.  Returns each
+    kernel's (ms, plain ms, bound ms, bound_by) at d_x 2 and the errors."""
+    gen = torch.Generator().manual_seed(23)
+    f_err = b_err = fs_w = bs_w = 0.0
+    cf_min = cb_min = math.inf
+    cases = {}
+    for act, scale, rows in (("relu", "identity", SCALED_BS),
+                             ("tanh", "tanh", 1696)):
+        c = step_case(gen, SCALED_H, 2, False, 1, act, scale, rows, dev, d=2)
+        cases[act] = c
+        where = f"d_x 2, H {SCALED_H}, N 2, {act}/{scale}, rows {rows}"
+        grad_rtol = step_grad_rtol(act)
+        with torch.no_grad():
+            y_k = step_fwd(c, act, scale, True)
+            y_p = step_fwd(c, act, scale, False)
+            g_k = step_bwd(c, act, scale, True)
+            g_k2 = step_bwd(c, act, scale, True)
+            g_p = step_bwd(c, act, scale, False)
+        torch.cuda.synchronize()
+        f_err = max(f_err, assert_close(y_k, y_p, f"row 9 at {where}"))
+        share = step_fwd_share(y_k, y_p)
+        if not share <= 1.0:
+            raise AssertionError(f"row 9 at {where}: share {share:.3f} of "
+                                 "the forward limits")
+        fs_w = max(fs_w, share)
+        bs_w = max(bs_w, step_bwd_share(g_k, g_p, grad_rtol))
+        for a, a2, b, what in zip(g_k, g_k2, g_p, ("dW", "dV")):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"two row 10 calls differ in {what} at "
+                                     f"{where}")
+            for i in range(a.shape[0]):
+                for j in range(a.shape[1]):
+                    b_err = max(b_err, assert_close_norm(
+                        a[i, j], b[i, j], f"row 10 {what}[{i}, {j}] at "
+                        f"{where}", grad_rtol))
+        y_c, g_c = step_plain_tf32(c, act, scale)
+        cf, cb = step_fwd_share(y_c, y_p), step_bwd_share(g_c, g_p, grad_rtol)
+        if not (cf > 1.0 and cb > 1.0):
+            raise AssertionError(f"the 1xTF32 control passes at {where} "
+                                 f"(forward {cf:.3f}, backward {cb:.3f})")
+        cf_min, cb_min = min(cf_min, cf), min(cb_min, cb)
+    c2 = cases["relu"]
+    c1 = step_case(gen, SCALED_H, 2, False, 1, "relu", "identity", SCALED_BS,
+                   dev)
+    t = {}
+    with torch.no_grad():
+        for d, c in ((1, c1), (2, c2), (2, c2), (1, c1)):
+            for b in (False, True):
+                fn = step_bwd if b else step_fwd
+                t.setdefault((d, b), []).append(time_ms(
+                    lambda: fn(c, "relu", "identity", True), warmup=3,
+                    reps=20))
+        plain = {b: time_ms(lambda: (step_bwd if b else step_fwd)(
+            c2, "relu", "identity", False), warmup=1, reps=5)
+            for b in (False, True)}
+    lo = c2["lo"]
+    flops = step_flops(SCALED_H, 2, lo, SCALED_BS)
+    io = 4 * (c2["W"].numel() + c2["V"].numel() + c2["times"].numel()
+              + c2["values"].numel())
+    f_bound = bound_of(3 * flops, io + 4 * c2["gy"].numel(), PEAK_TF32_FLOPS)
+    b_bound = bound_of(9 * flops, io + 4 * (c2["gy"].numel()
+                                            + c2["W"].numel()
+                                            + c2["V"].numel()),
+                       PEAK_TF32_FLOPS)
+    med = {k: statistics.median(v) for k, v in t.items()}
+    print(f"fused-step kernels at d_x 2 vs plain: 2 cases (H {SCALED_H}, N 2, "
+          f"two networks, L 1; relu/identity at {SCALED_BS} rows, tanh/tanh "
+          f"at 1,696): forward max abs err {f_err:.3e}, worst share "
+          f"{fs_w:.3f} (rtol {RTOL} / atol {ATOL}, {STEP_FWD_NORM} of the "
+          f"norm); backward max abs err {b_err:.3e}, worst share {bs_w:.3f} "
+          f"({STEP_GRAD_RTOL} of each norm, {GRAD_RTOL} with relu); the "
+          f"1xTF32 control fails both, smallest shares {cf_min:.3f} / "
+          f"{cb_min:.3f}; two backward calls bitwise equal; plan "
+          f"{step_plan(c2)}", flush=True)
+    print(f"fused-step kernels on {card} at {SCALED_BS} rows, H {SCALED_H}, "
+          f"N 2, relu/identity, in turns (d_x 1, 2, 2, 1): row 9 at d_x 2 "
+          f"{', '.join(f'{x:.4f}' for x in t[2, False])} ms, at d_x 1 "
+          f"{', '.join(f'{x:.4f}' for x in t[1, False])} ms (plain at d_x 2 "
+          f"{plain[False]:.4f} ms; bound {f_bound[0]:.4f} ms {f_bound[1]}); "
+          f"row 10 at d_x 2 {', '.join(f'{x:.4f}' for x in t[2, True])} ms, "
+          f"at d_x 1 {', '.join(f'{x:.4f}' for x in t[1, True])} ms (plain "
+          f"{plain[True]:.4f} ms; bound {b_bound[0]:.4f} ms {b_bound[1]})",
+          flush=True)
+    return {"fused_step_fwd": (med[2, False], plain[False], *f_bound),
+            "fused_step_bwd": (med[2, True], plain[True], *b_bound),
+            "errs": (f_err, b_err)}
+
+
+def scaled_nd_phase(dev: torch.device, card: str, tmp: Path) -> dict:
+    """Phase 33: the scaled d=2 recipe (bench.py --process black_scholes_nd
+    --dims 2 --scaled: hidden 256, two networks, batch 4,096, 100,000 fresh
+    obs-only trajectories an epoch, obs fraction 0.02, use_pallas 'step'),
+    then the same with ornstein_uhlenbeck_nd, one epoch each through
+    run_experiment: row 10 once a step, row 9 once a step, once for the
+    validation and once for the relative loss, no other kernel.  Returns
+    the launches of the first window."""
+    lines, first = [], None
+    for process in FAMILIES_ND:
+        cfg = family_config(scaled_config(1, "scaled"), process)
+        res, secs, got = family_run(
+            cfg, tmp, f"scaled {process}",
+            {9: SCALED_STEPS + 2, 10: SCALED_STEPS})
+        first = first or got
+        mse = family_val_mse(trained_model(res, dev), dev, process,
+                             SCALED_VAL, 0.02)
+        prof = profiled_recipe(cfg, dev, 1)
+        lines.append(recipe_line(process, res, secs, SCALED_TRAIN, got, prof,
+                                 mse))
+    print(f"scaled d=2 recipes on {card} (rows 9-10 at d_x = d_y = 2; hidden "
+          f"{SCALED_H}, two networks, batch {SCALED_BS}, {SCALED_TRAIN:,} "
+          f"fresh trajectories an epoch, validation {SCALED_VAL:,}): "
+          + "; ".join(lines), flush=True)
+    return first
+
+
+def serving_nd_phase(dev: torch.device, card: str) -> dict:
+    """Phase 34: a production-d=2 model (hidden 50, shared, two moments,
+    dt_ode_step 0.01, d_x = d_y = 2) serves predict_at at the batch shape,
+    1,000 black_scholes_nd streams x 21 queries, in its own launch window
+    (row 1, nothing else); then row 1 at d_x 2 against its plain version
+    on the kernel's own arguments (t_L bitwise, h at rtol 1e-4 / atol
+    1e-5), predict_at against the same model on the CPU, and CUDA-event
+    times of row 1 at d_x 2 beside d_x 1 in turns.  Returns row 1's
+    (launches, max abs err, ms, plain ms, bound ms, bound_by) at d_x 2."""
+    model = NeuralJumpODE(2, 50, 2, num_moments=2, shared_network=True,
+                          dt_ode_step=DT, t_max=1.0, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    b = simulate_batch(1000, "black_scholes_nd", 0.1, generator=gen,
+                       **FAMILY_PARAMS["black_scholes_nd"])
+    times = [t[3:] if i % 4 == 0 else t for i, t in enumerate(b.times)]
+    values = [v[3:] if i % 4 == 0 else v for i, v in enumerate(b.values)]
+    obs_t, obs_v, mask = pad_ragged(times, values, device=dev)
+    query = torch.sort(torch.rand(1000, 21, generator=gen),
+                       dim=1).values.to(dev)
+    reset_counts()
+    out = model.predict_at(obs_t, obs_v, query, mask)
+    torch.cuda.synchronize()
+    got = expect_counts("serving d_x 2 (predict_at)", {1: None})
+    raw = out["raw"]
+    if raw.shape != (1000, 21, 2, 2) or not torch.isfinite(raw).all():
+        raise AssertionError(f"predict_at at d_x 2: shape "
+                             f"{tuple(raw.shape)}, or non-finite values")
+    first = torch.where(mask, obs_t, torch.inf)[:, :1]
+    if (raw[query < first] != 0).any():
+        raise AssertionError("d_x 2: a query before the first observation "
+                             "does not read 0")
+    args = gap_rows(model, obs_t, obs_v, query, mask)
+    err = gap_pair_close(args, "row 1 at d_x 2, the predict_at shape")
+    ref = copy.deepcopy(model).to("cpu").predict_at(
+        obs_t.cpu(), obs_v.cpu(), query.cpu(), mask.cpu())
+    pa_err = assert_close(raw, ref["raw"], "predict_at at d_x 2 vs plain "
+                          "(CPU)")
+    args1 = gap_rows(production_model(dev), *batch_request(dev))
+    t = {1: [], 2: []}
+    with torch.no_grad():
+        for d, a in ((1, args1), (2, args), (2, args), (1, args1)):
+            t[d].append(time_ms(lambda: gap_scan.gap_substeps(*a)))
+        p_ms = time_ms(lambda: gap_scan.gap_substeps_reference(*args),
+                       warmup=1, reps=5)
+    pa_ms = time_ms(lambda: model.predict_at(obs_t, obs_v, query, mask))
+    bound, by = gap_bound(args)
+    print(f"serving d_x 2 on {card}: predict_at of a production-d=2 model "
+          f"(hidden 50, shared, dt {DT}), 1,000 black_scholes_nd streams x "
+          f"21 queries: launches {got[1]} of row 1 and no other kernel; "
+          f"row 1 vs plain max abs err {err:.3e} (t_L bitwise); predict_at "
+          f"vs the CPU model max abs err {pa_err:.3e}; row 1 in turns at "
+          f"d_x 2 {', '.join(f'{x:.4f}' for x in t[2])} ms, at d_x 1 "
+          f"{', '.join(f'{x:.4f}' for x in t[1])} ms (plain at d_x 2 "
+          f"{p_ms:.4f} ms; bound {bound:.4f} ms {by}); predict_at "
+          f"{pa_ms:.4f} ms = {21000 / (pa_ms / 1e3):.0f} queries/s",
+          flush=True)
+    return {"launches": got[1], "max_abs_err": err,
+            "ms": statistics.median(t[2]), "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -3925,6 +4373,20 @@ def main() -> None:
     times.update(mxu_bf16_times_phase(dev, card))
     t = phase_time("bf16 whole-run times", t)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        epoch_s = {"default": families_default_phase(dev, card, Path(tmp))}
+        t = phase_time("families, default recipes (rows 11-12)", t)
+        epoch_s["production"] = families_production_phase(dev, card,
+                                                          Path(tmp))
+        t = phase_time("families, production recipes (row 13)", t)
+        heston_datagen_phase(card, dev, {k: v["heston"]
+                                         for k, v in epoch_s.items()})
+        nd2 = step_nd2_phase(dev, card)
+        nd2_launches = scaled_nd_phase(dev, card, Path(tmp))
+        t = phase_time("scaled d=2 recipes (rows 9-10 at d_x 2)", t)
+    serve_nd2 = serving_nd_phase(dev, card)
+    t = phase_time("serving at d_x 2 (row 1)", t)
+
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
         ms, plain, bound, by = tm
@@ -3941,7 +4403,19 @@ def main() -> None:
     f_default = "forced default training (run_experiment, use_pallas True)"
     bf16_scaled = ("bf16 scaled training (run_experiment, compute_dtype "
                    "bfloat16)")
-    print(json.dumps({"kernels": [
+    scaled_nd = "scaled d=2 training (run_experiment, black_scholes_nd)"
+
+    def at_dx2(path, n, err, tm):
+        ms, plain, bound, by = tm
+        return {"path": path, "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+    dx2 = {"gap_scan_fwd": {"path": "serving at d_x 2 (predict_at)",
+                            **serve_nd2},
+           "fused_step_fwd": at_dx2(scaled_nd, nd2_launches[9],
+                                    nd2["errs"][0], nd2["fused_step_fwd"]),
+           "fused_step_bwd": at_dx2(scaled_nd, nd2_launches[10],
+                                    nd2["errs"][1], nd2["fused_step_bwd"])}
+    kernels = [
         entry("gap_scan_fwd", KERNEL_SOURCE, REPLACES,
               "serving (predict_at, NJODEFilter)", launches, max_err,
               (k_ms, p_ms, g_bound, g_by)),
@@ -3990,8 +4464,12 @@ def main() -> None:
               "njode_tpu/ops/walk_train.py:178",
               "bf16 production training (run_experiment, train_kernel_mxu "
               "bfloat16)", mxu_launches["13b"]["13b"], mxu_errs[1],
-              times["13b"])]}),
-          flush=True)
+              times["13b"])]
+    # the rows this slice also runs at d_x 2 carry those numbers too
+    for k in kernels:
+        if k["name"] in dx2:
+            k["d_x2"] = dx2[k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

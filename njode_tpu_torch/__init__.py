@@ -15,8 +15,10 @@ It keeps that package's module layout and names.  Ported so far:
   queries and ``NJODEFilter`` is the O(1)-state streaming filter;
   ``ops.integrate_gap_fused`` runs each gap's Euler substep loop in one
   CUDA kernel (``ops/csrc/gap_scan.cu``);
-* data: ``simulation.simulate_batch`` (Black-Scholes, grid or obs-only) and
-  ``simulation.moments_at_obs``.
+* data: ``simulation.simulate_batch`` (Black-Scholes, OU, Heston, hybrid
+  OU->BS, the d-dimensional BS and OU, and registered processes; grid or
+  obs-only) and ``simulation.moments_at_obs``, which training takes for
+  the relative loss.
 
 Kernels are built with ``nvcc`` at first use; each has its plain PyTorch
 version, which CPU tensors take.  Models, the Trainer and

@@ -280,8 +280,9 @@ class NeuralJumpODE(nn.Module):
         # the fused whole-step kernels (use_pallas="step"): jump -> one
         # Euler step per gap -> readout, all slots in two kernels
         self._step_eligible = fused_step.fused_step_available(
-            input_dim, output_dim, n_hidden_layers, self._act_key,
-            dropout_rate, self._scale_key, dt_ode_step, ode_solver)
+            shared_network, input_dim, output_dim, n_hidden_layers,
+            self._act_key, dropout_rate, self._scale_key, dt_ode_step,
+            ode_solver)
         # (parameter versions, GapWeights): the kernel's weights, cut once
         self._gap_cache: Optional[tuple] = None
 
@@ -808,9 +809,7 @@ class NeuralJumpODE(nn.Module):
         B, N = times.shape
         # (the fused step is ineligible with dropout, so no generator here)
         if self._use_fused_step(N, B):
-            return fused_step.fused_step_apply(
-                *fused_step.pack_params(self), times, values,
-                **self._step_kwargs())
+            return fused_step.fused_step_apply(self, times, values)
         d_x = values.shape[-1]
         K_h, d_h = self.k_hidden, self.hidden_dim
 

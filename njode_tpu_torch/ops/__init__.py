@@ -7,7 +7,10 @@ import.
 """
 
 from .fused_cell import (FusedEulerCell, fused_cell_available,
-                         ode_euler_fused, ode_euler_reference)
+                         fused_euler_cell, ode_euler_fused,
+                         ode_euler_reference)
+from .fused_step import (fused_step_apply, fused_step_available,
+                         fused_step_loss)
 from .gap_scan import (SUPPORTED_ACTS, GapScan, GapWeights,
                        gap_scan_available, gap_train_fits,
                        integrate_gap_fused, integrate_gap_reference,
@@ -24,9 +27,10 @@ from .walk_train import (WalkState, fused_walk_train_run,
                          optax_state_into_walk, walk_state_from,
                          walk_train_available, walk_train_params)
 
-__all__ = ["FusedEulerCell", "fused_cell_available", "ode_euler_fused",
-           "ode_euler_reference", "SUPPORTED_ACTS", "GapScan", "GapWeights",
-           "gap_scan_available", "gap_train_fits", "integrate_gap_fused",
+__all__ = ["FusedEulerCell", "fused_cell_available", "fused_euler_cell",
+           "ode_euler_fused", "ode_euler_reference", "fused_step_apply",
+           "fused_step_available", "fused_step_loss", "SUPPORTED_ACTS",
+           "GapScan", "GapWeights", "gap_scan_available", "gap_train_fits", "integrate_gap_fused",
            "integrate_gap_reference", "split_weights",
            "TrainState", "fused_train_run", "fused_train_run_reference",
            "init_train_state", "kernel_state_from", "optax_state_into",

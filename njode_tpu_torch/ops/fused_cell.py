@@ -141,6 +141,18 @@ class FusedEulerCell(torch.autograd.Function):
                 None)
 
 
+def fused_euler_cell(inp, h, dt, w1, b1, w2, b2, act_name: str = "relu"):
+    """``h + dt (act(inp @ w1 + b1) @ w2 + b2)`` for one network, the JAX
+    entry of this name (``njode_tpu/ops/fused_cell.py:117``) at logical
+    shapes: inp (R, d_in), h (R, d_h), dt (R,) or (R, 1) (the JAX entry's
+    dt_col holds a row's dt in every column), w1 (d_in, d_h), b1 (d_h,),
+    w2 (d_h, d_h), b2 (d_h,).  The kernel for CUDA tensors, its plain
+    version for CPU tensors; differentiable in every input."""
+    out = FusedEulerCell.apply(inp[None], h[None], dt.reshape(-1), w1[None],
+                               b1[None], w2[None], b2[None], act_name)
+    return out[0]
+
+
 def _cell_inputs(h, x_scaled, h_scaled, t_cur, t_new,
                  ode_weights: Sequence[torch.Tensor]):
     """inp = [s(h), s(x), t_rel = t_cur, t_elapsed = t_new - t_cur], dt,

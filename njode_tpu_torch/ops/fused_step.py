@@ -26,8 +26,9 @@ The layout (:class:`StepLayout`) keeps the JAX package's planes and rows at
 logical shapes: W (Kn, n_mats, H, H), each plane in (in, out) orientation,
 V (Kn, n_rows, H).  Not copied (TPU layout, not semantics): the 128-lane
 padding, the 16-row minimum of V, the lane packing of inputs and outputs
-and the lane-space loss, whose value and gradients :func:`fused_step_loss`
-reproduces as ``nj_ode_loss_dense`` of :func:`fused_step_apply`.
+and the lane-space loss, whose value and gradients
+:func:`fused_step_loss_packed` reproduces as ``nj_ode_loss_dense`` of
+:func:`fused_step_apply_packed`.
 
 The port's own shape gate (:func:`fused_step_fits`): 1 <= H <= 256 and a
 block's working set of both instances in the H100's 227 KB of shared
@@ -62,11 +63,13 @@ on the CUDA cores) and are counted apart from the float32 ones
 (``LAUNCHES_FWD_BF16`` / ``LAUNCHES_BWD_BF16``).  float16 has no fused
 step (JAX ``:716``).
 
-Wrappers: :func:`fused_step_apply` / :func:`fused_step_loss` take the
-kernels for CUDA tensors and the plain versions
+Wrappers: :func:`fused_step_apply_packed` / :func:`fused_step_loss_packed`
+take the kernels for CUDA tensors and the plain versions
 :func:`fused_step_forward_reference` / :func:`fused_step_backward_reference`
-only for CPU tensors.  :func:`pack_params` / :func:`unpack_params` map the
-model's modules to (W, V, bo2) and back; packing is differentiable, so
+only for CPU tensors; :func:`fused_step_apply` / :func:`fused_step_loss`
+take the model and pack its parameters, as the JAX entries of those names
+take the parameter pytree.  :func:`pack_params` / :func:`unpack_params` map
+the model's modules to (W, V, bo2) and back; packing is differentiable, so
 autograd carries dW and dV back to the modules' parameters.
 """
 
@@ -153,13 +156,15 @@ class StepLayout:
         return (self.L, self.d_x, self.d_y, self.K, self.shared)
 
 
-def fused_step_available(input_dim: int, output_dim: int,
-                         n_hidden_layers: int, activation: str,
-                         dropout_rate: float, input_scaling: str,
-                         dt_ode_step, ode_solver: str = "euler") -> bool:
-    """Whether the kernels compute this model, shared or separate networks
-    (``fused_step.py:190-202``; canonical activation/scaling names
-    expected)."""
+def fused_step_available(shared_network: bool, input_dim: int,
+                         output_dim: int, n_hidden_layers: int,
+                         activation: str, dropout_rate: float,
+                         input_scaling: str, dt_ode_step,
+                         ode_solver: str = "euler") -> bool:
+    """Whether the kernels compute this model (``fused_step.py:190-202``,
+    the JAX signature; canonical activation/scaling names expected).
+    ``shared_network`` is unused: both modes are computed."""
+    del shared_network
     return (input_dim >= 1 and output_dim >= 1 and n_hidden_layers >= 1
             and dropout_rate == 0.0 and dt_ode_step is None
             and ode_solver == "euler" and activation in SUPPORTED_ACTS
@@ -726,11 +731,11 @@ class FusedStep(torch.autograd.Function):
         return dW, dV, None, None, None, None, None, None
 
 
-def fused_step_apply(W, V, bo2, times, values, *, num_moments: int,
-                     activation: str, input_scaling: str,
-                     shared_network: bool = False, input_dim: int = 1,
-                     output_dim: int = 1, n_hidden_layers: int = 1,
-                     compute_dtype=None):
+def fused_step_apply_packed(W, V, bo2, times, values, *, num_moments: int,
+                            activation: str, input_scaling: str,
+                            shared_network: bool = False, input_dim: int = 1,
+                            output_dim: int = 1, n_hidden_layers: int = 1,
+                            compute_dtype=None):
     """The fused forward of ``NeuralJumpODE.apply`` on packed (W, V, bo2)
     (:func:`pack_params`): times (B, N), values (B, N, d_x) -> (preds,
     preds_before), each (B, N, d_y, K); preds_before[:, 0] is 0.  The
@@ -750,23 +755,25 @@ def fused_step_apply(W, V, bo2, times, values, *, num_moments: int,
     return preds, torch.cat([first, Y[:, N:] + bias], dim=1)
 
 
-def fused_step_loss(W, V, bo2, times, values, mask=None, *,
-                    num_moments: int, activation: str, input_scaling: str,
-                    ignore_first_continuity: bool = False,
-                    moment_weights=None, eps: float = 1e-10,
-                    variance_method: str = "direct", traj_mask=None,
-                    extended_moments: bool = False,
-                    shared_network: bool = False, input_dim: int = 1,
-                    output_dim: int = 1, n_hidden_layers: int = 1,
-                    compute_dtype=None):
-    """``nj_ode_loss_dense(values, *fused_step_apply(...), mask, ...)``:
+def fused_step_loss_packed(W, V, bo2, times, values, mask=None, *,
+                           num_moments: int, activation: str,
+                           input_scaling: str,
+                           ignore_first_continuity: bool = False,
+                           moment_weights=None, eps: float = 1e-10,
+                           variance_method: str = "direct", traj_mask=None,
+                           extended_moments: bool = False,
+                           shared_network: bool = False, input_dim: int = 1,
+                           output_dim: int = 1, n_hidden_layers: int = 1,
+                           compute_dtype=None):
+    """``nj_ode_loss_dense(values, *fused_step_apply_packed(...), mask,
+    ...)``:
     the value and gradients of the JAX lane-space loss, without its
     selector-matmul glue.  Needs output_dim == input_dim."""
     if output_dim != input_dim:
         raise ValueError("fused_step_loss needs output_dim == input_dim "
                          f"(got {output_dim} != {input_dim})")
     from ..models.loss import nj_ode_loss_dense
-    preds, preds_before = fused_step_apply(
+    preds, preds_before = fused_step_apply_packed(
         W, V, bo2, times, values, num_moments=num_moments,
         activation=activation, input_scaling=input_scaling,
         shared_network=shared_network, input_dim=input_dim,
@@ -778,3 +785,37 @@ def fused_step_loss(W, V, bo2, times, values, mask=None, *,
         moment_weights=moment_weights, eps=eps,
         variance_method=variance_method, traj_mask=traj_mask,
         extended_moments=extended_moments)
+
+
+def _model_kwargs(model, compute_dtype) -> dict:
+    kw = model._step_kwargs()
+    if compute_dtype is not None:
+        kw["compute_dtype"] = compute_dtype
+    return kw
+
+
+def fused_step_apply(model, times, values, *, compute_dtype=None):
+    """The fused forward of ``model.apply`` (``fused_step.py:932``): packs
+    the model's parameters (:func:`pack_params`), then
+    :func:`fused_step_apply_packed` with the model's configuration.  The
+    port's parameters live in the module, so the model takes the place of
+    the JAX pytree and its hyperparameters; ``compute_dtype`` None means
+    the model's.  Differentiable in the model's parameters."""
+    return fused_step_apply_packed(*pack_params(model), times, values,
+                                   **_model_kwargs(model, compute_dtype))
+
+
+def fused_step_loss(model, times, values, mask=None, *,
+                    ignore_first_continuity: bool = False,
+                    moment_weights=None, eps: float = 1e-10,
+                    variance_method: str = "direct", traj_mask=None,
+                    extended_moments: bool = False, compute_dtype=None):
+    """The fused loss on the model's parameters (``fused_step.py:904``):
+    packs them, then :func:`fused_step_loss_packed`."""
+    return fused_step_loss_packed(
+        *pack_params(model), times, values, mask,
+        ignore_first_continuity=ignore_first_continuity,
+        moment_weights=moment_weights, eps=eps,
+        variance_method=variance_method, traj_mask=traj_mask,
+        extended_moments=extended_moments,
+        **_model_kwargs(model, compute_dtype))

@@ -1,12 +1,14 @@
-"""Utilities: training, checkpoints and the weight bridge from the JAX
-package."""
+"""Utilities: training, checkpoints, the evaluation metrics and the weight
+bridge from the JAX package."""
 
 from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
+from .metrics import conditional_moment_mse, relative_loss
 from .training import (DataLoader, Trainer, as_dense, create_data_loaders,
                        make_adam, run_experiment)
 from .weights import adam_state_from_jax, state_dict_from_jax
 
 __all__ = ["DataLoader", "Trainer", "adam_state_from_jax", "as_dense",
-           "checkpoint_exists", "create_data_loaders", "load_checkpoint",
-           "make_adam", "run_experiment", "save_checkpoint",
+           "checkpoint_exists", "conditional_moment_mse",
+           "create_data_loaders", "load_checkpoint", "make_adam",
+           "relative_loss", "run_experiment", "save_checkpoint",
            "state_dict_from_jax"]

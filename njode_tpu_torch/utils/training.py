@@ -33,9 +33,10 @@
   both keep the whole-run kernels off.  ``train_kernel_mxu`` reaches the
   Trainer as ``train_kernel_opts={"mxu_dtype": ...}``: "bfloat16" runs the
   whole-run kernels' bf16 products (rows 11b-12b, 13b); the composed path
-  ignores it, as the JAX package's does.  Ensembles (ROADMAP Queue 1 item
-  11), data/model parallelism and multi-host runs (item 12), other process
-  families (item 9) and Pallas interpret mode are not ported and raise
+  ignores it, as the JAX package's does.  Every process family of
+  ``simulation`` trains, and registered processes too.  Ensembles
+  (ROADMAP Queue 1 item 11), data/model parallelism and multi-host runs
+  (item 12) and Pallas interpret mode are not ported and raise
   ``NotImplementedError`` naming their item.
 """
 
@@ -55,7 +56,8 @@ from ..simulation import TrajectoryBatch, simulate_batch
 from ..simulation.moments import moments_at_obs
 from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 
-RELATIVE_LOSS_PROCESSES = ("black_scholes",)
+RELATIVE_LOSS_PROCESSES = ("black_scholes", "ornstein_uhlenbeck", "heston",
+                           "hybrid_ou_bs")
 
 # generator streams of stream_seed
 STREAM_TRAIN, STREAM_VAL, STREAM_SHUFFLE, STREAM_DROPOUT = 0, 1, 2, 3
@@ -404,19 +406,32 @@ class Trainer:
 
     def _setup_relative_loss(self, train_data_fn, config):
         """A fixed 10-trajectory batch of epoch 0 and its closed-form truths
-        (reference utils/training.py:184-196,219-255); None for processes
-        without ported truths."""
+        (reference utils/training.py:184-196,219-255); None for a process
+        with no truths (neither a built-in family nor a registered
+        ``moments_fn``).  With ``exact_hybrid_truths`` a hybrid batch with
+        random switch times takes the recorded ones
+        (``njode_tpu/utils/training.py:836-857``); without it the truths
+        are zero, as the reference's."""
         data_cfg = config["data"]
         process_type = data_cfg["process_type"]
-        if process_type not in RELATIVE_LOSS_PROCESSES:
+        from ..simulation.registry import get_moments_fn
+        if (process_type not in RELATIVE_LOSS_PROCESSES
+                and get_moments_fn(process_type) is None):
             return None
-        times, values, mask, _ = as_dense(_call_data_fn(train_data_fn, 0),
-                                          self.device)
+        times, values, mask, tb = as_dense(_call_data_fn(train_data_fn, 0),
+                                           self.device)
         times, values, mask = times[:10], values[:10], mask[:10]
         params = {k: v for k, v in data_cfg.items() if k != "process_type"}
+        switch_times = None
+        if (process_type == "hybrid_ou_bs"
+                and data_cfg.get("switch_time") is None
+                and tb is not None and tb.switch_times is not None
+                and config.get("exact_hybrid_truths", False)):
+            switch_times = tb.switch_times[:10].to(self.device)
         y_true, y_true_before = moments_at_obs(
             times, values, process_type, num_moments=self.model.num_moments,
-            variance_method=self.variance_method, mask=mask, **params)
+            variance_method=self.variance_method, mask=mask,
+            switch_times=switch_times, **params)
         return dict(times=times, values=values, mask=mask, y_true=y_true,
                     y_true_before=y_true_before)
 
@@ -766,10 +781,6 @@ def _refuse_unported(config: Dict) -> None:
             "the CPU True and 'step' run the kernels' plain versions")
     if up not in (False, None, "auto", "train", "step", True):
         raise ValueError(f"Unknown use_pallas: {up!r}")
-    process = config.get("data", {}).get("process_type", "black_scholes")
-    if process != "black_scholes":
-        raise NotImplementedError(f"process {process!r} is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 9)")
 
 
 def walk_cells(model) -> int:
@@ -811,15 +822,21 @@ def _resolve_grid_walk(config: Dict, device: torch.device,
     if solver != "euler":
         # only the walk-train kernel carries a heun or rk4 walk
         return walk_train_available(
-            bool(config.get("shared_network", False)),
-            int(config.get("input_dim", 1)),
-            int(config.get("output_dim", config.get("input_dim", 1))),
+            bool(config.get("shared_network", False)), *_io_dims(config),
             int(config.get("n_hidden_layers", 1)), act,
             float(config.get("dropout_rate", 0.0)), scale, dt, solver)
     return walk_scan_available(
         int(config.get("n_hidden_layers", 1)), act,
         float(config.get("dropout_rate", 0.0)), scale,
-        int(config.get("input_dim", 1)), int(config["hidden_dim"]))
+        _io_dims(config)[0], int(config["hidden_dim"]))
+
+
+def _io_dims(config: Dict) -> tuple[int, int]:
+    """(input_dim, output_dim) of the config; a d-dimensional family's
+    ``dims`` gives the widths a config leaves out."""
+    dims = int(config.get("data", {}).get("dims", 1))
+    d_x = int(config.get("input_dim", dims))
+    return d_x, int(config.get("output_dim", d_x))
 
 
 def _grid_walk_aligned(config: Dict) -> bool:
@@ -857,6 +874,16 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     """A whole training experiment (reference utils/training.py:349-438), one
     model on one device: ``runs/<experiment_name>/{config.json, model.ckpt,
     history.json}``."""
+    if (config.get("extended_moments", False)
+            and config.get("data", {}).get("process_type") == "heston"):
+        # the refusal moments_at_obs raises, before any work
+        # (njode_tpu/utils/training.py:1264-1273)
+        raise ValueError(
+            "--extended-moments is unsupported for the heston process: "
+            "higher conditional moments of the Heston price have no closed "
+            "form (the BS approximation used for mean/variance does not "
+            "extend).  Drop --extended-moments or use black_scholes / "
+            "ornstein_uhlenbeck / hybrid_ou_bs.")
     _refuse_unported(config)
     # config "device": "auto" or absent means cuda (raising without one),
     # "cpu" the CPU, any other torch device string as given
@@ -877,9 +904,10 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     # kernels) with the whole-run kernels off
     up = config.get("use_pallas", False)
     use_train_kernel = {"auto": "auto", "train": True}.get(up, False)
+    input_dim, output_dim = _io_dims(config)
     model = NeuralJumpODE(
-        input_dim=config["input_dim"], hidden_dim=config["hidden_dim"],
-        output_dim=config["output_dim"],
+        input_dim=input_dim, hidden_dim=config["hidden_dim"],
+        output_dim=output_dim,
         dt_between_obs=config.get("dt_between_obs"),
         dt_ode_step=config.get("dt_ode_step"),
         num_moments=config.get("num_moments", 1),

@@ -299,8 +299,10 @@ def test_fused_step_bf16_plain_versions_match_jax(H_, N_, shared):
     W, V, bo2 = fs.pack_params(port)
     W = W.detach().requires_grad_()
     V = V.detach().requires_grad_()
-    ours = fs.fused_step_apply(W, V, bo2.detach(), torch.tensor(times),
-                               torch.tensor(values), **port._step_kwargs())
+    ours = fs.fused_step_apply_packed(W, V, bo2.detach(),
+                                      torch.tensor(times),
+                                      torch.tensor(values),
+                                      **port._step_kwargs())
     for a, b in zip(ours, ref):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                    **FWD_TOL)
@@ -331,9 +333,10 @@ def test_fused_step_bf16_loss_matches_jax():
         num_moments=2, hidden_dim=24, activation="relu",
         input_scaling="identity", compute_dtype=jnp.bfloat16, interpret=True,
         **kw))(params)
-    loss = fs.fused_step_loss(*fs.pack_params(port), torch.tensor(times),
-                              torch.tensor(values), torch.tensor(mask),
-                              **kw, **port._step_kwargs())
+    loss = fs.fused_step_loss_packed(*fs.pack_params(port),
+                                     torch.tensor(times),
+                                     torch.tensor(values), torch.tensor(mask),
+                                     **kw, **port._step_kwargs())
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(v_ref), rtol=LOSS_RTOL)
     assert_grads_close(port, g_ref, 2, False)
@@ -374,8 +377,8 @@ def test_fused_step_refuses_float16():
     W, V, bo2 = fs.pack_params(port)
     kw = dict(port._step_kwargs(), compute_dtype=FP16)
     with pytest.raises(ValueError, match="bfloat16"):
-        fs.fused_step_apply(W, V, bo2, torch.tensor(times),
-                            torch.tensor(values), **kw)
+        fs.fused_step_apply_packed(W, V, bo2, torch.tensor(times),
+                                   torch.tensor(values), **kw)
 
 
 # ---------------------------------------------------------------- routing

@@ -98,9 +98,10 @@ def test_plain_forward_matches_jax(name):
                                jnp.asarray(values),
                                **jax_kw(d, L, 2, shared, act, scale))
     with torch.no_grad():
-        ours = fs.fused_step_apply(*fs.pack_params(port),
-                                   torch.tensor(times), torch.tensor(values),
-                                   **step_kw(port))
+        ours = fs.fused_step_apply_packed(*fs.pack_params(port),
+                                          torch.tensor(times),
+                                          torch.tensor(values),
+                                          **step_kw(port))
     for a, b in zip(ours, ref):
         assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **FWD_TOL)
@@ -151,7 +152,7 @@ def test_loss_and_gradients_match_jax(name):
             p, jnp.asarray(times), jnp.asarray(values), jnp.asarray(mask),
             traj_mask=jnp.asarray(traj), **jax_kw(d, L, K, shared), **kw)
     v_ref, g_ref = jax.value_and_grad(jax_loss)(params)
-    loss = fs.fused_step_loss(
+    loss = fs.fused_step_loss_packed(
         *fs.pack_params(port), torch.tensor(times), torch.tensor(values),
         torch.tensor(mask), traj_mask=torch.tensor(traj), **kw,
         **step_kw(port))

@@ -92,8 +92,14 @@ def test_simulate_batch_is_deterministic_in_the_generator_seed():
 @pytest.mark.parametrize("process,kw", [("ornstein_uhlenbeck", {}),
                                         ("hybrid_ou_bs", {"obs_only": True})])
 def test_unported_processes_raise(process, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        simulate_batch(4, process, generator=gen(0), **kw)
+    """Every family of the JAX package is ported now (these two raised
+    before): they simulate, and a name that no family or registered process
+    has raises the JAX package's ValueError."""
+    b = simulate_batch(4, process, generator=gen(0), **kw)
+    assert b.values.shape == (4, 10, 1)
+    assert bool(torch.isfinite(b.values).all())
+    with pytest.raises(ValueError, match="Unknown process type"):
+        simulate_batch(4, process + "_typo", generator=gen(0))
 
 
 def test_values_are_float32_and_finite():
@@ -164,5 +170,8 @@ def test_moments_at_obs_bs_matches_jax(K, method, masked):
         np.testing.assert_allclose(
             a[..., 2:], b[..., 2:], rtol=1e-6,
             atol=2e-5 if method == "direct" else 1e-6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        moments_at_obs(torch.tensor(times), torch.tensor(values), "heston")
+    # the only family refusal left is the JAX package's own: Heston's
+    # extended moments
+    with pytest.raises(ValueError, match="Extended moments"):
+        moments_at_obs(torch.tensor(times), torch.tensor(values), "heston",
+                       num_moments=3)
