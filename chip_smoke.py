@@ -259,20 +259,56 @@ uncaught exception and a nonzero exit:
    on its own arguments (t_L bitwise, h at rtol 1e-4 / atol 1e-5),
    predict_at against the CPU model, and row 1's times at d_x 2 beside
    d_x 1 in turns.
+35. grid rollout: NeuralJumpODE.predict_on_grid of the production model on
+   1,000 Black-Scholes grid paths x 101 points (obs fraction 0.1; some
+   paths first observed late, some not after t = 0.8) in its own window:
+   no kernel (a loop of composed _euler substeps), held against the CPU
+   model at rtol 1e-4 / atol 1e-5, zeros before each path's first
+   observation; the same call under use_pallas=True: row 6 G x n_sub times
+   and nothing else, agreeing with the unforced call at those limits; a
+   separate-network (K_h 2) call against the CPU; CUDA-event times of both
+   in turns, grid points/s, one profiled call's idle share.
+36. generative sampling: sample_paths of the production model, 1,000 paths
+   x 101 grid points, each law (gaussian, lognormal, mean), from x0 1.0 and
+   from a 10-observation prefix, each call in its own window: row 1 G - 1
+   times (G with the prefix) and nothing else; sample_paths_from_normals on
+   a CPU twin with the card's normals (the first 250 paths): the whole mean
+   path and the first stochastic step at rtol 1e-4 / atol 1e-5, whole
+   stochastic paths within SAMPLE_PATH_NORM of their norm (sampling_phase
+   says why); two calls of one seed bitwise equal; ms a call, samples/s.
+37. the experiment CLIs in process (njode_tpu_torch.experiments, main(argv),
+   --device cuda --no-plots, runs/ in a temporary directory), a window a
+   run: the default recipe 3 epochs (rows 11-12 once an epoch, nothing
+   else; config.json equal to build_config's dict), resumed to 4 (one
+   launch); scripts/run_black_scholes.sh's flags 2 epochs (row 13 once an
+   epoch, row 1 in validation); OU, Heston and hybrid at their defaults 2
+   epochs each (rows 11-12 once an epoch); one run with --profile-dir (a
+   non-empty Chrome trace with kernels); one run asking for plots: the
+   three PNGs where matplotlib imports, else its ImportError after
+   training (the line says which).
+
+The recipes' configs (default_config, production_config, scaled_config,
+family_config and their variants) are the port's build_config of each
+recipe's CLI flags (RECIPE_FLAGS; tests/test_torch_cli.py holds them equal
+to the dicts this script used to write out).
 
 Each kernel's launch count is reset just before its main path (phases 4-5
 for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
 separate-network path) and the walk-train kernel, 18 for the fused-step
 kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
-for rows 11b and 13b, 30, 31, 33 and 34 a window per run,
-every row's count read in each) and read just after.  The last line is the JSON
-result; the line before it lists the kernels.  There is no CPU run:
-without a CUDA device the script fails.
+for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-37 a window a
+call or run, every row's count read in each) and read just after.  The last
+line is the JSON result; the line before it lists the kernels, each with
+its main path's launches and, under "also", the launches of the other
+windows that ran it in phases 35-37.  There is no CPU run: without a CUDA
+device the script fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import statistics
@@ -284,13 +320,19 @@ from pathlib import Path
 import torch
 from torch.overrides import TorchFunctionMode
 
-from njode_tpu_torch import NeuralJumpODE, NJODEFilter
+from njode_tpu_torch import NeuralJumpODE, NJODEFilter, sample_paths
+from njode_tpu_torch.experiments import experiment_black_scholes as ebs
+from njode_tpu_torch.experiments import experiment_heston as ehe
+from njode_tpu_torch.experiments import experiment_hybrid as ehy
+from njode_tpu_torch.experiments import experiment_ou as eou
+from njode_tpu_torch.generative import STEP_LAWS, sample_paths_from_normals
 from njode_tpu_torch.models import nj_ode_loss_dense, pad_ragged
 from njode_tpu_torch.ops import fused_step as fs
 from njode_tpu_torch.ops import fused_cell, gap_scan, walk_scan
 from njode_tpu_torch.ops import train_kernel as tk
 from njode_tpu_torch.ops import walk_train as wt
-from njode_tpu_torch.simulation import (moments_at_obs, simulate_batch,
+from njode_tpu_torch.simulation import (bs_paths, moments_at_obs,
+                                        sample_obs_indices, simulate_batch,
                                         supports_obs_only)
 from njode_tpu_torch.utils import (Trainer, conditional_moment_mse,
                                    create_data_loaders, load_checkpoint,
@@ -704,11 +746,13 @@ def assert_close(a: torch.Tensor, b: torch.Tensor, what: str,
     return float(err.max())
 
 
-def production_model(dev: torch.device, shared: bool = True) -> NeuralJumpODE:
+def production_model(dev: torch.device, shared: bool = True,
+                     use_pallas="auto") -> NeuralJumpODE:
     return NeuralJumpODE(
         input_dim=1, hidden_dim=50, output_dim=1, num_moments=2,
         n_hidden_layers=1, activation="relu", input_scaling="identity",
         shared_network=shared, dt_ode_step=DT, t_max=1.0, device=dev,
+        use_pallas=use_pallas,
         generator=torch.Generator().manual_seed(0 if shared else 1))
 
 
@@ -929,33 +973,44 @@ COMPARED_EPOCHS = 20         # timed epochs of the composed and plain arms
 ACT_PAIRS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "identity"))
 
 
+# the recipes' CLI flags (besides --n-epochs and --experiment-name), as
+# their scripts give them; each config is the port's build_config of them,
+# through the experiment module's own parser
+CLIS = {"black_scholes": ebs, "ornstein_uhlenbeck": eou, "heston": ehe,
+        "hybrid_ou_bs": ehy}
+RECIPE_FLAGS = {
+    # experiment_black_scholes.py's CLI defaults
+    "default": [],
+    # scripts/run_black_scholes.sh
+    "production": ["--n-train", "10000", "--n-val", "2000", "--batch-size",
+                   "256", "--hidden-dim", "50", "--learning-rate", "0.001",
+                   "--num-moments", "2", "--moment-weights", "1.0", "15.0",
+                   "--obs-fraction", "0.1", "--dt-ode-step", "0.01",
+                   "--shared-network", "--print-every", "5"],
+    # scripts/run_scaled_sweep.sh
+    "scaled": ["--n-train", "100000", "--n-val", "5000", "--batch-size",
+               "4096", "--hidden-dim", "256", "--obs-fraction", "0.02",
+               "--num-moments", "2", "--kernels", "step", "--obs-only",
+               "auto", "--print-every", "5"],
+}
+
+
+def recipe_config(recipe: str, n_epochs: int, name: str, *extra: str,
+                  process: str = "black_scholes") -> dict:
+    """The config the process's experiment CLI makes from a recipe's flags,
+    ``extra`` flags after them, ``--n-epochs`` and ``--experiment-name``
+    (njode_tpu_torch.experiments: build_config, obs_only resolved as
+    --obs-only auto does, --kernels auto is use_pallas 'auto')."""
+    cli = CLIS[process]
+    args = cli.parse_args([*RECIPE_FLAGS[recipe], *extra, "--n-epochs",
+                           str(n_epochs), "--experiment-name", name])
+    return cli.configure(args)[0]
+
+
 def default_config(n_epochs: int, name: str) -> dict:
-    """What experiments/common.py build_config makes from the CLI defaults
-    of experiments/experiment_black_scholes.py (obs_only resolves on for
-    Black-Scholes; --kernels auto is use_pallas 'auto')."""
-    return {
-        "experiment_name": name, "input_dim": 1, "hidden_dim": 32,
-        "output_dim": 1, "n_hidden_layers": 1, "activation": "relu",
-        "dropout_rate": 0.0, "input_scaling": "identity",
-        "variance_method": "direct", "dt_ode_step": None,
-        "ode_solver": "euler", "learning_rate": 1e-3, "weight_decay": 5e-4,
-        "n_epochs": n_epochs, "batch_size": 128, "shuffle": True,
-        "print_every": 5, "device": "auto", "ignore_first_continuity": True,
-        "num_moments": 2, "moment_weights": [1.0, 10.0],
-        "shared_network": False, "extended_moments": False,
-        "data_parallel": 0, "model_parallel": 1,
-        "model_parallel_mode": None, "multihost": False,
-        "coordinator_address": None, "num_processes": None,
-        "process_id": None, "compute_dtype": "float32",
-        "checkpoint_backend": "msgpack", "ensemble": 0,
-        "ensemble_lrs": None, "use_pallas": "auto", "grid_walk": "auto",
-        "train_kernel_mxu": "float32", "debug_checks": False, "seed": 0,
-        "data_seed": 0,
-        "data": {"process_type": "black_scholes", "n_train": 1000,
-                 "n_val": 200, "obs_fraction": 0.1, "cache_data": False,
-                 "obs_only": True, "T": 1.0, "n_steps": 100, "mu": 0.1,
-                 "sigma": 0.5, "x0": 1.0},
-    }
+    """The CLI defaults of experiment_black_scholes (hidden 32, two
+    networks, batch 128, 1,000 / 200 obs-only trajectories)."""
+    return recipe_config("default", n_epochs, name)
 
 
 def train_data(dev: torch.device, n_traj: int, bs: int, seed: int,
@@ -1318,16 +1373,11 @@ WALK_ACTS = (("relu", "identity"), ("tanh", "tanh"), ("selu", "identity"))
 
 
 def production_config(n_epochs: int, name: str) -> dict:
-    """What experiments/common.py build_config makes from
-    scripts/run_black_scholes.sh's flags (10,000 / 2,000 trajectories,
+    """scripts/run_black_scholes.sh's flags (10,000 / 2,000 trajectories,
     batch 256, hidden 50, lr 1e-3, two moments weighted [1, 15], obs
     fraction 0.1, dt_ode_step 0.01, shared network, print every 5) and the
     CLI's other defaults (--kernels auto, --grid-walk auto)."""
-    cfg = default_config(n_epochs, name)
-    cfg.update(hidden_dim=PROD_H, batch_size=PROD_BS, dt_ode_step=PROD_DT,
-               moment_weights=list(PROD_MW), shared_network=True)
-    cfg["data"] = dict(cfg["data"], n_train=PROD_TRAIN, n_val=PROD_VAL)
-    return cfg
+    return recipe_config("production", n_epochs, name)
 
 
 def walk_case(gen: torch.Generator, K: int, B: int, d: int,
@@ -2278,16 +2328,11 @@ SCALED_COMPOSED_EPOCHS = 5  # timed epochs of the composed arm
 
 
 def scaled_config(n_epochs: int, name: str) -> dict:
-    """What experiments/common.py build_config makes from
-    scripts/run_scaled_sweep.sh's flags (100,000 / 5,000 trajectories,
+    """scripts/run_scaled_sweep.sh's flags (100,000 / 5,000 trajectories,
     batch 4,096, hidden 256, obs fraction 0.02, two moments, --kernels step)
     and the CLI's other defaults (two separate networks, relu, identity
     scaling, moment weights [1, 10], no dt_ode_step, print every 5)."""
-    cfg = default_config(n_epochs, name)
-    cfg.update(hidden_dim=SCALED_H, batch_size=SCALED_BS, use_pallas="step")
-    cfg["data"] = dict(cfg["data"], n_train=SCALED_TRAIN, n_val=SCALED_VAL,
-                       obs_fraction=0.02)
-    return cfg
+    return recipe_config("scaled", n_epochs, name)
 
 
 def scaled_path_phase(dev: torch.device, tmp: Path) -> None:
@@ -2899,9 +2944,8 @@ BF16_SEEDS = (0, 1)          # val MSE of bf16 and f32 recipes at each
 def scaled_bf16_config(n_epochs: int, name: str) -> dict:
     """scaled_config with scripts/run_scaled_sweep.sh --compute-dtype
     bfloat16 (build_config's "compute_dtype")."""
-    cfg = scaled_config(n_epochs, name)
-    cfg["compute_dtype"] = "bfloat16"
-    return cfg
+    return recipe_config("scaled", n_epochs, name, "--compute-dtype",
+                         "bfloat16")
 
 
 def scaled_bf16_path_phase(dev: torch.device, tmp: Path) -> dict:
@@ -3500,17 +3544,14 @@ def expect_counts(window: str, want: dict) -> dict:
 def forced_production_config(n_epochs: int, name: str,
                              dt: float = PROD_DT) -> dict:
     """The production config under --kernels force (use_pallas True) on the
-    per-gap path (grid_walk off)."""
-    cfg = production_config(n_epochs, name)
-    cfg.update(use_pallas=True, grid_walk="off", dt_ode_step=dt)
-    return cfg
+    per-gap path (--grid-walk off), at --dt-ode-step dt."""
+    return recipe_config("production", n_epochs, name, "--kernels", "force",
+                         "--grid-walk", "off", "--dt-ode-step", str(dt))
 
 
 def forced_default_config(n_epochs: int, name: str) -> dict:
     """The default config under --kernels force (use_pallas True)."""
-    cfg = default_config(n_epochs, name)
-    cfg["use_pallas"] = True
-    return cfg
+    return recipe_config("default", n_epochs, name, "--kernels", "force")
 
 
 PROD_STEPS = -(-PROD_TRAIN // PROD_BS)          # 40
@@ -3851,20 +3892,26 @@ FAMILIES_ND = ("black_scholes_nd", "ornstein_uhlenbeck_nd")
 FAMILY_EPOCHS = 20           # epochs of each family's default recipe
 
 
-def family_config(cfg: dict, process: str) -> dict:
-    """A recipe's config for another family: build_config's data keys with
-    the family's parameters and obs_only as the CLI's 'auto' resolves it
-    (on where the family has an exact sampler), the rest of the recipe as
-    it is; a d-dimensional family's widths follow its dims (bench.py:177)."""
+def family_config(recipe: str, n_epochs: int, name: str,
+                  process: str) -> dict:
+    """A recipe's config for another family, named ``<name>_<process>``: a
+    1-d family's through its own CLI with the recipe's flags (OU with
+    --activation relu, which its CLI's 'identity' default resolves to);
+    a d-dimensional family's from the Black-Scholes one, its data keys
+    swapped for the family's parameters and its widths following dims
+    (bench.py:177)."""
+    name = f"{name}_{process}"
+    if process in CLIS:
+        extra = ("--activation", "relu") if process == "ornstein_uhlenbeck" \
+            else ()
+        return recipe_config(recipe, n_epochs, name, *extra, process=process)
     keep = ("n_train", "n_val", "obs_fraction", "cache_data", "T", "n_steps")
-    cfg = copy.deepcopy(cfg)
+    cfg = recipe_config(recipe, n_epochs, name)
     cfg["data"] = {**{k: cfg["data"][k] for k in keep},
                    "process_type": process,
                    "obs_only": supports_obs_only(process),
                    **FAMILY_PARAMS[process]}
-    cfg["experiment_name"] += f"_{process}"
-    if process.endswith("_nd"):
-        del cfg["input_dim"], cfg["output_dim"]
+    del cfg["input_dim"], cfg["output_dim"]
     return cfg
 
 
@@ -3978,8 +4025,7 @@ def families_default_phase(dev: torch.device, card: str, tmp: Path) -> dict:
     Returns {process: seconds an epoch}."""
     out, lines, errs = {}, [], []
     for process in FAMILIES_1D:
-        cfg = family_config(default_config(FAMILY_EPOCHS, "default"),
-                            process)
+        cfg = family_config("default", FAMILY_EPOCHS, "default", process)
         res, secs, got = family_run(cfg, tmp, f"default {process}",
                                     {11: FAMILY_EPOCHS})
         mse = family_val_mse(trained_model(res, dev), dev, process, 200, 0.1)
@@ -4011,7 +4057,7 @@ def families_production_phase(dev: torch.device, card: str,
     seconds an epoch}."""
     out, lines = {}, []
     for process in FAMILIES_1D:
-        cfg = family_config(production_config(3, "production"), process)
+        cfg = family_config("production", 3, "production", process)
         res, secs, got = family_run(cfg, tmp, f"production {process}",
                                     {13: 3, 1: None})
         mse = family_val_mse(trained_model(res, dev), dev, process, PROD_VAL,
@@ -4158,7 +4204,7 @@ def scaled_nd_phase(dev: torch.device, card: str, tmp: Path) -> dict:
     the launches of the first window."""
     lines, first = [], None
     for process in FAMILIES_ND:
-        cfg = family_config(scaled_config(1, "scaled"), process)
+        cfg = family_config("scaled", 1, "scaled", process)
         res, secs, got = family_run(
             cfg, tmp, f"scaled {process}",
             {9: SCALED_STEPS + 2, 10: SCALED_STEPS})
@@ -4235,6 +4281,338 @@ def serving_nd_phase(dev: torch.device, card: str) -> dict:
     return {"launches": got[1], "max_abs_err": err,
             "ms": statistics.median(t[2]), "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": by}
+
+
+# ---------------------------------- the inference surface and the CLIs
+
+GRID_PATHS, GRID_STEPS = 1000, 100     # phases 35-36: 1,000 paths, 101 points
+SAMPLE_CPU_PATHS = 250   # paths of phase 36's CPU twin (each path's rollout
+#                          reads only its own row; the plain gap loop takes
+#                          its 100 masked substeps a step on the host)
+# phase 36's normwise limit on whole stochastic paths, card against the CPU
+# twin on the card's normals: see sampling_phase
+SAMPLE_PATH_NORM = 1e-6
+
+
+def profiled_call(fn) -> tuple:
+    """One call of fn under torch.profiler after one of warm-up: (host wall
+    ms, device ms, the device's idle share, device launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    on_dev = [e for e in prof.events() if e.device_type == cuda]
+    dev_s = sum(e.time_range.elapsed_us() for e in on_dev) / 1e6
+    return 1e3 * wall, 1e3 * dev_s, 1.0 - dev_s / wall, len(on_dev)
+
+
+def grid_request(dev: torch.device) -> tuple:
+    """GRID_PATHS Black-Scholes grid paths (mu 0.1, sigma 0.5, x0 1, T 1,
+    GRID_STEPS steps) observed at obs_fraction 0.1 of the grid points (0 and
+    T included); every 4th path loses its observations before t = 0.3, so
+    it reads zeros until its first, and every 3rd those after t = 0.8, so
+    it extrapolates.  (times (G,), mask (B, G), values (B, G, 1))."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    times, X = bs_paths(GRID_PATHS, 0.1, 0.5, 1.0, GRID_STEPS, 1.0,
+                        generator=gen)
+    idx = sample_obs_indices(GRID_PATHS, GRID_STEPS + 1, 0.1, generator=gen)
+    mask = torch.zeros(GRID_PATHS, GRID_STEPS + 1, dtype=torch.bool,
+                       device=dev).scatter_(1, idx, True)
+    mask[::4, :30] = False
+    mask[::3, 81:] = False
+    return times, mask, X[..., None]
+
+
+def grid_rollout_phase(dev: torch.device, card: str) -> dict:
+    """Phase 35: predict_on_grid of the production model (hidden 50,
+    shared, two moments, dt_ode_step 0.01) on grid_request's 1,000 paths x
+    101 points, in its own launch window (no kernel: the rollout is a loop
+    of _euler substeps, composed on the card), held against the same
+    weights on the CPU; zeros before a path's first observation.  The same
+    call under use_pallas=True takes every substep through row 6: G x
+    n_sub launches and nothing else, agreeing with the unforced call at
+    phase 4's limits.  A separate-network (K_h 2) call against the CPU
+    too.  Times: CUDA events a call, grid points/s, and one profiled
+    call's idle share.  Returns row 6's launches in the forced window."""
+    times, mask, values = grid_request(dev)
+    G = times.shape[0]
+    cpu_args = (times.cpu(), mask.cpu(), values.cpu())
+    errs, launches = {}, {}
+    for name, shared in (("shared", True), ("separate", False)):
+        model = production_model(dev, shared=shared)
+        reset_counts()
+        out = model.predict_on_grid(times, mask, values)
+        torch.cuda.synchronize()
+        expect_counts(f"predict_on_grid ({name})", {})
+        raw = out["raw"]
+        if raw.shape != (GRID_PATHS, G, 1, 2) or not torch.isfinite(
+                raw).all():
+            raise AssertionError(f"predict_on_grid ({name}): shape "
+                                 f"{tuple(raw.shape)}, or non-finite values")
+        first = mask.to(torch.int8).argmax(dim=1)
+        before = (torch.arange(G, device=dev)[None] < first[:, None])
+        if not before.any() or (raw[before] != 0).any() or (
+                raw[~before] == 0).all():
+            raise AssertionError(f"predict_on_grid ({name}): the grid "
+                                 "points before a path's first observation "
+                                 "must exist and read exactly 0")
+        ref = copy.deepcopy(model).to("cpu").predict_on_grid(*cpu_args)
+        errs[name] = assert_close(raw, ref["raw"], f"predict_on_grid "
+                                  f"({name}) vs the CPU model")
+    model = production_model(dev)
+    forced = production_model(dev, use_pallas=True)
+    n_sub = forced._grid_substeps(times)
+    reset_counts()
+    out_f = forced.predict_on_grid(times, mask, values)
+    torch.cuda.synchronize()
+    launches = expect_counts("forced predict_on_grid (row 6)",
+                             {6: G * n_sub})
+    unforced = model.predict_on_grid(times, mask, values)
+    errs["forced"] = assert_close(out_f["raw"], unforced["raw"],
+                                  "forced vs unforced predict_on_grid")
+    t = {"unforced": [], "forced": []}
+    for arm in ("unforced", "forced", "forced", "unforced"):
+        m = model if arm == "unforced" else forced
+        t[arm].append(time_ms(lambda: m.predict_on_grid(times, mask, values),
+                              warmup=2, reps=10))
+    prof = profiled_call(lambda: model.predict_on_grid(times, mask, values))
+    ms = statistics.median(t["unforced"])
+    print(f"grid rollout on {card}: predict_on_grid of the production model "
+          f"(hidden 50, shared, dt {DT}; n_sub {n_sub}) on {GRID_PATHS:,} BS "
+          f"paths x {G} grid points: no kernel launched; vs the CPU model "
+          f"max abs err {errs['shared']:.3e} (separate networks, K_h 2: "
+          f"{errs['separate']:.3e}); forced (use_pallas True): row 6 "
+          f"{launches[6]} launches = G x n_sub, nothing else, vs unforced "
+          f"max abs err {errs['forced']:.3e}; times in turns (CUDA events, "
+          f"median of 10) unforced {', '.join(f'{x:.3f}' for x in t['unforced'])} "
+          f"ms, forced {', '.join(f'{x:.3f}' for x in t['forced'])} ms; "
+          f"{GRID_PATHS * G / (ms / 1e3):.0f} grid points/s unforced; one "
+          f"profiled unforced call {prof[0]:.3f} ms of wall, {prof[1]:.3f} ms "
+          f"device, idle {100 * prof[2]:.1f}%, {prof[3]} device launches",
+          flush=True)
+    return {6: launches[6]}
+
+
+def sample_prefix(dev: torch.device) -> tuple:
+    """A 10-observation prefix on [0, 0.45] (every 5th point of one BS
+    path) and the 101-point grid on [0.5, 1.5] it conditions."""
+    times, X = bs_paths(1, 0.1, 0.5, 1.0, GRID_STEPS, 1.0,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    obs_t, obs_v = times[:50:5], X[0, :50:5, None]
+    grid = torch.linspace(0.5, 1.5, GRID_STEPS + 1, device=dev)
+    return grid, obs_t, obs_v
+
+
+def sampling_phase(dev: torch.device, card: str) -> dict:
+    """Phase 36: sample_paths of the production model, 1,000 paths on a
+    101-point grid, each law (gaussian, lognormal, mean), from x0 1.0 on
+    [0, 1] and from a 10-observation prefix (sample_prefix), each call in
+    its own launch window: row 1 G - 1 times (G with the prefix), nothing
+    else.  sample_paths_from_normals on a CPU twin of the model, given the
+    card's normals (the first SAMPLE_CPU_PATHS paths), must give the whole
+    mean path and the first stochastic step at phase 4's limits, and the
+    whole stochastic paths within SAMPLE_PATH_NORM of their norm.
+
+    Why that bound holds: each step's draw x' = m(x) + s(x) z (lognormal:
+    its exp form) adds the card's rounding difference of one step (the
+    first stochastic step's, at most 3e-8 on an H100, phase 4's order) and
+    carries the previous difference through the step's map, whose slope in
+    x is this model's.  Measured (NVIDIA H100 80GB HBM3, 700 W): the
+    largest difference a step stays flat at 4e-8-6e-8 from step 10 to step
+    100, for every law and start (the map does not amplify it), and whole
+    paths differ by 7e-8-1.1e-7 of their norm, about one f32 rounding of
+    values near 1.  A difference that grows from step to step (a wrong
+    carry, a draw from the wrong normal) would pass the limit of 1e-6 of
+    the norm within a few steps; one step's rounding, carried flat, stays
+    ten times inside it.  Two calls with generators of one seed are bitwise
+    equal.  Times: CUDA events a call, samples/s.  Returns row 1's launches
+    by (law, start)."""
+    model = production_model(dev)
+    cpu = copy.deepcopy(model).to("cpu")
+    G = GRID_STEPS + 1
+    grid0 = torch.linspace(0.0, 1.0, G, device=dev)
+    grid_p, obs_t, obs_v = sample_prefix(dev)
+    n = SAMPLE_CPU_PATHS
+    lines, out = [], {}
+    for law in STEP_LAWS:
+        for start in ("x0", "prefix"):
+            prefix = start == "prefix"
+            kw = (dict(grid_times=grid_p, x0=None, obs_times=obs_t,
+                       obs_values=obs_v) if prefix
+                  else dict(grid_times=grid0, x0=1.0))
+            window = f"sample_paths ({law}, from {start})"
+
+            def call(seed=11):
+                return sample_paths(
+                    model, torch.Generator(device=dev).manual_seed(seed),
+                    GRID_PATHS, law=law, **kw)
+            reset_counts()
+            s = call()
+            torch.cuda.synchronize()
+            got = expect_counts(window, {1: G if prefix else G - 1})
+            if s.shape != (GRID_PATHS, G, 1) or not torch.isfinite(s).all():
+                raise AssertionError(f"{window}: shape {tuple(s.shape)}, or "
+                                     "non-finite samples")
+            if not torch.equal(s, call()):
+                raise AssertionError(f"{window}: two calls with generators "
+                                     "of one seed differ")
+            normals = None
+            if law != "mean":
+                normals = torch.randn(
+                    G, GRID_PATHS, 1, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(11))
+                normals = normals[:, :n].cpu()
+            cpu_kw = {k: v.cpu() if torch.is_tensor(v) else v
+                      for k, v in kw.items()}
+            ref = sample_paths_from_normals(cpu, normals, n, law=law,
+                                            **cpu_kw)
+            ours = s[:n].cpu()
+            k = G if law == "mean" else (1 if prefix else 2)
+            err = assert_close(ours[:, :k], ref[:, :k],
+                               f"{window}: the first {k} steps vs the CPU "
+                               f"twin")
+            step_err = (ours - ref).abs().amax(dim=(0, 2))
+            norm = float((ours - ref).norm() / ref.norm())
+            if norm > SAMPLE_PATH_NORM:
+                raise AssertionError(
+                    f"{window}: whole paths {norm:.3e} of their norm from "
+                    f"the CPU twin, beyond {SAMPLE_PATH_NORM}; largest "
+                    f"difference by step {step_err.tolist()}")
+            ms = time_ms(call, warmup=1, reps=5)
+            out[(law, start)] = got[1]
+            lines.append(
+                f"{law} from {start}: row 1 {got[1]} launches; first {k} "
+                f"step{'s' * (k > 1)} max abs err {err:.3e}; whole paths "
+                f"{norm:.3e} of their norm, largest difference at steps "
+                f"1/10/50/100 {step_err[1]:.2e}/{step_err[10]:.2e}/"
+                f"{step_err[50]:.2e}/{step_err[100]:.2e}; {ms:.3f} ms a call "
+                f"= {GRID_PATHS * G / (ms / 1e3):.0f} samples/s")
+    print(f"generative sampling on {card}: sample_paths of the production "
+          f"model, {GRID_PATHS:,} paths x {G} grid points (the CPU twin on "
+          f"the first {n} with the card's normals; two calls of one seed "
+          f"bitwise equal): " + "; ".join(lines), flush=True)
+    return out
+
+
+def cli_run(module, argv: list, window: str, want: dict) -> tuple:
+    """A CLI's main(argv) in process, its output kept, in its own launch
+    window: (result, the window's counts, its output)."""
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        res = module.main(argv)
+    torch.cuda.synchronize()
+    return res, expect_counts(window, want), buf.getvalue()
+
+
+def cli_phase(dev: torch.device, card: str, tmp: Path) -> dict:
+    """Phase 37: the experiment CLIs in process (``main(argv)``) with
+    --device cuda --no-plots, from a temporary directory (runs/ under it),
+    each run in its own launch window.  The default recipe for 3 epochs:
+    rows 11-12 once an epoch, nothing else (its validation launches no
+    kernel), the saved config.json equal to build_config's dict; a second
+    call to 4 epochs resumes at epoch 3 (one launch).  The production flags
+    of scripts/run_black_scholes.sh for 2 epochs: row 13 once an epoch, row
+    1 in validation.  OU, Heston and hybrid at their defaults, 2 epochs
+    each: rows 11-12 once an epoch (phase 30's check).  One run with
+    --profile-dir writes a non-empty trace.  Where matplotlib imports, one
+    run without --no-plots writes the three PNGs; where it does not, that
+    run fails on the import after training.  Returns the launches by
+    window."""
+    flags = ["--device", "cuda", "--no-plots"]
+    out, lines = {}, []
+    with contextlib.chdir(tmp):
+        runs = tmp / "runs"
+        argv = ["--n-epochs", "3", *flags]
+        t0 = time.perf_counter()
+        res, got, _ = cli_run(ebs, argv, "CLI default", {11: 3})
+        secs = time.perf_counter() - t0
+        saved = json.loads((runs / ebs.NAME / "config.json").read_text())
+        want = json.loads(json.dumps(ebs.configure(ebs.parse_args(argv))[0]))
+        if saved != want:
+            raise AssertionError(f"CLI default: config.json {saved} is not "
+                                 f"build_config's {want}")
+        first = res["history"]["train_loss"]
+        res4, got4, text = cli_run(ebs, ["--n-epochs", "4", *flags],
+                                   "CLI default resumed", {11: 1})
+        hist4 = res4["history"]["train_loss"]
+        if len(hist4) != 4 or hist4[:3] != first or "(resumed)" not in text:
+            raise AssertionError(f"CLI default: the rerun to 4 epochs did "
+                                 f"not resume at epoch 3: {hist4}")
+        out["default"] = got[11]
+        lines.append(f"default 3 epochs {secs:.2f} s (train loss "
+                     f"{first[0]:.4f} -> {first[-1]:.4f}), row 11 {got[11]} "
+                     f"launches, config.json = build_config's dict, resumed "
+                     f"to 4 with {got4[11]} launch")
+        t0 = time.perf_counter()
+        res, got, _ = cli_run(
+            ebs, [*RECIPE_FLAGS["production"], "--n-epochs", "2",
+                  "--experiment-name", "cli_production", *flags],
+            "CLI production", {13: 2, 1: None})
+        out["production"] = got
+        lines.append(f"production 2 epochs {time.perf_counter() - t0:.2f} s "
+                     f"(val {res['history']['val_loss'][-1]:.4f}), row 13 "
+                     f"{got[13]}, row 1 {got[1]} in validation")
+        for module in (eou, ehe, ehy):
+            t0 = time.perf_counter()
+            res, got, _ = cli_run(module, ["--n-epochs", "2", *flags],
+                                  f"CLI {module.NAME}", {11: 2})
+            out[module.NAME] = got[11]
+            lines.append(f"{module.NAME} defaults 2 epochs "
+                         f"{time.perf_counter() - t0:.2f} s, row 11 "
+                         f"{got[11]}")
+        prof_dir = tmp / "profile"
+        _, got, _ = cli_run(ebs, ["--n-epochs", "1", "--experiment-name",
+                                  "cli_profiled", "--profile-dir",
+                                  str(prof_dir), *flags],
+                            "CLI --profile-dir", {11: 1})
+        traces = list(prof_dir.glob("trace_*.json"))
+        if len(traces) != 1 or traces[0].stat().st_size == 0:
+            raise AssertionError(f"--profile-dir wrote {traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            raise AssertionError("the --profile-dir trace holds no kernel")
+        lines.append(f"--profile-dir trace {traces[0].stat().st_size:,} "
+                     f"bytes, {len(events)} events, {len(kernels)} kernels")
+        plot_argv = ["--n-epochs", "1", "--experiment-name", "cli_plots",
+                     "--device", "cuda"]
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        if has_mpl:
+            cli_run(ebs, plot_argv, "CLI with plots", {11: 1})
+            pngs = sorted(p.name for p in (runs / "cli_plots").glob("*.png"))
+            if pngs != ["relative_loss.png", "trajectory_comparison.png",
+                        "training_history.png"]:
+                raise AssertionError(f"the plots run wrote {pngs}")
+            lines.append("matplotlib imports here: the plots run wrote "
+                         + ", ".join(pngs))
+        else:
+            try:
+                cli_run(ebs, plot_argv, "CLI with plots", {11: 1})
+            except ImportError as e:
+                if e.name != "matplotlib":
+                    raise
+            else:
+                raise AssertionError("plots asked for without matplotlib "
+                                     "were skipped")
+            if not (runs / "cli_plots" / "model.ckpt").is_file():
+                raise AssertionError("the plots run did not train first")
+            lines.append("no matplotlib here: the run asking for plots "
+                         "trained, then failed on the import")
+    print(f"experiment CLIs on {card} (python -m njode_tpu_torch.experiments"
+          f".experiment_*, main in process, --device cuda --no-plots): "
+          + "; ".join(lines), flush=True)
+    return out
 
 
 def phase_time(name: str, t0: float) -> float:
@@ -4386,6 +4764,13 @@ def main() -> None:
         t = phase_time("scaled d=2 recipes (rows 9-10 at d_x 2)", t)
     serve_nd2 = serving_nd_phase(dev, card)
     t = phase_time("serving at d_x 2 (row 1)", t)
+    grid_launches = grid_rollout_phase(dev, card)
+    t = phase_time("grid rollout (predict_on_grid; row 6 forced)", t)
+    sample_launches = sampling_phase(dev, card)
+    t = phase_time("generative sampling (row 1)", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = cli_phase(dev, card, Path(tmp))
+    t = phase_time("experiment CLIs (rows 11-12, 13, 1)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -4469,6 +4854,29 @@ def main() -> None:
     for k in kernels:
         if k["name"] in dx2:
             k["d_x2"] = dx2[k["name"]]
+    # the launches of the inference surface's and the CLIs' windows
+    grid = f"{GRID_PATHS:,} paths x {GRID_STEPS + 1} grid points"
+    also = {
+        "gap_scan_fwd": [
+            (f"sample_paths, {grid}, gaussian from x0",
+             sample_launches[("gaussian", "x0")]),
+            (f"sample_paths, {grid}, gaussian from a 10-observation prefix",
+             sample_launches[("gaussian", "prefix")]),
+            ("CLI experiment_black_scholes with scripts/run_black_scholes.sh"
+             "'s flags, 2 epochs (validation)", cli_launches["production"][1])],
+        "fused_cell": [(f"forced predict_on_grid (use_pallas True), {grid}",
+                        grid_launches[6])],
+        "train_run": [("CLI experiment_black_scholes defaults, 3 epochs",
+                       cli_launches["default"])]
+        + [(f"CLI {name} defaults, 2 epochs", cli_launches[name])
+           for name in (eou.NAME, ehe.NAME, ehy.NAME)],
+        "walk_train": [("CLI experiment_black_scholes with scripts/"
+                        "run_black_scholes.sh's flags, 2 epochs",
+                        cli_launches["production"][13])]}
+    for k in kernels:
+        if k["name"] in also:
+            k["also"] = [{"path": p, "launches": n}
+                         for p, n in also[k["name"]]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ It keeps that package's module layout and names.  Ported so far:
   queries and ``NJODEFilter`` is the O(1)-state streaming filter;
   ``ops.integrate_gap_fused`` runs each gap's Euler substep loop in one
   CUDA kernel (``ops/csrc/gap_scan.cu``);
+* inference on a grid: ``NeuralJumpODE.predict_on_grid`` (the rollout that
+  ``utils.plotting`` draws) and ``sample_paths``, the moment-matched
+  autoregressive sampler, whose every grid step is one gap-kernel launch;
+* the experiment CLIs: ``python -m
+  njode_tpu_torch.experiments.experiment_{black_scholes,ou,heston,hybrid}``
+  and ``compare_experiments``, with the JAX package's flags;
 * data: ``simulation.simulate_batch`` (Black-Scholes, OU, Heston, hybrid
   OU->BS, the d-dimensional BS and OU, and registered processes; grid or
   obs-only) and ``simulation.moments_at_obs``, which training takes for
@@ -26,11 +32,12 @@ version, which CPU tensors take.  Models, the Trainer and
 The package imports ``torch`` and never ``jax``.
 """
 
+from .generative import sample_paths
 from .models import NeuralJumpODE, nj_ode_loss
 from .serving import NJODEFilter
 from .utils import Trainer, run_experiment
 
 __version__ = "0.3.0"
 
-__all__ = ["NeuralJumpODE", "nj_ode_loss", "NJODEFilter", "Trainer",
-           "run_experiment", "__version__"]
+__all__ = ["NeuralJumpODE", "nj_ode_loss", "NJODEFilter", "sample_paths",
+           "Trainer", "run_experiment", "__version__"]

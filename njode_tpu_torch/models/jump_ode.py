@@ -72,9 +72,12 @@ but not float16.
 The model's device defaults to ``cuda``; the CPU is used only when asked
 for (``device="cpu"``).  Without a CUDA device the default raises.
 
-Not ported yet (ROADMAP.md): ``predict_on_grid`` (Queue 1 item 10) and
-Pallas interpret mode (``"interpret"``, ``"step-interpret"``); the
-constructor arguments that select the latter raise.
+:meth:`NeuralJumpODE.predict_on_grid` is the dense-grid rollout that
+plotting uses: a plain loop of ``_euler`` substeps, each through the fused
+Euler cell where ``_use_fused`` holds, as in the JAX package.
+
+Not ported (ROADMAP.md): Pallas interpret mode (``"interpret"``,
+``"step-interpret"``); the constructor arguments that select it raise.
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ import contextlib
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -753,6 +757,88 @@ class NeuralJumpODE(nn.Module):
             raw = self._readout(h).reshape(B, Q, self.output_dim,
                                            self.num_moments)
             raw = torch.where(before_first[..., None, None], 0.0, raw)
+            return {"mean": raw[..., 0], "var": self.variance_from_raw(raw),
+                    "raw": raw}
+
+    # -------------------------------------------------------- grid rollout
+
+    def _grid_substeps(self, grid_times: torch.Tensor) -> int:
+        """``n_sub = max(1, int(cell / dt_ode_step))`` of the first cell,
+        in float64 of the grid already cast to the model's dtype
+        (``njode_tpu/models/jump_ode.py:1007-1029``): at dt 0.001 on a
+        float32 100-step grid it truncates to 9.  A non-uniform grid
+        raises."""
+        if self.dt_ode_step is None:
+            return 1
+        gt = grid_times.detach().to("cpu", torch.float64).numpy()
+        G = gt.shape[0]
+        if G > 2:
+            gaps = np.diff(gt)
+            if gaps.size and not np.allclose(gaps, gaps[0], rtol=1e-4,
+                                             atol=1e-9):
+                raise ValueError(
+                    "predict_on_grid derives a single static substep "
+                    "count from the first grid cell, which requires "
+                    "uniform grid spacing; got non-uniform gaps "
+                    f"(min {gaps.min():.3g}, max {gaps.max():.3g}). "
+                    "Pass n_sub= explicitly (sized for the largest "
+                    "cell) or use predict_at for irregular queries.")
+        cell = float(gt[1] - gt[0]) if G > 1 else 0.0
+        return max(1, int(cell / self.dt_ode_step))
+
+    def predict_on_grid(self, grid_times, obs_mask, path_values,
+                        n_sub: Optional[int] = None):
+        """Dense-grid inference with the reference's plotting semantics
+        (``njode_tpu/models/jump_ode.py:977-1071``): each grid cell takes
+        ``n_sub`` equal ``_euler`` substeps from the last observation's
+        value, the state jumps at an observed grid point and the readout is
+        the after-jump one, state and output stay zero until the first
+        observation, and the rollout extrapolates past the last one.
+
+        Args:
+          grid_times:  (G,) the dense time grid (uniform spacing for the
+                       derived substep count).
+          obs_mask:    (B, G) True where the grid point is observed.
+          path_values: (B, G, d_x) path values on the grid (read only at
+                       observed points).
+          n_sub:       substeps a grid cell; default from ``dt_ode_step``
+                       and the first cell (:meth:`_grid_substeps`).
+
+        Returns: dict with 'mean' (B, G, d_y), 'var' (B, G, d_y) or None,
+          and 'raw' (B, G, d_y, K).
+        """
+        with self._inference():
+            grid_times = self._as_tensor(grid_times)
+            path_values = self._as_tensor(path_values)
+            obs_mask = self._as_tensor(obs_mask, torch.bool)
+            B, G = obs_mask.shape
+            if n_sub is None:
+                n_sub = self._grid_substeps(grid_times)
+            h = torch.zeros(self.k_hidden, B, self.hidden_dim,
+                            dtype=self.dtype, device=self.device)
+            x_last = torch.zeros(B, self.input_dim, dtype=self.dtype,
+                                 device=self.device)
+            t_cur = grid_times[0].expand(B)
+            seen = torch.zeros(B, dtype=torch.bool, device=self.device)
+            ys = []
+            for k in range(G):
+                t_k = grid_times[k].expand(B)
+                dt_sub = (t_k - t_cur) / float(n_sub)
+                h_int, t_c = h, t_cur
+                for _ in range(n_sub):
+                    t_n = t_c + dt_sub
+                    h_int = self._euler(h_int, x_last, t_c, t_n)
+                    t_c = t_n
+                m_k = obs_mask[:, k]
+                x_k = path_values[:, k]
+                h = torch.where(m_k[None, :, None], self._jump(x_k),
+                                torch.where(seen[None, :, None], h_int, h))
+                x_last = torch.where(m_k[:, None], x_k, x_last)
+                seen = seen | m_k
+                y = self._readout(h)                          # (B, d_y, K)
+                ys.append(torch.where(seen[:, None, None], y, 0.0))
+                t_cur = t_k
+            raw = torch.stack(ys, dim=1)                      # (B, G, d_y, K)
             return {"mean": raw[..., 0], "var": self.variance_from_raw(raw),
                     "raw": raw}
 

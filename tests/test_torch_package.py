@@ -29,7 +29,17 @@ PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
                 "njode_tpu_torch.simulation.moments",
                 "njode_tpu_torch.utils", "njode_tpu_torch.utils.checkpoint",
                 "njode_tpu_torch.utils.training",
-                "njode_tpu_torch.utils.weights"]
+                "njode_tpu_torch.utils.weights",
+                "njode_tpu_torch.generative",
+                "njode_tpu_torch.utils.plotting",
+                "njode_tpu_torch.utils.profiling",
+                "njode_tpu_torch.experiments",
+                "njode_tpu_torch.experiments.common",
+                "njode_tpu_torch.experiments.experiment_black_scholes",
+                "njode_tpu_torch.experiments.experiment_ou",
+                "njode_tpu_torch.experiments.experiment_heston",
+                "njode_tpu_torch.experiments.experiment_hybrid",
+                "njode_tpu_torch.experiments.compare_experiments"]
 
 
 def _run(code, env_update=None):
@@ -46,6 +56,40 @@ def test_importing_the_port_loads_no_jax():
               "assert not bad, bad\nprint('ok')\n")
     res = _run(code)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_the_port_and_a_no_plots_cli_run_need_no_matplotlib(tmp_path):
+    """With matplotlib blocked the port imports, its utils export no
+    plotting name, a --no-plots CLI run trains and saves, and a run that
+    asks for plots fails on the import after training instead of skipping
+    them."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import njode_tpu_torch, njode_tpu_torch.utils as u\n"
+        "from njode_tpu_torch.experiments import experiment_black_scholes "
+        "as e\n"
+        "assert not [n for n in u.__all__ if n.startswith('plot')], "
+        "u.__all__\n"
+        "assert not hasattr(u, 'plot_training_history')\n"
+        "tiny = ['--device', 'cpu', '--n-train', '8', '--n-val', '4', "
+        "'--n-epochs', '2', '--batch-size', '4', '--n-steps', '20']\n"
+        "e.main(tiny + ['--no-plots'])\n"
+        "try:\n"
+        "    e.main(tiny + ['--experiment-name', 'plots'])\n"
+        "except ImportError as err:\n"
+        "    assert err.name == 'matplotlib', err\n"
+        "else:\n"
+        "    raise AssertionError('plots were skipped quietly')\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), (
+        res.stdout + res.stderr)
+    run = tmp_path / "runs" / "njode_black_scholes"
+    assert (run / "model.ckpt").is_file() and not list(run.glob("*.png"))
+    assert (tmp_path / "runs" / "plots" / "model.ckpt").is_file()
 
 
 def test_import_needs_no_nvcc_and_builds_nothing():
@@ -129,7 +173,8 @@ def test_kernel_sources_ship_with_the_package():
 
 
 def test_public_api():
-    assert set(njode_tpu_torch.__all__) >= {"NeuralJumpODE", "NJODEFilter"}
+    assert set(njode_tpu_torch.__all__) >= {"NeuralJumpODE", "NJODEFilter",
+                                            "sample_paths"}
     with pytest.raises(ValueError, match="Unknown ode_solver"):
         njode_tpu_torch.NeuralJumpODE(1, 4, 1, ode_solver="midpoint",
                                       device="cpu")
