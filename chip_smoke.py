@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card
+(and, in phases 41-45, over two ranks on it).
 
     python3 chip_smoke.py
 
@@ -310,6 +311,29 @@ uncaught exception and a nonzero exit:
    rollout (seed_bands of a use_pallas=True model on 101 grid points): row
    6 K x G x n_sub times and nothing else, against the CPU twin at phase
    4's limits.
+41-44. data parallelism (njode_tpu_torch/parallel/, --data-parallel 2):
+   two ranks on card 0 over gloo, spawned by parallel.launch, one world for
+   the four phases, each path in its own launch window on each rank (the
+   ranks' counts come back with their results).  41: the scaled recipe
+   under --kernels step, its first 3 minibatches (2,048 rows a rank)
+   against the single-process Trainer from the same weights and data
+   (losses at rtol 1e-5, each parameter within 1e-4 of its norm, the
+   replicas bitwise equal), the all-reduce time of a step's gradients, then
+   one epoch of run_experiment: rows 10 and 9 on each rank; 42: the
+   production flags under --kernels force, one epoch: rows 3 and 5 once a
+   step on each rank, row 1 in validation; 43: --ensemble 4 on them, 2
+   epochs, two members a rank: the stack and the member rows bitwise those
+   of phase 38a; 44: the default recipe under --kernels auto, 3 epochs: no
+   kernel, the kernel report's "train=off (data/model-parallel meshes
+   unsupported)", and runs of 2 epochs resumed to 3 with each checkpoint
+   backend (one file, a torch.distributed.checkpoint directory) equal to
+   the uninterrupted run.  Each prints its wall, the all-reduce time, the
+   card's idle share (both ranks' device time, torch.profiler) and the
+   launches by row on each rank.
+45. a one-rank NCCL world runs phase 41's steps (equal to the run without a
+   group); with two or more cards, two NCCL ranks on cards of their own
+   against phase 41's gloo ranks; with one card the line says it did not
+   run.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -321,10 +345,10 @@ for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
 separate-network path) and the walk-train kernel, 18 for the fused-step
 kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
-call or run, every row's count read in each) and read just after.  The last
-line is the JSON result; the line before it lists the kernels, each with
-its main path's launches and, under "also", the launches of the other
-windows that ran it in phases 35-40.  There is no CPU run: without a CUDA
+call or run, 41-45 a window a run on each rank, every row's count read in
+each) and read just after.  The last line is the JSON result; the line
+before it lists the kernels, each with its main path's launches and, under
+"also", the launches of the other windows that ran it in phases 35-43.  There is no CPU run: without a CUDA
 device the script fails.
 """
 
@@ -3552,10 +3576,11 @@ def reset_counts() -> None:
             counter[mode] = 0
 
 
-def expect_counts(window: str, want: dict) -> dict:
-    """The launch counts of a window: each row in ``want`` exactly its
-    value (None: at least once), every other row 0."""
-    got = kernel_counts()
+def expect_counts(window: str, want: dict, got: dict = None) -> dict:
+    """The launch counts of a window (this process's, or ``got``, a spawned
+    rank's): each row in ``want`` exactly its value (None: at least once),
+    every other row 0."""
+    got = kernel_counts() if got is None else got
     bad = {row: n for row, n in got.items()
            if (row not in want and n) or (row in want and (
                n == 0 if want[row] is None else n != want[row]))}
@@ -4762,7 +4787,8 @@ def ensemble_forced_phase(dev: torch.device, card: str, tmp: Path) -> dict:
           f"full, validation on {PROD_VAL:,}): K=2 {prof[0]:.1f} ms of "
           f"wall, {prof[1]:.2f} ms device, idle {100 * prof[2]:.1f}%, "
           f"{prof[3]} device launches", flush=True)
-    return {"counts": got, "stack": res3["params_stack"]}
+    return {"counts": got, "stack": res3["params_stack"],
+            "stack2": res["params_stack"], "rows2": h}
 
 
 def population_phase(dev: torch.device, card: str, tmp: Path) -> dict:
@@ -4921,6 +4947,404 @@ def ensemble_inference_phase(dev: torch.device, card: str,
           f"{got6[6]} launches = K x G x n_sub, vs the CPU twin max abs err "
           f"{band_err:.3e}", flush=True)
     return {1: got[1], 6: got6[6]}
+
+
+# ---------------------------------- data parallelism over ranks (41-45)
+
+DP_RANKS = 2
+DP_DEVICES = ["cuda:0"] * DP_RANKS   # two ranks on card 0, over gloo
+DP_STEPS = 3                # phase 41's minibatches against one process
+DP_LOSS_RTOL = 1e-5         # their losses, entrywise
+DP_PARAM_NORM = 1e-4        # each parameter after them, of its norm
+DP_TIMEOUT_S = 420.0
+DP_DEFAULT_EPOCHS = 3       # phase 44's run, and its resume from 2
+
+
+def dp_config(recipe: str, n_epochs: int, name: str, *extra: str) -> dict:
+    """A recipe's CLI config with --data-parallel 2 on card 0 (the ranks
+    share it: gloo)."""
+    return recipe_config(recipe, n_epochs, name, *extra, "--data-parallel",
+                         str(DP_RANKS), "--device", DP_DEVICES[0])
+
+
+def allreduce_ms(n_floats: int, mesh, reps: int = 20) -> float:
+    """Median ms of one all-reduce of ``n_floats`` f32 on the device (a
+    step's gradients), synchronized on both sides; every rank calls it."""
+    from njode_tpu_torch.parallel.mesh import all_reduce_sum
+    buf = torch.ones(n_floats, device=mesh.device)
+    out = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_sum([buf])
+        torch.cuda.synchronize()
+        if i >= 3:
+            out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def device_busy(prof) -> tuple[float, int]:
+    """(device ms, device events) of a torch.profiler run, from the raw
+    events: building the profiler's event tree for a run of tens of
+    thousands of launches takes seconds of host time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    durations = [e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda]
+    return sum(durations) / 1e6, len(durations)
+
+
+def dp_first_steps(dev: torch.device, mesh=None) -> dict:
+    """Phase 41's first DP_STEPS minibatches of the scaled recipe (epoch 0
+    of data seed 8, shuffled, 4,096 rows a step, --kernels step) from the
+    weights of seed 4, one Trainer step a minibatch: each rank its 2,048
+    rows under a mesh.  The per-step losses (summed over the ranks), the
+    parameters, and the steps' wall and device ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = scaled_config(1, "dp_steps")
+    train_fn, _ = create_data_loaders(base_seed=8, device=dev, **cfg["data"])
+    times, values, mask, _ = as_dense(train_fn(0), dev)
+    model = scaled_model(dev, "step", seed=4)
+    tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
+                 ignore_first_continuity=True,
+                 moment_weights=list(SCALED_MW), mesh=mesh)
+    idx, valid = tr._minibatches(0, times.shape[0], SCALED_BS, True)
+    # one step of a copy first (the kernels' libraries, cuBLAS, the
+    # allocator), so the timed steps are warm in a fresh rank too
+    warm = copy.deepcopy(model)
+    Trainer(warm, make_adam(warm.parameters(), 1e-3, 5e-4),
+            ignore_first_continuity=True, moment_weights=list(SCALED_MW),
+            mesh=mesh)._step(times[idx[0]], values[idx[0]], mask[idx[0]],
+                             valid[0], None)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = torch.stack([
+            tr._step(times[i], values[i], mask[i], vm, None)
+            for i, vm in zip(idx[:DP_STEPS], valid[:DP_STEPS])])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    device_ms, device_launches = device_busy(prof)
+    if mesh is not None and mesh.n_data > 1:
+        losses = tr._sum_over_ranks(losses)
+    return {"losses": losses.cpu(), "counts": counts, "wall": wall,
+            "device_ms": device_ms, "device_launches": device_launches,
+            "reductions": tr.grad_reductions, "n_params": model.n_params(),
+            "params": {k: v.detach().cpu()
+                       for k, v in model.named_parameters()}}
+
+
+def dp_run(cfg: dict, save_dir: str, profile: bool = False) -> dict:
+    """run_experiment of ``cfg`` on this rank, in its own launch window:
+    the result, the output (rank 0's), the kernel counts, the wall, and
+    under ``profile`` this rank's device ms and launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+    reset_counts()
+    ctx = (profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profile else contextlib.nullcontext())
+    buf = io.StringIO()
+    with ctx as prof, contextlib.redirect_stdout(buf):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, save_dir=save_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"res": res, "text": buf.getvalue(), "counts": kernel_counts(),
+           "wall": wall}
+    if profile:
+        out["device_ms"], out["device_launches"] = device_busy(prof)
+    return out
+
+
+def dp_rank(tmp: str) -> dict:
+    """Phases 41-44 on one rank of the two on card 0: phase 41's steps and
+    the all-reduce time of its gradients; then run_experiment of the scaled
+    recipe (41), the production flags under --kernels force (42),
+    --ensemble 4 on them (43) and the default recipe under auto with its
+    resumes (44), all with --data-parallel 2, each in its own window."""
+    from njode_tpu_torch.parallel import make_mesh
+    entered = time.time()
+    mesh = make_mesh(data=DP_RANKS, devices=DP_DEVICES)
+    out = {"entered": entered, "steps": dp_first_steps(mesh.device, mesh)}
+    parts = {"steps": time.time() - entered}
+    out["allreduce_ms"] = {
+        name: allreduce_ms(n, mesh) for name, n in (
+            ("scaled", out["steps"]["n_params"]),
+            ("production", NeuralJumpODE(**PROD_MODEL_KW,
+                                         device="cpu").n_params()),
+            ("default", NeuralJumpODE(**DEFAULT_MODEL_KW,
+                                      device="cpu").n_params()))}
+    n = DP_DEFAULT_EPOCHS
+    for key, cfg in (
+            ("scaled", dp_config("scaled", 1, "dp_scaled")),
+            ("forced", dp_config("production", 1, "dp_forced", "--kernels",
+                                 "force")),
+            ("ensemble", dp_config("production", 2, "dp_ens", "--ensemble",
+                                   str(ENS_K), "--kernels", "force")),
+            ("default", dp_config("default", n, "dp_default"))):
+        t0 = time.time()
+        out[key] = dp_run(cfg, tmp, True)
+        parts[key] = time.time() - t0
+    t0 = time.time()
+    for backend in ("msgpack", "orbax"):
+        name = f"dp_default_{backend}"
+        flags = ("--checkpoint-backend", backend)
+        dp_run(dp_config("default", n - 1, name, *flags), tmp)
+        out[f"resume_{backend}"] = dp_run(dp_config("default", n, name,
+                                                    *flags), tmp)
+    parts["resumes"] = time.time() - t0
+    out["parts"] = parts
+    return out
+
+
+def dp_nccl_rank() -> dict:
+    """Phase 45 on a rank of an NCCL world (each rank on a card of its
+    own): phase 41's steps, and the all-reduce time of their gradients."""
+    from njode_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+    entered = time.time()
+    n = dist.get_world_size()
+    mesh = make_mesh(data=n, devices=[f"cuda:{r}" for r in range(n)])
+    steps = dp_first_steps(mesh.device, mesh)
+    return {"steps": steps, "backend": mesh.backend, "entered": entered,
+            "allreduce_ms": allreduce_ms(steps["n_params"], mesh)}
+
+
+def dp_launch(fn, n: int, args: tuple = (), devices=None,
+              backend=None) -> tuple:
+    """parallel.launch of ``fn`` on n ranks, this process's cached blocks
+    freed first: (each rank's result, wall s, s until the last rank entered
+    ``fn``: spawn, imports, CUDA context, rendezvous)."""
+    from njode_tpu_torch.parallel import launch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    started = time.time()
+    res = launch(fn, n, args=args, devices=devices or DP_DEVICES[:n],
+                 backend=backend, timeout=DP_TIMEOUT_S)
+    return (res, time.perf_counter() - t0,
+            max(r["entered"] for r in res) - started)
+
+
+def dp_steps_check(ranks: list, ref: dict, what: str) -> tuple:
+    """Phase 41's steps on the ranks against one process: equal replicas,
+    losses at DP_LOSS_RTOL, each parameter within DP_PARAM_NORM of its
+    norm.  Returns (loss share of the limit, worst parameter share)."""
+    for r in ranks[1:]:
+        for k, v in r["steps"]["params"].items():
+            if not torch.equal(v, ranks[0]["steps"]["params"][k]):
+                raise AssertionError(f"{what}: {k} differs between ranks")
+    ours = ranks[0]["steps"]
+    loss_err = assert_close(ours["losses"], ref["losses"],
+                            f"{what}: per-step losses", rtol=DP_LOSS_RTOL,
+                            atol=0.0)
+    share = max(float((ours["params"][k].double() - v.double()).norm()
+                      / v.double().norm()) for k, v in ref["params"].items())
+    for k, v in ref["params"].items():
+        assert_close_norm(ours["params"][k], v, f"{what}: {k}",
+                          rtol=DP_PARAM_NORM)
+    rel = float(((ours["losses"].double() - ref["losses"].double()).abs()
+                 / ref["losses"].double().abs()).max())
+    return rel / DP_LOSS_RTOL, share / DP_PARAM_NORM, loss_err
+
+
+def dp_idle(ranks: list, key: str) -> float:
+    """The card's idle share over a run both ranks made on it: one minus
+    the ranks' device time over the longer wall."""
+    wall = max(r[key]["wall"] for r in ranks)
+    return 1.0 - sum(r[key]["device_ms"] for r in ranks) / (1e3 * wall)
+
+
+def dp_phase_line(ranks: list, key: str) -> str:
+    runs = [r[key] for r in ranks]
+    walls = ", ".join(f"{x['wall']:.2f}" for x in runs)
+    dev_ms = ", ".join(f"{x['device_ms']:.1f}" for x in runs)
+    launches = ", ".join(str(x["device_launches"]) for x in runs)
+    return (f"{max(x['wall'] for x in runs):.2f} s of wall (by rank "
+            f"{walls}), device {dev_ms} ms and {launches} device launches by "
+            f"rank, the card idle {100 * dp_idle(ranks, key):.1f}%")
+
+
+def data_parallel_phases(dev: torch.device, card: str, tmp: Path,
+                         ens_forced: dict) -> dict:
+    """Phases 41-44: two ranks on card 0 over gloo (parallel.launch), one
+    world for all four, each path in its own window on each rank.
+
+    41. the scaled recipe under --kernels step: the first DP_STEPS
+        minibatches (2,048 rows a rank) against the single-process Trainer
+        from the same weights and data (losses at DP_LOSS_RTOL, each
+        parameter within DP_PARAM_NORM of its norm; the replicas bitwise
+        equal); run_experiment --data-parallel 2 one epoch: rows 10 once a
+        step and 9 once a step plus validation and relative loss on each
+        rank, nothing else.
+    42. the production flags under --kernels force, one epoch: rows 3 and 5
+        once a step (40) on each rank, row 1 in validation, nothing else.
+    43. --ensemble 4 on them, 2 epochs: two members a rank, rows 3 and 5 2 x
+        40 x 2 on each, row 1 in the members' validation; the stack and the
+        member rows bitwise those of phase 38a's sequential K=4 run.
+    44. the default recipe under auto, 3 epochs: no kernel on either rank,
+        the kernel report's "train=off (data/model-parallel meshes
+        unsupported)"; runs of 2 epochs resumed to 3 with each checkpoint
+        backend equal the uninterrupted run.
+
+    Each prints its wall, the all-reduce time of a step's gradients, the
+    card's idle share and the launches by row on each rank."""
+    ref = dp_first_steps(dev)
+    # one process's runs of the same configs, for the walls beside
+    single = {key: quiet_run(cfg, tmp)[2] for key, cfg in (
+        ("scaled", scaled_config(1, "dp_ref_scaled")),
+        ("forced", forced_production_config(1, "dp_ref_forced")),
+        ("default", default_config(DP_DEFAULT_EPOCHS, "dp_ref_default")))}
+    ranks, secs, start = dp_launch(dp_rank, DP_RANKS, args=(str(tmp),))
+    out = {"ranks": ranks, "secs": secs}
+    loss_share, param_share, loss_err = dp_steps_check(
+        ranks, ref, "phase 41, 2 gloo ranks vs one process")
+    for r in ranks:
+        expect_counts("phase 41 steps, a rank", {9: DP_STEPS, 10: DP_STEPS},
+                      r["steps"]["counts"])
+        if r["steps"]["reductions"] != DP_STEPS:
+            raise AssertionError(f"phase 41: {r['steps']['reductions']} "
+                                 f"gradient all-reduces, {DP_STEPS} "
+                                 "expected")
+    ar = ranks[0]["allreduce_ms"]
+    scaled = [expect_counts("phase 41 run_experiment, a rank",
+                            {10: SCALED_STEPS, 9: None}, r["scaled"]["counts"])
+              for r in ranks]
+    if min(c[9] for c in scaled) < SCALED_STEPS + 2:
+        raise AssertionError(f"phase 41: row 9 {scaled}, expected a launch "
+                             "a step, validation and relative loss")
+    h = ranks[0]["scaled"]["res"]["history"]
+    if not (math.isfinite(h["train_loss"][0])
+            and "Distributed: 2 ranks" in ranks[0]["scaled"]["text"]
+            and "backend gloo" in ranks[0]["scaled"]["text"]):
+        raise AssertionError(f"phase 41: {h}, {ranks[0]['scaled']['text']}")
+    print(f"phase 41, scaled recipe --kernels step --data-parallel 2 (2 gloo "
+          f"ranks on {card}, one world for phases 41-44, {secs:.1f} s, "
+          f"{start:.1f} s of it until both ranks ran: spawn, imports, CUDA "
+          f"context, rendezvous; then rank 0 s by part "
+          f"{ {k: round(v, 2) for k, v in ranks[0]['parts'].items()} }): "
+          f"the first {DP_STEPS} minibatches (2,048 rows a rank) "
+          f"against one process from the same weights: losses within "
+          f"{loss_share:.3f} of rtol {DP_LOSS_RTOL} (max abs err "
+          f"{loss_err:.3e}), parameters within {param_share:.3f} of "
+          f"{DP_PARAM_NORM} of their norm, replicas bitwise equal, the "
+          f"steps {dp_phase_line(ranks, 'steps')} (one process: "
+          f"{1e3 * ref['wall']:.1f} ms of wall, {ref['device_ms']:.1f} ms "
+          f"device); "
+          f"all-reduce of a step's gradients ({ranks[0]['steps']['n_params']:,}"
+          f" f32, {4e-6 * ranks[0]['steps']['n_params']:.2f} MB, gloo through "
+          f"the host) {ar['scaled']:.3f} ms; one epoch of run_experiment: "
+          f"{dp_phase_line(ranks, 'scaled')} (one process: "
+          f"{single['scaled']:.2f} s); launches by rank {scaled}",
+          flush=True)
+
+    forced = [expect_counts("phase 42 run_experiment, a rank",
+                            {3: PROD_STEPS, 5: PROD_STEPS, 1: None},
+                            r["forced"]["counts"]) for r in ranks]
+    print(f"phase 42, production flags --kernels force --data-parallel 2, one "
+          f"epoch ({PROD_BS // DP_RANKS} rows a step a rank): "
+          f"{dp_phase_line(ranks, 'forced')} (one process, grid walk off: "
+          f"{single['forced']:.2f} s); all-reduce of a step's "
+          f"gradients {ar['production']:.3f} ms; launches by rank {forced}",
+          flush=True)
+
+    steps = 2 * PROD_STEPS * ENS_K // DP_RANKS
+    ens = [expect_counts("phase 43 run_experiment, a rank",
+                         {3: steps, 5: steps, 1: None},
+                         r["ensemble"]["counts"]) for r in ranks]
+    res = ranks[0]["ensemble"]["res"]
+    h = res["history"]
+    if (not stacks_equal({k: v.to(dev) for k, v in
+                          res["params_stack"].items()}, ens_forced["stack2"])
+            or h["member_train_loss"] != ens_forced["rows2"]["member_train_loss"]
+            or h["member_val_loss"] != ens_forced["rows2"]["member_val_loss"]):
+        raise AssertionError("phase 43: the members over 2 ranks differ from "
+                             "phase 38a's sequential members")
+    print(f"phase 43, --ensemble {ENS_K} --data-parallel 2 --kernels force, 2 "
+          f"epochs ({ENS_K // DP_RANKS} members a rank): stack and member "
+          f"rows bitwise equal to phase 38a's sequential run; no gradient "
+          f"all-reduce (members are independent; the ranks join their "
+          f"states at each checkpoint); "
+          f"{dp_phase_line(ranks, 'ensemble')}; launches by rank {ens}",
+          flush=True)
+
+    dflt = [expect_counts("phase 44 run_experiment, a rank", {},
+                          r["default"]["counts"]) for r in ranks]
+    text = ranks[0]["default"]["text"]
+    report = [line for line in text.splitlines()
+              if line.startswith("Kernels: ")]
+    if (len(report) != 1 or "train=off (data/model-parallel meshes "
+            "unsupported)" not in report[0]):
+        raise AssertionError(f"phase 44: kernel report {report}")
+    full = ranks[0]["default"]["res"]["history"]
+    for backend in ("msgpack", "orbax"):
+        got = ranks[0][f"resume_{backend}"]
+        expect_counts(f"phase 44 resume ({backend})", {}, got["counts"])
+        if ("Resuming from epoch 2" not in got["text"]
+                or got["res"]["history"]["train_loss"] != full["train_loss"]
+                or got["res"]["history"]["val_loss"] != full["val_loss"]):
+            raise AssertionError(f"phase 44: the {backend} resume from 2 to "
+                                 f"{DP_DEFAULT_EPOCHS} epochs differs from "
+                                 f"the uninterrupted run: {got['text']}")
+    print(f"phase 44, default recipe --kernels auto --data-parallel 2, "
+          f"{DP_DEFAULT_EPOCHS} epochs: '{report[0]}'; "
+          f"{dp_phase_line(ranks, 'default')} (one process, on rows 11-12 "
+          f"as auto takes them there: {single['default']:.2f} s); all-reduce of a step's "
+          f"gradients {ar['default']:.3f} ms; launches by rank {dflt} (rows "
+          f"11-13 0); runs of 2 epochs resumed to {DP_DEFAULT_EPOCHS} with "
+          f"the msgpack file and the torch.distributed.checkpoint directory "
+          f"equal the uninterrupted run", flush=True)
+    out.update(scaled=scaled, forced=forced, ensemble=ens,
+               loss_err=loss_err, single=single)
+    return out
+
+
+def nccl_phase(dev: torch.device, card: str, gloo_ranks: list) -> dict:
+    """Phase 45: a one-rank NCCL world runs phase 41's steps (its losses
+    within phase 41's limits of the run without a group); with two or more
+    cards, two NCCL ranks on cards of their own against phase 41's gloo
+    ranks.  With one card that case does not run, and the line says so."""
+    ref = dp_first_steps(dev)
+    one, secs, start = dp_launch(dp_nccl_rank, 1, backend="nccl")
+    loss_share, param_share, _ = dp_steps_check(one, ref,
+                                                "phase 45, one NCCL rank")
+    expect_counts("phase 45, one NCCL rank", {9: DP_STEPS, 10: DP_STEPS},
+                  one[0]["steps"]["counts"])
+    if one[0]["steps"]["reductions"] != 0:
+        raise AssertionError(f"phase 45: a one-rank world reduced "
+                             f"{one[0]['steps']['reductions']} gradients")
+    line = (f"phase 45, a one-rank NCCL world ({one[0]['backend']}, "
+            f"{secs:.1f} s, {start:.1f} s of it until the rank ran): phase 41's {DP_STEPS} steps, "
+            f"losses within {loss_share:.3f} of rtol {DP_LOSS_RTOL} and "
+            f"parameters within {param_share:.3f} of {DP_PARAM_NORM} of "
+            f"their norm from the run without a group; the steps "
+            f"{dp_phase_line(one, 'steps')}; gradient all-reduces "
+            f"{one[0]['steps']['reductions']} (one rank holds every row: "
+            f"the Trainer's NCCL gradient reduction needs two cards); a "
+            f"lone all-reduce of the gradients' size "
+            f"{one[0]['allreduce_ms']:.3f} ms; launches "
+            f"{one[0]['steps']['counts']}")
+    if torch.cuda.device_count() >= 2:
+        two, secs2, _ = dp_launch(dp_nccl_rank, 2,
+                               devices=["cuda:0", "cuda:1"], backend="nccl")
+        ls, ps, _ = dp_steps_check(two, {"losses": gloo_ranks[0]["steps"]
+                                         ["losses"],
+                                         "params": gloo_ranks[0]["steps"]
+                                         ["params"]},
+                                   "phase 45, 2 NCCL ranks vs 2 gloo ranks")
+        line += (f"; two NCCL ranks on cuda:0 and cuda:1 ({secs2:.1f} s): "
+                 f"against phase 41's gloo ranks, losses within {ls:.3f} and "
+                 f"parameters within {ps:.3f} of the limits, all-reduce "
+                 f"{two[0]['allreduce_ms']:.3f} ms")
+    else:
+        line += ("; two NCCL ranks on cards of their own: not run, this "
+                 f"machine has {torch.cuda.device_count()} card (NCCL "
+                 "refuses two ranks on one card)")
+    print(line, flush=True)
+    return {"counts": one[0]["steps"]["counts"]}
 
 
 def phase_time(name: str, t0: float) -> float:
@@ -5088,6 +5512,12 @@ def main() -> None:
     ensemble_vs_cpu_phase(dev, card)
     ens_inference = ensemble_inference_phase(dev, card, ens_forced["stack"])
     t = phase_time("ensemble vs CPU, ensemble inference (rows 1, 6)", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_phases(dev, card, Path(tmp), ens_forced)
+    t = phase_time("data parallel, 2 gloo ranks on one card (rows 9-10, 3, "
+                   "5, 1)", t)
+    nccl_phase(dev, card, dp["ranks"])
+    t = phase_time("NCCL world (rows 9-10)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -5206,6 +5636,29 @@ def main() -> None:
         "walk_train": [("CLI experiment_black_scholes with scripts/"
                         "run_black_scholes.sh's flags, 2 epochs",
                         cli_launches["production"][13])]}
+    # phases 41-43: each rank's window
+    dp_windows = {
+        "fused_step_fwd": ("scaled", 9, "scaled training --data-parallel 2 "
+                           "(run_experiment, 1 epoch)"),
+        "fused_step_bwd": ("scaled", 10, "scaled training --data-parallel 2 "
+                           "(run_experiment, 1 epoch)"),
+        "gap_train_fwd_checkpointed": (
+            "forced", 3, "forced production training --data-parallel 2 "
+            "(run_experiment, 1 epoch)"),
+        "gap_train_bwd_checkpointed": (
+            "forced", 5, "forced production training --data-parallel 2 "
+            "(run_experiment, 1 epoch)"),
+        "gap_scan_fwd": ("forced", 1, "forced production training "
+                         "--data-parallel 2 (validation)")}
+    for name, (key, row, path) in dp_windows.items():
+        also.setdefault(name, []).extend(
+            (f"{path}, rank {r}", dp[key][r][row]) for r in range(DP_RANKS))
+    for name, row in (("gap_train_fwd_checkpointed", 3),
+                      ("gap_train_bwd_checkpointed", 5)):
+        also[name].extend(
+            (f"--ensemble {ENS_K} --data-parallel 2 --kernels force, 2 "
+             f"epochs, rank {r}", dp["ensemble"][r][row])
+            for r in range(DP_RANKS))
     for k in kernels:
         if k["name"] in also:
             k["also"] = [{"path": p, "launches": n}

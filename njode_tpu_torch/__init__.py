@@ -21,6 +21,11 @@ It keeps that package's module layout and names.  Ported so far:
 * the experiment CLIs: ``python -m
   njode_tpu_torch.experiments.experiment_{black_scholes,ou,heston,hybrid}``
   and ``compare_experiments``, with the JAX package's flags;
+* scale-out: data-parallel and multi-host training over
+  ``torch.distributed`` ranks (``parallel``; ``--data-parallel N``,
+  ``--multihost``), ensembles spread over the ranks, and collective
+  checkpoints (one file, or a ``torch.distributed.checkpoint``
+  directory);
 * data: ``simulation.simulate_batch`` (Black-Scholes, OU, Heston, hybrid
   OU->BS, the d-dimensional BS and OU, and registered processes; grid or
   obs-only) and ``simulation.moments_at_obs``, which training takes for

@@ -4,10 +4,11 @@ the JAX package, which the port does not import).
 The flag surface is the JAX CLIs' flag for flag, with the same defaults and
 choices, so :func:`build_config` returns the same config dict for every
 argv; the help strings describe the port's routes.  ``--ensemble`` and
-``--ensemble-lrs`` train K members (``utils/ensemble.py``).  Flags whose
-path is not ported (``--data-parallel``, ``--model-parallel``,
-``--multihost``, ``--checkpoint-backend orbax``) parse as there, and
-``run_experiment`` refuses them.  Each experiment module
+``--ensemble-lrs`` train K members (``utils/ensemble.py``);
+``--data-parallel``, ``--multihost`` and ``--checkpoint-backend orbax``
+train over ``torch.distributed`` ranks (``parallel/``).  The model axis
+(``--model-parallel`` > 1, ``--model-parallel-mode``) parses as there, and
+``run_experiment`` refuses it.  Each experiment module
 declares its own process flags and runs ``python -m
 njode_tpu_torch.experiments.experiment_<name>``.
 """
@@ -19,6 +20,7 @@ from pathlib import Path
 
 from ..models import NeuralJumpODE
 from ..models.jump_ode import resolve_device
+from ..parallel import is_primary
 from ..simulation import supports_obs_only
 from ..utils import load_checkpoint, run_experiment
 from ..utils.profiling import maybe_trace
@@ -105,11 +107,15 @@ def add_common_args(parser: argparse.ArgumentParser,
     parser.add_argument('--n-steps', type=int, default=100,
                         help='Grid resolution: simulation steps over [0, T]')
 
-    # scale-out: parsed as in the JAX package, refused by run_experiment
-    # until it is ported (ROADMAP.md, Queue 1 item 12)
+    # scale-out: the data axis over torch.distributed ranks; the model
+    # axis parses as in the JAX package and run_experiment refuses it
+    # (ROADMAP.md, Queue 1 item 12b)
     parser.add_argument('--data-parallel', type=int, default=0,
-                        help='Shard trajectories over N devices (0 = single '
-                             'device); not ported: N > 1 raises')
+                        help='Shard trajectories over N ranks, one device '
+                             'each (0 = single device): without a process '
+                             'group N ranks are spawned, rank r on cuda:r '
+                             '(NCCL); --device cuda:K puts them all on card '
+                             'K and --device cpu on the CPU (gloo)')
     parser.add_argument('--model-parallel', type=int, default=1,
                         help='Size of the mesh\'s model axis; not ported: '
                              'N > 1 raises')
@@ -118,7 +124,9 @@ def add_common_args(parser: argparse.ArgumentParser,
                         help='What the model axis shards (default: moments '
                              'when --model-parallel > 1); not ported')
     parser.add_argument('--multihost', action='store_true',
-                        help='Train over several hosts; not ported: raises')
+                        help='Train over every rank of several hosts: join '
+                             'the process group from the three flags below, '
+                             'or from torchrun\'s or SLURM\'s environment')
     parser.add_argument('--coordinator-address', type=str, default=None,
                         help='host:port of process 0 for --multihost')
     parser.add_argument('--num-processes', type=int, default=None,
@@ -135,7 +143,8 @@ def add_common_args(parser: argparse.ArgumentParser,
                              'per-member train/val/relative losses, '
                              'checkpoint auto-resume, seed bands in the '
                              'trajectory plot. With --data-parallel or '
-                             '--multihost: not ported, raises')
+                             '--multihost the members spread over the '
+                             'ranks (K a multiple of the rank count)')
     parser.add_argument('--ensemble-lrs', type=str, default=None,
                         help='Comma-separated per-member learning rates '
                              '(population training); implies --ensemble '
@@ -177,8 +186,9 @@ def add_common_args(parser: argparse.ArgumentParser,
     parser.add_argument('--checkpoint-backend', type=str, default='msgpack',
                         choices=['msgpack', 'orbax'],
                         help='Checkpoint format: msgpack = the port\'s one '
-                             'torch.save file (model.ckpt); orbax is not '
-                             'ported and raises')
+                             'torch.save file (model.ckpt, written by rank '
+                             '0); orbax = a torch.distributed.checkpoint '
+                             'directory written by every rank')
     parser.add_argument('--kernels', type=str, default='auto',
                         choices=['off', 'auto', 'force', 'step', 'train'],
                         help='CUDA kernel policy. auto (default): the '
@@ -325,6 +335,10 @@ def run_and_plot(config: dict, process_type: str, process_params: dict,
     device = resolve_device(config.get("device", "auto"))
     with maybe_trace(profile_dir, cuda=device.type == "cuda"):
         results = run_experiment(config, save_dir=save_dir)
+    if not is_primary():
+        # a rank of a group (torchrun, --multihost): rank 0 plots and
+        # reports
+        return results
 
     save_path = Path(results["save_path"])
     if make_plots:

@@ -90,8 +90,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import (GapWeights, gap_scan_available, integrate_gap_fused,
-                   split_weights)
+from ..ops import GapWeights, integrate_gap_fused, split_weights
 from ..ops import fused_cell, fused_step, gap_scan, walk_scan
 from .activations import (canonical_activation, canonical_input_scaling,
                           get_input_scaling)
@@ -274,8 +273,11 @@ class NeuralJumpODE(nn.Module):
 
         # shared mode carries one latent state for all moments
         self.k_hidden = 1 if shared_network else num_moments
-        self._gap_eligible = (ode_solver == "euler" and gap_scan_available(
-            n_hidden_layers, self._act_key, dropout_rate, self._scale_key))
+        self._gap_decline = (
+            f"ode_solver {ode_solver!r} != euler" if ode_solver != "euler"
+            else gap_scan.gap_scan_decline(n_hidden_layers, self._act_key,
+                                           dropout_rate, self._scale_key))
+        self._gap_eligible = self._gap_decline is None
         # the fused Euler cell (use_pallas=True): one Euler step a launch
         self._fused_eligible = (ode_solver == "euler"
                                 and fused_cell.fused_cell_available(
@@ -283,10 +285,10 @@ class NeuralJumpODE(nn.Module):
                                     dropout_rate))
         # the fused whole-step kernels (use_pallas="step"): jump -> one
         # Euler step per gap -> readout, all slots in two kernels
-        self._step_eligible = fused_step.fused_step_available(
-            shared_network, input_dim, output_dim, n_hidden_layers,
-            self._act_key, dropout_rate, self._scale_key, dt_ode_step,
-            ode_solver)
+        self._step_decline = fused_step.fused_step_decline(
+            input_dim, output_dim, n_hidden_layers, self._act_key,
+            dropout_rate, self._scale_key, dt_ode_step, ode_solver)
+        self._step_eligible = self._step_decline is None
         # (parameter versions, GapWeights): the kernel's weights, cut once
         self._gap_cache: Optional[tuple] = None
 
@@ -376,12 +378,19 @@ class NeuralJumpODE(nn.Module):
         per-gap route with the gap kernel instead: there the walk route's
         grid guard (one host read) cost more than the walk kernel saves,
         at 256 and 2,000 rows on an H100 (PERF.md)."""
-        if (self.use_pallas is False or self.ode_solver != "euler"
-                or self.compute_dtype is not None):
-            return False
+        return self._walk_decline(inference) is None
+
+    def _walk_decline(self, inference: bool = False) -> Optional[str]:
+        """The first reason :meth:`_use_walk_kernel` fails, or None."""
+        if self.use_pallas is False:
+            return "--kernels off"
+        if self.ode_solver != "euler":
+            return f"ode_solver {self.ode_solver!r} != euler"
+        if self.compute_dtype is not None:
+            return "float32 only"
         if inference and self.device.type == "cuda":
-            return False
-        return walk_scan.walk_scan_available(
+            return "a walk without autograd on the card takes the gap kernel"
+        return walk_scan.walk_scan_decline(
             self.n_hidden_layers, self._act_key, self.dropout_rate,
             self._scale_key, self.input_dim, self.hidden_dim)
 
@@ -439,23 +448,45 @@ class NeuralJumpODE(nn.Module):
         and the compute dtype in ``AUTO_COMPUTE_DTYPES_H100``.  The kernels
         compute float32 and bfloat16, not float16 (JAX ``:251``, ``:260``).
         Elsewhere the composed route."""
-        if (not self._step_eligible
-                or self.compute_dtype not in (None, torch.bfloat16)):
-            return False
+        return self._fused_step_decline(n_slots, n_batch) is None
+
+    def _fused_step_decline(self, n_slots: Optional[int],
+                            n_batch: Optional[int]) -> Optional[str]:
+        """The first reason :meth:`_use_fused_step` fails, or None; a count
+        of None (the kernel report's, where it is not known) passes its
+        gate."""
+        fs = fused_step
+        if self._step_decline is not None:
+            return self._step_decline
+        if self.compute_dtype not in (None, torch.bfloat16):
+            return "compute dtype must be f32 or bf16"
         if self.use_pallas == "auto":
+            if self.device.type != "cuda":
+                return "not on a CUDA device"
+            if self.shared_network:
+                return ("shared network (not measured; opt in with "
+                        "--kernels step)")
             shape = (self.hidden_dim, n_slots, self.n_hidden_layers,
                      self.input_dim, self.output_dim, self.num_moments)
-            if (self.device.type != "cuda" or self.shared_network
-                    or self.compute_dtype
-                    not in fused_step.AUTO_COMPUTE_DTYPES_H100
-                    or shape != fused_step.AUTO_SHAPE_H100
-                    or n_batch < fused_step.AUTO_MIN_BATCH_H100):
-                return False
+            if n_slots is not None and shape != fs.AUTO_SHAPE_H100:
+                return (f"(hidden, slots, layers, d_x, d_y, K) {shape} is "
+                        f"not AUTO_SHAPE_H100 {fs.AUTO_SHAPE_H100}, the one "
+                        "shape an H100 A/B measured")
+            if n_batch is not None and n_batch < fs.AUTO_MIN_BATCH_H100:
+                return (f"{n_batch} rows a step < AUTO_MIN_BATCH_H100 "
+                        f"{fs.AUTO_MIN_BATCH_H100} (not measured below)")
+            if self.compute_dtype not in fs.AUTO_COMPUTE_DTYPES_H100:
+                return "compute dtype not in AUTO_COMPUTE_DTYPES_H100"
         elif self.use_pallas != "step":
-            return False
-        return fused_step.fused_step_fits(
-            self.hidden_dim, n_slots, self.n_hidden_layers, self.input_dim,
-            self.output_dim, self.num_moments)
+            return "--kernels is not 'step' or 'auto'"
+        if n_slots is None:
+            return "slot count unknown"
+        if not fs.fused_step_fits(self.hidden_dim, n_slots,
+                                  self.n_hidden_layers, self.input_dim,
+                                  self.output_dim, self.num_moments):
+            return (f"{n_slots} slots at hidden {self.hidden_dim} have no "
+                    "launch plan (shared memory)")
+        return None
 
     def _step_kwargs(self) -> dict:
         return dict(num_moments=self.num_moments, activation=self._act_key,

@@ -156,6 +156,25 @@ class StepLayout:
         return (self.L, self.d_x, self.d_y, self.K, self.shared)
 
 
+def fused_step_decline(input_dim: int, output_dim: int,
+                       n_hidden_layers: int, activation: str,
+                       dropout_rate: float, input_scaling: str, dt_ode_step,
+                       ode_solver: str = "euler") -> Optional[str]:
+    """The first reason the kernels do not compute this model, or None
+    (canonical activation/scaling names expected)."""
+    if dt_ode_step is not None:
+        return "--dt-ode-step set (substep gaps ride the walk kernel)"
+    if dropout_rate != 0.0:
+        return "dropout unsupported"
+    if ode_solver != "euler":
+        return f"ode_solver {ode_solver!r} != euler"
+    if activation not in SUPPORTED_ACTS or input_scaling not in _SCALE:
+        return "activation/scaling has no kernel table"
+    if min(input_dim, output_dim, n_hidden_layers) < 1:
+        return "input_dim, output_dim and n_hidden_layers must be >= 1"
+    return None
+
+
 def fused_step_available(shared_network: bool, input_dim: int,
                          output_dim: int, n_hidden_layers: int,
                          activation: str, dropout_rate: float,
@@ -165,10 +184,9 @@ def fused_step_available(shared_network: bool, input_dim: int,
     the JAX signature; canonical activation/scaling names expected).
     ``shared_network`` is unused: both modes are computed."""
     del shared_network
-    return (input_dim >= 1 and output_dim >= 1 and n_hidden_layers >= 1
-            and dropout_rate == 0.0 and dt_ode_step is None
-            and ode_solver == "euler" and activation in SUPPORTED_ACTS
-            and input_scaling in _SCALE)
+    return fused_step_decline(input_dim, output_dim, n_hidden_layers,
+                              activation, dropout_rate, input_scaling,
+                              dt_ode_step, ode_solver) is None
 
 
 def _smem_floats(backward: bool, rt: int, H: int, N: int, L: int, d_x: int,

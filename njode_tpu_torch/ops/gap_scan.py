@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -419,11 +419,27 @@ def gap_train_fits(d_h: int) -> bool:
     return 1 <= d_h <= MAX_HIDDEN
 
 
+def gap_scan_decline(n_hidden_layers: int, activation: str,
+                     dropout_rate: float, input_scaling: str
+                     ) -> Optional[str]:
+    """The first reason the kernel does not compute this ODEFunc, or None
+    (canonical names expected)."""
+    if n_hidden_layers != 1:
+        return f"n_hidden_layers {n_hidden_layers} != 1"
+    if dropout_rate != 0.0:
+        return "dropout unsupported"
+    if activation not in SUPPORTED_ACTS:
+        return f"activation {activation!r} has no kernel table"
+    if input_scaling not in _SCALE:
+        return f"input scaling {input_scaling!r} has no kernel table"
+    return None
+
+
 def gap_scan_available(n_hidden_layers: int, activation: str,
                        dropout_rate: float, input_scaling: str) -> bool:
     """Whether the kernel computes this ODEFunc (canonical names expected)."""
-    return (n_hidden_layers == 1 and dropout_rate == 0.0
-            and activation in SUPPORTED_ACTS and input_scaling in _SCALE)
+    return gap_scan_decline(n_hidden_layers, activation, dropout_rate,
+                            input_scaling) is None
 
 
 # --------------------------------------------------------------------------

@@ -46,6 +46,7 @@ import torch
 
 from .activations import (_ACT, _ACT_GRAD, _SCALE, _SCALE_GRAD,
                           SCALINGS, SUPPORTED_ACTS)
+from .gap_scan import gap_scan_decline
 
 # launches of the forward and backward kernels in this process; callers may
 # reset them to 0
@@ -152,14 +153,29 @@ def walk_bwd_plan(d: int, B: int, N: int, M: int,
     return WalkBwdPlan(wpt, warps, chunk_rows, -(-mb // chunk_rows), smem)
 
 
+def walk_scan_decline(n_hidden_layers: int, activation: str,
+                      dropout_rate: float, input_scaling: str,
+                      input_dim: int, hidden_dim: int) -> Optional[str]:
+    """The first reason the kernels do not compute this ODEFunc, or None
+    (canonical names expected)."""
+    reason = gap_scan_decline(n_hidden_layers, activation, dropout_rate,
+                              input_scaling)
+    if reason is not None:
+        return reason
+    if input_dim != 1:
+        return f"input_dim {input_dim} != 1"
+    if not 1 <= hidden_dim <= MAX_HIDDEN:
+        return f"hidden_dim {hidden_dim} outside 1..{MAX_HIDDEN}"
+    return None
+
+
 def walk_scan_available(n_hidden_layers: int, activation: str,
                         dropout_rate: float, input_scaling: str,
                         input_dim: int, hidden_dim: int) -> bool:
     """Whether the kernels compute this ODEFunc (canonical names expected);
     the grid-alignment promise is the caller's."""
-    return (n_hidden_layers == 1 and dropout_rate == 0.0
-            and activation in SUPPORTED_ACTS and input_scaling in _SCALE
-            and input_dim == 1 and 1 <= hidden_dim <= MAX_HIDDEN)
+    return walk_scan_decline(n_hidden_layers, activation, dropout_rate,
+                             input_scaling, input_dim, hidden_dim) is None
 
 
 def split_walk_weights(weights: Sequence[torch.Tensor], dt: float):

@@ -4,7 +4,7 @@ where matplotlib is installed, plotting."""
 
 from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from .ensemble import (ensemble_mean_std, ensemble_predict, init_ensemble,
-                       train_ensemble)
+                       shard_ensemble, train_ensemble)
 from .metrics import conditional_moment_mse, relative_loss
 from .training import (DataLoader, Trainer, as_dense, create_data_loaders,
                        make_adam, run_experiment)
@@ -16,7 +16,7 @@ __all__ = ["DataLoader", "Trainer", "adam_state_from_jax", "as_dense",
            "create_data_loaders", "ensemble_mean_std", "ensemble_predict",
            "ensemble_state_from_jax", "init_ensemble", "load_checkpoint",
            "make_adam", "relative_loss", "run_experiment", "save_checkpoint",
-           "state_dict_from_jax", "train_ensemble"]
+           "shard_ensemble", "state_dict_from_jax", "train_ensemble"]
 
 # the plotting names only where matplotlib imports; any other import
 # failure of the module propagates

@@ -25,8 +25,14 @@ the gap loop's training pair, under ``"step"`` through the fused step.
 * ``ensemble_predict`` + ``ensemble_mean_std``: epistemic (seed) bands
   around the conditional-moment predictions.
 
-Not ported: ``shard_ensemble`` and ``mesh`` (the seed axis over devices,
-ROADMAP.md Queue 1 item 12); a ``mesh`` raises.
+* **Over ranks.** With a data-parallel ``mesh``
+  (:func:`njode_tpu_torch.parallel.make_mesh`), rank r trains its K/N
+  members (:func:`shard_ensemble`: a contiguous block, the JAX package's
+  seed axis over its mesh), each with the streams of its global index, so
+  a member is the same whichever rank trains it.  At every checkpoint and
+  at the end the ranks join their members' states and loss rows (one
+  object broadcast a rank), so every rank returns the whole ensemble.  A K
+  the data axis does not divide is trained whole on every rank.
 """
 
 from __future__ import annotations
@@ -151,6 +157,54 @@ def _member_hparams(optimizer, member_hparams: dict, n_seeds: int) -> dict:
     return upd
 
 
+def shard_ensemble(mesh, tree, axis: str = "data"):
+    """This rank's members of ``tree``: a stack (a dict of ``(K, ...)``
+    tensors) or a list of K per-member items, cut to the rank's contiguous
+    block of the seed axis.  A K the axis does not divide stays whole
+    (``njode_tpu/utils/ensemble.py:71-88`` replicates it).  Members are
+    independent: nothing crosses the seed axis while they train."""
+    from ..parallel.mesh import shard_rows
+    if axis != "data":
+        from ..parallel.mesh import _model_axis_refusal
+        raise _model_axis_refusal(f"shard_ensemble(axis={axis!r})")
+    k = n_members(tree) if isinstance(tree, dict) else len(tree)
+    sl = shard_rows(mesh, k)
+    if sl is None:
+        return tree
+    if isinstance(tree, dict):
+        return {name: v[sl] for name, v in tree.items()}
+    return tree[sl]
+
+
+def _cpu(obj):
+    """``obj`` with every tensor moved to the CPU (dicts and lists
+    followed)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def _join_members(mesh, items: list, n_seeds: int) -> list:
+    """Every rank's per-member ``items`` (its block of the seed axis), in
+    member order, on every rank: each rank broadcasts its block as one
+    object.  Tensors travel through the CPU."""
+    import torch.distributed as dist
+    per = n_seeds // mesh.n_data
+    out = []
+    for r in range(mesh.n_data):
+        buf = [_cpu(items) if r == mesh.data_rank else None]
+        dist.broadcast_object_list(buf, src=r)
+        if len(buf[0]) != per:
+            raise RuntimeError(f"rank {r} holds {len(buf[0])} members, "
+                               f"{per} expected")
+        out += buf[0]
+    return out
+
+
 def _members(model: NeuralJumpODE, params_stack: dict, opt_states,
              optimizer: Callable, hparams: Optional[dict], seeds: list[int],
              trainer_kw: dict) -> list[Trainer]:
@@ -227,10 +281,7 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
     ``train`` / ``val`` / ``rel`` to (n_epochs - start_epoch, K) float64
     tensors (``val`` / ``rel`` only when asked for).
     """
-    if mesh is not None:
-        raise NotImplementedError("ensembles over a device mesh "
-                                  "(shard_ensemble) are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    from ..parallel.mesh import shard_rows
     work = copy.copy(model)   # shares the parameters; members deep-copy it
     if work.use_pallas == "auto":
         work.use_pallas = False
@@ -246,11 +297,23 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
                       moment_weights=moment_weights,
                       variance_method=variance_method,
                       extended_moments=extended_moments)
+    # this rank's members: their global indices, stacks, states and seeds
+    mine = shard_rows(mesh, n_seeds)
+    joined = mine is not None
+    idx = list(range(n_seeds))[mine] if joined else list(range(n_seeds))
+    if joined:
+        params = shard_ensemble(mesh, params)
+        opt_states = (None if opt_states is None
+                      else shard_ensemble(mesh, opt_states))
+        hparams = (None if hparams is None
+                   else {k: v[mine] for k, v in hparams.items()})
     members = _members(work, params, opt_states, tx, hparams,
-                       _member_seeds(seed, n_seeds), trainer_kw)
+                       [_member_seeds(seed, n_seeds)[s] for s in idx],
+                       trainer_kw)
 
     dev = model.device
-    data_seeds = _member_seeds(data_seed, n_seeds, share_data)
+    data_seeds = [_member_seeds(data_seed, n_seeds, share_data)[s]
+                  for s in idx]
 
     def loaders(n, stream):
         return {ds: DataLoader(ds, n, process_type, obs_fraction, False,
@@ -273,7 +336,7 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
         if rel_eval is not None:
             out["rel"] = []
             with torch.no_grad():
-                for s, tr in enumerate(members):
+                for s, tr in zip(idx, members):
                     l_model = float(tr._loss_no_first(
                         rel_eval["times"][s], rel_eval["values"][s],
                         rel_eval["mask"][s]))
@@ -282,14 +345,24 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
         return out
 
     def state():
-        return (stack_states([tr.model.state_dict() for tr in members]),
-                [tr.optimizer.state_dict() for tr in members])
+        sds = [tr.model.state_dict() for tr in members]
+        osds = [tr.optimizer.state_dict() for tr in members]
+        if joined:
+            sds = [{k: v.to(dev) for k, v in sd.items()}
+                   for sd in _join_members(mesh, sds, n_seeds)]
+            osds = _join_members(mesh, osds, n_seeds)
+        return stack_states(sds), osds
 
     def merged(rows):
         keys = rows[0].keys() if rows else ("train",)
-        return {k: torch.tensor([r[k] for r in rows], dtype=torch.float64
-                                ).reshape(len(rows), n_seeds)
-                for k in keys}
+        out = {}
+        for k in keys:
+            cols = [[r[k][j] for r in rows] for j in range(len(idx))]
+            if joined:
+                cols = _join_members(mesh, cols, n_seeds)
+            out[k] = torch.tensor(cols, dtype=torch.float64).reshape(
+                n_seeds, len(rows)).T
+        return out
 
     if not chunk_len:
         chunk_len = max(n_epochs - start_epoch, 1)

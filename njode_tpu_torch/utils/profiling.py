@@ -5,7 +5,7 @@ trace (viewable in Perfetto or ``chrome://tracing``); ``StepTimer``
 synchronizes the device before it reads the clock, so asynchronous CUDA
 launches do not hide a step's time.  The JAX package's ``compile_time``
 (an XLA ahead-of-time compile) has no counterpart yet (ROADMAP.md, Queue 1
-item 12).
+item 12b).
 """
 
 from __future__ import annotations

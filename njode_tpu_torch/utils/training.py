@@ -1,5 +1,5 @@
 """Training: Adam, data loaders, the Trainer and ``run_experiment`` (port of
-``njode_tpu.utils.training``, one model on one device).
+``njode_tpu.utils.training``).
 
 * The optimizer is ``torch.optim.Adam(lr, weight_decay)``: L2 decay added to
   the gradient before the moments, the law the JAX package's ``make_adam``
@@ -36,14 +36,23 @@
   ignores it, as the JAX package's does.  Every process family of
   ``simulation`` trains, and registered processes too.  ``ensemble`` K > 1
   or ``ensemble_lrs`` trains K members (:func:`_run_ensemble_experiment`,
-  on :mod:`.ensemble`).  Data/model parallelism, multi-host runs and
-  ensembles over devices (ROADMAP Queue 1 item 12) and Pallas interpret
-  mode are not ported and raise ``NotImplementedError`` naming their item.
+  on :mod:`.ensemble`).  ``data_parallel`` N, ``multihost`` or a process
+  group that exists (torchrun) train data-parallel over ranks
+  (:mod:`njode_tpu_torch.parallel`): every rank draws the same epoch and
+  shuffle, keeps its rows of each minibatch, back-propagates its share of
+  the global masked mean, and the gradients are summed before every Adam
+  step; an ensemble spreads its members over the ranks.  The whole-run
+  kernels and the grid walk decline under a mesh, as in the JAX package.
+  The model axis (``model_parallel`` > 1, ROADMAP Queue 1 item 12b) and
+  Pallas interpret mode are not ported and raise ``NotImplementedError``
+  naming their item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
+import io
 import json
 import time
 from pathlib import Path
@@ -65,6 +74,8 @@ RELATIVE_LOSS_PROCESSES = ("black_scholes", "ornstein_uhlenbeck", "heston",
 # member's seeds (utils/ensemble.py), its "epoch" the member's index
 STREAM_TRAIN, STREAM_VAL, STREAM_SHUFFLE, STREAM_DROPOUT = 0, 1, 2, 3
 STREAM_MEMBER = 4
+# STREAM_RANK folds a rank's index into an epoch's dropout seed
+STREAM_RANK = 5
 
 
 def make_adam(params, learning_rate: float,
@@ -214,8 +225,8 @@ class Trainer:
                  device=None, ignore_first_continuity: bool = False,
                  moment_weights: Optional[List[float]] = None,
                  variance_method: str = "direct",
-                 extended_moments: bool = False, seed: int = 0,
-                 use_train_kernel=False,
+                 extended_moments: bool = False, mesh=None, seed: int = 0,
+                 checkpoint_backend: str = "msgpack", use_train_kernel=False,
                  train_kernel_opts: Optional[Dict] = None):
         asked = None if device in (None, "auto") else torch.device(device)
         if asked is not None and (
@@ -230,6 +241,9 @@ class Trainer:
                              "(use True with a CPU model)")
         if use_train_kernel not in (False, True, "auto"):
             raise ValueError(f"Unknown use_train_kernel: {use_train_kernel!r}")
+        if mesh is not None and mesh.device != model.device:
+            raise ValueError(f"the model lives on {model.device}, this "
+                             f"rank's device is {mesh.device}")
         self.model = model
         self.device = model.device
         self.optimizer = (optimizer if optimizer is not None
@@ -244,6 +258,15 @@ class Trainer:
         self.seed = seed
         self.use_train_kernel = use_train_kernel
         self.train_kernel_opts = dict(train_kernel_opts or {})
+        self.checkpoint_backend = checkpoint_backend
+        # data parallelism (parallel/mesh.py): every rank holds the model,
+        # rank 0's weights broadcast here, and the same full epoch; each
+        # keeps its rows of a minibatch and the gradients are summed
+        self.mesh = mesh
+        self.grad_reductions = 0      # all-reduces of a step's gradients
+        if mesh is not None:
+            from ..parallel import shard_params
+            shard_params(mesh, model)
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self.epoch_times: List[float] = []
@@ -280,39 +303,97 @@ class Trainer:
         valid = torch.arange(n_pad, device=dev) < n
         return idx.reshape(nb, batch_size), valid.reshape(nb, batch_size)
 
-    def _dropout_generator(self, epoch: int) -> Optional[torch.Generator]:
+    def _dropout_generator(self, epoch: int, sharded: bool = False
+                           ) -> Optional[torch.Generator]:
+        """An epoch's dropout stream, from (seed, epoch); where the ranks
+        hold different rows, from (seed, epoch, rank), so ranks never share
+        masks.  Ranks that each hold every row draw the same masks, so their
+        replicas stay equal without a reduction."""
         if self.model.dropout_rate <= 0.0:
             return None
-        return _generator(self.device,
-                          stream_seed(self.seed, STREAM_DROPOUT, epoch))
+        seed = stream_seed(self.seed, STREAM_DROPOUT, epoch)
+        if sharded:
+            seed = stream_seed(seed, STREAM_RANK, self.mesh.data_rank)
+        return _generator(self.device, seed)
+
+    def _rows(self, rows: int) -> Optional[slice]:
+        """This rank's rows of a minibatch of ``rows``, or None where it
+        holds them all (no mesh, or a data axis that does not divide
+        them)."""
+        from ..parallel.mesh import shard_rows
+        return shard_rows(self.mesh, rows)
+
+    def _shard_loss(self, loss_fn, times, values, mask, traj_mask, sl):
+        """The loss of this rank's rows ``sl`` as its share of the global
+        masked mean: its masked mean times its valid rows over the whole
+        minibatch's, so the sum over ranks is the mean over every valid
+        row.  ``loss_fn(times, values, mask, traj_mask)``."""
+        loss = loss_fn(times[sl], values[sl], mask[sl],
+                       None if traj_mask is None else traj_mask[sl])
+        if traj_mask is None:
+            return loss * ((sl.stop - sl.start) / times.shape[0])
+        tm = traj_mask.to(loss.dtype)
+        return loss * (tm[sl].sum() / torch.clamp_min(tm.sum(), 1.0))
+
+    def _reduce_grads(self) -> None:
+        """Sum the ranks' gradients (one flat all-reduce).  Every rank ran
+        the same graph, so the same parameters hold a gradient."""
+        from ..parallel.mesh import all_reduce_sum
+        all_reduce_sum([p.grad for p in self.model.parameters()
+                        if p.grad is not None])
+        self.grad_reductions += 1
+
+    def _step(self, times, values, mask, traj_mask, gen) -> torch.Tensor:
+        """One Adam step on a minibatch; returns its loss (this rank's
+        share where the ranks split the rows)."""
+        opt = self.optimizer
+        opt.zero_grad(set_to_none=True)
+
+        def loss_fn(t, v, m, tm):
+            return self._loss(t, v, m, traj_mask=tm, generator=gen,
+                              training=True)
+        sl = self._rows(times.shape[0])
+        if sl is None:
+            loss = loss_fn(times, values, mask, traj_mask)
+        else:
+            loss = self._shard_loss(loss_fn, times, values, mask, traj_mask,
+                                    sl)
+        loss.backward()
+        if sl is not None:
+            self._reduce_grads()
+        opt.step()
+        return loss.detach()
 
     def _epoch_update(self, times, values, mask, epoch: int,
                       batch_size: Optional[int], shuffle: bool
                       ) -> torch.Tensor:
         """One composed epoch: a step of apply + loss + autograd + Adam per
         minibatch (reference utils/training.py:33-103).  Returns the mean of
-        the minibatch losses, on the device."""
+        the minibatch losses, on the device.  Under a mesh every rank runs
+        the same minibatches, each on its rows, with the gradients summed
+        before every step."""
         n = times.shape[0]
-        gen = self._dropout_generator(epoch)
         self.model.train()
-        opt = self.optimizer
         if batch_size is None or batch_size >= n:
-            opt.zero_grad(set_to_none=True)
-            loss = self._loss(times, values, mask, generator=gen,
-                              training=True)
-            loss.backward()
-            opt.step()
-            return loss.detach()
+            sharded = self._rows(n) is not None
+            loss = self._step(times, values, mask, None,
+                              self._dropout_generator(epoch, sharded))
+            return self._sum_over_ranks(loss) if sharded else loss
         idx, valid = self._minibatches(epoch, n, batch_size, shuffle)
-        losses = []
-        for ids, vm in zip(idx, valid):
-            opt.zero_grad(set_to_none=True)
-            loss = self._loss(times[ids], values[ids], mask[ids],
-                              traj_mask=vm, generator=gen, training=True)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses).mean()
+        sharded = self._rows(batch_size) is not None
+        gen = self._dropout_generator(epoch, sharded)
+        losses = torch.stack([
+            self._step(times[ids], values[ids], mask[ids], vm, gen)
+            for ids, vm in zip(idx, valid)])
+        if sharded:
+            losses = self._sum_over_ranks(losses)
+        return losses.mean()
+
+    def _sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce_sum
+        x = x.clone()
+        all_reduce_sum([x])
+        return x
 
     def _kernel_hparams(self) -> dict:
         g = self.optimizer.param_groups[0]
@@ -404,7 +485,18 @@ class Trainer:
                                 device=self.device)
                      if mask is None else mask.to(self.device))
         with torch.no_grad():
-            return float(self._loss(times, values, mask_))
+            return float(self._eval_loss(
+                lambda t, v, m, tm: self._loss(t, v, m, traj_mask=tm),
+                times, values, mask_))
+
+    def _eval_loss(self, loss_fn, times, values, mask) -> torch.Tensor:
+        """An evaluation loss over a whole batch; under a mesh each rank
+        takes its rows and the shares are summed (the global mean)."""
+        sl = self._rows(times.shape[0])
+        if sl is None:
+            return loss_fn(times, values, mask, None)
+        return self._sum_over_ranks(
+            self._shard_loss(loss_fn, times, values, mask, None, sl))
 
     # ----------------------------------------------------- relative loss
 
@@ -449,8 +541,9 @@ class Trainer:
 
     def compute_relative_loss(self, rel) -> float:
         with torch.no_grad():
-            L_model = float(self._loss_no_first(rel["times"], rel["values"],
-                                                rel["mask"]))
+            L_model = float(self._eval_loss(
+                lambda t, v, m, tm: self._loss_no_first(t, v, m),
+                rel["times"], rel["values"], rel["mask"]))
             L_true = float(nj_ode_loss_dense(
                 rel["values"], rel["y_true"], rel["y_true_before"],
                 rel["mask"], moment_weights=self.moment_weights,
@@ -464,8 +557,28 @@ class Trainer:
                             n_slots: Optional[int] = None,
                             mask: Optional[torch.Tensor] = None) -> None:
         """Raise, listing every problem, when the whole-run kernel cannot
-        train this setup (``njode_tpu/utils/training.py:379-416``, with the
-        port's own gates on the shapes and on the batch's ``mask``)."""
+        train this setup."""
+        problems = self._train_kernel_problems(batch_size, n_slots, mask)
+        if problems:
+            raise ValueError("train kernel not applicable: "
+                             + "; ".join(problems))
+
+    def _walk_train_check(self, batch_size: Optional[int],
+                          n_slots: Optional[int] = None,
+                          mask: Optional[torch.Tensor] = None) -> None:
+        """Raise, listing every problem, when the walk-train kernel cannot
+        train this setup."""
+        problems = self._walk_train_problems(batch_size, n_slots, mask)
+        if problems:
+            raise ValueError("train kernel (walk twin) not applicable: "
+                             + "; ".join(problems))
+
+    def _train_kernel_problems(self, batch_size: Optional[int],
+                               n_slots: Optional[int] = None,
+                               mask: Optional[torch.Tensor] = None) -> list:
+        """Every reason the whole-run kernel cannot train this setup
+        (``njode_tpu/utils/training.py:379-416``, with the port's own gates
+        on the shapes and on the batch's ``mask``)."""
         from ..ops.train_kernel import (MAX_HIDDEN, batch_size_ok,
                                         kernel_fits, train_kernel_available)
         m = self.model
@@ -497,23 +610,22 @@ class Trainer:
             problems.append("ignore_first_continuity must be enabled")
         if self.extended_moments:
             problems.append("extended_moments unsupported")
+        if self.mesh is not None:
+            problems.append("data/model-parallel meshes unsupported")
         if not batch_size_ok(batch_size):
             problems.append("batch_size must be given (a positive integer)")
         if mask is not None and not bool(mask.all()):
             problems.append("the batch has padded slots (its mask is not "
                             "all True); the kernel takes every slot as an "
                             "observation")
-        problems += self._kernel_opts_problems()
-        if problems:
-            raise ValueError("train kernel not applicable: "
-                             + "; ".join(problems))
+        return problems + self._kernel_opts_problems()
 
-    def _walk_train_check(self, batch_size: Optional[int],
-                          n_slots: Optional[int] = None,
-                          mask: Optional[torch.Tensor] = None) -> None:
-        """Raise, listing every problem, when the walk-train kernel cannot
-        train this setup (``njode_tpu/utils/training.py:461-512``, with the
-        port's own shape gate and the batch's ``mask``)."""
+    def _walk_train_problems(self, batch_size: Optional[int],
+                             n_slots: Optional[int] = None,
+                             mask: Optional[torch.Tensor] = None) -> list:
+        """Every reason the walk-train kernel cannot train this setup
+        (``njode_tpu/utils/training.py:461-512``, with the port's own shape
+        gate and the batch's ``mask``)."""
         from ..ops.walk_train import (MAX_BATCH, MAX_HIDDEN,
                                       walk_train_available,
                                       walk_train_shapes_ok)
@@ -542,6 +654,8 @@ class Trainer:
             problems.append("ignore_first_continuity must be enabled")
         if self.extended_moments:
             problems.append("extended_moments unsupported")
+        if self.mesh is not None:
+            problems.append("data/model-parallel meshes unsupported")
         if not walk_train_shapes_ok(m.hidden_dim, batch_size,
                                     n_slots if n_slots is not None else 2,
                                     walk_cells(m), m.ode_solver):
@@ -555,10 +669,7 @@ class Trainer:
             problems.append("the batch has padded slots (its mask is not "
                             "all True); the kernel takes every slot as an "
                             "observation")
-        problems += self._kernel_opts_problems()
-        if problems:
-            raise ValueError("train kernel (walk twin) not applicable: "
-                             + "; ".join(problems))
+        return problems + self._kernel_opts_problems()
 
     def _mxu_dtype(self) -> str:
         return self.train_kernel_opts.get("mxu_dtype", "float32")
@@ -602,22 +713,44 @@ class Trainer:
                     mask: Optional[torch.Tensor] = None) -> bool:
         """Resolve ``use_train_kernel`` for a batch of this run, with the
         check of the model's twin."""
+        return self._kernel_decline(batch_size, n_slots, mask) is None
+
+    def _kernel_decline(self, batch_size: Optional[int], n_slots: int,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> Optional[str]:
+        """None where the whole-run kernel of the model's twin trains a
+        batch of this run, else the first reason it does not.  Under
+        ``use_train_kernel=True`` a setup it cannot train raises, listing
+        every problem."""
         if self.use_train_kernel is False:
-            return False
-        check = (self._walk_train_check if self._twin() == "walk"
-                 else self._train_kernel_check)
-        if self.use_train_kernel == "auto":
-            if self.device.type != "cuda":
-                return False
-            try:
-                check(batch_size, n_slots, mask)
-            except ValueError:
-                return False
-            return True
-        check(batch_size, n_slots, mask)
-        return True
+            return "--kernels is not 'train' or 'auto'"
+        walk = self._twin() == "walk"
+        if self.use_train_kernel != "auto":
+            (self._walk_train_check if walk else self._train_kernel_check)(
+                batch_size, n_slots, mask)
+            return None
+        if self.device.type != "cuda":
+            return "not on a CUDA device"
+        problems = (self._walk_train_problems if walk
+                    else self._train_kernel_problems)(batch_size, n_slots,
+                                                      mask)
+        return problems[0] if problems else None
 
     # ---------------------------------------------------------------- train
+
+    def _say(self, *args, **kw) -> None:
+        """print on the primary rank (every print without a mesh)."""
+        from ..parallel import is_primary
+        if is_primary():
+            print(*args, **kw)
+
+    def _step_rows(self, n: int, batch_size: Optional[int]) -> int:
+        """The rows a training step gives the model: a minibatch (every
+        minibatch has ``batch_size`` rows, ``_minibatches`` pads), or this
+        rank's share of it under a mesh."""
+        rows = n if batch_size is None or batch_size >= n else batch_size
+        sl = self._rows(rows)
+        return rows if sl is None else sl.stop - sl.start
 
     def train(self, train_data_fn: Callable,
               val_data_fn: Optional[Callable] = None, n_epochs: int = 100,
@@ -625,27 +758,30 @@ class Trainer:
               print_every: int = 10, save_path: Optional[str] = None,
               resume_from_checkpoint: bool = True,
               config: Optional[Dict] = None) -> Dict:
-        """The epoch loop (reference utils/training.py:126-287)."""
+        """The epoch loop (reference utils/training.py:126-287).  Under a
+        mesh every rank runs it, rank 0 alone printing, and checkpoints are
+        collective (:func:`..checkpoint.save_checkpoint`)."""
+        say = self._say
         start_epoch = 0
         if resume_from_checkpoint and checkpoint_exists(save_path):
-            print(f"Found existing checkpoint at {save_path}")
+            say(f"Found existing checkpoint at {save_path}")
             try:
                 self.load_model(save_path)
                 start_epoch = len(self.train_losses)
                 best = min(self.train_losses) if self.train_losses else float("nan")
-                print(f"Resuming from epoch {start_epoch} "
-                      f"(previous best loss: {best:.6f})")
+                say(f"Resuming from epoch {start_epoch} "
+                    f"(previous best loss: {best:.6f})")
                 if start_epoch >= n_epochs:
-                    print(f"Training already completed ({start_epoch} >= "
-                          f"{n_epochs} epochs)")
+                    say(f"Training already completed ({start_epoch} >= "
+                        f"{n_epochs} epochs)")
                     return {"train_loss": self.train_losses,
                             "val_loss": self.val_losses,
                             "epoch_times": self.epoch_times,
                             "relative_loss": self.relative_losses,
                             "resumed_from_checkpoint": True}
             except Exception as e:  # fresh training, like the reference
-                print(f"Warning: Could not load checkpoint ({e}). "
-                      f"Starting fresh training.")
+                say(f"Warning: Could not load checkpoint ({e}). "
+                    f"Starting fresh training.")
                 start_epoch = 0
                 self.train_losses, self.val_losses = [], []
                 self.epoch_times, self.relative_losses = [], []
@@ -668,24 +804,38 @@ class Trainer:
             times, values, mask, _ = as_dense(
                 _call_data_fn(train_data_fn, epoch), self.device)
             if use_kernel is None or (use_kernel and not bool(mask.all())):
-                use_kernel = self._use_kernel(batch_size, times.shape[1],
-                                              mask)
+                first = use_kernel is None
+                decline = self._kernel_decline(batch_size, times.shape[1],
+                                               mask)
+                use_kernel = decline is None
                 kernel = ("walk-train kernel" if self._twin() == "walk"
                           else "whole-run kernel")
                 if self._mxu_dtype() != "float32":
                     kernel += f" ({self._mxu_dtype()} products)"
-                # every minibatch has batch_size rows (_minibatches pads)
+                rows = self._step_rows(times.shape[0], batch_size)
                 forced = self.model._forced_route()
                 comp = ("composed (fused-step kernels)"
-                        if self.model._use_fused_step(times.shape[1],
-                                                      batch_size)
+                        if self.model._use_fused_step(times.shape[1], rows)
                         else f"composed (forced {forced})" if forced
                         else "composed")
-                print(f"Training path: "
-                      f"{kernel if use_kernel else comp} "
-                      f"from epoch {epoch} (use_train_kernel="
-                      f"{self.use_train_kernel!r}, device {self.device})",
-                      flush=True)
+                if self.mesh is not None:
+                    comp += (f", data-parallel over {self.mesh.n_data} "
+                             f"ranks ({self.mesh.backend})")
+                say(f"Training path: "
+                    f"{kernel if use_kernel else comp} "
+                    f"from epoch {epoch} (use_train_kernel="
+                    f"{self.use_train_kernel!r}, device {self.device})",
+                    flush=True)
+                if first:
+                    # one kernel report a train() call
+                    # (njode_tpu/utils/training.py:566-601)
+                    from ..ops.report import kernel_report
+                    say(kernel_report(
+                        self.model, n_rows=rows, n_slots=times.shape[1],
+                        train_kernel=decline or "on" + (
+                            " (walk twin)" if self._twin() == "walk"
+                            else "")),
+                        flush=True)
             if use_kernel:
                 loss = self._kernel_epoch(times, values, epoch, batch_size,
                                           shuffle)
@@ -726,7 +876,7 @@ class Trainer:
                 msg += f" | Time: {epoch_time:.2f}s"
                 if start_epoch > 0 and epoch == start_epoch:
                     msg += " (resumed)"
-                print(msg, flush=True)
+                say(msg, flush=True)
                 if save_path is not None:
                     self.save_model(save_path)
 
@@ -743,8 +893,12 @@ class Trainer:
                 "relative_loss": self.relative_losses}
 
     def save_model(self, path: str):
+        """Write a checkpoint (collective under a mesh: every rank calls
+        it; ``checkpoint_backend`` "msgpack" is one file from rank 0,
+        "orbax" a ``torch.distributed.checkpoint`` directory)."""
         save_checkpoint(path, self.model.state_dict(),
-                        self.optimizer.state_dict(), self._histories())
+                        self.optimizer.state_dict(), self._histories(),
+                        backend=self.checkpoint_backend)
 
     def load_model(self, path: str):
         sd, osd, hist = load_checkpoint(path, map_location=self.device)
@@ -763,20 +917,16 @@ class Trainer:
 def _refuse_unported(config: Dict) -> None:
     """NotImplementedError for every config option whose path is not
     ported, naming its ROADMAP.md item."""
-    # ensembles run; the JAX package turns a device request beside one into
-    # a model-axis mesh for the seed axis, which is item 12 too
-    if (int(config.get("data_parallel", 0) or 0) > 1
-            or int(config.get("model_parallel", 1) or 1) > 1
-            or config.get("multihost", False)):
-        raise NotImplementedError(
-            "data/model parallelism and multi-host runs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 12)")
-    # "msgpack" names the JAX package's single-file checkpoint; the port's
-    # single file is a torch.save bundle
-    if config.get("checkpoint_backend", "msgpack") != "msgpack":
-        raise NotImplementedError("Orbax checkpoints are not ported; the "
-                                  "port writes one torch.save file "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    if (int(config.get("model_parallel", 1) or 1) > 1
+            or config.get("model_parallel_mode")):
+        from ..parallel.mesh import _model_axis_refusal
+        raise _model_axis_refusal(
+            f"model_parallel={config.get('model_parallel')}, "
+            f"model_parallel_mode={config.get('model_parallel_mode')!r}")
+    if config.get("checkpoint_backend", "msgpack") not in ("msgpack",
+                                                           "orbax"):
+        raise ValueError(f"Unknown checkpoint backend: "
+                         f"{config.get('checkpoint_backend')}")
     up = config.get("use_pallas", False)
     if up in ("interpret", "step-interpret"):
         raise NotImplementedError(
@@ -793,23 +943,24 @@ def walk_cells(model) -> int:
 
 
 def _resolve_grid_walk(config: Dict, device: torch.device,
-                       use_pallas_cfg=None) -> bool:
+                       use_pallas_cfg=None, single_device: bool = True
+                       ) -> bool:
     """The grid-walk policy (``njode_tpu/utils/training.py:1162-1219``):
     "on" walks, "off" keeps the per-gap loops, and "auto" walks exactly
     where a CUDA kernel carries the walk: the model on ``cuda``, kernels
     asked for (use_pallas "auto", "train" or True), the config eligible for
     the walk kernels (euler) or the walk-train kernel (heun, rk4), and the
-    data aligned to the grid.  The port runs one model on one device, so the
-    JAX package's single-device condition always holds.  Off the card
-    "auto" resolves off, as the JAX package does off the TPU."""
+    data aligned to the grid, on a single device (``single_device``: no
+    mesh and no ensemble, ``njode_tpu/utils/training.py:1383``).  Off the
+    card "auto" resolves off, as the JAX package does off the TPU."""
     setting = config.get("grid_walk", "auto")
     dt = config.get("dt_ode_step")
     if dt is None or setting in (False, "off", None):
         return False
     if setting in (True, "on"):
         return True
-    if device.type != "cuda" or use_pallas_cfg not in ("auto", "train",
-                                                       True):
+    if (device.type != "cuda" or not single_device
+            or use_pallas_cfg not in ("auto", "train", True)):
         return False
     if (config.get("compute_dtype") not in (None, "float32", "none")
             or int(config.get("ensemble", 0) or 0) > 1
@@ -855,10 +1006,10 @@ def _grid_walk_aligned(config: Dict) -> bool:
 
 
 def _use_grid_walk(config: Dict, device: torch.device,
-                   use_pallas_cfg=None) -> bool:
+                   use_pallas_cfg=None, single_device: bool = True) -> bool:
     """Resolve the grid walk and refuse a misaligned "on" from the static
     config (``njode_tpu/utils/training.py:1235-1255``)."""
-    if not _resolve_grid_walk(config, device, use_pallas_cfg):
+    if not _resolve_grid_walk(config, device, use_pallas_cfg, single_device):
         return False
     if not _grid_walk_aligned(config):
         data = config.get("data", {})
@@ -873,10 +1024,31 @@ def _use_grid_walk(config: Dict, device: torch.device,
     return True
 
 
+def _rank_devices(config: Dict, n: int) -> Optional[list]:
+    """Each rank's device from the config's "device": "cpu" puts every
+    rank on the CPU and "cuda:K" every rank on card K (ranks that share a
+    device talk over gloo); "auto" or "cuda" gives rank r a card of its own
+    (None: the launcher's default, NCCL)."""
+    dev = config.get("device", "auto")
+    if dev in (None, "auto", "cuda"):
+        return None
+    return [str(torch.device(dev))] * n
+
+
 def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
-    """A whole training experiment (reference utils/training.py:349-438), one
-    model on one device: ``runs/<experiment_name>/{config.json, model.ckpt,
-    history.json}``."""
+    """A whole training experiment (reference utils/training.py:349-438):
+    ``runs/<experiment_name>/{config.json, model.ckpt, history.json}``.
+
+    Scale-out (``njode_tpu/utils/training.py:1275-1333``): ``multihost``
+    joins the process group first (:func:`..parallel.initialize_distributed`).
+    Inside a group of several ranks (torchrun, ``multihost``, or spawned
+    here) the run is this rank's share of a data-parallel run over every
+    rank; rank 0 writes the files and prints.  Without a group,
+    ``data_parallel`` N > 1 spawns N ranks (:func:`..parallel.launch`, the
+    config's "device" placing them: :func:`_rank_devices`) and returns rank
+    0's result.  An ensemble beside a device request spreads its members
+    over the ranks."""
+    from ..parallel.mesh import world
     if (config.get("extended_moments", False)
             and config.get("data", {}).get("process_type") == "heston"):
         # the refusal moments_at_obs raises, before any work
@@ -903,13 +1075,58 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         raise ValueError(
             "--kernels train is a single-model strategy; ensembles run "
             "the (measured-faster) XLA vmapped path — drop one flag")
-    # config "device": "auto" or absent means cuda (raising without one),
-    # "cpu" the CPU, any other torch device string as given
-    device = resolve_device(config.get("device", "auto"))
+    multihost = bool(config.get("multihost", False))
+    if multihost:
+        from ..parallel import initialize_distributed
+        initialize_distributed(
+            coordinator_address=config.get("coordinator_address"),
+            num_processes=config.get("num_processes"),
+            process_id=config.get("process_id"))
+    rank, size = world()
+    n_dp = int(config.get("data_parallel", 0) or 0)
+    n_dev = size if multihost else n_dp
+    if n_ensemble > 1 and n_dev > 1 and n_ensemble % n_dev:
+        # njode_tpu/utils/training.py:1318-1325
+        raise ValueError(
+            f"--ensemble {n_ensemble} cannot shard over {n_dev} "
+            f"devices: the member count must be a multiple of the "
+            f"device count (ensemble runs parallelize over the seed "
+            f"axis). Use --ensemble {n_dev * max(1, n_ensemble // n_dev)} "
+            f"or adjust --data-parallel.")
+    if size == 1 and n_dp > 1:
+        from ..parallel import launch
+        return launch(run_experiment, n_dp, args=(given, save_dir),
+                      devices=_rank_devices(config, n_dp))[0]
+    if size > 1 and n_dp > 1 and n_dp != size:
+        raise ValueError(f"--data-parallel {n_dp} in a world of {size} "
+                         "ranks: one rank a device")
+    with contextlib.redirect_stdout(
+            io.StringIO()) if rank else contextlib.nullcontext():
+        return _run_experiment(given, config, save_dir, n_ensemble, up)
+
+
+def _run_experiment(given: Dict, config: Dict, save_dir: str,
+                    n_ensemble: int, up) -> Dict:
+    """``run_experiment`` on this process: one model on one device, or this
+    rank's share of a run over every rank of the group."""
+    from ..parallel import is_primary, make_mesh
+    from ..parallel.mesh import world
+    rank, size = world()
+    mesh = None
+    if size > 1:
+        mesh = make_mesh(data=size, devices=_rank_devices(config, size))
+        print(f"Distributed: {size} ranks (data axis {size}, model axis 1), "
+              f"backend {mesh.backend}, rank 0 on {mesh.device}", flush=True)
+        device = mesh.device
+    else:
+        # config "device": "auto" or absent means cuda (raising without
+        # one), "cpu" the CPU, any other torch device string as given
+        device = resolve_device(config.get("device", "auto"))
     save_path = Path(save_dir) / config["experiment_name"]
-    save_path.mkdir(parents=True, exist_ok=True)
-    with open(save_path / "config.json", "w") as f:
-        json.dump(given, f, indent=2)
+    if is_primary():
+        save_path.mkdir(parents=True, exist_ok=True)
+        with open(save_path / "config.json", "w") as f:
+            json.dump(given, f, indent=2)
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
@@ -944,11 +1161,14 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         # dt_ode_step routes to the walk-train kernel, which needs the same
         # grid promise (njode_tpu/utils/training.py:1381-1384); "auto"
         # keeps an ensemble off the walk, "on" walks it
-        grid_walk=_use_grid_walk(config, device, up),
+        grid_walk=_use_grid_walk(
+            config, device, up,
+            single_device=(mesh is None and n_ensemble <= 1)),
         device=device,
         generator=torch.Generator().manual_seed(int(config.get("seed", 0))))
     if n_ensemble > 1:
-        return _run_ensemble_experiment(config, model, save_path, n_ensemble)
+        return _run_ensemble_experiment(config, model, save_path, n_ensemble,
+                                        mesh=mesh)
     optimizer = make_adam(model.parameters(), config["learning_rate"],
                           config["weight_decay"])
     trainer = Trainer(
@@ -957,7 +1177,9 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         moment_weights=config.get("moment_weights"),
         variance_method=config.get("variance_method", "direct"),
         extended_moments=config.get("extended_moments", False),
-        seed=config.get("seed", 0), use_train_kernel=use_train_kernel,
+        mesh=mesh, seed=config.get("seed", 0),
+        checkpoint_backend=config.get("checkpoint_backend", "msgpack"),
+        use_train_kernel=use_train_kernel,
         train_kernel_opts={"mxu_dtype": config.get("train_kernel_mxu",
                                                    "float32")})
     train_data_fn, val_data_fn = create_data_loaders(
@@ -974,8 +1196,9 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
         save_path=str(save_path / "model.ckpt"),
         resume_from_checkpoint=config.get("resume_from_checkpoint", True),
         config=config)
-    with open(save_path / "history.json", "w") as f:
-        json.dump(history, f, indent=2)
+    if is_primary():
+        with open(save_path / "history.json", "w") as f:
+            json.dump(history, f, indent=2)
     print(f"Experiment completed. Results saved to {save_path}")
     return {"config": config, "history": history,
             "save_path": str(save_path),
@@ -1092,7 +1315,7 @@ def _check_ensemble_state(model, stack, opt_states, n_seeds: int) -> None:
 
 
 def _run_ensemble_experiment(config: Dict, model, save_path,
-                             n_seeds: int) -> Dict:
+                             n_seeds: int, mesh=None) -> Dict:
     """``run_experiment`` for ``config['ensemble'] = K > 1``
     (``njode_tpu/utils/training.py:1527-1741``): K members train with the
     experiment's recipe (:func:`..ensemble.train_ensemble_full`), each
@@ -1103,13 +1326,17 @@ def _run_ensemble_experiment(config: Dict, model, save_path,
     (means over the members) plus ``member_train_loss`` /
     ``member_val_loss`` / ``member_relative_loss``.  ``ensemble_lrs`` trains
     a population: the members differ in learning rate, share the data
-    stream, and the best is printed and kept."""
+    stream, and the best is printed and kept.  ``mesh``: each rank trains
+    its block of the members (``njode_tpu/utils/training.py:1527-1545``);
+    the checkpoints are collective, rank 0 writes history.json."""
+    from ..parallel import is_primary
     from .ensemble import init_ensemble, population_adam, train_ensemble_full
 
     data = dict(config["data"])
     n_epochs = config["n_epochs"]
     print_every = config.get("print_every", 10)
     ckpt_path = str(save_path / "model.ckpt")
+    backend = config.get("checkpoint_backend", "msgpack")
     lrs = config.get("ensemble_lrs") or None
     member_hparams = None
     if lrs is not None:
@@ -1239,7 +1466,7 @@ def _run_ensemble_experiment(config: Dict, model, save_path,
             msg += " (resumed)"
         first_chunk[0] = False
         print(msg, flush=True)
-        save_checkpoint(ckpt_path, p, o, ckpt_histories())
+        save_checkpoint(ckpt_path, p, o, ckpt_histories(), backend=backend)
 
     params_stack, opt_states, _ = train_ensemble_full(
         model, data["process_type"], n_seeds=n_seeds, n_epochs=n_epochs,
@@ -1255,7 +1482,7 @@ def _run_ensemble_experiment(config: Dict, model, save_path,
         n_val=n_val, rel_eval=rel_eval, share_data=share_data,
         member_hparams=member_hparams, start_epoch=start_epoch,
         initial_state=initial_state, chunk_len=print_every,
-        on_chunk=on_chunk,
+        on_chunk=on_chunk, mesh=mesh,
         **{k: v for k, v in data.items()
            if k not in ("process_type", "n_train", "n_val", "obs_fraction",
                         "cache_data", "obs_only")})
@@ -1266,8 +1493,10 @@ def _run_ensemble_experiment(config: Dict, model, save_path,
           f"{[round(x, 4) for x in member_rows['train'][-1]]}")
     if lrs is not None:
         _print_population_winner(lrs, member_rows)
-    save_checkpoint(ckpt_path, params_stack, opt_states, ckpt_histories())
-    with open(save_path / "history.json", "w") as f:
-        json.dump(history, f, indent=2)
+    save_checkpoint(ckpt_path, params_stack, opt_states, ckpt_histories(),
+                    backend=backend)
+    if is_primary():
+        with open(save_path / "history.json", "w") as f:
+            json.dump(history, f, indent=2)
     print(f"Experiment completed. Results saved to {save_path}")
     return result(history, params_stack)

@@ -194,19 +194,35 @@ def test_cli_rerun_resumes(tmp_path, monkeypatch, capsys):
         "*.png"))
 
 
-def test_cli_refuses_unported_flags(tmp_path, monkeypatch):
-    """--ensemble trains now (it was refused here): a tiny --ensemble 2 run
-    writes the member matrices; the scale-out flags are still refused."""
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capfd):
+    """--ensemble trains (it was refused here): a tiny --ensemble 2 run
+    writes the member matrices.  So do the scale-out flags now:
+    --data-parallel 2 spawns two gloo ranks on the CPU (rank 0 prints and
+    writes the run), --checkpoint-backend orbax writes a
+    torch.distributed.checkpoint directory that a rerun resumes from; the
+    model axis (--model-parallel 2) raises naming item 12b."""
     monkeypatch.chdir(tmp_path)
     experiment_black_scholes.main(TINY + ["--no-plots", "--ensemble", "2"])
     history = json.loads((tmp_path / "runs" / "njode_black_scholes"
                           / "history.json").read_text())
     assert np.asarray(history["member_train_loss"]).shape == (4, 2)
     assert history["n_ensemble"] == 2
-    for extra, item in ((["--data-parallel", "2"], "item 12"),
-                        (["--checkpoint-backend", "orbax"], "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            experiment_black_scholes.main(TINY + ["--no-plots", *extra])
+    res = experiment_black_scholes.main(
+        TINY + ["--no-plots", "--data-parallel", "2", "--experiment-name",
+                "dp"])
+    assert len(res["history"]["train_loss"]) == 4
+    assert "Distributed: 2 ranks" in capfd.readouterr().out
+    assert (tmp_path / "runs" / "dp" / "history.json").is_file()
+    for n_epochs in ("4", "5"):
+        argv = TINY + ["--no-plots", "--checkpoint-backend", "orbax",
+                       "--experiment-name", "dcp", "--n-epochs", n_epochs]
+        res = experiment_black_scholes.main(argv)
+    assert (tmp_path / "runs" / "dcp" / "model.ckpt").is_dir()
+    assert "Resuming from epoch 4" in capfd.readouterr().out
+    assert len(res["history"]["train_loss"]) == 5
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        experiment_black_scholes.main(TINY + ["--no-plots",
+                                              "--model-parallel", "2"])
 
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):

@@ -204,14 +204,32 @@ def test_ensemble_state_bridge():
     port_model().load_state_dict(ens.member_state(ours, 2))
 
 
-def test_mesh_and_device_parallel_ensembles_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_ensemble(port_model(), "black_scholes", n_seeds=2, n_epochs=1,
-                       mesh=object(), **TRAIN_KW)
-    for over in (dict(multihost=True), dict(data_parallel=2)):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            run_experiment(dict(ens_config(), **over),
-                           save_dir=str(tmp_path))
+def test_mesh_and_device_parallel_ensembles_raise(tmp_path, monkeypatch):
+    """Ensembles over ranks train now (tests/test_torch_distributed.py; a
+    mesh raised here): a 1-rank mesh trains every member as no mesh does,
+    and --multihost in a single process runs as one.  What still raises:
+    --ensemble 3 beside --data-parallel 2 (the JAX package's message) and
+    the model axis (item 12b)."""
+    from njode_tpu_torch.parallel import make_mesh
+    ref = train_ensemble(port_model(), "black_scholes", n_seeds=2,
+                         n_epochs=1, **TRAIN_KW)
+    got = train_ensemble(port_model(), "black_scholes", n_seeds=2,
+                         n_epochs=1, mesh=make_mesh(devices=["cpu"]),
+                         **TRAIN_KW)
+    assert_stacks_equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError, match="cannot shard over 2 devices"):
+        run_experiment(dict(ens_config(), data_parallel=2),
+                       save_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        run_experiment(dict(ens_config(), model_parallel=2),
+                       save_dir=str(tmp_path))
+    for var in ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE",
+                "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    res = run_experiment(dict(ens_config(n_epochs=1), multihost=True),
+                         save_dir=str(tmp_path))
+    assert np.asarray(res["history"]["member_train_loss"]).shape == (1, 3)
 
 
 def test_kernels_train_with_an_ensemble_raises_as_jax(tmp_path):

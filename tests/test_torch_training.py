@@ -313,13 +313,16 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over,match", [
-    # ensembles train now (the case was dict(ensemble=4)); beside a device
-    # request they are item 12's
-    (dict(ensemble=4, data_parallel=2), "parallelism"),
-    (dict(data_parallel=2), "parallelism"),
-    (dict(multihost=True), "parallelism"),
+    # ensembles, data parallelism, multi-host runs and the "orbax"
+    # checkpoints train now (tests/test_torch_parallel.py,
+    # tests/test_torch_distributed.py; these cases refused them); beside
+    # them the model axis is item 12b's
+    (dict(ensemble=4, data_parallel=2, model_parallel=2), "item 12b"),
+    (dict(data_parallel=2, model_parallel=2), "item 12b"),
+    (dict(multihost=True, model_parallel_mode="hidden"), "item 12b"),
     (dict(use_pallas="step-interpret"), "not ported"),
-    (dict(checkpoint_backend="orbax"), "Orbax"),
+    (dict(checkpoint_backend="orbax", model_parallel_mode="moments"),
+     "item 12b"),
     # every process family trains now (the OU process was refused here):
     # this case holds the other interpret mode
     (dict(use_pallas="interpret"), "not ported"),
