@@ -334,6 +334,23 @@ uncaught exception and a nonzero exit:
    group); with two or more cards, two NCCL ranks on cards of their own
    against phase 41's gloo ranks; with one card the line says it did not
    run.
+46-49. the mesh's model axis (njode_tpu_torch/parallel/model_axis.py,
+   --model-parallel 2), every rank on card 0 over gloo: one world of two
+   ranks (a 1 x 2 mesh) for 46-48, one of four (a 2 x 2 mesh) for 49.  46:
+   "moments", the scaled recipe under --kernels step: the first 3
+   minibatches against phase 41's one process (phase 41's limits, and
+   whether bitwise), rows 9-10 once a step on each rank with Kn 1, one
+   gather a step; one epoch of run_experiment.  47: the same under
+   "hidden", rows 9-10 on the gathered networks, the bytes each rank
+   holds.  48: the forced default recipe under "moments", 2 epochs (row 6
+   on K_h 1 a rank) with a resume from 1 equal to the uninterrupted run;
+   the forced production flags under "hidden", 1 epoch (rows 3 and 5 once
+   a step, row 1 in validation); each checkpoint loads into one process on
+   the card, whose predict_at is held against the mesh model's.  49: a 2 x
+   2 mesh (--data-parallel 2 --model-parallel 2): the first steps against
+   one process, one gradient all-reduce a step over the data group; one
+   epoch.  Each prints its wall, device time, the card's idle share and
+   the gather's ms.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -345,10 +362,11 @@ for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
 separate-network path) and the walk-train kernel, 18 for the fused-step
 kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
-call or run, 41-45 a window a run on each rank, every row's count read in
+call or run, 41-49 a window a run on each rank, every row's count read in
 each) and read just after.  The last line is the JSON result; the line
 before it lists the kernels, each with its main path's launches and, under
-"also", the launches of the other windows that ran it in phases 35-43.  There is no CPU run: without a CUDA
+"also", the launches of the other windows that ran it in phases 35-43 and
+46-49 (those of 46-49 marked "model axis:").  There is no CPU run: without a CUDA
 device the script fails.
 """
 
@@ -4994,29 +5012,35 @@ def device_busy(prof) -> tuple[float, int]:
     return sum(durations) / 1e6, len(durations)
 
 
-def dp_first_steps(dev: torch.device, mesh=None) -> dict:
+def dp_first_steps(dev: torch.device, mesh=None, mode: str = "none"
+                   ) -> dict:
     """Phase 41's first DP_STEPS minibatches of the scaled recipe (epoch 0
     of data seed 8, shuffled, 4,096 rows a step, --kernels step) from the
     weights of seed 4, one Trainer step a minibatch: each rank its 2,048
-    rows under a mesh.  The per-step losses (summed over the ranks), the
-    parameters, and the steps' wall and device ms (torch.profiler)."""
+    rows under a data axis of 2, its part of the model under the model
+    axis's ``mode`` (phases 46-49).  The per-step losses (summed over the
+    data axis), the parameters (the one-process layout), the steps' wall
+    and device ms (torch.profiler), the model axis's gathers and what the
+    rank holds."""
     from torch.profiler import ProfilerActivity, profile
+    from njode_tpu_torch.parallel import collectives
     cfg = scaled_config(1, "dp_steps")
     train_fn, _ = create_data_loaders(base_seed=8, device=dev, **cfg["data"])
     times, values, mask, _ = as_dense(train_fn(0), dev)
     model = scaled_model(dev, "step", seed=4)
     tr = Trainer(model, make_adam(model.parameters(), 1e-3, 5e-4),
                  ignore_first_continuity=True,
-                 moment_weights=list(SCALED_MW), mesh=mesh)
+                 moment_weights=list(SCALED_MW), mesh=mesh, model_shard=mode)
     idx, valid = tr._minibatches(0, times.shape[0], SCALED_BS, True)
     # one step of a copy first (the kernels' libraries, cuBLAS, the
     # allocator), so the timed steps are warm in a fresh rank too
-    warm = copy.deepcopy(model)
+    warm = scaled_model(dev, "step", seed=4)
     Trainer(warm, make_adam(warm.parameters(), 1e-3, 5e-4),
             ignore_first_continuity=True, moment_weights=list(SCALED_MW),
-            mesh=mesh)._step(times[idx[0]], values[idx[0]], mask[idx[0]],
-                             valid[0], None)
+            mesh=mesh, model_shard=mode)._step(
+                times[idx[0]], values[idx[0]], mask[idx[0]], valid[0], None)
     reset_counts()
+    collectives.GATHERS = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -5027,14 +5051,21 @@ def dp_first_steps(dev: torch.device, mesh=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = kernel_counts()
+    gathers = collectives.GATHERS
     device_ms, device_launches = device_busy(prof)
     if mesh is not None and mesh.n_data > 1:
         losses = tr._sum_over_ranks(losses)
+    params = tr.full_state()[0]
     return {"losses": losses.cpu(), "counts": counts, "wall": wall,
             "device_ms": device_ms, "device_launches": device_launches,
             "reductions": tr.grad_reductions, "n_params": model.n_params(),
-            "params": {k: v.detach().cpu()
-                       for k, v in model.named_parameters()}}
+            "gathers": gathers, "k_hidden": model.k_hidden,
+            "held": (tr.shard.held_bytes(tr.optimizer)
+                     if tr.shard is not None else None),
+            "split_floats": (sum(it.tensor.numel() for it in tr.shard.items
+                                 if it.kind == "rows") * mesh.n_model
+                             if tr.shard is not None else 0),
+            "params": {k: v.detach().cpu() for k, v in params.items()}}
 
 
 def dp_run(cfg: dict, save_dir: str, profile: bool = False) -> dict:
@@ -5298,7 +5329,7 @@ def data_parallel_phases(dev: torch.device, card: str, tmp: Path,
           f"the msgpack file and the torch.distributed.checkpoint directory "
           f"equal the uninterrupted run", flush=True)
     out.update(scaled=scaled, forced=forced, ensemble=ens,
-               loss_err=loss_err, single=single)
+               loss_err=loss_err, single=single, ref=ref)
     return out
 
 
@@ -5345,6 +5376,281 @@ def nccl_phase(dev: torch.device, card: str, gloo_ranks: list) -> dict:
                  "refuses two ranks on one card)")
     print(line, flush=True)
     return {"counts": one[0]["steps"]["counts"]}
+
+
+# ------------------------------------ the model axis over ranks (46-49)
+
+MP_DEVICES = ["cuda:0"] * 4    # every rank on card 0, over gloo
+MP_DEFAULT_EPOCHS = 2          # phase 48's forced default run and resume
+
+
+def mp_config(recipe: str, n_epochs: int, name: str, mode: str,
+              *extra: str) -> dict:
+    """A recipe's CLI config with --model-parallel 2 --model-parallel-mode
+    ``mode`` on card 0 (the ranks share it: gloo)."""
+    return recipe_config(recipe, n_epochs, name, *extra, "--model-parallel",
+                         "2", "--model-parallel-mode", mode, "--device",
+                         MP_DEVICES[0])
+
+
+def gather_ms(n_floats: int, mesh, reps: int = 20) -> float:
+    """Median ms of one gather of ``n_floats`` f32 over the model group (the
+    all-reduce of a zero-filled buffer), synchronized on both sides; every
+    rank of the group calls it."""
+    import torch.distributed as dist
+    buf = torch.zeros(n_floats, device=mesh.device)
+    out = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.model_group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def mp_model(cfg: dict, dev: torch.device) -> NeuralJumpODE:
+    """The model run_experiment builds for ``cfg`` under a mesh (no grid
+    walk beside a mesh)."""
+    model = recipe_model(cfg, dev)
+    model.grid_walk = False
+    return model
+
+
+def mp_predict(cfg: dict, save_dir: str, mesh, mode: str) -> torch.Tensor:
+    """predict_at on 256 of phase 4's streams from the checkpoint a mesh
+    run wrote, on this rank's part of the model (collective under
+    "moments")."""
+    model = mp_model(cfg, mesh.device)
+    tr = Trainer(model, make_adam(model.parameters(), 1e-3), mesh=mesh,
+                 model_shard=mode)
+    tr.load_model(str(Path(save_dir) / cfg["experiment_name"] / "model.ckpt"))
+    return model.predict_at(*batch_request(mesh.device, 256))["raw"].cpu()
+
+
+def mp_rank(tmp: str) -> dict:
+    """Phases 46-48 on one rank of a 1 x 2 mesh on card 0: the scaled
+    recipe's first steps and one epoch under "moments" (46) and "hidden"
+    (47); the forced default recipe under "moments" with its resume and
+    the forced production flags under "hidden", and predict_at from their
+    checkpoints (48); each in its own launch window."""
+    from njode_tpu_torch.parallel import make_mesh
+    entered = time.time()
+    mesh = make_mesh(data=1, model=2, devices=MP_DEVICES[:2])
+    out = {"entered": entered}
+    parts = {}
+    for mode in ("moments", "hidden"):
+        t0 = time.time()
+        out[f"steps_{mode}"] = dp_first_steps(mesh.device, mesh, mode)
+        out[f"scaled_{mode}"] = dp_run(mp_config("scaled", 1,
+                                                 f"mp_scaled_{mode}", mode),
+                                       tmp, True)
+        parts[mode] = time.time() - t0
+    out["gather_ms"] = {
+        "moments": gather_ms(SCALED_BS * 2 * 2 * 2, mesh),
+        "hidden": gather_ms(out["steps_hidden"]["split_floats"], mesh)}
+    t0 = time.time()
+    n = MP_DEFAULT_EPOCHS
+    default = mp_config("default", n, "mp_default", "moments", "--kernels",
+                        "force")
+    out["default"] = dp_run(default, tmp, True)
+    dp_run(mp_config("default", n - 1, "mp_default_r", "moments",
+                     "--kernels", "force"), tmp)
+    out["default_resume"] = dp_run(mp_config(
+        "default", n, "mp_default_r", "moments", "--kernels", "force"), tmp)
+    prod = mp_config("production", 1, "mp_forced", "hidden", "--kernels",
+                     "force", "--grid-walk", "off", "--dt-ode-step",
+                     str(PROD_DT))
+    out["forced"] = dp_run(prod, tmp, True)
+    out["predict"] = {"moments": mp_predict(default, tmp, mesh, "moments"),
+                      "hidden": mp_predict(prod, tmp, mesh, "hidden")}
+    out["configs"] = {"moments": default, "hidden": prod}
+    parts["forced"] = time.time() - t0
+    out["parts"] = parts
+    return out
+
+
+def mp_grid_rank(tmp: str) -> dict:
+    """Phase 49 on one rank of a 2 x 2 mesh on card 0: the scaled recipe's
+    first steps under "moments" (each rank 2,048 rows and one network) and
+    one epoch of run_experiment --data-parallel 2 --model-parallel 2."""
+    from njode_tpu_torch.parallel import make_mesh
+    entered = time.time()
+    mesh = make_mesh(data=2, model=2, devices=MP_DEVICES)
+    out = {"entered": entered,
+           "steps": dp_first_steps(mesh.device, mesh, "moments")}
+    out["scaled"] = dp_run(mp_config("scaled", 1, "mp_grid", "moments",
+                                     "--data-parallel", "2"), tmp, True)
+    return out
+
+
+def mp_steps_line(ranks: list, key: str, ref: dict, what: str) -> str:
+    """The first steps against one process (phase 41's limits), bitwise or
+    not, with each rank's launches."""
+    loss_share, param_share, err = dp_steps_check(
+        [{"steps": r[key]} for r in ranks], ref, what)
+    ours = ranks[0][key]
+    bitwise = (torch.equal(ours["losses"], ref["losses"]) and all(
+        torch.equal(ours["params"][k], v) for k, v in ref["params"].items()))
+    return (f"losses within {loss_share:.3f} of rtol {DP_LOSS_RTOL} (max "
+            f"abs err {err:.3e}), parameters within {param_share:.3f} of "
+            f"{DP_PARAM_NORM} of their norm, "
+            + ("bitwise equal to one process" if bitwise else
+               "not bitwise equal to one process") + "; "
+            f"{dp_phase_line([{key: r[key]} for r in ranks], key)}")
+
+
+def model_axis_phases(dev: torch.device, card: str, tmp: Path,
+                      dp: dict) -> dict:
+    """Phases 46-49: the mesh's model axis, every rank on card 0 over gloo:
+    one world of 2 ranks (a 1 x 2 mesh) for 46-48, one of 4 (a 2 x 2 mesh)
+    for 49, each path in its own window on each rank.
+
+    46. --model-parallel 2 ("moments"), the scaled recipe under --kernels
+        step: the first DP_STEPS minibatches against phase 41's one
+        process (phase 41's limits; bitwise or not, said), rows 9-10 once a
+        step on each rank with Kn 1; one epoch of run_experiment: rows 10
+        once a step and 9 with validation and relative loss on each rank.
+    47. the same under "hidden": rows 9-10 on the gathered networks (Kn 2);
+        the bytes of parameters and Adam state each rank holds.
+    48. the forced default recipe under "moments", 2 epochs: row 6 on each
+        rank (K_h 1), a resume from 1 equal to the uninterrupted run; the
+        forced production flags under "hidden", 1 epoch: rows 3 and 5 once
+        a step, row 1 in validation; each checkpoint loads into one
+        process on the card, whose predict_at equals the mesh model's.
+    49. a 2 x 2 mesh (--data-parallel 2 --model-parallel 2, "moments"):
+        the first steps against one process, one gradient all-reduce a
+        step over the data group, rows 9-10 on each rank; one epoch.
+
+    Each prints its wall, device time, idle share and gather ms."""
+    ref = dp["ref"]
+    single = dp["single"]
+    t0 = time.perf_counter()
+    ranks, secs, start = dp_launch(mp_rank, 2, args=(str(tmp),),
+                                   devices=MP_DEVICES[:2])
+    out = {"ranks": ranks}
+    for phase, mode, kn in ((46, "moments", 1), (47, "hidden", 2)):
+        for r in ranks:
+            st = r[f"steps_{mode}"]
+            expect_counts(f"phase {phase} steps, a rank",
+                          {9: DP_STEPS, 10: DP_STEPS}, st["counts"])
+            if st["k_hidden"] != kn or st["reductions"] != 0:
+                raise AssertionError(f"phase {phase}: K_h {st['k_hidden']}, "
+                                     f"{st['reductions']} reductions")
+            if st["gathers"] != DP_STEPS:
+                raise AssertionError(f"phase {phase}: {st['gathers']} "
+                                     f"gathers in {DP_STEPS} steps")
+        line = mp_steps_line(ranks, f"steps_{mode}", ref,
+                             f"phase {phase}, 1 x 2 mesh vs one process")
+        runs = [expect_counts(f"phase {phase} run_experiment, a rank",
+                              {10: SCALED_STEPS, 9: None},
+                              r[f"scaled_{mode}"]["counts"]) for r in ranks]
+        if min(c[9] for c in runs) < SCALED_STEPS + 2:
+            raise AssertionError(f"phase {phase}: row 9 {runs}")
+        text = ranks[0][f"scaled_{mode}"]["text"]
+        h = ranks[0][f"scaled_{mode}"]["res"]["history"]
+        if not (math.isfinite(h["train_loss"][0]) and
+                "Distributed: 2 ranks (data axis 1, model axis 2)" in text
+                and f"; {mode}:" in text):
+            raise AssertionError(f"phase {phase}: {h}, {text}")
+        held = ranks[0][f"steps_{mode}"]["held"]
+        extra = (f"; rank 0 holds {held['params']:,} B of parameters it "
+                 f"steps and {held['optimizer']:,} B of Adam state, beside "
+                 f"{held['module']:,} B of module weights the forward reads "
+                 f"(one process: {4 * ref['n_params']:,} B of parameters, "
+                 f"{8 * ref['n_params']:,} B of Adam moments)"
+                 if mode == "hidden" else "")
+        print(f"phase {phase}, scaled recipe --kernels step --model-parallel "
+              f"2 --model-parallel-mode {mode} (2 gloo ranks on {card}, "
+              f"K_h {kn} a rank; one world for phases 46-48, {secs:.1f} s, "
+              f"{start:.1f} s of it until both ranks ran; rank 0 s by part "
+              f"{ {k: round(v, 2) for k, v in ranks[0]['parts'].items()} }): "
+              f"the first {DP_STEPS} minibatches ({SCALED_BS:,} rows a rank) "
+              f"against one process from the same weights: {line} (one "
+              f"process: {1e3 * ref['wall']:.1f} ms of wall, "
+              f"{ref['device_ms']:.1f} ms device); a gather over the model "
+              f"group ({'the readout, ' + format(SCALED_BS * 8, ',') if mode == 'moments' else 'the blocks, ' + format(ranks[0]['steps_hidden']['split_floats'], ',')}"
+              f" f32) {ranks[0]['gather_ms'][mode]:.3f} ms; one epoch of "
+              f"run_experiment: {dp_phase_line(ranks, f'scaled_{mode}')} "
+              f"(one process: {single['scaled']:.2f} s); launches by rank "
+              f"{runs}{extra}", flush=True)
+        out[mode] = runs
+        out[f"steps_{mode}"] = [r[f"steps_{mode}"]["counts"] for r in ranks]
+
+    want6 = {6: MP_DEFAULT_EPOCHS * DEFAULT_STEPS + MP_DEFAULT_EPOCHS + 1}
+    dflt = [expect_counts("phase 48 forced default, a rank", want6,
+                          r["default"]["counts"]) for r in ranks]
+    full = ranks[0]["default"]["res"]["history"]
+    got = ranks[0]["default_resume"]
+    if ("Resuming from epoch 1" not in got["text"]
+            or got["res"]["history"]["train_loss"] != full["train_loss"]
+            or got["res"]["history"]["val_loss"] != full["val_loss"]):
+        raise AssertionError(f"phase 48: the resume differs: {got['text']}")
+    forced = [expect_counts("phase 48 forced production, a rank",
+                            {3: PROD_STEPS, 5: PROD_STEPS, 1: None},
+                            r["forced"]["counts"]) for r in ranks]
+    # the checkpoints in one process on the card: predict_at
+    errs = {}
+    for mode in ("moments", "hidden"):
+        cfg = ranks[0]["configs"][mode]
+        model = mp_model(cfg, dev)
+        sd, _, _ = load_checkpoint(str(tmp / cfg["experiment_name"]
+                                       / "model.ckpt"), map_location=dev)
+        model.load_state_dict(sd)
+        with torch.no_grad():
+            one = model.predict_at(*batch_request(dev, 256))["raw"].cpu()
+        for r in ranks:
+            errs[mode] = max(errs.get(mode, 0.0), assert_close(
+                r["predict"][mode], one, f"phase 48 {mode}: predict_at of "
+                "the mesh model vs one process", rtol=1e-5, atol=1e-6))
+    print(f"phase 48, forced runs on the 1 x 2 mesh: the default recipe "
+          f"--kernels force under moments, {MP_DEFAULT_EPOCHS} epochs: "
+          f"{dp_phase_line(ranks, 'default')}; launches by rank {dflt} (row "
+          f"6 on K_h 1 a rank; the default recipe has no dt_ode_step, so no "
+          f"row 1); a resume from epoch 1 equals the uninterrupted run; the "
+          f"production flags --kernels force under hidden, one epoch: "
+          f"{dp_phase_line(ranks, 'forced')} (one process: "
+          f"{single['forced']:.2f} s); launches by rank {forced}; each "
+          f"checkpoint (one file, the one-process layout) loads into one "
+          f"process on the card, predict_at on 256 streams x 21 queries "
+          f"within 1e-5 of the mesh model's (max abs err moments "
+          f"{errs['moments']:.3e}, hidden {errs['hidden']:.3e}); "
+          f"phases 46-48 {time.perf_counter() - t0:.1f} s", flush=True)
+    out.update(default=dflt, forced=forced)
+
+    t1 = time.perf_counter()
+    grid, secs4, start4 = dp_launch(mp_grid_rank, 4, args=(str(tmp),),
+                                    devices=MP_DEVICES)
+    for r in grid:
+        st = r["steps"]
+        expect_counts("phase 49 steps, a rank", {9: DP_STEPS, 10: DP_STEPS},
+                      st["counts"])
+        if (st["reductions"], st["gathers"], st["k_hidden"]) != (
+                DP_STEPS, DP_STEPS, 1):
+            raise AssertionError(f"phase 49: reductions {st['reductions']}, "
+                                 f"gathers {st['gathers']}, K_h "
+                                 f"{st['k_hidden']}")
+    line = mp_steps_line(grid, "steps", ref, "phase 49, 2 x 2 mesh vs one "
+                         "process")
+    runs = [expect_counts("phase 49 run_experiment, a rank",
+                          {10: SCALED_STEPS, 9: None},
+                          r["scaled"]["counts"]) for r in grid]
+    text = grid[0]["scaled"]["text"]
+    if "Distributed: 4 ranks (data axis 2, model axis 2)" not in text:
+        raise AssertionError(f"phase 49: {text}")
+    print(f"phase 49, scaled recipe --kernels step --data-parallel 2 "
+          f"--model-parallel 2 (moments; 4 gloo ranks on {card}, rank r at "
+          f"(r // 2, r % 2), {secs4:.1f} s, {start4:.1f} s of it until all "
+          f"ranks ran): the first {DP_STEPS} minibatches (2,048 rows and one "
+          f"network a rank) against one process: {line}; {DP_STEPS} gradient "
+          f"all-reduces over the data group and {DP_STEPS} gathers over the "
+          f"model group on each rank; one epoch of run_experiment: "
+          f"{dp_phase_line(grid, 'scaled')} (one process: "
+          f"{single['scaled']:.2f} s); launches by rank {runs}; phase 49 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    out.update(grid=runs, grid_steps=[r["steps"]["counts"] for r in grid])
+    return out
 
 
 def phase_time(name: str, t0: float) -> float:
@@ -5518,6 +5824,10 @@ def main() -> None:
                    "5, 1)", t)
     nccl_phase(dev, card, dp["ranks"])
     t = phase_time("NCCL world (rows 9-10)", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp = model_axis_phases(dev, card, Path(tmp), dp)
+    t = phase_time("model axis, 2 and 4 gloo ranks on one card (rows 9-10, "
+                   "6, 3, 5, 1)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -5659,6 +5969,44 @@ def main() -> None:
             (f"--ensemble {ENS_K} --data-parallel 2 --kernels force, 2 "
              f"epochs, rank {r}", dp["ensemble"][r][row])
             for r in range(DP_RANKS))
+    # phases 46-49: each rank's window on the model axis
+    mp_windows = {
+        "fused_step_fwd": [("steps_moments", 9, "phase 46, the scaled "
+                            "recipe's first 3 steps, --model-parallel 2 "
+                            "moments (Kn 1)"),
+                           ("moments", 9, "phase 46, scaled training "
+                            "--model-parallel 2 moments (run_experiment, 1 "
+                            "epoch)"),
+                           ("steps_hidden", 9, "phase 47, the first 3 steps, "
+                            "--model-parallel-mode hidden (Kn 2)"),
+                           ("hidden", 9, "phase 47, scaled training "
+                            "--model-parallel-mode hidden (run_experiment, "
+                            "1 epoch)"),
+                           ("grid_steps", 9, "phase 49, the first 3 steps on "
+                            "a 2 x 2 mesh"),
+                           ("grid", 9, "phase 49, scaled training "
+                            "--data-parallel 2 --model-parallel 2 "
+                            "(run_experiment, 1 epoch)")],
+        "fused_cell": [("default", 6, "phase 48, forced default training "
+                        "--model-parallel 2 moments (K_h 1), 2 epochs")],
+        "gap_train_fwd_checkpointed": [("forced", 3, "phase 48, forced "
+                                        "production training "
+                                        "--model-parallel-mode hidden, 1 "
+                                        "epoch")],
+        "gap_train_bwd_checkpointed": [("forced", 5, "phase 48, forced "
+                                        "production training "
+                                        "--model-parallel-mode hidden, 1 "
+                                        "epoch")],
+        "gap_scan_fwd": [("forced", 1, "phase 48, forced production "
+                          "training --model-parallel-mode hidden "
+                          "(validation)")]}
+    mp_windows["fused_step_bwd"] = [(key, 10, path) for key, _, path in
+                                    mp_windows["fused_step_fwd"]]
+    for name, windows in mp_windows.items():
+        for key, row, path in windows:
+            also.setdefault(name, []).extend(
+                (f"model axis: {path}, rank {r}", counts[row])
+                for r, counts in enumerate(mp[key]))
     for k in kernels:
         if k["name"] in also:
             k["also"] = [{"path": p, "launches": n}

@@ -107,9 +107,7 @@ def add_common_args(parser: argparse.ArgumentParser,
     parser.add_argument('--n-steps', type=int, default=100,
                         help='Grid resolution: simulation steps over [0, T]')
 
-    # scale-out: the data axis over torch.distributed ranks; the model
-    # axis parses as in the JAX package and run_experiment refuses it
-    # (ROADMAP.md, Queue 1 item 12b)
+    # scale-out: the (data, model) mesh over torch.distributed ranks
     parser.add_argument('--data-parallel', type=int, default=0,
                         help='Shard trajectories over N ranks, one device '
                              'each (0 = single device): without a process '
@@ -117,12 +115,19 @@ def add_common_args(parser: argparse.ArgumentParser,
                              '(NCCL); --device cuda:K puts them all on card '
                              'K and --device cpu on the CPU (gloo)')
     parser.add_argument('--model-parallel', type=int, default=1,
-                        help='Size of the mesh\'s model axis; not ported: '
-                             'N > 1 raises')
+                        help='Size of the mesh\'s model axis: M ranks hold '
+                             'the model\'s parts (D x M ranks in all, D '
+                             'from --data-parallel, else the cards M leaves, '
+                             'or 1 under --device cpu / cuda:K)')
     parser.add_argument('--model-parallel-mode', type=str, default=None,
                         choices=['moments', 'hidden'],
                         help='What the model axis shards (default: moments '
-                             'when --model-parallel > 1); not ported')
+                             'when --model-parallel > 1): moments puts each '
+                             'rank\'s block of the separate networks on it '
+                             '(a shared network stays whole), hidden the row '
+                             'blocks of every weight and bias the axis '
+                             'divides, gathered into whole networks once a '
+                             'step')
     parser.add_argument('--multihost', action='store_true',
                         help='Train over every rank of several hosts: join '
                              'the process group from the three flags below, '

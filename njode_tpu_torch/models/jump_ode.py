@@ -76,6 +76,15 @@ for (``device="cpu"``).  Without a CUDA device the default raises.
 plotting uses: a plain loop of ``_euler`` substeps, each through the fused
 Euler cell where ``_use_fused`` holds, as in the JAX package.
 
+The mesh's model axis under "moments" (:meth:`NeuralJumpODE.shard_moments`,
+called by :class:`njode_tpu_torch.parallel.model_axis.ModelShard`): the
+model keeps its block of the K separate networks, every route (the jump,
+the ODE and its kernels, the readout, the fused step) runs that block
+alone, and the readout is gathered into the whole (B, d_y, K) over the
+model group once a forward (``_gather_moments``), before the loss or any
+output.  Dropout takes a list of generators, one a network
+(:meth:`_gens`), so network k draws the same masks whichever rank holds it.
+
 Not ported (ROADMAP.md): Pallas interpret mode (``"interpret"``,
 ``"step-interpret"``); the constructor arguments that select it raise.
 """
@@ -273,6 +282,10 @@ class NeuralJumpODE(nn.Module):
 
         # shared mode carries one latent state for all moments
         self.k_hidden = 1 if shared_network else num_moments
+        # the moments this model's networks compute: all K, or under the
+        # model axis's "moments" this rank's block of them (shard_moments)
+        self.local_moments = num_moments
+        self._moments: Optional[tuple] = None      # (lo, hi, mesh)
         self._gap_decline = (
             f"ode_solver {ode_solver!r} != euler" if ode_solver != "euler"
             else gap_scan.gap_scan_decline(n_hidden_layers, self._act_key,
@@ -314,6 +327,44 @@ class NeuralJumpODE(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    # ---------------------------------------------------------- model axis
+
+    def shard_moments(self, lo: int, hi: int, mesh) -> None:
+        """Keep the separate networks lo..hi-1 alone (this model rank's
+        block of the K moments): the jump, the ODE and the readout run
+        them, and the readout is gathered over ``mesh``'s model group into
+        all K moments.  The module's state dict then names the kept
+        networks 0..hi-lo-1."""
+        if self.shared_network or self._moments is not None:
+            raise ValueError("shard_moments: needs separate networks, not "
+                             "yet cut")
+        for name in ("jump_nns", "ode_funcs", "output_nns"):
+            kept = list(getattr(self, name))[lo:hi]
+            setattr(self, name, nn.ModuleList(kept))
+        self._moments = (lo, hi, mesh)
+        self.k_hidden = self.local_moments = hi - lo
+        self._gap_cache = None
+
+    def _gather_moments(self, y: torch.Tensor) -> torch.Tensor:
+        """(..., K_local) -> (..., K): this rank's moments gathered over the
+        model group (differentiable; the identity without a cut)."""
+        if self._moments is None:
+            return y
+        from ..parallel.collectives import gather_blocks
+        lo, _, mesh = self._moments
+        return gather_blocks(y, mesh, -1, lo, self.num_moments)
+
+    def _gens(self, generator, n: int) -> list:
+        """One dropout generator for each of ``n`` networks: ``generator``
+        may be None, one generator the networks draw from in turn, or a
+        sequence of n, one a network (the model axis's streams)."""
+        if isinstance(generator, (list, tuple)):
+            if len(generator) != n:
+                raise ValueError(f"{len(generator)} dropout generators for "
+                                 f"{n} networks")
+            return list(generator)
+        return [generator] * n
 
     @contextlib.contextmanager
     def _inference(self):
@@ -467,7 +518,7 @@ class NeuralJumpODE(nn.Module):
                 return ("shared network (not measured; opt in with "
                         "--kernels step)")
             shape = (self.hidden_dim, n_slots, self.n_hidden_layers,
-                     self.input_dim, self.output_dim, self.num_moments)
+                     self.input_dim, self.output_dim, self.local_moments)
             if n_slots is not None and shape != fs.AUTO_SHAPE_H100:
                 return (f"(hidden, slots, layers, d_x, d_y, K) {shape} is "
                         f"not AUTO_SHAPE_H100 {fs.AUTO_SHAPE_H100}, the one "
@@ -483,13 +534,13 @@ class NeuralJumpODE(nn.Module):
             return "slot count unknown"
         if not fs.fused_step_fits(self.hidden_dim, n_slots,
                                   self.n_hidden_layers, self.input_dim,
-                                  self.output_dim, self.num_moments):
+                                  self.output_dim, self.local_moments):
             return (f"{n_slots} slots at hidden {self.hidden_dim} have no "
                     "launch plan (shared memory)")
         return None
 
     def _step_kwargs(self) -> dict:
-        return dict(num_moments=self.num_moments, activation=self._act_key,
+        return dict(num_moments=self.local_moments, activation=self._act_key,
                     input_scaling=self._scale_key,
                     shared_network=self.shared_network,
                     input_dim=self.input_dim, output_dim=self.output_dim,
@@ -502,17 +553,15 @@ class NeuralJumpODE(nn.Module):
         ``_mp_in``, ``_mp_out``), its output in x's dtype."""
         return run_net(net, x, generator, self.compute_dtype)
 
-    def _jump(self, x: torch.Tensor,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _jump(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """x: (B, d_x) -> h: (K_h, B, d_h)."""
         if self.shared_network:
             return self._net(self.jump_nn, x, generator)[None]
-        return torch.stack([self._net(net, x, generator)
-                            for net in self.jump_nns])
+        return torch.stack([self._net(net, x, g) for net, g in zip(
+            self.jump_nns, self._gens(generator, len(self.jump_nns)))])
 
-    def _readout(self, h: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """h: (K_h, B, d_h) -> y: (B, d_y, K).
+    def _readout_local(self, h: torch.Tensor, generator=None) -> torch.Tensor:
+        """h: (K_h, B, d_h) -> y: (B, d_y, K_local), this rank's moments.
 
         Shared mode reshapes the flat (B, d_y*K) output row-major to
         (B, d_y, K), like the reference's ``.view(1, d_y, num_moments)``
@@ -521,9 +570,14 @@ class NeuralJumpODE(nn.Module):
         if self.shared_network:
             y = self._net(self.output_nn, h[0], generator)
             return y.reshape(y.shape[0], self.output_dim, self.num_moments)
-        ys = torch.stack([self._net(net, hk, generator)
-                          for net, hk in zip(self.output_nns, h)])
+        ys = torch.stack([self._net(net, hk, g) for net, hk, g in zip(
+            self.output_nns, h, self._gens(generator, len(self.output_nns)))])
         return ys.permute(1, 2, 0)                         # (B, d_y, K)
+
+    def _readout(self, h: torch.Tensor, generator=None) -> torch.Tensor:
+        """h: (K_h, B, d_h) -> y: (B, d_y, K), gathered over the model
+        axis."""
+        return self._gather_moments(self._readout_local(h, generator))
 
     def variance_from_raw(self, raw: torch.Tensor) -> Optional[torch.Tensor]:
         """Conditional variance from raw moment outputs (..., d_y, K).
@@ -553,8 +607,9 @@ class NeuralJumpODE(nn.Module):
         t_el = (t_new - t_cur)[None, :, None].expand(K_h, B, 1).to(h.dtype)
         # built in the carry's dtype, cast inside _net (JAX :432)
         inp = torch.cat([self._scale(h), x_s, t_rel, t_el], dim=-1)
-        return torch.stack([self._net(f, ik, generator)
-                            for f, ik in zip(self._ode_nets(), inp)])
+        nets = self._ode_nets()
+        return torch.stack([self._net(f, ik, g) for f, ik, g in zip(
+            nets, inp, self._gens(generator, len(nets)))])
 
     def _euler(self, h: torch.Tensor, x_last: torch.Tensor,
                t_cur: torch.Tensor, t_new: torch.Tensor,
@@ -914,7 +969,8 @@ class NeuralJumpODE(nn.Module):
           mask:   (B, N) validity; padding must sit at row ends (padded
                   slots carry garbage the loss masks out; the grid walk
                   keeps them from resetting its carry).
-          generator: dropout generator, read only when ``training`` and
+          generator: dropout generator, or a list of one a network
+                  (:meth:`_gens`), read only when ``training`` and
                   ``dropout_rate > 0``.
 
         Returns: preds, preds_before, each (B, N, d_y, K).
@@ -926,15 +982,17 @@ class NeuralJumpODE(nn.Module):
         B, N = times.shape
         # (the fused step is ineligible with dropout, so no generator here)
         if self._use_fused_step(N, B):
-            return fused_step.fused_step_apply(self, times, values)
+            return self._gather_pair(
+                *fused_step.fused_step_apply(self, times, values))
         d_x = values.shape[-1]
         K_h, d_h = self.k_hidden, self.hidden_dim
+        K_loc = self.local_moments
 
         h_jump = self._jump(values.reshape(B * N, d_x), gen)  # (K_h, B*N, d_h)
-        preds = self._readout(h_jump, gen).reshape(
-            B, N, self.output_dim, self.num_moments)
+        preds = self._readout_local(h_jump, gen).reshape(
+            B, N, self.output_dim, K_loc)
         if N == 1:
-            return preds, torch.zeros_like(preds)
+            return self._gather_pair(preds, torch.zeros_like(preds))
 
         S = N - 1
         inference = gen is None and not torch.is_grad_enabled()
@@ -960,12 +1018,21 @@ class NeuralJumpODE(nn.Module):
                 h0, values[:, :-1].reshape(B * S, d_x),
                 times[:, :-1].reshape(B * S), times[:, 1:].reshape(B * S),
                 gen, inference=inference)
-        tail = self._readout(h_minus, gen).reshape(
-            B, S, self.output_dim, self.num_moments)
+        tail = self._readout_local(h_minus, gen).reshape(
+            B, S, self.output_dim, K_loc)
         # the prediction before the first observation is zero
         # (reference models/jump_ode.py:161)
         preds_before = torch.cat([torch.zeros_like(preds[:, :1]), tail], dim=1)
-        return preds, preds_before
+        return self._gather_pair(preds, preds_before)
+
+    def _gather_pair(self, preds: torch.Tensor, preds_before: torch.Tensor):
+        """(preds, preds_before) of this rank's moments -> of all K, in one
+        gather over the model axis."""
+        if self._moments is None:
+            return preds, preds_before
+        N = preds.shape[1]
+        both = self._gather_moments(torch.cat([preds, preds_before], dim=1))
+        return both[:, :N], both[:, N:]
 
     def apply_loss(self, times, values, mask=None, *,
                    generator: Optional[torch.Generator] = None,

@@ -379,8 +379,10 @@ def unpack_params(W, V, bo2, *, num_moments: int, hidden_dim: int,
 
 
 def layout_of(model) -> StepLayout:
+    """The model's layout: its networks' moments (this rank's block under
+    the model axis's "moments")."""
     return StepLayout(model.n_hidden_layers, model.input_dim,
-                      model.output_dim, model.num_moments,
+                      model.output_dim, model.local_moments,
                       model.shared_network)
 
 

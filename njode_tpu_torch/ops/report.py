@@ -44,14 +44,18 @@ def _gap_part(model) -> str:
 
 def kernel_report(model, *, n_rows: Optional[int] = None,
                   n_slots: Optional[int] = None,
-                  train_kernel: Optional[str] = None) -> str:
+                  train_kernel: Optional[str] = None,
+                  model_axis: Optional[str] = None) -> str:
     """One line over the port's kernels.
 
     ``n_rows`` / ``n_slots``: the rows a training step gives the model
     (this rank's under a mesh) and the observation slots, where known.
     ``train_kernel``: the Trainer's own resolution of the whole-run
     kernels, "on", "on (walk twin)" or the first failing reason (the
-    optimizer is out of the model's sight)."""
+    optimizer is out of the model's sight).  ``model_axis``: what the
+    mesh's model axis holds on each rank (the Trainer's); under "moments"
+    every rank's kernels take its block of the networks, the line names
+    their count (Kn), equal on every rank."""
     parts = [_walk_part(model)]
     if train_kernel and train_kernel.startswith("on"):
         parts.append("train=" + train_kernel)
@@ -62,4 +66,6 @@ def kernel_report(model, *, n_rows: Optional[int] = None,
     parts.append(_gap_part(model))
     parts.append("cell=on (forced)" if model._use_fused()
                  else "cell=opt-in (--kernels force)")
+    if model_axis:
+        parts.append(f"model axis={model_axis}, Kn={model.k_hidden} a rank")
     return "Kernels: " + "; ".join(parts)

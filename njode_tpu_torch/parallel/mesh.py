@@ -3,16 +3,23 @@
 
 A rank is one process holding one device.  The JAX package lays devices out
 in a ('data', 'model') grid and lets GSPMD insert the collectives; the port
-lays ranks out in the same grid and the Trainer reduces by hand:
+lays ranks out in the same grid (rank r at (r // M, r % M), JAX's
+``devs[:n].reshape(data, model)``) and decides by hand what each rank
+holds, computes and sends:
 
-* :func:`make_mesh` — the world's ranks as a (data, model) grid, this
-  rank's coordinates, the data axis's process group and each rank's device.
-  The data axis only: a model axis (``model > 1``) is ROADMAP.md Queue 1
-  item 12b and raises.
+* :func:`make_mesh` — the world's ranks as a D x M grid: this rank's
+  coordinates, each rank's device, and two process groups, the **data
+  group** (the ranks with this rank's model coordinate: gradients are
+  summed over it) and the **model group** (the ranks with this rank's data
+  coordinate: they hold the same rows, and outputs and weights are gathered
+  over it).
 * :func:`make_batch_sharder` — keeps this rank's rows of the leading
-  (trajectory) axis, or every row where the data axis does not divide them
-  (the JAX sharder replicates such arrays).
-* :func:`shard_params` — replicates: rank 0 broadcasts the state.
+  (trajectory) axis on the data axis, or every row where the data axis does
+  not divide them (the JAX sharder replicates such arrays).  The ranks of
+  one model group hold the same rows.
+* :func:`shard_params` — rank 0's values broadcast into every rank; with
+  ``moment_axis`` or ``hidden_axis``, what this rank keeps of them by the
+  JAX package's rule (:func:`param_rows`, :func:`moment_block`).
 * :func:`launch` — spawns N ranks of a function
   (``torch.multiprocessing``'s ``spawn``, a ``file://`` rendezvous) and
   returns what each rank returned.
@@ -21,7 +28,8 @@ Backends: NCCL when every rank has a card of its own, gloo when ranks share
 a card or run on the CPU (:func:`choose_backend`).  Gloo on CUDA tensors
 has ``all_reduce``, ``broadcast`` and ``barrier`` but no ``all_gather``;
 the port's collectives on tensors are those three alone, so one code path
-runs under both backends.
+runs under both backends (a gather is an ``all_reduce`` of a zero-filled
+buffer, :mod:`.collectives`).
 """
 
 from __future__ import annotations
@@ -33,21 +41,17 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1 item 12b"
 DEFAULT_TIMEOUT_S = 600.0
-
-
-def _model_axis_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the mesh's model axis (each moment network or hidden "
-        f"slice on its own rank) is not ported yet ({MODEL_AXIS_ITEM})")
+# the separate networks' ModuleLists of NeuralJumpODE: their stacked K axis
+# is the JAX package's moment axis
+NETWORK_LISTS = ("jump_nns", "ode_funcs", "output_nns")
 
 
 def world() -> tuple[int, int]:
@@ -69,23 +73,38 @@ class Mesh:
     """The world's ranks as a (data, model) grid.
 
     ``shape`` ({"data": D, "model": M}, the JAX ``Mesh.shape``), ``rank``,
-    ``device`` (this rank's) and ``backend``.  The data axis's collectives
-    use the default process group."""
+    ``device`` (this rank's) and ``backend``.  ``data_group`` and
+    ``model_group``: the process groups of this rank's axes; None where
+    the axis spans the world (the default group) or holds this rank alone
+    (:meth:`group`)."""
     shape: dict
     rank: int
     device: torch.device
     backend: str
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def n_data(self) -> int:
         return self.shape["data"]
 
     @property
+    def n_model(self) -> int:
+        return self.shape["model"]
+
+    @property
     def data_rank(self) -> int:
         return self.rank // self.shape["model"]
 
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.shape["model"]
 
-def _launched_device(n: int) -> torch.device:
+    def axis_rank(self, axis: str) -> int:
+        return self.data_rank if axis == "data" else self.model_rank
+
+
+def _launched_device(n: int, label: str) -> torch.device:
     """This rank's device as its launcher set it: the current card (the one
     :func:`launch` or :func:`..distributed.initialize_distributed` chose),
     or the CPU in a gloo group on a host without one."""
@@ -94,7 +113,7 @@ def _launched_device(n: int) -> torch.device:
     if (dist.is_available() and dist.is_initialized()
             and dist.get_backend() == "gloo"):
         return torch.device("cpu")
-    raise ValueError(f"mesh {n}x1 needs {n} devices, have 0")
+    raise ValueError(f"mesh {label} needs {n} devices, have 0")
 
 
 def choose_backend(devices: Sequence, requested: Optional[str] = None
@@ -117,18 +136,40 @@ def choose_backend(devices: Sequence, requested: Optional[str] = None
     return requested
 
 
+def _axis_groups(data: int, model: int, rank: int) -> tuple:
+    """(data group, model group) of ``rank`` in a data x model grid.  Every
+    rank creates every group, in the same order (``dist.new_group`` is
+    collective); an axis that spans the world or holds one rank needs no
+    group of its own (None)."""
+    if data == 1 or model == 1:
+        return None, None
+    data_group = model_group = None
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if rank % model == m:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if rank // model == d:
+            model_group = g
+    return data_group, model_group
+
+
 def make_mesh(data: Optional[int] = None, model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A ('data', 'model') mesh over this world's ranks.  ``data=None`` puts
-    every rank on the data axis.  ``devices``, one per rank in rank order,
-    may name one card twice (two ranks on one card, or on the CPU): the
-    caller's request.  Without it each rank keeps the device its launcher
-    set (:func:`_launched_device`)."""
-    if model != 1:
-        raise _model_axis_refusal(f"make_mesh(model={model})")
+    """A ('data', 'model') mesh over this world's ranks, rank r at
+    (r // model, r % model).  ``data=None`` takes every rank the model axis
+    leaves: max(1, ranks // model).  ``devices``, one per rank in rank
+    order, may name one card twice (two ranks on one card, or on the CPU):
+    the caller's request.  Without it each rank keeps the device its
+    launcher set (:func:`_launched_device`).  Every rank of the world calls
+    it (the axes' groups are made together)."""
+    if model < 1:
+        raise ValueError(f"model axis {model} < 1")
     rank, size = world()
     if data is None:
-        data = max(1, size // model)
+        n_dev = len(devices) if devices is not None else size
+        data = max(1, n_dev // model)
     n = data * model
     if devices is not None and n > len(devices):
         raise ValueError(f"mesh {data}x{model} needs {n} devices, "
@@ -138,11 +179,13 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
                          f"this one has {size} (launch one rank a device: "
                          "parallel.launch, torchrun, or --multihost)")
     device = (torch.device(devices[rank]) if devices is not None
-              else _launched_device(n))
+              else _launched_device(n, f"{data}x{model}"))
     backend = (dist.get_backend() if dist.is_available()
                and dist.is_initialized() else "none")
+    data_group, model_group = _axis_groups(data, model, rank)
     return Mesh(shape={"data": data, "model": model}, rank=rank,
-                device=device, backend=backend)
+                device=device, backend=backend, data_group=data_group,
+                model_group=model_group)
 
 
 def shard_rows(mesh: Optional[Mesh], rows: int) -> Optional[slice]:
@@ -170,15 +213,45 @@ def make_batch_sharder(mesh: Mesh) -> Callable:
     return shard
 
 
-def shard_params(mesh: Mesh, params, moment_axis: bool = False,
-                 hidden_axis: bool = False):
-    """Replicate ``params`` (a module, a state dict or a tensor) over the
-    mesh: rank 0's values are broadcast into every rank's tensors in
-    place.  Returns ``params``."""
-    if moment_axis or hidden_axis:
-        raise _model_axis_refusal("shard_params(moment_axis/hidden_axis)")
+def moment_block(num_moments: int, n_model: int, model_rank: int
+                 ) -> Optional[tuple[int, int]]:
+    """(lo, hi): the separate networks this model rank holds, a contiguous
+    block of K / M, where the model axis divides K > 1 (JAX's
+    ``moment_axis`` rule on the stacked K axis); None: every rank holds
+    all K."""
+    if n_model <= 1 or num_moments <= 1 or num_moments % n_model:
+        return None
+    per = num_moments // n_model
+    return model_rank * per, (model_rank + 1) * per
+
+
+def param_rows(shape, n_model: int, model_rank: int) -> Optional[slice]:
+    """This model rank's rows of a weight or bias under ``hidden_axis``:
+    torch's leading axis is the output features, JAX's trailing one, cut in
+    contiguous blocks where M divides it and it is longer than 1 (an output
+    head that does not divide stays whole); None: replicated."""
+    if n_model <= 1 or len(shape) < 1 or shape[0] <= 1 or shape[0] % n_model:
+        return None
+    per = shape[0] // n_model
+    return slice(model_rank * per, (model_rank + 1) * per)
+
+
+def network_index(name: str) -> Optional[tuple[str, int, str]]:
+    """(list, k, rest) of a separate network's parameter name
+    ("jump_nns.1.net.0.weight" -> ("jump_nns", 1, "net.0.weight")), or
+    None for a shared network's."""
+    head, _, tail = name.partition(".")
+    if head not in NETWORK_LISTS:
+        return None
+    k, _, rest = tail.partition(".")
+    return head, int(k), rest
+
+
+def _broadcast(params) -> None:
+    """Rank 0's values of a module's state, a dict's or a tensor's, into
+    every rank's tensors in place."""
     if world()[1] <= 1:
-        return params
+        return
     if isinstance(params, torch.nn.Module):
         tensors = list(params.state_dict().values())
     elif isinstance(params, dict):
@@ -188,16 +261,62 @@ def shard_params(mesh: Mesh, params, moment_axis: bool = False,
     with torch.no_grad():
         for t in tensors:
             dist.broadcast(t, src=0)
-    return params
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum each tensor over the world, in place, through one flat buffer
-    (one collective)."""
+def shard_params(mesh: Mesh, params, moment_axis: bool = False,
+                 hidden_axis: bool = False):
+    """Place ``params`` (a module, a state dict or a tensor) on the mesh
+    (``njode_tpu/parallel/mesh.py:86-108``): rank 0's values are broadcast
+    into every rank's tensors in place, then this rank keeps its part.
+
+    * No axis: everything is replicated; returns ``params``.
+    * ``moment_axis``: a separate network's tensors (K networks, the JAX
+      stacked K axis) stay on the model rank of its block of K / M
+      (:func:`moment_block`); a state dict comes back with the keys of this
+      rank's networks and every other key, a module as a
+      :class:`~.model_axis.ModelShard` holding its networks alone.  A
+      shared network has no moment axis: it stays whole on every rank.
+    * ``hidden_axis``: every weight and bias whose output width M divides
+      is cut to this rank's rows (:func:`param_rows`); a state dict or a
+      tensor comes back cut, a module as a ``ModelShard`` that holds the
+      blocks (the module keeps whole networks for the forward).
+    * Anything neither rule takes is replicated.
+    """
+    if moment_axis and hidden_axis:
+        raise ValueError("shard_params: moment_axis or hidden_axis, not both")
+    _broadcast(params)
+    if not (moment_axis or hidden_axis):
+        return params
+    if isinstance(params, torch.nn.Module):
+        from .model_axis import ModelShard
+        return ModelShard(mesh, params,
+                          "moments" if moment_axis else "hidden")
+    M, r = mesh.n_model, mesh.model_rank
+    if torch.is_tensor(params):
+        rows = param_rows(params.shape, M, r) if hidden_axis else None
+        return params if rows is None else params[rows]
+    out = {}
+    n_nets = 1 + max([network_index(k)[1] for k in params
+                      if network_index(k) is not None], default=-1)
+    block = moment_block(n_nets, M, r) if moment_axis else None
+    for k, v in params.items():
+        net = network_index(k)
+        if block is not None and net is not None:
+            if block[0] <= net[1] < block[1]:
+                out[k] = v
+            continue
+        rows = param_rows(v.shape, M, r) if hidden_axis else None
+        out[k] = v if rows is None else v[rows]
+    return out
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum each tensor over ``group`` (None: the world), in place, through
+    one flat buffer (one collective)."""
     if not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))

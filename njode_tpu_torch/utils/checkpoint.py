@@ -14,7 +14,10 @@ Two backends, by the JAX package's names:
   every rank together (the planner spreads the replicated tensors over the
   ranks' files).  Its state is flat: ``model/<key>`` and ``optim/<i>/<key>``
   tensors, and ``meta``, the rest (param groups, histories, the stack's
-  shapes) as a ``torch.save`` byte string in a uint8 tensor.
+  shapes) as a ``torch.save`` byte string in a uint8 tensor.  Under the
+  mesh's model axis each rank writes its own part of the one-process
+  layout (``ModelShard.pieces``): a rank's row block of a tensor under
+  ``<key>#<lo>:<hi>``, which :func:`load_checkpoint` joins back.
 
 Both write to a side path first and then swap it in, so an interrupted job
 never leaves a torn checkpoint, and either may replace the other.
@@ -73,7 +76,32 @@ def _flat_state(bundle: dict) -> dict:
     return flat
 
 
+def _join_blocks(flat: dict) -> dict:
+    """``flat`` with the row blocks ``<key>#<lo>:<hi>`` of a tensor joined
+    into ``<key>``; raises where the blocks leave a gap."""
+    out, blocks = {}, {}
+    for k, v in flat.items():
+        base, sep, span = k.partition("#")
+        if not sep:
+            out[k] = v
+            continue
+        lo, hi = map(int, span.split(":"))
+        blocks.setdefault(base, []).append((lo, hi, v))
+    for base, parts in blocks.items():
+        parts.sort(key=lambda p: p[0])
+        at = 0
+        for lo, hi, v in parts:
+            if lo != at or v.shape[0] != hi - lo:
+                raise ValueError(f"{base}: row blocks "
+                                 f"{[(p[0], p[1]) for p in parts]} leave a "
+                                 "gap")
+            at = hi
+        out[base] = torch.cat([v for _, _, v in parts])
+    return out
+
+
 def _unflatten(flat: dict) -> dict:
+    flat = _join_blocks(flat)
     meta = torch.load(io.BytesIO(flat["meta"].numpy().tobytes()),
                       weights_only=True)
     model = {k[len("model/"):]: v for k, v in flat.items()
@@ -122,7 +150,8 @@ def save_checkpoint(path: str, model_state_dict: dict,
                     backend: str = "msgpack") -> None:
     """Write the checkpoint to ``path`` (a side path, then a swap).  Under
     a process group every rank calls it: the single file is written by
-    rank 0 (the ranks' states are equal), the directory by every rank."""
+    rank 0 (the ranks' states are equal, or gathered into the one-process
+    layout), the directory by every rank (each its part)."""
     from ..parallel.mesh import barrier, is_primary
     if backend not in BACKENDS:
         raise ValueError(f"Unknown checkpoint backend: {backend}")

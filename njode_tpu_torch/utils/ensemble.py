@@ -25,14 +25,16 @@ the gap loop's training pair, under ``"step"`` through the fused step.
 * ``ensemble_predict`` + ``ensemble_mean_std``: epistemic (seed) bands
   around the conditional-moment predictions.
 
-* **Over ranks.** With a data-parallel ``mesh``
-  (:func:`njode_tpu_torch.parallel.make_mesh`), rank r trains its K/N
-  members (:func:`shard_ensemble`: a contiguous block, the JAX package's
-  seed axis over its mesh), each with the streams of its global index, so
-  a member is the same whichever rank trains it.  At every checkpoint and
-  at the end the ranks join their members' states and loss rows (one
-  object broadcast a rank), so every rank returns the whole ensemble.  A K
-  the data axis does not divide is trained whole on every rank.
+* **Over ranks.** With a ``mesh``
+  (:func:`njode_tpu_torch.parallel.make_mesh`; ``run_experiment`` builds
+  JAX's ``make_mesh(data=1, model=n_dev)``), the rank at model coordinate
+  r trains its K/M members (:func:`shard_ensemble`: a contiguous block of
+  the seed axis on the model axis, as the JAX package places it), each
+  with the streams of its global index, so a member is the same whichever
+  rank trains it.  At every checkpoint and at the end the model group's
+  ranks join their members' states and loss rows (one object broadcast a
+  rank), so every rank returns the whole ensemble.  A K the model axis
+  does not divide is trained whole on every rank.
 """
 
 from __future__ import annotations
@@ -157,18 +159,26 @@ def _member_hparams(optimizer, member_hparams: dict, n_seeds: int) -> dict:
     return upd
 
 
-def shard_ensemble(mesh, tree, axis: str = "data"):
+def _seed_block(mesh, k: int, axis: str = "model") -> Optional[slice]:
+    """This rank's contiguous block of K members on ``axis`` of ``mesh``,
+    or None where the axis holds one rank or does not divide K > 1."""
+    n = mesh.shape[axis] if mesh is not None else 1
+    if n <= 1 or k <= 1 or k % n:
+        return None
+    per = k // n
+    r = mesh.axis_rank(axis)
+    return slice(r * per, (r + 1) * per)
+
+
+def shard_ensemble(mesh, tree, axis: str = "model"):
     """This rank's members of ``tree``: a stack (a dict of ``(K, ...)``
     tensors) or a list of K per-member items, cut to the rank's contiguous
-    block of the seed axis.  A K the axis does not divide stays whole
+    block of the seed axis on the mesh's ``axis`` (JAX's default, the model
+    axis).  A K the axis does not divide stays whole
     (``njode_tpu/utils/ensemble.py:71-88`` replicates it).  Members are
     independent: nothing crosses the seed axis while they train."""
-    from ..parallel.mesh import shard_rows
-    if axis != "data":
-        from ..parallel.mesh import _model_axis_refusal
-        raise _model_axis_refusal(f"shard_ensemble(axis={axis!r})")
     k = n_members(tree) if isinstance(tree, dict) else len(tree)
-    sl = shard_rows(mesh, k)
+    sl = _seed_block(mesh, k, axis)
     if sl is None:
         return tree
     if isinstance(tree, dict):
@@ -189,15 +199,16 @@ def _cpu(obj):
 
 
 def _join_members(mesh, items: list, n_seeds: int) -> list:
-    """Every rank's per-member ``items`` (its block of the seed axis), in
-    member order, on every rank: each rank broadcasts its block as one
-    object.  Tensors travel through the CPU."""
+    """Every model rank's per-member ``items`` (its block of the seed
+    axis), in member order, on every rank of its model group: each rank
+    broadcasts its block as one object.  Tensors travel through the CPU."""
     import torch.distributed as dist
-    per = n_seeds // mesh.n_data
+    per = n_seeds // mesh.n_model
     out = []
-    for r in range(mesh.n_data):
-        buf = [_cpu(items) if r == mesh.data_rank else None]
-        dist.broadcast_object_list(buf, src=r)
+    for r in range(mesh.n_model):
+        buf = [_cpu(items) if r == mesh.model_rank else None]
+        dist.broadcast_object_list(buf, src=mesh.data_rank * mesh.n_model + r,
+                                   group=mesh.model_group)
         if len(buf[0]) != per:
             raise RuntimeError(f"rank {r} holds {len(buf[0])} members, "
                                f"{per} expected")
@@ -281,7 +292,6 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
     ``train`` / ``val`` / ``rel`` to (n_epochs - start_epoch, K) float64
     tensors (``val`` / ``rel`` only when asked for).
     """
-    from ..parallel.mesh import shard_rows
     work = copy.copy(model)   # shares the parameters; members deep-copy it
     if work.use_pallas == "auto":
         work.use_pallas = False
@@ -298,7 +308,7 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
                       variance_method=variance_method,
                       extended_moments=extended_moments)
     # this rank's members: their global indices, stacks, states and seeds
-    mine = shard_rows(mesh, n_seeds)
+    mine = _seed_block(mesh, n_seeds)
     joined = mine is not None
     idx = list(range(n_seeds))[mine] if joined else list(range(n_seeds))
     if joined:

@@ -3,9 +3,8 @@
 ``maybe_trace`` wraps a region in ``torch.profiler`` and writes a Chrome
 trace (viewable in Perfetto or ``chrome://tracing``); ``StepTimer``
 synchronizes the device before it reads the clock, so asynchronous CUDA
-launches do not hide a step's time.  The JAX package's ``compile_time``
-(an XLA ahead-of-time compile) has no counterpart yet (ROADMAP.md, Queue 1
-item 12b).
+launches do not hide a step's time; ``compile_time`` is the seconds of a
+function's first call, which builds whatever it builds at first use.
 """
 
 from __future__ import annotations
@@ -73,3 +72,20 @@ class StepTimer:
     @property
     def mean(self) -> float:
         return sum(self.times) / max(len(self.times), 1)
+
+
+def compile_time(fn, *args, **kwargs) -> float:
+    """Seconds of the first call ``fn(*args, **kwargs)``, the devices of
+    its inputs and results synchronized before the clock is read.
+
+    The JAX package's ``compile_time`` lowers and compiles ``jax.jit(fn)``
+    ahead of time and runs nothing.  The port traces nothing: PyTorch runs
+    eagerly and a CUDA kernel's source is built at its wrapper's first
+    launch (nvcc into ``ops/_build/``, or a load of that build).  So this
+    counts that build (or load), the first launches, and the call's own
+    work, run once; call it first in a process to see the build."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    for device in _cuda_devices((out, args, kwargs), set()):
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0

@@ -41,11 +41,14 @@
   (:mod:`njode_tpu_torch.parallel`): every rank draws the same epoch and
   shuffle, keeps its rows of each minibatch, back-propagates its share of
   the global masked mean, and the gradients are summed before every Adam
-  step; an ensemble spreads its members over the ranks.  The whole-run
-  kernels and the grid walk decline under a mesh, as in the JAX package.
-  The model axis (``model_parallel`` > 1, ROADMAP Queue 1 item 12b) and
-  Pallas interpret mode are not ported and raise ``NotImplementedError``
-  naming their item.
+  step; an ensemble spreads its members over the ranks' model axis.
+  ``model_parallel`` M > 1 adds the mesh's model axis
+  (:mod:`njode_tpu_torch.parallel.model_axis`): ``model_parallel_mode``
+  "moments" (the default) puts each rank's block of the K separate
+  networks on it, "hidden" the row blocks of the weights; D x M ranks run,
+  the gradients summed over the data axis alone.  The whole-run kernels and
+  the grid walk decline under a mesh, as in the JAX package.  Pallas
+  interpret mode is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,8 +77,10 @@ RELATIVE_LOSS_PROCESSES = ("black_scholes", "ornstein_uhlenbeck", "heston",
 # member's seeds (utils/ensemble.py), its "epoch" the member's index
 STREAM_TRAIN, STREAM_VAL, STREAM_SHUFFLE, STREAM_DROPOUT = 0, 1, 2, 3
 STREAM_MEMBER = 4
-# STREAM_RANK folds a rank's index into an epoch's dropout seed
+# STREAM_RANK folds a rank's index into an epoch's dropout seed;
+# STREAM_NETWORK a separate network's index (its own dropout stream)
 STREAM_RANK = 5
+STREAM_NETWORK = 6
 
 
 def make_adam(params, learning_rate: float,
@@ -218,6 +223,15 @@ class Trainer:
     ``betas``, where given, must equal the optimizer's (the kernels read
     every hyperparameter from its one param group).  The composed path
     ignores them.
+
+    ``model_shard`` (``njode_tpu/utils/training.py:273-309``): "none",
+    "moments" or "hidden", what the mesh's model axis holds of the model
+    and its optimizer state (:class:`~njode_tpu_torch.parallel.model_axis.
+    ModelShard`).  The optimizer is rebuilt over the tensors this rank
+    steps, with its one param group's hyperparameters.  Separate networks
+    draw dropout from a stream each (``STREAM_NETWORK``), so placement
+    changes no mask: a network draws the same masks under any
+    ``model_shard`` and at any model axis, one process (no mesh) included.
     """
 
     def __init__(self, model: NeuralJumpODE,
@@ -227,7 +241,8 @@ class Trainer:
                  variance_method: str = "direct",
                  extended_moments: bool = False, mesh=None, seed: int = 0,
                  checkpoint_backend: str = "msgpack", use_train_kernel=False,
-                 train_kernel_opts: Optional[Dict] = None):
+                 train_kernel_opts: Optional[Dict] = None,
+                 model_shard: str = "none"):
         asked = None if device in (None, "auto") else torch.device(device)
         if asked is not None and (
                 asked.type != model.device.type
@@ -244,6 +259,9 @@ class Trainer:
         if mesh is not None and mesh.device != model.device:
             raise ValueError(f"the model lives on {model.device}, this "
                              f"rank's device is {mesh.device}")
+        if model_shard not in ("none", "moments", "hidden"):
+            raise ValueError(f"Unknown model_shard: {model_shard!r} "
+                             "(one of 'none', 'moments', 'hidden')")
         self.model = model
         self.device = model.device
         self.optimizer = (optimizer if optimizer is not None
@@ -261,12 +279,21 @@ class Trainer:
         self.checkpoint_backend = checkpoint_backend
         # data parallelism (parallel/mesh.py): every rank holds the model,
         # rank 0's weights broadcast here, and the same full epoch; each
-        # keeps its rows of a minibatch and the gradients are summed
+        # keeps its rows of a minibatch and the gradients are summed over
+        # the data axis.  The model axis (parallel/model_axis.py): each rank
+        # keeps its part of the model and steps it alone
         self.mesh = mesh
+        self.model_shard = model_shard
         self.grad_reductions = 0      # all-reduces of a step's gradients
+        self.shard = None
         if mesh is not None:
             from ..parallel import shard_params
             shard_params(mesh, model)
+        if model_shard != "none" and mesh is not None and mesh.n_model > 1:
+            from ..parallel.model_axis import ModelShard
+            self.shard = ModelShard(mesh, model, model_shard)
+            self.optimizer = _rebuilt(self.optimizer, self.shard.params())
+            self.optimizer.register_step_post_hook(model._drop_gap_cache)
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self.epoch_times: List[float] = []
@@ -303,18 +330,25 @@ class Trainer:
         valid = torch.arange(n_pad, device=dev) < n
         return idx.reshape(nb, batch_size), valid.reshape(nb, batch_size)
 
-    def _dropout_generator(self, epoch: int, sharded: bool = False
-                           ) -> Optional[torch.Generator]:
+    def _dropout_generator(self, epoch: int, sharded: bool = False):
         """An epoch's dropout stream, from (seed, epoch); where the ranks
         hold different rows, from (seed, epoch, rank), so ranks never share
         masks.  Ranks that each hold every row draw the same masks, so their
-        replicas stay equal without a reduction."""
-        if self.model.dropout_rate <= 0.0:
+        replicas stay equal without a reduction.  Separate networks get a
+        list: one stream a network, from that seed and the network's index
+        among all K, so network k draws the same masks whatever rank holds
+        it and at any model axis, one process included."""
+        m = self.model
+        if m.dropout_rate <= 0.0:
             return None
         seed = stream_seed(self.seed, STREAM_DROPOUT, epoch)
         if sharded:
             seed = stream_seed(seed, STREAM_RANK, self.mesh.data_rank)
-        return _generator(self.device, seed)
+        if m.shared_network:
+            return _generator(self.device, seed)
+        lo = m._moments[0] if m._moments is not None else 0
+        return [_generator(self.device, stream_seed(seed, STREAM_NETWORK, k))
+                for k in range(lo, lo + m.local_moments)]
 
     def _rows(self, rows: int) -> Optional[slice]:
         """This rank's rows of a minibatch of ``rows``, or None where it
@@ -336,11 +370,14 @@ class Trainer:
         return loss * (tm[sl].sum() / torch.clamp_min(tm.sum(), 1.0))
 
     def _reduce_grads(self) -> None:
-        """Sum the ranks' gradients (one flat all-reduce).  Every rank ran
-        the same graph, so the same parameters hold a gradient."""
+        """Sum the gradients of what this rank steps over the data axis (one
+        flat all-reduce): the ranks of a data group hold the same part of
+        the model.  Every rank ran the same graph, so the same parameters
+        hold a gradient."""
         from ..parallel.mesh import all_reduce_sum
-        all_reduce_sum([p.grad for p in self.model.parameters()
-                        if p.grad is not None])
+        all_reduce_sum([p.grad for g in self.optimizer.param_groups
+                        for p in g["params"] if p.grad is not None],
+                       group=self.mesh.data_group)
         self.grad_reductions += 1
 
     def _step(self, times, values, mask, traj_mask, gen) -> torch.Tensor:
@@ -359,9 +396,13 @@ class Trainer:
             loss = self._shard_loss(loss_fn, times, values, mask, traj_mask,
                                     sl)
         loss.backward()
+        if self.shard is not None:
+            self.shard.after_backward()
         if sl is not None:
             self._reduce_grads()
         opt.step()
+        if self.shard is not None:
+            self.shard.after_step()
         return loss.detach()
 
     def _epoch_update(self, times, values, mask, epoch: int,
@@ -390,9 +431,11 @@ class Trainer:
         return losses.mean()
 
     def _sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the data axis (the ranks of a model group
+        hold the same rows and the same share)."""
         from ..parallel.mesh import all_reduce_sum
         x = x.clone()
-        all_reduce_sum([x])
+        all_reduce_sum([x], group=self.mesh.data_group)
         return x
 
     def _kernel_hparams(self) -> dict:
@@ -818,7 +861,14 @@ class Trainer:
                         if self.model._use_fused_step(times.shape[1], rows)
                         else f"composed (forced {forced})" if forced
                         else "composed")
-                if self.mesh is not None:
+                if self.mesh is not None and self.mesh.n_model > 1:
+                    if self.mesh.n_data > 1:
+                        comp += (f", data-parallel over {self.mesh.n_data} "
+                                 "ranks")
+                    comp += (f", model axis of {self.mesh.n_model} ranks "
+                             f"({self._model_axis_text()}) "
+                             f"({self.mesh.backend})")
+                elif self.mesh is not None:
                     comp += (f", data-parallel over {self.mesh.n_data} "
                              f"ranks ({self.mesh.backend})")
                 say(f"Training path: "
@@ -834,7 +884,9 @@ class Trainer:
                         self.model, n_rows=rows, n_slots=times.shape[1],
                         train_kernel=decline or "on" + (
                             " (walk twin)" if self._twin() == "walk"
-                            else "")),
+                            else ""),
+                        model_axis=(self._model_axis_text()
+                                    if self.shard is not None else None)),
                         flush=True)
             if use_kernel:
                 loss = self._kernel_epoch(times, values, epoch, batch_size,
@@ -892,22 +944,57 @@ class Trainer:
                 "epoch_times": self.epoch_times,
                 "relative_loss": self.relative_losses}
 
+    def _model_axis_text(self) -> str:
+        return self.shard.describe() if self.shard is not None else "none"
+
     def save_model(self, path: str):
         """Write a checkpoint (collective under a mesh: every rank calls
         it; ``checkpoint_backend`` "msgpack" is one file from rank 0,
-        "orbax" a ``torch.distributed.checkpoint`` directory)."""
-        save_checkpoint(path, self.model.state_dict(),
-                        self.optimizer.state_dict(), self._histories(),
+        "orbax" a ``torch.distributed.checkpoint`` directory).  Under the
+        model axis the file holds the one-process layout, gathered from
+        the ranks' parts; the directory takes each rank's own part."""
+        if self.shard is not None and self.checkpoint_backend == "orbax":
+            sd, osd = self.shard.pieces(self.optimizer)
+        else:
+            sd, osd = self.full_state()
+        save_checkpoint(path, sd, osd, self._histories(),
                         backend=self.checkpoint_backend)
 
+    def full_state(self) -> tuple[dict, dict]:
+        """(model state dict, optimizer state dict) in the one-process
+        layout: gathered under the model axis (collective: every rank of
+        the model group calls it)."""
+        if self.shard is None:
+            return self.model.state_dict(), self.optimizer.state_dict()
+        return (self.shard.model_state(),
+                self.shard.optimizer_state(self.optimizer))
+
     def load_model(self, path: str):
+        """Load a checkpoint of the one-process layout (either backend,
+        written by any mesh): under the model axis this rank takes its
+        part."""
         sd, osd, hist = load_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(sd)
-        self.optimizer.load_state_dict(osd)
+        if self.shard is not None:
+            self.shard.load(sd, osd, self.optimizer)
+        else:
+            self.model.load_state_dict(sd)
+            self.optimizer.load_state_dict(osd)
         self.train_losses = hist["train_losses"]
         self.val_losses = hist["val_losses"]
         self.epoch_times = hist["epoch_times"]
         self.relative_losses = hist["relative_loss"]
+
+
+def _rebuilt(optimizer: torch.optim.Optimizer, params: list
+             ) -> torch.optim.Optimizer:
+    """An optimizer of ``optimizer``'s type and one param group's
+    hyperparameters over ``params`` (a rank's part of the model)."""
+    if len(optimizer.param_groups) != 1:
+        raise ValueError("the model axis takes an optimizer with one param "
+                         "group")
+    group = {k: v for k, v in optimizer.param_groups[0].items()
+             if k != "params"}
+    return type(optimizer)(params, **group)
 
 
 # --------------------------------------------------------------------------
@@ -915,14 +1002,13 @@ class Trainer:
 # --------------------------------------------------------------------------
 
 def _refuse_unported(config: Dict) -> None:
-    """NotImplementedError for every config option whose path is not
-    ported, naming its ROADMAP.md item."""
-    if (int(config.get("model_parallel", 1) or 1) > 1
-            or config.get("model_parallel_mode")):
-        from ..parallel.mesh import _model_axis_refusal
-        raise _model_axis_refusal(
-            f"model_parallel={config.get('model_parallel')}, "
-            f"model_parallel_mode={config.get('model_parallel_mode')!r}")
+    """The config options the port refuses: an unknown model axis mode or
+    checkpoint backend (ValueError, the JAX package's messages), Pallas
+    interpret mode (NotImplementedError)."""
+    mode = config.get("model_parallel_mode")
+    if mode not in (None, "none", "moments", "hidden"):
+        raise ValueError(f"Unknown model_shard: {mode!r} "
+                         "(one of 'none', 'moments', 'hidden')")
     if config.get("checkpoint_backend", "msgpack") not in ("msgpack",
                                                            "orbax"):
         raise ValueError(f"Unknown checkpoint backend: "
@@ -1039,15 +1125,20 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
     """A whole training experiment (reference utils/training.py:349-438):
     ``runs/<experiment_name>/{config.json, model.ckpt, history.json}``.
 
-    Scale-out (``njode_tpu/utils/training.py:1275-1333``): ``multihost``
-    joins the process group first (:func:`..parallel.initialize_distributed`).
-    Inside a group of several ranks (torchrun, ``multihost``, or spawned
-    here) the run is this rank's share of a data-parallel run over every
-    rank; rank 0 writes the files and prints.  Without a group,
-    ``data_parallel`` N > 1 spawns N ranks (:func:`..parallel.launch`, the
-    config's "device" placing them: :func:`_rank_devices`) and returns rank
-    0's result.  An ensemble beside a device request spreads its members
-    over the ranks."""
+    Scale-out (``njode_tpu/utils/training.py:1275-1333``, ``:1392-1409``):
+    ``multihost`` joins the process group first
+    (:func:`..parallel.initialize_distributed`).  Inside a group of several
+    ranks (torchrun, ``multihost``, or spawned here) the run is this rank's
+    share of a run over a D x M mesh of every rank (M = ``model_parallel``,
+    D the rest); rank 0 writes the files and prints.  Without a group,
+    ``data_parallel`` D > 1 or ``model_parallel`` M > 1 spawns D x M ranks
+    (:func:`..parallel.launch`, the config's "device" placing them:
+    :func:`_rank_devices`; D defaults to the cards M leaves, JAX's
+    ``make_mesh(data=None)``, or 1 where every rank shares one device) and
+    returns rank 0's result.  ``model_parallel_mode`` is "moments" (the
+    default where M > 1) or "hidden".  An ensemble beside a device request
+    spreads its members over a 1 x N mesh's model axis (JAX's
+    ``make_mesh(data=1, model=n_dev)``)."""
     from ..parallel.mesh import world
     if (config.get("extended_moments", False)
             and config.get("data", {}).get("process_type") == "heston"):
@@ -1093,30 +1184,78 @@ def run_experiment(config: Dict, save_dir: str = "runs") -> Dict:
             f"device count (ensemble runs parallelize over the seed "
             f"axis). Use --ensemble {n_dev * max(1, n_ensemble // n_dev)} "
             f"or adjust --data-parallel.")
-    if size == 1 and n_dp > 1:
-        from ..parallel import launch
-        return launch(run_experiment, n_dp, args=(given, save_dir),
-                      devices=_rank_devices(config, n_dp))[0]
-    if size > 1 and n_dp > 1 and n_dp != size:
-        raise ValueError(f"--data-parallel {n_dp} in a world of {size} "
-                         "ranks: one rank a device")
+    n_mp = 1 if n_ensemble > 1 else _model_parallel(config)
+    if size == 1:
+        n = n_dp if n_ensemble > 1 else _spawn_shape(config, n_dp, n_mp)
+        if n > 1:
+            from ..parallel import launch
+            return launch(run_experiment, n, args=(given, save_dir),
+                          devices=_rank_devices(config, n))[0]
+    elif n_dp > 1 and n_dp * n_mp != size:
+        raise ValueError(f"--data-parallel {n_dp}"
+                         + (f" --model-parallel {n_mp}" if n_mp > 1 else "")
+                         + f" in a world of {size} ranks: one rank a device")
     with contextlib.redirect_stdout(
             io.StringIO()) if rank else contextlib.nullcontext():
         return _run_experiment(given, config, save_dir, n_ensemble, up)
+
+
+def _model_parallel(config: Dict) -> int:
+    return int(config.get("model_parallel", 1) or 1)
+
+
+def _spawn_shape(config: Dict, n_dp: int, n_mp: int) -> int:
+    """The ranks a run without a group spawns: D x M, D from
+    ``data_parallel`` or, under a model axis, JAX's ``make_mesh(data=None)``
+    rule over the cards (max(1, cards // M)); 1 where every rank would
+    share one device ("cpu", "cuda:K").  Raises JAX's "mesh DxM needs N
+    devices, have C" where rank r would take card r and there are too few
+    cards."""
+    if n_dp <= 1 and n_mp <= 1:
+        return 1
+    shared = _rank_devices(config, 1) is not None
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n_data = (n_dp if n_dp > 1 else 1 if shared
+              else max(1, cards // n_mp))
+    n = n_data * n_mp
+    if not shared and n > cards:
+        raise ValueError(f"mesh {n_data}x{n_mp} needs {n} devices, "
+                         f"have {cards}")
+    return n
 
 
 def _run_experiment(given: Dict, config: Dict, save_dir: str,
                     n_ensemble: int, up) -> Dict:
     """``run_experiment`` on this process: one model on one device, or this
     rank's share of a run over every rank of the group."""
-    from ..parallel import is_primary, make_mesh
+    from ..parallel import global_mesh, is_primary, make_mesh
     from ..parallel.mesh import world
+    from ..parallel.model_axis import model_axis_note
     rank, size = world()
     mesh = None
+    n_mp = _model_parallel(config)
+    mode = config.get("model_parallel_mode") or ("moments" if n_mp > 1
+                                                 else "none")
     if size > 1:
-        mesh = make_mesh(data=size, devices=_rank_devices(config, size))
-        print(f"Distributed: {size} ranks (data axis {size}, model axis 1), "
-              f"backend {mesh.backend}, rank 0 on {mesh.device}", flush=True)
+        devices = _rank_devices(config, size)
+        if n_ensemble > 1:
+            # the members over the model axis (njode_tpu/utils/
+            # training.py:1317-1326)
+            mesh = make_mesh(data=1, model=size, devices=devices)
+            note = "the ensemble's members over the model axis"
+        else:
+            # every rank on the device its launcher set: the mesh over all
+            # processes (njode_tpu/utils/training.py:1327-1329)
+            mesh = (global_mesh(model=n_mp) if devices is None
+                    else make_mesh(data=size // n_mp, model=n_mp,
+                                   devices=devices))
+            note = (model_axis_note(mode, bool(config.get("shared_network",
+                                                          False)),
+                                    int(config.get("num_moments", 1)), n_mp)
+                    if n_mp > 1 and mode != "none" else "")
+        print(f"Distributed: {size} ranks (data axis {mesh.n_data}, model "
+              f"axis {mesh.n_model}), backend {mesh.backend}, rank 0 on "
+              f"{mesh.device}" + (f"; {note}" if note else ""), flush=True)
         device = mesh.device
     else:
         # config "device": "auto" or absent means cuda (raising without
@@ -1181,7 +1320,8 @@ def _run_experiment(given: Dict, config: Dict, save_dir: str,
         checkpoint_backend=config.get("checkpoint_backend", "msgpack"),
         use_train_kernel=use_train_kernel,
         train_kernel_opts={"mxu_dtype": config.get("train_kernel_mxu",
-                                                   "float32")})
+                                                   "float32")},
+        model_shard=mode)
     train_data_fn, val_data_fn = create_data_loaders(
         base_seed=config.get("data_seed", 0), device=device,
         **config["data"])

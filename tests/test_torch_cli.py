@@ -200,7 +200,8 @@ def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capfd):
     --data-parallel 2 spawns two gloo ranks on the CPU (rank 0 prints and
     writes the run), --checkpoint-backend orbax writes a
     torch.distributed.checkpoint directory that a rerun resumes from; the
-    model axis (--model-parallel 2) raises naming item 12b."""
+    model axis (--model-parallel 2, a 1 x 2 mesh of gloo ranks on the CPU,
+    "moments" by default) trains too."""
     monkeypatch.chdir(tmp_path)
     experiment_black_scholes.main(TINY + ["--no-plots", "--ensemble", "2"])
     history = json.loads((tmp_path / "runs" / "njode_black_scholes"
@@ -220,9 +221,14 @@ def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capfd):
     assert (tmp_path / "runs" / "dcp" / "model.ckpt").is_dir()
     assert "Resuming from epoch 4" in capfd.readouterr().out
     assert len(res["history"]["train_loss"]) == 5
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        experiment_black_scholes.main(TINY + ["--no-plots",
-                                              "--model-parallel", "2"])
+    res = experiment_black_scholes.main(
+        TINY + ["--no-plots", "--model-parallel", "2", "--experiment-name",
+                "mp"])
+    assert len(res["history"]["train_loss"]) == 4
+    assert ("Distributed: 2 ranks (data axis 1, model axis 2), backend "
+            "gloo, rank 0 on cpu; moments: 1 of the 2 networks on each "
+            "rank") in capfd.readouterr().out
+    assert (tmp_path / "runs" / "mp" / "history.json").is_file()
 
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):

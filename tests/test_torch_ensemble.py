@@ -208,8 +208,10 @@ def test_mesh_and_device_parallel_ensembles_raise(tmp_path, monkeypatch):
     """Ensembles over ranks train now (tests/test_torch_distributed.py; a
     mesh raised here): a 1-rank mesh trains every member as no mesh does,
     and --multihost in a single process runs as one.  What still raises:
-    --ensemble 3 beside --data-parallel 2 (the JAX package's message) and
-    the model axis (item 12b)."""
+    --ensemble 3 beside --data-parallel 2 (the JAX package's message).  A
+    --model-parallel beside an ensemble without a device request is the
+    JAX package's single-device ensemble (its ensemble route builds a mesh
+    only from --data-parallel or --multihost)."""
     from njode_tpu_torch.parallel import make_mesh
     ref = train_ensemble(port_model(), "black_scholes", n_seeds=2,
                          n_epochs=1, **TRAIN_KW)
@@ -221,9 +223,9 @@ def test_mesh_and_device_parallel_ensembles_raise(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="cannot shard over 2 devices"):
         run_experiment(dict(ens_config(), data_parallel=2),
                        save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        run_experiment(dict(ens_config(), model_parallel=2),
-                       save_dir=str(tmp_path))
+    res = run_experiment(dict(ens_config(n_epochs=1, experiment_name="mp"),
+                              model_parallel=2), save_dir=str(tmp_path))
+    assert np.asarray(res["history"]["member_train_loss"]).shape == (1, 3)
     for var in ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE",
                 "MASTER_ADDR"):
         monkeypatch.delenv(var, raising=False)

@@ -27,7 +27,10 @@ PORT_MODULES = ["njode_tpu_torch", "njode_tpu_torch.models",
                 "njode_tpu_torch.ops._build", "njode_tpu_torch.ops.report",
                 "njode_tpu_torch.parallel",
                 "njode_tpu_torch.parallel.distributed",
-                "njode_tpu_torch.parallel.mesh", "njode_tpu_torch.serving",
+                "njode_tpu_torch.parallel.mesh",
+                "njode_tpu_torch.parallel.collectives",
+                "njode_tpu_torch.parallel.model_axis",
+                "graft_entry_torch", "njode_tpu_torch.serving",
                 "njode_tpu_torch.simulation",
                 "njode_tpu_torch.simulation.moments",
                 "njode_tpu_torch.utils", "njode_tpu_torch.utils.checkpoint",

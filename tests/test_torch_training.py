@@ -313,16 +313,11 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over,match", [
-    # ensembles, data parallelism, multi-host runs and the "orbax"
-    # checkpoints train now (tests/test_torch_parallel.py,
-    # tests/test_torch_distributed.py; these cases refused them); beside
-    # them the model axis is item 12b's
-    (dict(ensemble=4, data_parallel=2, model_parallel=2), "item 12b"),
-    (dict(data_parallel=2, model_parallel=2), "item 12b"),
-    (dict(multihost=True, model_parallel_mode="hidden"), "item 12b"),
+    # ensembles, data parallelism, multi-host runs, the "orbax"
+    # checkpoints and the model axis train now (tests/test_torch_parallel.py,
+    # tests/test_torch_distributed.py, tests/test_torch_model_axis.py; the
+    # model axis's cases moved to test_run_experiment_trains_the_model_axis)
     (dict(use_pallas="step-interpret"), "not ported"),
-    (dict(checkpoint_backend="orbax", model_parallel_mode="moments"),
-     "item 12b"),
     # every process family trains now (the OU process was refused here):
     # this case holds the other interpret mode
     (dict(use_pallas="interpret"), "not ported"),
@@ -330,6 +325,36 @@ def test_run_experiment_writes_artifacts_and_resumes(tmp_path, capsys):
 def test_run_experiment_refuses_unported_paths(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(_config(tmp_path, **over), save_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("over,ranks,line", [
+    # an ensemble's members over the model axis of a 1 x 2 mesh
+    (dict(ensemble=4, data_parallel=2, model_parallel=2), 2,
+     "(data axis 1, model axis 2)"),
+    # a 2 x 2 mesh, each rank one network of two
+    (dict(data_parallel=2, model_parallel=2), 4,
+     "(data axis 2, model axis 2)"),
+    # one process: no mesh, the mode alone
+    (dict(multihost=True, model_parallel_mode="hidden"), 1, None),
+    (dict(checkpoint_backend="orbax", model_parallel_mode="moments"), 1,
+     None),
+])
+def test_run_experiment_trains_the_model_axis(tmp_path, capfd, monkeypatch,
+                                              over, ranks, line):
+    """The model-axis configs that were refused here train: an ensemble
+    beside --model-parallel over JAX's ensemble mesh, a D x M mesh, and a
+    mode without a model axis (one process)."""
+    for var in ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE",
+                "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    res = run_experiment(_config(tmp_path, **over), save_dir=str(tmp_path))
+    assert np.isfinite(res["history"]["train_loss"]).all()
+    assert len(res["history"]["train_loss"]) == 2
+    out = capfd.readouterr().out
+    if line is None:
+        assert "Distributed:" not in out
+    else:
+        assert f"Distributed: {ranks} ranks {line}" in out
 
 
 def test_run_experiment_runs_forced_kernels(tmp_path, capsys):

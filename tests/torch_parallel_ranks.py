@@ -80,7 +80,8 @@ def parallel_cases(state: dict, workdir: str) -> dict:
     errors = {}
     for name, call in (
             ("too_few", lambda: make_mesh(data=4, devices=["cpu"] * 2)),
-            ("model_axis", lambda: make_mesh(data=1, model=2)),
+            ("model_axis", lambda: make_mesh(data=1, model=2,
+                                             devices=["cpu", "cpu"])),
             ("world", lambda: make_mesh(data=1, devices=["cpu"]))):
         try:
             call()
@@ -105,8 +106,9 @@ def parallel_cases(state: dict, workdir: str) -> dict:
     # ---- dropout: a stream per (seed, epoch, rank) where the rows split
     tr = trainer_from(state, mesh, model_kw=dict(dropout_rate=0.2))
     out["dropout_draws"] = {
-        "sharded": torch.rand(8, generator=tr._dropout_generator(0, True)),
-        "whole": torch.rand(8, generator=tr._dropout_generator(0, False))}
+        name: torch.stack([torch.rand(8, generator=g)
+                           for g in tr._dropout_generator(0, sharded)])
+        for name, sharded in (("sharded", True), ("whole", False))}
     hist, _ = train_fixed(tr, n_epochs=1)
     out["dropout"] = (hist, state_of(tr))
     # ---- the fused step's and the forced kernels' plain versions
@@ -138,7 +140,8 @@ def distributed_cases(ens_model_kw: dict, ens_train_kw: dict, cfg: dict,
     from njode_tpu_torch.utils import training as T
     from njode_tpu_torch.utils.ensemble import (train_ensemble_full,
                                                 train_population)
-    mesh = make_mesh(data=2, devices=["cpu", "cpu"])
+    # JAX's ensemble mesh: the members over the model axis
+    mesh = make_mesh(data=1, model=2, devices=["cpu", "cpu"])
     out = {"rank": initialize_distributed()}
     for k in (4, 3):
         model = NeuralJumpODE(device="cpu", **ens_model_kw)
