@@ -351,6 +351,14 @@ uncaught exception and a nonzero exit:
    one process, one gradient all-reduce a step over the data group; one
    epoch.  Each prints its wall, device time, the card's idle share and
    the gather's ms.
+50. the rk4 production recipe (scripts/run_production_rk4.sh: rk4 at
+   dt_ode_step 0.05 on the 0.01 grid, so no walk and no kernel under
+   --kernels auto): its first 3 minibatches on the card against the CPU
+   from the same weights and data (losses at rtol 1e-5, each parameter
+   and Adam moment within 1e-4 of its norm); run_experiment of its config
+   for 2 epochs, resumed to 3 under torch.profiler (the first 2 losses
+   bitwise), every kernel row at 0 launches in each window; the wall an
+   epoch, device time and idle share beside phase 15's row-13 epoch.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -362,7 +370,8 @@ for the gap kernel, 9 for the training kernel, 14 for the walk kernels (the
 separate-network path) and the walk-train kernel, 18 for the fused-step
 kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
-call or run, 41-49 a window a run on each rank, every row's count read in
+call or run, 41-49 a window a run on each rank, 50 a window each for the
+steps, the run and the resume, every row at 0, every row's count read in
 each) and read just after.  The last line is the JSON result; the line
 before it lists the kernels, each with its main path's launches and, under
 "also", the launches of the other windows that ran it in phases 35-43 and
@@ -403,7 +412,7 @@ from njode_tpu_torch.simulation import (bs_paths, moments_at_obs,
 from njode_tpu_torch.utils import (Trainer, conditional_moment_mse,
                                    create_data_loaders, load_checkpoint,
                                    make_adam, run_experiment)
-from njode_tpu_torch.utils.training import as_dense
+from njode_tpu_torch.utils.training import _grid_walk_aligned, as_dense
 
 RTOL, ATOL = 1e-4, 1e-5
 DT, N_SUB = 0.01, 100
@@ -1058,6 +1067,12 @@ RECIPE_FLAGS = {
                "4096", "--hidden-dim", "256", "--obs-fraction", "0.02",
                "--num-moments", "2", "--kernels", "step", "--obs-only",
                "auto", "--print-every", "5"],
+    # scripts/run_production_rk4.sh
+    "production-rk4": ["--n-train", "10000", "--n-val", "2000",
+                       "--hidden-dim", "50", "--shared-network",
+                       "--dt-ode-step", "0.05", "--ode-solver", "rk4",
+                       "--batch-size", "128", "--moment-weights", "1.0",
+                       "10.0"],
 }
 
 
@@ -1831,7 +1846,9 @@ def timed_epochs(trainer, train_fn, val_fn, cfg, n: int,
 
 def production_times_phase(dev: torch.device, card: str) -> tuple:
     """Host clock around synchronized Trainer.train calls; CUDA events for
-    the walk-train kernel.  Returns its (ms, plain ms, bound ms, bound_by)."""
+    the walk-train kernel.  Returns its (ms, plain ms, bound ms, bound_by)
+    and the recipe's seconds an epoch on it (phase 50 prints them beside
+    the rk4 recipe's)."""
     E = PROD_EPOCHS
     cfg = production_config(E, "timed")
     train_fn, val_fn = create_data_loaders(base_seed=1, device=dev,
@@ -1897,7 +1914,7 @@ def production_times_phase(dev: torch.device, card: str) -> tuple:
           f"{p_ms:.3f} ms; bound {t_bound[0]:.4f} ms ({t_bound[1]}); val MSE "
           f"after {trained} epochs: mean {mse_mean:.3e} var {mse_var:.3e}, "
           f"relative loss {rel:.4f}", flush=True)
-    return (statistics.median([k_ms, k2_ms]), p_ms, *t_bound)
+    return (statistics.median([k_ms, k2_ms]), p_ms, *t_bound), kern_s / E
 
 
 def walk_times_phase(dev: torch.device, card: str) -> dict:
@@ -3985,14 +4002,15 @@ def family_config(recipe: str, n_epochs: int, name: str,
 def recipe_model(cfg: dict, dev: torch.device, seed: int = 0
                  ) -> NeuralJumpODE:
     """The model run_experiment builds for a config (the grid walk where
-    the config's dt_ode_step asks for it, as the card resolves 'auto')."""
+    the config's dt_ode_step divides the data's grid, as the card resolves
+    'auto')."""
     d = int(cfg["data"].get("dims", 1))
     up = cfg["use_pallas"]
     return NeuralJumpODE(
         cfg.get("input_dim", d), cfg["hidden_dim"], cfg.get("output_dim", d),
         num_moments=2, shared_network=cfg["shared_network"],
-        dt_ode_step=cfg["dt_ode_step"],
-        grid_walk=cfg["dt_ode_step"] is not None,
+        dt_ode_step=cfg["dt_ode_step"], ode_solver=cfg["ode_solver"],
+        grid_walk=_grid_walk_aligned(cfg),
         use_pallas=up if up in ("auto", "step", True) else False, device=dev,
         generator=torch.Generator().manual_seed(seed))
 
@@ -5653,6 +5671,160 @@ def model_axis_phases(dev: torch.device, card: str, tmp: Path,
     return out
 
 
+# ------------------------------------------ the rk4 production recipe (50)
+
+RK4_STEPS = 3            # phase 50's minibatches on the card against the CPU
+RK4_EPOCHS = 2           # phase 50's run_experiment, then a resume to one more
+RK4_LOSS_RTOL = 1e-5     # the steps' losses, entrywise
+RK4_STATE_NORM = 1e-4    # each parameter and Adam moment, of its norm
+
+
+def rk4_first_steps(dev: torch.device) -> dict:
+    """The rk4 recipe's first RK4_STEPS minibatches (epoch 0 of data seed
+    5, drawn on the CPU and shuffled as the CPU Trainer shuffles) from the
+    same weights, one Trainer step a minibatch on the card (its own launch
+    window: no kernel) and on the CPU: the losses at RK4_LOSS_RTOL, every
+    parameter and Adam moment within RK4_STATE_NORM of its norm.  Returns
+    the worst shares of both limits and the card's ms a step."""
+    cfg = recipe_config("production-rk4", 1, "rk4_steps")
+    cpu = torch.device("cpu")
+    train_fn, _ = create_data_loaders(base_seed=5, device=cpu, **cfg["data"])
+    times, values, mask, _ = as_dense(train_fn(0), cpu)
+    init = recipe_model(cfg, cpu, seed=cfg["seed"])
+    runs, idx, valid = {}, None, None
+    for name, where in (("cpu", cpu), ("card", dev)):
+        model = copy.deepcopy(init).to(where)
+        tr = Trainer(model, make_adam(model.parameters(),
+                                      cfg["learning_rate"],
+                                      cfg["weight_decay"]),
+                     ignore_first_continuity=True,
+                     moment_weights=cfg["moment_weights"], seed=cfg["seed"])
+        if idx is None:
+            idx, valid = tr._minibatches(0, times.shape[0],
+                                         cfg["batch_size"], True)
+        t, v, m = (x.to(where) for x in (times, values, mask))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = torch.stack([
+            tr._step(t[i], v[i], m[i], vm.to(where), None)
+            for i, vm in zip(idx[:RK4_STEPS].to(where), valid[:RK4_STEPS])])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "card":
+            expect_counts("phase 50, the first steps on the card", {})
+        state = tr.optimizer.state_dict()["state"]
+        runs[name] = {
+            "losses": losses.cpu(), "wall": wall,
+            "state": {**{k: p.detach().cpu()
+                         for k, p in model.named_parameters()},
+                      **{f"Adam {k} {i}": s[k].cpu() for i, s in state.items()
+                         for k in ("exp_avg", "exp_avg_sq")}}}
+    card, ref = runs["card"], runs["cpu"]
+    assert_close(card["losses"], ref["losses"], "phase 50: per-step losses, "
+                 "card vs CPU", rtol=RK4_LOSS_RTOL, atol=0.0)
+    loss_share = float(((card["losses"].double() - ref["losses"].double())
+                        .abs() / ref["losses"].double().abs()).max())
+    state_share = 0.0
+    for k, b in ref["state"].items():
+        a = card["state"][k]
+        assert_close_norm(a, b, f"phase 50: {k}, card vs CPU",
+                          rtol=RK4_STATE_NORM)
+        state_share = max(state_share, float(
+            (a.double() - b.double()).norm() / b.double().norm()))
+    return {"loss_share": loss_share / RK4_LOSS_RTOL,
+            "state_share": state_share / RK4_STATE_NORM,
+            "n_state": len(ref["state"]),
+            "ms_step": 1e3 * card["wall"] / RK4_STEPS,
+            "cpu_ms_step": 1e3 * ref["wall"] / RK4_STEPS}
+
+
+def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
+                     row13_epoch_s: float = None) -> dict:
+    """Phase 50: scripts/run_production_rk4.sh on the card.  Its first
+    RK4_STEPS minibatches against the CPU (rk4_first_steps); then
+    run_experiment of its config cut to RK4_EPOCHS epochs (the full data
+    width), resumed to RK4_EPOCHS + 1 under torch.profiler: the composed
+    per-gap rk4 loop in training and validation, every kernel row at 0
+    launches in each window, the resume's first RK4_EPOCHS losses bitwise
+    the run's.  Prints the wall an epoch, the resumed call's device ms,
+    device events and the card's idle share over it (and the same device
+    time over an unprofiled epoch's wall), beside the production recipe's
+    epoch on row 13 (phase 15), where the caller passes it."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = rk4_first_steps(dev)
+    out = {}
+    for n in (RK4_EPOCHS, RK4_EPOCHS + 1):
+        cfg = recipe_config("production-rk4", n, "rk4")
+        resume = n > RK4_EPOCHS
+        buf = io.StringIO()
+        reset_counts()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if resume else contextlib.nullcontext())
+        with ctx as prof, contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_experiment(cfg, save_dir=str(tmp))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        expect_counts(f"phase 50, run_experiment of {n} epochs", {})
+        hist = res["history"]
+        if ("Training path: composed (per-gap rk4 loop) from epoch" not in text
+                or not all(math.isfinite(x) for x in hist["train_loss"]
+                           + hist["val_loss"] + hist["relative_loss"])):
+            raise AssertionError(f"phase 50: {hist}, {text}")
+        out[n] = {"hist": hist, "wall": wall, "text": text}
+        if resume:
+            out[n]["device_ms"], out[n]["events"] = device_busy(prof)
+    run, more = out[RK4_EPOCHS], out[RK4_EPOCHS + 1]
+    if (f"Resuming from epoch {RK4_EPOCHS}" not in more["text"] or any(
+            more["hist"][k][:RK4_EPOCHS] != run["hist"][k]
+            for k in ("train_loss", "val_loss"))):
+        raise AssertionError(f"phase 50: the resume differs: {more['text']}")
+    epochs = run["hist"]["epoch_times"]
+    idle = 1.0 - more["device_ms"] / (1e3 * more["wall"])
+    # the profiler slows the host; the same device time over an
+    # unprofiled epoch's wall
+    idle_run = 1.0 - more["device_ms"] / (1e3 * statistics.median(epochs))
+    data, bs = cfg["data"], cfg["batch_size"]
+    print(f"phase 50, scripts/run_production_rk4.sh on {card} (hidden 50, "
+          f"shared, K 2, rk4 at dt_ode_step 0.05 on the 0.01 grid, batch "
+          f"{bs}, weights [1, 10], {data['n_train']:,} fresh trajectories an "
+          f"epoch, {data['n_val']:,} for validation; --kernels auto: the "
+          f"composed per-gap "
+          f"rk4 loop, no grid walk, no whole-run or gap kernel): the first "
+          f"{RK4_STEPS} minibatches against the CPU from the same weights "
+          f"and data, losses within {steps['loss_share']:.3f} of rtol "
+          f"{RK4_LOSS_RTOL}, {steps['n_state']} parameters and Adam moments "
+          f"within {steps['state_share']:.3f} of {RK4_STATE_NORM} of their "
+          f"norm, {steps['ms_step']:.1f} ms a step on the card "
+          f"({steps['cpu_ms_step']:.1f} on the CPU); run_experiment of "
+          f"{RK4_EPOCHS} epochs {run['wall']:.2f} s, an epoch "
+          f"{', '.join(f'{x:.3f}' for x in epochs)} s of wall (data, "
+          f"{-(-data['n_train'] // bs)} steps, validation, relative loss), "
+          f"train "
+          f"loss {run['hist']['train_loss'][0]:.4f} -> "
+          f"{run['hist']['train_loss'][-1]:.4f}, val "
+          f"{run['hist']['val_loss'][-1]:.4f}; its resume to "
+          f"{RK4_EPOCHS + 1} (one epoch, profiled: "
+          f"{more['hist']['epoch_times'][-1]:.3f} s of it the epoch) "
+          f"{more['wall']:.2f} s of wall, {more['device_ms']:.1f} ms device "
+          f"in {more['events']:,} device events, the card idle "
+          f"{100 * idle:.1f}% over it ({100 * idle_run:.1f}% over an "
+          f"unprofiled epoch's wall), the first {RK4_EPOCHS} losses "
+          f"bitwise; every "
+          f"kernel row at 0 launches in each window; " + (
+              "phase 15's row-13 epoch not run" if row13_epoch_s is None
+              else f"beside it the production recipe on row 13 "
+              f"{row13_epoch_s:.4f} s an epoch (phase 15), "
+              f"{statistics.median(epochs) / row13_epoch_s:.0f}x"),
+          flush=True)
+    return {"epoch_s": epochs, "idle": idle, "idle_run": idle_run,
+            "device_ms": more["device_ms"], "events": more["events"]}
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -5718,7 +5890,8 @@ def main() -> None:
         separate = separate_grid_walk_path_phase(dev, Path(tmp))
     wt_err = max(wt_err, walk_twin_vs_composed_phase(dev))
     t = phase_time("production training path", t)
-    times = {"walk_train": production_times_phase(dev, card)}
+    walk_train_times, row13_epoch_s = production_times_phase(dev, card)
+    times = {"walk_train": walk_train_times}
     t = phase_time("production times", t)
     times.update(walk_times_phase(dev, card))
     t = phase_time("walk kernel times", t)
@@ -5828,6 +6001,9 @@ def main() -> None:
         mp = model_axis_phases(dev, card, Path(tmp), dp)
     t = phase_time("model axis, 2 and 4 gloo ranks on one card (rows 9-10, "
                    "6, 3, 5, 1)", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        rk4_recipe_phase(dev, card, Path(tmp), row13_epoch_s)
+    t = phase_time("the rk4 production recipe (no kernel)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):

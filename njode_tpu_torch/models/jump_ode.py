@@ -472,6 +472,17 @@ class NeuralJumpODE(nn.Module):
             return False
         return inference or gap_scan.gap_train_fits(self.hidden_dim)
 
+    def _walks(self, inference: bool = False) -> bool:
+        """Whether ``apply`` integrates the gaps as the grid walk.
+        ``grid_walk`` is permission to walk; under "auto" the walk is taken
+        only where its kernels carry it, as in the JAX package
+        (``njode_tpu/models/jump_ode.py:806-820``), and under True too, whose
+        walk the JAX package runs on the walk kernel on its TPU (a no-grad
+        walk on the card takes the per-gap route, as under "auto")."""
+        if self.grid_walk and self.use_pallas in ("auto", True):
+            return self._use_walk_kernel(inference)
+        return self.grid_walk
+
     def _forced_route(self) -> Optional[str]:
         """What the forced kernels (``use_pallas=True``) carry of a training
         step, for the Trainer's "Training path:" line; None otherwise."""
@@ -996,15 +1007,7 @@ class NeuralJumpODE(nn.Module):
 
         S = N - 1
         inference = gen is None and not torch.is_grad_enabled()
-        # grid_walk is permission to walk; under "auto" the walk is taken
-        # only where its kernels carry it, as in the JAX package
-        # (njode_tpu/models/jump_ode.py:806-820), and under True too, whose
-        # walk the JAX package runs on the walk kernel on its TPU (a no-grad
-        # walk on the card takes the per-gap route, as under "auto")
-        use_walk = self.grid_walk
-        if use_walk and self.use_pallas in ("auto", True):
-            use_walk = self._use_walk_kernel(inference)
-        if use_walk:
+        if self._walks(inference):
             if mask is not None:
                 mask = self._as_tensor(mask, torch.bool)
             self._check_grid_alignment(times, mask)

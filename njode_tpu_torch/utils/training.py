@@ -856,10 +856,13 @@ class Trainer:
                 if self._mxu_dtype() != "float32":
                     kernel += f" ({self._mxu_dtype()} products)"
                 rows = self._step_rows(times.shape[0], batch_size)
-                forced = self.model._forced_route()
+                m = self.model
+                forced = m._forced_route()
                 comp = ("composed (fused-step kernels)"
-                        if self.model._use_fused_step(times.shape[1], rows)
+                        if m._use_fused_step(times.shape[1], rows)
                         else f"composed (forced {forced})" if forced
+                        else f"composed (per-gap {m.ode_solver} loop)"
+                        if m.dt_ode_step is not None and not m._walks()
                         else "composed")
                 if self.mesh is not None and self.mesh.n_model > 1:
                     if self.mesh.n_data > 1:

@@ -95,7 +95,8 @@ def script_flags(name):
                                   if "experiment" in w)) + 1:]
 
 
-SCRIPTS = {"black_scholes": ["run_black_scholes.sh", "run_scaled_sweep.sh"],
+SCRIPTS = {"black_scholes": ["run_black_scholes.sh", "run_scaled_sweep.sh",
+                             "run_production_rk4.sh"],
            "ou": ["run_ou.sh"], "heston": ["run_heston.sh"],
            "hybrid": ["run_hybrid.sh"]}
 FLAG_SETS = [(name, []) for name in PORT] + [
@@ -146,6 +147,9 @@ def test_shell_twins_pass_the_same_flags(script):
     text = (REPO / "scripts" / twin).read_text()
     assert "python -u -m njode_tpu_torch.experiments.experiment_" in text
     assert script_flags(twin) == script_flags(script)
+    # a twin states no figure of the JAX package's runs
+    for word in ("TPU", "27%", "BENCH_NOTES"):
+        assert word not in text, word
 
 
 def test_help_states_the_ports_routes_and_no_tpu_figure(capsys):
@@ -469,7 +473,8 @@ def test_chip_smoke_recipe_configs_are_unchanged():
 
 @pytest.mark.parametrize("recipe,script", [
     ("production", "run_black_scholes.sh"),
-    ("scaled", "run_scaled_sweep.sh")])
+    ("scaled", "run_scaled_sweep.sh"),
+    ("production-rk4", "run_production_rk4.sh")])
 def test_chip_smoke_recipe_flags_are_the_scripts(recipe, script):
     flags = script_flags(script)
     i = flags.index("--n-epochs")
