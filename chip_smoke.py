@@ -359,6 +359,19 @@ uncaught exception and a nonzero exit:
    for 2 epochs, resumed to 3 under torch.profiler (the first 2 losses
    bitwise), every kernel row at 0 launches in each window; the wall an
    epoch, device time and idle share beside phase 15's row-13 epoch.
+51. the Trainer's chunked route (Trainer.train chunk_epochs "auto", the
+   route run_experiment takes): the default (rows 11-12), production (row
+   13, row 1 in validation) and scaled (rows 9-10) recipes at full width,
+   from the same weights and loaders, 2 chunks of the recipe's
+   print_every epochs (5 in each), each epoch a CUDA graph replay after one
+   eager epoch, beside the per-epoch loop
+   (chunk_epochs 0): every loss and the final parameters and Adam state
+   bitwise equal, and a control drawing from the next epoch's seeds
+   unequal; every epoch of a chunk under set_sync_debug_mode("error");
+   each row launched as in the per-epoch window, and the profiler's
+   kernel events of a chunked run equal to the counters; the capture's
+   cost, the wall an epoch, device time and the card's idle share, chunked
+   and per epoch.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -372,11 +385,13 @@ kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
 call or run, 41-49 a window a run on each rank, 50 a window each for the
 steps, the run and the resume, every row at 0, every row's count read in
-each) and read just after.  The last line is the JSON result; the line
-before it lists the kernels, each with its main path's launches and, under
-"also", the launches of the other windows that ran it in phases 35-43 and
-46-49 (those of 46-49 marked "model axis:").  There is no CPU run: without a CUDA
-device the script fails.
+each, 51 a window a run) and read just after.  The last line is the JSON
+result; the line before it lists the kernels, each with its main path's
+launches and, under "also", the launches of the other windows that ran it
+in phases 35-43, 46-49 (marked "model axis:") and 51.  Every
+run_experiment and Trainer.train of a DataLoader takes the chunked route,
+so the recipes' phases on rows 11-13 and 9-10 replay CUDA graphs.  There
+is no CPU run: without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -5825,6 +5840,241 @@ def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
             "device_ms": more["device_ms"], "events": more["events"]}
 
 
+# ------------------------------------------------- the chunked route (51)
+
+# the kernel rows each recipe's chunk launches, with the kernels' names in
+# the profiler's events (rows 9 and 10: the f32 step kernel's two
+# instances)
+CHUNK_ROWS = {"default": {11: "train_run_kernel"},
+              "production": {13: "walk_train_kernel",
+                             1: "gap_scan_fwd_kernel"},
+              "scaled": {9: "step_kernel<false>", 10: "step_kernel<true>"}}
+
+
+def chunk_trainer(cfg: dict, dev: torch.device) -> tuple:
+    """The Trainer and the loaders run_experiment makes for a config, from
+    fixed weights (seed 1)."""
+    model = recipe_model(cfg, dev, seed=1)
+    up = cfg["use_pallas"]
+    trainer = Trainer(
+        model, make_adam(model.parameters(), cfg["learning_rate"],
+                         cfg["weight_decay"]),
+        ignore_first_continuity=cfg.get("ignore_first_continuity", False),
+        moment_weights=cfg.get("moment_weights"), seed=cfg.get("seed", 0),
+        use_train_kernel={"auto": "auto", "train": True}.get(up, False),
+        train_kernel_opts={"mxu_dtype": cfg.get("train_kernel_mxu",
+                                                "float32")})
+    loaders = create_data_loaders(base_seed=cfg.get("data_seed", 0),
+                                  device=dev, **cfg["data"])
+    return trainer, loaders
+
+
+def chunk_run(cfg: dict, dev: torch.device, chunk_epochs, profiled=False,
+              seed_shift: int = 0, host_adam: bool = False) -> dict:
+    """Two print intervals of Trainer.train of a config (2 x its
+    print_every epochs) in its own launch window: ``chunk_epochs`` "auto"
+    (chunks of print_every epochs, every epoch of a chunk under
+    set_sync_debug_mode("error")) or 0 (the per-epoch loop);
+    ``seed_shift`` draws every chunked epoch's streams from the next
+    epoch's seeds (a control); ``host_adam`` steps Adam with
+    capturable=False (its step arithmetic on the host).  Returns the
+    history, the final state, the window's counts, the wall, the output,
+    the run's programs, each chunk's host split (ms: the state in, enqueueing
+    its epochs, waiting for the card, the state out, the rest) and, with
+    ``profiled``, the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from njode_tpu_torch.utils import training as T
+    trainer, loaders = chunk_trainer(cfg, dev)
+    trainer.check_syncs = chunk_epochs != 0
+    if host_adam:
+        for g in trainer.optimizer.param_groups:
+            g["capturable"] = False
+    orig = {k: getattr(T._ChunkRun, k) for k in ("begin", "end", "chunk")}
+    splits = []
+
+    def timed(name):
+        def run(self, *args):
+            t0 = time.perf_counter()
+            if name == "end":          # the card's queue drains first
+                torch.cuda.synchronize()
+                splits[-1]["wait"] = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+            if name == "chunk":
+                splits.append({})
+            out = orig[name](self, *args)
+            splits[-1][name] = 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+    for name in orig:
+        setattr(T._ChunkRun, name, timed(name))
+    if seed_shift:
+        seed = T._Streams.seed
+        T._Streams.seed = lambda self, e: seed(self, e + seed_shift)
+    buf = io.StringIO()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    reset_counts()
+    try:
+        with ctx as prof, contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = trainer.train(*loaders, n_epochs=2 * cfg["print_every"],
+                                 batch_size=cfg["batch_size"],
+                                 shuffle=cfg.get("shuffle", True),
+                                 print_every=cfg["print_every"], config=cfg,
+                                 chunk_epochs=chunk_epochs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in orig.items():
+            setattr(T._ChunkRun, name, fn)
+        if seed_shift:
+            T._Streams.seed = seed
+    opt = trainer.optimizer.state_dict()["state"]
+    state = {**trainer.model.state_dict(),
+             **{f"adam {i} {k}": v for i, s in opt.items()
+                for k, v in s.items()}}
+    for sp in splits:
+        sp["enqueue"] = sp["chunk"] - sp["begin"] - sp["wait"] - sp["end"]
+    return {"hist": hist, "state": state, "counts": kernel_counts(),
+            "wall": wall, "out": buf.getvalue(), "run": trainer._chunk_run,
+            "prof": prof, "splits": splits}
+
+
+def kernel_events(prof) -> dict:
+    """{kernel name: launches} of a profiled run's device events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            out[e.name()] = out.get(e.name(), 0) + 1
+    return out
+
+
+def chunked_phase(dev: torch.device, card: str) -> dict:
+    """Phase 51: the Trainer's chunked route on the card for the default
+    (rows 11-12), production (row 13, row 1 in validation) and scaled
+    (rows 9-10, --kernels step) recipes at full width: from the same
+    weights and loaders, 2 chunks of the recipe's print_every epochs (5 in
+    each) captured as CUDA graphs beside the per-epoch loop.  Per-epoch
+    train, validation and relative losses and the final parameters and Adam
+    state bitwise equal; a control whose streams take the next epoch's
+    seeds differs in every epoch's loss; every epoch of a chunk under
+    set_sync_debug_mode("error"); each row launched as often as in the
+    per-epoch loop's window, and the profiler's kernel events of a chunked
+    run equal to the counters (replays x a captured epoch's launches).
+    Prints the capture's cost, the wall an epoch, the device time and the
+    card's idle share, chunked and per epoch, the second chunk's host
+    split, and for the scaled recipe the per-epoch loop with Adam's step
+    arithmetic on the host.  Returns each recipe's chunked window."""
+    configs = {"default": default_config(2, "chunked"),
+               "production": production_config(2, "chunked"),
+               "scaled": scaled_config(2, "chunked")}
+    windows = {}
+    for recipe, cfg in configs.items():
+        P = cfg["print_every"]
+        eager = chunk_run(cfg, dev, 0)
+        chunked = chunk_run(cfg, dev, "auto")
+        if "chunked (CUDA graph)" not in chunked["out"]:
+            raise AssertionError(f"phase 51 {recipe}: not captured: "
+                                 f"{chunked['out']}")
+        for k in ("train_loss", "val_loss", "relative_loss"):
+            if chunked["hist"][k] != eager["hist"][k]:
+                raise AssertionError(
+                    f"phase 51 {recipe}: {k} {chunked['hist'][k]} chunked, "
+                    f"{eager['hist'][k]} per epoch")
+        bad = [k for k, v in eager["state"].items()
+               if not torch.equal(v, chunked["state"][k])]
+        if bad:
+            raise AssertionError(f"phase 51 {recipe}: the final state "
+                                 f"differs in {bad}")
+        rows = CHUNK_ROWS[recipe]
+        want = {row: eager["counts"][row] for row in rows}
+        if any(not n for n in want.values()):
+            raise AssertionError(f"phase 51 {recipe}: the per-epoch window "
+                                 f"{eager['counts']}")
+        expect_counts(f"phase 51 {recipe}, the per-epoch loop", want,
+                      eager["counts"])
+        expect_counts(f"phase 51 {recipe}, the chunked route", want,
+                      chunked["counts"])
+        control = ""
+        if recipe == "default":
+            shifted = chunk_run(cfg, dev, "auto", seed_shift=1)
+            if any(a == b for a, b in zip(shifted["hist"]["train_loss"],
+                                          eager["hist"]["train_loss"])):
+                raise AssertionError("phase 51: the control's losses equal "
+                                     "the per-epoch loop's")
+            control = ("; a control drawing each epoch from the next "
+                       "epoch's seeds differs in all "
+                       f"{len(shifted['hist']['train_loss'])} losses")
+        prof_c = chunk_run(cfg, dev, "auto", profiled=True)
+        prof_e = chunk_run(cfg, dev, 0, profiled=True)
+        names = kernel_events(prof_c["prof"])
+        seen = {row: sum(n for name, n in names.items() if sub in name)
+                for row, sub in rows.items()}
+        if seen != want:
+            raise AssertionError(
+                f"phase 51 {recipe}: the profiler saw {seen} launches, the "
+                f"counters {want}: {sorted(names.items())}")
+        run = chunked["run"]
+        n = 2 * P
+        stats = {}
+        for key, r in (("chunked", prof_c), ("eager", prof_e)):
+            dev_ms, events = device_busy(r["prof"])
+            stats[key] = (dev_ms / n, 1.0 - dev_ms / (1e3 * r["wall"]),
+                          events / n)
+        sp = chunked["splits"][-1]
+        split = (f"; the second chunk's host split {sp['begin']:.2f} ms "
+                 f"the state in, {sp['enqueue']:.2f} ms enqueueing its {P} "
+                 f"epochs, {sp['wait']:.2f} ms waiting for the card, "
+                 f"{sp['end']:.2f} ms the state out")
+        if recipe == "scaled":
+            host = chunk_run(cfg, dev, 0, host_adam=True)
+            host_ms = 1e3 * statistics.median(host["hist"]["epoch_times"][P:])
+            split += (f"; the per-epoch loop with Adam's step arithmetic on "
+                      f"the host (capturable off) {host_ms:.3f} ms an epoch")
+        ep_c = statistics.median(chunked["hist"]["epoch_times"][P:])
+        ep_e = statistics.median(eager["hist"]["epoch_times"][P:])
+        # the profiled device time an epoch over an unprofiled epoch's wall
+        idle_c = 1.0 - stats["chunked"][0] / (1e3 * ep_c)
+        idle_e = 1.0 - stats["eager"][0] / (1e3 * ep_e)
+        rel_s = run.relative.capture_s if run.relative else None
+        launches = run.epoch.launches
+        windows[recipe] = chunked["counts"]
+        windows[f"{recipe} timing"] = {
+            "chunked_ms": 1e3 * ep_c, "eager_ms": 1e3 * ep_e,
+            "device_ms": (stats["chunked"][0], stats["eager"][0]),
+            "idle": (idle_c, idle_e), "capture_s": run.epoch.capture_s}
+        print(f"phase 51, the chunked route of the {recipe} recipe on "
+              f"{card}: 2 chunks of {P} epochs (its print_every) as CUDA "
+              f"graphs "
+              f"({run.epoch.replays} epoch and "
+              f"{run.relative.replays if run.relative else 0} relative-loss "
+              f"replays after one eager epoch each) against the per-epoch "
+              f"loop from the same weights and loaders: train, validation "
+              f"and relative losses and {len(eager['state'])} parameter and "
+              f"Adam tensors bitwise equal{control}; no synchronisation in "
+              f"any chunk's epochs (set_sync_debug_mode error); launches "
+              f"{want} in both windows, the profiler's kernel events of a "
+              f"chunked run {seen}; a captured epoch launches "
+              f"{sum(launches.values())} by the counters; capture "
+              f"{1e3 * run.epoch.capture_s:.1f} ms (epoch)"
+              + (f" + {1e3 * rel_s:.1f} ms (relative loss)"
+                 if rel_s is not None else "")
+              + f"; wall an epoch {1e3 * ep_c:.3f} ms chunked, "
+              f"{1e3 * ep_e:.3f} ms per epoch (second chunk; the runs "
+              f"{chunked['wall']:.3f} / {eager['wall']:.3f} s); profiled "
+              f"runs: device {stats['chunked'][0]:.3f} / "
+              f"{stats['eager'][0]:.3f} ms an epoch, the card idle "
+              f"{100 * idle_c:.1f}% / {100 * idle_e:.1f}% of a second-chunk "
+              f"epoch's wall ({100 * stats['chunked'][1]:.1f}% / "
+              f"{100 * stats['eager'][1]:.1f}% of the profiled runs, warm-up "
+              f"and capture in the chunked one), device events "
+              f"{stats['chunked'][2]:.1f} / {stats['eager'][2]:.1f} an "
+              f"epoch (chunked / per epoch){split}", flush=True)
+    return windows
+
+
 def phase_time(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.1f} s", flush=True)
@@ -6004,6 +6254,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         rk4_recipe_phase(dev, card, Path(tmp), row13_epoch_s)
     t = phase_time("the rk4 production recipe (no kernel)", t)
+    chunked = chunked_phase(dev, card)
+    t = phase_time("the chunked route, CUDA graphs (rows 11-12, 13, 1, "
+                   "9-10)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -6183,6 +6436,21 @@ def main() -> None:
             also.setdefault(name, []).extend(
                 (f"model axis: {path}, rank {r}", counts[row])
                 for r, counts in enumerate(mp[key]))
+    # phase 51: the chunked route's windows
+    chunk_windows = {
+        "train_run": [("default", 11, "training")],
+        "walk_train": [("production", 13, "training")],
+        "gap_scan_fwd": [("production", 1, "validation, relative loss")],
+        "fused_step_fwd": [("scaled", 9, "training, validation, relative "
+                            "loss")],
+        "fused_step_bwd": [("scaled", 10, "training")]}
+    for name, windows in chunk_windows.items():
+        for recipe, row, what in windows:
+            also.setdefault(name, []).append(
+                (f"phase 51, the {recipe} recipe's chunked route "
+                 f"(Trainer.train chunk_epochs auto, 2 chunks of its "
+                 f"print_every epochs as CUDA graphs; {what})",
+                 chunked[recipe][row]))
     for k in kernels:
         if k["name"] in also:
             k["also"] = [{"path": p, "launches": n}

@@ -181,6 +181,38 @@ def _raise_on_grid_misalignment(bad: bool, worst: float,
             "grid_walk for off-grid data or enlarge t_max.")
 
 
+class DeferredGuards:
+    """The host-reading guards of ``apply`` and ``predict_at``
+    (``_check_substep_budget``, ``_check_grid_alignment``,
+    ``_check_gap_budget``), and any caller's, held on the device instead:
+    each guard's worst values go into a buffer of its own by an in-place
+    maximum, so a chunk of training epochs, eager or replayed as a CUDA
+    graph, reads nothing on the host.  The first note of a key allocates
+    its buffer (make it outside a capture); :meth:`check` reads every
+    buffer once and raises the guard's own error.  A model takes them
+    under :meth:`NeuralJumpODE.deferred_guards`."""
+
+    def __init__(self):
+        self._worst: dict = {}
+        self._raise: dict = {}
+
+    def note(self, key: str, worst: torch.Tensor, raise_if) -> None:
+        """Fold ``worst`` (a tensor of the guard's maxima) into the buffer
+        of ``key``; ``raise_if(*values)`` raises for bad values."""
+        worst = worst.detach().reshape(-1)
+        held = self._worst.get(key)
+        if held is None:
+            self._worst[key] = worst.clone()
+            self._raise[key] = raise_if
+        else:
+            torch.maximum(held, worst, out=held)
+
+    def check(self) -> None:
+        """One host read of every buffer; raise where a guard failed."""
+        for key, held in self._worst.items():
+            self._raise[key](*held.tolist())
+
+
 class NeuralJumpODE(nn.Module):
     """Neural Jump ODE with the JAX model's constructor signature.
 
@@ -304,6 +336,8 @@ class NeuralJumpODE(nn.Module):
         self._step_eligible = self._step_decline is None
         # (parameter versions, GapWeights): the kernel's weights, cut once
         self._gap_cache: Optional[tuple] = None
+        # where set, the host-reading guards note on the device instead
+        self._guards: Optional[DeferredGuards] = None
 
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         net = dict(n_hidden_layers=n_hidden_layers, activation=activation,
@@ -403,6 +437,17 @@ class NeuralJumpODE(nn.Module):
         if self._gap_cache is None or self._gap_cache[0] != key:
             self._gap_cache = (key, split_weights(self._ode_weights()))
         return self._gap_cache[1]
+
+    @contextlib.contextmanager
+    def deferred_guards(self, guards: DeferredGuards):
+        """Within the block the guards that read the host note their worst
+        values in ``guards`` instead (:class:`DeferredGuards`); the caller
+        calls ``guards.check()`` after it."""
+        prev, self._guards = self._guards, guards
+        try:
+            yield guards
+        finally:
+            self._guards = prev
 
     def _drop_gap_cache(self, *_args) -> None:
         """Forget the inference weights' cut; the next inference gap cuts
@@ -757,15 +802,29 @@ class NeuralJumpODE(nn.Module):
         """The grid walk's guard (``njode_tpu/models/jump_ode.py:646-681``):
         every valid observation time sits on the grid, valid times are
         strictly increasing per row (one observation per cell), and none
-        lies beyond the grid.  One host read for the three conditions."""
+        lies beyond the grid.  One host read for the three conditions, or
+        none under :meth:`deferred_guards`."""
         m = torch.ones_like(times, dtype=torch.bool) if mask is None else mask
         dt = self.dt_ode_step
         off = torch.where(m, (torch.round(times / dt) * dt - times).abs(), 0.0)
         both = m[:, 1:] & m[:, :-1]
         gaps = torch.where(both, times[:, 1:] - times[:, :-1], torch.inf)
-        worst, min_gap, t_hi = torch.stack([
-            off.max(), gaps.min() if gaps.numel() else times.new_tensor(
-                torch.inf), torch.where(m, times, 0.0).max()]).tolist()
+        # the smallest gap enters negated, so every entry is a maximum
+        neg_gap = (-gaps.min() if gaps.numel()
+                   else torch.full((), -torch.inf, dtype=times.dtype,
+                                   device=times.device))
+        worst = torch.stack([off.max(), neg_gap,
+                             torch.where(m, times, 0.0).max()])
+        if self._guards is not None:
+            self._guards.note("grid alignment", worst,
+                              self._grid_alignment_error)
+            return
+        self._grid_alignment_error(*worst.tolist())
+
+    def _grid_alignment_error(self, worst: float, neg_gap: float,
+                              t_hi: float) -> None:
+        """Raise where :meth:`_check_grid_alignment`'s maxima fail it."""
+        dt, min_gap = self.dt_ode_step, -neg_gap
         if worst > 1e-4 * max(dt, 1.0):
             raise ValueError(
                 f"grid_walk=True but observation times are not multiples of "
@@ -784,10 +843,17 @@ class NeuralJumpODE(nn.Module):
 
     def _check_gap_budget(self, gaps: torch.Tensor) -> None:
         """Raise if a concrete integration gap exceeds the substep budget
-        (with fixed ``dt_ode_step`` it would be silently under-integrated)."""
+        (with fixed ``dt_ode_step`` it would be silently under-integrated).
+        One host read, or none under :meth:`deferred_guards`."""
         if self.dt_ode_step is None or gaps.numel() == 0:
             return
-        max_gap = float(gaps.max())
+        if self._guards is not None:
+            self._guards.note("gap budget", gaps.max(),
+                              self._gap_budget_error)
+            return
+        self._gap_budget_error(float(gaps.max()))
+
+    def _gap_budget_error(self, max_gap: float) -> None:
         budget = (self.max_substeps + 1) * self.dt_ode_step
         if max_gap > budget + 1e-9:
             raise ValueError(
@@ -947,10 +1013,18 @@ class NeuralJumpODE(nn.Module):
     def _check_substep_budget(self, times: torch.Tensor) -> None:
         """Raise if an observation gap needs more full substeps than the
         static budget (with fixed ``dt_ode_step`` the final partial step
-        would silently span the rest).  Reads the gaps on the host."""
+        would silently span the rest).  Reads the gaps on the host, or
+        notes them under :meth:`deferred_guards`."""
         if self.dt_ode_step is None or times.ndim != 2 or times.shape[1] < 2:
             return
-        max_gap = float((times[:, 1:] - times[:, :-1]).max())
+        max_gap = (times[:, 1:] - times[:, :-1]).max()
+        if self._guards is not None:
+            self._guards.note("substep budget", max_gap,
+                              self._substep_budget_error)
+            return
+        self._substep_budget_error(float(max_gap))
+
+    def _substep_budget_error(self, max_gap: float) -> None:
         budget = (self.max_substeps + 1) * self.dt_ode_step
         if max_gap > budget + 1e-9:
             raise ValueError(

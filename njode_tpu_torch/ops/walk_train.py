@@ -58,6 +58,7 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.loss import nj_ode_loss_dense
@@ -342,7 +343,7 @@ def walk_train_forward(w: dict, x: torch.Tensor, t: torch.Tensor, *,
     if bf16:   # the walk's two products, their bias rows folded in
         w1eff = torch.cat([w1h, w1x[None], w1t[None], cvec[None]])
         w2eff = torch.cat([w2, b2[None]])
-    inv_dt = float(torch.tensor(1.0 / dt, dtype=torch.float32))
+    inv_dt = float(np.float32(1.0 / dt))     # rounded to f32
     cells = torch.floor(t * inv_dt + 0.5).long()
 
     def solver_step(h, x, tt):

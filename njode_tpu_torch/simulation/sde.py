@@ -38,6 +38,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -328,9 +329,11 @@ def sample_obs_indices(n_paths: int, n_grid: int, obs_fraction: float = 0.1,
             top + 1,  # shift into [1, n_grid-2]
             torch.full((n_paths, 1), n_grid - 1, dtype=torch.long,
                        device=gen_device)], dim=1)
-    else:
-        idx = torch.tensor([[0, n_grid - 1]],
-                           device=gen_device).repeat(n_paths, 1)
+    else:   # made on the device: no copy from the host
+        idx = torch.stack([
+            torch.zeros(n_paths, dtype=torch.long, device=gen_device),
+            torch.full((n_paths,), n_grid - 1, dtype=torch.long,
+                       device=gen_device)], dim=1)
     return torch.sort(idx, dim=1).values.to(device)
 
 
@@ -554,9 +557,10 @@ def simulate_batch(n_trajectories: int, process_type: str = "black_scholes",
         obs_idx = sample_obs_indices(n_trajectories, n_steps + 1,
                                      obs_fraction, generator=generator,
                                      device=device)
-        spacing = (torch.tensor(T, dtype=torch.float32)
-                   / torch.tensor(n_steps, dtype=torch.float32))
-        times = obs_idx.to(torch.float32) * spacing.to(obs_idx.device)
+        # T / n_steps rounded as f32 division, as a host scalar: no copy to
+        # the device, so a CUDA graph can hold the draw
+        spacing = float(np.float32(T) / np.float32(n_steps))
+        times = obs_idx.to(torch.float32) * spacing
         switch_times = None
         custom_obs = get_obs_values_fn(process_type)
         if custom_obs is not None:

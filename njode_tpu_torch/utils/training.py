@@ -20,6 +20,14 @@
   the walk twin :func:`njode_tpu_torch.ops.fused_walk_train_run`.  Both
   paths see the same minibatches: the shuffle of an epoch comes from
   (seed, epoch).
+* ``Trainer.train(..., chunk_epochs="auto")`` (the JAX package's default
+  for its data loaders, and so ``run_experiment``'s) runs the epochs of a
+  :class:`DataLoader` in chunks that end on print boundaries, reading the
+  losses once a chunk and writing a checkpoint at each chunk's end
+  (:meth:`Trainer._train_chunked`).  On the card the whole-run kernels and
+  the composed route of single-Euler-step gaps replay each epoch as a CUDA
+  graph (:mod:`.chunked`); every loss and the final state equal the
+  per-epoch loop's bit for bit.
 * Checkpoints keep the reference's semantics: ``start_epoch =
   len(train_losses)``, an early return when training is complete, a fresh
   start when the checkpoint cannot be loaded (reference
@@ -57,6 +65,7 @@ import contextlib
 import inspect
 import io
 import json
+import math
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -65,7 +74,7 @@ import numpy as np
 import torch
 
 from ..models import NeuralJumpODE, nj_ode_loss_dense, pad_ragged
-from ..models.jump_ode import resolve_device
+from ..models.jump_ode import DeferredGuards, resolve_device
 from ..simulation import TrajectoryBatch, simulate_batch
 from ..simulation.moments import moments_at_obs
 from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
@@ -87,9 +96,17 @@ def make_adam(params, learning_rate: float,
               weight_decay: float = 0.0) -> torch.optim.Adam:
     """``torch.optim.Adam(lr, weight_decay)``: L2 into the gradient, then
     Adam with betas (0.9, 0.999) and eps 1e-8 (the JAX ``make_adam``,
-    ``njode_tpu/utils/training.py:66``)."""
+    ``njode_tpu/utils/training.py:66``).  Parameters on the card get
+    ``capturable=True`` (the step count and the bias corrections on the
+    device), so the chunked route can capture its steps in a CUDA graph;
+    the update is the same law, its last bits may differ from the host's
+    step arithmetic."""
+    params = list(params)
+    tensors = [p for g in params
+               for p in (g["params"] if isinstance(g, dict) else [g])]
+    capturable = bool(tensors) and all(p.is_cuda for p in tensors)
     return torch.optim.Adam(params, lr=learning_rate,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, capturable=capturable)
 
 
 _M64 = (1 << 64) - 1
@@ -140,13 +157,19 @@ class DataLoader:
         self.device = resolve_device(device)
         self._cached: Optional[TrajectoryBatch] = None
 
-    def _gen(self, epoch: int) -> TrajectoryBatch:
-        gen = _generator(self.device,
-                         stream_seed(self.seed, self.stream, epoch))
+    def seed_of(self, epoch: int) -> int:
+        """The seed of epoch ``epoch``'s generator."""
+        return stream_seed(self.seed, self.stream, epoch)
+
+    def generate(self, generator: torch.Generator) -> TrajectoryBatch:
+        """A batch drawn from ``generator`` (seeded by the caller)."""
         return simulate_batch(self.n_trajectories, self.process_type,
                               self.obs_fraction, self.obs_only,
-                              generator=gen, device=self.device,
+                              generator=generator, device=self.device,
                               **self.process_kwargs)
+
+    def _gen(self, epoch: int) -> TrajectoryBatch:
+        return self.generate(_generator(self.device, self.seed_of(epoch)))
 
     def __call__(self, epoch: int = 0) -> TrajectoryBatch:
         if self.cache:
@@ -299,6 +322,10 @@ class Trainer:
         self.epoch_times: List[float] = []
         self.relative_losses: List[float] = []
         self._epochs_run = 0          # epoch index of train_epoch calls
+        # the chunked route on the card: run every epoch of a chunk under
+        # torch.cuda.set_sync_debug_mode("error") (a check, not a default)
+        self.check_syncs = False
+        self._chunk_run: Optional[_ChunkRun] = None
 
     # ------------------------------------------------------------- loss fn
 
@@ -314,12 +341,15 @@ class Trainer:
     # ----------------------------------------------------------- an epoch
 
     def _minibatches(self, epoch: int, n: int, batch_size: int,
-                     shuffle: bool):
+                     shuffle: bool,
+                     generator: Optional[torch.Generator] = None):
         """(nb, bs) trajectory indices and validity of an epoch: a
-        permutation from (seed, epoch), padded at the end with index 0."""
+        permutation from (seed, epoch), or from ``generator`` seeded so by
+        the caller, padded at the end with index 0."""
         dev = self.device
         if shuffle:
-            gen = _generator(dev, stream_seed(self.seed, STREAM_SHUFFLE, epoch))
+            gen = (generator if generator is not None else _generator(
+                dev, stream_seed(self.seed, STREAM_SHUFFLE, epoch)))
             perm = torch.randperm(n, generator=gen, device=dev)
         else:
             perm = torch.arange(n, device=dev)
@@ -338,6 +368,16 @@ class Trainer:
         list: one stream a network, from that seed and the network's index
         among all K, so network k draws the same masks whatever rank holds
         it and at any model axis, one process included."""
+        seeds = self._dropout_seeds(epoch, sharded)
+        if seeds is None:
+            return None
+        if isinstance(seeds, int):
+            return _generator(self.device, seeds)
+        return [_generator(self.device, s) for s in seeds]
+
+    def _dropout_seeds(self, epoch: int, sharded: bool = False):
+        """The seeds of :meth:`_dropout_generator`: None without dropout,
+        one seed for a shared network, a list of one a separate network."""
         m = self.model
         if m.dropout_rate <= 0.0:
             return None
@@ -345,9 +385,9 @@ class Trainer:
         if sharded:
             seed = stream_seed(seed, STREAM_RANK, self.mesh.data_rank)
         if m.shared_network:
-            return _generator(self.device, seed)
+            return seed
         lo = m._moments[0] if m._moments is not None else 0
-        return [_generator(self.device, stream_seed(seed, STREAM_NETWORK, k))
+        return [stream_seed(seed, STREAM_NETWORK, k)
                 for k in range(lo, lo + m.local_moments)]
 
     def _rows(self, rows: int) -> Optional[slice]:
@@ -406,23 +446,28 @@ class Trainer:
         return loss.detach()
 
     def _epoch_update(self, times, values, mask, epoch: int,
-                      batch_size: Optional[int], shuffle: bool
-                      ) -> torch.Tensor:
+                      batch_size: Optional[int], shuffle: bool,
+                      streams: Optional["_Streams"] = None) -> torch.Tensor:
         """One composed epoch: a step of apply + loss + autograd + Adam per
         minibatch (reference utils/training.py:33-103).  Returns the mean of
         the minibatch losses, on the device.  Under a mesh every rank runs
         the same minibatches, each on its rows, with the gradients summed
-        before every step."""
+        before every step.  ``streams``: the chunked route's generators,
+        seeded for this epoch (else they are made from ``epoch``)."""
         n = times.shape[0]
         self.model.train()
         if batch_size is None or batch_size >= n:
             sharded = self._rows(n) is not None
-            loss = self._step(times, values, mask, None,
-                              self._dropout_generator(epoch, sharded))
+            gen = (streams.dropout if streams is not None
+                   else self._dropout_generator(epoch, sharded))
+            loss = self._step(times, values, mask, None, gen)
             return self._sum_over_ranks(loss) if sharded else loss
-        idx, valid = self._minibatches(epoch, n, batch_size, shuffle)
+        idx, valid = self._minibatches(
+            epoch, n, batch_size, shuffle,
+            streams.shuffle if streams is not None else None)
         sharded = self._rows(batch_size) is not None
-        gen = self._dropout_generator(epoch, sharded)
+        gen = (streams.dropout if streams is not None
+               else self._dropout_generator(epoch, sharded))
         losses = torch.stack([
             self._step(times[ids], values[ids], mask[ids], vm, gen)
             for ids, vm in zip(idx, valid)])
@@ -449,6 +494,23 @@ class Trainer:
         ``dt_ode_step`` (``njode_tpu/utils/training.py:951``), else "run"."""
         return "walk" if self.model.dt_ode_step is not None else "run"
 
+    def _kernel_kw(self, n_slots: int, batch_size: int) -> dict:
+        """The whole-run kernel's keyword arguments for the model's twin
+        (the walk twin's with its grid)."""
+        m = self.model
+        hp = self._kernel_hparams()
+        mw = tuple(self.moment_weights) if self.moment_weights else (1.0, 1.0)
+        kw = dict(n_slots=n_slots, num_moments=m.num_moments,
+                  batch_size=batch_size, activation=m._act_key,
+                  input_scaling=m._scale_key, lr=hp["lr"],
+                  weight_decay=hp["weight_decay"], moment_weights=mw,
+                  variance_method=self.variance_method, betas=hp["betas"],
+                  adam_eps=hp["adam_eps"], mxu_dtype=self._mxu_dtype())
+        if self._twin() == "walk":
+            kw.update(hidden_dim=m.hidden_dim, dt_ode_step=m.dt_ode_step,
+                      max_substeps=walk_cells(m), ode_solver=m.ode_solver)
+        return kw
+
     def _kernel_epoch(self, times, values, epoch: int,
                       batch_size: Optional[int], shuffle: bool
                       ) -> torch.Tensor:
@@ -467,28 +529,17 @@ class Trainer:
         ids = idx.reshape(-1)
         data = tk.pack_minibatches(times[ids], values[ids], valid.reshape(-1),
                                    bs)
-        hp = self._kernel_hparams()
-        mw = tuple(self.moment_weights) if self.moment_weights else (1.0, 1.0)
-        kw = dict(n_slots=times.shape[1], num_moments=m.num_moments,
-                  batch_size=bs, activation=m._act_key,
-                  input_scaling=m._scale_key, lr=hp["lr"],
-                  weight_decay=hp["weight_decay"], moment_weights=mw,
-                  variance_method=self.variance_method, betas=hp["betas"],
-                  adam_eps=hp["adam_eps"], mxu_dtype=self._mxu_dtype())
+        kw = self._kernel_kw(times.shape[1], bs)
         opt_sd = self.optimizer.state_dict()
         with torch.no_grad():
             if self._twin() == "walk":
                 m._check_grid_alignment(times, None)
-                state = wt.walk_state_from(m, opt_sd, betas=hp["betas"])
-                state, losses = wt.fused_walk_train_run(
-                    state, data, hidden_dim=m.hidden_dim,
-                    dt_ode_step=m.dt_ode_step,
-                    max_substeps=walk_cells(m), ode_solver=m.ode_solver,
-                    **kw)
+                state = wt.walk_state_from(m, opt_sd, betas=kw["betas"])
+                state, losses = wt.fused_walk_train_run(state, data, **kw)
                 sd, osd = wt.optax_state_into_walk(state, idx.shape[0],
                                                    opt_sd, m)
             else:
-                state = tk.kernel_state_from(m, opt_sd, betas=hp["betas"])
+                state = tk.kernel_state_from(m, opt_sd, betas=kw["betas"])
                 state, losses = tk.fused_train_run(state, data, **kw)
                 sd, osd = tk.optax_state_into(state, idx.shape[0], opt_sd, m)
             m.load_state_dict(sd)
@@ -800,10 +851,18 @@ class Trainer:
               batch_size: Optional[int] = None, shuffle: bool = True,
               print_every: int = 10, save_path: Optional[str] = None,
               resume_from_checkpoint: bool = True,
-              config: Optional[Dict] = None) -> Dict:
+              config: Optional[Dict] = None, chunk_epochs="auto") -> Dict:
         """The epoch loop (reference utils/training.py:126-287).  Under a
         mesh every rank runs it, rank 0 alone printing, and checkpoints are
-        collective (:func:`..checkpoint.save_checkpoint`)."""
+        collective (:func:`..checkpoint.save_checkpoint`).
+
+        ``chunk_epochs`` (``njode_tpu/utils/training.py:887-944``): where
+        the training data come from a :class:`DataLoader` and the
+        validation data from one too or not at all, the epochs run in
+        chunks (:meth:`_train_chunked`): ``"auto"`` chunks of
+        ``print_every`` epochs, an int chunks of that many, 0, False or
+        None the per-epoch loop.  Other data callables take the per-epoch
+        loop."""
         say = self._say
         start_epoch = 0
         if resume_from_checkpoint and checkpoint_exists(save_path):
@@ -837,6 +896,16 @@ class Trainer:
         if config and "data" in config and "process_type" in config["data"]:
             rel = self._setup_relative_loss(train_data_fn, config)
 
+        use_chunks = (chunk_epochs not in (0, False, None)
+                      and isinstance(train_data_fn, DataLoader)
+                      and (val_data_fn is None
+                           or isinstance(val_data_fn, DataLoader)))
+        if use_chunks:
+            return self._train_chunked(
+                train_data_fn, val_data_fn, start_epoch, n_epochs,
+                batch_size, shuffle, print_every, save_path, rel, history,
+                print_every if chunk_epochs == "auto" else int(chunk_epochs))
+
         # resolved on the first batch, and again on any later batch with
         # padded slots while the kernel is in use: True then raises, "auto"
         # goes on composed
@@ -847,50 +916,11 @@ class Trainer:
             times, values, mask, _ = as_dense(
                 _call_data_fn(train_data_fn, epoch), self.device)
             if use_kernel is None or (use_kernel and not bool(mask.all())):
-                first = use_kernel is None
                 decline = self._kernel_decline(batch_size, times.shape[1],
                                                mask)
+                self._say_route(decline, times.shape, batch_size, epoch,
+                                report=use_kernel is None)
                 use_kernel = decline is None
-                kernel = ("walk-train kernel" if self._twin() == "walk"
-                          else "whole-run kernel")
-                if self._mxu_dtype() != "float32":
-                    kernel += f" ({self._mxu_dtype()} products)"
-                rows = self._step_rows(times.shape[0], batch_size)
-                m = self.model
-                forced = m._forced_route()
-                comp = ("composed (fused-step kernels)"
-                        if m._use_fused_step(times.shape[1], rows)
-                        else f"composed (forced {forced})" if forced
-                        else f"composed (per-gap {m.ode_solver} loop)"
-                        if m.dt_ode_step is not None and not m._walks()
-                        else "composed")
-                if self.mesh is not None and self.mesh.n_model > 1:
-                    if self.mesh.n_data > 1:
-                        comp += (f", data-parallel over {self.mesh.n_data} "
-                                 "ranks")
-                    comp += (f", model axis of {self.mesh.n_model} ranks "
-                             f"({self._model_axis_text()}) "
-                             f"({self.mesh.backend})")
-                elif self.mesh is not None:
-                    comp += (f", data-parallel over {self.mesh.n_data} "
-                             f"ranks ({self.mesh.backend})")
-                say(f"Training path: "
-                    f"{kernel if use_kernel else comp} "
-                    f"from epoch {epoch} (use_train_kernel="
-                    f"{self.use_train_kernel!r}, device {self.device})",
-                    flush=True)
-                if first:
-                    # one kernel report a train() call
-                    # (njode_tpu/utils/training.py:566-601)
-                    from ..ops.report import kernel_report
-                    say(kernel_report(
-                        self.model, n_rows=rows, n_slots=times.shape[1],
-                        train_kernel=decline or "on" + (
-                            " (walk twin)" if self._twin() == "walk"
-                            else ""),
-                        model_axis=(self._model_axis_text()
-                                    if self.shard is not None else None)),
-                        flush=True)
             if use_kernel:
                 loss = self._kernel_epoch(times, values, epoch, batch_size,
                                           shuffle)
@@ -938,6 +968,177 @@ class Trainer:
         if save_path is not None:
             self.save_model(save_path)
         return history
+
+    def _say_route(self, decline: Optional[str], shape, batch_size,
+                   epoch: int, report: bool, chunked: str = "") -> None:
+        """The "Training path:" line of a batch of ``shape`` (B, N) from
+        ``epoch`` (``decline`` as :meth:`_kernel_decline` gave it; the
+        chunked route's mode appended), and with ``report`` the kernel
+        report (``njode_tpu/utils/training.py:566-601``), once a train()
+        call."""
+        kernel = ("walk-train kernel" if self._twin() == "walk"
+                  else "whole-run kernel")
+        if self._mxu_dtype() != "float32":
+            kernel += f" ({self._mxu_dtype()} products)"
+        rows = self._step_rows(shape[0], batch_size)
+        m = self.model
+        forced = m._forced_route()
+        comp = ("composed (fused-step kernels)"
+                if m._use_fused_step(shape[1], rows)
+                else f"composed (forced {forced})" if forced
+                else f"composed (per-gap {m.ode_solver} loop)"
+                if m.dt_ode_step is not None and not m._walks()
+                else "composed")
+        if self.mesh is not None and self.mesh.n_model > 1:
+            if self.mesh.n_data > 1:
+                comp += f", data-parallel over {self.mesh.n_data} ranks"
+            comp += (f", model axis of {self.mesh.n_model} ranks "
+                     f"({self._model_axis_text()}) ({self.mesh.backend})")
+        elif self.mesh is not None:
+            comp += (f", data-parallel over {self.mesh.n_data} ranks "
+                     f"({self.mesh.backend})")
+        self._say(f"Training path: {comp if decline else kernel} from epoch "
+                  f"{epoch} (use_train_kernel={self.use_train_kernel!r}, "
+                  f"device {self.device}){chunked}", flush=True)
+        if report:
+            from ..ops.report import kernel_report
+            self._say(kernel_report(
+                m, n_rows=rows, n_slots=shape[1],
+                train_kernel=decline or "on" + (
+                    " (walk twin)" if self._twin() == "walk" else ""),
+                model_axis=(self._model_axis_text()
+                            if self.shard is not None else None)),
+                flush=True)
+
+    # ------------------------------------------------------ chunked route
+
+    def _graph_decline(self, use_kernel: bool, loader: "DataLoader"
+                       ) -> Optional[str]:
+        """None where the chunked route is captured as CUDA graphs on the
+        card: the whole-run kernels (rows 11-12, 13 with row 1 in
+        validation) and the composed route whose gaps are single Euler
+        steps (the fused step, rows 9-10, or plain); else why its chunks
+        run eagerly, naming the host read that keeps each route out of a
+        graph."""
+        from ..simulation.registry import get_obs_values_fn, get_paths_fn
+        m = self.model
+        if self.mesh is not None:
+            return ("a mesh: every step's collectives run through the "
+                    "process group")
+        if (get_paths_fn(loader.process_type) is not None
+                or get_obs_values_fn(loader.process_type) is not None):
+            return "a registered process's generator"
+        if loader.device != self.device:
+            return "the loader's device is not the model's"
+        if m.debug_checks:
+            return "debug_checks reads the host"
+        if use_kernel:
+            return None
+        forced = m._forced_route()
+        if forced == "fused Euler cell":
+            return ("the forced fused Euler cell (row 6): its capture is not "
+                    "yet held against the eager route")
+        if forced is not None or m.dt_ode_step is not None:
+            what = (f"the forced {forced}" if forced
+                    else "the composed grid walk" if m._walks()
+                    else f"the per-gap {m.ode_solver} loop")
+            guard = ("_check_grid_alignment" if m._walks()
+                     else "_check_substep_budget")
+            return (f"{what}: apply reads its guard on the host every step "
+                    f"({guard})")
+        if self.device.type == "cuda" and not all(
+                g.get("capturable", False)
+                for g in self.optimizer.param_groups):
+            return ("the optimizer is not capturable (make_adam builds "
+                    "torch.optim.Adam with capturable=True on the card)")
+        return None
+
+    def _train_chunked(self, loader: "DataLoader", val_loader, start_epoch,
+                       n_epochs, batch_size, shuffle, print_every, save_path,
+                       rel, history, chunk_len) -> Dict:
+        """The chunked route (``njode_tpu/utils/training.py:1045-1134``):
+        the epochs in chunks that end on print boundaries, also after an
+        unaligned resume; each epoch draws its data (the training loader's
+        seeds, or its cached batch), trains, and takes the validation loss
+        of the validation loader's first batch, and at print epochs the
+        relative loss.  The losses reach the host once a chunk, the
+        non-finite warning names the epoch, and a checkpoint is written at
+        every chunk end and at the end.  On the card a capturable route
+        (:meth:`_graph_decline`) replays each epoch as a CUDA graph
+        (:class:`_ChunkRun`); elsewhere the chunk runs the same program
+        eagerly."""
+        first = as_dense(loader(start_epoch), self.device)
+        decline = self._kernel_decline(batch_size, first[0].shape[1],
+                                       first[2])
+        use_kernel = decline is None
+        eager = self._graph_decline(use_kernel, loader)
+        capture = eager is None and self.device.type == "cuda"
+        mode = ("CUDA graph" if capture
+                else f"eager: {eager or 'not on a CUDA device'}")
+        self._say_route(decline, first[0].shape, batch_size, start_epoch,
+                        report=True, chunked=f", chunked ({mode})")
+        run = _ChunkRun(self, loader, val_loader, rel, batch_size, shuffle,
+                        use_kernel, capture, eager is None,
+                        first[0].shape[1])
+        self._chunk_run = run
+        try:
+            self._run_chunks(run, start_epoch, n_epochs, print_every,
+                             save_path, history, chunk_len)
+        finally:
+            run.release()
+            # replays move the weights without bumping their versions
+            self.model._drop_gap_cache()
+        if save_path is not None:
+            self.save_model(save_path)
+        return history
+
+    def _run_chunks(self, run: "_ChunkRun", start_epoch: int, n_epochs: int,
+                    print_every: int, save_path, history: Dict,
+                    chunk_len: int) -> None:
+        """The chunk loop of :meth:`_train_chunked`."""
+        say = self._say
+        epoch = start_epoch
+        while epoch < n_epochs:
+            # chunk ends on print boundaries keep the print and checkpoint
+            # cadence after an unaligned resume
+            L = min(chunk_len, print_every - epoch % print_every,
+                    n_epochs - epoch)
+            t0 = time.time()
+            tr, vl, rl = run.chunk(epoch, L, print_every)
+            per_epoch = (time.time() - t0) / L
+            if not all(math.isfinite(x) for x in tr):
+                bad = next(i for i, x in enumerate(tr)
+                           if not math.isfinite(x))
+                say(f"Warning: non-finite training loss at epoch "
+                    f"{epoch + bad} — try a lower learning rate or "
+                    f"variance_method='second_moment'.", flush=True)
+            for i in range(L):
+                self.train_losses.append(tr[i])
+                history["train_loss"].append(tr[i])
+                if run.val is not None:
+                    self.val_losses.append(vl[i])
+                    history["val_loss"].append(vl[i])
+                if run.rel is not None and (epoch + i) % print_every == 0:
+                    self.relative_losses.append(rl[i])
+                    history["relative_loss"].append(rl[i])
+                history["epoch_times"].append(per_epoch)
+                self.epoch_times.append(per_epoch)
+            for i in range(L):
+                e = epoch + i
+                if e % print_every == 0 or e == start_epoch:
+                    msg = f"Epoch {e:4d} | Train Loss: {tr[i]:.6f}"
+                    if run.val is not None:
+                        msg += f" | Val Loss: {vl[i]:.6f}"
+                    if history["relative_loss"]:
+                        msg += (f" | Rel Loss: "
+                                f"{history['relative_loss'][-1]:.4f}")
+                    msg += f" | Time: {per_epoch:.2f}s"
+                    if start_epoch > 0 and e == start_epoch:
+                        msg += " (resumed)"
+                    say(msg, flush=True)
+            if save_path is not None:
+                self.save_model(save_path)
+            epoch += L
 
     # ------------------------------------------------------------- persist
 
@@ -998,6 +1199,266 @@ def _rebuilt(optimizer: torch.optim.Optimizer, params: list
     group = {k: v for k, v in optimizer.param_groups[0].items()
              if k != "params"}
     return type(optimizer)(params, **group)
+
+
+# --------------------------------------------------------------------------
+# the chunked route's programs
+# --------------------------------------------------------------------------
+
+class _Streams:
+    """The chunked route's generators, one a stream an epoch draws from (the
+    training data, the shuffle, dropout: one, or one a separate network),
+    kept for the whole run and reseeded before every epoch with the seeds
+    the per-epoch loop gives its fresh generators, so both draw the same."""
+
+    def __init__(self, trainer: "Trainer", loader: "DataLoader",
+                 batch_size: Optional[int], shuffle: bool, kernel: bool):
+        n, dev = loader.n_trajectories, trainer.device
+        self.trainer, self.loader = trainer, loader
+        full = not kernel and (batch_size is None or batch_size >= n)
+        self.sharded = trainer._rows(n if full else batch_size) is not None
+        self.data = (None if loader.cache
+                     else torch.Generator(device=loader.device))
+        self.shuffle = (torch.Generator(device=dev) if shuffle and not full
+                        else None)
+        seeds = None if kernel else trainer._dropout_seeds(0, self.sharded)
+        self.dropout = (None if seeds is None
+                        else torch.Generator(device=dev)
+                        if isinstance(seeds, int)
+                        else [torch.Generator(device=dev) for _ in seeds])
+
+    def generators(self) -> list:
+        drop = (self.dropout if isinstance(self.dropout, list)
+                else [self.dropout])
+        return [g for g in (self.data, self.shuffle, *drop) if g is not None]
+
+    def seed(self, epoch: int) -> None:
+        """Seed every stream for ``epoch`` (host only)."""
+        t = self.trainer
+        if self.data is not None:
+            self.data.manual_seed(self.loader.seed_of(epoch))
+        if self.shuffle is not None:
+            self.shuffle.manual_seed(stream_seed(t.seed, STREAM_SHUFFLE,
+                                                 epoch))
+        seeds = t._dropout_seeds(epoch, self.sharded)
+        if isinstance(self.dropout, list):
+            for g, s in zip(self.dropout, seeds):
+                g.manual_seed(s)
+        elif self.dropout is not None:
+            self.dropout.manual_seed(seeds)
+
+
+class _ChunkRun:
+    """The chunked route's programs for one ``train()`` call: the epoch
+    (data, shuffle, packing, the whole-run kernel or the composed steps,
+    the validation loss) and the relative loss of a print epoch, each an
+    :class:`~.chunked.EpochProgram`, captured as a CUDA graph with
+    ``capture``.  The whole-run kernels keep their state (parameters, Adam
+    moments, powers) in buffers of their own through a chunk: the
+    optimizer's state goes in at the chunk's start and back, L x nb steps
+    on, at its end (``njode_tpu/utils/training.py:653``, ``:714``); each
+    epoch sets the powers from the step count on the device, as the
+    per-epoch route's conversion does, and writes the parameters into the
+    model for its validation.  ``defer``: the model's host-reading guards
+    and the whole-run kernels' padded-mask gate note on the device and
+    raise after the chunk (:class:`~..models.jump_ode.DeferredGuards`)."""
+
+    def __init__(self, trainer: "Trainer", loader: "DataLoader", val_loader,
+                 rel, batch_size: Optional[int], shuffle: bool, kernel: bool,
+                 capture: bool, defer: bool, n_slots: int):
+        from .chunked import EpochProgram
+        dev = trainer.device
+        self.t, self.loader, self.rel = trainer, loader, rel
+        self.batch_size, self.shuffle = batch_size, shuffle
+        self.kernel = kernel
+        self.guards = DeferredGuards() if defer else None
+        n = loader.n_trajectories
+        self.bs = batch_size if batch_size is not None else n
+        self.nb = -(-n // self.bs)
+        self.streams = _Streams(trainer, loader, batch_size, shuffle, kernel)
+        self.cached = (as_dense(loader(0), dev)[:3] if loader.cache
+                       else None)
+        self.val = (as_dense(val_loader(0), dev)[:3]
+                    if val_loader is not None else None)
+        if rel is not None:
+            with torch.no_grad():
+                self.l_true = nj_ode_loss_dense(
+                    rel["values"], rel["y_true"], rel["y_true_before"],
+                    rel["mask"], moment_weights=trainer.moment_weights,
+                    variance_method=trainer.variance_method,
+                    extended_moments=trainer.extended_moments).double()
+        if kernel:
+            self.kw = trainer._kernel_kw(n_slots, self.bs)
+            self.state = None
+        self.epoch = EpochProgram(
+            self._twin_body if kernel else self._composed_body, capture,
+            self.streams.generators(), "epoch", dev)
+        self.relative = (EpochProgram(self._rel_body, capture, (),
+                                      "relative loss", dev)
+                         if rel is not None else None)
+
+    def release(self) -> None:
+        """Free the programs' graphs (after the run)."""
+        for prog in (self.epoch, self.relative):
+            if prog is not None:
+                prog.release()
+
+    # ------------------------------------------------------------ a chunk
+
+    def chunk(self, epoch: int, L: int, print_every: int) -> tuple:
+        """Epochs epoch..epoch+L-1: (train, validation, relative) losses,
+        lists of L floats (NaN where not taken), read at the end in one
+        transfer."""
+        t = self.t
+        self.begin()
+        buf = torch.full((3, L), math.nan, dtype=torch.float64,
+                         device=t.device)
+        checked = t.check_syncs and t.device.type == "cuda"
+        from .chunked import sync_debug_mode
+        with sync_debug_mode("error") if checked else contextlib.nullcontext():
+            for i in range(L):
+                self.streams.seed(epoch + i)
+                tr, vl = self.epoch()
+                buf[0, i].copy_(tr)
+                if vl is not None:
+                    buf[1, i].copy_(vl)
+                if (self.relative is not None
+                        and (epoch + i) % print_every == 0):
+                    buf[2, i].copy_(self.relative()[0])
+        self.end(L)
+        if self.guards is not None:
+            self.guards.check()
+        return tuple(buf.tolist())
+
+    def begin(self) -> None:
+        """A whole-run kernel's state from the model and the optimizer,
+        into the buffers the epochs read (host: reads the step count)."""
+        if not self.kernel:
+            return
+        from ..ops import train_kernel as tk
+        from ..ops import walk_train as wt
+        t, m = self.t, self.t.model
+        self.opt_sd = t.optimizer.state_dict()
+        state_from = (wt.walk_state_from if t._twin() == "walk"
+                      else tk.kernel_state_from)
+        state = state_from(m, self.opt_sd, betas=self.kw["betas"])
+        per = self.opt_sd.get("state", {})
+        step = float(next(iter(per.values()))["step"]) if per else 0.0
+        if self.state is None:
+            self.state = type(state)(*(x.clone() for x in state))
+            self.betas = torch.tensor(self.kw["betas"], dtype=torch.float32,
+                                      device=t.device)
+            self.steps = torch.zeros((), dtype=torch.float32,
+                                     device=t.device)
+        else:
+            for dst, src in zip(self.state, state):
+                dst.copy_(src)
+        self.steps.fill_(step)
+
+    def end(self, L: int) -> None:
+        """The whole-run kernel's state back into the model and the
+        optimizer, L x nb steps on."""
+        if not self.kernel:
+            return
+        from ..ops import train_kernel as tk
+        from ..ops import walk_train as wt
+        t, m = self.t, self.t.model
+        state_into = (wt.optax_state_into_walk if t._twin() == "walk"
+                      else tk.optax_state_into)
+        sd, osd = state_into(self.state, L * self.nb, self.opt_sd, m)
+        with torch.no_grad():
+            m.load_state_dict(sd)
+        t.optimizer.load_state_dict({
+            "state": {i: {k: v.clone() for k, v in s.items()}
+                      for i, s in osd["state"].items()},
+            "param_groups": osd["param_groups"]})
+
+    # ----------------------------------------------------- device bodies
+
+    def _guarded(self):
+        return (self.t.model.deferred_guards(self.guards)
+                if self.guards is not None else contextlib.nullcontext())
+
+    def _data(self) -> tuple:
+        if self.cached is not None:
+            return self.cached
+        b = self.loader.generate(self.streams.data)
+        return b.times, b.values, b.mask
+
+    def _val_loss(self) -> Optional[torch.Tensor]:
+        if self.val is None:
+            return None
+        t = self.t
+        t.model._drop_gap_cache()
+        with torch.no_grad():
+            return t._eval_loss(
+                lambda tt, v, mk, tm: t._loss(tt, v, mk, traj_mask=tm),
+                *self.val)
+
+    def _full_mask(self, mask: torch.Tensor) -> None:
+        """The whole-run kernels take every slot as an observation."""
+        if self.guards is None:
+            if not bool(mask.all()):
+                self._padded(1.0)
+            return
+        self.guards.note("padded slots", (~mask).any().to(torch.float32),
+                         self._padded)
+
+    @staticmethod
+    def _padded(any_padded: float) -> None:
+        if any_padded:
+            raise ValueError("train kernel not applicable: the batch has "
+                             "padded slots (its mask is not all True); the "
+                             "kernel takes every slot as an observation")
+
+    def _composed_body(self) -> tuple:
+        with self._guarded():
+            times, values, mask = self._data()
+            loss = self.t._epoch_update(times, values, mask, 0,
+                                        self.batch_size, self.shuffle,
+                                        self.streams)
+            return loss, self._val_loss()
+
+    def _twin_body(self) -> tuple:
+        from ..ops import train_kernel as tk
+        from ..ops import walk_train as wt
+        t, m = self.t, self.t.model
+        walk = t._twin() == "walk"
+        with self._guarded(), torch.no_grad():
+            times, values, mask = self._data()
+            self._full_mask(mask)
+            if walk:
+                m._check_grid_alignment(times, None)
+            idx, valid = t._minibatches(0, times.shape[0], self.bs,
+                                        self.shuffle, self.streams.shuffle)
+            ids = idx.reshape(-1)
+            data = tk.pack_minibatches(times[ids], values[ids],
+                                       valid.reshape(-1), self.bs)
+            st = self.state
+            # the powers from the step count, as the conversion makes them
+            st.stat.copy_(torch.pow(self.betas, self.steps))
+            run = wt.fused_walk_train_run if walk else tk.fused_train_run
+            out, losses = run(st, data, **self.kw)
+            for dst, src in zip(st, out):
+                dst.copy_(src)
+            self.steps.add_(self.nb)
+            params = (wt.walk_train_params(st, m.hidden_dim, m.num_moments)
+                      if walk else tk.train_state_params(st, m.hidden_dim))
+            named = dict(m.named_parameters())
+            for k, v in params.items():
+                named[k].copy_(v)
+            return losses.mean(), self._val_loss()
+
+    def _rel_body(self) -> tuple:
+        t, rel = self.t, self.rel
+        t.model._drop_gap_cache()
+        with self._guarded(), torch.no_grad():
+            lm = t._eval_loss(
+                lambda tt, v, mk, tm: t._loss_no_first(tt, v, mk),
+                rel["times"], rel["values"], rel["mask"])
+        # in float64, as the per-epoch route's host arithmetic
+        return ((lm.double() - self.l_true)
+                / torch.clamp_min(self.l_true, 1e-8),)
 
 
 # --------------------------------------------------------------------------
