@@ -356,9 +356,11 @@ uncaught exception and a nonzero exit:
    --kernels auto): its first 3 minibatches on the card against the CPU
    from the same weights and data (losses at rtol 1e-5, each parameter
    and Adam moment within 1e-4 of its norm); run_experiment of its config
-   for 2 epochs, resumed to 3 under torch.profiler (the first 2 losses
-   bitwise), every kernel row at 0 launches in each window; the wall an
-   epoch, device time and idle share beside phase 15's row-13 epoch.
+   for 2 epochs (one chunk: an eager epoch, its CUDA graph, a replay),
+   resumed to 3 under torch.profiler (one epoch, eager: no later epoch
+   would replay a graph; the first 2 losses bitwise), every kernel row at
+   0 launches in each window; the wall an epoch, device time and idle
+   share beside phase 15's row-13 epoch.
 51. the Trainer's chunked route (Trainer.train chunk_epochs "auto", the
    route run_experiment takes): the default (rows 11-12), production (row
    13, row 1 in validation) and scaled (rows 9-10) recipes at full width,
@@ -372,6 +374,17 @@ uncaught exception and a nonzero exit:
    kernel events of a chunked run equal to the counters; the capture's
    cost, the wall an epoch, device time and the card's idle share, chunked
    and per epoch.
+52. the chunked route's other single-card routes, captured as phase 51's
+   (the checks of 51 but the control; every row of 1-13 against the
+   profiler's events): the rk4 recipe's composed per-gap rk4 loop (no
+   kernel), the forced production recipe (rows 3 and 5 at dt_ode_step
+   0.01, rows 2 and 4 at 0.1, row 1 in validation), the production flags
+   without --shared-network under --kernels auto (the grid walk, rows 7-8,
+   row 1 in validation) and the forced default recipe (row 6), at full
+   width, 2 chunks of 2 epochs each; besides 51's times the capture's
+   instantiation, its graph's node count and memory pool, and the runs'
+   peak reserved memory; and run_experiment on its default device
+   ("cuda") captured too.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -385,13 +398,13 @@ kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
 call or run, 41-49 a window a run on each rank, 50 a window each for the
 steps, the run and the resume, every row at 0, every row's count read in
-each, 51 a window a run) and read just after.  The last line is the JSON
-result; the line before it lists the kernels, each with its main path's
-launches and, under "also", the launches of the other windows that ran it
-in phases 35-43, 46-49 (marked "model axis:") and 51.  Every
-run_experiment and Trainer.train of a DataLoader takes the chunked route,
-so the recipes' phases on rows 11-13 and 9-10 replay CUDA graphs.  There
-is no CPU run: without a CUDA device the script fails.
+each, 51 and 52 a window a run) and read just after.  The last line is the
+JSON result; the line before it lists the kernels, each with its main
+path's launches and, under "also", the launches of the other windows that
+ran it in phases 35-43, 46-49 (marked "model axis:"), 51 and 52 (marked
+"PR 23:").  Every run_experiment and Trainer.train of a DataLoader on one
+card takes the chunked route, so the recipes' phases replay CUDA graphs.
+There is no CPU run: without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -427,7 +440,8 @@ from njode_tpu_torch.simulation import (bs_paths, moments_at_obs,
 from njode_tpu_torch.utils import (Trainer, conditional_moment_mse,
                                    create_data_loaders, load_checkpoint,
                                    make_adam, run_experiment)
-from njode_tpu_torch.utils.training import _grid_walk_aligned, as_dense
+from njode_tpu_torch.utils.training import (_grid_walk_aligned,
+                                            _use_grid_walk, as_dense)
 
 RTOL, ATOL = 1e-4, 1e-5
 DT, N_SUB = 0.01, 100
@@ -4014,18 +4028,19 @@ def family_config(recipe: str, n_epochs: int, name: str,
     return cfg
 
 
-def recipe_model(cfg: dict, dev: torch.device, seed: int = 0
-                 ) -> NeuralJumpODE:
-    """The model run_experiment builds for a config (the grid walk where
-    the config's dt_ode_step divides the data's grid, as the card resolves
-    'auto')."""
+def recipe_model(cfg: dict, dev: torch.device, seed: int = 0,
+                 grid_walk=None) -> NeuralJumpODE:
+    """The model run_experiment builds for a config (``grid_walk`` None:
+    the grid walk where the config's dt_ode_step divides the data's grid,
+    as the card resolves 'auto')."""
     d = int(cfg["data"].get("dims", 1))
     up = cfg["use_pallas"]
     return NeuralJumpODE(
         cfg.get("input_dim", d), cfg["hidden_dim"], cfg.get("output_dim", d),
         num_moments=2, shared_network=cfg["shared_network"],
         dt_ode_step=cfg["dt_ode_step"], ode_solver=cfg["ode_solver"],
-        grid_walk=_grid_walk_aligned(cfg),
+        grid_walk=(_grid_walk_aligned(cfg) if grid_walk is None
+                   else grid_walk),
         use_pallas=up if up in ("auto", "step", True) else False, device=dev,
         generator=torch.Generator().manual_seed(seed))
 
@@ -5759,13 +5774,14 @@ def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
     """Phase 50: scripts/run_production_rk4.sh on the card.  Its first
     RK4_STEPS minibatches against the CPU (rk4_first_steps); then
     run_experiment of its config cut to RK4_EPOCHS epochs (the full data
-    width), resumed to RK4_EPOCHS + 1 under torch.profiler: the composed
-    per-gap rk4 loop in training and validation, every kernel row at 0
+    width; one chunk, captured), resumed to RK4_EPOCHS + 1 under
+    torch.profiler (one eager epoch): the composed per-gap rk4 loop in
+    training and validation, the chunked route, every kernel row at 0
     launches in each window, the resume's first RK4_EPOCHS losses bitwise
     the run's.  Prints the wall an epoch, the resumed call's device ms,
-    device events and the card's idle share over it (and the same device
-    time over an unprofiled epoch's wall), beside the production recipe's
-    epoch on row 13 (phase 15), where the caller passes it."""
+    device events and the card's idle share over it, beside the
+    production recipe's epoch on row 13 (phase 15), where the caller
+    passes it."""
     from torch.profiler import ProfilerActivity, profile
     steps = rk4_first_steps(dev)
     out = {}
@@ -5798,11 +5814,12 @@ def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
             more["hist"][k][:RK4_EPOCHS] != run["hist"][k]
             for k in ("train_loss", "val_loss"))):
         raise AssertionError(f"phase 50: the resume differs: {more['text']}")
+    if (not run["text"].count(", chunked (CUDA graph)")
+            or not more["text"].count(", chunked (CUDA graph)")):
+        raise AssertionError(f"phase 50: not the chunked route on the card: "
+                             f"{run['text']} {more['text']}")
     epochs = run["hist"]["epoch_times"]
     idle = 1.0 - more["device_ms"] / (1e3 * more["wall"])
-    # the profiler slows the host; the same device time over an
-    # unprofiled epoch's wall
-    idle_run = 1.0 - more["device_ms"] / (1e3 * statistics.median(epochs))
     data, bs = cfg["data"], cfg["batch_size"]
     print(f"phase 50, scripts/run_production_rk4.sh on {card} (hidden 50, "
           f"shared, K 2, rk4 at dt_ode_step 0.05 on the 0.01 grid, batch "
@@ -5816,19 +5833,21 @@ def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
           f"within {steps['state_share']:.3f} of {RK4_STATE_NORM} of their "
           f"norm, {steps['ms_step']:.1f} ms a step on the card "
           f"({steps['cpu_ms_step']:.1f} on the CPU); run_experiment of "
-          f"{RK4_EPOCHS} epochs {run['wall']:.2f} s, an epoch "
+          f"{RK4_EPOCHS} epochs {run['wall']:.2f} s (one chunk: an eager "
+          f"epoch, the epoch's CUDA graph capture, {RK4_EPOCHS - 1} "
+          f"replay), an epoch "
           f"{', '.join(f'{x:.3f}' for x in epochs)} s of wall (data, "
           f"{-(-data['n_train'] // bs)} steps, validation, relative loss), "
           f"train "
           f"loss {run['hist']['train_loss'][0]:.4f} -> "
           f"{run['hist']['train_loss'][-1]:.4f}, val "
           f"{run['hist']['val_loss'][-1]:.4f}; its resume to "
-          f"{RK4_EPOCHS + 1} (one epoch, profiled: "
+          f"{RK4_EPOCHS + 1} (one epoch, which no later epoch replays, so "
+          f"eager, nothing captured; profiled: "
           f"{more['hist']['epoch_times'][-1]:.3f} s of it the epoch) "
           f"{more['wall']:.2f} s of wall, {more['device_ms']:.1f} ms device "
           f"in {more['events']:,} device events, the card idle "
-          f"{100 * idle:.1f}% over it ({100 * idle_run:.1f}% over an "
-          f"unprofiled epoch's wall), the first {RK4_EPOCHS} losses "
+          f"{100 * idle:.1f}% over it, the first {RK4_EPOCHS} losses "
           f"bitwise; every "
           f"kernel row at 0 launches in each window; " + (
               "phase 15's row-13 epoch not run" if row13_epoch_s is None
@@ -5836,25 +5855,31 @@ def rk4_recipe_phase(dev: torch.device, card: str, tmp: Path,
               f"{row13_epoch_s:.4f} s an epoch (phase 15), "
               f"{statistics.median(epochs) / row13_epoch_s:.0f}x"),
           flush=True)
-    return {"epoch_s": epochs, "idle": idle, "idle_run": idle_run,
+    return {"epoch_s": epochs, "idle": idle,
             "device_ms": more["device_ms"], "events": more["events"]}
 
 
-# ------------------------------------------------- the chunked route (51)
+# ------------------------------------------------- the chunked route (51-52)
 
-# the kernel rows each recipe's chunk launches, with the kernels' names in
-# the profiler's events (rows 9 and 10: the f32 step kernel's two
-# instances)
-CHUNK_ROWS = {"default": {11: "train_run_kernel"},
-              "production": {13: "walk_train_kernel",
-                             1: "gap_scan_fwd_kernel"},
-              "scaled": {9: "step_kernel<false>", 10: "step_kernel<true>"}}
+# the kernels of the table's rows as the profiler names their device events
+# (rows 2 and 3 are gap_fwd_kernel at stride 1 and 8, rows 4 and 5
+# gap_bwd_kernel, row 8 walk_bwd_kernel with its two sums, rows 9 and 10
+# the f32 step kernel's two instances)
+ROW_KERNELS = {1: "gap_scan_fwd_kernel", 2: "gap_fwd_kernel",
+               3: "gap_fwd_kernel", 4: "gap_bwd_kernel", 5: "gap_bwd_kernel",
+               6: "fused_cell_kernel", 7: "walk_fwd_kernel",
+               8: "walk_bwd_kernel", 9: "step_kernel<false>",
+               10: "step_kernel<true>", 11: "train_run_kernel",
+               13: "walk_train_kernel"}
+# the kernel rows each recipe's chunk launches
+CHUNK_ROWS = {"default": (11,), "production": (13, 1), "scaled": (9, 10)}
 
 
 def chunk_trainer(cfg: dict, dev: torch.device) -> tuple:
     """The Trainer and the loaders run_experiment makes for a config, from
     fixed weights (seed 1)."""
-    model = recipe_model(cfg, dev, seed=1)
+    model = recipe_model(cfg, dev, seed=1,
+                         grid_walk=_use_grid_walk(cfg, dev, cfg["use_pallas"]))
     up = cfg["use_pallas"]
     trainer = Trainer(
         model, make_adam(model.parameters(), cfg["learning_rate"],
@@ -5870,18 +5895,20 @@ def chunk_trainer(cfg: dict, dev: torch.device) -> tuple:
 
 
 def chunk_run(cfg: dict, dev: torch.device, chunk_epochs, profiled=False,
-              seed_shift: int = 0, host_adam: bool = False) -> dict:
+              seed_shift: int = 0, host_adam: bool = False,
+              host_events: bool = True) -> dict:
     """Two print intervals of Trainer.train of a config (2 x its
     print_every epochs) in its own launch window: ``chunk_epochs`` "auto"
     (chunks of print_every epochs, every epoch of a chunk under
     set_sync_debug_mode("error")) or 0 (the per-epoch loop);
     ``seed_shift`` draws every chunked epoch's streams from the next
     epoch's seeds (a control); ``host_adam`` steps Adam with
-    capturable=False (its step arithmetic on the host).  Returns the
-    history, the final state, the window's counts, the wall, the output,
-    the run's programs, each chunk's host split (ms: the state in, enqueueing
-    its epochs, waiting for the card, the state out, the rest) and, with
-    ``profiled``, the profiler."""
+    capturable=False (its step arithmetic on the host); ``host_events``
+    False profiles the card alone.  Returns the history, the final state,
+    the window's counts, the wall, the output, the run's programs, each
+    chunk's host split (ms: the state in, enqueueing its epochs, waiting
+    for the card, the state out, the rest), the peak device memory
+    reserved and, with ``profiled``, the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from njode_tpu_torch.utils import training as T
     trainer, loaders = chunk_trainer(cfg, dev)
@@ -5911,9 +5938,11 @@ def chunk_run(cfg: dict, dev: torch.device, chunk_epochs, profiled=False,
         seed = T._Streams.seed
         T._Streams.seed = lambda self, e: seed(self, e + seed_shift)
     buf = io.StringIO()
-    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-           if profiled else contextlib.nullcontext())
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_events
+                                      else [])
+    ctx = profile(activities=acts) if profiled else contextlib.nullcontext()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     try:
         with ctx as prof, contextlib.redirect_stdout(buf):
             torch.cuda.synchronize()
@@ -5938,7 +5967,8 @@ def chunk_run(cfg: dict, dev: torch.device, chunk_epochs, profiled=False,
         sp["enqueue"] = sp["chunk"] - sp["begin"] - sp["wait"] - sp["end"]
     return {"hist": hist, "state": state, "counts": kernel_counts(),
             "wall": wall, "out": buf.getvalue(), "run": trainer._chunk_run,
-            "prof": prof, "splits": splits}
+            "prof": prof, "splits": splits,
+            "peak_reserved": torch.cuda.max_memory_reserved(dev)}
 
 
 def kernel_events(prof) -> dict:
@@ -5951,52 +5981,101 @@ def kernel_events(prof) -> dict:
     return out
 
 
+def chunk_window(cfg: dict, dev: torch.device, rows: tuple, where: str,
+                 host_events: bool = True) -> dict:
+    """A config's chunked route against its per-epoch loop from the same
+    weights and loaders, 2 chunks of its print_every epochs: the path line
+    ends "chunked (CUDA graph)"; train, validation and relative losses and
+    the final parameters and Adam state bitwise equal; ``rows`` launched as
+    often in both windows (at least once each) and every other row never;
+    in a profiled chunked run, whose capture counts its graph's nodes,
+    each kernel of ROW_KERNELS launched as often by the profiler's device
+    events as by the counters.  Returns the runs, the rows' launches, the
+    events seen and the times: wall an epoch of the second chunk, device
+    time an epoch and the card's idle share, chunked and per epoch."""
+    from njode_tpu_torch.utils.chunked import EpochProgram
+    P = cfg["print_every"]
+    eager = chunk_run(cfg, dev, 0)
+    chunked = chunk_run(cfg, dev, "auto")
+    path = [x for x in chunked["out"].splitlines()
+            if x.startswith("Training path:")]
+    if len(path) != 1 or not path[0].endswith(", chunked (CUDA graph)"):
+        raise AssertionError(f"{where}: not captured: {chunked['out']}")
+    for k in ("train_loss", "val_loss", "relative_loss"):
+        if chunked["hist"][k] != eager["hist"][k]:
+            raise AssertionError(
+                f"{where}: {k} {chunked['hist'][k]} chunked, "
+                f"{eager['hist'][k]} per epoch")
+    bad = [k for k, v in eager["state"].items()
+           if not torch.equal(v, chunked["state"][k])]
+    if bad:
+        raise AssertionError(f"{where}: the final state differs in {bad}")
+    want = {row: eager["counts"][row] for row in rows}
+    if any(not n for n in want.values()):
+        raise AssertionError(f"{where}: the per-epoch window "
+                             f"{eager['counts']}")
+    expect_counts(f"{where}, the per-epoch loop", want, eager["counts"])
+    expect_counts(f"{where}, the chunked route", want, chunked["counts"])
+    EpochProgram.count_nodes = True
+    try:
+        prof_c = chunk_run(cfg, dev, "auto", profiled=True,
+                           host_events=host_events)
+    finally:
+        EpochProgram.count_nodes = False
+    prof_e = chunk_run(cfg, dev, 0, profiled=True, host_events=host_events)
+    expect_counts(f"{where}, the profiled chunked route", want,
+                  prof_c["counts"])
+    names = kernel_events(prof_c["prof"])
+    seen = {k: sum(n for name, n in names.items() if k in name)
+            for k in sorted(set(ROW_KERNELS.values()))}
+    counted = {k: sum(prof_c["counts"][row] for row, name in
+                      ROW_KERNELS.items() if name == k) for k in seen}
+    if seen != counted:
+        raise AssertionError(
+            f"{where}: the profiler saw {seen} launches, the counters "
+            f"{counted}: {sorted(names.items())}")
+    n = 2 * P
+    stats = {}
+    for key, r in (("chunked", prof_c), ("eager", prof_e)):
+        dev_ms, events = device_busy(r["prof"])
+        stats[key] = (dev_ms / n, 1.0 - dev_ms / (1e3 * r["wall"]),
+                      events / n)
+    ep_c = statistics.median(chunked["hist"]["epoch_times"][P:])
+    ep_e = statistics.median(eager["hist"]["epoch_times"][P:])
+    # the profiled device time an epoch over an unprofiled epoch's wall
+    idle_c = 1.0 - stats["chunked"][0] / (1e3 * ep_c)
+    idle_e = 1.0 - stats["eager"][0] / (1e3 * ep_e)
+    return {"eager": eager, "chunked": chunked, "prof_c": prof_c,
+            "want": want, "seen": {k: v for k, v in seen.items() if v},
+            "stats": stats, "ep": (ep_c, ep_e), "idle": (idle_c, idle_e)}
+
+
 def chunked_phase(dev: torch.device, card: str) -> dict:
     """Phase 51: the Trainer's chunked route on the card for the default
     (rows 11-12), production (row 13, row 1 in validation) and scaled
     (rows 9-10, --kernels step) recipes at full width: from the same
     weights and loaders, 2 chunks of the recipe's print_every epochs (5 in
-    each) captured as CUDA graphs beside the per-epoch loop.  Per-epoch
-    train, validation and relative losses and the final parameters and Adam
-    state bitwise equal; a control whose streams take the next epoch's
-    seeds differs in every epoch's loss; every epoch of a chunk under
-    set_sync_debug_mode("error"); each row launched as often as in the
-    per-epoch loop's window, and the profiler's kernel events of a chunked
-    run equal to the counters (replays x a captured epoch's launches).
-    Prints the capture's cost, the wall an epoch, the device time and the
-    card's idle share, chunked and per epoch, the second chunk's host
-    split, and for the scaled recipe the per-epoch loop with Adam's step
-    arithmetic on the host.  Returns each recipe's chunked window."""
+    each) captured as CUDA graphs beside the per-epoch loop
+    (:func:`chunk_window`): per-epoch train, validation and relative losses
+    and the final parameters and Adam state bitwise equal; a control whose
+    streams take the next epoch's seeds differs in every epoch's loss;
+    every epoch of a chunk under set_sync_debug_mode("error"); each row
+    launched as often as in the per-epoch loop's window, and the profiler's
+    kernel events of a chunked run equal to the counters (replays x a
+    captured epoch's launches).  Prints the capture's cost, the wall an
+    epoch, the device time and the card's idle share, chunked and per
+    epoch, the second chunk's host split, and for the scaled recipe the
+    per-epoch loop with Adam's step arithmetic on the host.  Returns each
+    recipe's chunked window."""
     configs = {"default": default_config(2, "chunked"),
                "production": production_config(2, "chunked"),
                "scaled": scaled_config(2, "chunked")}
     windows = {}
     for recipe, cfg in configs.items():
         P = cfg["print_every"]
-        eager = chunk_run(cfg, dev, 0)
-        chunked = chunk_run(cfg, dev, "auto")
-        if "chunked (CUDA graph)" not in chunked["out"]:
-            raise AssertionError(f"phase 51 {recipe}: not captured: "
-                                 f"{chunked['out']}")
-        for k in ("train_loss", "val_loss", "relative_loss"):
-            if chunked["hist"][k] != eager["hist"][k]:
-                raise AssertionError(
-                    f"phase 51 {recipe}: {k} {chunked['hist'][k]} chunked, "
-                    f"{eager['hist'][k]} per epoch")
-        bad = [k for k, v in eager["state"].items()
-               if not torch.equal(v, chunked["state"][k])]
-        if bad:
-            raise AssertionError(f"phase 51 {recipe}: the final state "
-                                 f"differs in {bad}")
-        rows = CHUNK_ROWS[recipe]
-        want = {row: eager["counts"][row] for row in rows}
-        if any(not n for n in want.values()):
-            raise AssertionError(f"phase 51 {recipe}: the per-epoch window "
-                                 f"{eager['counts']}")
-        expect_counts(f"phase 51 {recipe}, the per-epoch loop", want,
-                      eager["counts"])
-        expect_counts(f"phase 51 {recipe}, the chunked route", want,
-                      chunked["counts"])
+        w = chunk_window(cfg, dev, CHUNK_ROWS[recipe], f"phase 51 {recipe}")
+        eager, chunked, stats = w["eager"], w["chunked"], w["stats"]
+        (ep_c, ep_e), (idle_c, idle_e) = w["ep"], w["idle"]
         control = ""
         if recipe == "default":
             shifted = chunk_run(cfg, dev, "auto", seed_shift=1)
@@ -6007,22 +6086,7 @@ def chunked_phase(dev: torch.device, card: str) -> dict:
             control = ("; a control drawing each epoch from the next "
                        "epoch's seeds differs in all "
                        f"{len(shifted['hist']['train_loss'])} losses")
-        prof_c = chunk_run(cfg, dev, "auto", profiled=True)
-        prof_e = chunk_run(cfg, dev, 0, profiled=True)
-        names = kernel_events(prof_c["prof"])
-        seen = {row: sum(n for name, n in names.items() if sub in name)
-                for row, sub in rows.items()}
-        if seen != want:
-            raise AssertionError(
-                f"phase 51 {recipe}: the profiler saw {seen} launches, the "
-                f"counters {want}: {sorted(names.items())}")
         run = chunked["run"]
-        n = 2 * P
-        stats = {}
-        for key, r in (("chunked", prof_c), ("eager", prof_e)):
-            dev_ms, events = device_busy(r["prof"])
-            stats[key] = (dev_ms / n, 1.0 - dev_ms / (1e3 * r["wall"]),
-                          events / n)
         sp = chunked["splits"][-1]
         split = (f"; the second chunk's host split {sp['begin']:.2f} ms "
                  f"the state in, {sp['enqueue']:.2f} ms enqueueing its {P} "
@@ -6033,11 +6097,6 @@ def chunked_phase(dev: torch.device, card: str) -> dict:
             host_ms = 1e3 * statistics.median(host["hist"]["epoch_times"][P:])
             split += (f"; the per-epoch loop with Adam's step arithmetic on "
                       f"the host (capturable off) {host_ms:.3f} ms an epoch")
-        ep_c = statistics.median(chunked["hist"]["epoch_times"][P:])
-        ep_e = statistics.median(eager["hist"]["epoch_times"][P:])
-        # the profiled device time an epoch over an unprofiled epoch's wall
-        idle_c = 1.0 - stats["chunked"][0] / (1e3 * ep_c)
-        idle_e = 1.0 - stats["eager"][0] / (1e3 * ep_e)
         rel_s = run.relative.capture_s if run.relative else None
         launches = run.epoch.launches
         windows[recipe] = chunked["counts"]
@@ -6055,8 +6114,8 @@ def chunked_phase(dev: torch.device, card: str) -> dict:
               f"and relative losses and {len(eager['state'])} parameter and "
               f"Adam tensors bitwise equal{control}; no synchronisation in "
               f"any chunk's epochs (set_sync_debug_mode error); launches "
-              f"{want} in both windows, the profiler's kernel events of a "
-              f"chunked run {seen}; a captured epoch launches "
+              f"{w['want']} in both windows, the profiler's kernel events of "
+              f"a chunked run {w['seen']}; a captured epoch launches "
               f"{sum(launches.values())} by the counters; capture "
               f"{1e3 * run.epoch.capture_s:.1f} ms (epoch)"
               + (f" + {1e3 * rel_s:.1f} ms (relative loss)"
@@ -6072,6 +6131,110 @@ def chunked_phase(dev: torch.device, card: str) -> dict:
               f"and capture in the chunked one), device events "
               f"{stats['chunked'][2]:.1f} / {stats['eager'][2]:.1f} an "
               f"epoch (chunked / per epoch){split}", flush=True)
+    return windows
+
+
+# phase 52's windows: the routes the chunked trainer ran eagerly before
+# they were captured, at full width, 2 chunks of 2 epochs each (depth cut
+# from the recipes' print_every), with the kernel rows each launches
+EAGER_ROUTE_ROWS = {"production-rk4": (), "production-forced": (3, 5, 1),
+                    "production-forced-dt0.1": (2, 4, 1),
+                    "production-walk": (7, 8, 1), "default-forced": (6,)}
+
+
+def eager_route_configs() -> dict:
+    """Phase 52's configs: the rk4 recipe (the composed per-gap rk4 loop,
+    no kernel); the forced production recipe (--kernels force, grid walk
+    off: rows 3 and 5 at dt_ode_step 0.01, rows 2 and 4 at 0.1, row 1 in
+    validation); the production flags without --shared-network under
+    --kernels auto (the grid walk on rows 7-8 under autograd, row 1 in
+    validation); the forced default recipe (row 6)."""
+    walk = production_config(4, "chunked")
+    walk["shared_network"] = False
+    out = {"production-rk4": recipe_config("production-rk4", 4, "chunked"),
+           "production-forced": forced_production_config(4, "chunked"),
+           "production-forced-dt0.1": forced_production_config(
+               4, "chunked", dt=0.1),
+           "production-walk": walk,
+           "default-forced": forced_default_config(4, "chunked")}
+    for cfg in out.values():
+        cfg["print_every"] = 2
+    return out
+
+
+def run_experiment_path(tmp: Path) -> str:
+    """The path line of run_experiment of the forced default config on its
+    default device ("cuda", which its loaders keep and the model's
+    parameters name "cuda:0"), one chunk of 2 epochs; it must end
+    "chunked (CUDA graph)"."""
+    cfg = forced_default_config(2, "captured")
+    cfg["print_every"] = 2
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_experiment(cfg, save_dir=str(tmp))
+    path = [x for x in buf.getvalue().splitlines()
+            if x.startswith("Training path:")]
+    if len(path) != 1 or not path[0].endswith(", chunked (CUDA graph)"):
+        raise AssertionError(f"run_experiment on the default device: not "
+                             f"captured: {buf.getvalue()}")
+    return path[0]
+
+
+def eager_routes_phase(dev: torch.device, card: str) -> dict:
+    """Phase 52: the chunked route's four single-card routes that ran
+    eagerly until captured (the per-gap loops, the forced gap-loop pair,
+    the composed grid walk, the forced fused Euler cell), each through
+    :func:`chunk_window` at full width (2 chunks of 2 epochs; the profiles
+    of the card alone), with the capture's cost: its ms (instantiation
+    included), its instantiation and node count from the profiled run, the
+    graph pool's reserved and held bytes, and the runs' peak reserved
+    memory; then run_experiment on its default device must capture too
+    (:func:`run_experiment_path`).  Returns each window's counts."""
+    windows = {}
+    for name, cfg in eager_route_configs().items():
+        where = f"phase 52 chunked-{name}"
+        w = chunk_window(cfg, dev, EAGER_ROUTE_ROWS[name], where,
+                         host_events=False)
+        eager, chunked, stats = w["eager"], w["chunked"], w["stats"]
+        (ep_c, ep_e), (idle_c, idle_e) = w["ep"], w["idle"]
+        run, counted = chunked["run"].epoch, w["prof_c"]["run"].epoch
+        rel = chunked["run"].relative
+        mb = 2.0 ** -20
+        path = next(x for x in chunked["out"].splitlines()
+                    if x.startswith("Training path:"))
+        windows[name] = chunked["counts"]
+        print(f"{where} on {card}: {path!r}; 2 chunks of 2 epochs as CUDA "
+              f"graphs ({run.replays} epoch replays after one eager epoch) "
+              f"against the per-epoch loop from the same weights and "
+              f"loaders: train, validation and relative losses and "
+              f"{len(eager['state'])} parameter and Adam tensors bitwise "
+              f"equal; no synchronisation in any chunk's epochs "
+              f"(set_sync_debug_mode error); launches {w['want']} in both "
+              f"windows (every other row 0), the profiler's kernel events "
+              f"of a chunked run {w['seen']}; a captured epoch launches "
+              f"{sum(run.launches.values())} by the counters; capture "
+              f"{1e3 * run.capture_s:.1f} ms (instantiation included)"
+              + (f" + {1e3 * rel.capture_s:.1f} ms (relative loss)"
+                 if rel is not None else "")
+              + f"; in the profiled run {1e3 * counted.capture_s:.1f} ms "
+              f"capturing, {1e3 * counted.instantiate_s:.1f} ms "
+              f"instantiating, {counted.nodes} nodes; the graph's pool "
+              f"{run.pool_bytes * mb:.1f} MiB reserved, "
+              f"{run.held_bytes * mb:.1f} MiB held after the capture; peak "
+              f"reserved {chunked['peak_reserved'] * mb:.1f} / "
+              f"{eager['peak_reserved'] * mb:.1f} MiB (chunked / per epoch); "
+              f"wall an epoch {1e3 * ep_c:.3f} ms chunked, {1e3 * ep_e:.3f} "
+              f"ms per epoch (second chunk; the runs {chunked['wall']:.3f} / "
+              f"{eager['wall']:.3f} s); profiled runs: device "
+              f"{stats['chunked'][0]:.3f} / {stats['eager'][0]:.3f} ms an "
+              f"epoch, the card idle {100 * idle_c:.1f}% / "
+              f"{100 * idle_e:.1f}% of a second-chunk epoch's wall, device "
+              f"events {stats['chunked'][2]:.1f} / {stats['eager'][2]:.1f} "
+              f"an epoch (chunked / per epoch)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = run_experiment_path(Path(tmp))
+    print(f"phase 52, run_experiment on the default device: {path!r}",
+          flush=True)
     return windows
 
 
@@ -6257,6 +6420,9 @@ def main() -> None:
     chunked = chunked_phase(dev, card)
     t = phase_time("the chunked route, CUDA graphs (rows 11-12, 13, 1, "
                    "9-10)", t)
+    captured = eager_routes_phase(dev, card)
+    t = phase_time("the chunked route's per-gap, forced and grid-walk "
+                   "routes, CUDA graphs (rows 1-8)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -6451,6 +6617,29 @@ def main() -> None:
                  f"(Trainer.train chunk_epochs auto, 2 chunks of its "
                  f"print_every epochs as CUDA graphs; {what})",
                  chunked[recipe][row]))
+    # phase 52: the captured per-gap, forced and grid-walk routes' windows
+    # (the rk4 recipe's launches none)
+    route_windows = {
+        "gap_scan_fwd": [("production-forced", 1, "validation, relative "
+                          "loss"),
+                         ("production-forced-dt0.1", 1, "validation, "
+                          "relative loss"),
+                         ("production-walk", 1, "validation, relative "
+                          "loss")],
+        "gap_train_fwd_full": [("production-forced-dt0.1", 2, "training")],
+        "gap_train_fwd_checkpointed": [("production-forced", 3, "training")],
+        "gap_train_bwd_full": [("production-forced-dt0.1", 4, "training")],
+        "gap_train_bwd_checkpointed": [("production-forced", 5, "training")],
+        "fused_cell": [("default-forced", 6, "training, validation, "
+                        "relative loss")],
+        "walk_scan_fwd": [("production-walk", 7, "training")],
+        "walk_scan_bwd": [("production-walk", 8, "training")]}
+    for name, windows in route_windows.items():
+        for window, row, what in windows:
+            also.setdefault(name, []).append(
+                (f"PR 23: phase 52, chunked-{window} (Trainer.train "
+                 f"chunk_epochs auto, 2 chunks of 2 epochs as CUDA graphs; "
+                 f"{what})", captured[window][row]))
     for k in kernels:
         if k["name"] in also:
             k["also"] = [{"path": p, "launches": n}

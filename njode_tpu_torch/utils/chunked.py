@@ -19,6 +19,11 @@ The kernels' launch counters (the ``LAUNCHES*`` of
 :mod:`njode_tpu_torch.ops`) count where a wrapper launches, which under
 capture happens once, at capture time, when nothing runs: the program
 takes the capture's counts back and adds them again at every replay.
+
+A capture's cost is kept on the program: its seconds, the bytes its graph's
+memory pool reserved and keeps allocated, and, with
+:attr:`EpochProgram.count_nodes`, the seconds of the graph's instantiation
+apart and its node count.
 """
 
 from __future__ import annotations
@@ -67,6 +72,20 @@ def add_launches(counts: dict, times: int = 1) -> None:
             getattr(mod, name)[mode] += times * n
 
 
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The node count of a captured graph kept beside its executable
+    (``CUDAGraph(keep_graph=True)``), from the driver
+    (``cuGraphGetNodes``)."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                              ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
 @contextlib.contextmanager
 def sync_debug_mode(mode):
     """``torch.cuda.set_sync_debug_mode(mode)`` within the block, the
@@ -88,8 +107,15 @@ class EpochProgram:
     with the graph (``CUDAGraph.register_generator_state``), so a replay
     draws from each generator's seed and offset at the time of the replay.
     A capture that fails raises: the route never falls back to eager.
-    After capture, ``capture_s`` holds its seconds and ``launches`` the
-    kernel launches of one replay (by counter)."""
+    After capture, ``capture_s`` holds its seconds (the instantiation's
+    included), ``launches`` the kernel launches of one replay (by
+    counter), ``pool_bytes`` the device memory the capture reserved (the
+    graph's private pool) and ``held_bytes`` what stays allocated in it.
+    With ``count_nodes`` (a measurement: the graph is kept beside its
+    executable) ``instantiate_s`` holds the instantiation's seconds, no
+    longer in ``capture_s``, and ``nodes`` the graph's node count."""
+
+    count_nodes = False
 
     def __init__(self, body: Callable[[], tuple], capture: bool = False,
                  generators: Iterable[torch.Generator] = (),
@@ -103,11 +129,17 @@ class EpochProgram:
         self.out: Optional[tuple] = None
         self.launches: dict = {}
         self.capture_s: Optional[float] = None
+        self.instantiate_s: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+        self.held_bytes: Optional[int] = None
+        self.nodes: Optional[int] = None
         self.replays = 0
         self._stream = None
 
-    def __call__(self) -> tuple:
-        if not self.capture:
+    def __call__(self, again: bool = True) -> tuple:
+        """One call; ``again`` False says no later call follows, so a
+        first call runs eagerly and captures nothing (a one-epoch run)."""
+        if not self.capture or (self.graph is None and not again):
             return self.body()
         if self.graph is None:
             out = self._warm_up()
@@ -139,23 +171,37 @@ class EpochProgram:
 
     def _capture(self) -> None:
         """Capture ``body`` right after the warm-up (nothing runs)."""
-        graph = torch.cuda.CUDAGraph()
+        keep = self.count_nodes
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep
+                 else torch.cuda.CUDAGraph())
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = launch_counts()
-        t0 = time.perf_counter()
         try:
             # the capture synchronises once (torch.cuda.graph frees what it
-            # can first); a caller's sync check covers the epochs around it
-            with sync_debug_mode(0), torch.cuda.graph(graph,
-                                                      stream=self._stream):
-                out = self.body()
+            # can first, as here before the pool is measured); a caller's
+            # sync check covers the epochs around it
+            with sync_debug_mode(0):
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+                allocated = torch.cuda.memory_allocated(self.device)
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph, stream=self._stream):
+                    out = self.body()
         except Exception as e:
             add_launches({k: before.get(k, 0) - n
                           for k, n in launch_counts().items()})
             raise RuntimeError(f"capturing the chunked route's {self.what} "
                                f"as a CUDA graph failed: {e}") from e
         self.capture_s = time.perf_counter() - t0
+        if keep:
+            t0 = time.perf_counter()
+            graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t0
+            self.nodes = graph_nodes(graph)
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.held_bytes = torch.cuda.memory_allocated(self.device) - allocated
         after = launch_counts()
         self.launches = {k: n - before.get(k, 0) for k, n in after.items()
                          if n != before.get(k, 0)}

@@ -1015,37 +1015,26 @@ class Trainer:
     def _graph_decline(self, use_kernel: bool, loader: "DataLoader"
                        ) -> Optional[str]:
         """None where the chunked route is captured as CUDA graphs on the
-        card: the whole-run kernels (rows 11-12, 13 with row 1 in
-        validation) and the composed route whose gaps are single Euler
-        steps (the fused step, rows 9-10, or plain); else why its chunks
-        run eagerly, naming the host read that keeps each route out of a
-        graph."""
+        card: every single-device route, the whole-run kernels (rows 11-12,
+        13 with row 1 in validation) and the composed ones (the fused step,
+        rows 9-10; the per-gap euler, heun and rk4 loops; the forced
+        gap-loop pair, rows 2-5; the grid walk, rows 7-8 under autograd;
+        the forced fused Euler cell, row 6; plain), their host-reading
+        guards noted on the device (:class:`DeferredGuards`); else why its
+        chunks run eagerly."""
         from ..simulation.registry import get_obs_values_fn, get_paths_fn
-        m = self.model
         if self.mesh is not None:
             return ("a mesh: every step's collectives run through the "
                     "process group")
         if (get_paths_fn(loader.process_type) is not None
                 or get_obs_values_fn(loader.process_type) is not None):
             return "a registered process's generator"
-        if loader.device != self.device:
+        if not same_device(loader.device, self.device):
             return "the loader's device is not the model's"
-        if m.debug_checks:
+        if self.model.debug_checks:
             return "debug_checks reads the host"
         if use_kernel:
             return None
-        forced = m._forced_route()
-        if forced == "fused Euler cell":
-            return ("the forced fused Euler cell (row 6): its capture is not "
-                    "yet held against the eager route")
-        if forced is not None or m.dt_ode_step is not None:
-            what = (f"the forced {forced}" if forced
-                    else "the composed grid walk" if m._walks()
-                    else f"the per-gap {m.ode_solver} loop")
-            guard = ("_check_grid_alignment" if m._walks()
-                     else "_check_substep_budget")
-            return (f"{what}: apply reads its guard on the host every step "
-                    f"({guard})")
         if self.device.type == "cuda" and not all(
                 g.get("capturable", False)
                 for g in self.optimizer.param_groups):
@@ -1079,7 +1068,7 @@ class Trainer:
                         report=True, chunked=f", chunked ({mode})")
         run = _ChunkRun(self, loader, val_loader, rel, batch_size, shuffle,
                         use_kernel, capture, eager is None,
-                        first[0].shape[1])
+                        first[0].shape[1], n_epochs)
         self._chunk_run = run
         try:
             self._run_chunks(run, start_epoch, n_epochs, print_every,
@@ -1189,6 +1178,18 @@ class Trainer:
         self.relative_losses = hist["relative_loss"]
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices are one: ``cuda`` without an index is the
+    current card (a loader made with the default device names it so, the
+    model's parameters by its index)."""
+    def full(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return full(a) == full(b)
+
+
 def _rebuilt(optimizer: torch.optim.Optimizer, params: list
              ) -> torch.optim.Optimizer:
     """An optimizer of ``optimizer``'s type and one param group's
@@ -1261,14 +1262,18 @@ class _ChunkRun:
     per-epoch route's conversion does, and writes the parameters into the
     model for its validation.  ``defer``: the model's host-reading guards
     and the whole-run kernels' padded-mask gate note on the device and
-    raise after the chunk (:class:`~..models.jump_ode.DeferredGuards`)."""
+    raise after the chunk (:class:`~..models.jump_ode.DeferredGuards`).
+    ``n_epochs``: the run's end, past which no epoch calls a program again
+    (a program first called there is not captured; None: no end)."""
 
     def __init__(self, trainer: "Trainer", loader: "DataLoader", val_loader,
                  rel, batch_size: Optional[int], shuffle: bool, kernel: bool,
-                 capture: bool, defer: bool, n_slots: int):
+                 capture: bool, defer: bool, n_slots: int,
+                 n_epochs: Optional[int] = None):
         from .chunked import EpochProgram
         dev = trainer.device
         self.t, self.loader, self.rel = trainer, loader, rel
+        self.n_epochs = math.inf if n_epochs is None else n_epochs
         self.batch_size, self.shuffle = batch_size, shuffle
         self.kernel = kernel
         self.guards = DeferredGuards() if defer else None
@@ -1308,7 +1313,8 @@ class _ChunkRun:
     def chunk(self, epoch: int, L: int, print_every: int) -> tuple:
         """Epochs epoch..epoch+L-1: (train, validation, relative) losses,
         lists of L floats (NaN where not taken), read at the end in one
-        transfer."""
+        transfer.  A program is captured only where a later epoch of the
+        run (before ``n_epochs``) calls it again."""
         t = self.t
         self.begin()
         buf = torch.full((3, L), math.nan, dtype=torch.float64,
@@ -1317,14 +1323,15 @@ class _ChunkRun:
         from .chunked import sync_debug_mode
         with sync_debug_mode("error") if checked else contextlib.nullcontext():
             for i in range(L):
-                self.streams.seed(epoch + i)
-                tr, vl = self.epoch()
+                e = epoch + i
+                self.streams.seed(e)
+                tr, vl = self.epoch(again=e + 1 < self.n_epochs)
                 buf[0, i].copy_(tr)
                 if vl is not None:
                     buf[1, i].copy_(vl)
-                if (self.relative is not None
-                        and (epoch + i) % print_every == 0):
-                    buf[2, i].copy_(self.relative()[0])
+                if self.relative is not None and e % print_every == 0:
+                    buf[2, i].copy_(self.relative(
+                        again=e + print_every < self.n_epochs)[0])
         self.end(L)
         if self.guards is not None:
             self.guards.check()

@@ -3,19 +3,22 @@
 
 * Against the JAX package's chunked Trainer (``_train_chunked``): the
   composed route, the run twin and the walk twin (the kernels' plain
-  versions here, JAX's Pallas kernels in interpret mode), from bridged
-  weights, on cached ``DataLoader``s of both packages that hold the same
-  numpy batch, shuffle off, ``print_every`` 3 and 7 epochs (chunks of 3, 3
-  and 1).  Tolerances are ``tests/test_torch_training.py``'s: per-epoch
+  versions here, JAX's Pallas kernels in interpret mode), the per-gap rk4
+  loop and the plain grid walk (``use_pallas=False`` on both sides), from
+  bridged weights, on cached ``DataLoader``s of both packages that hold the
+  same numpy batch, shuffle off, ``print_every`` 3 and 7 epochs (chunks of
+  3, 3 and 1).  Tolerances are ``tests/test_torch_training.py``'s: per-epoch
   losses rtol 2e-5, parameters and Adam moments rtol 1e-4 / atol 2e-6.
   Checkpoints fall at the epochs JAX writes them, also after a resume at
   epoch 4.
 * Against the port's own per-epoch loop (``chunk_epochs=0``) on fresh data
   with the shuffle on (and dropout): every loss and the final state
-  bitwise equal.
+  bitwise equal, on every route the card captures (the forced kernels'
+  plain versions here).
 * One chunk's device programs with the host reads of a tensor patched to
-  raise, the ``chunk_epochs`` values, the per-epoch fallback for data
-  callables, the non-finite warning.
+  raise, which routes the card captures (``Trainer._graph_decline``), the
+  ``chunk_epochs`` values, the per-epoch fallback for data callables, the
+  non-finite warning.
 """
 
 import inspect
@@ -50,6 +53,14 @@ ROUTES = {
     "walk": dict(model=dict(shared_network=True, dt_ode_step=0.05,
                             t_max=1.0, grid_walk=True),
                  kernel=True, n_steps=20, obs_fraction=0.25, bs=16),
+    # the rk4 recipe's route (its grid off dt_ode_step's) and the plain
+    # grid walk of two networks, no kernel on either side
+    "per-gap-rk4": dict(model=dict(shared_network=True, dt_ode_step=0.05,
+                                   ode_solver="rk4", use_pallas=False),
+                        kernel=False, n_steps=100, obs_fraction=0.05),
+    "grid-walk": dict(model=dict(dt_ode_step=0.05, t_max=1.0,
+                                 grid_walk=True, use_pallas=False),
+                      kernel=False, n_steps=20, obs_fraction=0.25),
 }
 
 
@@ -84,7 +95,7 @@ def loaders(route):
 def jax_trainer(route):
     r = ROUTES[route]
     model = JaxModel(input_dim=1, hidden_dim=H, output_dim=1, num_moments=2,
-                     use_pallas=False, **r["model"])
+                     **{"use_pallas": False, **r["model"]})
     kw = {}
     if r["kernel"]:
         kw = dict(use_train_kernel="interpret",
@@ -221,7 +232,29 @@ FRESH = {
                      obs_fraction=0.05),
     "run": ROUTES["run"],
     "walk": ROUTES["walk"],
+    # the routes the card captures since the whole-run kernels and the
+    # single-step composed route: the per-gap rk4 loop (with dropout), the
+    # forced gap-loop pair (rows 2-5), the grid walk of two networks on the
+    # walk kernels' plain version (rows 7-8), the forced fused Euler cell
+    # (row 6)
+    "per-gap-rk4": dict(model=dict(shared_network=True, dt_ode_step=0.05,
+                                   ode_solver="rk4", dropout_rate=0.1),
+                        kernel=False, n_steps=100, obs_fraction=0.05),
+    "forced-pair": dict(model=dict(shared_network=True, dt_ode_step=0.05,
+                                   t_max=1.0, use_pallas=True),
+                        kernel=False, n_steps=20, obs_fraction=0.25),
+    "grid-walk": dict(model=dict(dt_ode_step=0.05, t_max=1.0, grid_walk=True),
+                      kernel=False, n_steps=20, obs_fraction=0.25),
+    "forced-cell": dict(model=dict(use_pallas=True), kernel=False,
+                        n_steps=100, obs_fraction=0.05),
 }
+# the guards each route notes on the device in a chunk
+GUARDS = {"composed": set(), "run": {"padded slots"},
+          "walk": {"grid alignment", "substep budget", "padded slots"},
+          "per-gap-rk4": {"substep budget"},
+          "forced-pair": {"substep budget"},
+          "grid-walk": {"grid alignment", "substep budget"},
+          "forced-cell": set()}
 
 
 def fresh_run(route, chunk_epochs, n_epochs=5, print_every=2):
@@ -322,11 +355,109 @@ def test_chunk_programs_read_nothing_on_the_host(route, monkeypatch):
     run.end(3)
     run.guards.check()
     assert all(bool(torch.isfinite(x)) for group in out for x in group)
-    keys = set(run.guards._worst)
-    if route == "walk":
-        assert {"grid alignment", "substep budget", "padded slots"} <= keys
-    elif route == "run":
-        assert keys == {"padded slots"}
+    if route in GUARDS:
+        assert set(run.guards._worst) == GUARDS[route]
+
+
+# ----------------------------------------------------------------------
+# which routes the card captures
+# ----------------------------------------------------------------------
+
+# each route's training path as the Trainer's "Training path:" line names
+# it, and the forced kernels it runs
+ROUTE_OF = {"composed": ("composed", None),
+            "run": ("whole-run kernel", None),
+            "walk": ("walk-train kernel", None),
+            "per-gap-rk4": ("composed (per-gap rk4 loop)", None),
+            "forced-pair": ("composed (forced gap-loop kernels)",
+                            "gap-loop kernels"),
+            "grid-walk": ("composed", None),
+            "forced-cell": ("composed (forced fused Euler cell)",
+                            "fused Euler cell")}
+EAGER = {
+    "mesh": "a mesh: every step's collectives run through the process group",
+    "registered process": "a registered process's generator",
+    "loader elsewhere": "the loader's device is not the model's",
+    "debug_checks": "debug_checks reads the host",
+    "host Adam": "the optimizer is not capturable (make_adam builds "
+                 "torch.optim.Adam with capturable=True on the card)",
+}
+
+
+def decline_case(route, capsys):
+    """A trainer of a FRESH route, its training loader, and the path line
+    of one epoch's chunk."""
+    r = FRESH[route]
+    model = NeuralJumpODE(1, H, 1, num_moments=2, device="cpu",
+                          **r["model"])
+    trainer = Trainer(model, make_adam(model.parameters(), LR, WD),
+                      ignore_first_continuity=True,
+                      use_train_kernel=r["kernel"])
+    train, _ = create_data_loaders(
+        "black_scholes", n_train=4, n_val=2, obs_fraction=r["obs_fraction"],
+        obs_only=True, device="cpu", n_steps=r["n_steps"], **BS_KW)
+    capsys.readouterr()
+    trainer.train(train, n_epochs=1, batch_size=4, print_every=1)
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("Training path:"))
+    return trainer, train, line
+
+
+@pytest.mark.parametrize("route", list(FRESH))
+def test_graph_decline_takes_every_single_device_route(route, capsys):
+    """Every single-device route of a DataLoader is captured on the card:
+    the whole-run kernels, the composed route, the per-gap loops, the
+    forced gap-loop pair, the grid walk and the forced fused Euler cell
+    (here, off the card, its chunks run the same programs eagerly)."""
+    trainer, train, line = decline_case(route, capsys)
+    path, forced = ROUTE_OF[route]
+    assert line.startswith(f"Training path: {path} from epoch 0")
+    assert line.endswith(", chunked (eager: not on a CUDA device)")
+    m = trainer.model
+    assert m._forced_route() == forced
+    assert m._walks() == (route in ("walk", "grid-walk"))
+    assert trainer._graph_decline(FRESH[route]["kernel"], train) is None
+
+
+@pytest.mark.parametrize("case", list(EAGER))
+def test_graph_decline_keeps_its_reasons(case, capsys, monkeypatch):
+    """The routes the card still runs eagerly, each with its reason: a
+    mesh, a registered process's generator, a loader on another device,
+    debug_checks, an optimizer that is not capturable (on the card)."""
+    trainer, train, _ = decline_case("per-gap-rk4", capsys)
+    if case == "mesh":
+        monkeypatch.setattr(trainer, "mesh", object())
+    elif case == "registered process":
+        train = DataLoader(0, 4, "black_scholes_nd", 0.1, True, {},
+                           device="cpu")
+    elif case == "loader elsewhere":
+        monkeypatch.setattr(train, "device", torch.device("meta"))
+    elif case == "debug_checks":
+        monkeypatch.setattr(trainer.model, "debug_checks", True)
+    else:
+        # what the card sees of a torch.optim.Adam built with its defaults
+        cuda = torch.device("cuda", 0)
+        monkeypatch.setattr(trainer, "device", cuda)
+        monkeypatch.setattr(train, "device", cuda)
+        for g in trainer.optimizer.param_groups:
+            monkeypatch.setitem(g, "capturable", False)
+    assert trainer._graph_decline(False, train) == EAGER[case]
+
+
+def test_a_loader_on_the_current_card_is_the_models(capsys, monkeypatch):
+    """run_experiment's loaders name the card "cuda" (the default device),
+    the model's parameters "cuda:0": one device while card 0 is current,
+    so the route is captured; another current card declines."""
+    trainer, train, _ = decline_case("per-gap-rk4", capsys)
+    monkeypatch.setattr(trainer, "device", torch.device("cuda", 0))
+    monkeypatch.setattr(train, "device", torch.device("cuda"))
+    for g in trainer.optimizer.param_groups:
+        monkeypatch.setitem(g, "capturable", True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert trainer._graph_decline(False, train) is None
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert (trainer._graph_decline(False, train)
+            == EAGER["loader elsewhere"])
 
 
 def test_deferred_guard_raises_after_the_chunk():
@@ -343,6 +474,64 @@ def test_deferred_guard_raises_after_the_chunk():
     with pytest.raises(ValueError, match="not multiples of dt_ode_step"):
         trainer.train(train, n_epochs=2, batch_size=BS, shuffle=False)
     assert trainer.train_losses == []
+
+
+# ----------------------------------------------------------------------
+# a program is captured only where a later call replays it
+# ----------------------------------------------------------------------
+
+def test_a_program_no_later_call_replays_is_not_captured(monkeypatch):
+    """A first call that no later call follows runs the body eagerly and
+    captures nothing; a first call that one follows warms up and
+    captures, and later calls replay."""
+    from types import SimpleNamespace
+    from njode_tpu_torch.utils.chunked import EpochProgram
+    seen = []
+    prog = EpochProgram(lambda: seen.append("body") or ("eager",),
+                        capture=True)
+
+    def capture():
+        seen.append("capture")
+        prog.graph = SimpleNamespace(replay=lambda: seen.append("replay"))
+        prog.out = ("replayed",)
+    monkeypatch.setattr(prog, "_warm_up",
+                        lambda: seen.append("warm-up") or ("warm",))
+    monkeypatch.setattr(prog, "_capture", capture)
+    assert prog(again=False) == ("eager",)
+    assert prog.graph is None
+    assert prog() == ("warm",)
+    assert prog(again=False) == ("replayed",)
+    assert seen == ["body", "warm-up", "capture", "replay"]
+    assert prog.replays == 1
+
+
+def test_the_runs_last_calls_say_no_replay_follows(monkeypatch, tmp_path):
+    """Through train(): the epoch program is told a later call follows at
+    every epoch but the run's last, the relative loss's at every print
+    epoch but the last (3 epochs, print_every 2: prints at 0 and 2),
+    also after a resume."""
+    from njode_tpu_torch.utils.chunked import EpochProgram
+    calls = []
+    orig = EpochProgram.__call__
+
+    def call(self, again=True):
+        calls.append((self.what, again))
+        return orig(self, again)
+    monkeypatch.setattr(EpochProgram, "__call__", call)
+    (_, _), (pt, pv) = loaders("composed")
+    model = NeuralJumpODE(1, H, 1, num_moments=2, device="cpu")
+    trainer = Trainer(model, ignore_first_continuity=True)
+    kw = dict(batch_size=BS, print_every=2, config=config("composed"),
+              save_path=str(tmp_path / "port.ckpt"))
+    trainer.train(pt, pv, n_epochs=3, **kw)
+    assert calls == [("epoch", True), ("relative loss", True),
+                     ("epoch", True), ("epoch", False),
+                     ("relative loss", False)]
+    calls.clear()
+    model = NeuralJumpODE(1, H, 1, num_moments=2, device="cpu")
+    Trainer(model, ignore_first_continuity=True).train(pt, pv, n_epochs=4,
+                                                       **kw)
+    assert calls == [("epoch", False)]
 
 
 # ----------------------------------------------------------------------
