@@ -381,10 +381,26 @@ uncaught exception and a nonzero exit:
    0.01, rows 2 and 4 at 0.1, row 1 in validation), the production flags
    without --shared-network under --kernels auto (the grid walk, rows 7-8,
    row 1 in validation) and the forced default recipe (row 6), at full
-   width, 2 chunks of 2 epochs each; besides 51's times the capture's
+   width, 2 chunks of 2 epochs each (the rk4 recipe's of 1 epoch); besides
+   51's times the capture's
    instantiation, its graph's node count and memory pool, and the runs'
    peak reserved memory; and run_experiment on its default device
    ("cuda") captured too.
+53. the chunked route's last single-card eager routes, captured: the scaled
+   d=2 recipes of the registered processes black_scholes_nd and
+   ornstein_uhlenbeck_nd (bench.py --scaled --process ... --dims 2; rows
+   9-10) as phase 52's windows, run_experiment of each captured, and a
+   host-reading registered generator raising its named error on the
+   chunked route (chunk_epochs=0 trains it); then phase 38's
+   three ensemble runs through run_experiment (--ensemble 4 --kernels
+   force on the production flags: rows 3, 5, 1; --ensemble-lrs
+   1e-2,1e-3,1e-4 on the default recipe: no kernel; --ensemble 2 on the
+   scaled recipe: rows 9-10), each epoch of all members one CUDA graph,
+   against the member loop (chunked=False) from the same weights and data
+   seeds: every member row, the stack, every Adam state and
+   ensemble_predict bitwise equal, no synchronisation in a chunk, the
+   profiler's kernel events equal to the counters; with the wall an epoch,
+   the device time, the idle share and the capture's cost.
 
 The recipes' configs (default_config, production_config, scaled_config,
 family_config and their variants) are the port's build_config of each
@@ -398,12 +414,14 @@ kernels, 22 for rows 2-6, one window per forced path, 25 for rows 9b-10b, 28
 for rows 11b and 13b, 30, 31, 33 and 34 a window per run, 35-40 a window a
 call or run, 41-49 a window a run on each rank, 50 a window each for the
 steps, the run and the resume, every row at 0, every row's count read in
-each, 51 and 52 a window a run) and read just after.  The last line is the
+each, 51-53 a window a run) and read just after.  The last line is the
 JSON result; the line before it lists the kernels, each with its main
 path's launches and, under "also", the launches of the other windows that
 ran it in phases 35-43, 46-49 (marked "model axis:"), 51 and 52 (marked
 "PR 23:").  Every run_experiment and Trainer.train of a DataLoader on one
 card takes the chunked route, so the recipes' phases replay CUDA graphs.
+Phase 53's windows follow them, each named by its phase; every ensemble
+runs its members' epoch as one program, captured too.
 There is no CPU run: without a CUDA device the script fails.
 """
 
@@ -6135,8 +6153,9 @@ def chunked_phase(dev: torch.device, card: str) -> dict:
 
 
 # phase 52's windows: the routes the chunked trainer ran eagerly before
-# they were captured, at full width, 2 chunks of 2 epochs each (depth cut
-# from the recipes' print_every), with the kernel rows each launches
+# they were captured, at full width, 2 chunks of 2 epochs each (the rk4
+# recipe's of 1 epoch, its eager epochs the slowest; depth cut from the
+# recipes' print_every), with the kernel rows each launches
 EAGER_ROUTE_ROWS = {"production-rk4": (), "production-forced": (3, 5, 1),
                     "production-forced-dt0.1": (2, 4, 1),
                     "production-walk": (7, 8, 1), "default-forced": (6,)}
@@ -6148,7 +6167,8 @@ def eager_route_configs() -> dict:
     off: rows 3 and 5 at dt_ode_step 0.01, rows 2 and 4 at 0.1, row 1 in
     validation); the production flags without --shared-network under
     --kernels auto (the grid walk on rows 7-8 under autograd, row 1 in
-    validation); the forced default recipe (row 6)."""
+    validation); the forced default recipe (row 6).  print_every 2 (the
+    rk4 recipe's 1)."""
     walk = production_config(4, "chunked")
     walk["shared_network"] = False
     out = {"production-rk4": recipe_config("production-rk4", 4, "chunked"),
@@ -6157,8 +6177,8 @@ def eager_route_configs() -> dict:
                4, "chunked", dt=0.1),
            "production-walk": walk,
            "default-forced": forced_default_config(4, "chunked")}
-    for cfg in out.values():
-        cfg["print_every"] = 2
+    for name, cfg in out.items():
+        cfg["print_every"] = 1 if name == "production-rk4" else 2
     return out
 
 
@@ -6184,7 +6204,8 @@ def eager_routes_phase(dev: torch.device, card: str) -> dict:
     """Phase 52: the chunked route's four single-card routes that ran
     eagerly until captured (the per-gap loops, the forced gap-loop pair,
     the composed grid walk, the forced fused Euler cell), each through
-    :func:`chunk_window` at full width (2 chunks of 2 epochs; the profiles
+    :func:`chunk_window` at full width (2 chunks of 2 epochs, the rk4
+    recipe's of 1; the profiles
     of the card alone), with the capture's cost: its ms (instantiation
     included), its instantiation and node count from the profiled run, the
     graph pool's reserved and held bytes, and the runs' peak reserved
@@ -6195,46 +6216,362 @@ def eager_routes_phase(dev: torch.device, card: str) -> dict:
         where = f"phase 52 chunked-{name}"
         w = chunk_window(cfg, dev, EAGER_ROUTE_ROWS[name], where,
                          host_events=False)
-        eager, chunked, stats = w["eager"], w["chunked"], w["stats"]
-        (ep_c, ep_e), (idle_c, idle_e) = w["ep"], w["idle"]
-        run, counted = chunked["run"].epoch, w["prof_c"]["run"].epoch
-        rel = chunked["run"].relative
-        mb = 2.0 ** -20
-        path = next(x for x in chunked["out"].splitlines()
-                    if x.startswith("Training path:"))
-        windows[name] = chunked["counts"]
-        print(f"{where} on {card}: {path!r}; 2 chunks of 2 epochs as CUDA "
-              f"graphs ({run.replays} epoch replays after one eager epoch) "
-              f"against the per-epoch loop from the same weights and "
-              f"loaders: train, validation and relative losses and "
-              f"{len(eager['state'])} parameter and Adam tensors bitwise "
-              f"equal; no synchronisation in any chunk's epochs "
-              f"(set_sync_debug_mode error); launches {w['want']} in both "
-              f"windows (every other row 0), the profiler's kernel events "
-              f"of a chunked run {w['seen']}; a captured epoch launches "
-              f"{sum(run.launches.values())} by the counters; capture "
-              f"{1e3 * run.capture_s:.1f} ms (instantiation included)"
-              + (f" + {1e3 * rel.capture_s:.1f} ms (relative loss)"
-                 if rel is not None else "")
-              + f"; in the profiled run {1e3 * counted.capture_s:.1f} ms "
-              f"capturing, {1e3 * counted.instantiate_s:.1f} ms "
-              f"instantiating, {counted.nodes} nodes; the graph's pool "
-              f"{run.pool_bytes * mb:.1f} MiB reserved, "
-              f"{run.held_bytes * mb:.1f} MiB held after the capture; peak "
-              f"reserved {chunked['peak_reserved'] * mb:.1f} / "
-              f"{eager['peak_reserved'] * mb:.1f} MiB (chunked / per epoch); "
-              f"wall an epoch {1e3 * ep_c:.3f} ms chunked, {1e3 * ep_e:.3f} "
-              f"ms per epoch (second chunk; the runs {chunked['wall']:.3f} / "
-              f"{eager['wall']:.3f} s); profiled runs: device "
-              f"{stats['chunked'][0]:.3f} / {stats['eager'][0]:.3f} ms an "
-              f"epoch, the card idle {100 * idle_c:.1f}% / "
-              f"{100 * idle_e:.1f}% of a second-chunk epoch's wall, device "
-              f"events {stats['chunked'][2]:.1f} / {stats['eager'][2]:.1f} "
-              f"an epoch (chunked / per epoch)", flush=True)
+        windows[name] = w["chunked"]["counts"]
+        print(window_line(where, card, w), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         path = run_experiment_path(Path(tmp))
     print(f"phase 52, run_experiment on the default device: {path!r}",
           flush=True)
+    return windows
+
+
+def window_line(where: str, card: str, w: dict) -> str:
+    """A captured window's line (:func:`chunk_window`'s checks, the
+    capture's cost, the times)."""
+    eager, chunked, stats = w["eager"], w["chunked"], w["stats"]
+    (ep_c, ep_e), (idle_c, idle_e) = w["ep"], w["idle"]
+    run, counted = chunked["run"].epoch, w["prof_c"]["run"].epoch
+    rel = chunked["run"].relative
+    mb = 2.0 ** -20
+    P = len(eager["hist"]["train_loss"]) // 2
+    path = next(x for x in chunked["out"].splitlines()
+                if x.startswith("Training path:"))
+    return (f"{where} on {card}: {path!r}; 2 chunks of {P} epoch"
+            f"{'s' * (P > 1)} as CUDA graphs ({run.replays} epoch replays "
+            f"after one eager epoch) "
+            f"against the per-epoch loop from the same weights and "
+            f"loaders: train, validation and relative losses and "
+            f"{len(eager['state'])} parameter and Adam tensors bitwise "
+            f"equal; no synchronisation in any chunk's epochs "
+            f"(set_sync_debug_mode error); launches {w['want']} in both "
+            f"windows (every other row 0), the profiler's kernel events "
+            f"of a chunked run {w['seen']}; a captured epoch launches "
+            f"{sum(run.launches.values())} by the counters; capture "
+            f"{1e3 * run.capture_s:.1f} ms (instantiation included)"
+            + (f" + {1e3 * rel.capture_s:.1f} ms (relative loss)"
+               if rel is not None and rel.capture_s is not None else "")
+            + f"; in the profiled run {1e3 * counted.capture_s:.1f} ms "
+            f"capturing, {1e3 * counted.instantiate_s:.1f} ms "
+            f"instantiating, {counted.nodes} nodes; the graph's pool "
+            f"{run.pool_bytes * mb:.1f} MiB reserved, "
+            f"{run.held_bytes * mb:.1f} MiB held after the capture; peak "
+            f"reserved {chunked['peak_reserved'] * mb:.1f} / "
+            f"{eager['peak_reserved'] * mb:.1f} MiB (chunked / per epoch); "
+            f"wall an epoch {1e3 * ep_c:.3f} ms chunked, {1e3 * ep_e:.3f} "
+            f"ms per epoch (second chunk; the runs {chunked['wall']:.3f} / "
+            f"{eager['wall']:.3f} s); profiled runs: device "
+            f"{stats['chunked'][0]:.3f} / {stats['eager'][0]:.3f} ms an "
+            f"epoch, the card idle {100 * idle_c:.1f}% / "
+            f"{100 * idle_e:.1f}% of a second-chunk epoch's wall, device "
+            f"events {stats['chunked'][2]:.1f} / {stats['eager'][2]:.1f} "
+            f"an epoch (chunked / per epoch)")
+
+
+# ------------------------- registered processes and ensembles, captured (53)
+
+# phase 53's registered-process windows: the scaled d=2 recipes (bench.py
+# --scaled --process ... --dims 2), rows 9-10 at d_x 2
+REGISTERED_ROWS = (9, 10)
+# phase 53's ensemble windows: phase 38's three runs and the rows each
+# launches (the population under --kernels auto runs none)
+ENSEMBLE_ROWS = {"ens-production-forced": (3, 5, 1),
+                 "population-default": (), "ens-scaled": (9, 10)}
+ENSEMBLE_LRS = "0.01,0.001,0.0001"
+
+
+def registered_configs() -> dict:
+    """The scaled d=2 configs of phase 33 (black_scholes_nd and
+    ornstein_uhlenbeck_nd, obs-only: their registered samplers), 2 chunks
+    of 2 epochs (depth cut from print_every 5)."""
+    out = {}
+    for process, name in zip(FAMILIES_ND, ("scaled-nd2", "scaled-ou-nd2")):
+        cfg = family_config("scaled", 4, "chunked", process)
+        cfg["print_every"] = 2
+        out[name] = cfg
+    return out
+
+
+def ensemble_configs(n_epochs: int = 4) -> dict:
+    """Phase 38's three ensemble runs (the forced production ensemble of
+    ENS_K members, the default recipe's population of three learning rates,
+    the scaled recipe's K=2 ensemble), print_every 2."""
+    out = {"ens-production-forced": ens_forced_config(ENS_K, n_epochs,
+                                                      "ens53"),
+           "population-default": recipe_config(
+               "default", n_epochs, "pop53", "--ensemble-lrs", ENSEMBLE_LRS),
+           "ens-scaled": recipe_config("scaled", n_epochs, "ens53_scaled",
+                                       "--ensemble", "2")}
+    for cfg in out.values():
+        cfg["print_every"] = 2
+    return out
+
+
+def host_reading_check(dev: torch.device) -> str:
+    """A registered generator that reads the host (numpy draws copied to
+    the card): the chunked route on the card raises, naming the process and
+    chunk_epochs=0, before any epoch is kept; chunk_epochs=0 trains it."""
+    import numpy as np
+    from njode_tpu_torch.simulation import registry
+    from njode_tpu_torch.utils import DataLoader
+    name = "host_reading_gbm"
+
+    def paths(n_paths, *, generator, device=None, T=1.0, n_steps=100):
+        rng = np.random.default_rng(0)
+        x = np.exp(np.cumsum(rng.normal(0.0, 0.05, (n_paths, n_steps + 1)),
+                             axis=1)).astype(np.float32)
+        return (torch.linspace(0.0, T, n_steps + 1, device=device),
+                torch.as_tensor(x, device=device))
+    registry.register_process(name, paths)
+    try:
+        def trainer():
+            model = NeuralJumpODE(1, 16, 1, num_moments=2, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+            return Trainer(model, make_adam(model.parameters(), 1e-3),
+                           ignore_first_continuity=True)
+        loader = DataLoader(0, 64, name, 0.1, False, {}, device=dev)
+        tr = trainer()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                tr.train(loader, n_epochs=3, batch_size=32, print_every=3)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("a host-reading registered generator "
+                                 "trained in the chunked route")
+        if (f"'{name}'" not in msg or "chunk_epochs=0" not in msg
+                or tr.train_losses):
+            raise AssertionError(f"the host-reading generator's error: "
+                                 f"{msg}; losses {tr.train_losses}")
+        tr = trainer()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train(loader, n_epochs=2, batch_size=32, chunk_epochs=0)
+        if len(tr.train_losses) != 2 or not all(
+                math.isfinite(x) for x in tr.train_losses):
+            raise AssertionError(f"chunk_epochs=0: {tr.train_losses}")
+    finally:
+        for table in (registry._PATHS, registry._MOMENTS,
+                      registry._OBS_VALUES):
+            table.pop(name, None)
+    return msg
+
+
+def registered_paths(tmp: Path) -> list:
+    """run_experiment of the scaled d=2 config of each registered family,
+    one chunk of 2 epochs: each path line must end "chunked (CUDA
+    graph)"."""
+    lines = []
+    for process in FAMILIES_ND:
+        cfg = family_config("scaled", 2, "captured", process)
+        cfg["print_every"] = 2
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_experiment(cfg, save_dir=str(tmp))
+        path = [x for x in buf.getvalue().splitlines()
+                if x.startswith("Training path:")]
+        if len(path) != 1 or not path[0].endswith(", chunked (CUDA graph)"):
+            raise AssertionError(f"run_experiment of {process}: not "
+                                 f"captured: {buf.getvalue()}")
+        lines.append(f"{process} {path[0]!r}")
+    return lines
+
+
+def ensemble_run(cfg: dict, tmp: Path, chunked: bool,
+                 profiled: bool = False) -> dict:
+    """run_experiment of an ensemble config in its own launch window, into
+    its own directory: chunked (each epoch of all members one program,
+    every epoch of a chunk under set_sync_debug_mode("error")) or the
+    member loop (train_ensemble_full chunked=False).  Returns the history,
+    the stack, every member's Adam state, the window's counts, the wall,
+    the output, the run's program and, with ``profiled`` (the card alone),
+    the profiler."""
+    import functools
+    from torch.profiler import ProfilerActivity, profile
+    from njode_tpu_torch.utils import ensemble as E
+    orig_train, orig_init = E.train_ensemble_full, E._EnsembleRun.__init__
+    runs = []
+
+    def init(self, *args, **kwargs):
+        orig_init(self, *args, **kwargs)
+        runs.append(self)
+    E.train_ensemble_full = functools.partial(orig_train, chunked=chunked)
+    E._EnsembleRun.__init__ = init
+    E._EnsembleRun.check_syncs = chunked
+    buf = io.StringIO()
+    ctx = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+           else contextlib.nullcontext())
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with ctx as prof, contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_experiment(cfg, save_dir=str(tmp))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        E.train_ensemble_full, E._EnsembleRun.__init__ = orig_train, orig_init
+        E._EnsembleRun.check_syncs = False
+    _, opt_states, _ = load_checkpoint(str(Path(res["save_path"])
+                                           / "model.ckpt"))
+    return {"hist": res["history"], "stack": res["params_stack"],
+            "opt": opt_states, "counts": kernel_counts(), "wall": wall,
+            "out": buf.getvalue(), "run": runs[-1] if runs else None,
+            "prof": prof, "cfg": res["config"],
+            "peak_reserved": torch.cuda.max_memory_reserved()}
+
+
+def ensemble_window(cfg: dict, dev: torch.device, rows: tuple, where: str,
+                    tmp: Path) -> dict:
+    """An ensemble config's chunked route against its member loop from the
+    same weights and data seeds, 2 chunks of 2 epochs: the path line ends
+    "chunked (CUDA graph)"; every member row (train, validation, relative
+    loss), their means, the stack and every member's Adam state bitwise
+    equal; ``rows`` launched as often in both windows (at least once each)
+    and every other row never; in a profiled chunked run, whose capture
+    counts its graph's nodes, the profiler's kernel events equal to the
+    counters; ensemble_predict of both stacks on batch_request's 1,000
+    streams bitwise equal.  Returns the runs, the launches, the events and
+    the times, as :func:`chunk_window`."""
+    from njode_tpu_torch.utils import ensemble_predict
+    from njode_tpu_torch.utils.chunked import EpochProgram
+    P = cfg["print_every"]
+    eager = ensemble_run(cfg, tmp / "eager", False)
+    chunked = ensemble_run(cfg, tmp / "chunked", True)
+    path = [x for x in chunked["out"].splitlines()
+            if x.startswith("Training path:")]
+    if len(path) != 1 or not path[0].endswith(", chunked (CUDA graph)"):
+        raise AssertionError(f"{where}: not captured: {chunked['out']}")
+    for k in ("member_train_loss", "member_val_loss", "member_relative_loss",
+              "train_loss", "val_loss", "relative_loss"):
+        if chunked["hist"][k] != eager["hist"][k]:
+            raise AssertionError(f"{where}: {k} {chunked['hist'][k]} "
+                                 f"chunked, {eager['hist'][k]} member loop")
+    if not stacks_equal(chunked["stack"], eager["stack"]):
+        raise AssertionError(f"{where}: the stacks differ")
+    n_adam = 0
+    for s, (a, b) in enumerate(zip(eager["opt"], chunked["opt"])):
+        for i, st in a["state"].items():
+            for k, v in st.items():
+                n_adam += 1
+                if not torch.equal(v, b["state"][i][k]):
+                    raise AssertionError(f"{where}: member {s} Adam {i} {k}")
+        if a["param_groups"] != b["param_groups"]:
+            raise AssertionError(f"{where}: member {s}'s param groups")
+    want = {row: eager["counts"][row] for row in rows}
+    if any(not n for n in want.values()):
+        raise AssertionError(f"{where}: the member loop's window "
+                             f"{eager['counts']}")
+    expect_counts(f"{where}, the member loop", want, eager["counts"])
+    expect_counts(f"{where}, the chunked route", want, chunked["counts"])
+    model = recipe_model(chunked["cfg"], dev,
+                         grid_walk=chunked["run"].members[0].model.grid_walk)
+    obs_t, obs_v, _, mask = batch_request(dev)
+    preds = [ensemble_predict(model, r["stack"], obs_t, obs_v, mask)
+             for r in (chunked, eager)]
+    if not all(torch.equal(a, b) for a, b in zip(*preds)):
+        raise AssertionError(f"{where}: ensemble_predict differs")
+    EpochProgram.count_nodes = True
+    try:
+        prof_c = ensemble_run(cfg, tmp / "chunked_profiled", True,
+                              profiled=True)
+    finally:
+        EpochProgram.count_nodes = False
+    prof_e = ensemble_run(cfg, tmp / "eager_profiled", False, profiled=True)
+    expect_counts(f"{where}, the profiled chunked route", want,
+                  prof_c["counts"])
+    names = kernel_events(prof_c["prof"])
+    seen = {k: sum(n for name, n in names.items() if k in name)
+            for k in sorted(set(ROW_KERNELS.values()))}
+    counted = {k: sum(prof_c["counts"][row] for row, name in
+                      ROW_KERNELS.items() if name == k) for k in seen}
+    if seen != counted:
+        raise AssertionError(
+            f"{where}: the profiler saw {seen} launches, the counters "
+            f"{counted}: {sorted(names.items())}")
+    n = len(chunked["hist"]["train_loss"])
+    stats = {}
+    for key, r in (("chunked", prof_c), ("eager", prof_e)):
+        dev_ms, events = device_busy(r["prof"])
+        stats[key] = (dev_ms / n, 1.0 - dev_ms / (1e3 * r["wall"]),
+                      events / n)
+    ep_c = statistics.median(chunked["hist"]["epoch_times"][P:])
+    ep_e = statistics.median(eager["hist"]["epoch_times"][P:])
+    idle_c = 1.0 - stats["chunked"][0] / (1e3 * ep_c)
+    idle_e = 1.0 - stats["eager"][0] / (1e3 * ep_e)
+    return {"eager": eager, "chunked": chunked, "prof_c": prof_c,
+            "want": want, "seen": {k: v for k, v in seen.items() if v},
+            "stats": stats, "ep": (ep_c, ep_e), "idle": (idle_c, idle_e),
+            "n_adam": n_adam, "path": path[0]}
+
+
+def ensemble_line(where: str, card: str, w: dict) -> str:
+    """An ensemble window's line (:func:`ensemble_window`'s checks, the
+    capture's cost, the times)."""
+    eager, chunked, stats = w["eager"], w["chunked"], w["stats"]
+    (ep_c, ep_e), (idle_c, idle_e) = w["ep"], w["idle"]
+    prog = chunked["run"].program
+    counted = w["prof_c"]["run"].program
+    k = len(chunked["run"].members)
+    mb = 2.0 ** -20
+    return (f"{where} on {card}: {w['path']!r}; 2 chunks of 2 epochs, each "
+            f"epoch of all {k} members one CUDA graph ({prog.replays} "
+            f"replays after one eager epoch) against the member loop from "
+            f"the same weights and data seeds: every member's train, "
+            f"validation and relative loss, the stack and {w['n_adam']} "
+            f"Adam tensors bitwise equal, ensemble_predict of both stacks "
+            f"on 1,000 streams bitwise equal; no synchronisation in any "
+            f"chunk's epochs (set_sync_debug_mode error); launches "
+            f"{w['want']} in both windows (every other row 0), the "
+            f"profiler's kernel events of a chunked run {w['seen']}; a "
+            f"captured epoch launches {sum(prog.launches.values())} by the "
+            f"counters; capture {1e3 * prog.capture_s:.1f} ms "
+            f"(instantiation included); in the profiled run "
+            f"{1e3 * counted.capture_s:.1f} ms capturing, "
+            f"{1e3 * counted.instantiate_s:.1f} ms instantiating, "
+            f"{counted.nodes} nodes; the graph's pool "
+            f"{prog.pool_bytes * mb:.1f} MiB reserved, "
+            f"{prog.held_bytes * mb:.1f} MiB held after the capture; peak "
+            f"reserved {chunked['peak_reserved'] * mb:.1f} / "
+            f"{eager['peak_reserved'] * mb:.1f} MiB (chunked / member "
+            f"loop); wall an epoch {1e3 * ep_c:.3f} ms chunked, "
+            f"{1e3 * ep_e:.3f} ms the member loop (second chunk; the runs "
+            f"{chunked['wall']:.3f} / {eager['wall']:.3f} s); profiled "
+            f"runs: device {stats['chunked'][0]:.3f} / "
+            f"{stats['eager'][0]:.3f} ms an epoch, the card idle "
+            f"{100 * idle_c:.1f}% / {100 * idle_e:.1f}% of a second-chunk "
+            f"epoch's wall, device events {stats['chunked'][2]:.1f} / "
+            f"{stats['eager'][2]:.1f} an epoch (chunked / member loop)")
+
+
+def registered_ensembles_phase(dev: torch.device, card: str) -> dict:
+    """Phase 53: the chunked route's last single-card eager routes,
+    captured.  The scaled d=2 recipes of black_scholes_nd and
+    ornstein_uhlenbeck_nd (registered processes; rows 9-10) through
+    :func:`chunk_window`; run_experiment of each must capture;
+    a host-reading registered generator must raise its named error.  Then
+    phase 38's three ensemble runs through :func:`ensemble_window`: each
+    epoch of all members one CUDA graph against the member loop.  2 chunks
+    of 2 epochs each at full width.  Returns each window's counts."""
+    windows = {}
+    for name, cfg in registered_configs().items():
+        where = f"phase 53 chunked-{name}"
+        w = chunk_window(cfg, dev, REGISTERED_ROWS, where, host_events=False)
+        windows[name] = w["chunked"]["counts"]
+        print(window_line(where, card, w), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = registered_paths(Path(tmp))
+    msg = host_reading_check(dev)
+    print(f"phase 53, run_experiment: {'; '.join(paths)}; a host-reading "
+          f"registered generator in the chunked route: {msg!r}; "
+          f"chunk_epochs=0 trains it", flush=True)
+    configs = ensemble_configs()
+    for name, cfg in configs.items():
+        where = f"phase 53 chunked-{name}"
+        with tempfile.TemporaryDirectory() as tmp:
+            w = ensemble_window(cfg, dev, ENSEMBLE_ROWS[name], where,
+                                Path(tmp))
+        windows[name] = w["chunked"]["counts"]
+        print(ensemble_line(where, card, w), flush=True)
     return windows
 
 
@@ -6423,6 +6760,9 @@ def main() -> None:
     captured = eager_routes_phase(dev, card)
     t = phase_time("the chunked route's per-gap, forced and grid-walk "
                    "routes, CUDA graphs (rows 1-8)", t)
+    last = registered_ensembles_phase(dev, card)
+    t = phase_time("the chunked route's registered processes and ensembles, "
+                   "CUDA graphs (rows 9-10, 3, 5, 1)", t)
 
     # "path" names the window each launch count was read over
     def entry(name, source, replaces, path, n, err, tm):
@@ -6640,6 +6980,28 @@ def main() -> None:
                 (f"PR 23: phase 52, chunked-{window} (Trainer.train "
                  f"chunk_epochs auto, 2 chunks of 2 epochs as CUDA graphs; "
                  f"{what})", captured[window][row]))
+    # phase 53: the captured registered-process and ensemble windows
+    last_windows = {
+        "gap_scan_fwd": [("ens-production-forced", 1, "each member's "
+                          "validation and relative loss")],
+        "gap_train_fwd_checkpointed": [("ens-production-forced", 3,
+                                        "training")],
+        "gap_train_bwd_checkpointed": [("ens-production-forced", 5,
+                                        "training")],
+        "fused_step_fwd": [("scaled-nd2", 9, "training, validation, "
+                            "relative loss"),
+                           ("scaled-ou-nd2", 9, "training, validation, "
+                            "relative loss"),
+                           ("ens-scaled", 9, "training, validation, "
+                            "relative loss")],
+        "fused_step_bwd": [("scaled-nd2", 10, "training"),
+                           ("scaled-ou-nd2", 10, "training"),
+                           ("ens-scaled", 10, "training")]}
+    for name, windows in last_windows.items():
+        for window, row, what in windows:
+            also.setdefault(name, []).append(
+                (f"phase 53, chunked-{window} (2 chunks of 2 epochs "
+                 f"as CUDA graphs; {what})", last[window][row]))
     for k in kernels:
         if k["name"] in also:
             k["also"] = [{"path": p, "launches": n}

@@ -25,6 +25,7 @@ previous observation; the first observation's before-value = itself / 0.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .moments import _bs_mean, _bs_var, _ipow, _ou_mean, _ou_var
@@ -34,10 +35,36 @@ from .sde import _grid, _normals, affine_prefix
 Tensor = torch.Tensor
 
 
+def _const(x, dtype, device) -> Tensor:
+    """A parameter as a tensor on ``device``: a tensor there stays as it
+    is; a host value (a scalar, a sequence, a numpy array or a CPU tensor)
+    is made there by fills, one a distinct value, with no copy from the
+    host, so a CUDA graph can hold the draw.  Each entry is the host
+    value cast to ``dtype``, as ``torch.as_tensor`` casts it."""
+    if torch.is_tensor(x) and x.device.type != "cpu":
+        return x.to(dtype=dtype, device=device)
+    host = np.asarray(x.detach() if torch.is_tensor(x) else x,
+                      dtype=np.float64)
+    vals = host.reshape(-1).tolist()
+    if len(set(vals)) == 1:
+        return torch.full(host.shape, vals[0], dtype=dtype, device=device)
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in vals]).reshape(host.shape)
+
+
 def _vec(x, d: int, dtype, device) -> Tensor:
     """A scalar, tuple, list or tensor parameter broadcast to shape (d,)."""
-    return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device),
-                              (d,))
+    return torch.broadcast_to(_const(x, dtype, device), (d,))
+
+
+def _corr(corr, d: int, dtype, device) -> Tensor:
+    """The driving-noise correlation matrix (the identity for None)."""
+    if corr is None:
+        return torch.eye(d, dtype=dtype, device=device)
+    R = _const(corr, dtype, device)
+    if tuple(R.shape) != (d, d):
+        raise ValueError(f"corr must be ({d}, {d}), got {tuple(R.shape)}")
+    return R
 
 
 def _corr_chol(corr, d: int, dtype, device) -> Tensor:
@@ -45,10 +72,7 @@ def _corr_chol(corr, d: int, dtype, device) -> Tensor:
     for None)."""
     if corr is None:
         return torch.eye(d, dtype=dtype, device=device)
-    R = torch.as_tensor(corr, dtype=dtype, device=device)
-    if tuple(R.shape) != (d, d):
-        raise ValueError(f"corr must be ({d}, {d}), got {tuple(R.shape)}")
-    return torch.linalg.cholesky_ex(R).L
+    return torch.linalg.cholesky_ex(_corr(corr, d, dtype, device)).L
 
 
 def _ou_cov(th: Tensor, sig: Tensor, R: Tensor, s) -> Tensor:
@@ -73,8 +97,9 @@ def _bs_nd_from_normals(z: Tensor, mu=0.0, sigma=0.2, corr=None,
     dt = T / n_steps
     mu_v, sig_v, x0_v = (_vec(v, d, dtype, dev) for v in (mu, sigma, x0))
     L = _corr_chol(corr, d, dtype, dev)
+    # sqrt of dt rounded to the dtype, made on the device (no host copy)
     dW = torch.einsum("btd,ed->bte", z, L) * torch.sqrt(
-        torch.tensor(dt, dtype=dtype, device=dev))
+        torch.full((), dt, dtype=dtype, device=dev))
     log_inc = (mu_v - 0.5 * _ipow(sig_v, 2)) * dt + sig_v * dW
     logX = torch.cat([torch.zeros_like(z[:, :1]),
                       torch.cumsum(log_inc, dim=1)], dim=1) + torch.log(x0_v)
@@ -109,8 +134,7 @@ def _ou_nd_from_normals(z: Tensor, theta=1.0, mu=0.0, sigma=0.3, corr=None,
     dt = T / n_steps
     th, mu_v, sig_v, x0_v = (_vec(v, d, dtype, dev)
                              for v in (theta, mu, sigma, x0))
-    R = (torch.eye(d, dtype=dtype, device=dev) if corr is None
-         else torch.as_tensor(corr, dtype=dtype, device=dev))
+    R = _corr(corr, d, dtype, dev)
     a = torch.exp(-th * dt)                                   # (d,)
     L = torch.linalg.cholesky_ex(_ou_cov(th, sig_v, R, dt)).L
     u = mu_v * (1.0 - a) + torch.einsum("btd,ed->bte", z, L)  # (B, T, d)
@@ -174,8 +198,7 @@ def _ou_nd_values_from_normals(times: Tensor, z: Tensor, theta=1.0, mu=0.0,
     dts = times[:, 1:] - times[:, :-1]                        # (B, N-1)
     th, mu_v, sig_v, x0_v = (_vec(v, d, dtype, dev)
                              for v in (theta, mu, sigma, x0))
-    R = (torch.eye(d, dtype=dtype, device=dev) if corr is None
-         else torch.as_tensor(corr, dtype=dtype, device=dev))
+    R = _corr(corr, d, dtype, dev)
     A = torch.exp(-th * dts[..., None])                       # (B, N-1, d)
     C = _ou_cov(th, sig_v, R, dts[..., None, None])           # (B, N-1, d, d)
     # a small diagonal jitter keeps the batched Cholesky stable at dt -> 0

@@ -2,13 +2,23 @@
 ``njode_tpu.utils.ensemble``).
 
 K members train with the same recipe and differ in their seeds (an
-ensemble) or in their optimizer's hyperparameters (a population).  The JAX
-package runs them as one vmapped program; the port runs them one after
-another, each member a copy of the model with its own
-``torch.optim.Adam`` and its own :class:`~njode_tpu_torch.utils.Trainer`,
-whose ``_epoch_update`` is the single model's epoch.  Kernels are the
-single model's too: under ``use_pallas=True`` every member trains through
-the gap loop's training pair, under ``"step"`` through the fused step.
+ensemble) or in their optimizer's hyperparameters (a population).  Each
+member is a copy of the model with its own ``torch.optim.Adam`` and its own
+:class:`~njode_tpu_torch.utils.Trainer`, whose ``_epoch_update`` is the
+single model's epoch.  Kernels are the single model's too: under
+``use_pallas=True`` every member trains through the gap loop's training
+pair, under ``"step"`` through the fused step.
+
+* **One program an epoch.** The JAX package runs a chunk's epochs of all K
+  members as one vmapped ``lax.scan`` (``run_chunk``,
+  ``njode_tpu/utils/ensemble.py:226-278``).  The port's counterpart is one
+  :class:`~.chunked.EpochProgram` an epoch over all K members
+  (:class:`_EnsembleRun`): each data seed's batch, each member's epoch,
+  validation and relative loss into (K,) rows on the device, read once a
+  chunk.  On one card without a mesh it is captured as a CUDA graph after
+  one eager epoch and replayed; a mesh, ``debug_checks`` and the CPU run
+  it eagerly.  ``chunked=False`` runs the member loop it replaces (members
+  in turn, each row read every epoch), bit for bit the same.
 
 * **Member streams.** Member s draws every random number from generators
   seeded by (seed or data_seed, s, stream, epoch) alone
@@ -39,6 +49,7 @@ the gap loop's training pair, under ``"step"`` through the fused step.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from typing import Callable, Optional
@@ -48,8 +59,10 @@ import torch
 from torch import nn
 
 from ..models import NeuralJumpODE
+from ..models.jump_ode import DeferredGuards
 from .training import (STREAM_MEMBER, STREAM_TRAIN, STREAM_VAL, DataLoader,
-                       Trainer, as_dense, make_adam, stream_seed)
+                       Trainer, _draw, _Streams, as_dense,
+                       load_optimizer_state, make_adam, stream_seed)
 
 # the optimizer's hyperparameter names (the JAX package's) -> Adam's keys
 _HPARAM_KEYS = {"learning_rate": "lr", "weight_decay": "weight_decay"}
@@ -228,7 +241,9 @@ def _members(model: NeuralJumpODE, params_stack: dict, opt_states,
         m.load_state_dict(member_state(params_stack, s))
         opt = optimizer(m.parameters())
         if opt_states is not None:
-            opt.load_state_dict(opt_states[s])
+            # a resumed step count goes where the optimizer steps it (on
+            # the card for a capturable Adam)
+            load_optimizer_state(opt, opt_states[s])
         for name, vals in (hparams or {}).items():
             for group in opt.param_groups:
                 group[_HPARAM_KEYS[name]] = float(vals[s])
@@ -247,6 +262,136 @@ def _member_data(loaders: dict, seeds: list[int], epoch: int) -> list:
     return [batches[ds] for ds in seeds]
 
 
+class _EnsembleRun:
+    """The epoch of all K members (this rank's, under a mesh) as one
+    :class:`~.chunked.EpochProgram`, the port's ``run_chunk``: each data
+    seed's batch from its loader's generator (members sharing a seed share
+    the batch), each member's ``Trainer._epoch_update`` with its own
+    shuffle and dropout streams (``_Streams``, reseeded before every
+    epoch), then each member's validation and relative loss, into (K,)
+    rows on the device.  ``capture``: a CUDA graph after one eager epoch
+    (a program no later epoch calls is not captured).  ``defer``: the
+    models' host-reading guards note on the device and raise after the
+    chunk.  ``check_syncs`` (a check): every epoch of a chunk under
+    ``set_sync_debug_mode("error")``."""
+
+    check_syncs = False
+
+    def __init__(self, members: list, loaders: dict, data_seeds: list,
+                 val_data, rel_eval, idx: list, batch_size, shuffle: bool,
+                 capture: bool, defer: bool, n_epochs: int):
+        from .chunked import EpochProgram
+        self.members, self.loaders = members, loaders
+        self.data_seeds, self.val_data = data_seeds, val_data
+        self.batch_size, self.shuffle = batch_size, shuffle
+        self.n_epochs = n_epochs
+        self.device = members[0].device
+        self.guards = DeferredGuards() if defer else None
+        self.streams, self.draws = [], {}
+        for tr, ds in zip(members, data_seeds):
+            st = _Streams(tr, loaders[ds], batch_size, shuffle, False,
+                          draws=ds not in self.draws)
+            self.draws.setdefault(ds, st)
+            self.streams.append(st)
+        self.rel = None
+        if rel_eval is not None:
+            self.rel = {k: rel_eval[k][idx] for k in ("times", "values",
+                                                      "mask")}
+            self.l_true = rel_eval["l_true"][idx].to(self.device).double()
+        self.keys = (["train"] + (["val"] if val_data is not None else [])
+                     + (["rel"] if rel_eval is not None else []))
+        self.program = EpochProgram(
+            self._body, capture,
+            [g for st in self.streams for g in st.generators()],
+            f"ensemble epoch of {len(members)} members", self.device)
+
+    def release(self) -> None:
+        self.program.release()
+
+    def chunk(self, epoch: int, L: int) -> list:
+        """Epochs epoch..epoch+L-1: a row a epoch, {key: K floats}, read
+        in one transfer at the chunk's end; then the guards' check and
+        each member's inference weights dropped (replays move the weights
+        without bumping their versions)."""
+        from .chunked import sync_debug_mode
+        buf = torch.full((len(self.keys), L, len(self.members)), math.nan,
+                         dtype=torch.float64, device=self.device)
+        checked = self.check_syncs and self.device.type == "cuda"
+        with sync_debug_mode("error") if checked else contextlib.nullcontext():
+            for i in range(L):
+                e = epoch + i
+                for st in self.streams:
+                    st.seed(e)
+                out = self.program(again=e + 1 < self.n_epochs)
+                for j, row in enumerate(out):
+                    buf[j, i].copy_(row)
+        host = buf.tolist()
+        if self.guards is not None:
+            self.guards.check()
+        for tr in self.members:
+            tr.model._drop_gap_cache()
+        return [{k: host[j][i] for j, k in enumerate(self.keys)}
+                for i in range(L)]
+
+    def _body(self) -> tuple:
+        with contextlib.ExitStack() as stack:
+            if self.guards is not None:
+                for tr in self.members:
+                    stack.enter_context(tr.model.deferred_guards(self.guards))
+            batches = {ds: _draw(self.loaders[ds], st.data,
+                                 self.program.capture,
+                                 "chunked=False runs the member loop")
+                       for ds, st in self.draws.items()}
+            out = [torch.stack([
+                tr._epoch_update(*batches[ds], 0, self.batch_size,
+                                 self.shuffle, st)
+                for tr, ds, st in zip(self.members, self.data_seeds,
+                                      self.streams)])]
+            if self.val_data is not None:
+                out.append(self._eval([
+                    (tr, lambda t, v, m, tm, tr=tr: tr._loss(
+                        t, v, m, traj_mask=tm), batch)
+                    for tr, batch in zip(self.members, self.val_data)]))
+            if self.rel is not None:
+                lm = self._eval([
+                    (tr, lambda t, v, m, tm, tr=tr: tr._loss_no_first(
+                        t, v, m), tuple(self.rel[k][s] for k in (
+                            "times", "values", "mask")))
+                    for s, tr in enumerate(self.members)])
+                # in float64, as the member loop's host arithmetic
+                out.append((lm.double() - self.l_true)
+                           / torch.clamp_min(self.l_true, 1e-8))
+            return tuple(out)
+
+    @staticmethod
+    def _eval(cases: list) -> torch.Tensor:
+        """(K,) evaluation losses, each member's inference weights cut
+        afresh in the program."""
+        losses = []
+        for tr, loss_fn, batch in cases:
+            tr.model._drop_gap_cache()
+            with torch.no_grad():
+                losses.append(tr._eval_loss(loss_fn, *batch))
+        return torch.stack(losses)
+
+
+def _ensemble_decline(members: list, loaders: dict, data_seeds: list,
+                      mesh) -> Optional[str]:
+    """None where the ensemble's epoch program is captured on the card,
+    else why it runs eagerly: a mesh (each rank's members, their states
+    joined over the process group), or a member's own reason
+    (``Trainer._graph_decline``: ``debug_checks``, an optimizer that is not
+    capturable, a loader elsewhere)."""
+    if mesh is not None:
+        return ("a mesh: each rank trains its members and joins them over "
+                "the process group")
+    for tr, ds in zip(members, data_seeds):
+        reason = tr._graph_decline(False, loaders[ds])
+        if reason is not None:
+            return reason
+    return None
+
+
 def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
                         n_epochs: int, n_trajectories: int = 1000,
                         batch_size: Optional[int] = 128,
@@ -262,6 +407,7 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
                         start_epoch: int = 0, initial_state=None,
                         chunk_len: Optional[int] = None, on_chunk=None,
                         member_hparams: Optional[dict] = None,
+                        chunked: bool = True, verbose: bool = False,
                         **process_kwargs):
     """Train K members, recording their validation and relative losses,
     with chunked checkpoints and an exact resume (JAX semantics,
@@ -283,6 +429,13 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
     * ``member_hparams``: (K,) ``learning_rate`` / ``weight_decay`` for a
       ``population_adam`` optimizer; they override a fresh and a resumed
       state alike.
+    * ``chunked`` (default): the epochs in chunks of ``chunk_len``, each
+      epoch of all members one program (:class:`_EnsembleRun`, a CUDA graph
+      replay on one card without a mesh), the rows read once a chunk;
+      False runs the member loop (members in turn, their rows read every
+      epoch), bit for bit the same.  ``verbose``: print the "Training
+      path:" line (the members' route, and the program's mode: "CUDA
+      graph" or "eager: <reason>").
 
     ``use_pallas == "auto"`` trains on copies with ``use_pallas=False``
     (the JAX package's rule, ``:144-152``); the caller's model keeps
@@ -350,8 +503,8 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
                     l_model = float(tr._loss_no_first(
                         rel_eval["times"][s], rel_eval["values"][s],
                         rel_eval["mask"][s]))
-                    l_true = float(rel_eval["l_true"][s])
-                    out["rel"].append((l_model - l_true) / max(l_true, 1e-8))
+                    out["rel"].append((l_model - l_true[s])
+                                      / max(l_true[s], 1e-8))
         return out
 
     def state():
@@ -377,12 +530,41 @@ def train_ensemble_full(model: NeuralJumpODE, process_type: str, n_seeds: int,
     if not chunk_len:
         chunk_len = max(n_epochs - start_epoch, 1)
     rows = []
-    for e in range(start_epoch, n_epochs):
-        rows.append(epoch_row(e))
-        done = e + 1
-        if on_chunk is not None and ((done - start_epoch) % chunk_len == 0
-                                     or done == n_epochs):
-            on_chunk(done, *state(), merged(rows))
+    if not chunked:
+        # each member's true-predictor loss, read once
+        l_true = (rel_eval["l_true"].tolist() if rel_eval is not None
+                  else None)
+        for e in range(start_epoch, n_epochs):
+            rows.append(epoch_row(e))
+            done = e + 1
+            if on_chunk is not None and ((done - start_epoch) % chunk_len
+                                         == 0 or done == n_epochs):
+                on_chunk(done, *state(), merged(rows))
+        return (*state(), merged(rows))
+    eager = _ensemble_decline(members, train_loaders, data_seeds, mesh)
+    capture = eager is None and dev.type == "cuda"
+    if verbose and start_epoch < n_epochs:
+        mode = ("CUDA graph" if capture
+                else f"eager: {eager or 'not on a CUDA device'}")
+        tr = members[0]
+        shape = train_loaders[data_seeds[0]](start_epoch).times.shape
+        tr._say_route(tr._kernel_decline(batch_size, shape[1]), shape,
+                      batch_size, start_epoch, report=False,
+                      chunked=f", an ensemble of {n_seeds} members, chunked "
+                              f"({mode})")
+    run = _EnsembleRun(members, train_loaders, data_seeds, val_data,
+                       rel_eval, idx, batch_size, shuffle, capture,
+                       eager is None, n_epochs)
+    try:
+        e = start_epoch
+        while e < n_epochs:
+            L = min(chunk_len, n_epochs - e)
+            rows += run.chunk(e, L)
+            e += L
+            if on_chunk is not None:
+                on_chunk(e, *state(), merged(rows))
+    finally:
+        run.release()
     return (*state(), merged(rows))
 
 

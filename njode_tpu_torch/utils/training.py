@@ -24,10 +24,10 @@
   for its data loaders, and so ``run_experiment``'s) runs the epochs of a
   :class:`DataLoader` in chunks that end on print boundaries, reading the
   losses once a chunk and writing a checkpoint at each chunk's end
-  (:meth:`Trainer._train_chunked`).  On the card the whole-run kernels and
-  the composed route of single-Euler-step gaps replay each epoch as a CUDA
-  graph (:mod:`.chunked`); every loss and the final state equal the
-  per-epoch loop's bit for bit.
+  (:meth:`Trainer._train_chunked`).  On one card every route replays each
+  epoch as a CUDA graph (:mod:`.chunked`), registered processes' draws
+  included; every loss and the final state equal the per-epoch loop's bit
+  for bit.
 * Checkpoints keep the reference's semantics: ``start_epoch =
   len(train_losses)``, an early return when training is complete, a fresh
   start when the checkpoint cannot be loaded (reference
@@ -1020,15 +1020,12 @@ class Trainer:
         rows 9-10; the per-gap euler, heun and rk4 loops; the forced
         gap-loop pair, rows 2-5; the grid walk, rows 7-8 under autograd;
         the forced fused Euler cell, row 6; plain), their host-reading
-        guards noted on the device (:class:`DeferredGuards`); else why its
-        chunks run eagerly."""
-        from ..simulation.registry import get_obs_values_fn, get_paths_fn
+        guards noted on the device (:class:`DeferredGuards`), on the data of
+        every family, registered processes too (their draws checked for
+        host reads: :func:`_draw`); else why its chunks run eagerly."""
         if self.mesh is not None:
             return ("a mesh: every step's collectives run through the "
                     "process group")
-        if (get_paths_fn(loader.process_type) is not None
-                or get_obs_values_fn(loader.process_type) is not None):
-            return "a registered process's generator"
         if not same_device(loader.device, self.device):
             return "the loader's device is not the model's"
         if self.model.debug_checks:
@@ -1171,7 +1168,7 @@ class Trainer:
             self.shard.load(sd, osd, self.optimizer)
         else:
             self.model.load_state_dict(sd)
-            self.optimizer.load_state_dict(osd)
+            load_optimizer_state(self.optimizer, osd)
         self.train_losses = hist["train_losses"]
         self.val_losses = hist["val_losses"]
         self.epoch_times = hist["epoch_times"]
@@ -1188,6 +1185,20 @@ def same_device(a, b) -> bool:
             return torch.device("cuda", torch.cuda.current_device())
         return d
     return full(a) == full(b)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` keeping the optimizer's own
+    ``capturable`` flags: a state saved off the card resumes on it with its
+    step count on the card (torch.optim puts it there for a capturable
+    group), and one saved on the card resumes on the CPU with it on the
+    host."""
+    groups = [{**g, "capturable": own.get("capturable", False)}
+              if "capturable" in g or "capturable" in own else g
+              for g, own in zip(state["param_groups"],
+                                optimizer.param_groups)]
+    optimizer.load_state_dict({**state, "param_groups": groups})
 
 
 def _rebuilt(optimizer: torch.optim.Optimizer, params: list
@@ -1213,12 +1224,14 @@ class _Streams:
     the per-epoch loop gives its fresh generators, so both draw the same."""
 
     def __init__(self, trainer: "Trainer", loader: "DataLoader",
-                 batch_size: Optional[int], shuffle: bool, kernel: bool):
+                 batch_size: Optional[int], shuffle: bool, kernel: bool,
+                 draws: bool = True):
         n, dev = loader.n_trajectories, trainer.device
         self.trainer, self.loader = trainer, loader
         full = not kernel and (batch_size is None or batch_size >= n)
         self.sharded = trainer._rows(n if full else batch_size) is not None
-        self.data = (None if loader.cache
+        # ``draws`` False: another stream draws this loader's batch
+        self.data = (None if loader.cache or not draws
                      else torch.Generator(device=loader.device))
         self.shuffle = (torch.Generator(device=dev) if shuffle and not full
                         else None)
@@ -1247,6 +1260,37 @@ class _Streams:
                 g.manual_seed(s)
         elif self.dropout is not None:
             self.dropout.manual_seed(seeds)
+
+
+def _draw(loader: "DataLoader", generator: torch.Generator, captured: bool,
+          eager: str) -> tuple:
+    """A fresh batch of ``loader`` from ``generator``: (times, values,
+    mask).  On a route whose epochs a CUDA graph captures (``captured``),
+    a registered process's draw runs under ``set_sync_debug_mode("error")``
+    (the warm-up is the first such call): a generator that reads the host,
+    where a graph would replay what it read once, raises, naming the
+    process and the eager route (``eager``).  As JAX's trace of such a generator fails, it
+    neither falls back to eager chunks nor yields the captured data."""
+    from ..simulation.registry import get_obs_values_fn, get_paths_fn
+    pt = loader.process_type
+    if not captured or (get_paths_fn(pt) is None
+                        and get_obs_values_fn(pt) is None):
+        b = loader.generate(generator)
+        return b.times, b.values, b.mask
+    from .chunked import sync_debug_mode
+    try:
+        with sync_debug_mode("error"):
+            b = loader.generate(generator)
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        raise RuntimeError(
+            f"the registered process {pt!r} reads the host "
+            f"while it draws ({e}); the chunked route captures each "
+            f"epoch's draw in a CUDA graph, which would replay what it "
+            f"read once: draw on the device from the generator alone, or "
+            f"train eagerly ({eager})") from e
+    return b.times, b.values, b.mask
 
 
 class _ChunkRun:
@@ -1389,8 +1433,8 @@ class _ChunkRun:
     def _data(self) -> tuple:
         if self.cached is not None:
             return self.cached
-        b = self.loader.generate(self.streams.data)
-        return b.times, b.values, b.mask
+        return _draw(self.loader, self.streams.data, self.epoch.capture,
+                     "chunk_epochs=0 runs the per-epoch loop")
 
     def _val_loss(self) -> Optional[torch.Tensor]:
         if self.val is None:
@@ -2093,7 +2137,7 @@ def _run_ensemble_experiment(config: Dict, model, save_path,
         n_val=n_val, rel_eval=rel_eval, share_data=share_data,
         member_hparams=member_hparams, start_epoch=start_epoch,
         initial_state=initial_state, chunk_len=print_every,
-        on_chunk=on_chunk, mesh=mesh,
+        on_chunk=on_chunk, mesh=mesh, verbose=True,
         **{k: v for k, v in data.items()
            if k not in ("process_type", "n_train", "n_val", "obs_fraction",
                         "cache_data", "obs_only")})

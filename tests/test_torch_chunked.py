@@ -376,7 +376,9 @@ ROUTE_OF = {"composed": ("composed", None),
                             "fused Euler cell")}
 EAGER = {
     "mesh": "a mesh: every step's collectives run through the process group",
-    "registered process": "a registered process's generator",
+    # captured, its draw under a sync check
+    # (tests/test_torch_chunked_registered.py)
+    "registered process": None,
     "loader elsewhere": "the loader's device is not the model's",
     "debug_checks": "debug_checks reads the host",
     "host Adam": "the optimizer is not capturable (make_adam builds "
@@ -422,8 +424,9 @@ def test_graph_decline_takes_every_single_device_route(route, capsys):
 @pytest.mark.parametrize("case", list(EAGER))
 def test_graph_decline_keeps_its_reasons(case, capsys, monkeypatch):
     """The routes the card still runs eagerly, each with its reason: a
-    mesh, a registered process's generator, a loader on another device,
-    debug_checks, an optimizer that is not capturable (on the card)."""
+    mesh, a loader on another device, debug_checks, an optimizer that is
+    not capturable (on the card); a registered process's generator (a
+    d-dimensional family) no longer declines: its draws are captured."""
     trainer, train, _ = decline_case("per-gap-rk4", capsys)
     if case == "mesh":
         monkeypatch.setattr(trainer, "mesh", object())
